@@ -1,0 +1,1 @@
+"""Hopper kernels of the port and their plain PyTorch versions."""

@@ -10,14 +10,23 @@ Phases, one report line each (any failure exits non-zero):
      with a cold L2 beside the plain version, one PyTorch library call and
      the card's bound;
   3. the paper's matmul domain: adaptive_matmul(use_kernel=True) at orders
-     1024, 4096 and 8192, with the CostEngine's decision;
-  4. serving: Runtime(device="cuda").serve of full-width tinyllama-1.1b
+     1024, 4096 and 8192, with the CostEngine's decision; matmul_chain in
+     fp32 against a left-to-right torch.matmul product;
+  4. the paper's sort domain: the bitonic sort kernel, its plain version
+     and torch.sort, exactly equal, at the paper's Table 3 sizes, the
+     bench's, 2^26 fp32, 2^24 int32, (4096, 4096) and (8, 100), each timed
+     beside its bound, and one 2^26 call's device time by launch kind
+     (torch.profiler); then distributed_sort(local_sort="kernel",
+     measure=True) at n = 2000 and 2^26 (the sort's main path, its launch
+     count read), with the ledger's predicted and measured rows;
+  5. serving: Runtime(device="cuda").serve of full-width tinyllama-1.1b
      (random weights, seed 0), static and continuous, token identity, the
      kernel's launch count, tok/s, host syncs per token, ledger rows; one
-     decode step's matmul calls, captured and replayed through the kernel
-     and through the plain version (held against each other, timed with
+     decode step's matmul calls, captured and replayed through the kernel,
+     through the plain version and, where one torch.matmul computes the
+     call, through it (held against each other, timed with
      torch.profiler), and one calibration of the hardware spec;
-  5. card against CPU in fp32: one batched prefill + 4 decode steps.
+  6. card against CPU in fp32: one batched prefill + 4 decode steps.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
 chiprun_out/chip_smoke.json.  Exits non-zero, printing no result, where
@@ -28,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -41,7 +51,17 @@ F32_PEAK = 67e12     # H100 SXM data sheet, fp32 outside the tensor cores
 HBM_BW = 3.35e12     # H100 SXM data sheet, bytes/s
 BF16_TOL = 8e-3      # x max|plain|: about one bf16 rounding
 F32_TOL = 1e-5       # x max|plain|
+CHAIN_TOL = 1e-4     # x max|left-to-right product|: fp32, another order
 PROMPT, MAX_NEW, SLOTS, REQUESTS = 64, 32, 4, 8
+# (shape, dtype name) the sort kernel is held at: the paper's Table 3
+# sizes, the sort bench's, a realistic 256 MiB array, a row batch of the
+# shape the Pallas grid is built for, an awkward one
+SORT_SHAPES = [((1000,), "float32"), ((1100,), "float32"),
+               ((1500,), "float32"), ((2000,), "float32"),
+               ((100_000,), "float32"), ((1_000_000,), "float32"),
+               ((1 << 26,), "float32"), ((1 << 24,), "int32"),
+               ((4096, 4096), "float32"), ((8, 100), "float32")]
+SORT_MAIN_NS = (2000, 1 << 26)  # distributed_sort's runs
 
 
 def log(phase: str, msg: str) -> None:
@@ -91,15 +111,19 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     from repro_torch.configs import get_config
     from repro_torch.core.costs.calibration import calibrate
-    from repro_torch.core.dispatch import adaptive_matmul
+    from repro_torch.core.dispatch import adaptive_matmul, matmul_chain
+    from repro_torch.core.sort import distributed_sort
     from repro_torch.hw import H100
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import bitonic_sort, build, ops, ref
     from repro_torch.kernels.matmul import LAUNCHES
     from repro_torch.models import build_model
     from repro_torch.runtime import Runtime, synthetic_trace
     from repro_torch.serving.scheduler import ServeScheduler
     from repro_torch.core.costs.engine import CostEngine
 
+    # fp32 products in full fp32 (no TF32) on both sides of every check
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     record: dict = {}
     dev = torch.device("cuda")
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
@@ -227,8 +251,73 @@ def main() -> int:
             f"({paper[-1]['kernel_tflops']:.1f} TFLOP/s), torch.matmul "
             f"{l_ms:.3f} ms")
     record["paper"] = paper
+    chain_shapes = [(1024, 4096), (4096, 256), (256, 4096), (4096, 1024)]
+    mats = [rand(*s, dtype=torch.float32, scale=s[0] ** -0.5)
+            for s in chain_shapes]
+    chain_engine = CostEngine()
+    got = matmul_chain(mats, engine=chain_engine)
+    want = mats[0] @ mats[1] @ mats[2] @ mats[3]  # left to right
+    torch.cuda.synchronize()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    decisions = [e.choice for e in chain_engine.ledger.entries
+                 if e.site == "matmul"]
+    chain_ms = cuda_ms(lambda: matmul_chain(mats, engine=chain_engine), flush)
+    ltr_ms = cuda_ms(lambda: mats[0] @ mats[1] @ mats[2] @ mats[3], flush)
+    log("paper", f"matmul_chain {chain_shapes} fp32: {len(decisions)} "
+        f"decisions {decisions}, rel err {rel:.2e} (limit {CHAIN_TOL:g}) "
+        f"against a left-to-right torch.matmul product; chain "
+        f"{chain_ms:.3f} ms, left to right {ltr_ms:.3f} ms; cold L2")
+    if not (rel <= CHAIN_TOL and len(decisions) == len(mats) - 1):
+        return 1
+    record["matmul_chain"] = dict(shapes=chain_shapes, rel_err=rel,
+                                  decisions=decisions, chain_ms=chain_ms,
+                                  left_to_right_ms=ltr_ms)
 
     # ------------------------------------------------------------------ 4
+    sort_rows = []
+    for shape, dtype_name in SORT_SHAPES:
+        row = sort_case(shape, getattr(torch, dtype_name), gen, ops, ref,
+                        bitonic_sort, flush)
+        if row is None:
+            return 1
+        sort_rows.append(row)
+    record["sort_rows"] = sort_rows
+    big = next(r for r in sort_rows
+               if r["shape"] == [1 << 26] and r["dtype"] == "float32")
+    record["sort_stages"] = sort_stages(gen, bitonic_sort)
+    sort_engine = CostEngine()
+    xs = [torch.randn(n, generator=gen, device=dev) for n in SORT_MAIN_NS]
+    torch.cuda.synchronize()
+    bitonic_sort.LAUNCHES.reset()
+    outs = [distributed_sort(x, engine=sort_engine, local_sort="kernel",
+                             measure=True) for x in xs]
+    torch.cuda.synchronize()
+    sort_launches = bitonic_sort.LAUNCHES.count
+    sort_grids = bitonic_sort.LAUNCHES.grids
+    for x, (out, rep) in zip(xs, outs):
+        exact = torch.equal(out, torch.sort(x).values)
+        log("sort", f"distributed_sort(local_sort='kernel') n={x.numel()}: "
+            f"strategy {rep.strategy}, imbalance {rep.imbalance}, equal to "
+            f"torch.sort: {exact}")
+        if not exact or rep.strategy != "serial":
+            return 1
+    log("sort", f"bitonic sort kernel calls on the sort path: "
+        f"{sort_launches} ({sort_grids} CUDA launches)")
+    if sort_launches != len(SORT_MAIN_NS):  # one kernel call per sort
+        return 1
+    ledger_rows = []
+    for e in sort_engine.ledger.entries:
+        if e.site == "sort" and e.measured_s is not None:
+            ledger_rows.append(dict(shape=e.query["shape"], choice=e.choice,
+                                    predicted_s=e.predicted_s,
+                                    measured_s=e.measured_s))
+            log("ledger", f"  sort {e.choice} n={e.query['shape']}: "
+                f"predicted {e.predicted_s:.3e} s, measured "
+                f"{e.measured_s:.3e} s")
+    record["sort_path"] = dict(launches=sort_launches, grids=sort_grids,
+                               ledger=ledger_rows)
+
+    # ------------------------------------------------------------------ 5
     rt = Runtime(device="cuda")
     model = build_model(cfg, rt.device)
     params = model.init(0)
@@ -289,6 +378,11 @@ def main() -> int:
         f"{step['plain_window_ms']:.3f} ms; bound {step['bound_ms']:.3f} ms "
         f"({step['bound_by']}); all within tolerance of the plain version, "
         f"largest error {step['worst_call']}")
+    log("step", f"the {step['library_calls']} of {len(calls)} calls that one "
+        f"torch.matmul computes (no epilogue, one dtype): torch.matmul "
+        f"{step['library_device_ms']:.3f} ms, the kernel "
+        f"{step['kernel_device_ms_on_library_calls']:.3f} ms replayed, by "
+        f"torch.profiler device time")
     record["decode_step_profile"] = prof
     record["decode_step"] = step
     cal = calibrate(H100, cache_dir=ROOT / "build" / "calibration",
@@ -304,7 +398,7 @@ def main() -> int:
         launches_per_decode_step=per_step, tokens_identical=same)
     record["calibration"] = cal.measurements
 
-    # ------------------------------------------------------------------ 5
+    # ------------------------------------------------------------------ 6
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p_gpu = _tree_map(params, lambda t: t.float())
     p_cpu = _tree_map(p_gpu, lambda t: t.cpu())
@@ -361,8 +455,19 @@ def main() -> int:
         "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
         # no single library call computes a step's fused-epilogue and
         # fp32-output products; chiprun_out/chip_smoke.json has
-        # torch.matmul beside every plain bf16 product of phase 2
+        # torch.matmul beside every plain product of phase 2 and summed
+        # over the step's calls that one torch.matmul computes
         "library_ms": None,
+    }, {
+        "name": "bitonic_sort", "route": "cuda",
+        "source": "src/repro_torch/csrc/bitonic_sort.cu",
+        "replaces": "src/repro/kernels/bitonic_sort.py:62",
+        "launches": sort_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in sort_rows),
+        # one 2^26 fp32 array (256 MiB), as distributed_sort's big run
+        "ms": big["ms"], "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+        "library_ms": big["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -379,6 +484,74 @@ def kernel_error(ops, ref, a, b, kw) -> tuple:
     err = (got.float() - want.float()).abs().max().item()
     top = want.float().abs().max().item()
     return err, (BF16_TOL if want.dtype == torch.bfloat16 else F32_TOL) * top
+
+
+def sort_case(shape, dtype, gen, ops, ref, bitonic_sort, flush):
+    """Hold the sort kernel at ``shape`` against its plain version and
+    torch.sort (exactly equal), and time all three beside the bound.  None
+    if they disagree."""
+    x = torch.randn(shape, generator=gen, device="cuda") * 1e4
+    x = x.to(dtype)
+    n = shape[-1]
+    padded = ops._sort_pad(x.view(-1, n))  # the kernel's input, as ops.sort
+    rows, n_pad = padded.shape
+    grids = bitonic_sort.LAUNCHES.grids
+    got = ops.sort(x)
+    grids = bitonic_sort.LAUNCHES.grids - grids
+    plain = ref.bitonic_sort_ref(padded)[:, :n].reshape(shape)
+    lib = torch.sort(x, dim=-1).values
+    exact = torch.equal(got, plain) and torch.equal(got, lib)
+    err = (got.double() - plain.double()).abs().max().item()
+    name = f"{tuple(shape)} {dtype}".replace("torch.", "")
+    if not exact or grids != bitonic_sort.grid_launches(n_pad):
+        log("sort", f"FAIL {name}: kernel == plain == torch.sort is {exact}, "
+            f"max abs err {err:.3e}; {grids} CUDA launches, expected "
+            f"{bitonic_sort.grid_launches(n_pad)}")
+        return None
+    big = rows * n_pad >= 1 << 24
+    reps, warm = (3, 1) if big else (10, 2)
+    k_ms = cuda_ms(lambda: bitonic_sort.bitonic_sort_cuda(padded), flush,
+                   reps, warm)
+    p_ms = cuda_ms(lambda: ref.bitonic_sort_ref(padded), flush,
+                   2 if big else reps, 1)
+    l_ms = cuda_ms(lambda: torch.sort(x, dim=-1), flush, reps, warm)
+    # each element read once and written once; the n log2 n comparisons
+    # any comparison sort makes, at the fp32 rate
+    t_bytes = 2 * rows * n_pad * x.element_size() / HBM_BW * 1e3
+    t_ops = rows * n_pad * math.log2(n_pad) / F32_PEAK * 1e3
+    row = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+               n_pad=n_pad, launches_per_call=grids, max_abs_err=err,
+               ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log("sort", f"{name:24s} n_pad {n_pad:>9d}: kernel == plain == "
+        f"torch.sort; kernel {k_ms:.4g} ms ({grids} launches)  plain "
+        f"{p_ms:.4g} ms  torch.sort {l_ms:.4g} ms  bound "
+        f"{row['bound_ms']:.4g} ms ({row['bound_by']}); cold L2")
+    return row
+
+
+def sort_stages(gen, bitonic_sort) -> dict:
+    """Where one 2^26 fp32 sort's device time goes, by the kernel's three
+    launch kinds (torch.profiler): the tile sort, the global stages, the
+    tile finishes."""
+    x = torch.randn((1, 1 << 26), generator=gen, device="cuda")
+    by_name, events = device_ms_by_kernel(
+        lambda: bitonic_sort.bitonic_sort_cuda(x))
+    stages = {}
+    for stage in ("sort_tiles", "merge_global", "merge_tiles"):
+        names = [k for k in by_name if stage in k]
+        stages[stage] = sum(by_name[k] for k in names) if names else None
+    if events == 0:
+        log("sort", "one 2^26 fp32 call by stage: not measured (the "
+            "profiler saw no kernels)")
+    else:
+        log("sort", f"one 2^26 fp32 call by torch.profiler, {events} device "
+            f"events: " + ", ".join(
+                f"{k} {'-' if v is None else f'{v:.3f}'} ms"
+                for k, v in stages.items())
+            + f"; total {sum(by_name.values()):.3f} ms")
+    return dict(events=events, ms=stages, total_ms=sum(by_name.values()))
 
 
 def device_ms_by_kernel(run) -> tuple:
@@ -440,15 +613,35 @@ def replay_step(calls, ops, ref, flush):
         for a, b, kw in calls:
             ref.matmul_fused_ref(a, b, **kw)
 
+    # the calls one torch.matmul computes: no epilogue, one dtype in and out
+    plain_calls = [(a, b, kw) for a, b, kw in calls
+                   if kw.get("bias") is None and kw.get("activation") is None
+                   and a.dtype == b.dtype == (kw.get("out_dtype") or a.dtype)]
+
+    def run_library():
+        for a, b, _ in plain_calls:
+            torch.matmul(a, b)
+
+    def run_kernel_on_those():
+        for a, b, kw in plain_calls:
+            ops.matmul(a, b, **kw)
+
     terms = [bound_terms(a, b, kw.get("out_dtype") or a.dtype)
              for a, b, _ in calls]
     t_ops, t_bytes = sum(t[0] for t in terms), sum(t[1] for t in terms)
     run_plain()  # warm the allocator before the profiled replay
+    run_library()
     plain_by_name, _ = device_ms_by_kernel(run_plain)
     kernel_by_name, _ = device_ms_by_kernel(run_kernel)
+    library_by_name, _ = device_ms_by_kernel(run_library)
+    subset_by_name, _ = device_ms_by_kernel(run_kernel_on_those)
     return dict(max_abs_err=worst, worst_call=worst_call, calls=len(calls),
                 plain_device_ms=sum(plain_by_name.values()),
                 kernel_replay_device_ms=sum(kernel_by_name.values()),
+                library_calls=len(plain_calls),
+                library_device_ms=sum(library_by_name.values()),
+                kernel_device_ms_on_library_calls=sum(
+                    subset_by_name.values()),
                 kernel_window_ms=cuda_ms(run_kernel, flush, reps=3, warm=1),
                 plain_window_ms=cuda_ms(run_plain, flush, reps=3, warm=1),
                 bound_ms=max(t_ops, t_bytes),

@@ -4,8 +4,11 @@ The public surface mirrors ``repro``: a :class:`Runtime` session owning the
 device, the CostEngine and the overhead ledger, and serving through
 ``Runtime.serve``.  Dense projections, the FFN, the unembedding and the
 contractions of cached attention run on a hand-written CUDA matmul kernel
-(``csrc/matmul.cu``, built at first use into ``build/``); on CPU tensors
-each kernel's plain PyTorch version runs instead.
+(``csrc/matmul.cu``), and the paper's sort domain
+(``distributed_sort(local_sort="kernel")``) on a hand-written bitonic sort
+kernel (``csrc/bitonic_sort.cu``), both built at first use into
+``build/``; on CPU tensors each kernel's plain PyTorch version runs
+instead.
 
     import repro_torch
 
@@ -47,6 +50,12 @@ __all__ = [
     "OverheadModel",
     "HardwareSpec",
     "H100",
+    # the paper's domains on one device
+    "adaptive_matmul",
+    "analyze_dependencies",
+    "distributed_sort",
+    "fork_join",
+    "matmul_chain",
 ]
 
 _EXPORTS = {
@@ -70,6 +79,11 @@ _EXPORTS = {
     "OverheadModel": "repro_torch.core.costs",
     "HardwareSpec": "repro_torch.hw",
     "H100": "repro_torch.hw",
+    "adaptive_matmul": "repro_torch.core",
+    "analyze_dependencies": "repro_torch.core",
+    "distributed_sort": "repro_torch.core",
+    "fork_join": "repro_torch.core",
+    "matmul_chain": "repro_torch.core",
 }
 
 

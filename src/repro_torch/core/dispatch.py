@@ -5,17 +5,17 @@ serially (the paper's single-core path) or under one of the sharded
 strategies, and runs that choice.  Below the crossover order, parallel
 execution *is* overhead (paper Fig. 2).  Every decision lands in the
 engine's ledger; the engine's decision cache makes repeated same-shape
-dispatches free.
+dispatches (e.g. the products of ``matmul_chain``) free.
 
-This slice of the port runs on one GPU: the serial path is complete (on
-the port's matmul kernel with ``use_kernel=True``), and the sharded
-strategies raise until the multi-GPU work lands.
+The port runs on one GPU: the serial path is complete (on the port's
+matmul kernel with ``use_kernel=True``), and the sharded strategies and a
+mesh raise until the multi-GPU work lands.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -98,3 +98,45 @@ def adaptive_matmul(
     else:
         out = a @ b
     return (out, report) if return_report else out
+
+
+def fork_join(serial_fn: Callable, parallel_fn: Callable, *,
+              parallel_wins: bool) -> Callable:
+    """The paper's fork-join switch as a generic combinator: the branch
+    not chosen is never called."""
+    return parallel_fn if parallel_wins else serial_fn
+
+
+def matmul_chain(matrices, mesh=None, axis="data", model=None, engine=None):
+    """Matrix-chain multiplication with per-product adaptive dispatch (the
+    paper's 'matrix chain multiplication' case): association order by the
+    classic dynamic program on FLOP counts, each product dispatched
+    adaptively.  All products share one engine, so repeated shapes hit its
+    decision cache."""
+    if mesh is not None:
+        raise NotImplementedError(_MULTI_GPU)
+    eng = resolve_engine(engine, model)
+    dims = [m.shape[0] for m in matrices] + [matrices[-1].shape[1]]
+    nmat = len(matrices)
+    cost = [[0.0] * nmat for _ in range(nmat)]
+    split = [[0] * nmat for _ in range(nmat)]
+    for span in range(1, nmat):
+        for i in range(nmat - span):
+            j = i + span
+            best, arg = float("inf"), i
+            for s in range(i, j):
+                c = (cost[i][s] + cost[s + 1][j]
+                     + dims[i] * dims[s + 1] * dims[j + 1])
+                if c < best:
+                    best, arg = c, s
+            cost[i][j], split[i][j] = best, arg
+
+    def mult(i, j):
+        if i == j:
+            return matrices[i]
+        s = split[i][j]
+        # chain intermediates are already where they are used
+        return adaptive_matmul(mult(i, s), mult(s + 1, j), engine=eng,
+                               io_at_master=False)
+
+    return mult(0, nmat - 1)

@@ -35,3 +35,34 @@ def matmul_fused_ref(a: torch.Tensor, b: torch.Tensor, bias=None,
     if activation is not None:
         out = EPILOGUES[activation](out)
     return out.to(out_dtype or a.dtype)
+
+
+def sort_ref(x: torch.Tensor) -> torch.Tensor:
+    """Row-wise ascending sort: the test oracle."""
+    return torch.sort(x, dim=-1).values
+
+
+def bitonic_sort_ref(x: torch.Tensor) -> torch.Tensor:
+    """The bitonic network of the sort kernel, stage by stage, on each row
+    of ``x`` (rows, n), n a power of 2: for k = 2, ..., n and j = k/2, ...,
+    1, element i meets its partner i ^ j (a flip of the middle axis of
+    (n / 2j, 2, j)) and the pair is ordered ascending where i & k == 0.
+    Min and max by comparison, as the kernel takes them."""
+    rows, n = x.shape
+    if n & (n - 1):
+        raise ValueError(f"row length {n} must be a power of 2")
+    idx = torch.arange(n, device=x.device)
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            partner = x.reshape(rows, n // (2 * j), 2, j).flip(2).reshape(
+                rows, n)
+            less = partner < x
+            lo = torch.where(less, partner, x)
+            hi = torch.where(less, x, partner)
+            keep_lo = ((idx & k) == 0) == ((idx & j) == 0)
+            x = torch.where(keep_lo, lo, hi)
+            j //= 2
+        k *= 2
+    return x

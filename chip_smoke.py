@@ -26,7 +26,28 @@ Phases, one report line each (any failure exits non-zero):
      through the plain version and, where one torch.matmul computes the
      call, through it (held against each other, timed with
      torch.profiler), and one calibration of the hardware spec;
-  6. card against CPU in fp32: one batched prefill + 4 decode steps.
+  6. card against CPU in fp32: one batched prefill + 4 decode steps;
+  7. flash: the flash-attention kernels, forward and backward, against
+     their plain versions (and the forward against flash_attention_ref;
+     bf16 outputs held against their own row's magnitude)
+     at the training shape (2, 2048, 32, 4, 64) in bf16 and fp32 and an
+     awkward (3, 100, 8, 2, 64) in fp32, each timed (CUDA events, cold L2)
+     beside the plain version, scaled_dot_product_attention and the bound;
+  8. train-parity: one make_train_step of full-width tinyllama-1.1b cut to
+     2 layers, fp32, batch 2 x 256, on the card and on the CPU from the
+     same parameters and batch: the loss within 1e-4 relative, every
+     parameter's gradient present and within 2e-3 x max|grad| leaf by leaf;
+  9. train: every distinct matmul call (shapes, strides, dtypes,
+     epilogue) of one full-width bf16 gradient at batch 2 x 2048, cut to
+     1 layer, held against the plain version on its own operands (the
+     backward's transposed reads and bf16 x fp32 products among them);
+     Runtime(device="cuda")
+     .train of full-width tinyllama-1.1b (22 layers, bf16, random
+     weights, seed 0) for 4 steps at batch 2 x 2048 with a checkpoint,
+     every loss finite, the kernels' launches per step, tokens/s, peak
+     memory, the plan; a 4-step run on one fixed batch whose loss must
+     fall, with one step profiled (device busy share, device ms by
+     kernel).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
 chiprun_out/chip_smoke.json.  Exits non-zero, printing no result, where
@@ -53,6 +74,21 @@ BF16_TOL = 8e-3      # x max|plain|: about one bf16 rounding
 F32_TOL = 1e-5       # x max|plain|
 CHAIN_TOL = 1e-4     # x max|left-to-right product|: fp32, another order
 PROMPT, MAX_NEW, SLOTS, REQUESTS = 64, 32, 4, 8
+# (B, S, Hq, Hkv, hd, dtype) the flash kernels are held at: the training
+# shape of tinyllama-1.1b at batch 2 x 2048 in both types, and an awkward
+# one (S not a multiple of the 64-row block, a GQA group of 4)
+FLASH_SHAPES = [(2, 2048, 32, 4, 64, "bfloat16"),
+                (2, 2048, 32, 4, 64, "float32"),
+                (3, 100, 8, 2, 64, "float32")]
+FLASH_F32_TOL = 2e-3  # x max|plain|: tests/test_kernels.py's flash tolerance
+# bf16 flash outputs, element by element: BF16_TOL x the largest |plain| in
+# the element's row (the last axis), one bf16 rounding of that row, plus
+# F32_TOL x max|plain| for fp32 summation noise.  A global BF16_TOL x max
+# would pass a fault of a typical value: most rows average ~1000 positions,
+# |o| ~ 0.05 against a max of 3.4.  Readings it was set from (H100, bf16
+# training shape): o 9.8e-4 (|o| < 0.25), dk 1.6e-2 (|dk| in [2, 4)), each
+# one bf16 step of its element.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 2048  # TinyLlama's context
 # (shape, dtype name) the sort kernel is held at: the paper's Table 3
 # sizes, the sort bench's, a realistic 256 MiB array, a row batch of the
 # shape the Pallas grid is built for, an awkward one
@@ -115,11 +151,13 @@ def main() -> int:
     from repro_torch.core.sort import distributed_sort
     from repro_torch.hw import H100
     from repro_torch.kernels import bitonic_sort, build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.matmul import LAUNCHES
     from repro_torch.models import build_model
     from repro_torch.runtime import Runtime, synthetic_trace
     from repro_torch.serving.scheduler import ServeScheduler
     from repro_torch.core.costs.engine import CostEngine
+    from repro_torch.tree import tree_map
 
     # fp32 products in full fp32 (no TF32) on both sides of every check
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -400,8 +438,8 @@ def main() -> int:
 
     # ------------------------------------------------------------------ 6
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p_gpu = _tree_map(params, lambda t: t.float())
-    p_cpu = _tree_map(p_gpu, lambda t: t.cpu())
+    p_gpu = tree_map(lambda t: t.float(), params)
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
     prompts = torch.as_tensor(
         synthetic_trace(2, prompt_len=16, max_new=1, vocab_size=cfg.vocab_size,
                         arrival="all", seed=1)[0].prompt, dtype=torch.int64)
@@ -440,6 +478,36 @@ def main() -> int:
         f"equal")
     record["card_vs_cpu_rel_err"] = worst_rel
 
+    del p_gpu, p_cpu, params, model, static, cont, calls, state
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 7
+    flash_rows = []
+    for shape in FLASH_SHAPES:
+        row = flash_case(shape, gen, ref, fa, flush)
+        if row is None:
+            return 1
+        flash_rows.append(row)
+    record["flash_rows"] = flash_rows
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 8
+    parity = train_parity(cfg)
+    if parity is None:
+        return 1
+    record["train_parity"] = parity
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 9
+    record["train_matmuls"] = train_matmuls(cfg, ops, ref)
+    if record["train_matmuls"] is None:
+        return 1
+    train = train_phase(cfg, fa, LAUNCHES)
+    if train is None:
+        return 1
+    record["train"] = train
+    flash_main = flash_rows[0]  # the bf16 training shape
+
     # ---------------------------------------------------------------- out
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -468,6 +536,21 @@ def main() -> int:
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
         "library_ms": big["library_ms"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:86",
+        # wrapper calls per training step: forward (each layer, and again
+        # in its recomputation) and backward (each layer)
+        "launches": train["flash_calls_per_step"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        # the bf16 training shape, forward plus backward
+        "ms": flash_main["fwd_ms"] + flash_main["bwd_ms"],
+        "plain_ms": flash_main["fwd_plain_ms"] + flash_main["bwd_plain_ms"],
+        "bound_ms": flash_main["bound_ms"],
+        "bound_by": flash_main["bound_by"],
+        "library_ms": flash_main["fwd_library_ms"]
+        + flash_main["bwd_library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -479,8 +562,12 @@ def main() -> int:
 def kernel_error(ops, ref, a, b, kw) -> tuple:
     """(max abs error, tolerance) of the kernel against its plain version
     on the same operands."""
-    got = ops.matmul(a, b, **kw)
-    want = ref.matmul_fused_ref(a, b, **kw)
+    return held(ops.matmul(a, b, **kw), ref.matmul_fused_ref(a, b, **kw))
+
+
+def held(got, want) -> tuple:
+    """(max abs error, tolerance) of a matmul result against the plain
+    version's: BF16_TOL or F32_TOL x max|plain| by the output's dtype."""
     err = (got.float() - want.float()).abs().max().item()
     top = want.float().abs().max().item()
     return err, (BF16_TOL if want.dtype == torch.bfloat16 else F32_TOL) * top
@@ -681,12 +768,365 @@ def profile_decode_step(model, params, state, feed) -> dict:
                 device_events=n_kernels, top=top)
 
 
-def _tree_map(tree, fn):
-    if torch.is_tensor(tree):
-        return fn(tree)
-    if isinstance(tree, list):
-        return [_tree_map(v, fn) for v in tree]
-    return {k: _tree_map(v, fn) for k, v in tree.items()}
+def flash_case(shape, gen, ref, fa, flush):
+    """Hold the flash kernels at ``shape`` against their plain versions,
+    forward and backward on the same inputs (the backward fed the plain
+    forward's output and log-sum-exp), and the forward against
+    flash_attention_ref; time each beside the plain version,
+    scaled_dot_product_attention (and its backward) and the bound.  None
+    if they disagree."""
+    import torch.nn.functional as F
+
+    b, s, hq, hkv, hd, dtype_name = shape
+    dt = getattr(torch, dtype_name)
+    q, k, v, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda")
+                   .to(dt) for h in (hq, hkv, hkv, hq))
+    before = (fa.LAUNCHES.forward, fa.LAUNCHES.backward, fa.LAUNCHES.grids)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do)
+    grads_p = ref.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do)
+    calls = (fa.LAUNCHES.forward - before[0], fa.LAUNCHES.backward - before[1],
+             fa.LAUNCHES.grids - before[2])
+    g = hq // hkv
+    fold = lambda t: t.repeat_interleave(  # noqa: E731
+        hq // t.shape[2], dim=2).transpose(1, 2).reshape(b * hq, s, hd)
+    oracle = ref.flash_attention_ref(fold(q), fold(k), fold(v))
+    torch.cuda.synchronize()
+    errs, worst = {}, 0.0
+    for name, got, want in [("o", o, o_p), ("lse", lse, lse_p),
+                            ("o vs flash_attention_ref", fold(o), oracle),
+                            *zip(("dq", "dk", "dv"), grads, grads_p)]:
+        diff = (got.float() - want.float()).abs()
+        mag = want.float().abs()
+        top = mag.max().item()
+        if want.dtype == torch.bfloat16:
+            limit = BF16_TOL * mag.amax(-1, keepdim=True) + F32_TOL * top
+        else:
+            limit = torch.full_like(mag, FLASH_F32_TOL * top)
+        err, ratio = diff.max().item(), (diff / limit).max().item()
+        errs[name] = dict(err=err, of_limit=ratio)
+        worst = max(worst, err)
+        if not ratio <= 1.0:
+            log("flash", f"FAIL {shape} {name}: max abs err {err:.3e}, "
+                f"{ratio:.2f} x its limit")
+            return None
+    if calls != (1, 1, 3):
+        log("flash", f"FAIL {shape}: wrapper calls {calls}, expected one "
+            f"forward and one backward (3 CUDA launches)")
+        return None
+
+    # SDPA on the same tensors, heads second, as a yardstick only
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa(qq, kk, vv):
+        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                              enable_gqa=True)
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (qt, kt, vt)]
+    out_lib = sdpa(*leaves)
+    do_t = do.transpose(1, 2)
+    big = s >= 1024
+    reps = 5 if big else 10
+    times = dict(
+        fwd_ms=cuda_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v), flush,
+                       reps),
+        fwd_plain_ms=cuda_ms(lambda: ref.flash_attention_fwd_plain(q, k, v),
+                             flush, reps),
+        fwd_library_ms=cuda_ms(lambda: sdpa(qt, kt, vt), flush, reps),
+        bwd_ms=cuda_ms(lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, o_p, lse_p, do), flush, reps),
+        bwd_plain_ms=cuda_ms(lambda: ref.flash_attention_bwd_plain(
+            q, k, v, o_p, lse_p, do), flush, reps),
+        bwd_library_ms=cuda_ms(lambda: torch.autograd.grad(
+            out_lib, leaves, do_t, retain_graph=True), flush, reps))
+    # the causal pairs col <= row; the forward's two products, the
+    # backward's at 2.5x; each input read once, each output written once
+    pairs = b * hq * s * (s + 1) / 2
+    flops_f = 4.0 * pairs * hd
+    flops_b = 2.5 * flops_f
+    peak = BF16_PEAK if dt == torch.bfloat16 else F32_PEAK
+    esz = q.element_size()
+    n_q, n_kv = q.numel(), k.numel()
+    bytes_f = esz * (2 * n_q + 2 * n_kv) + 4 * b * hq * s  # q k v o, lse
+    bytes_b = esz * (3 * n_q + 2 * n_kv) + 4 * b * hq * s \
+        + esz * (n_q + 2 * n_kv)  # q k v o do lse in, dq dk dv out
+    t_ops = (flops_f + flops_b) / peak * 1e3
+    t_bytes = (bytes_f + bytes_b) / HBM_BW * 1e3
+    row = dict(shape=list(shape[:5]), dtype=dtype_name, group=g,
+               max_abs_err=worst, errors=errs, launches=dict(
+                   forward_calls=1, backward_calls=1, cuda_launches=3),
+               fwd_bound_ms=max(flops_f / peak, bytes_f / HBM_BW) * 1e3,
+               bwd_bound_ms=max(flops_b / peak, bytes_b / HBM_BW) * 1e3,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               fwd_tflops=flops_f / times["fwd_ms"] / 1e9,
+               bwd_tflops=flops_b / times["bwd_ms"] / 1e9, **times)
+    log("flash", f"{tuple(shape[:5])} {dtype_name}: kernel == plain within "
+        f"tol (worst {worst:.2e}; " + ", ".join(
+            f"{k} {e['err']:.1e} = {e['of_limit']:.2f} x limit"
+            for k, e in errs.items())
+        + ")")
+    log("flash", f"  forward: kernel {times['fwd_ms']:.4f} ms "
+        f"({row['fwd_tflops']:.2f} TFLOP/s)  plain {times['fwd_plain_ms']:.4f}"
+        f" ms  sdpa {times['fwd_library_ms']:.4f} ms  bound "
+        f"{row['fwd_bound_ms']:.4f} ms; 1 launch; cold L2")
+    log("flash", f"  backward: kernel {times['bwd_ms']:.4f} ms "
+        f"({row['bwd_tflops']:.2f} TFLOP/s)  plain {times['bwd_plain_ms']:.4f}"
+        f" ms  sdpa {times['bwd_library_ms']:.4f} ms  bound "
+        f"{row['bwd_bound_ms']:.4f} ms; 2 launches; cold L2")
+    return row
+
+
+def train_parity(cfg):
+    """One training step of full-width tinyllama-1.1b cut to 2 layers, in
+    fp32, on the card and on the CPU from the same parameters and batch:
+    the loss within 1e-4 relative and every gradient within 2e-3 x
+    max|grad| of the CPU's, leaf by leaf.  None on a mismatch."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.training import (TrainLoopConfig, init_train_state,
+                                      make_grad_fn, make_train_step)
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    loop = TrainLoopConfig(warmup_steps=1, total_steps=4)
+    batch = SyntheticLMData(cfg2, seq_len=256, global_batch=2,
+                            seed=0).batch_at(0)
+    out = {}
+    state = None
+    for where in ("cuda", "cpu"):
+        model = build_model(cfg2, where)
+        if state is None:
+            state = init_train_state(model, 0, loop)
+        else:
+            state = tree_map(lambda t: t.cpu(), state)
+        feed = {k: v.to(where) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        _, metrics = make_train_step(model, loop)(state, feed)
+        loss, _, grads = make_grad_fn(model)(state["params"], feed)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        out[where] = dict(step_loss=float(metrics["loss"]), loss=float(loss),
+                          grads=dict(leaves_with_paths(grads)),
+                          s=time.perf_counter() - t0)
+    gpu, cpu = out["cuda"], out["cpu"]
+    rel = abs(gpu["step_loss"] - cpu["step_loss"]) / abs(cpu["step_loss"])
+    worst, worst_leaf = 0.0, None
+    for path, gc in cpu["grads"].items():
+        gg = gpu["grads"].get(path)
+        if gg is None or not gg.is_cuda:
+            log("train-parity", f"FAIL {path}: no gradient on the card")
+            return None
+        top = gc.abs().max().item()
+        err = (gg.cpu() - gc).abs().max().item()
+        if not err <= 2e-3 * top:
+            log("train-parity", f"FAIL {path}: gradient err {err:.3e} > "
+                f"{2e-3 * top:.3e}")
+            return None
+        if top > 0 and err / top >= worst:
+            worst, worst_leaf = err / top, path
+    log("train-parity", f"tinyllama-1.1b full width, 2 layers, fp32, batch "
+        f"2 x 256: loss card {gpu['step_loss']:.6f}, cpu "
+        f"{cpu['step_loss']:.6f} (rel {rel:.2e}, limit 1e-4); "
+        f"{len(cpu['grads'])} gradients on the card, worst leaf {worst_leaf}"
+        f" at {worst:.2e} x max|grad| (limit 2e-3); card {gpu['s']:.2f} s, "
+        f"cpu {cpu['s']:.2f} s (one step + one gradient each)")
+    if not rel <= 1e-4:
+        return None
+    return dict(loss_cuda=gpu["step_loss"], loss_cpu=cpu["step_loss"],
+                rel_err=rel, leaves=len(cpu["grads"]), worst_leaf=worst_leaf,
+                worst_rel=worst)
+
+
+def train_matmuls(cfg, ops, ref):
+    """Every distinct matmul call of one training gradient of full-width
+    tinyllama-1.1b in bf16 at batch 2 x 2048, cut to 1 layer (each layer
+    makes the same calls), held against the plain version on the call's
+    own operands.  A call is its shapes, strides, dtypes and epilogue, so
+    the backward's products through transposed strides and with fp32
+    gradients against bf16 operands are among them.  None on a mismatch,
+    or if no such product was seen."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.training import TrainLoopConfig, make_grad_fn
+    from repro_torch.training import init_train_state
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    model = build_model(cfg1, "cuda")
+    params = init_train_state(model, 0, TrainLoopConfig())["params"]
+    batch = SyntheticLMData(cfg1, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                            seed=0, device="cuda").batch_at(0)
+    rows, failed, launch = {}, [], ops._matmul
+
+    def checking(a, b, bias, activation, out_dtype):
+        out = launch(a, b, bias, activation, out_dtype)
+        key = (tuple(a.shape), a.stride(), str(a.dtype), tuple(b.shape),
+               b.stride(), str(b.dtype), bias is not None, activation,
+               str(out_dtype))
+        if key not in rows:
+            err, tol = held(out, ref.matmul_fused_ref(
+                a, b, bias=bias, activation=activation, out_dtype=out_dtype))
+            rows[key] = dict(a=list(a.shape), a_stride=list(a.stride()),
+                             a_dtype=str(a.dtype), b=list(b.shape),
+                             b_stride=list(b.stride()), b_dtype=str(b.dtype),
+                             bias=bias is not None, activation=activation,
+                             out_dtype=str(out.dtype), err=err, tol=tol)
+            if not err <= tol:
+                failed.append(rows[key])
+        return out
+
+    ops._matmul = checking
+    try:
+        make_grad_fn(model)(params, batch)
+    finally:
+        ops._matmul = launch
+    calls = list(rows.values())
+    transposed = [r for r in calls if any(
+        r[x + "_stride"][1] != 1 and r[x][1] > 1 for x in "ab")]
+    mixed = [r for r in calls if r["a_dtype"] != r["b_dtype"]]
+    for r in calls:
+        log("backward", f"{tuple(r['a'])}{tuple(r['a_stride'])} "
+            f"{r['a_dtype'][6:]} @ {tuple(r['b'])}{tuple(r['b_stride'])} "
+            f"{r['b_dtype'][6:]} -> {r['out_dtype'][6:]}"
+            f"{' +bias' if r['bias'] else ''}"
+            f"{' ' + r['activation'] if r['activation'] else ''}: "
+            f"max abs err {r['err']:.3e} (limit {r['tol']:.3e})")
+    log("backward", f"{len(calls)} distinct matmul calls in one gradient "
+        f"(batch {TRAIN_BATCH} x {TRAIN_SEQ}, 1 layer, bf16), "
+        f"{len(transposed)} with a transposed operand, {len(mixed)} with "
+        f"mixed dtypes; {len(failed)} outside the limit")
+    if failed or not transposed or not mixed:
+        log("backward", "FAIL: a product disagrees with the plain version, "
+            "or the backward's transposed or mixed-dtype products were not "
+            "seen")
+        return None
+    del model, params
+    torch.cuda.empty_cache()
+    return calls
+
+
+def train_phase(cfg, fa, mm_launches):
+    """Runtime.train of full-width tinyllama-1.1b (random weights, bf16):
+    every step finite, the kernels' launches per step, tokens/s, peak
+    memory and the plan; then a 4-step run on one fixed batch whose loss
+    must fall, with one step timed and one profiled.  None on a failure."""
+    import re
+    import shutil
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Runtime
+    from repro_torch.training import (TrainLoopConfig, init_train_state,
+                                      make_train_step)
+
+    rt = Runtime(device="cuda")
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    lines, plans = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mm_launches.reset()
+    fa.LAUNCHES.reset()
+    res = rt.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                   seed=0, ckpt_dir=str(ckpt), ckpt_every=10 ** 6,
+                   log_every=1, log=lines.append, on_plan=plans.append)
+    torch.cuda.synchronize()
+    counts = dict(matmul=mm_launches.count, flash_forward=fa.LAUNCHES.forward,
+                  flash_backward=fa.LAUNCHES.backward,
+                  flash_cuda_launches=fa.LAUNCHES.grids)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    saved = sorted(p.name for p in ckpt.iterdir()) if ckpt.exists() else []
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps = [dict(step=int(m.group(1)), loss=float(m.group(2)),
+                  ms=float(m.group(3))) for m in
+             (re.match(r"step\s+(\d+) loss (\S+) .* (\d+)ms$", x)
+              for x in lines) if m]
+    for line in lines:
+        log("train", line)
+    plan = plans[0]
+    for line in plan.summary().splitlines():
+        log("train", "plan " + line.strip())
+    per_step = {k: v // TRAIN_STEPS for k, v in counts.items()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = [x["ms"] for x in steps[1:]]
+    tok_s = tokens * len(steady) / (sum(steady) / 1e3) if steady else 0.0
+    log("train", f"tinyllama-1.1b full width ({cfg.n_layers} layers) bf16, "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: {res.steps_run} steps in "
+        f"{res.wall_s:.2f} s, final loss {res.final_loss:.4f}, diverged "
+        f"{res.diverged}; {tok_s:.1f} tokens/s over steps 1-"
+        f"{TRAIN_STEPS - 1}; peak memory {peak_gb:.2f} GB; checkpoint "
+        f"{saved}; launches per step {per_step}")
+    ok = (res.steps_run == TRAIN_STEPS and not res.diverged
+          and math.isfinite(res.final_loss) and len(steps) == TRAIN_STEPS
+          and all(math.isfinite(x["loss"]) for x in steps)
+          and saved == [f"step_{TRAIN_STEPS:08d}"]
+          and counts["matmul"] > 0 and counts["flash_forward"] > 0
+          and counts["flash_backward"] > 0
+          and all(v % TRAIN_STEPS == 0 for v in counts.values()))
+    if not ok:
+        log("train", "FAIL: a step was not finite, the run stopped early, "
+            "the checkpoint is missing or a kernel never launched")
+        return None
+    del res
+    torch.cuda.empty_cache()
+
+    # one fixed batch: the loss must fall (optimizer and gradients wired)
+    model = build_model(cfg, "cuda")
+    loop = TrainLoopConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=1,
+                           total_steps=TRAIN_STEPS)
+    state = init_train_state(model, 1, loop)
+    batch = SyntheticLMData(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                            seed=1, device="cuda").batch_at(0)
+    step_fn = make_train_step(model, loop)
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        end_loss = float(model.loss(state["params"], batch)[0])
+    by_name, events = device_ms_by_kernel(lambda: step_fn(state, batch))
+    device_ms = sum(by_name.values())
+    groups = {"matmul": "matmul_kernel", "flash forward": "flash_fwd",
+              "flash backward dq": "flash_bwd_dq",
+              "flash backward dk dv": "flash_bwd_dkv"}
+    split = {g: sum(v for k, v in by_name.items() if key in k)
+             for g, key in groups.items()}
+    split["other"] = device_ms - sum(split.values())
+    wall = walls[-1]
+    log("train", f"fixed batch, lr 1e-3: losses {losses}, after "
+        f"{TRAIN_STEPS} steps {end_loss:.4f} (must be below {losses[0]:.4f});"
+        f" step walls {[round(w, 1) for w in walls]} ms")
+    if events == 0:
+        log("train", "profiled step: device time not measured (the profiler "
+            "saw no kernels)")
+    else:
+        log("train", f"profiled step: {events} device events, device busy "
+            f"{device_ms:.1f} ms of a {wall:.1f} ms step "
+            f"({100 * device_ms / wall:.1f}%); " + ", ".join(
+                f"{g} {v:.1f} ms" for g, v in split.items()))
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log("train", f"  {ms:9.2f} ms  {name[:90]}")
+    if not (all(math.isfinite(x) for x in losses) and end_loss < losses[0]):
+        log("train", "FAIL: the loss did not fall on a fixed batch")
+        return None
+    return dict(steps=steps, final_loss=steps[-1]["loss"], tok_per_s=tok_s,
+                peak_memory_gb=peak_gb, launches_per_step=per_step,
+                flash_calls_per_step=per_step["flash_forward"]
+                + per_step["flash_backward"],
+                plan=dict(decisions=[dataclasses.asdict(d)
+                                     for d in plan.decisions],
+                          fits_hbm=plan.fits_hbm,
+                          hbm_per_chip=plan.hbm_per_chip),
+                fixed_batch_losses=losses, fixed_batch_end_loss=end_loss,
+                fixed_batch_step_ms=walls, profile=dict(
+                    events=events, device_ms=device_ms, wall_ms=wall,
+                    by_group=split, top=sorted(by_name.items(),
+                                               key=lambda kv: -kv[1])[:12]))
 
 
 if __name__ == "__main__":

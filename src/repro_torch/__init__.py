@@ -1,14 +1,16 @@
 """repro_torch — the PyTorch/CUDA port of ``repro``, for one NVIDIA H100.
 
 The public surface mirrors ``repro``: a :class:`Runtime` session owning the
-device, the CostEngine and the overhead ledger, and serving through
-``Runtime.serve``.  Dense projections, the FFN, the unembedding and the
-contractions of cached attention run on a hand-written CUDA matmul kernel
-(``csrc/matmul.cu``), and the paper's sort domain
-(``distributed_sort(local_sort="kernel")``) on a hand-written bitonic sort
-kernel (``csrc/bitonic_sort.cu``), both built at first use into
-``build/``; on CPU tensors each kernel's plain PyTorch version runs
-instead.
+device, the CostEngine and the overhead ledger, training through
+``Runtime.train`` and serving through ``Runtime.serve``.  Dense
+projections, the FFN, the unembedding and the contractions of cached
+attention run on a hand-written CUDA matmul kernel (``csrc/matmul.cu``),
+forward and backward; causal attention without a cache on hand-written
+flash kernels (``csrc/flash_attention.cu``), forward and backward; and the
+paper's sort domain (``distributed_sort(local_sort="kernel")``) on a
+hand-written bitonic sort kernel (``csrc/bitonic_sort.cu``), all built at
+first use into ``build/``; on CPU tensors each kernel's plain PyTorch
+version runs instead.
 
     import repro_torch
 
@@ -17,6 +19,7 @@ instead.
     trace = repro_torch.synthetic_trace(8, prompt_len=64, max_new=32,
                                         vocab_size=cfg.vocab_size)
     served = rt.serve(cfg, trace, slots=4, eos_id=-1)
+    trained = rt.train(cfg, steps=4, batch=2, seq=2048)
     print(rt.ledger.report())
 
 Attributes resolve lazily, as in ``repro``.  This package imports neither
@@ -30,12 +33,17 @@ __all__ = [
     "Runtime",
     "RuntimeConfig",
     "ServeResult",
+    "TrainResult",
     "synthetic_trace",
     # architectures + model construction
     "ModelConfig",
     "get_config",
     "list_configs",
+    "ShapeSpec",
     "build_model",
+    # training
+    "TrainLoopConfig",
+    "AdamWConfig",
     # serving types
     "Request",
     "RequestState",
@@ -62,10 +70,14 @@ _EXPORTS = {
     "Runtime": "repro_torch.runtime",
     "RuntimeConfig": "repro_torch.runtime",
     "ServeResult": "repro_torch.runtime",
+    "TrainResult": "repro_torch.runtime",
     "synthetic_trace": "repro_torch.runtime",
     "ModelConfig": "repro_torch.configs",
     "get_config": "repro_torch.configs",
     "list_configs": "repro_torch.configs",
+    "ShapeSpec": "repro_torch.configs",
+    "TrainLoopConfig": "repro_torch.training",
+    "AdamWConfig": "repro_torch.optim",
     "build_model": "repro_torch.models",
     "Request": "repro_torch.serving",
     "RequestState": "repro_torch.serving",

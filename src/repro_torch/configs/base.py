@@ -194,3 +194,16 @@ def list_configs():
     import repro_torch.configs  # noqa: F401
 
     return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode

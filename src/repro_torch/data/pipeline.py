@@ -1,0 +1,74 @@
+"""Deterministic synthetic data pipeline.
+
+* **step-indexed determinism** — ``batch_at(step)`` draws every batch from
+  a ``torch.Generator`` seeded by (seed, step, host); any process can
+  (re)generate any step, so a restart needs no data state beyond the step.
+* **host-sharded generation** — each host makes only its slice of the
+  global batch.
+* **structured, not uniform, tokens** — every 4th token is a Zipf unigram
+  (exponent 1.1), the rest follow a periodic backbone ``(a·t + b) % V``
+  with (a, b) drawn per row, so a model can learn it.
+
+The mixture and its distributions are the reference's
+(``src/repro/data/pipeline.py``), but not its bits: the reference draws
+from ``jax.random`` (threefry), this from torch's generator, so the same
+seed gives other tokens.  The parity tests feed both packages the
+reference's own batches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+ZIPF_EXPONENT = 1.1
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticLMData:
+    cfg: ModelConfig
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    n_hosts: int = 1
+    host_id: int = 0
+    device: str = "cpu"  # where batch_at puts the tokens
+
+    @property
+    def host_batch(self) -> int:
+        if self.global_batch % self.n_hosts:
+            raise ValueError(f"global batch {self.global_batch} does not "
+                             f"split over {self.n_hosts} hosts")
+        return self.global_batch // self.n_hosts
+
+    def _generator(self, step: int) -> torch.Generator:
+        words = np.random.SeedSequence(
+            [self.seed, step, self.host_id]).generate_state(2)
+        return torch.Generator().manual_seed(
+            (int(words[0]) << 32 | int(words[1])) & ((1 << 63) - 1))
+
+    def _tokens(self, gen: torch.Generator, batch: int) -> torch.Tensor:
+        v = self.cfg.vocab_size
+        ranks = torch.arange(1, v + 1, dtype=torch.float64)
+        probs = ranks ** -ZIPF_EXPONENT
+        uni = torch.multinomial(probs, batch * self.seq_len, replacement=True,
+                                generator=gen).reshape(batch, self.seq_len)
+        a = torch.randint(1, 97, (batch, 1), generator=gen)
+        b = torch.randint(0, v, (batch, 1), generator=gen)
+        t = torch.arange(self.seq_len)[None]
+        backbone = (a * t + b) % v
+        return torch.where((t % 4) == 3, uni, backbone)
+
+    def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
+        """``{"tokens": (host_batch, seq_len) int64}`` for ``step``."""
+        if self.cfg.frontend == "vision" or self.cfg.is_encdec:
+            raise NotImplementedError(
+                f"{self.cfg.name}: vision and encoder-decoder inputs are not "
+                f"ported yet (other families)")
+        tokens = self._tokens(self._generator(step), self.host_batch)
+        return {"tokens": tokens.to(self.device)}

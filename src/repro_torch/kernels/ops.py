@@ -5,17 +5,88 @@ A tensor on the CPU takes the kernel's plain PyTorch version
 raises.  The matmul has no padding to tile multiples: the kernel masks its
 ragged edges, so a decode step with 4 rows pays for 4 rows, not 128.  The
 sort pads rows to a power of 2, which the network needs.
+
+Gradients run on the kernels too.  ``matmul`` goes through ``MatmulFn``
+whenever an operand needs a gradient: its backward recomputes the product
+without the epilogue, applies the activation's derivative elementwise and
+takes both operand gradients as two more products on the matmul kernel.
+``flash_attention`` always goes through ``FlashAttentionFn``, whose
+backward is the flash backward kernels.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.bitonic_sort import bitonic_sort_cuda
+from repro_torch.kernels.flash_attention import FlashAttentionFn, check_shapes
 from repro_torch.kernels.matmul import EPILOGUE_ACTIVATIONS, matmul_cuda
 from repro_torch.kernels.ref import bitonic_sort_ref, matmul_fused_ref
+
+_GELU_C = math.sqrt(2.0 / math.pi)
+
+
+def _silu_grad(z):
+    s = torch.sigmoid(z)
+    return s * (1.0 + z * (1.0 - s))
+
+
+def _gelu_grad(z):
+    """Derivative of GELU in its tanh form (the epilogue's)."""
+    t = torch.tanh(_GELU_C * (z + 0.044715 * z * z * z))
+    return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * _GELU_C * (
+        1.0 + 3 * 0.044715 * z * z)
+
+
+# d activation(z) / dz, elementwise on the fp32 pre-activation
+ACTIVATION_GRADS = {
+    "relu": lambda z: (z > 0).to(z.dtype),
+    "gelu": _gelu_grad,
+    "silu": _silu_grad,
+    "tanh": lambda z: 1.0 - torch.tanh(z) ** 2,
+}
+
+
+def _matmul(a, b, bias, activation, out_dtype):
+    """One product: the plain version for CPU operands, else the kernel."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return matmul_fused_ref(a, b, bias=bias, activation=activation,
+                                out_dtype=out_dtype)
+    return matmul_cuda(a, b, bias=bias, activation=activation,
+                       out_dtype=out_dtype)
+
+
+class MatmulFn(torch.autograd.Function):
+    """``epilogue(a @ b + bias)`` for 2-D operands, with a backward on the
+    same kernel: ``dZ = dOut * activation'(a @ b + bias)`` (the product
+    recomputed in fp32 without the epilogue), ``dA = dZ @ bᵀ`` and
+    ``dB = aᵀ @ dZ`` read through transposed strides, each accumulated in
+    fp32 and cast once to its operand's dtype, ``dbias = dZ.sum(0)``."""
+
+    @staticmethod
+    def forward(ctx, a, b, bias, activation, out_dtype):
+        ctx.save_for_backward(a, b, bias)
+        ctx.activation = activation
+        return _matmul(a, b, bias, activation, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        a, b, bias = ctx.saved_tensors
+        dz = dout
+        if ctx.activation is not None:
+            z = _matmul(a, b, bias, None, torch.float32)
+            dz = dout.float() * ACTIVATION_GRADS[ctx.activation](z)
+        da = db = dbias = None
+        if ctx.needs_input_grad[0]:
+            da = _matmul(dz, b.t(), None, None, a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _matmul(a.t(), dz, None, None, b.dtype)
+        if bias is not None and ctx.needs_input_grad[2]:
+            dbias = dz.float().sum(0).to(bias.dtype)
+        return da, db, dbias, None, None
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, bias=None,
@@ -26,15 +97,32 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bias=None,
 
     ``a`` (M, K) and ``b`` (K, N), or 4-D batches ``(Z1, Z2, M, K)`` and
     ``(Z1, Z2, K, N)`` of them; ``bias`` (N,); ``activation`` one of
-    ``relu | gelu | silu | tanh`` (gelu in its tanh form) or None."""
+    ``relu | gelu | silu | tanh`` (gelu in its tanh form) or None.  Where an
+    operand needs a gradient the call goes through ``MatmulFn`` (2-D only:
+    the 4-D form serves decode attention and has no backward)."""
     if activation is not None and activation not in EPILOGUE_ACTIVATIONS:
         raise ValueError(f"activation must be one of {EPILOGUE_ACTIVATIONS}, "
                          f"got {activation!r}")
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return matmul_fused_ref(a, b, bias=bias, activation=activation,
-                                out_dtype=out_dtype)
-    return matmul_cuda(a, b, bias=bias, activation=activation,
-                       out_dtype=out_dtype)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (a, b, bias))
+    if not needs_grad:
+        return _matmul(a, b, bias, activation, out_dtype)
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"the batched (4-D) matmul has no backward; got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)} with an "
+                         f"operand that needs a gradient")
+    return MatmulFn.apply(a, b, bias, activation, out_dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """(B, S, Hq, hd) attention against k, v (B, Skv, Hkv, hd), Hq a
+    multiple of Hkv, through the flash kernels (forward and backward); the
+    plain versions for CPU tensors.  ``sm_scale`` is hd^-0.5.  Causal
+    attention needs S == Skv: the kernel aligns its mask top-left and the
+    reference's oracle bottom-right, which agree only there."""
+    check_shapes(q, k, v, causal)
+    return FlashAttentionFn.apply(q, k, v, causal, None)
 
 
 def _sort_npad(n: int) -> int:

@@ -3,8 +3,16 @@ and KV-cache decode.
 
 Shapes: q (B, S, Hq, hd); k, v (B, Skv, Hkv, hd); Hq % Hkv == 0.
 
-``dense_attention`` and ``chunked_attention`` serve ``forward_logits`` and
-are plain PyTorch, as they are XLA in the reference.  ``decode_attention``
+``attention`` serves every causal attention without a cache
+(``forward_logits``, ``prefill``, the training loss).  On a CUDA tensor it
+runs the hand-written flash kernels, forward and backward (the reference
+reaches its Pallas flash kernel only through ``impl="flash"``; the port
+takes it for the whole path, an implementation choice that leaves the
+outputs the reference's).  On the CPU ``impl="auto"`` keeps the
+reference's rule, ``dense_attention`` up to ``2 * chunk`` query positions
+and ``chunked_attention`` above (plain PyTorch, as they are XLA in the
+reference), and ``impl="flash"`` takes the flash kernels' plain versions.
+Sliding windows are not ported.  ``decode_attention``
 serves every step of the serving path; its two contractions (q·k and p·v)
 run on the matmul kernel, read straight out of the cache through strides.
 That keeps the serving path batch-invariant: a slot's scores and outputs do
@@ -37,14 +45,15 @@ def _causal_mask(sq: int, kpos: torch.Tensor) -> torch.Tensor:
     return kpos[None, :] <= torch.arange(sq, device=kpos.device)[:, None]
 
 
-def dense_attention(q, k, v) -> torch.Tensor:
-    """Full-materialization causal attention."""
+def dense_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Full-materialization attention."""
     b, sq, hq, hd = q.shape
     n_kv = k.shape[2]
     qg = _group_query(q, n_kv).float()
     scores = torch.einsum("bsngd,btnd->bngst", qg * hd ** -0.5, k.float())
-    mask = _causal_mask(sq, torch.arange(k.shape[1], device=q.device))
-    scores = torch.where(mask, scores, NEG_INF)
+    if causal:
+        mask = _causal_mask(sq, torch.arange(k.shape[1], device=q.device))
+        scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bngst,btnd->bsngd", probs, v.float())
     return out.reshape(b, sq, hq, hd).to(q.dtype)
@@ -55,9 +64,10 @@ def dense_attention(q, k, v) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def chunked_attention(q, k, v, *, chunk: int = 1024) -> torch.Tensor:
-    """Online-softmax causal attention looping over KV chunks: peak live
-    memory O(B*H*S*chunk), masked like ``dense_attention``."""
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention looping over KV chunks: peak live memory
+    O(B*H*S*chunk), masked like ``dense_attention``."""
     b, sq, hq, hd = q.shape
     skv = k.shape[1]
     n_kv = k.shape[2]
@@ -72,8 +82,9 @@ def chunked_attention(q, k, v, *, chunk: int = 1024) -> torch.Tensor:
         vj = v[:, start:start + chunk].float()
         kpos = start + torch.arange(kj.shape[1], device=dev)
         s = torch.einsum("bsngd,btnd->bnsgt", qg, kj)
-        mask = _causal_mask(sq, kpos)
-        s = torch.where(mask[:, None, :], s, NEG_INF)
+        if causal:
+            mask = _causal_mask(sq, kpos)
+            s = torch.where(mask[:, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -84,12 +95,30 @@ def chunked_attention(q, k, v, *, chunk: int = 1024) -> torch.Tensor:
     return out.permute(0, 2, 1, 3, 4).reshape(b, sq, hq, hd).to(q.dtype)
 
 
-def attention(q, k, v, *, chunk: int = 1024) -> torch.Tensor:
-    """Causal attention without a cache: dense up to ``2 * chunk`` query
-    positions, chunked above (the reference's static crossover rule)."""
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """The flash kernels (their plain versions for CPU tensors)."""
+    return ops.flash_attention(q, k, v, causal=causal)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              chunk: int = 1024, impl: str = "auto") -> torch.Tensor:
+    """Attention without a cache.  A CUDA tensor runs the flash kernels
+    whatever ``impl`` says.  On the CPU ``"auto"`` is dense up to
+    ``2 * chunk`` query positions and chunked above (the reference's static
+    crossover rule) and ``"flash"`` the flash kernels' plain versions."""
+    if impl not in ("auto", "flash"):
+        raise ValueError(f"impl must be 'auto' or 'flash', got {impl!r}")
+    if window:
+        if impl == "flash":
+            raise ValueError("impl='flash' does not support sliding windows; "
+                             "use the local_attention path")
+        raise NotImplementedError(
+            "sliding-window attention is not ported yet (other families)")
+    if impl == "flash" or q.is_cuda:
+        return flash_attention(q, k, v, causal=causal)
     if q.shape[1] <= 2 * chunk:
-        return dense_attention(q, k, v)
-    return chunked_attention(q, k, v, chunk=chunk)
+        return dense_attention(q, k, v, causal=causal)
+    return chunked_attention(q, k, v, causal=causal, chunk=chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -4,15 +4,19 @@ serving path, with the reference package's functional interface.
 Batch conventions: ``{"tokens": (B, S) int64}``.  Parameters are a dict
 ``{"embed", "layers": [per-layer dict, ...], "final_norm", "unembed"}``;
 the decode state is ``{"layers": [{"k", "v"}, ...], "pos"}`` with every
-per-slot leaf's slot axis first.  This slice ports the dense decoder-only
-family (full attention, RoPE, dense GLU FFN); the others raise
-``NotImplementedError``.
+per-slot leaf's slot axis first.  ``loss`` is the training objective:
+next-token cross-entropy plus the weighted auxiliary and z losses, through
+``xent_auto`` (direct up to 2048 positions, chunked and recomputed above).
+The port has the dense decoder-only family (full attention, RoPE, dense
+GLU FFN); the others raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
@@ -24,6 +28,11 @@ from repro_torch.models.common import (
     rmsnorm_init,
     unembed,
 )
+
+
+AUX_LOSS_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-4
+XENT_CHUNK = 1024
 
 
 def _offset_positions(b: int, s: int, offset: torch.Tensor) -> torch.Tensor:
@@ -84,20 +93,51 @@ class Model:
                                         device=tokens.device)
         return x, _offset_positions(b, s, decode_offset)
 
-    def forward_logits(self, params, batch):
+    def _aux(self, aux) -> torch.Tensor:
+        """The stack's auxiliary loss as a 0-d fp32 tensor on the model's
+        device.  A dense stack's is the Python float 0.0: one fill on the
+        device, with no host round trip."""
+        if torch.is_tensor(aux):
+            return aux.to(dtype=torch.float32, device=self.device)
+        return torch.full((), float(aux), dtype=torch.float32,
+                          device=self.device)
+
+    def forward_logits(self, params, batch, remat: bool = False):
         """(B, S, V) fp32 logits of a full causal forward, and the
-        auxiliary loss."""
+        auxiliary loss (a 0-d fp32 tensor on the model's device)."""
         x, positions = self._embed(params, batch)
-        x, _, aux = tfm.stack_apply(params["layers"], self.cfg, x, positions)
+        x, _, aux = tfm.stack_apply(params["layers"], self.cfg, x, positions,
+                                    remat=remat)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        return unembed(params["unembed"], x), torch.tensor(float(aux))
+        return unembed(params["unembed"], x), self._aux(aux)
 
     def prefill(self, params, batch):
         """Inference prefill: full forward, logits only at the last position."""
         x, positions = self._embed(params, batch)
-        x, _, _ = tfm.stack_apply(params["layers"], self.cfg, x, positions)
+        x, _, _ = tfm.stack_apply(params["layers"], self.cfg, x, positions,
+                                  remat=False)
         x = rmsnorm(params["final_norm"], x[:, -1:], self.cfg.norm_eps)
         return unembed(params["unembed"], x)
+
+    def loss(self, params, batch, remat: bool = True):
+        """Next-token training loss on ``batch["tokens"]`` (B, S): targets
+        are the tokens shifted by one with an all-ones mask (the dense
+        family has no vision patches).  Returns ``(ce + AUX_LOSS_WEIGHT *
+        aux + Z_LOSS_WEIGHT * z, {"ce", "aux", "z"})``, all 0-d tensors on
+        the model's device.  ``remat`` recomputes each layer in the
+        backward pass, as the reference's loss does."""
+        tokens = batch["tokens"]
+        x, positions = self._embed(params, batch)
+        x, _, aux = tfm.stack_apply(params["layers"], self.cfg, x, positions,
+                                    remat=remat)
+        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        targets = tokens[:, 1:]
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=tokens.device)
+        ce, z = xent_auto(params["unembed"], x[:, :-1], targets, mask)
+        aux = self._aux(aux)
+        total = ce + AUX_LOSS_WEIGHT * aux + Z_LOSS_WEIGHT * z
+        return total, {"ce": ce, "aux": aux, "z": z}
 
     # ------------------------------------------------------------------
     # Decode
@@ -166,3 +206,49 @@ class Model:
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     return Model(cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def _xent_sums(table, x, targets, mask):
+    """(sum of masked CE, sum of masked logz^2) of one stretch of
+    positions, from fp32 logits on the matmul kernel."""
+    logits = unembed(table, x)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), (logz * logz * mask).sum()
+
+
+def _xent_chunked_sums(table, x, targets, mask, chunk: int):
+    """``_xent_sums`` over chunks of ``chunk`` positions, each wrapped in a
+    checkpoint, so its (B, chunk, V) fp32 logits are made, consumed and
+    made again in the backward pass: the full (B, S, V) logits never
+    exist.  The padding has mask 0."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    ce_sum = z_sum = 0.0
+    for start in range(0, s + pad, chunk):
+        ce, z = checkpoint(_xent_sums, table, x[:, start:start + chunk],
+                           targets[:, start:start + chunk],
+                           mask[:, start:start + chunk], use_reentrant=False)
+        ce_sum, z_sum = ce_sum + ce, z_sum + z
+    return ce_sum, z_sum
+
+
+def xent_auto(table, x, targets, mask, chunk: int = XENT_CHUNK):
+    """Mean CE and mean logz^2 of ``x`` (B, S, D) against ``targets`` (B,
+    S) under ``mask``: direct for S <= 2 * chunk, chunked above (the
+    reference's size crossover)."""
+    if x.shape[1] <= 2 * chunk:
+        ce_sum, z_sum = _xent_sums(table, x, targets, mask)
+    else:
+        ce_sum, z_sum = _xent_chunked_sums(table, x, targets, mask, chunk)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return ce_sum / denom, z_sum / denom

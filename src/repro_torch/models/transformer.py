@@ -1,6 +1,8 @@
 """Decoder-only transformer assembly: the layers are a plain Python list,
 applied in a loop (the reference scans stacked parameters; the port's
-``convert.params_from_jax`` unstacks them).  This slice ports the
+``convert.params_from_jax`` unstacks them).  Without a decode state each
+layer is recomputed in the backward pass (``remat``), as the reference
+wraps its scan body in ``jax.checkpoint``.  The port has the
 full-attention layer kind; the other kinds raise ``NotImplementedError``.
 """
 
@@ -9,6 +11,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -134,15 +137,26 @@ def stack_init_state(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def stack_apply(layers: List[dict], cfg: ModelConfig, x, positions, *,
-                states: Optional[List[dict]] = None, cache_pos=None):
-    """Run all layers.  Returns (x, new_states, aux_total)."""
+                states: Optional[List[dict]] = None, cache_pos=None,
+                remat: bool = True):
+    """Run all layers.  Returns (x, new_states, aux_total).
+
+    With ``remat`` and no decode state, each layer keeps only its input for
+    the backward pass and runs again there
+    (``torch.utils.checkpoint``, non-reentrant)."""
+    decode = states is not None
     aux_total = 0.0
-    new_states = [] if states is not None else None
+    new_states = [] if decode else None
     for i, lp in enumerate(layers):
-        st = states[i] if states is not None else None
-        x, new_st, aux = layer_apply(lp, cfg, cfg.block_kind(i), x, positions,
-                                     state=st, cache_pos=cache_pos)
-        if states is not None:
-            new_states.append(new_st)
+        kind = cfg.block_kind(i)
+        if remat and not decode:
+            x, _, aux = checkpoint(layer_apply, lp, cfg, kind, x, positions,
+                                   use_reentrant=False)
+        else:
+            x, new_st, aux = layer_apply(
+                lp, cfg, kind, x, positions,
+                state=states[i] if decode else None, cache_pos=cache_pos)
+            if decode:
+                new_states.append(new_st)
         aux_total = aux_total + aux
     return x, new_states, aux_total

@@ -1,0 +1,82 @@
+"""AdamW with decoupled weight decay and global-norm clipping.
+
+Plain tree implementation: the moments live in fp32 beside parameters of
+any dtype, and the update is computed in fp32 and cast once to the
+parameter's dtype (bf16 at full width), as the reference does.  Every step
+quantity (count, bias corrections, the clip scale) stays a device tensor:
+nothing here calls ``.item()``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.tree import leaves, tree_map, tree_unzip
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+def _device(params) -> torch.device:
+    first = leaves(params)
+    return first[0].device if first else torch.device("cpu")
+
+
+def adamw_init(params) -> dict:
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
+                                  device=p.device)
+    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+            "count": torch.zeros((), dtype=torch.int32,
+                                 device=_device(params))}
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale every gradient by ``min(1, max_norm / ||grads||)``, the norm
+    over all leaves in fp32.  Returns (clipped grads, the norm)."""
+    sq = [torch.sum(g.float() * g.float()) for g in leaves(grads)]
+    gn = torch.sqrt(sum(sq[1:], sq[0]))
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+
+
+def _decay_mask(path: str) -> bool:
+    """No weight decay on norms, biases, scalars, gates."""
+    return not any(t in path for t in ("ln", "norm", "scale", "bias", "mu_",
+                                       "lam", "decay_w0", "bonus_u", "b_rec",
+                                       "b_in"))
+
+
+def adamw_update(params, grads, state, cfg: AdamWConfig,
+                 lr: Optional[torch.Tensor] = None):
+    """Returns (new_params, new_state, {"grad_norm"}); the inputs are left
+    as they were."""
+    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+    count = state["count"] + 1
+    lr_t = cfg.lr if lr is None else lr
+    cf = count.to(torch.float32)
+    b1c = 1.0 - cfg.b1 ** cf
+    b2c = 1.0 - cfg.b2 ** cf
+
+    def upd(path, p, g, mu, nu):
+        g32 = g.float()
+        mu = cfg.b1 * mu + (1 - cfg.b1) * g32
+        nu = cfg.b2 * nu + (1 - cfg.b2) * (g32 * g32)
+        step = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
+        if cfg.weight_decay and _decay_mask(path):
+            step = step + cfg.weight_decay * p.float()
+        return (p.float() - lr_t * step).to(p.dtype), mu, nu
+
+    new_params, mu, nu = tree_unzip(upd, 3, params, grads, state["mu"],
+                                    state["nu"])
+    return new_params, {"mu": mu, "nu": nu, "count": count}, \
+        {"grad_norm": gn}

@@ -8,15 +8,17 @@ overhead ledger.
     rt = repro_torch.Runtime(device="cpu")        # plain PyTorch on the CPU
     rt = repro_torch.Runtime(repro_torch.RuntimeConfig(calibrate=True))
 
-    served = rt.serve(cfg, trace)                 # continuous batching
-    print(rt.ledger.report())                     # every decision, pred-vs-meas
+    plan   = rt.plan(cfg, shape)              # overhead-driven layer plan
+    result = rt.train(cfg, loop, steps=100)   # training loop + checkpoints
+    served = rt.serve(cfg, trace)             # continuous batching
+    print(rt.ledger.report())                 # every decision, pred-vs-meas
 
 Two Runtimes are fully isolated: separate engines, decision caches and
 ledgers.  The entry points run on ``cuda`` unless the caller asks for the
 CPU; a Runtime asked for a card that is not there raises, it does not fall
-back to the CPU.  Training, planning, meshes and the robustness, paging and
-front-end options of the reference's ``Runtime.serve`` come with later
-slices of the port.
+back to the CPU.  Meshes (planning, training or serving over several GPUs)
+and the robustness, paging and front-end options of the reference's
+``Runtime.serve`` come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -66,6 +68,20 @@ class RuntimeConfig:
 # ---------------------------------------------------------------------------
 # Result records
 # ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TrainResult:
+    """What :meth:`Runtime.train` ran and produced."""
+
+    state: Any  # final {"params", "opt", "step", ...} tree
+    start_step: int
+    steps_run: int
+    wall_s: float
+    final_loss: float
+    plan: Any  # core.planner.Plan for the launch shape
+    diverged: bool = False  # loss went non-finite; loop aborted
+    interrupted: bool = False  # should_stop() fired; checkpointed + exited
 
 
 @dataclasses.dataclass
@@ -167,6 +183,92 @@ class Runtime:
     def ledger(self) -> OverheadLedger:
         """THE overhead ledger of this session."""
         return self.engine.ledger
+
+    def plan(self, cfg, shape, mesh_shape: Optional[Dict[str, int]] = None):
+        """Overhead-driven layer plan for ``cfg`` at ``shape`` on this
+        runtime's engine (every decision ledgered).  The port runs on one
+        device, so the default mesh is ``{"data": 1, "model": 1}``."""
+        from repro_torch.core.planner import plan_model
+
+        return plan_model(cfg, shape, mesh_shape or {"data": 1, "model": 1},
+                          engine=self.engine)
+
+    def train(self, cfg, loop=None, *, steps: int = 200, batch: int = 8,
+              seq: int = 64, seed: int = 0, ckpt_dir: Optional[str] = None,
+              ckpt_every: int = 50, resume: bool = False,
+              step_timeout: float = 0.0, log_every: int = 10,
+              log: Callable[[str], None] = print,
+              should_stop: Optional[Callable[[], bool]] = None,
+              on_plan: Optional[Callable[[Any], None]] = None) -> TrainResult:
+        """Run the training loop for ``cfg`` on this runtime's device.
+
+        ``seed`` drives both parameter init and the synthetic data stream
+        (step-indexed, so ``resume`` replays deterministically).
+        ``should_stop`` is polled once per step; when it fires, the loop
+        checkpoints (if ``ckpt_dir``) and returns with ``interrupted=True``
+        (the hook launchers attach SIGTERM to).  ``on_plan`` sees the
+        overhead plan before the first step.  The host waits for the
+        device once per step, on the loss.
+        """
+        from repro_torch.checkpoint import latest_step, restore, save
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.data import SyntheticLMData
+        from repro_torch.models import build_model
+        from repro_torch.training import (TrainLoopConfig, init_train_state,
+                                          make_train_step)
+
+        if loop is None:
+            loop = TrainLoopConfig(warmup_steps=max(steps // 20, 1),
+                                   total_steps=steps)
+        model = build_model(cfg, self.device)
+        plan = self.plan(cfg, ShapeSpec("cli_train", seq, batch, "train"))
+        if on_plan is not None:
+            on_plan(plan)
+
+        ds = SyntheticLMData(cfg, seq_len=seq, global_batch=batch, seed=seed,
+                             device=str(self.device))
+        state = init_train_state(model, seed, loop)
+        start = 0
+        if resume and ckpt_dir:
+            last = latest_step(ckpt_dir)
+            if last is not None:
+                state = restore(ckpt_dir, last, state)
+                start = int(state["step"])
+                log(f"resumed from step {start}")
+
+        step_fn = make_train_step(model, loop)
+        t_start = time.time()
+        loss = float("nan")
+        for i in range(start, steps):
+            t0 = time.time()
+            state, metrics = step_fn(state, ds.batch_at(i))
+            loss = float(metrics["loss"])  # waits for the step
+            dt = time.time() - t0
+            if step_timeout and dt > step_timeout:
+                log(f"[straggler] step {i} took {dt:.2f}s "
+                    f"(> {step_timeout}s); continuing")
+            if log_every and (i % log_every == 0 or i == steps - 1):
+                log(f"step {i:5d} loss {loss:.4f} "
+                    f"lr {float(metrics['lr']):.2e} "
+                    f"gnorm {float(metrics['grad_norm']):.3f} {dt*1e3:.0f}ms")
+            if not np.isfinite(loss):
+                log("loss is not finite; aborting")
+                return TrainResult(state, start, i + 1 - start,
+                                   time.time() - t_start, loss, plan,
+                                   diverged=True)
+            stop = bool(should_stop is not None and should_stop())
+            if ckpt_dir and (stop or (i + 1) % ckpt_every == 0
+                             or i == steps - 1):
+                save(ckpt_dir, i + 1, state)
+            if stop:
+                log(f"interrupted{': checkpointed' if ckpt_dir else ''} "
+                    f"step {i + 1}, exiting")
+                return TrainResult(state, start, i + 1 - start,
+                                   time.time() - t_start, loss, plan,
+                                   interrupted=True)
+        # a resume past the requested step count runs zero steps, not -N
+        return TrainResult(state, start, max(steps - start, 0),
+                           time.time() - t_start, loss, plan)
 
     def serve(self, cfg, trace, *, mode: str = "continuous", model=None,
               params=None, seed: int = 0, slots: int = 4,

@@ -1,21 +1,122 @@
-"""Serving step factories: one greedy decode step, the K-token macro-step,
-and the batched group prefill.
+"""Step factories: the training step, and the serving steps (one greedy
+decode step, the K-token macro-step and the batched group prefill).
 
-The reference runs each as one jitted program (``lax.scan`` inside).  Here
-they are eager loops with the same semantics, and everything the host does
-not need stays on the device: argmax, EOS masking, the budget countdown,
-the ``merge_decode_state`` freeze of masked slots, per-row true-length
-position advance and first-token capture.  No ``.item()``, ``.cpu()`` or
-``.tolist()`` runs inside a loop; the caller syncs once on the result.
+``make_train_step`` builds the reference's step: loss -> gradients (each
+layer recomputed in the backward pass) -> optional gradient compression ->
+global-norm clip -> AdamW with the warmup-cosine rate.  With microbatches
+a Python loop accumulates fp32 gradients divided by their count, as the
+reference's ``lax.scan`` does.
+
+The reference runs each step as one jitted program.  Here they are eager
+with the same semantics, and everything the host does not need stays on
+the device: in training the loss, metrics, rate and step count; in serving
+argmax, EOS masking, the budget countdown, the ``merge_decode_state``
+freeze of masked slots, per-row true-length position advance and
+first-token capture.  No ``.item()``, ``.cpu()`` or ``.tolist()`` runs
+inside a step; the caller syncs once on the result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.compression import compress_gradients, init_compression
+from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.tree import leaves_with_paths, tree_map, tree_map_with_path
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainLoopConfig:
+    optimizer: AdamWConfig = AdamWConfig()
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    microbatches: int = 1  # grad-accumulation factor
+    compression: bool = False
+    compression_keep_frac: float = 0.1
+
+
+def init_train_state(model: Model, seed: int, loop: TrainLoopConfig) -> dict:
+    """``{"params", "opt", "step"}`` (and ``"compress"`` with compression)
+    on the model's device, parameters drawn from ``seed``."""
+    params = model.init(seed)
+    state = {"params": params, "opt": adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+    if loop.compression:
+        state["compress"] = init_compression(params)
+    return state
+
+
+def make_grad_fn(model: Model, *, remat: bool = True) -> Callable:
+    """``grad_fn(params, batch) -> (loss, metrics, grads)``: the loss and
+    the gradient of every parameter (a tree like ``params``), by autograd
+    through the kernels' backward passes.  Raises if a parameter gets no
+    gradient, which is what a kernel call outside autograd would cause."""
+
+    def grad_fn(params, batch):
+        with torch.enable_grad():
+            live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+            loss, metrics = model.loss(live, batch, remat=remat)
+            paths, leaves = zip(*leaves_with_paths(live))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        missing = [p for p, g in zip(paths, grads) if g is None]
+        if missing:
+            raise RuntimeError(f"no gradient reached {len(missing)} "
+                               f"parameters, e.g. {missing[:3]}")
+        by_path = dict(zip(paths, grads))
+        grads = tree_map_with_path(lambda path, _: by_path[path], params)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            grads
+
+    return grad_fn
+
+
+def make_train_step(model: Model, loop: TrainLoopConfig) -> Callable:
+    """``step_fn(state, batch) -> (new_state, metrics)``; ``state`` is left
+    as it was.  Metrics: ``loss``, ``lr``, ``grad_norm`` and, without
+    microbatches, ``ce``/``aux``/``z`` (and ``wire_bytes_ratio`` with
+    compression), all on the device but the last."""
+    grad_fn = make_grad_fn(model)
+
+    def step_fn(state, batch):
+        params = state["params"]
+        if loop.microbatches > 1:
+            n = loop.microbatches
+            acc, loss = None, 0.0
+            for i in range(n):
+                mb = {k: v.reshape((n, -1) + v.shape[1:])[i]
+                      for k, v in batch.items()}
+                mb_loss, _, grads = grad_fn(params, mb)
+                part = tree_map(lambda g: g.float() / n, grads)
+                acc = part if acc is None else tree_map(torch.add, acc, part)
+                loss = loss + mb_loss / n
+            grads, metrics = acc, {}
+        else:
+            loss, metrics, grads = grad_fn(params, batch)
+
+        new_compress = None
+        if loop.compression:
+            grads, new_compress, cmetrics = compress_gradients(
+                grads, state.get("compress"),
+                keep_frac=loop.compression_keep_frac)
+            metrics = {**metrics, **cmetrics}
+
+        lr = warmup_cosine(state["step"], peak_lr=loop.optimizer.lr,
+                           warmup_steps=loop.warmup_steps,
+                           total_steps=loop.total_steps)
+        new_params, new_opt, ometrics = adamw_update(
+            params, grads, state["opt"], loop.optimizer, lr=lr)
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": state["step"] + 1}
+        if new_compress is not None:
+            new_state["compress"] = new_compress
+        return new_state, {"loss": loss, "lr": lr, **metrics, **ometrics}
+
+    return step_fn
 
 
 def make_serve_step(model: Model) -> Callable:

@@ -1,0 +1,304 @@
+"""The port's flash attention and the matmul's backward against the
+reference and against autograd of the plain versions, on seeded numpy
+inputs, on the CPU.
+
+* forward: the flash kernel's plain version (``flash_attention_fwd_plain``,
+  which is what a CPU tensor runs) against the reference's Pallas kernel
+  in interpret mode (``repro.kernels.ops.flash_attention``) and against
+  ``flash_attention_ref``, with GQA and S not a multiple of the block;
+  tolerance 2e-3 (tests/test_kernels.py's for flash);
+* backward: ``FlashAttentionFn`` on the CPU (the kernels' plain versions
+  in their place) against torch.autograd through ``dense_attention``,
+  atol 1e-5 (fp32, another summation order);
+* ``MatmulFn`` with each epilogue and a bias against autograd of
+  ``matmul_fused_ref``, atol 1e-5;
+* the ``cuda``-marked tests hold the kernels against their plain versions
+  on a card, forward and backward, and skip elsewhere.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.matmul import LAUNCHES as MM_LAUNCHES  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
+
+try:  # the reference; a card machine without jax runs only the cuda tests
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+except ImportError:
+    jops = None
+
+needs_reference = pytest.mark.skipif(
+    jops is None, reason="needs jax and the reference package")
+
+FLASH_TOL = 2e-3
+GRAD_ATOL = 1e-5
+# (B, S, Hq, Hkv, hd): GQA groups of 2 and 4, MHA, S below, across and
+# not a multiple of the 64-row block, and of the reference's 128
+SHAPES = [(2, 100, 4, 2, 16), (1, 130, 8, 2, 32), (2, 64, 4, 4, 16),
+          (1, 7, 2, 1, 16)]
+
+
+def _qkv(shape, seed):
+    b, s, hq, hkv, hd = shape
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, s, h, hd)).astype(np.float32)
+                 for h in (hq, hkv, hkv))
+
+
+def _fold(x, hq):
+    """(B, S, H, hd) -> (B*hq, S, hd), kv heads repeated as the reference's
+    wrapper does."""
+    b, s, h, hd = x.shape
+    x = np.repeat(x, hq // h, axis=2)
+    return x.transpose(0, 2, 1, 3).reshape(b * hq, s, hd)
+
+
+@needs_reference
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_forward_matches_reference_kernel(shape):
+    q, k, v = _qkv(shape, sum(shape))
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        interpret=True))
+    launches = fa.LAUNCHES.forward
+    out, lse = ref.flash_attention_fwd_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v))
+    assert fa.LAUNCHES.forward == launches  # CPU tensors never launch
+    assert torch.equal(got, out)
+    assert got.shape == q.shape and lse.shape == (shape[0], shape[2],
+                                                  shape[1])
+    np.testing.assert_allclose(got.numpy(), want, atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+    hq = shape[2]
+    oracle = np.asarray(jref.flash_attention_ref(
+        jnp.asarray(_fold(q, hq)), jnp.asarray(_fold(k, hq)),
+        jnp.asarray(_fold(v, hq))))
+    np.testing.assert_allclose(_fold(got.numpy(), hq), oracle,
+                               atol=FLASH_TOL, rtol=FLASH_TOL)
+    port_oracle = ref.flash_attention_ref(
+        *(torch.from_numpy(_fold(t, hq)) for t in (q, k, v)))
+    np.testing.assert_allclose(port_oracle.numpy(), oracle, atol=1e-5,
+                               rtol=0)
+    # the log-sum-exp is the softmax's normaliser, row by row
+    scale = shape[4] ** -0.5
+    qf, kf = _fold(q, hq) * scale, _fold(k, hq)
+    sc = np.einsum("bqd,bkd->bqk", qf, kf)
+    sc = np.where(np.tril(np.ones(sc.shape[1:], bool))[None], sc, -np.inf)
+    lse_want = np.log(np.exp(sc - sc.max(-1, keepdims=True)).sum(-1)) + \
+        sc.max(-1)
+    np.testing.assert_allclose(lse.numpy().reshape(lse_want.shape), lse_want,
+                               atol=1e-5, rtol=0)
+
+
+@needs_reference
+def test_flash_non_causal_matches_reference_kernel():
+    q, k, v = _qkv((2, 37, 4, 2, 16), 5)
+    k, v = k[:, :29], v[:, :29]  # Skv != S is fine without the mask
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+        interpret=True))
+    got = attn.attention(torch.from_numpy(q), torch.from_numpy(k),
+                         torch.from_numpy(v), causal=False, impl="flash")
+    np.testing.assert_allclose(got.numpy(), want, atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_backward_matches_autograd_of_dense(shape):
+    q, k, v = (torch.from_numpy(t).requires_grad_(True)
+               for t in _qkv(shape, 7 + sum(shape)))
+    w = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        q.shape).astype(np.float32))
+    (attn.attention(q, k, v, impl="flash") * w).sum().backward()
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    (attn.dense_attention(q, k, v) * w).sum().backward()
+    for name, g, t in zip("qkv", got, (q, k, v)):
+        assert g.shape == t.shape
+        np.testing.assert_allclose(g.numpy(), t.grad.numpy(), atol=GRAD_ATOL,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+def test_flash_bwd_plain_is_the_closed_form():
+    """``flash_attention_bwd_plain`` from the forward's lse equals autograd
+    through the plain forward itself."""
+    q, k, v = (torch.from_numpy(t).requires_grad_(True)
+               for t in _qkv((1, 70, 4, 2, 16), 3))
+    o, lse = ref.flash_attention_fwd_plain(q, k, v)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(0))
+    o.backward(do)
+    dq, dk, dv = ref.flash_attention_bwd_plain(
+        q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(), do)
+    for got, t in zip((dq, dk, dv), (q, k, v)):
+        np.testing.assert_allclose(got.numpy(), t.grad.numpy(),
+                                   atol=GRAD_ATOL, rtol=0)
+
+
+def test_flash_rejects_what_it_does_not_compute():
+    q = torch.zeros((1, 8, 4, 16))
+    kv = torch.zeros((1, 6, 2, 16))
+    with pytest.raises(ValueError, match="S == Skv"):
+        ops.flash_attention(q, kv, kv)  # causal S != Skv
+    with pytest.raises(ValueError, match="S == Skv"):
+        attn.attention(q, kv, kv, impl="flash")
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q, torch.zeros((1, 8, 3, 16)),
+                            torch.zeros((1, 8, 3, 16)))
+    with pytest.raises(ValueError, match="sliding windows"):
+        attn.attention(q, q, q, window=4, impl="flash")
+    with pytest.raises(ValueError, match="impl"):
+        attn.attention(q, q, q, impl="pallas")
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_fwd_cuda(q, q, q)  # never the plain path
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd_cuda(q, q, q, q, torch.zeros((1, 4, 8)), q)
+
+
+def test_attention_auto_keeps_the_reference_rule_on_cpu():
+    """On the CPU ``impl="auto"`` is still dense/chunked (the reference's
+    XLA paths), equal to the flash plain version within tolerance."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv((2, 11, 4, 2, 8), 4))
+    auto = attn.attention(q, k, v, chunk=4)  # 11 > 2*4: chunked
+    np.testing.assert_allclose(auto.numpy(),
+                               attn.chunked_attention(q, k, v,
+                                                      chunk=4).numpy(),
+                               atol=0, rtol=0)
+    np.testing.assert_allclose(
+        auto.numpy(), attn.attention(q, k, v, impl="flash").numpy(),
+        atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("activation", [None, "relu", "gelu", "silu", "tanh"])
+def test_matmul_fn_gradients_match_autograd_of_plain(activation, bias):
+    rng = np.random.default_rng(len(str(activation)) * 2 + bias)
+    a0 = rng.standard_normal((37, 65)).astype(np.float32)
+    b0 = (rng.standard_normal((65, 29)) / 8).astype(np.float32)
+    c0 = rng.standard_normal((29,)).astype(np.float32) if bias else None
+    w = torch.from_numpy(rng.standard_normal((37, 29)).astype(np.float32))
+
+    def run(fn):
+        a = torch.from_numpy(a0).requires_grad_(True)
+        b = torch.from_numpy(b0).requires_grad_(True)
+        c = None if c0 is None else torch.from_numpy(c0).requires_grad_(True)
+        out = fn(a, b, bias=c, activation=activation)
+        (out * w).sum().backward()
+        return out, [t.grad for t in (a, b, c) if t is not None]
+
+    launches = MM_LAUNCHES.count
+    out, grads = run(ops.matmul)
+    assert out.grad_fn is not None and "MatmulFn" in type(out.grad_fn).__name__
+    assert MM_LAUNCHES.count == launches  # CPU tensors never launch
+    want_out, want = run(ref.matmul_fused_ref)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               want_out.detach().numpy(), atol=GRAD_ATOL)
+    for g, gw in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), gw.numpy(), atol=GRAD_ATOL,
+                                   rtol=0)
+
+
+def test_matmul_fn_mixed_dtypes_and_rmsnorm_column():
+    """The ones-column product of rmsnorm and a bf16 weight with fp32
+    logits (the unembedding) keep their gradients' dtypes and values."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((5, 16)).astype(np.float32))
+    x.requires_grad_(True)
+    ones = torch.ones((16, 1))
+    ops.matmul(x * x, ones).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), 2 * x.detach().numpy(),
+                               atol=1e-6)
+    table = torch.from_numpy(rng.standard_normal((11, 16)).astype(
+        np.float32)).to(torch.bfloat16).requires_grad_(True)
+    h = torch.from_numpy(rng.standard_normal((5, 16)).astype(
+        np.float32)).to(torch.bfloat16)
+    logits = ops.matmul(h, table.t(), out_dtype=torch.float32)
+    assert logits.dtype == torch.float32
+    logits.sum().backward()
+    assert table.grad.dtype == torch.bfloat16 and table.grad.shape == (11, 16)
+    want = h.float().sum(0)[None].expand(11, 16)
+    np.testing.assert_allclose(table.grad.float().numpy(), want.numpy(),
+                               atol=0.05, rtol=1e-2)
+
+
+def test_batched_matmul_has_no_backward():
+    a = torch.zeros((2, 2, 3, 4), requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        ops.matmul(a, torch.zeros((2, 2, 4, 5)))
+    with torch.no_grad():  # decode attention: no gradient asked, fine
+        assert ops.matmul(a, torch.zeros((2, 2, 4, 5))).shape == (2, 2, 3, 5)
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); on a card run `python -m "
+                    "pytest --noconftest -m cuda tests/test_torch_flash.py`")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 256, 32, 4, 64), (3, 100, 8, 2, 64),
+                                   (2, 70, 4, 2, 16), (1, 130, 4, 1, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_kernels_match_plain_on_card(shape, dtype):
+    """Forward and backward kernels against their plain versions on the
+    same inputs: fp32 within 2e-3 x max|plain|, bf16 within 2e-2 x
+    max|plain| (a few bf16 roundings: the inputs' and the output's)."""
+    _card()
+    dt = getattr(torch, dtype)
+    tol = 2e-3 if dt == torch.float32 else 2e-2
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    b, s, hq, hkv, hd = shape
+    q, k, v = (torch.randn((b, s, h, hd), generator=gen, device="cuda")
+               .to(dt) for h in (hq, hkv, hkv))
+    do = torch.randn((b, s, hq, hd), generator=gen, device="cuda").to(dt)
+    before = (fa.LAUNCHES.forward, fa.LAUNCHES.backward)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    assert (fa.LAUNCHES.forward, fa.LAUNCHES.backward) == (
+        before[0] + 1, before[1] + 1)
+    o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v)
+    grads_p = ref.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do)
+    torch.cuda.synchronize()
+    for name, got, want in [("o", o, o_p), ("lse", lse, lse_p),
+                            *zip(("dq", "dk", "dv"), grads, grads_p)]:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_matmul_fn_gradients_on_card():
+    """``MatmulFn`` on the card: every gradient from the kernel, within
+    1e-5 x max|plain| of autograd through the plain version in fp32."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a0 = torch.randn((300, 200), generator=gen, device="cuda")
+    b0 = torch.randn((200, 130), generator=gen, device="cuda") / 14
+    c0 = torch.randn((130,), generator=gen, device="cuda")
+    w = torch.randn((300, 130), generator=gen, device="cuda")
+    for act in (None, "silu", "gelu"):
+        res = []
+        for fn in (ops.matmul, ref.matmul_fused_ref):
+            a, b, c = (t.clone().requires_grad_(True) for t in (a0, b0, c0))
+            before = MM_LAUNCHES.count
+            (fn(a, b, bias=c, activation=act) * w).sum().backward()
+            res.append((MM_LAUNCHES.count - before,
+                        [t.grad for t in (a, b, c)]))
+        (launched, got), (_, want) = res
+        assert launched == (4 if act else 3)  # forward, recompute, dA, dB
+        for g, gw in zip(got, want):
+            err = (g - gw).abs().max().item()
+            assert err <= 1e-5 * gw.abs().max().item(), (act, err)

@@ -43,7 +43,7 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, leaked = out.stdout.split(" ", 1)
-    assert int(count) >= 25
+    assert int(count) >= 45
     assert leaked.strip() == "[]"
 
 

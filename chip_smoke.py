@@ -47,7 +47,26 @@ Phases, one report line each (any failure exits non-zero):
      every loss finite, the kernels' launches per step, tokens/s, peak
      memory, the plan; a 4-step run on one fixed batch whose loss must
      fall, with one step profiled (device busy share, device ms by
-     kernel).
+     kernel);
+ 10. wkv: the WKV kernels, forward and backward (every gradient), against
+     their plain versions at rwkv6-3b's training shape (2, 2048, 40, 64)
+     with bf16 r/k/v and fp32 logw made as the time mix makes them, the
+     same shape in fp32, an awkward (3, 100, 5, 64) in fp32 and that shape
+     at logw = -50 (every output finite), each timed (CUDA events, cold
+     L2) beside the plain version and the bound;
+ 11. rwkv card against CPU in fp32 (2 layers, full width): prefill logits
+     (the WKV kernel) and token-by-token decode_step logits;
+ 12. rwkv serving: Runtime.serve of full-width, full-depth rwkv6-3b in bf16
+     (random weights, seed 0), static and continuous, token identity,
+     tok/s, host syncs per token, the matmul kernel's launches;
+ 13. rwkv train-parity: one make_train_step of full-width rwkv6-3b cut to
+     2 layers, fp32, batch 2 x 256, card against CPU: the loss within 1e-4
+     relative, all 47 gradients present and within 2e-3 x max|grad|;
+ 14. rwkv train: Runtime.train of full-width, full-depth rwkv6-3b in bf16
+     for 4 steps at batch 2 x 2048 (no checkpoint): every loss finite, the
+     WKV kernels' calls per step (64 forward with the recomputation, 32
+     backward), step wall, tokens/s, peak memory, and one profiled step
+     (device busy share, device ms by kernel).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
 chiprun_out/chip_smoke.json.  Exits non-zero, printing no result, where
@@ -89,6 +108,25 @@ FLASH_F32_TOL = 2e-3  # x max|plain|: tests/test_kernels.py's flash tolerance
 # training shape): o 9.8e-4 (|o| < 0.25), dk 1.6e-2 (|dk| in [2, 4)), each
 # one bf16 step of its element.
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 2048  # TinyLlama's context
+# (B, S, H, N, dtype, logw) the WKV kernels are held at: rwkv6-3b's
+# training shape at batch 2 x 2048 (logw as the time mix makes it), in both
+# types, an awkward one (S not a multiple of the 64-position chunk, 5
+# heads), and that one at the strongest decay the reference tests
+WKV_SHAPES = [(2, 2048, 40, 64, "bfloat16", "model"),
+              (2, 2048, 40, 64, "float32", "model"),
+              (3, 100, 5, 64, "float32", "model"),
+              (3, 100, 5, 64, "float32", -50.0)]
+WKV_CHUNK = 64
+# WKV limits: fp32 outputs within 1e-4 x max|plain| (the reference's WKV
+# tolerance, 1e-4 at unit scale, tests/test_kernels.py); bf16 gradients
+# (dr, dk, dv) element by element within BF16_TOL x the largest |plain| of
+# the element's row + F32_TOL x max|plain|, as flash's bf16 outputs.
+# dlogw is a difference of reverse cumulative sums of terms the size of
+# r dr and k dk, so its scale is the largest of those and of |dlogw|: at
+# logw = -50 the terms cancel, the exact dlogw is ~e^-50, and both versions
+# return rounding noise (H100 700 W: |plain dlogw| 2.1e-5, kernel 3.0e-5
+# from it, against |r dr|, |k dk| of order 1 and more).
+WKV_F32_TOL = 1e-4
 # (shape, dtype name) the sort kernel is held at: the paper's Table 3
 # sizes, the sort bench's, a realistic 256 MiB array, a row batch of the
 # shape the Pallas grid is built for, an awkward one
@@ -507,6 +545,45 @@ def main() -> int:
         return 1
     record["train"] = train
     flash_main = flash_rows[0]  # the bf16 training shape
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- 10
+    from repro_torch.kernels import wkv as wkv_k
+
+    wkv_rows = []
+    for shape in WKV_SHAPES:
+        row = wkv_case(shape, gen, ref, wkv_k, flush)
+        if row is None:
+            return 1
+        wkv_rows.append(row)
+    record["wkv_rows"] = wkv_rows
+    torch.cuda.empty_cache()
+    rcfg = get_config("rwkv6-3b")
+
+    # ----------------------------------------------------------------- 11
+    record["rwkv_card_vs_cpu"] = rwkv_card_vs_cpu(rcfg, wkv_k)
+    if record["rwkv_card_vs_cpu"] is None:
+        return 1
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- 12
+    record["rwkv_serve"] = rwkv_serve(rcfg, LAUNCHES, wkv_k)
+    if record["rwkv_serve"] is None:
+        return 1
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- 13
+    record["rwkv_train_parity"] = train_parity(rcfg, leaves=47)
+    if record["rwkv_train_parity"] is None:
+        return 1
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- 14
+    rtrain = rwkv_train_phase(rcfg, wkv_k, LAUNCHES)
+    if rtrain is None:
+        return 1
+    record["rwkv_train"] = rtrain
+    wkv_main = wkv_rows[0]  # the bf16 training shape
 
     # ---------------------------------------------------------------- out
     out_dir = ROOT / "chiprun_out"
@@ -551,6 +628,22 @@ def main() -> int:
         "bound_by": flash_main["bound_by"],
         "library_ms": flash_main["fwd_library_ms"]
         + flash_main["bwd_library_ms"],
+    }, {
+        "name": "wkv", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv.cu",
+        "replaces": "src/repro/kernels/wkv.py:81",
+        # wrapper calls per rwkv6-3b training step: forward (each layer,
+        # and again in its recomputation) and backward (each layer)
+        "launches": rtrain["wkv_calls_per_step"],
+        "max_abs_err": max(r["max_abs_err"] for r in wkv_rows),
+        # the bf16 training shape, forward (keeping the chunk-start states,
+        # as training does) plus backward
+        "ms": wkv_main["fwd_ms"] + wkv_main["bwd_ms"],
+        "plain_ms": wkv_main["fwd_plain_ms"] + wkv_main["bwd_plain_ms"],
+        "bound_ms": wkv_main["bound_ms"], "bound_by": wkv_main["bound_by"],
+        # no PyTorch call computes the WKV6 recurrence; the packages that
+        # do are packages of finished kernels
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -878,11 +971,12 @@ def flash_case(shape, gen, ref, fa, flush):
     return row
 
 
-def train_parity(cfg):
-    """One training step of full-width tinyllama-1.1b cut to 2 layers, in
-    fp32, on the card and on the CPU from the same parameters and batch:
-    the loss within 1e-4 relative and every gradient within 2e-3 x
-    max|grad| of the CPU's, leaf by leaf.  None on a mismatch."""
+def train_parity(cfg, leaves=None):
+    """One training step of the full-width model cut to 2 layers, in fp32,
+    on the card and on the CPU from the same parameters and batch: the
+    loss within 1e-4 relative and every gradient within 2e-3 x max|grad|
+    of the CPU's, leaf by leaf (``leaves`` of them, where given).  None on
+    a mismatch."""
     from repro_torch.data import SyntheticLMData
     from repro_torch.models import build_model
     from repro_torch.training import (TrainLoopConfig, init_train_state,
@@ -926,13 +1020,16 @@ def train_parity(cfg):
             return None
         if top > 0 and err / top >= worst:
             worst, worst_leaf = err / top, path
-    log("train-parity", f"tinyllama-1.1b full width, 2 layers, fp32, batch "
+    log("train-parity", f"{cfg.name} full width, 2 layers, fp32, batch "
         f"2 x 256: loss card {gpu['step_loss']:.6f}, cpu "
         f"{cpu['step_loss']:.6f} (rel {rel:.2e}, limit 1e-4); "
         f"{len(cpu['grads'])} gradients on the card, worst leaf {worst_leaf}"
         f" at {worst:.2e} x max|grad| (limit 2e-3); card {gpu['s']:.2f} s, "
         f"cpu {cpu['s']:.2f} s (one step + one gradient each)")
-    if not rel <= 1e-4:
+    if not rel <= 1e-4 or (leaves is not None
+                           and len(cpu["grads"]) != leaves):
+        log("train-parity", f"FAIL: loss rel err {rel:.2e} (limit 1e-4) or "
+            f"{len(cpu['grads'])} gradients where {leaves} were expected")
         return None
     return dict(loss_cuda=gpu["step_loss"], loss_cpu=cpu["step_loss"],
                 rel_err=rel, leaves=len(cpu["grads"]), worst_leaf=worst_leaf,
@@ -1127,6 +1224,370 @@ def train_phase(cfg, fa, mm_launches):
                     events=events, device_ms=device_ms, wall_ms=wall,
                     by_group=split, top=sorted(by_name.items(),
                                                key=lambda kv: -kv[1])[:12]))
+
+
+def wkv_inputs(shape, gen):
+    """r, k, v (B, S, H, N) in the shape's dtype, logw fp32, u fp32 on the
+    card: r, v ~ N(0, 1); logw as rwkv_time_mix makes it at its init,
+    -exp(w0 + tanh(x W1) W2) with w0 = -2, x ~ N(0, 1) and fan-in scaled
+    W1 (D, 64), W2 (64, D) (or the constant given); k ~ N(0, 1) scaled by
+    1 - e^{logw}; u ~ 0.1 N(0, 1), as bonus_u's init."""
+    b, s, h, n, dtype_name, decay = shape
+    dt = getattr(torch, dtype_name)
+    dev, d = "cuda", h * n
+    r, k, v = (torch.randn((b, s, h, n), generator=gen, device=dev)
+               for _ in range(3))
+    if decay == "model":
+        x = torch.randn((b * s, d), generator=gen, device=dev)
+        w1 = torch.randn((d, 64), generator=gen, device=dev) / d ** 0.5
+        w2 = torch.randn((64, d), generator=gen, device=dev) / 8.0
+        logw = -torch.exp(-2.0 + torch.tanh(x @ w1) @ w2).reshape(b, s, h, n)
+    else:
+        logw = torch.full((b, s, h, n), float(decay), device=dev)
+    k = k * (1.0 - torch.exp(logw))
+    u = 0.1 * torch.randn((h, n), generator=gen, device=dev)
+    return r.to(dt), k.to(dt), v.to(dt), logw, u
+
+
+def wkv_held(got, want, scale=None) -> float:
+    """|got - want| over its limit, the largest element's: fp32 outputs
+    within WKV_F32_TOL x max|want| (or x ``scale``), bf16 ones within
+    BF16_TOL x their row's max|want| + F32_TOL x max|want|."""
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    top = mag.max().item() if scale is None else scale
+    if want.dtype == torch.bfloat16:
+        limit = BF16_TOL * mag.amax(-1, keepdim=True) + F32_TOL * top
+    else:
+        limit = torch.full_like(mag, WKV_F32_TOL * top)
+    return (diff / limit.clamp(min=1e-30)).max().item()
+
+
+def wkv_case(shape, gen, ref, wkv_k, flush):
+    """Hold the WKV kernels at ``shape`` against their plain versions,
+    forward (out, final state, chunk-start states) and backward (dr, dk,
+    dv, dlogw, du; fed the plain forward's chunk-start states and a random
+    dout), and time both beside the plain versions and the bound.  None if
+    they disagree or an output is not finite."""
+    b, s, h, n, dtype_name, decay = shape
+    r, k, v, logw, u = wkv_inputs(shape, gen)
+    do = torch.randn((b, s, h, n), generator=gen, device="cuda")
+    before = (wkv_k.LAUNCHES.forward, wkv_k.LAUNCHES.backward)
+    out, state, starts = wkv_k.wkv_fwd_cuda(r, k, v, logw, u, WKV_CHUNK,
+                                            keep_states=True)
+    p_out, p_state, p_starts = ref.wkv_fwd_plain(r, k, v, logw, u, WKV_CHUNK)
+    grads = wkv_k.wkv_bwd_cuda(r, k, v, logw, u, p_starts, do, None,
+                               WKV_CHUNK)
+    p_grads = ref.wkv_bwd_plain(r, k, v, logw, u, p_starts, do, None,
+                                WKV_CHUNK)
+    calls = (wkv_k.LAUNCHES.forward - before[0],
+             wkv_k.LAUNCHES.backward - before[1])
+    torch.cuda.synchronize()
+    name = f"{tuple(shape[:4])} {dtype_name} logw {decay}"
+    dlogw_scale = max((p_grads[3].abs().max().item(),
+                       (r.float() * p_grads[0].float()).abs().max().item(),
+                       (k.float() * p_grads[1].float()).abs().max().item()))
+    errs, worst = {}, 0.0
+    for what, got, want in [("out", out, p_out), ("state", state, p_state),
+                            ("chunk states", starts, p_starts),
+                            *zip(("dr", "dk", "dv", "dlogw", "du"), grads,
+                                 p_grads)]:
+        finite = bool(torch.isfinite(got).all())
+        err = (got.float() - want.float()).abs().max().item()
+        ratio = wkv_held(got, want,
+                         dlogw_scale if what == "dlogw" else None)
+        errs[what] = dict(err=err, of_limit=ratio, finite=finite)
+        worst = max(worst, err)
+        if not (finite and ratio <= 1.0 and got.dtype == want.dtype):
+            log("wkv", f"FAIL {name} {what}: finite {finite}, max abs err "
+                f"{err:.3e}, {ratio:.2f} x its limit")
+            return None
+    if calls != (1, 1):
+        log("wkv", f"FAIL {name}: wrapper calls {calls}, expected one "
+            f"forward and one backward")
+        return None
+    big = s >= 1024
+    reps = 5 if big else 10
+    times = dict(
+        fwd_ms=cuda_ms(lambda: wkv_k.wkv_fwd_cuda(
+            r, k, v, logw, u, WKV_CHUNK, keep_states=True), flush, reps),
+        fwd_plain_ms=cuda_ms(lambda: ref.wkv_fwd_plain(
+            r, k, v, logw, u, WKV_CHUNK), flush, 2 if big else reps, 1),
+        bwd_ms=cuda_ms(lambda: wkv_k.wkv_bwd_cuda(
+            r, k, v, logw, u, p_starts, do, None, WKV_CHUNK), flush, reps),
+        bwd_plain_ms=cuda_ms(lambda: ref.wkv_bwd_plain(
+            r, k, v, logw, u, p_starts, do, None, WKV_CHUNK), flush,
+            2 if big else reps, 1))
+    # the chunked form over full L x L tiles: forward A and A v (2 L^2 N
+    # FLOPs each), (r e^cwe) S and (k e^{cw_L - cw})^T v (2 L N^2 each);
+    # the backward recomputes A and adds dA, A^T dO and the pairwise dr and
+    # dk (5 x 2 L^2 N) and four N-wide products (4 x 2 L N^2); each input
+    # read once, each output written once (the forward keeps its
+    # chunk-start states, as in training; the backward reads them)
+    L, nc = WKV_CHUNK, -(-s // WKV_CHUNK)
+    tiles = b * h * nc
+    flops_f = tiles * (4.0 * L * L * n + 4.0 * L * n * n)
+    flops_b = tiles * (10.0 * L * L * n + 8.0 * L * n * n)
+    peak = BF16_PEAK if r.dtype == torch.bfloat16 else F32_PEAK
+    esz, elems = r.element_size(), b * s * h * n
+    states = 4 * tiles * n * n
+    bytes_f = (3 * esz + 4 + 4) * elems + 4 * h * n + 4 * b * h * n * n \
+        + states
+    bytes_b = (3 * esz + 4 + 4) * elems + 4 * h * n + states \
+        + (3 * esz + 4) * elems + 4 * h * n
+    t_ops = (flops_f + flops_b) / peak * 1e3
+    t_bytes = (bytes_f + bytes_b) / HBM_BW * 1e3
+    row = dict(shape=list(shape[:4]), dtype=dtype_name, logw=decay,
+               chunk=WKV_CHUNK, max_abs_err=worst, errors=errs,
+               exps_fwd=tiles * L * L * n, exps_bwd=3 * tiles * L * L * n,
+               fwd_bound_ms=max(flops_f / peak, bytes_f / HBM_BW) * 1e3,
+               bwd_bound_ms=max(flops_b / peak, bytes_b / HBM_BW) * 1e3,
+               fwd_bound_by="operations" if flops_f / peak > bytes_f / HBM_BW
+               else "bytes",
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               fwd_gflop=flops_f / 1e9, bwd_gflop=flops_b / 1e9,
+               fwd_mb=bytes_f / 1e6, bwd_mb=bytes_b / 1e6, **times)
+    log("wkv", f"{name}: kernel == plain within limits, all finite (" +
+        ", ".join(f"{w} {e['err']:.1e} = {e['of_limit']:.2f} x limit"
+                  for w, e in errs.items()) + ")")
+    log("wkv", f"  forward: kernel {times['fwd_ms']:.4f} ms  plain "
+        f"{times['fwd_plain_ms']:.4f} ms  bound {row['fwd_bound_ms']:.4f} ms "
+        f"({row['fwd_mb']:.1f} MB, {row['fwd_gflop']:.2f} GFLOP, "
+        f"{row['exps_fwd']:.3g} exp); 1 launch; cold L2")
+    log("wkv", f"  backward: kernel {times['bwd_ms']:.4f} ms  plain "
+        f"{times['bwd_plain_ms']:.4f} ms  bound {row['bwd_bound_ms']:.4f} ms "
+        f"({row['bwd_mb']:.1f} MB, {row['bwd_gflop']:.2f} GFLOP, "
+        f"{row['exps_bwd']:.3g} exp); 1 launch; cold L2")
+    return row
+
+
+def rwkv_card_vs_cpu(cfg, wkv_k):
+    """Full-width rwkv6-3b cut to 2 layers, fp32, on the card and on the
+    CPU from the same parameters: prefill logits of a 2 x 16 prompt (no
+    decode state: the WKV kernel on the card), then the prompt fed token
+    by token through decode_step (wkv_step) and 4 greedy steps, each
+    step's logits within 2e-3 x max|logit| (phase 6's limit), and the
+    card's prefill within it of the card's decode at the last prompt
+    token.  None on a mismatch."""
+    from repro_torch.models import build_model
+    from repro_torch.runtime import synthetic_trace
+    from repro_torch.tree import tree_map
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    p_gpu = build_model(cfg2, "cuda").init(0)
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+    prompt = torch.as_tensor(synthetic_trace(
+        1, prompt_len=16, max_new=1, vocab_size=cfg.vocab_size,
+        arrival="all", seed=2)[0].prompt, dtype=torch.int64)
+    prompts = torch.stack([prompt, prompt.flip(0)])
+    logits, fwd_calls = {}, 0
+    for where, p_dev in (("cuda", p_gpu), ("cpu", p_cpu)):
+        model = build_model(cfg2, where)
+        before = wkv_k.LAUNCHES.forward
+        pre = model.prefill(p_dev, {"tokens": prompts.to(where)})[:, -1]
+        if where == "cuda":
+            fwd_calls = wkv_k.LAUNCHES.forward - before
+        st = model.init_decode_state(2, 32, per_slot=True)
+        for i in range(prompts.shape[1]):
+            out, st = model.decode_step(
+                p_dev, st, {"tokens": prompts[:, i:i + 1].to(where)})
+        steps = [out[:, -1]]
+        for _ in range(4):
+            tok = steps[-1].argmax(-1)[:, None]
+            out, st = model.decode_step(p_dev, st, {"tokens": tok})
+            steps.append(out[:, -1])
+        logits[where] = [t.float().cpu() for t in [pre] + steps]
+    worst = 0.0
+    pairs = list(zip(logits["cuda"], logits["cpu"])) + [
+        (logits["cuda"][0], logits["cuda"][1])]
+    for i, (lg, lc) in enumerate(pairs):
+        top = lc.abs().max().item()
+        err = (lg - lc).abs().max().item()
+        worst = max(worst, err / top)
+        if not err <= 2e-3 * top:
+            log("rwkv-card-vs-cpu", f"FAIL comparison {i}: logits err "
+                f"{err:.3e} > {2e-3 * top:.3e}")
+            return None
+    if fwd_calls != cfg2.n_layers:
+        log("rwkv-card-vs-cpu", f"FAIL: the card's prefill made {fwd_calls} "
+            f"WKV kernel calls, expected one per layer")
+        return None
+    log("rwkv-card-vs-cpu", f"rwkv6-3b full width, 2 layers, fp32: prefill "
+        f"2x16 (WKV kernel, {fwd_calls} calls) and 16 + 4 decode steps "
+        f"(wkv_step), card against CPU and the card's prefill against its "
+        f"decode: logits agree, max err {worst:.2e} x max|logit| (limit "
+        f"2e-3)")
+    return dict(rel_err=worst, wkv_forward_calls=fwd_calls)
+
+
+def rwkv_serve(cfg, mm_launches, wkv_k):
+    """Runtime.serve of full-width, full-depth rwkv6-3b in bf16 (random
+    weights, seed 0), static and continuous: identical tokens, the matmul
+    kernel launched, no WKV kernel (serving decodes through wkv_step);
+    tok/s, host syncs per token and one profiled decode step.  None on a
+    failure."""
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Runtime, synthetic_trace
+
+    rt = Runtime(device="cuda")
+    model = build_model(cfg, rt.device)
+    params = model.init(0)
+    trace = lambda: synthetic_trace(  # noqa: E731
+        REQUESTS, prompt_len=PROMPT, max_new=MAX_NEW,
+        vocab_size=cfg.vocab_size, arrival="all", seed=0)
+    torch.cuda.synchronize()
+    mm_launches.reset()
+    wkv_k.LAUNCHES.reset()
+    static = rt.serve(cfg, trace(), mode="static", model=model,
+                      params=params, slots=SLOTS, eos_id=-1)
+    cont = rt.serve(cfg, trace(), mode="continuous", model=model,
+                    params=params, slots=SLOTS, eos_id=-1)
+    torch.cuda.synchronize()
+    launches, wkv_calls = mm_launches.count, wkv_k.LAUNCHES.forward
+    same = all((static.outputs[r] == cont.outputs[r]).all()
+               for r in static.outputs)
+    ntok = sum(len(v) for v in cont.outputs.values())
+    log("rwkv-serve", f"rwkv6-3b full width ({cfg.n_layers} layers) bf16, "
+        f"{REQUESTS} requests x {PROMPT}+{MAX_NEW} tokens, {SLOTS} slots: "
+        f"static {static.tok_per_s:.2f} tok/s, continuous "
+        f"{cont.tok_per_s:.2f} tok/s, host_syncs_per_token "
+        f"{cont.report.host_syncs_per_token:.4f} ({cont.report.host_syncs} "
+        f"syncs, {cont.report.device_dispatches} dispatches, {ntok} tokens)")
+    log("rwkv-serve", f"static == continuous tokens: {same}; matmul kernel "
+        f"launches during serving: {launches}; WKV kernel calls: "
+        f"{wkv_calls}")
+    if not same or launches <= 0 or wkv_calls != 0 or ntok !=             REQUESTS * MAX_NEW:
+        return None
+    state = model.init_decode_state(SLOTS, PROMPT + MAX_NEW, per_slot=True)
+    feed = {"tokens": torch.ones((SLOTS, 1), dtype=torch.int64,
+                                 device="cuda")}
+    mm_launches.reset()
+    model.decode_step(params, state, feed)
+    per_step = mm_launches.count
+    log("rwkv-serve", f"matmul kernel launches per decode step: {per_step}")
+    prof = profile_decode_step(model, params, state, feed)
+    return dict(static_tok_per_s=static.tok_per_s,
+                continuous_tok_per_s=cont.tok_per_s,
+                static_wall_s=static.wall_s, continuous_wall_s=cont.wall_s,
+                host_syncs=cont.report.host_syncs,
+                device_dispatches=cont.report.device_dispatches,
+                host_syncs_per_token=cont.report.host_syncs_per_token,
+                generated_tokens=ntok, launches=launches,
+                launches_per_decode_step=per_step, tokens_identical=same,
+                decode_step_profile=prof)
+
+
+def rwkv_train_phase(cfg, wkv_k, mm_launches):
+    """Runtime.train of full-width, full-depth rwkv6-3b (random weights,
+    bf16) for TRAIN_STEPS steps at TRAIN_BATCH x TRAIN_SEQ without a
+    checkpoint (it would write ~37 GB): every loss finite, the kernels'
+    calls per step (WKV: a forward per layer and per recomputation, a
+    backward per layer), step wall, tokens/s and peak memory; then one more
+    step timed and one profiled (device busy share, device ms by kernel).
+    None on a failure."""
+    import re
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Runtime
+    from repro_torch.training import TrainLoopConfig, make_train_step
+
+    rt = Runtime(device="cuda")
+    lines, plans = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mm_launches.reset()
+    wkv_k.LAUNCHES.reset()
+    res = rt.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                   seed=0, log_every=1, log=lines.append,
+                   on_plan=plans.append)
+    torch.cuda.synchronize()
+    counts = dict(matmul=mm_launches.count, wkv_forward=wkv_k.LAUNCHES.forward,
+                  wkv_backward=wkv_k.LAUNCHES.backward)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = [dict(step=int(m.group(1)), loss=float(m.group(2)),
+                  ms=float(m.group(3))) for m in
+             (re.match(r"step\s+(\d+) loss (\S+) .* (\d+)ms$", x)
+              for x in lines) if m]
+    for line in lines:
+        log("rwkv-train", line)
+    for line in plans[0].summary().splitlines():
+        log("rwkv-train", "plan " + line.strip())
+    per_step = {k: v // TRAIN_STEPS for k, v in counts.items()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = [x["ms"] for x in steps[1:]]
+    tok_s = tokens * len(steady) / (sum(steady) / 1e3) if steady else 0.0
+    log("rwkv-train", f"rwkv6-3b full width ({cfg.n_layers} layers) bf16, "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: {res.steps_run} steps in "
+        f"{res.wall_s:.2f} s, final loss {res.final_loss:.4f}, diverged "
+        f"{res.diverged}; {tok_s:.1f} tokens/s over steps 1-"
+        f"{TRAIN_STEPS - 1}; peak memory {peak_gb:.2f} GB; launches per "
+        f"step {per_step}")
+    ok = (res.steps_run == TRAIN_STEPS and not res.diverged
+          and math.isfinite(res.final_loss) and len(steps) == TRAIN_STEPS
+          and all(math.isfinite(x["loss"]) for x in steps)
+          and counts["matmul"] > 0
+          and per_step["wkv_forward"] == 2 * cfg.n_layers
+          and per_step["wkv_backward"] == cfg.n_layers
+          and all(v % TRAIN_STEPS == 0 for v in counts.values()))
+    if not ok:
+        log("rwkv-train", "FAIL: a step was not finite, the run stopped "
+            "early, or the WKV kernels did not run once forward per layer "
+            "and recomputation and once backward per layer")
+        return None
+
+    # one more step timed, and one profiled, from the trained state, each
+    # written into it as Runtime.train's steps are
+    model = build_model(cfg, "cuda")
+    step_fn = make_train_step(model, TrainLoopConfig(
+        warmup_steps=max(TRAIN_STEPS // 20, 1), total_steps=TRAIN_STEPS),
+        donate=True)
+    batch = SyntheticLMData(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                            seed=0, device="cuda").batch_at(TRAIN_STEPS)
+    state = res.state
+    del res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    extra_loss = float(metrics["loss"])
+    wall = (time.perf_counter() - t0) * 1e3
+    del metrics
+    by_name, events = device_ms_by_kernel(lambda: step_fn(state, batch))
+    device_ms = sum(by_name.values())
+    groups = {"matmul": "matmul_kernel", "wkv forward": "wkv_fwd",
+              "wkv backward": "wkv_bwd"}
+    split = {g: sum(v for k, v in by_name.items() if key in k)
+             for g, key in groups.items()}
+    split["other"] = device_ms - sum(split.values())
+    if events == 0:
+        log("rwkv-train", f"one more step: wall {wall:.1f} ms, loss "
+            f"{extra_loss:.4f}; device time not measured (the profiler saw "
+            f"no kernels)")
+    else:
+        log("rwkv-train", f"one more step: wall {wall:.1f} ms, loss "
+            f"{extra_loss:.4f}; profiled: {events} device events, device "
+            f"busy {device_ms:.1f} ms ({100 * device_ms / wall:.1f}% of the "
+            f"timed step); " + ", ".join(f"{g} {v:.1f} ms"
+                                         for g, v in split.items()))
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log("rwkv-train", f"  {ms:9.2f} ms  {name[:90]}")
+    if not math.isfinite(extra_loss):
+        return None
+    plan = plans[0]
+    return dict(steps=steps, final_loss=steps[-1]["loss"], tok_per_s=tok_s,
+                peak_memory_gb=peak_gb, launches_per_step=per_step,
+                wkv_calls_per_step=per_step["wkv_forward"]
+                + per_step["wkv_backward"],
+                plan=dict(decisions=[dataclasses.asdict(d)
+                                     for d in plan.decisions],
+                          rnn_chunk=plan.rnn_chunk, fits_hbm=plan.fits_hbm,
+                          hbm_per_chip=plan.hbm_per_chip),
+                extra_step_ms=wall, extra_step_loss=extra_loss,
+                profile=dict(events=events, device_ms=device_ms,
+                             wall_ms=wall, by_group=split,
+                             top=sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:12]))
 
 
 if __name__ == "__main__":

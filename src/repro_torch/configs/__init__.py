@@ -1,6 +1,8 @@
-"""Model configurations of the port (tinyllama-1.1b) and input shapes."""
+"""Model configurations of the port (tinyllama-1.1b, rwkv6-3b) and input
+shapes."""
 
-from repro_torch.configs import tinyllama_1_1b  # noqa: F401  (registers)
+# importing each config module registers it
+from repro_torch.configs import rwkv6_3b, tinyllama_1_1b  # noqa: F401
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     ShapeSpec,

@@ -11,7 +11,8 @@ package never imports jax), and returns the port's parameter dict on
 
 Layouts change where the port keeps a projection as one (in, out) matrix:
 ``wq`` (d, Hq, hd) becomes (d, Hq*hd), ``wk``/``wv`` likewise, and ``wo``
-(Hq, hd, d) or (Hq*hd, d) becomes (Hq*hd, d).  Values are unchanged.
+(Hq, hd, d) or (Hq*hd, d) becomes (Hq*hd, d).  An rwkv layer's ``time``
+and ``channel`` leaves keep their shapes.  Values are unchanged.
 """
 
 from __future__ import annotations
@@ -39,16 +40,42 @@ def _layer_slice(tree: Any, i: int) -> Any:
     return np.asarray(tree)[i]
 
 
+# rwkv leaves in the port's init order; the decay LoRA, the bonus and the
+# group-norm scale stay fp32, as the reference keeps them
+_TIME_KEYS = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "w_r", "w_k", "w_v",
+              "w_g", "w_o", "decay_w0", "decay_w1", "decay_w2", "bonus_u",
+              "ln_x_scale")
+_CHANNEL_KEYS = ("mu_k", "mu_r", "w_k", "w_v", "w_r")
+_FP32_KEYS = ("decay_w0", "decay_w1", "decay_w2", "bonus_u", "ln_x_scale")
+
+
+def _named_tensors(tree: Dict[str, Any], keys, device,
+            wdtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    return {k: _tensor(tree[k], device,
+                       torch.float32 if k in _FP32_KEYS else wdtype)
+            for k in keys}
+
+
 def _layer(lp: Dict[str, Any], cfg: ModelConfig, device,
            wdtype: torch.dtype) -> Dict[str, Any]:
+    norms = {
+        "ln1": {"scale": _tensor(lp["ln1"]["scale"], device, torch.float32)},
+        "ln2": {"scale": _tensor(lp["ln2"]["scale"], device, torch.float32)},
+    }
+    if "time" in lp and "channel" in lp:
+        return {**norms,
+                "time": _named_tensors(lp["time"], _TIME_KEYS, device,
+                                       wdtype),
+                "channel": _named_tensors(lp["channel"], _CHANNEL_KEYS,
+                                          device, wdtype)}
     if "attn" not in lp or "ffn" not in lp or "router" in lp["ffn"]:
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention + dense FFN layers are ported")
+            f"{cfg.name}: only dense attention + dense FFN and rwkv layers "
+            f"are ported")
     d = cfg.d_model
     attn = lp["attn"]
     return {
-        "ln1": {"scale": _tensor(lp["ln1"]["scale"], device, torch.float32)},
-        "ln2": {"scale": _tensor(lp["ln2"]["scale"], device, torch.float32)},
+        **norms,
         "attn": {
             "wq": _tensor(np.reshape(attn["wq"], (d, -1)), device, wdtype),
             "wk": _tensor(np.reshape(attn["wk"], (d, -1)), device, wdtype),

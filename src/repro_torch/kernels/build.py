@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("matmul", "bitonic_sort", "flash_attention")
+SOURCES = ("matmul", "bitonic_sort", "flash_attention", "wkv")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
 _loaded: Dict[str, ctypes.CDLL] = {}

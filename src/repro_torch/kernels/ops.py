@@ -11,7 +11,8 @@ whenever an operand needs a gradient: its backward recomputes the product
 without the epilogue, applies the activation's derivative elementwise and
 takes both operand gradients as two more products on the matmul kernel.
 ``flash_attention`` always goes through ``FlashAttentionFn``, whose
-backward is the flash backward kernels.
+backward is the flash backward kernels, and ``wkv``, where an input needs a
+gradient, through ``WkvFn``, whose backward is the WKV backward kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +25,13 @@ import torch
 from repro_torch.kernels.bitonic_sort import bitonic_sort_cuda
 from repro_torch.kernels.flash_attention import FlashAttentionFn, check_shapes
 from repro_torch.kernels.matmul import EPILOGUE_ACTIVATIONS, matmul_cuda
-from repro_torch.kernels.ref import bitonic_sort_ref, matmul_fused_ref
+from repro_torch.kernels.ref import (
+    bitonic_sort_ref,
+    matmul_fused_ref,
+    wkv_fwd_plain,
+)
+from repro_torch.kernels.wkv import WkvFn, wkv_fwd_cuda
+from repro_torch.kernels.wkv import check_shapes as wkv_check_shapes
 
 _GELU_C = math.sqrt(2.0 / math.pi)
 
@@ -123,6 +130,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference's oracle bottom-right, which agree only there."""
     check_shapes(q, k, v, causal)
     return FlashAttentionFn.apply(q, k, v, causal, None)
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64):
+    """Chunked WKV6 from a zero state (the reference's ``ops.wkv``, which
+    takes no carried state either): r, k, v, logw (B, S, H, N), logw <= 0,
+    u (H, N).  Returns (out (B, S, H, N) fp32, final state (B, H, N, N)
+    fp32).  On CUDA tensors the WKV kernel runs, and where an input needs a
+    gradient the call goes through ``WkvFn``, whose forward keeps the
+    chunk-start states for its backward kernel; CPU tensors take the
+    plain versions."""
+    wkv_check_shapes(r, k, v, logw, u)
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (r, k, v, logw, u))
+    if needs_grad:
+        return WkvFn.apply(r, k, v, logw, u, chunk)
+    fwd = wkv_fwd_plain if r.device.type == "cpu" else wkv_fwd_cuda
+    out, state, _ = fwd(r, k, v, logw, u, chunk)
+    return out, state
 
 
 def _sort_npad(n: int) -> int:

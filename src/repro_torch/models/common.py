@@ -94,12 +94,14 @@ def is_glu(name: str) -> bool:
 
 
 def project(x: torch.Tensor, w: torch.Tensor,
-            activation: Optional[str] = None) -> torch.Tensor:
+            activation: Optional[str] = None,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``activation(x @ w)`` over the last axis of ``x``, through the matmul
-    kernel (its plain version for CPU tensors)."""
+    kernel (its plain version for CPU tensors), in ``out_dtype`` (default
+    ``x.dtype``)."""
     lead = x.shape[:-1]
     out = ops.matmul(x.reshape(-1, x.shape[-1]).contiguous(), w,
-                     activation=activation)
+                     activation=activation, out_dtype=out_dtype)
     return out.reshape(lead + (w.shape[-1],))
 
 

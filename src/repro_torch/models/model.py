@@ -3,12 +3,14 @@ serving path, with the reference package's functional interface.
 
 Batch conventions: ``{"tokens": (B, S) int64}``.  Parameters are a dict
 ``{"embed", "layers": [per-layer dict, ...], "final_norm", "unembed"}``;
-the decode state is ``{"layers": [{"k", "v"}, ...], "pos"}`` with every
-per-slot leaf's slot axis first.  ``loss`` is the training objective:
+the decode state is ``{"layers": [per-layer tree, ...], "pos"}`` — a
+layer's tree is ``{"k", "v"}`` for attention and ``{"time": {"S",
+"shift"}, "channel": {"shift"}}`` for rwkv — with every per-slot leaf's
+slot axis first.  ``loss`` is the training objective:
 next-token cross-entropy plus the weighted auxiliary and z losses, through
 ``xent_auto`` (direct up to 2048 positions, chunked and recomputed above).
 The port has the dense decoder-only family (full attention, RoPE, dense
-GLU FFN); the others raise ``NotImplementedError``.
+GLU FFN) and the rwkv6 family; the others raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.models.common import (
     rmsnorm_init,
     unembed,
 )
+from repro_torch.tree import leaves, tree_map
 
 
 AUX_LOSS_WEIGHT = 0.01
@@ -53,9 +56,9 @@ class Model:
             unported.append("encoder-decoder")
         if cfg.is_moe:
             unported.append("mixture of experts")
-        if any(k != "attn" for k in cfg.block_pattern):
+        if any(k not in ("attn", "rwkv") for k in cfg.block_pattern):
             unported.append(f"block pattern {cfg.block_pattern}")
-        if cfg.pos_type != "rope":
+        if cfg.pos_type not in ("rope", "none"):
             unported.append(f"pos_type {cfg.pos_type!r}")
         if cfg.frontend != "none":
             unported.append(f"frontend {cfg.frontend!r}")
@@ -174,32 +177,33 @@ class Model:
 
     def reset_decode_slots(self, state, slot_mask) -> dict:
         """Zero, in place, the decode state of every slot where the host
-        mask ``slot_mask`` is True (per-slot state only)."""
+        mask ``slot_mask`` is True (per-slot state only), every leaf of
+        every layer's tree on its slot axis (0)."""
         for slot in np.flatnonzero(np.asarray(slot_mask, bool)):
-            for layer in state["layers"]:
-                for leaf in layer.values():
-                    leaf[int(slot)].zero_()
+            for leaf in leaves(state["layers"]):
+                leaf[int(slot)].zero_()
             state["pos"][int(slot)] = 0
         return state
 
     def insert_decode_slot(self, state, src, slot: int) -> dict:
         """Copy, in place, the single slot of ``src`` (batch 1, per-slot)
-        into slot ``slot`` of a pooled state."""
-        for dst_layer, src_layer in zip(state["layers"], src["layers"]):
-            for key, leaf in dst_layer.items():
-                leaf[slot].copy_(src_layer[key][0])
+        into slot ``slot`` of a pooled state, leaf by leaf."""
+        for dst, one in zip(leaves(state["layers"]), leaves(src["layers"])):
+            dst[slot].copy_(one[0])
         state["pos"][slot] = src["pos"][0]
         return state
 
     def merge_decode_state(self, new_state, old_state, active) -> dict:
-        """Per-slot select: slots where the device mask ``active`` is True
-        take the stepped state, the rest stay exactly frozen (positions and
-        caches)."""
-        keep = active.reshape(-1, 1, 1, 1)
-        layers = [{key: torch.where(keep, new[key], old[key]) for key in new}
-                  for new, old in zip(new_state["layers"],
-                                      old_state["layers"])]
-        return {"layers": layers,
+        """Per-slot select: slots where the device mask ``active`` (B,) is
+        True take the stepped state, the rest stay exactly frozen
+        (positions, caches and recurrent state).  The mask is shaped to
+        each leaf's rank, slot axis first."""
+        def select(new, old):
+            keep = active.reshape((-1,) + (1,) * (new.dim() - 1))
+            return torch.where(keep, new, old)
+
+        return {"layers": tree_map(select, new_state["layers"],
+                                   old_state["layers"]),
                 "pos": torch.where(active, new_state["pos"],
                                    old_state["pos"])}
 

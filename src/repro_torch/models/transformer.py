@@ -2,8 +2,9 @@
 applied in a loop (the reference scans stacked parameters; the port's
 ``convert.params_from_jax`` unstacks them).  Without a decode state each
 layer is recomputed in the backward pass (``remat``), as the reference
-wraps its scan body in ``jax.checkpoint``.  The port has the
-full-attention layer kind; the other kinds raise ``NotImplementedError``.
+wraps its scan body in ``jax.checkpoint``.  The port has the full-attention
+and the rwkv layer kinds; the others raise ``NotImplementedError``.  Every
+kind exposes the same (x, state) -> (x, state, aux) interface.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.common import (
     apply_rope,
     dense_init,
@@ -51,15 +53,20 @@ def _attn_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                dtype) -> Dict[str, Any]:
-    if kind != "attn" or cfg.is_moe:
+    p: Dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, gen.device),
+                         "ln2": rmsnorm_init(cfg.d_model, gen.device)}
+    if kind == "attn" and not cfg.is_moe:
+        p["attn"] = _attn_init(gen, cfg, dtype)
+        p["ffn"] = ffn_lib.ffn_init(gen, cfg.d_model, cfg.d_ff,
+                                    cfg.activation, dtype)
+    elif kind == "rwkv":
+        p["time"] = rwkv_lib.rwkv_time_mix_init(gen, cfg.d_model,
+                                                cfg.rnn_head_dim, dtype)
+        p["channel"] = rwkv_lib.rwkv_channel_mix_init(gen, cfg.d_model,
+                                                      cfg.d_ff, dtype)
+    else:
         raise _unported("moe" if cfg.is_moe else kind)
-    return {
-        "ln1": rmsnorm_init(cfg.d_model, gen.device),
-        "ln2": rmsnorm_init(cfg.d_model, gen.device),
-        "attn": _attn_init(gen, cfg, dtype),
-        "ffn": ffn_lib.ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                                dtype),
-    }
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -75,8 +82,9 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, cache=None,
     q = project(x, params["wq"]).reshape(b, s, cfg.n_heads, hd)
     k = project(x, params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
     v = project(x, params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.pos_type == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     if cache is not None:
         kc, vc = attn_lib.update_kv_cache(cache["k"], cache["v"], k, v,
                                           cache_pos)
@@ -89,18 +97,33 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, cache=None,
 
 
 def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
-                state=None, cache_pos=None) -> Tuple[torch.Tensor, Any, float]:
-    """Pre-norm residual block.  Returns (x, new_state, aux_loss); dense
-    layers have no auxiliary loss, so it is the float 0.0 (no launch)."""
-    if kind != "attn":
+                state=None, cache_pos=None,
+                rnn_chunk: int = 64) -> Tuple[torch.Tensor, Any, float]:
+    """Pre-norm residual block: norm, mixer (attention or the rwkv time
+    mix), residual; norm, FFN (or the rwkv channel mix), residual.  Returns
+    (x, new_state, aux_loss); these layers have no auxiliary loss, so it is
+    the float 0.0 (no launch).  ``rnn_chunk`` is the WKV chunk length (the
+    reference's ``ctx.rnn_chunk``, 64 without a context)."""
+    if kind not in ("attn", "rwkv"):
         raise _unported(kind)
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    out, new_state = _attn_apply(params["attn"], cfg, h, positions,
-                                 cache=state, cache_pos=cache_pos)
+    if kind == "attn":
+        out, new_state = _attn_apply(params["attn"], cfg, h, positions,
+                                     cache=state, cache_pos=cache_pos)
+    else:
+        out, new_time = rwkv_lib.rwkv_time_mix(
+            params["time"], h, cfg.rnn_head_dim,
+            state["time"] if state is not None else None, chunk=rnn_chunk)
     x = x + out
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    x = x + ffn_lib.ffn_apply(params["ffn"], h2, cfg.activation)
-    return x, new_state, 0.0
+    if kind == "attn":
+        return x + ffn_lib.ffn_apply(params["ffn"], h2, cfg.activation), \
+            new_state, 0.0
+    out2, new_channel = rwkv_lib.rwkv_channel_mix(
+        params["channel"], h2, state["channel"] if state is not None else None)
+    new_state = {"time": new_time, "channel": new_channel} \
+        if state is not None else None
+    return x + out2, new_state, 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +132,13 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
 
 
 def layer_init_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype, device) -> Dict[str, torch.Tensor]:
+                     dtype, device) -> Dict[str, Any]:
+    """A layer's decode state, slot axis first on every leaf: the KV cache
+    {"k", "v"} (B, max_len, Hkv, hd), or the rwkv state {"time": {"S",
+    "shift"}, "channel": {"shift"}}."""
+    if kind == "rwkv":
+        return rwkv_lib.rwkv_init_state(batch, cfg.d_model, cfg.rnn_head_dim,
+                                        dtype, device)
     if kind != "attn":
         raise _unported(kind)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -138,7 +167,7 @@ def stack_init_state(cfg: ModelConfig, batch: int, max_len: int,
 
 def stack_apply(layers: List[dict], cfg: ModelConfig, x, positions, *,
                 states: Optional[List[dict]] = None, cache_pos=None,
-                remat: bool = True):
+                remat: bool = True, rnn_chunk: int = 64):
     """Run all layers.  Returns (x, new_states, aux_total).
 
     With ``remat`` and no decode state, each layer keeps only its input for
@@ -151,11 +180,12 @@ def stack_apply(layers: List[dict], cfg: ModelConfig, x, positions, *,
         kind = cfg.block_kind(i)
         if remat and not decode:
             x, _, aux = checkpoint(layer_apply, lp, cfg, kind, x, positions,
-                                   use_reentrant=False)
+                                   rnn_chunk=rnn_chunk, use_reentrant=False)
         else:
             x, new_st, aux = layer_apply(
                 lp, cfg, kind, x, positions,
-                state=states[i] if decode else None, cache_pos=cache_pos)
+                state=states[i] if decode else None, cache_pos=cache_pos,
+                rnn_chunk=rnn_chunk)
             if decode:
                 new_states.append(new_st)
         aux_total = aux_total + aux

@@ -5,6 +5,12 @@ any dtype, and the update is computed in fp32 and cast once to the
 parameter's dtype (bf16 at full width), as the reference does.  Every step
 quantity (count, bias corrections, the clip scale) stays a device tensor:
 nothing here calls ``.item()``.
+
+The update runs leaf by leaf, clipping included, so besides the state it
+holds one leaf's new values at a time.  It is functional by default;
+``inplace=True`` copies each leaf's new values into the tensors passed in
+(the port's stand-in for donating their buffers to the step), the same
+values bit for bit, without a second copy of parameters and moments.
 """
 
 from __future__ import annotations
@@ -40,13 +46,22 @@ def adamw_init(params) -> dict:
                                  device=_device(params))}
 
 
+def _global_norm_scale(grads, max_norm: float):
+    """(the global fp32 norm of ``grads``, ``min(1, max_norm / norm)``)."""
+    sq = [torch.sum(g.float() * g.float()) for g in leaves(grads)]
+    gn = torch.sqrt(sum(sq[1:], sq[0]))
+    return gn, torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+
+
+def _clipped(g, scale):
+    return (g.float() * scale).to(g.dtype)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """Scale every gradient by ``min(1, max_norm / ||grads||)``, the norm
     over all leaves in fp32.  Returns (clipped grads, the norm)."""
-    sq = [torch.sum(g.float() * g.float()) for g in leaves(grads)]
-    gn = torch.sqrt(sum(sq[1:], sq[0]))
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+    gn, scale = _global_norm_scale(grads, max_norm)
+    return tree_map(lambda g: _clipped(g, scale), grads), gn
 
 
 def _decay_mask(path: str) -> bool:
@@ -57,10 +72,12 @@ def _decay_mask(path: str) -> bool:
 
 
 def adamw_update(params, grads, state, cfg: AdamWConfig,
-                 lr: Optional[torch.Tensor] = None):
-    """Returns (new_params, new_state, {"grad_norm"}); the inputs are left
-    as they were."""
-    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+                 lr: Optional[torch.Tensor] = None, inplace: bool = False):
+    """Returns (new_params, new_state, {"grad_norm"}), the gradients clipped
+    by their global norm first.  The inputs are left as they were, unless
+    ``inplace``: then the new values are copied into ``params`` and the
+    moments of ``state``, whose tensors the results are."""
+    gn, scale = _global_norm_scale(grads, cfg.grad_clip)
     count = state["count"] + 1
     lr_t = cfg.lr if lr is None else lr
     cf = count.to(torch.float32)
@@ -68,13 +85,16 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
     b2c = 1.0 - cfg.b2 ** cf
 
     def upd(path, p, g, mu, nu):
-        g32 = g.float()
-        mu = cfg.b1 * mu + (1 - cfg.b1) * g32
-        nu = cfg.b2 * nu + (1 - cfg.b2) * (g32 * g32)
-        step = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
+        g32 = _clipped(g, scale).float()
+        new_mu = cfg.b1 * mu + (1 - cfg.b1) * g32
+        new_nu = cfg.b2 * nu + (1 - cfg.b2) * (g32 * g32)
+        step = (new_mu / b1c) / (torch.sqrt(new_nu / b2c) + cfg.eps)
         if cfg.weight_decay and _decay_mask(path):
             step = step + cfg.weight_decay * p.float()
-        return (p.float() - lr_t * step).to(p.dtype), mu, nu
+        new_p = (p.float() - lr_t * step).to(p.dtype)
+        if inplace:
+            return p.copy_(new_p), mu.copy_(new_mu), nu.copy_(new_nu)
+        return new_p, new_mu, new_nu
 
     new_params, mu, nu = tree_unzip(upd, 3, params, grads, state["mu"],
                                     state["nu"])

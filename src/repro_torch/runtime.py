@@ -208,7 +208,12 @@ class Runtime:
         checkpoints (if ``ckpt_dir``) and returns with ``interrupted=True``
         (the hook launchers attach SIGTERM to).  ``on_plan`` sees the
         overhead plan before the first step.  The host waits for the
-        device once per step, on the loss.
+        device once per step, on the loss.  Each step writes its update
+        into the state it was given (``make_train_step(donate=True)``,
+        the same values as the functional update): the loop keeps only
+        the newest state, and the functional update's second copy of
+        parameters and moments (30.7 GB for rwkv6-3b) would take a
+        full-width step to the edge of an 80 GB card.
         """
         from repro_torch.checkpoint import latest_step, restore, save
         from repro_torch.configs.base import ShapeSpec
@@ -236,7 +241,7 @@ class Runtime:
                 start = int(state["step"])
                 log(f"resumed from step {start}")
 
-        step_fn = make_train_step(model, loop)
+        step_fn = make_train_step(model, loop, donate=True)
         t_start = time.time()
         loss = float("nan")
         for i in range(start, steps):

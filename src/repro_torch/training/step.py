@@ -75,11 +75,15 @@ def make_grad_fn(model: Model, *, remat: bool = True) -> Callable:
     return grad_fn
 
 
-def make_train_step(model: Model, loop: TrainLoopConfig) -> Callable:
+def make_train_step(model: Model, loop: TrainLoopConfig, *,
+                    donate: bool = False) -> Callable:
     """``step_fn(state, batch) -> (new_state, metrics)``; ``state`` is left
-    as it was.  Metrics: ``loss``, ``lr``, ``grad_norm`` and, without
-    microbatches, ``ce``/``aux``/``z`` (and ``wire_bytes_ratio`` with
-    compression), all on the device but the last."""
+    as it was, unless ``donate``: then the update is written into the
+    parameters and moments of ``state`` (``adamw_update(inplace=True)``,
+    the same values), which the caller hands over to the new state.
+    Metrics: ``loss``, ``lr``, ``grad_norm`` and, without microbatches,
+    ``ce``/``aux``/``z`` (and ``wire_bytes_ratio`` with compression), all
+    on the device but the last."""
     grad_fn = make_grad_fn(model)
 
     def step_fn(state, batch):
@@ -109,7 +113,8 @@ def make_train_step(model: Model, loop: TrainLoopConfig) -> Callable:
                            warmup_steps=loop.warmup_steps,
                            total_steps=loop.total_steps)
         new_params, new_opt, ometrics = adamw_update(
-            params, grads, state["opt"], loop.optimizer, lr=lr)
+            params, grads, state["opt"], loop.optimizer, lr=lr,
+            inplace=donate)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         if new_compress is not None:

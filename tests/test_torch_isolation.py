@@ -2,9 +2,14 @@
 agrees with the kernel's plain version on the card.
 
 * every ``repro_torch`` module imports without pulling in ``jax`` or
-  ``repro`` (checked in a fresh interpreter);
+  ``repro`` (checked in a fresh interpreter), the rwkv6 family's
+  (``models/rwkv.py``, ``kernels/wkv.py``, ``configs/rwkv6_3b.py``)
+  among them;
 * ``repro_torch.Runtime()`` with no device asks for the GPU and raises
   where there is none, naming the missing card, instead of falling back;
+* a tensor that is not on the CPU never takes a kernel's plain version:
+  the WKV entry points route a non-CPU tensor to the kernel, which
+  refuses anything but CUDA;
 * on a CUDA card (marked ``cuda``; skipped elsewhere), the matmul kernel
   matches its plain version at serving shapes: bf16 within 8e-3 x
   max|plain| (about one bf16 rounding), fp32 within 1e-5 x max|plain|,
@@ -43,8 +48,26 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, leaked = out.stdout.split(" ", 1)
-    assert int(count) >= 45
+    assert int(count) >= 50
     assert leaked.strip() == "[]"
+
+
+_IMPORT_RWKV = """
+import sys
+import repro_torch.configs.rwkv6_3b, repro_torch.kernels.wkv
+import repro_torch.models.rwkv
+from repro_torch.configs import get_config
+print(get_config("rwkv6-3b").n_layers, sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_rwkv_modules_import_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_RWKV], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(" ", 1) == ["32", "[]\n"]
 
 
 def test_runtime_without_device_needs_the_card():
@@ -102,6 +125,23 @@ def test_cuda_tensor_never_takes_the_plain_path():
     a = torch.ones((2, 3))
     with pytest.raises(ValueError, match="CUDA"):
         matmul_cuda(a, torch.ones((3, 4)))
+
+
+def test_wkv_off_the_cpu_never_takes_the_plain_path():
+    """``ops.wkv`` and ``WkvFn`` choose the plain version only for a tensor
+    on the CPU; any other device goes to the kernel's wrapper, which takes
+    CUDA tensors only (a ``meta`` tensor stands in for a card here)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv import LAUNCHES, WkvFn
+
+    x = torch.empty((1, 8, 2, 16), device="meta")
+    u = torch.empty((2, 16), device="meta")
+    before = (LAUNCHES.forward, LAUNCHES.backward)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.wkv(x, x, x, x, u)
+    with pytest.raises(ValueError, match="CUDA"):
+        WkvFn.apply(x.requires_grad_(True), x, x, x, u, 64)
+    assert (LAUNCHES.forward, LAUNCHES.backward) == before
 
 
 @pytest.mark.cuda

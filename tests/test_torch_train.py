@@ -191,6 +191,43 @@ def test_adamw_keeps_bf16_params_and_fp32_moments():
     assert torch.all(p["w"] == 1)  # the input is left as it was
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-3b"])
+def test_donated_step_equals_functional_step_bit_for_bit(arch, dtype):
+    """``make_train_step(donate=True)`` (what ``Runtime.train`` runs) writes
+    the update into the state it is given and gives the functional step's
+    values exactly: parameters, moments and metrics over three steps, the
+    first at lr 0 (warmup), bf16 parameters included."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    model = build_model(cfg, "cpu")
+    loop = TrainLoopConfig(optimizer=adamw.AdamWConfig(lr=1e-2),
+                           warmup_steps=1)
+    params = model.init(0)
+    fresh = lambda: {"params": tree_map(torch.clone, params),  # noqa: E731
+                     "opt": adamw.adamw_init(params),
+                     "step": torch.zeros((), dtype=torch.int32)}
+    functional, donated = fresh(), fresh()
+    donated_leaves = [t for _, t in leaves_with_paths(donated["params"])]
+    step_f = make_train_step(model, loop)
+    step_d = make_train_step(model, loop, donate=True)
+    data = SyntheticLMData(cfg, seq_len=16, global_batch=2, seed=3)
+    for i in range(3):
+        given = functional
+        before = tree_map(torch.clone, given)
+        functional, mf = step_f(given, data.batch_at(i))
+        donated, md = step_d(donated, data.batch_at(i))
+        _same(given, before, 0.0, "the functional step's input")
+        assert {k: float(v) for k, v in mf.items()} == \
+            {k: float(v) for k, v in md.items()}
+    _same(donated["params"], functional["params"], 0.0, "params")
+    _same(donated["opt"]["mu"], functional["opt"]["mu"], 0.0, "mu")
+    _same(donated["opt"]["nu"], functional["opt"]["nu"], 0.0, "nu")
+    assert int(donated["step"]) == int(functional["step"]) == 3
+    # the donated step updated the very tensors it was given
+    assert all(a is b for a, b in zip(
+        donated_leaves, [t for _, t in leaves_with_paths(donated["params"])]))
+
+
 @needs_reference
 @pytest.mark.parametrize("quantize", [True, False])
 def test_compress_gradients_matches_reference(quantize):

@@ -4,14 +4,18 @@
 
 Phases, one report line each (any failure exits non-zero):
   1. card + build: the card's name and power limit, torch/CUDA versions,
-     and the build of every kernel from csrc/ (seconds);
+     and the build of every kernel from csrc/ (seconds), with matmul.cu's
+     registers, spills and serialized-wgmma notices by path (ptxas -v);
   2. each kernel against its plain PyTorch version at the shapes the main
-     path gives it (tinyllama-1.1b serving, bf16), timed with CUDA events
-     with a cold L2 beside the plain version, one PyTorch library call and
-     the card's bound;
+     path gives it (tinyllama-1.1b serving, bf16), with the matmul path it
+     took, timed with CUDA events with a cold L2 beside the plain version,
+     one PyTorch library call and the card's bound; then the
+     batch-invariance gate: on every matmul path, row i of a product of M
+     rows equals that row multiplied alone, bit for bit;
   3. the paper's matmul domain: adaptive_matmul(use_kernel=True) at orders
-     1024, 4096 and 8192, with the CostEngine's decision; matmul_chain in
-     fp32 against a left-to-right torch.matmul product;
+     1024, 4096 and 8192 (path and TFLOP/s), with the CostEngine's
+     decision; matmul_chain in fp32 against a left-to-right torch.matmul
+     product;
   4. the paper's sort domain: the bitonic sort kernel, its plain version
      and torch.sort, exactly equal, at the paper's Table 3 sizes, the
      bench's, 2^26 fp32, 2^24 int32, (4096, 4096) and (8, 100), each timed
@@ -21,8 +25,10 @@ Phases, one report line each (any failure exits non-zero):
      count read), with the ledger's predicted and measured rows;
   5. serving: Runtime(device="cuda").serve of full-width tinyllama-1.1b
      (random weights, seed 0), static and continuous, token identity, the
-     kernel's launch count, tok/s, host syncs per token, ledger rows; one
-     decode step's matmul calls, captured and replayed through the kernel,
+     kernel's launch count (by path), tok/s, host syncs per token, ledger
+     rows; one decode step's matmul calls, each checked to run the path
+     its dtypes name, profiled (matmul device ms by path, no library GEMM
+     kernel), captured and replayed through the kernel,
      through the plain version and, where one torch.matmul computes the
      call, through it (held against each other, timed with
      torch.profiler), and one calibration of the hardware spec;
@@ -40,14 +46,16 @@ Phases, one report line each (any failure exits non-zero):
   9. train: every distinct matmul call (shapes, strides, dtypes,
      epilogue) of one full-width bf16 gradient at batch 2 x 2048, cut to
      1 layer, held against the plain version on its own operands (the
-     backward's transposed reads and bf16 x fp32 products among them);
+     backward's transposed reads and bf16 x fp32 products among them),
+     its path checked and timed beside torch.matmul (bf16 x bf16 only, a
+     yardstick);
      Runtime(device="cuda")
      .train of full-width tinyllama-1.1b (22 layers, bf16, random
      weights, seed 0) for 4 steps at batch 2 x 2048 with a checkpoint,
      every loss finite, the kernels' launches per step, tokens/s, peak
      memory, the plan; a 4-step run on one fixed batch whose loss must
      fall, with one step profiled (device busy share, device ms by
-     kernel);
+     kernel and matmul path, no library GEMM kernel);
  10. wkv: the WKV kernels, forward and backward (every gradient), against
      their plain versions at rwkv6-3b's training shape (2, 2048, 40, 64)
      with bf16 r/k/v and fp32 logw made as the time mix makes them, the
@@ -58,7 +66,8 @@ Phases, one report line each (any failure exits non-zero):
      (the WKV kernel) and token-by-token decode_step logits;
  12. rwkv serving: Runtime.serve of full-width, full-depth rwkv6-3b in bf16
      (random weights, seed 0), static and continuous, token identity,
-     tok/s, host syncs per token, the matmul kernel's launches;
+     tok/s, host syncs per token, the matmul kernel's launches by path,
+     one decode step's routing checked and profiled by path;
  13. rwkv train-parity: one make_train_step of full-width rwkv6-3b cut to
      2 layers, fp32, batch 2 x 256, card against CPU: the loss within 1e-4
      relative, all 47 gradients present and within 2e-3 x max|grad|;
@@ -66,7 +75,8 @@ Phases, one report line each (any failure exits non-zero):
      for 4 steps at batch 2 x 2048 (no checkpoint): every loss finite, the
      WKV kernels' calls per step (64 forward with the recomputation, 32
      backward), step wall, tokens/s, peak memory, and one profiled step
-     (device busy share, device ms by kernel).
+     (device busy share, device ms by kernel and matmul path, every
+     call's routing checked, no library GEMM kernel).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
 chiprun_out/chip_smoke.json.  Exits non-zero, printing no result, where
@@ -78,6 +88,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -176,6 +187,88 @@ def bound_terms(a, b, out_dtype) -> tuple:
     return flops / peak * 1e3, nbytes / HBM_BW * 1e3
 
 
+def rates(a, b, out_dtype, ms) -> tuple:
+    """(TFLOP/s, GB/s) of epilogue(a @ b) done in ``ms``: its FLOPs, and
+    each input read once plus the output written once."""
+    t_ops, t_bytes = bound_terms(a, b, out_dtype)
+    peak = BF16_PEAK if (a.dtype == b.dtype == torch.bfloat16) else F32_PEAK
+    return t_ops * peak / 1e3 / ms / 1e9, t_bytes * HBM_BW / 1e3 / ms / 1e6
+
+
+# the matmul kernel's device-side names, by path (matmul.cu); "matmul" in a
+# profile's groups is their sum
+MATMUL_KERNELS = {"matmul tensor_core": "matmul_wgmma_kernel",
+                  "matmul split": "matmul_wgmma_split_kernel",
+                  "matmul fma": "matmul_kernel"}
+# names of library GEMM kernels (cuBLAS, cuBLASLt, CUTLASS device GEMMs);
+# none may run on a main path
+LIBRARY_GEMM = re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.IGNORECASE)
+
+
+def group_device_ms(by_name, groups) -> dict:
+    """Device ms of a profile by group: each matmul path, the ``groups``
+    given ({label: kernel name part}), everything else, and the matmul
+    total."""
+    split = {g: sum(v for k, v in by_name.items() if key in k)
+             for g, key in {**MATMUL_KERNELS, **groups}.items()}
+    split["other"] = sum(by_name.values()) - sum(split.values())
+    split["matmul"] = sum(split[g] for g in MATMUL_KERNELS)
+    return split
+
+
+def library_gemms(phase, by_name) -> list:
+    """Names of library GEMM kernels in a main path's profile, logged."""
+    found = sorted(k for k in by_name if LIBRARY_GEMM.search(k))
+    if found:
+        log(phase, f"FAIL: library GEMM kernels on the main path: {found}")
+    return found
+
+
+def expected_path(a, b) -> str:
+    """The routing rule by dtypes, stated apart from the wrapper's."""
+    if a.dtype == b.dtype == torch.bfloat16:
+        return "tensor_core"
+    if a.dtype == b.dtype == torch.float32:
+        return "fma"
+    return "split"
+
+
+class RouteAudit:
+    """Inside the block every matmul kernel call (``ops.matmul_cuda``) is
+    checked: the path it launched, read off ``LAUNCHES.by_path``, against
+    the path its dtypes name.  ``counts`` tallies the calls by (a dtype, b
+    dtype, path); ``wrong`` lists the misrouted."""
+
+    def __init__(self, ops, mm):
+        self.ops, self.mm = ops, mm
+        self.counts, self.wrong = {}, []
+
+    def __enter__(self):
+        self.launch = self.ops.matmul_cuda
+
+        def audited(a, b, **kw):
+            before = dict(self.mm.LAUNCHES.by_path)
+            out = self.launch(a, b, **kw)
+            ran = [p for p, n in self.mm.LAUNCHES.by_path.items()
+                   if n != before[p]]
+            key = (f"{str(a.dtype)[6:]} x {str(b.dtype)[6:]} -> "
+                   f"{'+'.join(ran)}")
+            self.counts[key] = self.counts.get(key, 0) + 1
+            if ran != [expected_path(a, b)]:
+                self.wrong.append(key)
+            return out
+
+        self.ops.matmul_cuda = audited
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.matmul_cuda = self.launch
+
+    def report(self, phase) -> bool:
+        log(phase, f"routing: {self.counts}; misrouted {len(self.wrong)}")
+        return not self.wrong and bool(self.counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -190,6 +283,7 @@ def main() -> int:
     from repro_torch.hw import H100
     from repro_torch.kernels import bitonic_sort, build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
     from repro_torch.kernels.matmul import LAUNCHES
     from repro_torch.models import build_model
     from repro_torch.runtime import Runtime, synthetic_trace
@@ -217,8 +311,15 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log("build", f"{', '.join(build.SOURCES)} built in {build_s:.2f} s "
         f"into {build.BUILD_DIR}")
+    ptxas = ptxas_summary(build.LOGS.get("matmul", ""))
+    for kind, row in ptxas.items():
+        log("build", f"matmul.cu {kind}: {row['kernels']} kernels, "
+            f"{row['registers'][0]}-{row['registers'][1]} registers a "
+            f"thread, spill stores/loads up to {row['spill_bytes']} bytes "
+            f"(ptxas -v); shared memory {row['smem']}; wgmma serialized "
+            f"(ptxas C7520) in {row['serialized_wgmma']}")
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                  build_s=build_s)
+                  build_s=build_s, matmul_ptxas=ptxas)
 
     # ------------------------------------------------------------------ 2
     cfg = get_config("tinyllama-1.1b")
@@ -277,6 +378,7 @@ def main() -> int:
             log("kernel", f"FAIL {name}: max abs err {err:.3e} > {tol:.3e}")
             return 1
         worst = max(worst, err)
+        path = mm.choose_path(a.dtype, b.dtype)
         k_ms = cuda_ms(lambda: ops.matmul(a, b, **kw), flush)
         p_ms = cuda_ms(lambda: ref.matmul_fused_ref(a, b, **kw), flush)
         # one library call computing the same function exists only for a
@@ -284,17 +386,23 @@ def main() -> int:
         same_fn = (act is None and bb is None and a.dtype == b.dtype == out_dt)
         l_ms = cuda_ms(lambda: torch.matmul(a, b), flush) if same_fn else None
         t_ops, t_bytes = bound_terms(a, b, out_dt)
+        tflops, gbs = rates(a, b, out_dt, k_ms)
         rows.append(dict(name=name, shape=f"{tuple(a.shape)}@{tuple(b.shape)}",
+                         path=path, tflops=tflops, gb_per_s=gbs,
                          max_abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms,
                          library_ms=l_ms, bound_ms=max(t_ops, t_bytes),
                          bound_by="operations" if t_ops >= t_bytes
                          else "bytes"))
-        log("kernel", f"{name:24s} {rows[-1]['shape']:42s} err {err:.2e} "
-            f"(tol {tol:.2e})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+        log("kernel", f"{name:24s} {rows[-1]['shape']:42s} {path:11s} err "
+            f"{err:.2e} (tol {tol:.2e})  kernel {k_ms:.4f} ms ({tflops:.2f} "
+            f"TFLOP/s, {gbs:.1f} GB/s)  plain {p_ms:.4f} ms  "
             f"library {'-' if l_ms is None else f'{l_ms:.4f}'} ms  "
             f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}); "
             f"cold L2")
     record["kernel_rows"] = rows
+    record["batch_invariance"] = invariance_gate(ops, mm, gen, d, f)
+    if record["batch_invariance"] is None:
+        return 1
 
     # ------------------------------------------------------------------ 3
     engine = CostEngine()
@@ -316,16 +424,19 @@ def main() -> int:
         k_ms = cuda_ms(lambda: adaptive_matmul(a, b, engine=engine,
                                                use_kernel=True), flush, reps, 1)
         l_ms = cuda_ms(lambda: torch.matmul(a, b), flush, reps, 1)
-        paper.append(dict(order=order, choice=rep.decision.choice,
+        t_ops, t_bytes = bound_terms(a, b, a.dtype)
+        paper.append(dict(order=order, path=mm.choose_path(a.dtype, b.dtype),
+                          bound_ms=max(t_ops, t_bytes),
+                          choice=rep.decision.choice,
                           predicted_s=rep.decision.predicted_s, err=err,
                           kernel_ms=k_ms, torch_matmul_ms=l_ms,
                           kernel_tflops=2 * order**3 / k_ms / 1e9))
         log("paper", f"order {order}: decision {rep.decision.choice} "
             f"(predicted {rep.decision.predicted_s:.3e} s; ledger "
             f"{row.site}/{row.choice} {row.query['shape']}), err {err:.2e} "
-            f"(tol {tol:.2e}), kernel {k_ms:.3f} ms "
+            f"(tol {tol:.2e}), {paper[-1]['path']} kernel {k_ms:.3f} ms "
             f"({paper[-1]['kernel_tflops']:.1f} TFLOP/s), torch.matmul "
-            f"{l_ms:.3f} ms")
+            f"{l_ms:.3f} ms, bound {paper[-1]['bound_ms']:.3f} ms")
     record["paper"] = paper
     chain_shapes = [(1024, 4096), (4096, 256), (256, 4096), (4096, 1024)]
     mats = [rand(*s, dtype=torch.float32, scale=s[0] ** -0.5)
@@ -416,8 +527,9 @@ def main() -> int:
         f"host_syncs_per_token {cont.report.host_syncs_per_token:.4f} "
         f"({cont.report.host_syncs} syncs, {cont.report.device_dispatches} "
         f"dispatches, {ntok} tokens)")
+    serve_paths = dict(LAUNCHES.by_path)
     log("serve", f"static == continuous tokens: {same}; matmul kernel "
-        f"launches during serving: {launches}")
+        f"launches during serving: {launches} (by path {serve_paths})")
     if not same or launches <= 0:
         return 1
     for site in ("serve", "serve_macro"):
@@ -430,12 +542,15 @@ def main() -> int:
     state = model.init_decode_state(SLOTS, max_len, per_slot=True)
     feed = {"tokens": torch.ones((SLOTS, 1), dtype=torch.int64, device=dev)}
     LAUNCHES.reset()
-    calls = step_matmuls(model, params, state, feed, ops)
+    with RouteAudit(ops, mm) as audit:
+        calls = step_matmuls(model, params, state, feed, ops)
     per_step = LAUNCHES.count
-    log("serve", f"matmul kernel launches per decode step: {per_step}")
+    step_paths = dict(LAUNCHES.by_path)
+    log("serve", f"matmul kernel launches per decode step: {per_step} (by "
+        f"path {step_paths})")
     prof = profile_decode_step(model, params, state, feed)
     step = replay_step(calls, ops, ref, flush)
-    if step is None:
+    if step is None or not audit.report("serve") or prof["library_gemms"]:
         return 1
     worst = max(worst, step["max_abs_err"])
     if prof["matmul_ms"] > 0 and step["plain_device_ms"] > 0:
@@ -470,8 +585,10 @@ def main() -> int:
         host_syncs=cont.report.host_syncs,
         device_dispatches=cont.report.device_dispatches,
         host_syncs_per_token=cont.report.host_syncs_per_token,
-        generated_tokens=ntok, launches=launches,
-        launches_per_decode_step=per_step, tokens_identical=same)
+        generated_tokens=ntok, launches=launches, launches_by_path=serve_paths,
+        launches_per_decode_step=per_step,
+        launches_per_decode_step_by_path=step_paths,
+        routing=audit.counts, tokens_identical=same)
     record["calibration"] = cal.measurements
 
     # ------------------------------------------------------------------ 6
@@ -537,7 +654,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ 9
-    record["train_matmuls"] = train_matmuls(cfg, ops, ref)
+    record["train_matmuls"] = train_matmuls(cfg, ops, ref, flush)
     if record["train_matmuls"] is None:
         return 1
     train = train_phase(cfg, fa, LAUNCHES)
@@ -591,6 +708,9 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     kernels = [{
         "name": "matmul", "route": "cuda",
+        "design": "wgmma bf16 tensor cores fed by TMA (bf16 x bf16), the "
+                  "same kernel on hi + lo bf16 halves (fp32 x bf16), the "
+                  "FP32 FMA kernel (fp32 x fp32)",
         "source": "src/repro_torch/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:103",
         "launches": launches, "max_abs_err": worst,
@@ -664,6 +784,118 @@ def held(got, want) -> tuple:
     err = (got.float() - want.float()).abs().max().item()
     top = want.float().abs().max().item()
     return err, (BF16_TOL if want.dtype == torch.bfloat16 else F32_TOL) * top
+
+
+INVARIANCE_ROWS = (1, 3, 4, 8, 16, 17, 64, 255, 4096)
+
+
+def invariance_gate(ops, mm, gen, d, f):
+    """The batch-invariance contract, bit for bit, on every path: row i of
+    a product of M rows (M in INVARIANCE_ROWS; i the first, middle and last
+    row) equals that row multiplied alone (torch.equal), for every
+    epilogue, with transposed and 4-D operands, at tinyllama-1.1b's widths
+    (K = d; N = d_ff, tile 128, and N = d, tile 64).  None on a mismatch."""
+    def rand(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    bf = torch.bfloat16
+    x = rand(4096, d, dtype=bf)
+    xt = rand(d, 4096, dtype=bf).t()  # MN-major A, as aᵀ in dB = aᵀ dz
+    x32 = rand(4096, d)
+    w = {n: rand(d, n, dtype=bf, scale=d ** -0.5) for n in (d, f)}
+    bias = rand(f)
+    cases = [(f"tensor_core N={n}", x, w[n], {}) for n in (d, f)]
+    cases += [(f"tensor_core {act}", x, w[f], dict(activation=act))
+              for act in ("relu", "gelu", "silu", "tanh")]
+    cases += [
+        ("tensor_core bias+silu", x, w[f], dict(bias=bias,
+                                                activation="silu")),
+        ("tensor_core aᵀ", xt, w[f], {}),
+        ("tensor_core bᵀ -> fp32", x, w[f].t().contiguous().t(),
+         dict(out_dtype=torch.float32)),
+        ("split A gelu -> bf16", x32, w[f], dict(activation="gelu",
+                                                  out_dtype=bf)),
+        ("split A N=d -> fp32", x32, w[d], dict(out_dtype=torch.float32)),
+        ("split B aᵀ dz", xt, rand(d, f), dict(out_dtype=bf)),
+        ("fma tanh", x32, w[f].float(), dict(activation="tanh")),
+    ]
+    checked = {}
+    for name, a, b, kw in cases:
+        path = mm.choose_path(a.dtype, b.dtype)
+        for m in INVARIANCE_ROWS:
+            whole = ops.matmul(a[:m], b, **kw)
+            for i in sorted({0, m // 2, m - 1}):
+                if not torch.equal(whole[i:i + 1],
+                                   ops.matmul(a[i:i + 1], b, **kw)):
+                    log("invariance", f"FAIL {name} ({path}): row {i} of "
+                        f"{m} differs from the row alone")
+                    return None
+                checked[path] = checked.get(path, 0) + 1
+    # 4-D: the decode-attention contractions, one query row alone
+    cache = rand(4, 96, 4, 64, dtype=bf)
+    for name, q, kv in (("q.k", rand(4, 4, 17, 64), cache.permute(0, 2, 3, 1)),
+                        ("p.v", torch.softmax(rand(4, 4, 17, 96), -1),
+                         cache.permute(0, 2, 1, 3))):
+        for qq in (q, q.to(bf)):
+            path = mm.choose_path(qq.dtype, kv.dtype)
+            for m in (1, 4, 8, 17):
+                whole = ops.matmul(qq[:, :, :m], kv, out_dtype=torch.float32)
+                for i in sorted({0, m - 1}):
+                    alone = ops.matmul(qq[:, :, i:i + 1], kv,
+                                       out_dtype=torch.float32)
+                    if not torch.equal(whole[:, :, i:i + 1], alone):
+                        log("invariance", f"FAIL 4-D {name} ({path}): row "
+                            f"{i} of {m} differs from the row alone")
+                        return None
+                    checked[path] = checked.get(path, 0) + 1
+    log("invariance", f"rows bit-identical alone and in products of "
+        f"{list(INVARIANCE_ROWS)} rows: {checked} comparisons by path "
+        f"({len(cases)} 2-D cases, every epilogue, aᵀ, bᵀ, 4-D cache "
+        f"views)")
+    if set(checked) != set(mm.PATHS):
+        return None
+    return checked
+
+
+def ptxas_summary(text) -> dict:
+    """Registers, spills, static shared memory and serialized-wgmma notices
+    of matmul.cu's kernels by path, from ``nvcc -Xptxas -v``."""
+    out = {}
+
+    def kind_of(line):
+        return next((p for p, key in (("split", "matmul_wgmma_split"),
+                                      ("tensor_core", "matmul_wgmma"),
+                                      ("fma", "matmul_kernel"))
+                     if key in line), None)
+
+    def row_of(kind):
+        return out.setdefault(kind, dict(kernels=0, registers=[999, 0],
+                                         spill_bytes=0, smem="none",
+                                         serialized_wgmma=0))
+
+    kind = None
+    for line in text.splitlines():
+        if "C7520" in line:  # ptxas: this function's wgmma are serialized
+            if kind_of(line):
+                row_of(kind_of(line))["serialized_wgmma"] += 1
+        elif "Compiling entry function" in line:
+            kind = kind_of(line)
+            if kind:
+                row_of(kind)["kernels"] += 1
+        elif kind and "spill" in line:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
+            out[kind]["spill_bytes"] = max([out[kind]["spill_bytes"]] + nums)
+        elif kind and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            r = out[kind]["registers"]
+            r[0], r[1] = min(r[0], regs), max(r[1], regs)
+            found = re.search(r"(\d+) bytes smem", line)
+            if found:
+                out[kind]["smem"] = f"{found.group(1)} bytes static"
+            elif kind != "fma":
+                out[kind]["smem"] = "dynamic (TcShape::kSmem)"
+    return out
 
 
 def sort_case(shape, dtype, gen, ops, ref, bitonic_sort, flush):
@@ -844,7 +1076,8 @@ def profile_decode_step(model, params, state, feed) -> dict:
     by_name, n_kernels = device_ms_by_kernel(
         lambda: model.decode_step(params, state, feed))
     device_ms = sum(by_name.values())
-    matmul_ms = sum(v for k, v in by_name.items() if "matmul_kernel" in k)
+    groups = group_device_ms(by_name, {})
+    matmul_ms = groups["matmul"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     if device_ms == 0:
         log("profile", f"one decode step ({SLOTS} slots): wall {wall_ms:.3f} "
@@ -855,9 +1088,13 @@ def profile_decode_step(model, params, state, feed) -> dict:
             f"({100 * device_ms / wall_ms:.1f}% of wall), matmul kernel "
             f"{matmul_ms:.3f} ms, other kernels {device_ms - matmul_ms:.3f} ms; "
             f"{n_kernels} device events under {len(by_name)} kernel names")
+        log("profile", "  matmul by path: " + ", ".join(
+            f"{g[7:]} {groups[g]:.3f} ms" for g in MATMUL_KERNELS))
     for name, ms in top:
         log("profile", f"  {ms:8.3f} ms  {name[:90]}")
     return dict(wall_ms=wall_ms, device_ms=device_ms, matmul_ms=matmul_ms,
+                matmul_ms_by_path={g[7:]: groups[g] for g in MATMUL_KERNELS},
+                library_gemms=library_gemms("profile", by_name),
                 device_events=n_kernels, top=top)
 
 
@@ -1036,15 +1273,18 @@ def train_parity(cfg, leaves=None):
                 worst_rel=worst)
 
 
-def train_matmuls(cfg, ops, ref):
+def train_matmuls(cfg, ops, ref, flush):
     """Every distinct matmul call of one training gradient of full-width
     tinyllama-1.1b in bf16 at batch 2 x 2048, cut to 1 layer (each layer
     makes the same calls), held against the plain version on the call's
-    own operands.  A call is its shapes, strides, dtypes and epilogue, so
-    the backward's products through transposed strides and with fp32
+    own operands, its path checked against its dtypes, and timed (CUDA
+    events, cold L2) beside torch.matmul where both operands are bf16 (a
+    yardstick only).  A call is its shapes, strides, dtypes and epilogue,
+    so the backward's products through transposed strides and with fp32
     gradients against bf16 operands are among them.  None on a mismatch,
     or if no such product was seen."""
     from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import matmul as mm
     from repro_torch.models import build_model
     from repro_torch.training import TrainLoopConfig, make_grad_fn
     from repro_torch.training import init_train_state
@@ -1064,18 +1304,30 @@ def train_matmuls(cfg, ops, ref):
         if key not in rows:
             err, tol = held(out, ref.matmul_fused_ref(
                 a, b, bias=bias, activation=activation, out_dtype=out_dtype))
+            k_ms = cuda_ms(lambda: launch(a, b, bias, activation, out_dtype),
+                           flush, reps=5, warm=1)
+            lib = a.dtype == b.dtype == torch.bfloat16
+            tflops, gbs = rates(a, b, out.dtype, k_ms)
+            t_ops, t_bytes = bound_terms(a, b, out.dtype)
             rows[key] = dict(a=list(a.shape), a_stride=list(a.stride()),
                              a_dtype=str(a.dtype), b=list(b.shape),
                              b_stride=list(b.stride()), b_dtype=str(b.dtype),
                              bias=bias is not None, activation=activation,
-                             out_dtype=str(out.dtype), err=err, tol=tol)
+                             out_dtype=str(out.dtype), err=err, tol=tol,
+                             path=mm.choose_path(a.dtype, b.dtype), ms=k_ms,
+                             tflops=tflops, gb_per_s=gbs,
+                             bound_ms=max(t_ops, t_bytes),
+                             torch_matmul_ms=cuda_ms(
+                                 lambda: torch.matmul(a, b), flush, reps=5,
+                                 warm=1) if lib else None)
             if not err <= tol:
                 failed.append(rows[key])
         return out
 
     ops._matmul = checking
     try:
-        make_grad_fn(model)(params, batch)
+        with RouteAudit(ops, mm) as audit:
+            make_grad_fn(model)(params, batch)
     finally:
         ops._matmul = launch
     calls = list(rows.values())
@@ -1088,12 +1340,20 @@ def train_matmuls(cfg, ops, ref):
             f"{r['b_dtype'][6:]} -> {r['out_dtype'][6:]}"
             f"{' +bias' if r['bias'] else ''}"
             f"{' ' + r['activation'] if r['activation'] else ''}: "
-            f"max abs err {r['err']:.3e} (limit {r['tol']:.3e})")
+            f"max abs err {r['err']:.3e} (limit {r['tol']:.3e}); "
+            f"{r['path']} {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+            f"{r['gb_per_s']:.0f} GB/s), torch.matmul "
+            + ("-" if r["torch_matmul_ms"] is None
+               else f"{r['torch_matmul_ms']:.4f} ms") + "; cold L2")
+    bf16 = [r for r in calls if r["torch_matmul_ms"] is not None]
     log("backward", f"{len(calls)} distinct matmul calls in one gradient "
         f"(batch {TRAIN_BATCH} x {TRAIN_SEQ}, 1 layer, bf16), "
         f"{len(transposed)} with a transposed operand, {len(mixed)} with "
-        f"mixed dtypes; {len(failed)} outside the limit")
-    if failed or not transposed or not mixed:
+        f"mixed dtypes; {len(failed)} outside the limit; the {len(bf16)} "
+        f"bf16 x bf16 calls: kernel {sum(r['ms'] for r in bf16):.4f} ms, "
+        f"torch.matmul {sum(r['torch_matmul_ms'] for r in bf16):.4f} ms, "
+        f"bound {sum(r['bound_ms'] for r in bf16):.4f} ms")
+    if failed or not transposed or not mixed or not audit.report("backward"):
         log("backward", "FAIL: a product disagrees with the plain version, "
             "or the backward's transposed or mixed-dtype products were not "
             "seen")
@@ -1132,7 +1392,8 @@ def train_phase(cfg, fa, mm_launches):
     torch.cuda.synchronize()
     counts = dict(matmul=mm_launches.count, flash_forward=fa.LAUNCHES.forward,
                   flash_backward=fa.LAUNCHES.backward,
-                  flash_cuda_launches=fa.LAUNCHES.grids)
+                  flash_cuda_launches=fa.LAUNCHES.grids,
+                  **{f"matmul {p}": n for p, n in mm_launches.by_path.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     saved = sorted(p.name for p in ckpt.iterdir()) if ckpt.exists() else []
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1188,12 +1449,9 @@ def train_phase(cfg, fa, mm_launches):
         end_loss = float(model.loss(state["params"], batch)[0])
     by_name, events = device_ms_by_kernel(lambda: step_fn(state, batch))
     device_ms = sum(by_name.values())
-    groups = {"matmul": "matmul_kernel", "flash forward": "flash_fwd",
-              "flash backward dq": "flash_bwd_dq",
-              "flash backward dk dv": "flash_bwd_dkv"}
-    split = {g: sum(v for k, v in by_name.items() if key in k)
-             for g, key in groups.items()}
-    split["other"] = device_ms - sum(split.values())
+    split = group_device_ms(by_name, {
+        "flash forward": "flash_fwd", "flash backward dq": "flash_bwd_dq",
+        "flash backward dk dv": "flash_bwd_dkv"})
     wall = walls[-1]
     log("train", f"fixed batch, lr 1e-3: losses {losses}, after "
         f"{TRAIN_STEPS} steps {end_loss:.4f} (must be below {losses[0]:.4f});"
@@ -1210,6 +1468,8 @@ def train_phase(cfg, fa, mm_launches):
             log("train", f"  {ms:9.2f} ms  {name[:90]}")
     if not (all(math.isfinite(x) for x in losses) and end_loss < losses[0]):
         log("train", "FAIL: the loss did not fall on a fixed batch")
+        return None
+    if library_gemms("train", by_name):
         return None
     return dict(steps=steps, final_loss=steps[-1]["loss"], tok_per_s=tok_s,
                 peak_memory_gb=peak_gb, launches_per_step=per_step,
@@ -1427,6 +1687,8 @@ def rwkv_serve(cfg, mm_launches, wkv_k):
     kernel launched, no WKV kernel (serving decodes through wkv_step);
     tok/s, host syncs per token and one profiled decode step.  None on a
     failure."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.runtime import Runtime, synthetic_trace
 
@@ -1462,11 +1724,17 @@ def rwkv_serve(cfg, mm_launches, wkv_k):
     state = model.init_decode_state(SLOTS, PROMPT + MAX_NEW, per_slot=True)
     feed = {"tokens": torch.ones((SLOTS, 1), dtype=torch.int64,
                                  device="cuda")}
+    serve_paths = dict(mm_launches.by_path)
     mm_launches.reset()
-    model.decode_step(params, state, feed)
+    with RouteAudit(ops, mm) as audit:
+        model.decode_step(params, state, feed)
     per_step = mm_launches.count
-    log("rwkv-serve", f"matmul kernel launches per decode step: {per_step}")
+    step_paths = dict(mm_launches.by_path)
+    log("rwkv-serve", f"matmul kernel launches per decode step: {per_step} "
+        f"(by path {step_paths}; during serving {serve_paths})")
     prof = profile_decode_step(model, params, state, feed)
+    if not audit.report("rwkv-serve") or prof["library_gemms"]:
+        return None
     return dict(static_tok_per_s=static.tok_per_s,
                 continuous_tok_per_s=cont.tok_per_s,
                 static_wall_s=static.wall_s, continuous_wall_s=cont.wall_s,
@@ -1474,7 +1742,10 @@ def rwkv_serve(cfg, mm_launches, wkv_k):
                 device_dispatches=cont.report.device_dispatches,
                 host_syncs_per_token=cont.report.host_syncs_per_token,
                 generated_tokens=ntok, launches=launches,
-                launches_per_decode_step=per_step, tokens_identical=same,
+                launches_by_path=serve_paths,
+                launches_per_decode_step=per_step,
+                launches_per_decode_step_by_path=step_paths,
+                routing=audit.counts, tokens_identical=same,
                 decode_step_profile=prof)
 
 
@@ -1486,9 +1757,9 @@ def rwkv_train_phase(cfg, wkv_k, mm_launches):
     backward per layer), step wall, tokens/s and peak memory; then one more
     step timed and one profiled (device busy share, device ms by kernel).
     None on a failure."""
-    import re
-
     from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.runtime import Runtime
     from repro_torch.training import TrainLoopConfig, make_train_step
@@ -1504,7 +1775,8 @@ def rwkv_train_phase(cfg, wkv_k, mm_launches):
                    on_plan=plans.append)
     torch.cuda.synchronize()
     counts = dict(matmul=mm_launches.count, wkv_forward=wkv_k.LAUNCHES.forward,
-                  wkv_backward=wkv_k.LAUNCHES.backward)
+                  wkv_backward=wkv_k.LAUNCHES.backward,
+                  **{f"matmul {p}": n for p, n in mm_launches.by_path.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = [dict(step=int(m.group(1)), loss=float(m.group(2)),
                   ms=float(m.group(3))) for m in
@@ -1553,13 +1825,11 @@ def rwkv_train_phase(cfg, wkv_k, mm_launches):
     extra_loss = float(metrics["loss"])
     wall = (time.perf_counter() - t0) * 1e3
     del metrics
-    by_name, events = device_ms_by_kernel(lambda: step_fn(state, batch))
+    with RouteAudit(ops, mm) as audit:
+        by_name, events = device_ms_by_kernel(lambda: step_fn(state, batch))
     device_ms = sum(by_name.values())
-    groups = {"matmul": "matmul_kernel", "wkv forward": "wkv_fwd",
-              "wkv backward": "wkv_bwd"}
-    split = {g: sum(v for k, v in by_name.items() if key in k)
-             for g, key in groups.items()}
-    split["other"] = device_ms - sum(split.values())
+    split = group_device_ms(by_name, {"wkv forward": "wkv_fwd",
+                                      "wkv backward": "wkv_bwd"})
     if events == 0:
         log("rwkv-train", f"one more step: wall {wall:.1f} ms, loss "
             f"{extra_loss:.4f}; device time not measured (the profiler saw "
@@ -1572,7 +1842,8 @@ def rwkv_train_phase(cfg, wkv_k, mm_launches):
                                          for g, v in split.items()))
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log("rwkv-train", f"  {ms:9.2f} ms  {name[:90]}")
-    if not math.isfinite(extra_loss):
+    if not math.isfinite(extra_loss) or not audit.report("rwkv-train") \
+            or library_gemms("rwkv-train", by_name):
         return None
     plan = plans[0]
     return dict(steps=steps, final_loss=steps[-1]["loss"], tok_per_s=tok_s,

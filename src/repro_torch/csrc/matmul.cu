@@ -8,39 +8,80 @@
 // fp32 accumulator and one cast at the end.  A and B are read through four
 // element strides each (two batch levels, rows, columns), so the port's
 // projections (2-D, row-major), the unembedding (B is the transposed
-// (vocab, d) table) and the two contractions of cached attention (batch =
-// slot x kv head, B a strided view of the KV cache) all run here without a
-// copy.  C is written contiguous.
+// (vocab, d) table), the backward's aᵀ and bᵀ and the two contractions of
+// cached attention (batch = slot x kv head, B a strided view of the KV
+// cache) all run here without a copy.  C is written contiguous.
 //
-// What bounds it on an H100: the serving shapes are decode (M = slots, a few
-// rows) and prefill (M = slots x chunk, a few hundred rows) against weight
-// matrices of 0.5 to 23 MB.  At decode the function moves the whole weight
-// matrix for a handful of rows, so it is bound by device-memory bytes
-// (3.35 TB/s), and the kernel's job is to have enough blocks and loads in
-// flight: the small-M tile is 16 x 16 so that N = 2048 already gives 128
-// blocks.  At prefill it is bound by operations; this first kernel uses the
-// FP32 FMA pipe, not the tensor cores, so it stays far from the bf16 peak
-// (wgmma + TMA is later work).
+// Three paths, chosen by the caller from the operands' dtypes alone
+// (kernels/matmul.py choose_path), never from M or the batch:
+//   * tensor core (bf16 x bf16): matmul_wgmma_kernel.  wgmma.mma_async
+//     m64nNk16 (N = 64 or 128) bf16 -> fp32 accumulators in registers, A and
+//     B read from shared memory in the 128-byte swizzled layout, K-major or
+//     MN-major through the instruction's transpose bits, so row-major
+//     weights, table.t(), a.t() and the cache permutes need no copy.  Tiles
+//     are 128 x BN x 64 in a ring of shared-memory stages guarded by
+//     mbarriers; one producer warp fills them with TMA (cp.async.bulk.
+//     tensor, a 4-D tensor map per operand encoded on the host for each
+//     call, boxes out of bounds filled with zeros, so ragged M, N, K need
+//     no padding and a 4-row decode step fills a 64-row wgmma tile for
+//     free), two consumer warpgroups each own 64 rows.  A 96 KB ring (3-4
+//     stages) lets two CTAs share an SM, so one's epilogue runs under the
+//     other's main loop; CTAs take tiles in groups of 8 row tiles, so those
+//     in flight share B in L2.  An operand TMA cannot describe (base not
+//     16-byte aligned, a pitch that is not a multiple of 16 bytes, no unit
+//     stride) is copied by the producer's threads into the same swizzled
+//     layout: the loader differs, the wgmma sequence does not.
+//   * split (fp32 x bf16 or bf16 x fp32): matmul_wgmma_split_kernel, the
+//     same kernel with the fp32 operand given as two bf16 tensors hi =
+//     bf16(x) and lo = bf16(x - hi) (made by the caller); each k step issues
+//     the wgmma of hi and then that of lo into the same accumulator (stages
+//     of up to 200 KB, one CTA an SM).  A bf16 x bf16 product is exact in
+//     fp32, so the only loss is x - hi - lo, below 2^-17 |x|.
+//   * FMA (fp32 x fp32): matmul_kernel, the FP32-pipe kernel of the first
+//     port, unchanged: each output element is one thread's fmaf chain over
+//     k = 0, 1, ..., K-1 (rmsnorm's and the group norm's sums with a column
+//     of ones, the fp32 card-vs-CPU and train-parity gates).
 //
-// The reduction order is part of the contract: every output element is
-// accumulated by ONE thread, with fmaf, over k = 0, 1, ..., K-1 in order.
-// Nothing depends on M, on which rows share a tile, on the tile shape or on
-// the grid, and there is no split-K.  So a row gives bit-identical results
-// whether it is multiplied alone, with 3 other slots or with 7 other
-// requests, which is what keeps the continuous and the static serving
-// engines token-identical.  Masked edges load zeros, and fmaf(0, 0, acc)
-// leaves acc unchanged.
+// The batch-invariance contract: a row's bits do not depend on how many
+// rows it is multiplied with.  On the tensor-core paths every output
+// element is summed over k in steps of 16, in the order 0, 16, 32, ...;
+// each step is one wgmma (on the split path hi, then lo), issued in order
+// into one accumulator; the sum inside an instruction is the hardware's.
+// There is no split-K and there are no atomics.  The tile width BN is
+// picked by the caller from N alone (kernels/matmul.py tile_n), never from
+// M, so every row of a given product takes the same instruction sequence
+// wherever it sits in its 64-row tile; rows past M are TMA's zeros and
+// touch no other row.  The card tests check it bit for bit, per path.
+//
+// What bounds it on an H100: the training and prefill shapes (thousands of
+// rows against 0.5-190 MB weights) are bound by operations, 989 TFLOP/s of
+// bf16 tensor cores: wgmma from swizzled shared memory with loads in
+// flight behind it is what reaches them.  Decode (M = slots, a few rows)
+// moves the whole weight matrix for a handful of rows and is bound by
+// bytes, 3.35 TB/s: there what counts is bytes in flight, a ring of B
+// tiles per CTA, two CTAs an SM and, for N < 4096, 64-wide tiles for twice
+// the CTAs; the 64-row wgmma tile costs no bytes (TMA fills it with
+// zeros), and a consumer warpgroup whose 64 rows all lie past M issues no
+// wgmma.  Every wgmma sits on a path the compiler can see is uniform (the
+// warpgroup index through a shuffle, the barrier's retry loop inside its
+// asm): otherwise ptxas serializes them (its C7520 notice).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//             -Xcompiler -fPIC  (no fast-math: expf/tanhf stay accurate)
+//             -Xcompiler -fPIC -Xptxas -v  (no fast-math: expf/tanhf stay
+//             accurate).  libcuda's cuTensorMapEncodeTiled is found
+//             through the runtime's entry-point query, so nothing links
+//             libcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 enum DtypeCode { kF32 = 0, kBF16 = 1 };
 enum ActCode { kNone = 0, kRelu = 1, kGelu = 2, kSilu = 3, kTanh = 4 };
+enum PathCode { kFma = 0, kTensorCore = 1, kSplit = 2 };
 
 // Element (z1, z2, r, c) lives at ptr + z1*s0 + z2*s1 + r*s2 + c*s3.
 struct Operand {
@@ -49,9 +90,6 @@ struct Operand {
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -78,6 +116,10 @@ __device__ __forceinline__ float apply_act(float x, int act) {
       return x;
   }
 }
+
+// ---------------------------------------------------------------------------
+// FMA path (fp32 x fp32)
+// ---------------------------------------------------------------------------
 
 // One block computes a BM x BN tile of C; each thread a TM x TN micro-tile
 // whose rows are strided by BM/TM and columns by BN/TN, so a warp reads
@@ -192,42 +234,633 @@ cudaError_t by_shape(const Problem& p) {
   return launch<64, 64, 16, 4, 4, TA, TB, TC>(p);
 }
 
-template <typename TA, typename TB>
-cudaError_t by_out(const Problem& p, int c_dtype) {
-  if (c_dtype == kBF16) return by_shape<TA, TB, __nv_bfloat16>(p);
-  return by_shape<TA, TB, float>(p);
+// The FMA path takes fp32 operands only (bf16 operands go to the tensor
+// cores), with an fp32 or bf16 result.
+cudaError_t fma_path(const Problem& p, int c_dtype) {
+  if (c_dtype == kBF16) return by_shape<float, float, __nv_bfloat16>(p);
+  return by_shape<float, float, float>(p);
 }
 
-template <typename TA>
-cudaError_t by_b(const Problem& p, int b_dtype, int c_dtype) {
-  if (b_dtype == kBF16) return by_out<TA, __nv_bfloat16>(p, c_dtype);
-  return by_out<TA, float>(p, c_dtype);
+// ---------------------------------------------------------------------------
+// Tensor-core paths (bf16 x bf16; fp32 x bf16 split into hi + lo)
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 128;  // rows per CTA: two consumer warpgroups of 64
+constexpr int kBK = 64;   // k per stage: one 128-byte swizzle row of bf16
+constexpr int kConsumers = 256;  // two consumer warpgroups (warps 0-7)
+constexpr int kProducers = 32;   // one producer warp (warp 8)
+constexpr int kThreads = kConsumers + kProducers;
+constexpr int kGroupM = 8;  // row tiles per group of the CTA order
+constexpr int kErrNoEncoder = 10000;     // returned when libcuda lacks TMA
+constexpr int kErrEncode = 11000;        // + the CUresult of a refused map
+
+// One operand as the tensor-core kernel sees it: its (rows, k) view in
+// bf16 (for A rows are m, for B rows are n), element (z1, z2, r, kk) at
+// z1*s0 + z2*s1 + r*s_row + kk*s_k, and on the split path its lo half with
+// the same strides.  ``tma`` is 1 where a tensor map loads it, 0 where the
+// producer's threads copy it.
+struct TcOperand {
+  const __nv_bfloat16* hi;
+  const __nv_bfloat16* lo;
+  long long s0, s1, s_row, s_k;
+  int rows;
+  int tma;
+};
+
+struct TcArgs {
+  CUtensorMap a_map, a_lo_map, b_map, b_lo_map;
+  TcOperand a, b;
+  const float* bias;
+  void* c;
+  int c_bf16, m, n, k, z2, act;
+};
+
+// The stage ring: on the tensor-core path at most 96 KB, so that two CTAs
+// share an SM and one's epilogue runs under the other's main loop; on the
+// split path, whose stages hold two A or two B tiles, up to 200 KB of the
+// 227 KB a CTA may use, one CTA an SM.
+template <int BN, int SPLIT>
+struct TcShape {
+  static constexpr int kBudget = SPLIT == 0 ? 96 * 1024 : 200 * 1024;
+  static constexpr int kA = kBM * kBK * 2;  // bytes of one A tile
+  static constexpr int kB = BN * kBK * 2;   // bytes of one B tile
+  static constexpr int kALo = SPLIT == 1 ? kA : 0;
+  static constexpr int kBLo = SPLIT == 2 ? kB : 0;
+  static constexpr int kStage = kA + kALo + kB + kBLo;
+  static constexpr int kStages = kBudget / kStage > 8 ? 8 : kBudget / kStage;
+  // + 1024 to align the ring, + a full and an empty barrier per stage
+  static constexpr int kSmem = 1024 + kStages * kStage + 2 * kStages * 8;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// The retry loop lives inside the asm: a loop the compiler can see would
+// make the wgmma after it look divergent, and ptxas then serializes them.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keeps the compiler from reading an accumulator before wgmma_wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma m64nNk16, bf16 x bf16 -> fp32, D += A B.  TA / TB are the
+// transpose bits: 0 for a K-major tile, 1 for an MN-major one.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %34, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "n"(TA), "n"(TB), "r"(1));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %66, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "n"(TA), "n"(TB), "r"(1));
+}
+
+template <int BN, int TA, int TB>
+__device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
+  if constexpr (BN == 128) {
+    wgmma_m64n128<TA, TB>(d, da, db);
+  } else {
+    wgmma_m64n64<TA, TB>(d, da, db);
+  }
+}
+
+// Shared-memory matrix descriptor for wgmma, 128-byte swizzle (layout type
+// 1 in bits 62-63).  A K-major tile is rows of 64 bf16 (128 B), 8-row
+// groups 1024 B apart (SBO); a k16 step moves the start 32 B along the
+// row.  An MN-major tile is 64-wide MN blocks of 64 k-rows (8 KB apart,
+// LBO), 8-k-row groups 1024 B apart (SBO); a k16 step moves the start 16
+// k-rows (2048 B).  Every tile starts on a 1024-byte boundary.
+template <int T>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int kk) {
+  const uint32_t start = addr + (T == 0 ? kk * 32 : kk * 2048);
+  const uint64_t lbo = T == 0 ? 1 : (8192 >> 4);
+  const uint64_t sbo = 1024 >> 4;
+  return static_cast<uint64_t>((start & 0x3FFFF) >> 4) | (lbo << 16) |
+         (sbo << 32) | (1ull << 62);
+}
+
+// Byte offset of element (r, kk) of a tile in the layout TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk index XOR the row index
+// within its 8-row (1024-byte) group.
+template <int T>
+__device__ __forceinline__ uint32_t swizzled(int r, int kk) {
+  if (T == 0) return r * 128 + ((((kk >> 3) ^ r) & 7) << 4) + (kk & 7) * 2;
+  return (r >> 6) * 8192 + kk * 128 + (((((r & 63) >> 3) ^ kk) & 7) << 4) +
+         (r & 7) * 2;
+}
+
+// The loader for an operand TMA cannot describe: the producer warp's
+// threads copy the R x 64 tile element by element (zeros outside the
+// operand) into the swizzled layout a tensor map would have written.
+template <int T, int R>
+__device__ __forceinline__ void copy_tile(uint8_t* dst,
+                                          const __nv_bfloat16* src,
+                                          const TcOperand& op, int row0,
+                                          int k0, int K, int lane) {
+  for (int e = lane; e < R * kBK; e += kProducers) {
+    // neighbouring threads read along the operand's contiguous axis
+    const int r = T == 0 ? e / kBK : e % R;
+    const int kk = T == 0 ? e % kBK : e / R;
+    const int gr = row0 + r;
+    const int gk = k0 + kk;
+    __nv_bfloat16 v = __float2bfloat16_rn(0.f);
+    if (gr < op.rows && gk < K) v = src[gr * op.s_row + gk * op.s_k];
+    *reinterpret_cast<__nv_bfloat16*>(dst + swizzled<T>(r, kk)) = v;
+  }
+}
+
+// One R x 64 tile by TMA: one box (64 k, R rows) for a K-major operand,
+// R / 64 boxes (64 rows, 64 k) for an MN-major one.
+template <int T, int R>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row0, int k0,
+                                         int z1, int z2) {
+  if (T == 0) {
+    tma_load_4d(dst, map, bar, k0, row0, z2, z1);
+  } else {
+#pragma unroll
+    for (int j = 0; j < R / 64; ++j)
+      tma_load_4d(dst + j * 8192, map, bar, row0 + 64 * j, k0, z2, z1);
+  }
+}
+
+__device__ __forceinline__ void store_pair(const TcArgs& p, long long at,
+                                           int col, float v0, float v1) {
+  if (col >= p.n) return;
+  const bool two = col + 1 < p.n;
+  if (p.bias != nullptr) {
+    v0 += p.bias[col];
+    if (two) v1 += p.bias[col + 1];
+  }
+  v0 = apply_act(v0, p.act);
+  v1 = two ? apply_act(v1, p.act) : 0.f;
+  const bool paired = two && (p.n % 2 == 0);  // then at + col is even
+  if (p.c_bf16) {
+    __nv_bfloat16* c = static_cast<__nv_bfloat16*>(p.c) + at + col;
+    if (paired) {
+      *reinterpret_cast<__nv_bfloat162*>(c) = __floats2bfloat162_rn(v0, v1);
+    } else {
+      c[0] = __float2bfloat16_rn(v0);
+      if (two) c[1] = __float2bfloat16_rn(v1);
+    }
+  } else {
+    float* c = static_cast<float*>(p.c) + at + col;
+    if (paired) {
+      *reinterpret_cast<float2*>(c) = make_float2(v0, v1);
+    } else {
+      c[0] = v0;
+      if (two) c[1] = v1;
+    }
+  }
+}
+
+// One CTA computes a 128 x BN tile of C.  Warp 8 produces: for each
+// 64-deep k block it waits for a free stage, fills A (and A lo), B (and B
+// lo) by TMA or by copy, and arrives on the stage's full barrier (32
+// arrivals, lane 0's carrying the TMA byte count).  Warpgroups 0 and 1
+// consume rows 0-63 and 64-127: wait for the stage, issue its four
+// k16 steps (split: hi then lo each), commit, and free the previous stage
+// once at most this one is in flight (256 arrivals on its empty barrier).
+template <int BN, int TA, int TB, int SPLIT>
+__device__ __forceinline__ void tc_body(const TcArgs& p) {
+  using S = TcShape<BN, SPLIT>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kStages * S::kStage);
+  uint64_t* empty = full + S::kStages;
+  const int tid = threadIdx.x;
+  // tiles in groups of kGroupM row tiles, column by column within a
+  // group, so that the CTAs in flight share their B tiles in L2 (the
+  // order of the tiles changes no result)
+  const int tiles_m = (p.m + kBM - 1) / kBM;
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int group = blockIdx.x / (kGroupM * tiles_n);
+  const int first_m = group * kGroupM;
+  const int group_m = min(tiles_m - first_m, kGroupM);
+  const int in_group = blockIdx.x % (kGroupM * tiles_n);
+  const int m0 = (first_m + in_group % group_m) * kBM;
+  const int n0 = (in_group / group_m) * BN;
+  const int z1 = blockIdx.z / p.z2;
+  const int z2 = blockIdx.z % p.z2;
+  const int nk = (p.k + kBK - 1) / kBK;
+  if (tid == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&full[s], kProducers);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup index through a shuffle, so that the compiler knows it
+  // is the same across the warp (wgmma must not sit on a divergent path)
+  const int wg = __shfl_sync(0xffffffff, tid / 128, 0);
+  if (wg == kConsumers / 128) {
+    const int lane = tid - kConsumers;
+    const long long a_at = z1 * p.a.s0 + z2 * p.a.s1;
+    const long long b_at = z1 * p.b.s0 + z2 * p.b.s1;
+    const uint32_t tx = (p.a.tma ? S::kA + S::kALo : 0) +
+                        (p.b.tma ? S::kB + S::kBLo : 0);
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % S::kStages;
+      mbar_wait(&empty[s], ((kb / S::kStages) & 1) ^ 1);
+      uint8_t* sa = smem + s * S::kStage;
+      uint8_t* sa_lo = sa + S::kA;
+      uint8_t* sb = sa_lo + S::kALo;
+      uint8_t* sb_lo = sb + S::kB;
+      const int k0 = kb * kBK;
+      if (!p.a.tma) {
+        copy_tile<TA, kBM>(sa, p.a.hi + a_at, p.a, m0, k0, p.k, lane);
+        if (SPLIT == 1)
+          copy_tile<TA, kBM>(sa_lo, p.a.lo + a_at, p.a, m0, k0, p.k, lane);
+      }
+      if (!p.b.tma) {
+        copy_tile<TB, BN>(sb, p.b.hi + b_at, p.b, n0, k0, p.k, lane);
+        if (SPLIT == 2)
+          copy_tile<TB, BN>(sb_lo, p.b.lo + b_at, p.b, n0, k0, p.k, lane);
+      }
+      // copies are generic-proxy writes; wgmma reads through the async proxy
+      if (!(p.a.tma && p.b.tma))
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], tx);
+        if (p.a.tma) {
+          tma_tile<TA, kBM>(sa, &p.a_map, &full[s], m0, k0, z1, z2);
+          if (SPLIT == 1)
+            tma_tile<TA, kBM>(sa_lo, &p.a_lo_map, &full[s], m0, k0, z1, z2);
+        }
+        if (p.b.tma) {
+          tma_tile<TB, BN>(sb, &p.b_map, &full[s], n0, k0, z1, z2);
+          if (SPLIT == 2)
+            tma_tile<TB, BN>(sb_lo, &p.b_lo_map, &full[s], n0, k0, z1, z2);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  const int w = wg;  // which 64 rows of the tile
+  const int t = tid % 128;
+  // rows all past M: no wgmma, but the stages are still waited for and
+  // freed in step with the other warpgroup
+  const bool active = m0 + 64 * w < p.m;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % S::kStages;
+    mbar_wait(&full[s], (kb / S::kStages) & 1);
+    if (!active) {
+      mbar_arrive(&empty[s]);
+      continue;
+    }
+    const uint32_t st = smem_u32(smem + s * S::kStage);
+    const uint32_t a_hi = st + w * 8192;  // row 64w, in either layout
+    const uint32_t a_lo = a_hi + S::kA;
+    const uint32_t b_hi = st + S::kA + S::kALo;
+    const uint32_t b_lo = b_hi + S::kB;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t da = smem_desc<TA>(a_hi, kk);
+      const uint64_t db = smem_desc<TB>(b_hi, kk);
+      mma<BN, TA, TB>(acc, da, db);
+      if (SPLIT == 1) mma<BN, TA, TB>(acc, smem_desc<TA>(a_lo, kk), db);
+      if (SPLIT == 2) mma<BN, TA, TB>(acc, da, smem_desc<TB>(b_lo, kk));
+    }
+    wgmma_commit();
+    if (kb > 0) {
+      wgmma_wait<1>();
+      mbar_arrive(&empty[(kb - 1) % S::kStages]);
+    }
+  }
+  if (!active) return;
+  wgmma_wait<0>();
+  fence_regs<BN / 2>(acc);
+
+  // accumulator fragment of m64nNk16: thread t holds, for each 8-column
+  // block j, rows 16*(t/32) + (t%32)/4 and +8, columns 2*(t%4) and +1
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int row = m0 + 64 * w + warp * 16 + lane / 4;
+  const long long c_at = static_cast<long long>(blockIdx.z) * p.m * p.n;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + (lane % 4) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      if (r < p.m)
+        store_pair(p, c_at + static_cast<long long>(r) * p.n, col,
+                   acc[j * 4 + 2 * h], acc[j * 4 + 2 * h + 1]);
+    }
+  }
+}
+
+// Two kernel names, so that a profile tells the paths apart.
+template <int BN, int TA, int TB>
+__global__ void __launch_bounds__(kThreads, 2)
+    matmul_wgmma_kernel(__grid_constant__ const TcArgs p) {
+  tc_body<BN, TA, TB, 0>(p);
+}
+
+template <int BN, int TA, int TB, int SPLIT>
+__global__ void __launch_bounds__(kThreads, 1)
+    matmul_wgmma_split_kernel(__grid_constant__ const TcArgs p) {
+  tc_body<BN, TA, TB, SPLIT>(p);
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime so that
+// the library needs no -lcuda; null where libcuda lacks it.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(sym);
+  }
+  return fn;
+}
+
+// A 4-D map (inner, outer, z2, z1) of an operand's (rows, k) view: inner is
+// k for a K-major operand (boxes of 64 k x box_rows rows), the rows for an
+// MN-major one (boxes of 64 rows x 64 k).  A dimension of extent 1 is
+// never stepped along, so it gets a stride TMA accepts whatever the
+// tensor's.  Returns 0 or an error code.
+int encode(CUtensorMap* map, const __nv_bfloat16* ptr, int mn_major,
+           const TcOperand& op, int k, int z1, int z2, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncoder;
+  const long long inner = mn_major ? op.rows : k;
+  const long long outer = mn_major ? k : op.rows;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(inner > 0 ? inner : 1),
+                        static_cast<cuuint64_t>(outer > 0 ? outer : 1),
+                        static_cast<cuuint64_t>(z2),
+                        static_cast<cuuint64_t>(z1)};
+  const long long elem_strides[3] = {mn_major ? op.s_k : op.s_row, op.s1,
+                                     op.s0};
+  cuuint64_t strides[3];
+  long long prev = static_cast<long long>(dims[0]) * 2;  // bytes
+  for (int i = 0; i < 3; ++i) {
+    long long s = elem_strides[i] * 2;
+    if (dims[i + 1] == 1) s = (prev + 15) / 16 * 16;
+    strides[i] = static_cast<cuuint64_t>(s);
+    prev = s * static_cast<long long>(dims[i + 1]);
+  }
+  cuuint32_t box[4] = {64, static_cast<cuuint32_t>(mn_major ? 64 : box_rows),
+                       1, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+      const_cast<__nv_bfloat16*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(res);
+}
+
+// Launches one instantiation; its shared-memory allowance is raised once
+// per device (a bit per device ordinal below 64).
+template <int BN, int TA, int TB, int SPLIT>
+cudaError_t run_tc(const TcArgs& args, int z, cudaStream_t stream) {
+  void (*kernel)(TcArgs);
+  if constexpr (SPLIT == 0) {
+    kernel = matmul_wgmma_kernel<BN, TA, TB>;
+  } else {
+    kernel = matmul_wgmma_split_kernel<BN, TA, TB, SPLIT>;
+  }
+  constexpr int smem = TcShape<BN, SPLIT>::kSmem;
+  static unsigned long long allowed = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !((allowed >> dev) & 1)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) allowed |= 1ull << dev;
+  }
+  const dim3 grid(((args.n + BN - 1) / BN) * ((args.m + kBM - 1) / kBM), 1, z);
+  kernel<<<grid, kThreads, smem, stream>>>(args);
+  return cudaGetLastError();
+}
+
+template <int BN, int TA, int TB>
+cudaError_t by_split(const TcArgs& args, int split, int z,
+                     cudaStream_t stream) {
+  if (split == 1) return run_tc<BN, TA, TB, 1>(args, z, stream);
+  if (split == 2) return run_tc<BN, TA, TB, 2>(args, z, stream);
+  return run_tc<BN, TA, TB, 0>(args, z, stream);
+}
+
+template <int BN>
+cudaError_t by_layout(const TcArgs& args, int ta, int tb, int split, int z,
+                      cudaStream_t stream) {
+  if (ta) {
+    return tb ? by_split<BN, 1, 1>(args, split, z, stream)
+              : by_split<BN, 1, 0>(args, split, z, stream);
+  }
+  return tb ? by_split<BN, 0, 1>(args, split, z, stream)
+            : by_split<BN, 0, 0>(args, split, z, stream);
 }
 
 }  // namespace
 
-// Plain C interface for ctypes.  Strides are in elements, four per operand:
-// (batch outer, batch inner, row, column).  Returns cudaGetLastError() after
-// the launch; the caller raises on anything but 0.  Launches on ``stream``
-// and does not synchronise.
-extern "C" int repro_matmul(const void* a, const long long* a_strides,
-                            int a_dtype, const void* b,
+// Plain C interface for ctypes.  ``path``: 0 FMA (fp32 operands), 1 tensor
+// core (bf16 operands), 2 split (the fp32 operand given as bf16 hi in
+// ``a``/``b`` and lo in ``a_lo``/``b_lo``, the other lo null).  Strides are
+// in elements, four per operand: (batch outer, batch inner, row, column).
+// ``a_mode``/``b_mode`` (tensor-core paths): bit 0 set for an MN-major
+// operand (unit stride along m for A, along n for B), else K-major; bit 1
+// set where a tensor map can load it.  ``tile_n`` (64 or 128) is the
+// caller's, picked from N alone.  Returns cudaGetLastError() after the
+// launch, or a code of 10000 and above where a tensor map could not be
+// made; the caller raises on anything but 0.  Launches on ``stream`` and
+// does not synchronise.
+extern "C" int repro_matmul(int path, const void* a, const void* a_lo,
+                            const long long* a_strides, int a_dtype,
+                            int a_mode, const void* b, const void* b_lo,
                             const long long* b_strides, int b_dtype,
-                            const float* bias, void* c, int c_dtype, int z1,
-                            int z2, int m, int n, int k, int act,
-                            void* stream) {
-  Problem p;
-  p.a = {a, a_strides[0], a_strides[1], a_strides[2], a_strides[3]};
-  p.b = {b, b_strides[0], b_strides[1], b_strides[2], b_strides[3]};
-  p.bias = bias;
-  p.c = c;
-  p.z1 = z1;
-  p.z2 = z2;
-  p.m = m;
-  p.n = n;
-  p.k = k;
-  p.act = act;
-  p.stream = static_cast<cudaStream_t>(stream);
-  if (a_dtype == kBF16) return static_cast<int>(by_b<__nv_bfloat16>(p, b_dtype, c_dtype));
-  return static_cast<int>(by_b<float>(p, b_dtype, c_dtype));
+                            int b_mode, const float* bias, void* c,
+                            int c_dtype, int z1, int z2, int m, int n, int k,
+                            int act, int tile_n, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == kFma) {
+    if (a_dtype != kF32 || b_dtype != kF32)
+      return static_cast<int>(cudaErrorInvalidValue);
+    Problem p;
+    p.a = {a, a_strides[0], a_strides[1], a_strides[2], a_strides[3]};
+    p.b = {b, b_strides[0], b_strides[1], b_strides[2], b_strides[3]};
+    p.bias = bias;
+    p.c = c;
+    p.z1 = z1;
+    p.z2 = z2;
+    p.m = m;
+    p.n = n;
+    p.k = k;
+    p.act = act;
+    p.stream = st;
+    return static_cast<int>(fma_path(p, c_dtype));
+  }
+  const int split = a_lo != nullptr ? 1 : (b_lo != nullptr ? 2 : 0);
+  if (a_dtype != kBF16 || b_dtype != kBF16 || (tile_n != 64 && tile_n != 128) ||
+      (path == kTensorCore) != (split == 0) ||
+      (a_lo != nullptr && b_lo != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TcArgs args = {};
+  args.a = {static_cast<const __nv_bfloat16*>(a),
+            static_cast<const __nv_bfloat16*>(a_lo),
+            a_strides[0], a_strides[1], a_strides[2], a_strides[3], m,
+            (a_mode >> 1) & 1};
+  // B's (rows, k) view: rows are its columns n
+  args.b = {static_cast<const __nv_bfloat16*>(b),
+            static_cast<const __nv_bfloat16*>(b_lo),
+            b_strides[0], b_strides[1], b_strides[3], b_strides[2], n,
+            (b_mode >> 1) & 1};
+  args.bias = bias;
+  args.c = c;
+  args.c_bf16 = c_dtype == kBF16;
+  args.m = m;
+  args.n = n;
+  args.k = k;
+  args.z2 = z2;
+  args.act = act;
+  const int ta = a_mode & 1;
+  const int tb = b_mode & 1;
+  int err = 0;
+  if (args.a.tma) {
+    err = encode(&args.a_map, args.a.hi, ta, args.a, k, z1, z2, kBM);
+    if (!err && split == 1)
+      err = encode(&args.a_lo_map, args.a.lo, ta, args.a, k, z1, z2, kBM);
+  }
+  if (!err && args.b.tma) {
+    err = encode(&args.b_map, args.b.hi, tb, args.b, k, z1, z2, tile_n);
+    if (!err && split == 2)
+      err = encode(&args.b_lo_map, args.b.lo, tb, args.b, k, z1, z2, tile_n);
+  }
+  if (err) return err;
+  const int z = z1 * z2;
+  if (tile_n == 128)
+    return static_cast<int>(by_layout<128>(args, ta, tb, split, z, st));
+  return static_cast<int>(by_layout<64>(args, ta, tb, split, z, st));
 }

@@ -5,7 +5,9 @@ Hopper (``sm_90a``) into a shared library with a plain C interface, under
 ``build/`` at the repository root (a directory ``.gitignore`` lists).  The
 library's file name carries a hash of its source, so an edited kernel is
 rebuilt and a current one is loaded as it is.  All sources are compiled
-concurrently, one ``nvcc`` each.  A failed build raises; nothing falls back.
+concurrently, one ``nvcc`` each, with ``-Xptxas -v``: each kernel's
+registers, shared memory and spills are kept in ``LOGS``.  A failed build
+raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -21,11 +23,12 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("matmul", "bitonic_sort", "flash_attention", "wkv")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}  # source name -> nvcc's output of its last build
 
 
 def _nvcc() -> str:
@@ -63,6 +66,7 @@ def build_all(names=SOURCES) -> List[Path]:
             tmp.unlink(missing_ok=True)
             errors.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             continue
+        LOGS[name] = log
         tmp.replace(out)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))

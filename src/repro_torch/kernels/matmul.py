@@ -3,42 +3,123 @@
 The kernel replaces ``src/repro/kernels/matmul.py::matmul_pallas``: it
 computes ``epilogue(A @ B + bias)`` with an fp32 accumulator and one cast,
 for 2-D operands or 4-D batches of them read through their strides.  The
-source note in ``matmul.cu`` says what bounds it on an H100 and why every
-output element is summed in a fixed k order (batch invariance).
+source note in ``matmul.cu`` says what bounds it on an H100 and why a
+row's bits do not depend on how many rows it is multiplied with (batch
+invariance).
+
+Three paths, picked by ``choose_path`` from the operands' dtypes alone:
+bf16 x bf16 runs on the tensor cores (wgmma fed by TMA), fp32 x bf16 on
+the same kernel with the fp32 operand split into two bf16 halves
+(``split_hi_lo``), fp32 x fp32 on the FP32-pipe FMA kernel.  Neither the
+path nor the tile (``tile_n``, from N alone) depends on M or the batch.
 
 ``matmul_cuda`` is the only place the kernel is launched.  It checks what
 the kernel takes and raises on anything else, allocates the output with
 ``torch.empty``, launches on the current stream, raises if the launch
-reports an error, and counts the launch in ``LAUNCHES``.
+reports an error, and counts the launch in ``LAUNCHES`` (in total and by
+path).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 EPILOGUE_ACTIVATIONS = ("relu", "gelu", "silu", "tanh")
+PATHS = ("tensor_core", "split", "fma")
+_PATH_CODE = {"fma": 0, "tensor_core": 1, "split": 2}
 _ACT_CODE = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
-_LARGE_TILE_ROWS = 64  # rows per block above 16 rows and columns (by_shape)
+_TC_TILE_M = 128  # rows per CTA on the tensor-core paths (FMA: by_shape)
+_TMA_ALIGN = 16  # bytes: a tensor map's base and every stride it steps
 
 
 class LaunchCounter:
-    """Kernel launches since the last ``reset`` (a plain integer)."""
+    """Kernel launches since the last ``reset`` (a plain integer), and the
+    same launches by path."""
 
     def __init__(self):
         self.count = 0
+        self.by_path = dict.fromkeys(PATHS, 0)
 
     def reset(self) -> None:
         self.count = 0
+        self.by_path = dict.fromkeys(PATHS, 0)
 
 
 LAUNCHES = LaunchCounter()
+
+
+def choose_path(a_dtype: torch.dtype, b_dtype: torch.dtype) -> str:
+    """The kernel path for operands of these dtypes: ``tensor_core`` for
+    bf16 x bf16, ``split`` for fp32 x bf16 either way round, ``fma`` for
+    fp32 x fp32.  A function of the dtypes alone: never of M, N, K or the
+    batch, so a row takes the same path whatever it is multiplied with."""
+    pair = {a_dtype, b_dtype}
+    if not pair <= set(_DTYPE_CODE):
+        raise TypeError(f"matmul kernel takes float32 or bfloat16 operands, "
+                        f"got {a_dtype} and {b_dtype}")
+    if pair == {torch.bfloat16}:
+        return "tensor_core"
+    if pair == {torch.float32}:
+        return "fma"
+    return "split"
+
+
+def tile_n(n: int) -> int:
+    """Output columns per CTA on the tensor-core paths, from N alone: 128
+    for N >= 4096, else 64 (twice the CTAs, for bytes in flight at
+    decode)."""
+    return 128 if n >= 4096 else 64
+
+
+def split_hi_lo(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``x`` as two bf16 tensors of its strides, ``hi = bf16(x)`` and
+    ``lo = bf16(x - hi)``: ``hi + lo`` is ``x`` to within 2^-17 |x| (for
+    normal values).  Zeros stay zeros; where ``hi`` is not finite (±inf,
+    NaN) ``lo`` is 0, so the product passes them through."""
+    hi = x.to(torch.bfloat16)
+    rest = x - hi  # NaN or -inf only where hi is not finite
+    rest.nan_to_num_(0.0, 0.0, 0.0)
+    return hi, torch.empty_like(hi).copy_(rest)
+
+
+def operand_mode(t: torch.Tensor, operand: str) -> Tuple[bool, bool]:
+    """(mn_major, tma) of a bf16 operand of the tensor-core kernel; ``t`` is
+    ``a`` (rows m, k last) or ``b`` (k, then columns n), 2-D or 4-D.
+
+    K-major where the stride along k is 1, else MN-major where the stride
+    along m (for ``a``) or n (for ``b``) is 1, else K-major copied by the
+    producer's threads.  A tensor map can load it where the base is 16-byte
+    aligned and every other dimension longer than 1 steps a positive
+    multiple of 16 bytes; an extent of 1 is never stepped along."""
+    if operand not in ("a", "b"):
+        raise ValueError(f"operand must be 'a' or 'b', got {operand!r}")
+    shape, strides = tuple(t.shape), tuple(t.stride())
+    k_axis, mn_axis = (t.dim() - 1, t.dim() - 2) if operand == "a" else \
+        (t.dim() - 2, t.dim() - 1)
+
+    def unit(axis):
+        return strides[axis] == 1 or shape[axis] == 1
+
+    mn_major = not unit(k_axis) and unit(mn_axis)
+    fast = mn_axis if mn_major else k_axis
+    size = t.element_size()
+    tma = unit(fast) and t.data_ptr() % _TMA_ALIGN == 0 and all(
+        shape[i] == 1 or (strides[i] > 0 and strides[i] * size % _TMA_ALIGN
+                          == 0 and strides[i] * size < 2 ** 40)
+        for i in range(t.dim()) if i != fast) and max(shape) < 2 ** 32
+    return mn_major, tma
+
+
+def _mode_code(t: torch.Tensor, operand: str) -> int:
+    mn_major, tma = operand_mode(t, operand)
+    return int(mn_major) | (int(tma) << 1)
 
 
 def _function():
@@ -47,7 +128,8 @@ def _function():
         # every pointer as c_void_p: ctypes would otherwise pass a Python
         # int as a 32-bit int and cut the address
         p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
-        fn.argtypes = [p, s, i, p, s, i, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [i, p, p, s, i, i, p, p, s, i, i, p, p, i, i, i, i, i,
+                       i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -57,13 +139,18 @@ def _strides4(t: torch.Tensor):
     return (ctypes.c_longlong * 4)(*((0, 0) + st if t.dim() == 2 else st))
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
                 bias: Optional[torch.Tensor] = None,
                 activation: Optional[str] = None,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Launch the kernel: ``a`` (M, K) and ``b`` (K, N), or ``a`` (Z1, Z2, M,
     K) and ``b`` (Z1, Z2, K, N) with any strides; ``bias`` (N,) is added in
-    fp32; the result is contiguous in ``out_dtype`` (default ``a.dtype``)."""
+    fp32; the result is contiguous in ``out_dtype`` (default ``a.dtype``).
+    The path is ``choose_path(a.dtype, b.dtype)``."""
     if not (a.is_cuda and b.is_cuda):
         raise ValueError(f"matmul_cuda needs CUDA tensors, got {a.device} "
                          f"and {b.device}")
@@ -71,10 +158,10 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"operands on different devices: {a.device}, "
                          f"{b.device}")
     out_dtype = out_dtype or a.dtype
-    for name, dt in (("a", a.dtype), ("b", b.dtype), ("out", out_dtype)):
-        if dt not in _DTYPE_CODE:
-            raise TypeError(f"matmul kernel takes float32 or bfloat16; "
-                            f"{name} is {dt}")
+    path = choose_path(a.dtype, b.dtype)
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"matmul kernel writes float32 or bfloat16; out is "
+                        f"{out_dtype}")
     if activation not in _ACT_CODE:
         raise ValueError(f"activation must be None or one of "
                          f"{EPILOGUE_ACTIVATIONS}, got {activation!r}")
@@ -87,8 +174,11 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     m, k = a.shape[-2:]
     n = b.shape[-1]
     z1, z2 = (1, 1) if a.dim() == 2 else a.shape[:2]
-    rows_per_block = 16 if min(m, n) <= 16 else _LARGE_TILE_ROWS
-    if z1 * z2 > _MAX_GRID_YZ or -(-m // rows_per_block) > _MAX_GRID_YZ:
+    if path == "fma":  # grid (N tiles, M tiles, batch)
+        grid = (1, -(-m // (16 if min(m, n) <= 16 else 64)), z1 * z2)
+    else:  # grid (tiles, 1, batch)
+        grid = (-(-m // _TC_TILE_M) * -(-n // tile_n(n)), 1, z1 * z2)
+    if grid[0] >= 2**31 or max(grid[1:]) > _MAX_GRID_YZ:
         raise ValueError(f"matmul kernel grid too large for shape "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     if max(m, n, k) >= 2**31:
@@ -102,16 +192,27 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     out = torch.empty(a.shape[:-1] + (n,), dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
+    a_lo = b_lo = None
+    if path == "split":
+        if a.dtype == torch.float32:
+            a, a_lo = split_hi_lo(a)
+        else:
+            b, b_lo = split_hi_lo(b)
+    tc = path != "fma"  # the FMA kernel reads any strides, no modes
     fn = _function()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), _strides4(a), _DTYPE_CODE[a.dtype],
-                 b.data_ptr(), _strides4(b), _DTYPE_CODE[b.dtype],
+        err = fn(_PATH_CODE[path], a.data_ptr(), _ptr(a_lo), _strides4(a),
+                 _DTYPE_CODE[a.dtype], tc and _mode_code(a, "a"),
+                 b.data_ptr(), _ptr(b_lo), _strides4(b), _DTYPE_CODE[b.dtype],
+                 tc and _mode_code(b, "b"),
                  None if bias_f32 is None else bias_f32.data_ptr(),
                  out.data_ptr(), _DTYPE_CODE[out_dtype], z1, z2, m, n, k,
-                 _ACT_CODE[activation], stream)
+                 _ACT_CODE[activation], tile_n(n), stream)
     if err != 0:
-        raise RuntimeError(f"matmul kernel launch failed: cudaError {err} "
-                           f"for {tuple(a.shape)} @ {tuple(b.shape)}")
+        raise RuntimeError(f"matmul kernel ({path} path) launch failed: "
+                           f"code {err} for {tuple(a.shape)} @ "
+                           f"{tuple(b.shape)}")
     LAUNCHES.count += 1
+    LAUNCHES.by_path[path] += 1
     return out

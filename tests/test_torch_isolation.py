@@ -13,7 +13,9 @@ agrees with the kernel's plain version on the card.
 * on a CUDA card (marked ``cuda``; skipped elsewhere), the matmul kernel
   matches its plain version at serving shapes: bf16 within 8e-3 x
   max|plain| (about one bf16 rounding), fp32 within 1e-5 x max|plain|,
-  and gives bit-identical rows whatever the batch size.
+  on the path its dtypes name, and gives bit-identical rows whatever the
+  batch size (every path, epilogue and operand form:
+  test_torch_matmul_paths.py).
 """
 
 import os
@@ -151,7 +153,7 @@ def test_kernel_matches_plain_on_card(m):
         pytest.skip("needs an NVIDIA GPU (CUDA); on a card run `python -m "
                     "pytest --noconftest -m cuda tests/test_torch_isolation.py`")
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.matmul import LAUNCHES
+    from repro_torch.kernels.matmul import LAUNCHES, choose_path
 
     gen = torch.Generator(device="cuda").manual_seed(m)
     a = torch.randn((m, 2048), generator=gen, device="cuda")
@@ -159,8 +161,10 @@ def test_kernel_matches_plain_on_card(m):
     for dt, tol in ((torch.bfloat16, 8e-3), (torch.float32, 1e-5)):
         for act in (None, "silu", "gelu"):
             before = LAUNCHES.count
+            on_path = LAUNCHES.by_path[choose_path(dt, dt)]
             got = ops.matmul(a.to(dt), b.to(dt), activation=act)
             assert LAUNCHES.count == before + 1
+            assert LAUNCHES.by_path[choose_path(dt, dt)] == on_path + 1
             want = ref.matmul_fused_ref(a.to(dt), b.to(dt), activation=act)
             err = (got.float() - want.float()).abs().max().item()
             assert err <= tol * want.float().abs().max().item(), (dt, act)

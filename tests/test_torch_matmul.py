@@ -3,8 +3,8 @@ reference's Pallas kernel (``repro.kernels.ops.matmul``, interpret mode),
 on the same numpy inputs.
 
 On CPU tensors the port runs the kernel's plain PyTorch version; the CUDA
-kernel itself is held against that version in test_torch_isolation.py (on
-a card) and by chip_smoke.py.  Tolerance: rtol = atol = 1e-5 in fp32 (both
+kernel itself is held against that version in test_torch_isolation.py and
+test_torch_matmul_paths.py (on a card) and by chip_smoke.py.  Tolerance: rtol = atol = 1e-5 in fp32 (both
 sides accumulate in fp32; only the summation order differs).
 """
 

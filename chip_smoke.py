@@ -5,7 +5,9 @@
 Phases, one report line each (any failure exits non-zero):
   1. card + build: the card's name and power limit, torch/CUDA versions,
      and the build of every kernel from csrc/ (seconds), with matmul.cu's
-     registers, spills and serialized-wgmma notices by path (ptxas -v);
+     and flash_attention.cu's registers, spills and serialized-wgmma
+     notices by path (ptxas -v); any spill or such notice in a flash
+     tensor-core kernel fails the run;
   2. each kernel against its plain PyTorch version at the shapes the main
      path gives it (tinyllama-1.1b serving, bf16), with the matmul path it
      took, timed with CUDA events with a cold L2 beside the plain version,
@@ -35,10 +37,15 @@ Phases, one report line each (any failure exits non-zero):
   6. card against CPU in fp32: one batched prefill + 4 decode steps;
   7. flash: the flash-attention kernels, forward and backward, against
      their plain versions (and the forward against flash_attention_ref;
-     bf16 outputs held against their own row's magnitude)
-     at the training shape (2, 2048, 32, 4, 64) in bf16 and fp32 and an
-     awkward (3, 100, 8, 2, 64) in fp32, each timed (CUDA events, cold L2)
-     beside the plain version, scaled_dot_product_attention and the bound;
+     bf16 outputs held against their own row's magnitude; kernel forward
+     then kernel backward against the plain chain)
+     at the training shape (2, 2048, 32, 4, 64) in bf16 and fp32, an
+     awkward (3, 100, 8, 2, 64) in fp32, mistral-nemo's heads (32 / 8, hd
+     128) in bf16 and a ragged MQA (3, 100, 8, 1, 64) in bf16; each call on
+     the path its dtype and hd name (bf16: the wgmma kernels, no operand
+     copied), the bf16 backward bit-identical on a second run, each timed
+     (CUDA events, cold L2) beside the plain version,
+     scaled_dot_product_attention and the bound;
   8. train-parity: one make_train_step of full-width tinyllama-1.1b cut to
      2 layers, fp32, batch 2 x 256, on the card and on the CPU from the
      same parameters and batch: the loss within 1e-4 relative, every
@@ -52,10 +59,11 @@ Phases, one report line each (any failure exits non-zero):
      Runtime(device="cuda")
      .train of full-width tinyllama-1.1b (22 layers, bf16, random
      weights, seed 0) for 4 steps at batch 2 x 2048 with a checkpoint,
-     every loss finite, the kernels' launches per step, tokens/s, peak
-     memory, the plan; a 4-step run on one fixed batch whose loss must
-     fall, with one step profiled (device busy share, device ms by
-     kernel and matmul path, no library GEMM kernel);
+     every loss finite, the kernels' launches per step (every flash call
+     on the tensor-core path, no operand copied), tokens/s, peak memory,
+     the plan; a 4-step run on one fixed batch whose loss must fall, with
+     one step profiled (device busy share, device ms by kernel, matmul
+     path and flash kernel, no library GEMM or attention kernel);
  10. wkv: the WKV kernels, forward and backward (every gradient), against
      their plain versions at rwkv6-3b's training shape (2, 2048, 40, 64)
      with bf16 r/k/v and fp32 logw made as the time mix makes them, the
@@ -105,11 +113,15 @@ F32_TOL = 1e-5       # x max|plain|
 CHAIN_TOL = 1e-4     # x max|left-to-right product|: fp32, another order
 PROMPT, MAX_NEW, SLOTS, REQUESTS = 64, 32, 4, 8
 # (B, S, Hq, Hkv, hd, dtype) the flash kernels are held at: the training
-# shape of tinyllama-1.1b at batch 2 x 2048 in both types, and an awkward
-# one (S not a multiple of the 64-row block, a GQA group of 4)
+# shape of tinyllama-1.1b at batch 2 x 2048 in both types, an awkward one
+# (S not a multiple of the block, a GQA group of 4), mistral-nemo's heads
+# (32 query, 8 kv, hd 128: the tensor-core path's other head dim) and a
+# ragged MQA one on the tensor-core path
 FLASH_SHAPES = [(2, 2048, 32, 4, 64, "bfloat16"),
                 (2, 2048, 32, 4, 64, "float32"),
-                (3, 100, 8, 2, 64, "float32")]
+                (3, 100, 8, 2, 64, "float32"),
+                (2, 1024, 32, 8, 128, "bfloat16"),
+                (3, 100, 8, 1, 64, "bfloat16")]
 FLASH_F32_TOL = 2e-3  # x max|plain|: tests/test_kernels.py's flash tolerance
 # bf16 flash outputs, element by element: BF16_TOL x the largest |plain| in
 # the element's row (the last axis), one bf16 rounding of that row, plus
@@ -118,6 +130,11 @@ FLASH_F32_TOL = 2e-3  # x max|plain|: tests/test_kernels.py's flash tolerance
 # |o| ~ 0.05 against a max of 3.4.  Readings it was set from (H100, bf16
 # training shape): o 9.8e-4 (|o| < 0.25), dk 1.6e-2 (|dk| in [2, 4)), each
 # one bf16 step of its element.
+# The chain as training runs it, kernel forward then kernel backward,
+# against plain forward then plain backward: bf16 gradients within
+# FLASH_CHAIN_TOL x max|plain| (the bf16 output the backward reads brings
+# its own rounding), fp32 within FLASH_F32_TOL x max|plain|.
+FLASH_CHAIN_TOL = 2e-2
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 2048  # TinyLlama's context
 # (B, S, H, N, dtype, logw) the WKV kernels are held at: rwkv6-3b's
 # training shape at batch 2 x 2048 (logw as the time mix makes it), in both
@@ -203,6 +220,19 @@ MATMUL_KERNELS = {"matmul tensor_core": "matmul_wgmma_kernel",
 # names of library GEMM kernels (cuBLAS, cuBLASLt, CUTLASS device GEMMs);
 # none may run on a main path
 LIBRARY_GEMM = re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.IGNORECASE)
+# the flash kernels' device-side names on the tensor-core path
+# (flash_attention.cu); none is part of a PyTorch kernel's name
+FLASH_KERNELS = {"flash forward": "repro_flash_tc_fwd",
+                 "flash backward dq": "repro_flash_tc_dq",
+                 "flash backward dk dv": "repro_flash_tc_dkv",
+                 "flash group sum": "repro_flash_tc_group_sum"}
+# names of library attention kernels (FlashAttention-2 in PyTorch, the
+# memory-efficient CUTLASS kernels, cuDNN's SDPA); none may run on a main
+# path
+LIBRARY_ATTENTION = re.compile(
+    r"fmha|flash_fwd_kernel|flash_fwd_splitkv|flash_bwd_dq_dk_dv|"
+    r"flash_bwd_dot_do_o|flash_bwd_convert_dq|efficient_attention|sdpa|"
+    r"attention_kernel", re.IGNORECASE)
 
 
 def group_device_ms(by_name, groups) -> dict:
@@ -311,6 +341,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log("build", f"{', '.join(build.SOURCES)} built in {build_s:.2f} s "
         f"into {build.BUILD_DIR}")
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    for name, text in build.LOGS.items():  # the ptxas -v reports, in full
+        (ROOT / "chiprun_out" / f"ptxas_{name}.txt").write_text(text)
     ptxas = ptxas_summary(build.LOGS.get("matmul", ""))
     for kind, row in ptxas.items():
         log("build", f"matmul.cu {kind}: {row['kernels']} kernels, "
@@ -318,8 +351,24 @@ def main() -> int:
             f"thread, spill stores/loads up to {row['spill_bytes']} bytes "
             f"(ptxas -v); shared memory {row['smem']}; wgmma serialized "
             f"(ptxas C7520) in {row['serialized_wgmma']}")
+    flash_ptxas = ptxas_summary(build.LOGS.get("flash_attention", ""),
+                                FLASH_PTXAS_KINDS)
+    for kind, row in flash_ptxas.items():
+        log("build", f"flash_attention.cu {kind}: {row['kernels']} kernels, "
+            f"{row['registers'][0]}-{row['registers'][1]} registers a "
+            f"thread at launch, spill stores/loads up to "
+            f"{row['spill_bytes']} bytes (ptxas -v); ptxas C75xx notices "
+            f"(wgmma serialized, setmaxnreg ignored) {row['notices']}")
+    tc = flash_ptxas.get("tensor_core")
+    notices = [x for x in build.LOGS.get("flash_attention", "").splitlines()
+               if "(C75" in x]  # every wgmma of flash_attention.cu is tc
+    if not tc or tc["kernels"] != 7 or tc["spill_bytes"] or notices:
+        log("build", f"FAIL: the flash tensor-core kernels must build (7 "
+            f"kernels) with no spill and no C75xx notice: {tc}; {notices}")
+        return 1
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                  build_s=build_s, matmul_ptxas=ptxas)
+                  build_s=build_s, matmul_ptxas=ptxas,
+                  flash_ptxas=flash_ptxas)
 
     # ------------------------------------------------------------------ 2
     cfg = get_config("tinyllama-1.1b")
@@ -735,6 +784,9 @@ def main() -> int:
         "library_ms": big["library_ms"],
     }, {
         "name": "flash_attention", "route": "cuda",
+        "design": "wgmma bf16 tensor cores fed by TMA, P and dS split into "
+                  "bf16 hi + lo, dK/dV per query head summed per kv head "
+                  "(bf16 at hd 64 and 128); the FP32 FMA kernels (fp32)",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86",
         # wrapper calls per training step: forward (each layer, and again
@@ -858,27 +910,36 @@ def invariance_gate(ops, mm, gen, d, f):
     return checked
 
 
-def ptxas_summary(text) -> dict:
+# (path, part of the kernel name) of each source's kernels, the first
+# match naming the path
+MATMUL_PTXAS_KINDS = (("split", "matmul_wgmma_split"),
+                      ("tensor_core", "matmul_wgmma"), ("fma", "matmul_kernel"))
+FLASH_PTXAS_KINDS = (("tensor_core", "repro_flash_tc_"), ("fma", "flash_"))
+
+
+def ptxas_summary(text, kinds=MATMUL_PTXAS_KINDS) -> dict:
     """Registers, spills, static shared memory and serialized-wgmma notices
-    of matmul.cu's kernels by path, from ``nvcc -Xptxas -v``."""
+    of one source's kernels by path (``kinds``: matmul.cu's by default),
+    from ``nvcc -Xptxas -v``: the C7520 notices (wgmma serialized on a
+    path ptxas cannot prove uniform) counted, and every C75xx code (wgmma
+    serialized for any reason, setmaxnreg ignored) listed."""
     out = {}
 
     def kind_of(line):
-        return next((p for p, key in (("split", "matmul_wgmma_split"),
-                                      ("tensor_core", "matmul_wgmma"),
-                                      ("fma", "matmul_kernel"))
-                     if key in line), None)
+        return next((p for p, key in kinds if key in line), None)
 
     def row_of(kind):
         return out.setdefault(kind, dict(kernels=0, registers=[999, 0],
                                          spill_bytes=0, smem="none",
-                                         serialized_wgmma=0))
+                                         serialized_wgmma=0, notices=[]))
 
     kind = None
     for line in text.splitlines():
-        if "C7520" in line:  # ptxas: this function's wgmma are serialized
-            if kind_of(line):
-                row_of(kind_of(line))["serialized_wgmma"] += 1
+        code = re.search(r"\((C75\d\d)\)", line)
+        if code and kind_of(line):  # ptxas: this function's wgmma serialized
+            row = row_of(kind_of(line))
+            row["notices"].append(code.group(1))
+            row["serialized_wgmma"] += code.group(1) == "C7520"
         elif "Compiling entry function" in line:
             kind = kind_of(line)
             if kind:
@@ -966,9 +1027,10 @@ def sort_stages(gen, bitonic_sort) -> dict:
     return dict(events=events, ms=stages, total_ms=sum(by_name.values()))
 
 
-def device_ms_by_kernel(run) -> tuple:
+def device_ms_by_kernel(run, counts=None) -> tuple:
     """({kernel name: device ms}, device events) of what ``run()``
-    launches, from torch.profiler."""
+    launches, from torch.profiler; ``counts``, where given, gets each
+    name's number of launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -982,6 +1044,8 @@ def device_ms_by_kernel(run) -> tuple:
             n_kernels += 1
             by_name[ev.name] = by_name.get(ev.name, 0.0) + \
                 ev.device_time_total / 1e3
+            if counts is not None:
+                counts[ev.name] = counts.get(ev.name, 0) + 1
     return by_name, n_kernels
 
 
@@ -1111,13 +1175,26 @@ def flash_case(shape, gen, ref, fa, flush):
     dt = getattr(torch, dtype_name)
     q, k, v, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda")
                    .to(dt) for h in (hq, hkv, hkv, hq))
-    before = (fa.LAUNCHES.forward, fa.LAUNCHES.backward, fa.LAUNCHES.grids)
+    # the routing rule, stated apart from the wrapper's choose_path
+    path = "tensor_core" if dt == torch.bfloat16 and hd in (64, 128) \
+        else "fma"
+    before = (fa.LAUNCHES.forward, fa.LAUNCHES.backward, fa.LAUNCHES.grids,
+              fa.LAUNCHES.by_path[path], fa.LAUNCHES.copied_operands)
     o, lse = fa.flash_attention_fwd_cuda(q, k, v)
     o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v)
     grads = fa.flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do)
     grads_p = ref.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do)
     calls = (fa.LAUNCHES.forward - before[0], fa.LAUNCHES.backward - before[1],
-             fa.LAUNCHES.grids - before[2])
+             fa.LAUNCHES.grids - before[2], fa.LAUNCHES.by_path[path]
+             - before[3], fa.LAUNCHES.copied_operands - before[4])
+    # the backward again on the same inputs: the same bits (no atomics, a
+    # fixed order for the group sums)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do)
+    repeat = all(torch.equal(x, y) for x, y in zip(grads, again))
+    # the chain as training runs it: the kernel backward fed the kernel
+    # forward's o and lse, against the plain chain
+    chained = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    del again
     g = hq // hkv
     fold = lambda t: t.repeat_interleave(  # noqa: E731
         hq // t.shape[2], dim=2).transpose(1, 2).reshape(b * hq, s, hd)
@@ -1141,9 +1218,25 @@ def flash_case(shape, gen, ref, fa, flush):
             log("flash", f"FAIL {shape} {name}: max abs err {err:.3e}, "
                 f"{ratio:.2f} x its limit")
             return None
-    if calls != (1, 1, 3):
-        log("flash", f"FAIL {shape}: wrapper calls {calls}, expected one "
-            f"forward and one backward (3 CUDA launches)")
+    grids = 4 if path == "tensor_core" else 3
+    chain_tol = FLASH_F32_TOL if dt == torch.float32 else FLASH_CHAIN_TOL
+    for name, got, want in zip(("dq", "dk", "dv"), chained, grads_p):
+        err = (got.float() - want.float()).abs().max().item()
+        ratio = err / (chain_tol * want.float().abs().max().item())
+        errs[f"chained {name}"] = dict(err=err, of_limit=ratio)
+        if not ratio <= 1.0:
+            log("flash", f"FAIL {shape} chained {name}: max abs err "
+                f"{err:.3e}, {ratio:.2f} x its limit")
+            return None
+    del chained
+    if calls != (1, 1, grids, 2, 0):
+        log("flash", f"FAIL {shape}: wrapper calls (forward, backward, CUDA "
+            f"launches, on the {path} path, operands copied) {calls}, "
+            f"expected (1, 1, {grids}, 2, 0)")
+        return None
+    if not repeat:
+        log("flash", f"FAIL {shape}: a second backward on the same inputs "
+            f"gave other bits")
         return None
 
     # SDPA on the same tensors, heads second, as a yardstick only
@@ -1183,17 +1276,19 @@ def flash_case(shape, gen, ref, fa, flush):
         + esz * (n_q + 2 * n_kv)  # q k v o do lse in, dq dk dv out
     t_ops = (flops_f + flops_b) / peak * 1e3
     t_bytes = (bytes_f + bytes_b) / HBM_BW * 1e3
-    row = dict(shape=list(shape[:5]), dtype=dtype_name, group=g,
+    row = dict(shape=list(shape[:5]), dtype=dtype_name, group=g, path=path,
+               backward_bits_repeat=repeat,
                max_abs_err=worst, errors=errs, launches=dict(
-                   forward_calls=1, backward_calls=1, cuda_launches=3),
+                   forward_calls=1, backward_calls=1, cuda_launches=grids),
                fwd_bound_ms=max(flops_f / peak, bytes_f / HBM_BW) * 1e3,
                bwd_bound_ms=max(flops_b / peak, bytes_b / HBM_BW) * 1e3,
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                fwd_tflops=flops_f / times["fwd_ms"] / 1e9,
                bwd_tflops=flops_b / times["bwd_ms"] / 1e9, **times)
-    log("flash", f"{tuple(shape[:5])} {dtype_name}: kernel == plain within "
-        f"tol (worst {worst:.2e}; " + ", ".join(
+    log("flash", f"{tuple(shape[:5])} {dtype_name} ({path} path; backward "
+        f"bits repeat): kernel == plain within tol (worst {worst:.2e}; "
+        + ", ".join(
             f"{k} {e['err']:.1e} = {e['of_limit']:.2f} x limit"
             for k, e in errs.items())
         + ")")
@@ -1204,7 +1299,7 @@ def flash_case(shape, gen, ref, fa, flush):
     log("flash", f"  backward: kernel {times['bwd_ms']:.4f} ms "
         f"({row['bwd_tflops']:.2f} TFLOP/s)  plain {times['bwd_plain_ms']:.4f}"
         f" ms  sdpa {times['bwd_library_ms']:.4f} ms  bound "
-        f"{row['bwd_bound_ms']:.4f} ms; 2 launches; cold L2")
+        f"{row['bwd_bound_ms']:.4f} ms; {grids - 1} launches; cold L2")
     return row
 
 
@@ -1393,7 +1488,9 @@ def train_phase(cfg, fa, mm_launches):
     counts = dict(matmul=mm_launches.count, flash_forward=fa.LAUNCHES.forward,
                   flash_backward=fa.LAUNCHES.backward,
                   flash_cuda_launches=fa.LAUNCHES.grids,
-                  **{f"matmul {p}": n for p, n in mm_launches.by_path.items()})
+                  flash_copied_operands=fa.LAUNCHES.copied_operands,
+                  **{f"matmul {p}": n for p, n in mm_launches.by_path.items()},
+                  **{f"flash {p}": n for p, n in fa.LAUNCHES.by_path.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     saved = sorted(p.name for p in ckpt.iterdir()) if ckpt.exists() else []
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1427,6 +1524,14 @@ def train_phase(cfg, fa, mm_launches):
         log("train", "FAIL: a step was not finite, the run stopped early, "
             "the checkpoint is missing or a kernel never launched")
         return None
+    # bf16 at hd 64: every flash call on the wgmma kernels, through tensor
+    # maps (the producer's copy loader never needed)
+    if counts["flash fma"] or counts["flash_copied_operands"] or \
+            counts["flash tensor_core"] != counts["flash_forward"] + \
+            counts["flash_backward"]:
+        log("train", f"FAIL: a bf16 flash call left the tensor-core path or "
+            f"copied an operand: {counts}")
+        return None
     del res
     torch.cuda.empty_cache()
 
@@ -1447,11 +1552,12 @@ def train_phase(cfg, fa, mm_launches):
         walls.append((time.perf_counter() - t0) * 1e3)
     with torch.no_grad():
         end_loss = float(model.loss(state["params"], batch)[0])
-    by_name, events = device_ms_by_kernel(lambda: step_fn(state, batch))
+    launched = {}
+    by_name, events = device_ms_by_kernel(lambda: step_fn(state, batch),
+                                          launched)
     device_ms = sum(by_name.values())
-    split = group_device_ms(by_name, {
-        "flash forward": "flash_fwd", "flash backward dq": "flash_bwd_dq",
-        "flash backward dk dv": "flash_bwd_dkv"})
+    split = group_device_ms(by_name, FLASH_KERNELS)
+    flash_ms = sum(split[g] for g in FLASH_KERNELS)
     wall = walls[-1]
     log("train", f"fixed batch, lr 1e-3: losses {losses}, after "
         f"{TRAIN_STEPS} steps {end_loss:.4f} (must be below {losses[0]:.4f});"
@@ -1464,12 +1570,23 @@ def train_phase(cfg, fa, mm_launches):
             f"{device_ms:.1f} ms of a {wall:.1f} ms step "
             f"({100 * device_ms / wall:.1f}%); " + ", ".join(
                 f"{g} {v:.1f} ms" for g, v in split.items()))
+        log("train", f"flash device time {flash_ms:.2f} ms by kernel: " +
+            ", ".join(f"{k} {v:.3f} ms ({n} launches)" for k, v, n in (
+                (name, sum(ms for kn, ms in by_name.items() if key in kn),
+                 sum(n for kn, n in launched.items() if key in kn))
+                for name, key in FLASH_KERNELS.items())))
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log("train", f"  {ms:9.2f} ms  {name[:90]}")
     if not (all(math.isfinite(x) for x in losses) and end_loss < losses[0]):
         log("train", "FAIL: the loss did not fall on a fixed batch")
         return None
     if library_gemms("train", by_name):
+        return None
+    library_attn = sorted(k for k in by_name if LIBRARY_ATTENTION.search(k))
+    if library_attn or (events and not flash_ms):
+        log("train", f"FAIL: library attention kernels on the main path "
+            f"{library_attn}, or no repro_flash_tc kernel in the profile "
+            f"(flash {flash_ms:.3f} ms)")
         return None
     return dict(steps=steps, final_loss=steps[-1]["loss"], tok_per_s=tok_s,
                 peak_memory_gb=peak_gb, launches_per_step=per_step,
@@ -1482,7 +1599,7 @@ def train_phase(cfg, fa, mm_launches):
                 fixed_batch_losses=losses, fixed_batch_end_loss=end_loss,
                 fixed_batch_step_ms=walls, profile=dict(
                     events=events, device_ms=device_ms, wall_ms=wall,
-                    by_group=split, top=sorted(by_name.items(),
+                    by_group=split, flash_ms=flash_ms, top=sorted(by_name.items(),
                                                key=lambda kv: -kv[1])[:12]))
 
 

@@ -7,53 +7,97 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_pallas (body _flash_kernel): the same online softmax,
-// (m, l, acc) in fp32, scores masked to -1e30, l floored at 1e-30 and kv
-// blocks past the diagonal skipped.  What differs is where the loops go.
-// The TPU kernel walks the kv blocks along a sequential grid axis and
-// carries (m, l, acc) in VMEM scratch from one grid step to the next; GPU
-// blocks run in no order, so here one CTA owns one (batch, query head,
-// 64-row query block) and loops over its kv blocks itself, stopping at
-// the diagonal.  The reference's wrapper folds heads into the batch and
-// repeats K and V g times (ops.py _flash_impl); this kernel reads q, k and
-// v (B, S, H, hd) through their strides and indexes kv head h / g, so the
-// repeat is never written out.  The ragged edge (S not a multiple of 64)
-// is masked, not padded.  The forward also writes lse = m + log(l) per
-// query row, which the backward needs.
+// (m, l, acc) in fp32, l floored at 1e-30, kv blocks past the diagonal
+// skipped.  What differs is where the loops go.  The TPU kernel walks the
+// kv blocks along a sequential grid axis and carries (m, l, acc) in VMEM
+// scratch from one grid step to the next; GPU blocks run in no order, so
+// here a CTA owns a query block and loops over its kv blocks itself.  The
+// reference's wrapper folds heads into the batch and repeats K and V g
+// times (ops.py _flash_impl); these kernels read q, k and v (B, S, H, hd)
+// through their strides and index kv head h / g, so the repeat is never
+// written out.  The ragged edge (S not a multiple of the block) is masked,
+// not padded.  The forward also writes lse = m + log(l) per query row,
+// which the backward needs.
 //
 // The TPU kernel has no backward: the reference never differentiates
-// through it.  Training in the port runs every no-cache attention on this
-// kernel, so the gradient is here too, in closed form from lse:
+// through it.  Training in the port runs every no-cache attention on these
+// kernels, so the gradient is here too, in closed form from lse:
 //   P = exp(scale q.k - lse), D = rowsum(dO * O), dV = P^T dO,
-//   dS = P * (dO V^T - D), dQ = scale dS K, dK = scale dS^T Q.
-// Two kernels, with no atomics, so the result does not depend on timing:
-//   flash_bwd_dq  - one CTA per (b, query head, query block) loops over
-//                   the kv blocks up to the diagonal, writes D (read by the
-//                   next kernel) and dQ;
-//   flash_bwd_dkv - one CTA per (b, kv head, kv block) loops over the g
-//                   query heads of its group and the query blocks from the
-//                   diagonal down, and writes dK and dV summed over the
-//                   group.
+//   dS = P * (dO V^T - D), dQ = scale dS K, dK = scale dS^T Q,
+// with no atomics, so the result's bits do not depend on timing.
 //
-// What bounds it on an H100: at the training shape (B 2, S 2048, 32 query
-// heads, hd 64) attention is a pair of products of 2 B Hq S^2 hd FLOPs
-// (halved by causality) against 8 to 34 MB of inputs, so it is bound by
-// operations, about 0.035 ms forward at the bf16 tensor-core rate.  This
-// first kernel keeps every operand in shared memory as fp32 and runs on
-// the FP32 FMA pipe (67 TFLOP/s on the data sheet), each thread owning a
-// 4 x 4 tile of scores and a 4 x hd/16 tile of the output, so it stays far
-// from that bound; wgmma on bf16 tiles with TMA loads is later work.
-// Shared-memory rows are padded by one float so that the transposed reads
-// and writes of a warp fall in distinct banks.
+// Two paths, chosen from the dtype and hd alone (tensor_core_path below;
+// kernels/flash_attention.py choose_path states the same rule), never
+// from B, S or the heads:
+//   * tensor core (bf16 at hd 64 and 128): repro_flash_tc_fwd, then for
+//     the backward repro_flash_tc_dq (which writes D), repro_flash_tc_dkv
+//     and repro_flash_tc_group_sum;
+//   * FMA (fp32, and bf16 at hd 16 and 32): flash_fwd, flash_bwd_dq and
+//     flash_bwd_dkv, the first port's kernels, unchanged: every operand in
+//     shared memory as fp32 on the FP32 pipe (67 TFLOP/s on the data
+//     sheet), one CTA per (batch, head, 64-row block); the fp32 gates hold
+//     them.
+//
+// What bounds it on an H100: at tinyllama-1.1b's training shape (B 2, S
+// 2048, 32 query heads, 4 kv heads, hd 64) the forward is two products of
+// 2 B Hq S^2 hd FLOPs halved by causality (34 GFLOP), the backward 2.5x
+// that, against 8 to 34 MB of operands: bound by operations, 0.122 ms for
+// forward + backward at the 989 TFLOP/s of bf16 tensor cores.  What the
+// tensor-core path does about it:
+//   - every product is a wgmma (bf16 in, fp32 accumulators in registers)
+//     from 128-byte-swizzled shared memory.  A CTA is three warpgroups:
+//     a producer warpgroup, of which one warp loads with TMA through a
+//     ring of mbarrier-guarded stages (4-D tensor maps over (hd, heads,
+//     rows, batch), kv head h / g in the coordinate, boxes past the rows
+//     read as zeros), and two consumer warpgroups of 64 rows each.  The
+//     producers hand their registers to the consumers with setmaxnreg,
+//     40 a thread to 232 (a CTA launches at 168 a thread);
+//   - the softmax runs on the accumulator fragment in registers (row max
+//     and sum over the four threads of a quad, exp2 of the scores times
+//     scale log2 e), and P (forward), dS (dQ), Pᵀ and dSᵀ (dK/dV) go to the
+//     next wgmma as its register A operand: nothing goes back through
+//     shared memory.  Each is split into bf16 hi = bf16(x) and lo =
+//     bf16(x - hi), issued as two wgmmas, because one bf16 rounding put
+//     dQ past the bf16 gate of chip_smoke.py; hi + lo leaves 2^-16 of
+//     each term, where the plain versions run fp32 throughout;
+//   - V, K, dO and Q as the B operand of P V, dS K, Pᵀ dO and dSᵀ Q are
+//     read MN-major through the transpose bit: no tile is transposed;
+//   - only a block crossing the diagonal or the ragged edge is masked, and
+//     the longest query blocks are scheduled first;
+//   - the dK/dV kernel runs one CTA per (batch, query head, 128 kv rows):
+//     1,024 CTAs at the training shape, where one per kv head (the FMA
+//     path's design) gives 256 of very unequal length (the causal
+//     triangle) for 132 SMs.  Each writes its head's scale dK and dV as
+//     fp32 partials (67 MB at the training shape); repro_flash_tc_group_sum
+//     adds each kv head's g partials in head order and casts to bf16.
+//     That costs about 134 MB of traffic, some 40 us at 3.35 TB/s, and
+//     keeps the backward deterministic;
+//   - at hd 128 the dK/dV kernel takes 32 query rows a stage (64 at hd
+//     64), so its two hd-wide accumulators, Sᵀ and dPᵀ and their bf16
+//     halves fit in a consumer's 232 registers, without spills;
+//   - every wgmma sits on a path the compiler can prove warp-uniform (the
+//     warpgroup index through a shuffle, the barrier's retry loop inside
+//     its asm): otherwise ptxas serializes them (its C7520 notice).
+// An operand a tensor map cannot describe (hd not contiguous, a base or a
+// stride not 16-byte aligned) is copied by the producer's lanes into the
+// same swizzled layout: the loader differs, the wgmma sequence does not.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//             -Xcompiler -fPIC  (no fast-math: expf/logf stay accurate)
+//             -Xcompiler -fPIC -Xptxas -v  (no fast-math: expf/logf stay
+//             accurate).  hopper.cuh holds the Hopper primitives shared
+//             with matmul.cu.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
 namespace {
 
 enum DtypeCode { kF32 = 0, kBF16 = 1 };
+
+// ---------------------------------------------------------------------------
+// FMA path (fp32; bf16 at hd 16 and 32).  Shared-memory rows are padded by
+// one float so that the transposed reads and writes of a warp fall in
+// distinct banks.
+// ---------------------------------------------------------------------------
 
 constexpr float kNegInf = -1e30f;
 constexpr int kBQ = 64;             // query rows per block
@@ -540,19 +584,827 @@ Tensor4 tensor4(const void* ptr, const long long* st) {
   return {ptr, st[0], st[1], st[2], st[3]};
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core path (bf16 at hd 64 and 128)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcConsumers = 256;  // two consumer warpgroups (warps 0-7)
+constexpr int kTcProducers = 32;   // the loading warp (warp 8) of
+constexpr int kTcThreads = 384;    // a producer warpgroup (warps 8-11)
+// Registers a thread after setmaxnreg: the producer warpgroup gives its
+// share to the consumers (40 x 128 + 232 x 256 = the 168 x 384 a CTA is
+// launched with), whose accumulators, scores and bf16 operands need it.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kErrNoEncoder = 10000;  // returned when libcuda lacks TMA
+constexpr int kErrEncode = 11000;     // + the CUresult of a refused map
+
+// One (B, rows, heads, hd) bf16 operand: element (b, r, h, d) at
+// ptr + b*s0 + r*s1 + h*s2 + d*s3.  ``tma`` is 1 where a tensor map loads
+// it, 0 where the producer's threads copy it.
+struct TcTensor {
+  const __nv_bfloat16* ptr;
+  long long s0, s1, s2, s3;
+  int rows, heads, tma;
+};
+
+// An R-row tile of HD columns in shared memory: HD / 64 panels of R rows
+// of 128 bytes (64 bf16), each row swizzled as TMA's 128-byte swizzle
+// writes it; panel p starts p * R * 128 bytes in.
+template <int R, int HD>
+__host__ __device__ constexpr int tile_bytes() {
+  return R * HD * 2;
+}
+
+// The copy loader, for an operand no tensor map can describe: the producer
+// warp's lanes copy rows [row0, row0 + R) of head h, element by element,
+// into the layout TMA would have written (zeros past the operand's rows).
+template <int R, int HD>
+__device__ __forceinline__ void copy_tile(uint8_t* dst, const TcTensor& t,
+                                          int row0, int h, int b, int lane) {
+  const __nv_bfloat16* src = t.ptr + b * t.s0 + h * t.s2;
+  for (int e = lane; e < R * HD; e += kTcProducers) {
+    const int r = e / HD, d = e % HD, gr = row0 + r;
+    __nv_bfloat16 v = __float2bfloat16_rn(0.f);
+    if (gr < t.rows) v = src[gr * t.s1 + d * t.s3];
+    *reinterpret_cast<__nv_bfloat16*>(dst + (d >> 6) * (R * 128) +
+                                      swizzled<0>(r, d & 63)) = v;
+  }
+}
+
+// One tile a stage fills: where it goes, what it holds (head ``h``).
+struct Tile {
+  uint8_t* dst;
+  const TcTensor* t;
+  const CUtensorMap* map;
+  int h;
+};
+
+// The producer warp fills N tiles (rows [row0, row0 + R) of batch b) and
+// arrives on ``bar``: the copies first, then lane 0's expected byte count
+// and its TMA loads (one 64-column box per panel); the other lanes arrive
+// after their copies.  ``bar`` expects 32 arrivals.
+template <int R, int HD, int N>
+__device__ __forceinline__ void fill(const Tile (&tiles)[N], uint64_t* bar,
+                                     int row0, int b, int lane) {
+  bool copied = false;
+  uint32_t tx = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (tiles[i].t->tma) {
+      tx += tile_bytes<R, HD>();
+    } else {
+      copy_tile<R, HD>(tiles[i].dst, *tiles[i].t, row0, tiles[i].h, b, lane);
+      copied = true;
+    }
+  }
+  // copies are generic-proxy writes; wgmma reads through the async proxy
+  if (copied) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  if (lane == 0) {
+    mbar_arrive_expect_tx(bar, tx);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (!tiles[i].t->tma) continue;
+#pragma unroll
+      for (int p = 0; p < HD / 64; ++p)
+        tma_load_4d(tiles[i].dst + p * R * 128, tiles[i].map, bar, 64 * p,
+                    tiles[i].h, row0, b);
+    }
+  } else {
+    mbar_arrive(bar);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// An m64nN accumulator fragment (N / 2 fp32 a thread: for each 8-column
+// block j, rows 16*warp + lane/4 and +8, columns 2*(lane%4) and +1) as the
+// register A operand of the next wgmma: k step kk takes column blocks 2kk
+// and 2kk+1, which is the same order, two values a register, the lower
+// column in the low half.  Split in two bf16 halves, hi = bf16(x) and
+// lo = bf16(x - hi), which the next product issues one after the other:
+// one bf16 rounding of P or dS (up to 2^-8 of each term) puts the tail of
+// a large call's outputs more than a bf16 step of their row's largest
+// element off the plain version's; hi + lo leaves 2^-16.
+template <int N>
+__device__ __forceinline__ void to_a_split(const float* d, uint32_t* hi,
+                                           uint32_t* lo) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(d[2 * i], d[2 * i + 1]);
+    const float2 back = __bfloat1622float2(h);
+    __nv_bfloat162 l =
+        __floats2bfloat162_rn(d[2 * i] - back.x, d[2 * i + 1] - back.y);
+    hi[i] = *reinterpret_cast<uint32_t*>(&h);
+    lo[i] = *reinterpret_cast<uint32_t*>(&l);
+  }
+}
+
+// D = A Bᵀ over hd, HD / 16 k steps, the first overwriting D: A the 64
+// rows at ``a`` of a K-major RA-row tile, B a K-major N-row tile at ``b``.
+template <int N, int HD, int RA>
+__device__ __forceinline__ void gemm_rows(float* d, uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 32;  // 16 bf16 along a 128-byte row
+    const uint64_t da = desc_sw128(a + (kk >> 2) * RA * 128 + off, 16);
+    const uint64_t db = desc_sw128(b + (kk >> 2) * N * 128 + off, 16);
+    wgmma_ss<N, 0, 0>(d, da, db, kk > 0);
+  }
+}
+
+// D += A B: A in registers (64 rows x KR, the hi and lo bf16 halves from
+// to_a_split, hi first at each k step), B the KR x HD tile at ``b`` read
+// MN-major (hd contiguous) through the transpose bit: 64-column panels
+// KR * 128 bytes apart (LBO), a k step 16 rows (2048 bytes).
+template <int HD, int KR>
+__device__ __forceinline__ void gemm_acc(float* d, const uint32_t* hi,
+                                         const uint32_t* lo, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < KR / 16; ++kk) {
+    const uint64_t db = desc_sw128(b + kk * 2048, KR * 128);
+    wgmma_rs<HD, 1>(d, hi + 4 * kk, db, 1);
+    wgmma_rs<HD, 1>(d, lo + 4 * kk, db, 1);
+  }
+}
+
+// Block x of a 1-D grid of tiles x Hq x B: its tile (reversed, longest
+// first, where ``reverse``), query head and batch.  Neighbouring blocks
+// take neighbouring heads, which share their kv head in L2.
+__device__ __forceinline__ void block_coords(int tiles, int Hq, int B,
+                                             bool reverse, int& tile, int& h,
+                                             int& b) {
+  const int i = blockIdx.x / (Hq * B);
+  tile = reverse ? tiles - 1 - i : i;
+  h = blockIdx.x % Hq;
+  b = (blockIdx.x / Hq) % B;
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty,
+                                              int stages, uint64_t* once) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], kTcProducers);
+      mbar_init(&empty[s], kTcConsumers);
+    }
+    mbar_init(once, kTcProducers);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// ----------------------------------------------------------------- forward
+
+template <int HD>
+struct FwdTc {
+  static constexpr int kBQ = 128;   // query rows a CTA: two warpgroups of 64
+  static constexpr int kBKV = 128;  // kv rows a stage
+  static constexpr int kStages = HD == 64 ? 3 : 2;
+  static constexpr int kQ = tile_bytes<kBQ, HD>();
+  static constexpr int kKV = tile_bytes<kBKV, HD>();  // K, and V
+  // + 1024 to align, + a full and an empty barrier a stage and Q's
+  static constexpr int kSmem =
+      1024 + kQ + kStages * 2 * kKV + (2 * kStages + 1) * 8;
+};
+
+struct FwdArgs {
+  CUtensorMap q_map, k_map, v_map;
+  TcTensor q, k, v;
+  __nv_bfloat16* o;
+  float* lse;
+  int B, S, Skv, Hq, group, causal, tiles;
+  float scale;
+};
+
+// One CTA: 128 query rows of one (batch, query head).  Warp 8 loads Q
+// once, then K and V tiles of 128 rows into the ring.  Warpgroup w owns
+// rows 64w..64w+63: S = Q Kᵀ (wgmma from shared memory), the online softmax
+// on the fragment in fp32 (exp2 of the scores times scale·log2 e), P
+// rounded to bf16 in registers, O += P V (V MN-major).  Scores are masked
+// only in a block that crosses the diagonal or the ragged kv edge.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    repro_flash_tc_fwd(__grid_constant__ const FwdArgs p) {
+  using F = FwdTc<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* ring = smem + F::kQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + F::kStages * 2 * F::kKV);
+  uint64_t* empty = full + F::kStages;
+  uint64_t* once = empty + F::kStages;
+  int tile, h, b;
+  block_coords(p.tiles, p.Hq, p.B, p.causal, tile, h, b);
+  const int m0 = tile * F::kBQ;
+  const int kv_end = p.causal ? min(p.Skv, m0 + F::kBQ) : p.Skv;
+  const int nkv = (kv_end + F::kBKV - 1) / F::kBKV;
+  init_barriers(full, empty, F::kStages, once);
+
+  // the warpgroup index through a shuffle, so that the compiler knows it
+  // is the same across the warp (wgmma must not sit on a divergent path)
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+  if (wg == kTcConsumers / 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= kTcConsumers + kTcProducers) return;
+    const int lane = threadIdx.x - kTcConsumers;
+    const Tile q[1] = {{smem, &p.q, &p.q_map, h}};
+    fill<F::kBQ, HD>(q, once, m0, b, lane);
+    for (int n = 0; n < nkv; ++n) {
+      const int s = n % F::kStages;
+      mbar_wait(&empty[s], ((n / F::kStages) & 1) ^ 1);
+      uint8_t* st = ring + s * 2 * F::kKV;
+      const Tile kv[2] = {{st, &p.k, &p.k_map, h / p.group},
+                          {st + F::kKV, &p.v, &p.v_map, h / p.group}};
+      fill<F::kBKV, HD>(kv, &full[s], n * F::kBKV, b, lane);
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int row = m0 + 64 * wg + 16 * warp + lane / 4;  // and row + 8
+  const float sl2 = p.scale * kLog2e;
+  float o[HD / 2], sc[F::kBKV / 2];
+  uint32_t pa[F::kBKV / 4], pl[F::kBKV / 4];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < F::kBKV / 2; ++i) sc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  mbar_wait(once, 0);
+  const uint32_t q_at = smem_u32(smem) + wg * 64 * 128;
+  for (int n = 0; n < nkv; ++n) {
+    const int s = n % F::kStages;
+    const int c0 = n * F::kBKV;
+    mbar_wait(&full[s], (n / F::kStages) & 1);
+    const uint32_t k_at = smem_u32(ring + s * 2 * F::kKV);
+    const uint32_t v_at = k_at + F::kKV;
+    wgmma_fence();
+    gemm_rows<F::kBKV, HD, F::kBQ>(sc, q_at, k_at);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<F::kBKV / 2>(sc);
+    if ((p.causal && c0 + F::kBKV - 1 > m0 + 64 * wg) ||
+        c0 + F::kBKV > p.Skv) {
+#pragma unroll
+      for (int i = 0; i < F::kBKV / 2; ++i) {
+        const int col = c0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        const int r = row + 8 * ((i / 2) % 2);
+        if (col >= p.Skv || (p.causal && col > r)) sc[i] = -INFINITY;
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = m[hh];
+#pragma unroll
+      for (int j = 0; j < F::kBKV / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
+      mx = quad_max(mx);
+      // a row with every score masked so far keeps m = -inf: p = 0
+      const float base = mx == -INFINITY ? 0.f : mx * sl2;
+      corr[hh] = exp2f(m[hh] * sl2 - base);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < F::kBKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          sc[i] = exp2f(fmaf(sc[i], sl2, -base));
+          rs += sc[i];
+        }
+      // each thread sums its own columns; the quad's sums meet at the end
+      l[hh] = l[hh] * corr[hh] + rs;
+      m[hh] = mx;
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i / 2) % 2];
+    to_a_split<F::kBKV>(sc, pa, pl);
+    wgmma_fence();
+    gemm_acc<HD, F::kBKV>(o, pa, pl, v_at);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<HD / 2>(o);
+    fence_regs<F::kBKV / 4>(pa);
+    fence_regs<F::kBKV / 4>(pl);
+    mbar_arrive(&empty[s]);
+  }
+
+  const long long lse_at = (static_cast<long long>(b) * p.Hq + h) * p.S;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    const float lf = fmaxf(quad_sum(l[hh]), 1e-30f);
+    if (r >= p.S) continue;
+    __nv_bfloat16* out =
+        p.o + ((static_cast<long long>(b) * p.S + r) * p.Hq + h) * HD +
+        2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * hh] / lf, o[4 * j + 2 * hh + 1] / lf);
+    if (lane % 4 == 0)
+      p.lse[lse_at + r] =
+          (m[hh] == -INFINITY ? kNegInf : m[hh] * p.scale) + logf(lf);
+  }
+}
+
+// ---------------------------------------------------------------- backward
+
+struct BwdArgs {
+  CUtensorMap q_map, k_map, v_map, do_map;
+  TcTensor q, k, v, dout, o;  // o is read by plain loads, for D
+  const float* lse;
+  float* delta;
+  __nv_bfloat16* dq;
+  float* part;  // (2, B, Skv, Hq, hd) fp32: dK and dV of each query head
+  int B, S, Skv, Hq, group, causal, q_tiles, kv_tiles;
+  float scale;
+};
+
+template <int HD>
+struct DqTc {
+  static constexpr int kBQ = 128;  // query rows a CTA: two warpgroups of 64
+  static constexpr int kBKV = 64;  // kv rows a stage
+  static constexpr int kStages = HD == 64 ? 4 : 3;
+  static constexpr int kQ = tile_bytes<kBQ, HD>();    // Q, and dO
+  static constexpr int kKV = tile_bytes<kBKV, HD>();  // K, and V
+  static constexpr int kSmem =
+      1024 + 2 * kQ + kStages * 2 * kKV + kBQ * 4 + (2 * kStages + 1) * 8;
+};
+
+// dQ and D: one CTA per (batch, query head, 128 query rows), as the
+// forward.  D = rowsum(dO * O) first (two threads a row, from device
+// memory; written to ``delta`` for the dK/dV kernel), then per 64-row kv
+// block: S = Q Kᵀ and dP = dO Vᵀ (wgmma), P = exp(scale S - lse) and
+// dS = P (dP - D) in fp32, dS rounded to bf16 in registers, dQ += dS K.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    repro_flash_tc_dq(__grid_constant__ const BwdArgs p) {
+  using F = DqTc<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* ring = smem + 2 * F::kQ;
+  float* dsm = reinterpret_cast<float*>(ring + F::kStages * 2 * F::kKV);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dsm + F::kBQ);
+  uint64_t* empty = full + F::kStages;
+  uint64_t* once = empty + F::kStages;
+  int tile, h, b;
+  block_coords(p.q_tiles, p.Hq, p.B, p.causal, tile, h, b);
+  const int m0 = tile * F::kBQ;
+  const int kv_end = p.causal ? min(p.Skv, m0 + F::kBQ) : p.Skv;
+  const int nkv = (kv_end + F::kBKV - 1) / F::kBKV;
+  init_barriers(full, empty, F::kStages, once);
+
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+  if (wg == kTcConsumers / 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= kTcConsumers + kTcProducers) return;
+    const int lane = threadIdx.x - kTcConsumers;
+    const Tile qdo[2] = {{smem, &p.q, &p.q_map, h},
+                         {smem + F::kQ, &p.dout, &p.do_map, h}};
+    fill<F::kBQ, HD>(qdo, once, m0, b, lane);
+    for (int n = 0; n < nkv; ++n) {
+      const int s = n % F::kStages;
+      mbar_wait(&empty[s], ((n / F::kStages) & 1) ^ 1);
+      uint8_t* st = ring + s * 2 * F::kKV;
+      const Tile kv[2] = {{st, &p.k, &p.k_map, h / p.group},
+                          {st + F::kKV, &p.v, &p.v_map, h / p.group}};
+      fill<F::kBKV, HD>(kv, &full[s], n * F::kBKV, b, lane);
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const long long rows_at = (static_cast<long long>(b) * p.Hq + h) * p.S;
+  {
+    const int rl = 64 * wg + t / 2, r = m0 + rl, half = t % 2;
+    float part = 0.f;
+    if (r < p.S) {
+      const __nv_bfloat16* go = p.o.ptr + b * p.o.s0 + r * p.o.s1 + h * p.o.s2;
+      const __nv_bfloat16* gd =
+          p.dout.ptr + b * p.dout.s0 + r * p.dout.s1 + h * p.dout.s2;
+#pragma unroll 8
+      for (int d = half * HD / 2; d < (half + 1) * HD / 2; ++d)
+        part += __bfloat162float(gd[d * p.dout.s3]) *
+                __bfloat162float(go[d * p.o.s3]);
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if (half == 0) {
+      dsm[rl] = part;
+      if (r < p.S) p.delta[rows_at + r] = part;
+    }
+  }
+  // this warpgroup's D rows are written by its own threads
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  const int row = m0 + 64 * wg + 16 * warp + lane / 4;  // and row + 8
+  const float sl2 = p.scale * kLog2e;
+  float dd[2], ls[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    dd[hh] = dsm[row - m0 + 8 * hh];
+    ls[hh] = row + 8 * hh < p.S ? p.lse[rows_at + row + 8 * hh] * kLog2e : 0.f;
+  }
+  float dq[HD / 2], sc[F::kBKV / 2], dp[F::kBKV / 2];
+  uint32_t da[F::kBKV / 4], dl[F::kBKV / 4];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < F::kBKV / 2; ++i) sc[i] = dp[i] = 0.f;
+  mbar_wait(once, 0);
+  const uint32_t q_at = smem_u32(smem) + wg * 64 * 128;
+  const uint32_t do_at = q_at + F::kQ;
+  for (int n = 0; n < nkv; ++n) {
+    const int s = n % F::kStages;
+    const int c0 = n * F::kBKV;
+    mbar_wait(&full[s], (n / F::kStages) & 1);
+    const uint32_t k_at = smem_u32(ring + s * 2 * F::kKV);
+    const uint32_t v_at = k_at + F::kKV;
+    wgmma_fence();
+    gemm_rows<F::kBKV, HD, F::kBQ>(sc, q_at, k_at);
+    gemm_rows<F::kBKV, HD, F::kBQ>(dp, do_at, v_at);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<F::kBKV / 2>(sc);
+    fence_regs<F::kBKV / 2>(dp);
+    const bool edge = (p.causal && c0 + F::kBKV - 1 > m0 + 64 * wg) ||
+                      c0 + F::kBKV > p.Skv;
+#pragma unroll
+    for (int i = 0; i < F::kBKV / 2; ++i) {
+      const int hh = (i / 2) % 2;
+      const int col = c0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+      float pr = exp2f(fmaf(sc[i], sl2, -ls[hh]));
+      if (edge && (col >= p.Skv || (p.causal && col > row + 8 * hh)))
+        pr = 0.f;
+      sc[i] = pr * (dp[i] - dd[hh]);  // dS
+    }
+    to_a_split<F::kBKV>(sc, da, dl);
+    wgmma_fence();
+    gemm_acc<HD, F::kBKV>(dq, da, dl, k_at);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<HD / 2>(dq);
+    fence_regs<F::kBKV / 4>(da);
+    fence_regs<F::kBKV / 4>(dl);
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    if (r >= p.S) continue;
+    __nv_bfloat16* out =
+        p.dq + ((static_cast<long long>(b) * p.S + r) * p.Hq + h) * HD +
+        2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(
+          p.scale * dq[4 * j + 2 * hh], p.scale * dq[4 * j + 2 * hh + 1]);
+  }
+}
+
+template <int HD>
+struct DkvTc {
+  static constexpr int kBKV = 128;  // kv rows a CTA: two warpgroups of 64
+  // query rows a stage: at hd 128 the two hd-wide accumulators take 128
+  // registers a thread, so Sᵀ and dPᵀ get 16 each, not 32
+  static constexpr int kBQ = HD == 64 ? 64 : 32;
+  static constexpr int kStages = 4;
+  static constexpr int kKV = tile_bytes<kBKV, HD>();  // K, and V
+  static constexpr int kQ = tile_bytes<kBQ, HD>();    // Q, and dO
+  // + lse·log2 e and D of each stage's query rows
+  static constexpr int kSmem = 1024 + 2 * kKV + kStages * 2 * kQ +
+                               kStages * 2 * kBQ * 4 + (2 * kStages + 1) * 8;
+};
+
+// dK and dV of one query head: one CTA per (batch, query head, 128 kv
+// rows), so 8x the CTAs of one per kv head.  K and V are loaded once; the
+// ring brings Q, dO, lse and D for each query block from the diagonal
+// down.  Warpgroup w owns kv rows 64w..64w+63: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ
+// (wgmma), Pᵀ and dSᵀ in fp32, both rounded to bf16 in registers, dV += Pᵀ
+// dO and dK += dSᵀ Q (dO and Q MN-major).  The head's scale·dK and dV go to
+// fp32 partials, which repro_flash_tc_group_sum adds up per kv head.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    repro_flash_tc_dkv(__grid_constant__ const BwdArgs p) {
+  using F = DkvTc<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* ring = smem + 2 * F::kKV;
+  float* stats = reinterpret_cast<float*>(ring + F::kStages * 2 * F::kQ);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + F::kStages * 2 * F::kBQ);
+  uint64_t* empty = full + F::kStages;
+  uint64_t* once = empty + F::kStages;
+  int tile, h, b;
+  block_coords(p.kv_tiles, p.Hq, p.B, false, tile, h, b);  // kv 0 longest
+  const int c0 = tile * F::kBKV;
+  const int r_begin = p.causal ? c0 : 0;  // query rows above it see none
+  const int nq = p.S > r_begin ? (p.S - r_begin + F::kBQ - 1) / F::kBQ : 0;
+  const long long rows_at = (static_cast<long long>(b) * p.Hq + h) * p.S;
+  init_barriers(full, empty, F::kStages, once);
+
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+  if (wg == kTcConsumers / 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= kTcConsumers + kTcProducers) return;
+    const int lane = threadIdx.x - kTcConsumers;
+    const Tile kv[2] = {{smem, &p.k, &p.k_map, h / p.group},
+                        {smem + F::kKV, &p.v, &p.v_map, h / p.group}};
+    fill<F::kBKV, HD>(kv, once, c0, b, lane);
+    for (int i = 0; i < nq; ++i) {
+      const int s = i % F::kStages;
+      const int r0 = r_begin + i * F::kBQ;
+      mbar_wait(&empty[s], ((i / F::kStages) & 1) ^ 1);
+      float* st = stats + s * 2 * F::kBQ;
+      for (int e = lane; e < F::kBQ; e += kTcProducers) {
+        const int gr = r0 + e;
+        st[e] = gr < p.S ? p.lse[rows_at + gr] * kLog2e : 0.f;
+        st[F::kBQ + e] = gr < p.S ? p.delta[rows_at + gr] : 0.f;
+      }
+      uint8_t* sq = ring + s * 2 * F::kQ;
+      const Tile qdo[2] = {{sq, &p.q, &p.q_map, h},
+                           {sq + F::kQ, &p.dout, &p.do_map, h}};
+      fill<F::kBQ, HD>(qdo, &full[s], r0, b, lane);
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int row = c0 + 64 * wg + 16 * warp + lane / 4;  // kv; and row + 8
+  const float sl2 = p.scale * kLog2e;
+  float dk[HD / 2], dv[HD / 2], sc[F::kBQ / 2], dp[F::kBQ / 2];
+  uint32_t pa[F::kBQ / 4], pl[F::kBQ / 4], da[F::kBQ / 4], dl[F::kBQ / 4];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < F::kBQ / 2; ++i) sc[i] = dp[i] = 0.f;
+  mbar_wait(once, 0);
+  const uint32_t k_at = smem_u32(smem) + wg * 64 * 128;
+  const uint32_t v_at = k_at + F::kKV;
+  for (int i = 0; i < nq; ++i) {
+    const int s = i % F::kStages;
+    const int r0 = r_begin + i * F::kBQ;
+    mbar_wait(&full[s], (i / F::kStages) & 1);
+    const uint32_t q_at = smem_u32(ring + s * 2 * F::kQ);
+    const uint32_t do_at = q_at + F::kQ;
+    const float* st = stats + s * 2 * F::kBQ;
+    wgmma_fence();
+    gemm_rows<F::kBQ, HD, F::kBKV>(sc, k_at, q_at);
+    gemm_rows<F::kBQ, HD, F::kBKV>(dp, v_at, do_at);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<F::kBQ / 2>(sc);
+    fence_regs<F::kBQ / 2>(dp);
+    const bool edge =
+        (p.causal && r0 < c0 + 64 * wg + 63) || r0 + F::kBQ > p.S;
+#pragma unroll
+    for (int j = 0; j < F::kBQ / 8; ++j) {
+      const int cl = 8 * j + 2 * (lane % 4);  // query row in the block
+      const float2 l2 = *reinterpret_cast<const float2*>(st + cl);
+      const float2 d2 = *reinterpret_cast<const float2*>(st + F::kBQ + cl);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i2 = 4 * j + 2 * hh + e;
+          const int col = r0 + cl + e;
+          float pr = exp2f(fmaf(sc[i2], sl2, -(e ? l2.y : l2.x)));
+          if (edge && (col >= p.S || (p.causal && row + 8 * hh > col)))
+            pr = 0.f;
+          dp[i2] = pr * (dp[i2] - (e ? d2.y : d2.x));  // dSᵀ
+          sc[i2] = pr;                                  // Pᵀ
+        }
+    }
+    to_a_split<F::kBQ>(sc, pa, pl);
+    to_a_split<F::kBQ>(dp, da, dl);
+    wgmma_fence();
+    gemm_acc<HD, F::kBQ>(dv, pa, pl, do_at);
+    gemm_acc<HD, F::kBQ>(dk, da, dl, q_at);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<HD / 2>(dv);
+    fence_regs<HD / 2>(dk);
+    fence_regs<F::kBQ / 4>(pa);
+    fence_regs<F::kBQ / 4>(pl);
+    fence_regs<F::kBQ / 4>(da);
+    fence_regs<F::kBQ / 4>(dl);
+    mbar_arrive(&empty[s]);
+  }
+
+  const long long half =
+      static_cast<long long>(p.B) * p.Skv * p.Hq * HD;  // dK's, then dV's
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    if (r >= p.Skv) continue;
+    float* pk = p.part +
+                ((static_cast<long long>(b) * p.Skv + r) * p.Hq + h) * HD +
+                2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int i = 4 * j + 2 * hh;
+      *reinterpret_cast<float2*>(pk + 8 * j) =
+          make_float2(p.scale * dk[i], p.scale * dk[i + 1]);
+      *reinterpret_cast<float2*>(pk + half + 8 * j) =
+          make_float2(dv[i], dv[i + 1]);
+    }
+  }
+}
+
+// dK and dV (B, Skv, Hkv, hd) bf16: each kv head's group of per-query-head
+// partials summed in head order, a fixed order, so the bits do not depend
+// on timing.  One thread per 4 columns of a (batch, position, kv head).
+__global__ void __launch_bounds__(256)
+    repro_flash_tc_group_sum(const float* __restrict__ part,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, long long n4,
+                             int group, int hkv, int hd4, long long half) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n4; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long bs = i / (hkv * hd4);
+    const int rem = static_cast<int>(i % (hkv * hd4));
+    const int hk = rem / hd4, c = rem % hd4;
+    const float* src = part + ((bs * hkv + hk) * group * hd4 + c) * 4;
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      const float* at = src + which * half;
+      float4 acc = *reinterpret_cast<const float4*>(at);
+      for (int j = 1; j < group; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(at + j * hd4 * 4);
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      __nv_bfloat16* dst = (which ? dv : dk) + i * 4;
+      *reinterpret_cast<__nv_bfloat162*>(dst) =
+          __floats2bfloat162_rn(acc.x, acc.y);
+      *reinterpret_cast<__nv_bfloat162*>(dst + 2) =
+          __floats2bfloat162_rn(acc.z, acc.w);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+
+// A 4-D map (hd, heads, rows, B) of a (B, rows, heads, hd) operand, boxes
+// of 64 columns x 1 head x box_rows rows, 128-byte swizzle, rows past the
+// operand read as zeros.  A dimension of extent 1 is never stepped along,
+// so it gets a stride TMA accepts whatever the tensor's.  Returns 0 or an
+// error code.
+int encode_rows(CUtensorMap* map, const TcTensor& t, int B, int hd,
+                int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncoder;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                        static_cast<cuuint64_t>(t.heads),
+                        static_cast<cuuint64_t>(t.rows > 0 ? t.rows : 1),
+                        static_cast<cuuint64_t>(B)};
+  const long long elem_strides[3] = {t.s2, t.s1, t.s0};
+  cuuint64_t strides[3];
+  long long prev = static_cast<long long>(hd) * 2;  // bytes
+  for (int i = 0; i < 3; ++i) {
+    long long s = elem_strides[i] * 2;
+    if (dims[i + 1] == 1) s = (prev + 15) / 16 * 16;
+    strides[i] = static_cast<cuuint64_t>(s);
+    prev = s * static_cast<long long>(dims[i + 1]);
+  }
+  cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+      const_cast<__nv_bfloat16*>(t.ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(res);
+}
+
+int encode_if(CUtensorMap* map, const TcTensor& t, int B, int hd, int rows) {
+  return t.tma ? encode_rows(map, t, B, hd, rows) : 0;
+}
+
+template <typename K, typename A>
+cudaError_t launch_tc(K kernel, long long blocks, int smem, const A& args,
+                      cudaStream_t stream) {
+  if (blocks <= 0) return cudaSuccess;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t err = raise_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), kTcThreads, smem, stream>>>(args);
+  return cudaGetLastError();
+}
+
+template <int HD>
+int tc_forward(FwdArgs a, cudaStream_t stream) {
+  using F = FwdTc<HD>;
+  int err = encode_if(&a.q_map, a.q, a.B, HD, F::kBQ);
+  if (!err) err = encode_if(&a.k_map, a.k, a.B, HD, F::kBKV);
+  if (!err) err = encode_if(&a.v_map, a.v, a.B, HD, F::kBKV);
+  if (err) return err;
+  a.tiles = (a.S + F::kBQ - 1) / F::kBQ;
+  return static_cast<int>(
+      launch_tc(repro_flash_tc_fwd<HD>,
+                static_cast<long long>(a.tiles) * a.Hq * a.B, F::kSmem, a,
+                stream));
+}
+
+template <int HD>
+int tc_backward(BwdArgs a, __nv_bfloat16* dk, __nv_bfloat16* dv, int Hkv,
+                cudaStream_t stream) {
+  using Q = DqTc<HD>;
+  using K = DkvTc<HD>;
+  BwdArgs d = a;  // the dK/dV kernel's maps: other boxes
+  int err = encode_if(&a.q_map, a.q, a.B, HD, Q::kBQ);
+  if (!err) err = encode_if(&a.do_map, a.dout, a.B, HD, Q::kBQ);
+  if (!err) err = encode_if(&a.k_map, a.k, a.B, HD, Q::kBKV);
+  if (!err) err = encode_if(&a.v_map, a.v, a.B, HD, Q::kBKV);
+  if (!err) err = encode_if(&d.q_map, d.q, d.B, HD, K::kBQ);
+  if (!err) err = encode_if(&d.do_map, d.dout, d.B, HD, K::kBQ);
+  if (!err) err = encode_if(&d.k_map, d.k, d.B, HD, K::kBKV);
+  if (!err) err = encode_if(&d.v_map, d.v, d.B, HD, K::kBKV);
+  if (err) return err;
+  a.q_tiles = d.q_tiles = (a.S + Q::kBQ - 1) / Q::kBQ;
+  a.kv_tiles = d.kv_tiles = (a.Skv + K::kBKV - 1) / K::kBKV;
+  cudaError_t e = launch_tc(repro_flash_tc_dq<HD>,
+                            static_cast<long long>(a.q_tiles) * a.Hq * a.B,
+                            Q::kSmem, a, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = launch_tc(repro_flash_tc_dkv<HD>,
+                static_cast<long long>(d.kv_tiles) * d.Hq * d.B, K::kSmem, d,
+                stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long half = static_cast<long long>(a.B) * a.Skv * a.Hq * HD;
+  const long long n4 = static_cast<long long>(a.B) * a.Skv * Hkv * (HD / 4);
+  const long long want = (n4 + 255) / 256;
+  const long long blocks = want < 132 * 16 ? want : 132 * 16;
+  repro_flash_tc_group_sum<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      a.part, dk, dv, n4, a.group, Hkv, HD / 4, half);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The path by dtype and hd alone, never B, S or the heads: the tensor
+// cores for bf16 at hd 64 and 128, the FMA kernels for the rest
+// (kernels/flash_attention.py choose_path states the same rule, to count
+// the calls by path and to allocate the backward's partials).
+bool tensor_core_path(int dtype, int hd) {
+  return dtype == kBF16 && (hd == 64 || hd == 128);
+}
+
+TcTensor tc_tensor(const void* ptr, const long long* st, int rows, int heads,
+                   int tma) {
+  return {static_cast<const __nv_bfloat16*>(ptr), st[0], st[1], st[2], st[3],
+          rows, heads, tma};
+}
+
 }  // namespace
 
-// Plain C interface for ctypes.  q (B, S, Hq, hd), k and v (B, Skv, Hkv,
-// hd), each with four element strides; o (B, S, Hq, hd) contiguous in the
-// inputs' dtype; lse (B, Hq, S) fp32.  Launches on ``stream``, does not
-// synchronise, returns cudaGetLastError() (the caller raises on anything
-// but 0).  hd must be 16, 32, 64 or 128.
+// Plain C interface for ctypes; the path follows from dtype and hd
+// (tensor_core_path).  q (B, S, Hq, hd), k and v (B, Skv, Hkv, hd), each with four
+// element strides; o (B, S, Hq, hd) contiguous in the inputs' dtype; lse
+// (B, Hq, S) fp32.  ``tma`` (tensor-core path): bit 0 for q, 1 for k, 2
+// for v, set where a tensor map can load the operand; the producer's lanes
+// copy the others.  Launches on ``stream``, does not synchronise, returns
+// cudaGetLastError() after the launch, or a code of 10000 and above where
+// a tensor map could not be made (the caller raises on anything but 0).
+// hd must be 16, 32, 64 or 128.
 extern "C" int repro_flash_fwd(const void* q, const long long* q_st,
                                const void* k, const long long* k_st,
                                const void* v, const long long* v_st, void* o,
                                float* lse, int dtype, int B, int S, int Skv,
                                int Hq, int Hkv, int hd, float scale,
-                               int causal, void* stream) {
+                               int causal, int tma, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tensor_core_path(dtype, hd)) {
+    if (Hkv <= 0 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+    FwdArgs a = {};
+    a.q = tc_tensor(q, q_st, S, Hq, tma & 1);
+    a.k = tc_tensor(k, k_st, Skv, Hkv, (tma >> 1) & 1);
+    a.v = tc_tensor(v, v_st, Skv, Hkv, (tma >> 2) & 1);
+    a.o = static_cast<__nv_bfloat16*>(o);
+    a.lse = lse;
+    a.B = B;
+    a.S = S;
+    a.Skv = Skv;
+    a.Hq = Hq;
+    a.group = Hq / Hkv;
+    a.causal = causal;
+    a.scale = scale;
+    return hd == 64 ? tc_forward<64>(a, st) : tc_forward<128>(a, st);
+  }
   Problem p{};
   p.q = tensor4(q, q_st);
   p.k = tensor4(k, k_st);
@@ -566,22 +1418,51 @@ extern "C" int repro_flash_fwd(const void* q, const long long* q_st,
   p.Hkv = Hkv;
   p.causal = causal;
   p.scale = scale;
-  p.stream = static_cast<cudaStream_t>(stream);
+  p.stream = st;
   return static_cast<int>(dispatch<false>(p, dtype, hd));
 }
 
 // The backward: o and dout (B, S, Hq, hd) strided, lse (B, Hq, S) from the
 // forward, delta (B, Hq, S) fp32 scratch; writes dq (B, S, Hq, hd), dk and
-// dv (B, Skv, Hkv, hd), contiguous in the inputs' dtype.  Two launches.
+// dv (B, Skv, Hkv, hd), contiguous in the inputs' dtype.  The FMA path
+// launches two kernels; the tensor-core path three, with ``part`` (2, B,
+// Skv, Hq, hd) fp32 scratch for the per-query-head dK and dV (null on the
+// FMA path) and ``tma`` bit 3 for dout.
 extern "C" int repro_flash_bwd(const void* q, const long long* q_st,
                                const void* k, const long long* k_st,
                                const void* v, const long long* v_st,
                                const void* o, const long long* o_st,
                                const void* dout, const long long* do_st,
                                const float* lse, float* delta, void* dq,
-                               void* dk, void* dv, int dtype, int B, int S,
-                               int Skv, int Hq, int Hkv, int hd, float scale,
-                               int causal, void* stream) {
+                               void* dk, void* dv, float* part, int dtype,
+                               int B, int S, int Skv, int Hq, int Hkv, int hd,
+                               float scale, int causal, int tma,
+                               void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tensor_core_path(dtype, hd)) {
+    if (Hkv <= 0 || Hq % Hkv || part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    BwdArgs a = {};
+    a.q = tc_tensor(q, q_st, S, Hq, tma & 1);
+    a.k = tc_tensor(k, k_st, Skv, Hkv, (tma >> 1) & 1);
+    a.v = tc_tensor(v, v_st, Skv, Hkv, (tma >> 2) & 1);
+    a.dout = tc_tensor(dout, do_st, S, Hq, (tma >> 3) & 1);
+    a.o = tc_tensor(o, o_st, S, Hq, 0);
+    a.lse = lse;
+    a.delta = delta;
+    a.dq = static_cast<__nv_bfloat16*>(dq);
+    a.part = part;
+    a.B = B;
+    a.S = S;
+    a.Skv = Skv;
+    a.Hq = Hq;
+    a.group = Hq / Hkv;
+    a.causal = causal;
+    a.scale = scale;
+    auto* dk16 = static_cast<__nv_bfloat16*>(dk);
+    auto* dv16 = static_cast<__nv_bfloat16*>(dv);
+    return hd == 64 ? tc_backward<64>(a, dk16, dv16, Hkv, st)
+                    : tc_backward<128>(a, dk16, dv16, Hkv, st);
+  }
   Problem p{};
   p.q = tensor4(q, q_st);
   p.k = tensor4(k, k_st);
@@ -600,6 +1481,6 @@ extern "C" int repro_flash_bwd(const void* q, const long long* q_st,
   p.Hkv = Hkv;
   p.causal = causal;
   p.scale = scale;
-  p.stream = static_cast<cudaStream_t>(stream);
+  p.stream = st;
   return static_cast<int>(dispatch<true>(p, dtype, hd));
 }

@@ -72,10 +72,7 @@
 //             through the runtime's entry-point query, so nothing links
 //             libcuda.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -292,166 +289,6 @@ struct TcShape {
   static constexpr int kSmem = 1024 + kStages * kStage + 2 * kStages * 8;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// The retry loop lives inside the asm: a loop the compiler can see would
-// make the wgmma after it look divergent, and ptxas then serializes them.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// Keeps the compiler from reading an accumulator before wgmma_wait.
-template <int R>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma m64nNk16, bf16 x bf16 -> fp32, D += A B.  TA / TB are the
-// transpose bits: 0 for a K-major tile, 1 for an MN-major one.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n64(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %36, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %34, %35;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "n"(TA), "n"(TB), "r"(1));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n128(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %68, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %66, %67;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "n"(TA), "n"(TB), "r"(1));
-}
-
-template <int BN, int TA, int TB>
-__device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
-  if constexpr (BN == 128) {
-    wgmma_m64n128<TA, TB>(d, da, db);
-  } else {
-    wgmma_m64n64<TA, TB>(d, da, db);
-  }
-}
-
-// Shared-memory matrix descriptor for wgmma, 128-byte swizzle (layout type
-// 1 in bits 62-63).  A K-major tile is rows of 64 bf16 (128 B), 8-row
-// groups 1024 B apart (SBO); a k16 step moves the start 32 B along the
-// row.  An MN-major tile is 64-wide MN blocks of 64 k-rows (8 KB apart,
-// LBO), 8-k-row groups 1024 B apart (SBO); a k16 step moves the start 16
-// k-rows (2048 B).  Every tile starts on a 1024-byte boundary.
-template <int T>
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int kk) {
-  const uint32_t start = addr + (T == 0 ? kk * 32 : kk * 2048);
-  const uint64_t lbo = T == 0 ? 1 : (8192 >> 4);
-  const uint64_t sbo = 1024 >> 4;
-  return static_cast<uint64_t>((start & 0x3FFFF) >> 4) | (lbo << 16) |
-         (sbo << 32) | (1ull << 62);
-}
-
-// Byte offset of element (r, kk) of a tile in the layout TMA writes with
-// CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk index XOR the row index
-// within its 8-row (1024-byte) group.
-template <int T>
-__device__ __forceinline__ uint32_t swizzled(int r, int kk) {
-  if (T == 0) return r * 128 + ((((kk >> 3) ^ r) & 7) << 4) + (kk & 7) * 2;
-  return (r >> 6) * 8192 + kk * 128 + (((((r & 63) >> 3) ^ kk) & 7) << 4) +
-         (r & 7) * 2;
-}
 
 // The loader for an operand TMA cannot describe: the producer warp's
 // threads copy the R x 64 tile element by element (zeros outside the
@@ -630,9 +467,11 @@ __device__ __forceinline__ void tc_body(const TcArgs& p) {
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint64_t da = smem_desc<TA>(a_hi, kk);
       const uint64_t db = smem_desc<TB>(b_hi, kk);
-      mma<BN, TA, TB>(acc, da, db);
-      if (SPLIT == 1) mma<BN, TA, TB>(acc, smem_desc<TA>(a_lo, kk), db);
-      if (SPLIT == 2) mma<BN, TA, TB>(acc, da, smem_desc<TB>(b_lo, kk));
+      wgmma_ss<BN, TA, TB>(acc, da, db, 1);
+      if (SPLIT == 1)
+        wgmma_ss<BN, TA, TB>(acc, smem_desc<TA>(a_lo, kk), db, 1);
+      if (SPLIT == 2)
+        wgmma_ss<BN, TA, TB>(acc, da, smem_desc<TB>(b_lo, kk), 1);
     }
     wgmma_commit();
     if (kb > 0) {
@@ -674,33 +513,6 @@ template <int BN, int TA, int TB, int SPLIT>
 __global__ void __launch_bounds__(kThreads, 1)
     matmul_wgmma_split_kernel(__grid_constant__ const TcArgs p) {
   tc_body<BN, TA, TB, SPLIT>(p);
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime so that
-// the library needs no -lcuda; null where libcuda lacks it.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(sym);
-  }
-  return fn;
 }
 
 // A 4-D map (inner, outer, z2, z1) of an operand's (rows, k) view: inner is

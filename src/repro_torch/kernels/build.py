@@ -3,8 +3,9 @@
 Each source under ``src/repro_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface, under
 ``build/`` at the repository root (a directory ``.gitignore`` lists).  The
-library's file name carries a hash of its source, so an edited kernel is
-rebuilt and a current one is loaded as it is.  All sources are compiled
+library's file name carries a hash of its source and of every header under
+``csrc/`` (``hopper.cuh``), so an edited kernel or header is rebuilt and a
+current one is loaded as it is.  All sources are compiled
 concurrently, one ``nvcc`` each, with ``-Xptxas -v``: each kernel's
 registers, shared memory and spills are kept in ``LOGS``.  A failed build
 raises; nothing falls back.
@@ -43,9 +44,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` lives: its name hashes the
+    source and every ``csrc/*.cuh`` (in name order), which a source may
+    include."""
+    digest = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names=SOURCES) -> List[Path]:

@@ -5,18 +5,26 @@ The kernels replace ``src/repro/kernels/flash_attention.py::
 flash_attention_pallas``: causal online-softmax attention, (m, l, acc) in
 fp32, on q (B, S, Hq, hd) and k, v (B, Skv, Hkv, hd) read through their
 strides, kv head ``h // (Hq / Hkv)`` for query head ``h``.  The TPU kernel
-has no backward; the port trains through this one, so the gradient is a
-pair of kernels too.  Their plain PyTorch versions are
+has no backward; the port trains through this one, so the gradient is
+kernels too.  Their plain PyTorch versions are
 ``kernels/ref.py::flash_attention_fwd_plain`` and
 ``flash_attention_bwd_plain``; the source note in ``flash_attention.cu``
 says what bounds them on an H100.
 
+Two paths, picked by ``choose_path`` from the dtype and head dim alone
+(never B, S or the heads): bf16 at hd 64 and 128 runs the tensor-core
+kernels (wgmma fed by TMA; the backward's dK/dV per query head, summed per
+kv head in a fixed order), fp32 and bf16 at hd 16 and 32 the FMA kernels.
+
 ``flash_attention_fwd_cuda`` and ``flash_attention_bwd_cuda`` are the only
 places the kernels are launched.  Each checks what the kernels take and
-raises on anything else, allocates its outputs with ``torch.empty``,
-launches on the current stream, raises if a launch reports an error, and
-counts the call in ``LAUNCHES`` (``forward``, ``backward``; ``grids``: the
-CUDA launches, one forward and two backward).  ``FlashAttentionFn`` is the
+raises on anything else, allocates its outputs and scratch with
+``torch.empty``, launches on the current stream, raises if a launch
+reports an error, and counts the call in ``LAUNCHES`` (``forward``,
+``backward``; ``by_path``: the same calls by path; ``grids``: the CUDA
+launches, one a forward, two a backward on the FMA path and three on the
+tensor-core path; ``copied_operands``: tensor-core operands the producer
+copied because no tensor map describes them).  ``FlashAttentionFn`` is the
 autograd Function around them; on CPU tensors it runs the plain versions
 in their place, so its plumbing is tested without a card.
 """
@@ -36,26 +44,71 @@ from repro_torch.kernels.ref import (
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)  # hd the kernels are instantiated for
-BLOCK = 64  # query and kv rows per CTA (kBQ, kBKV)
+TC_HEAD_DIMS = (64, 128)  # hd of the tensor-core kernels (bf16)
+PATHS = ("tensor_core", "fma")
+_BWD_GRIDS = {"fma": 2, "tensor_core": 3}
 _MAX_GRID_YZ = 65535
+_TMA_ALIGN = 16  # bytes: a tensor map's base and every stride it steps
 
 
 class LaunchCounter:
-    """Forward and backward calls, and the CUDA launches they made (one
-    per forward, two per backward), since the last ``reset``."""
+    """Forward and backward calls (in total and by path), the CUDA
+    launches they made and the tensor-core operands copied by the producer
+    warp, since the last ``reset``."""
 
     def __init__(self):
-        self.forward = 0
-        self.backward = 0
-        self.grids = 0
+        self.reset()
 
     def reset(self) -> None:
         self.forward = 0
         self.backward = 0
         self.grids = 0
+        self.by_path = dict.fromkeys(PATHS, 0)
+        self.copied_operands = 0
 
 
 LAUNCHES = LaunchCounter()
+
+
+def choose_path(dtype: torch.dtype, hd: int) -> str:
+    """The kernel path for operands of this dtype and head dim:
+    ``tensor_core`` for bf16 at hd 64 and 128, ``fma`` for fp32 and for
+    bf16 at hd 16 and 32.  A function of these two alone: never of B, S
+    or the number of heads.  The kernels' entry points apply the same rule
+    themselves (``tensor_core_path`` in ``flash_attention.cu``); here it
+    counts the calls by path and sizes the backward's scratch."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash attention kernel takes float32 or bfloat16 "
+                        f"operands, got {dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes head dim in "
+                         f"{HEAD_DIMS}, got {hd}")
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+        return "tensor_core"
+    return "fma"
+
+
+def tma_ok(t: torch.Tensor) -> bool:
+    """Whether a tensor map can load the (B, rows, heads, hd) operand
+    ``t``: hd contiguous, the base 16-byte aligned, and every other
+    dimension longer than 1 stepping a positive multiple of 16 bytes
+    (an extent of 1 is never stepped along)."""
+    size = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % _TMA_ALIGN == 0
+            and max(t.shape) < 2 ** 32 and all(
+                t.shape[i] == 1 or (0 < t.stride(i) and t.stride(i) * size
+                                    % _TMA_ALIGN == 0 and t.stride(i) * size
+                                    < 2 ** 40) for i in range(3)))
+
+
+def _tma_mask(tensors) -> int:
+    return sum(1 << i for i, t in enumerate(tensors) if tma_ok(t))
+
+
+def _count(path: str, mask: int, n_operands: int) -> None:
+    LAUNCHES.by_path[path] += 1
+    if path == "tensor_core":
+        LAUNCHES.copied_operands += n_operands - bin(mask).count("1")
 
 
 def _functions():
@@ -66,10 +119,11 @@ def _functions():
         # pass a Python int as a 32-bit int and cut the address
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         s = ctypes.POINTER(ctypes.c_longlong)
-        fwd.argtypes = [p, s, p, s, p, s, p, p, i, i, i, i, i, i, i, f, i, p]
+        fwd.argtypes = [p, s, p, s, p, s, p, p, i, i, i, i, i, i, i, f, i, i,
+                        p]
         fwd.restype = ctypes.c_int
-        bwd.argtypes = [p, s, p, s, p, s, p, s, p, s, p, p, p, p, p,
-                        i, i, i, i, i, i, i, f, i, p]
+        bwd.argtypes = [p, s, p, s, p, s, p, s, p, s, p, p, p, p, p, p, i,
+                        i, i, i, i, i, i, f, i, i, p]
         bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -97,18 +151,18 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"is aligned top-left), got S={s}, Skv={k.shape[1]}")
 
 
-def _check_cuda(tensors, hd: int) -> None:
+def _check_cuda(tensors, hd: int) -> str:
+    """Raise unless ``tensors`` are CUDA tensors of one device and one
+    dtype the kernels take; return the path they take."""
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"flash attention kernel needs CUDA tensors on "
                              f"one device, got {t.device}")
-        if t.dtype != tensors[0].dtype or t.dtype not in _DTYPE_CODE:
-            raise TypeError(f"flash attention kernel takes float32 or "
-                            f"bfloat16 operands of one dtype, got {t.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes head dim in "
-                         f"{HEAD_DIMS}, got {hd}")
+        if t.dtype != tensors[0].dtype:
+            raise TypeError(f"flash attention kernel takes operands of one "
+                            f"dtype, got {t.dtype} and {tensors[0].dtype}")
+    return choose_path(tensors[0].dtype, hd)
 
 
 def _grid_check(b: int, h: int) -> None:
@@ -126,37 +180,40 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     check_shapes(q, k, v, causal)
     b, s, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    _check_cuda((q, k, v), hd)
+    path = _check_cuda((q, k, v), hd)
     _grid_check(b, hq)
     scale = sm_scale if sm_scale is not None else hd ** -0.5
     o = torch.empty((b, s, hq, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
+    mask = _tma_mask((q, k, v)) if path == "tensor_core" else 0
     fwd, _ = _functions()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fwd(q.data_ptr(), _strides(q), k.data_ptr(), _strides(k),
                   v.data_ptr(), _strides(v), o.data_ptr(), lse.data_ptr(),
                   _DTYPE_CODE[q.dtype], b, s, skv, hq, hkv, hd, scale,
-                  int(causal), stream)
+                  int(causal), mask, stream)
     if err != 0:
         raise RuntimeError(f"flash attention forward launch failed: "
-                           f"cudaError {err} for q {tuple(q.shape)} k "
-                           f"{tuple(k.shape)} {q.dtype}")
+                           f"error {err} on the {path} path for q "
+                           f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     LAUNCHES.forward += 1
     LAUNCHES.grids += 1
+    _count(path, mask, 3)
     return o, lse
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
                              sm_scale: Optional[float] = None):
-    """Launch the backward (two kernels): (dq, dk, dv) in the inputs'
-    dtype, dk and dv summed over each kv head's group of query heads."""
+    """Launch the backward (two kernels on the FMA path, three on the
+    tensor-core path): (dq, dk, dv) in the inputs' dtype, dk and dv summed
+    over each kv head's group of query heads."""
     check_shapes(q, k, v, causal)
     b, s, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    _check_cuda((q, k, v, o, do), hd)
+    path = _check_cuda((q, k, v, o, do), hd)
     _grid_check(b, hq)
     if o.shape != q.shape or do.shape != q.shape or \
             lse.shape != (b, hq, s) or lse.dtype != torch.float32 or \
@@ -171,21 +228,29 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
+    mask, part = 0, None
+    if path == "tensor_core":
+        mask = _tma_mask((q, k, v, do))
+        # dK and dV of each query head, fp32, summed per kv head after
+        part = torch.empty((2, b, skv, hq, hd), dtype=torch.float32,
+                           device=q.device)
     _, bwd = _functions()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = bwd(q.data_ptr(), _strides(q), k.data_ptr(), _strides(k),
-                  v.data_ptr(), _strides(v), o.data_ptr(), _strides(o),
-                  do.data_ptr(), _strides(do), lse.data_ptr(),
+                  v.data_ptr(), _strides(v), o.data_ptr(),
+                  _strides(o), do.data_ptr(), _strides(do), lse.data_ptr(),
                   delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), _DTYPE_CODE[q.dtype], b, s, skv, hq, hkv,
-                  hd, scale, int(causal), stream)
+                  dv.data_ptr(), None if part is None else part.data_ptr(),
+                  _DTYPE_CODE[q.dtype], b, s, skv, hq, hkv, hd, scale,
+                  int(causal), mask, stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward launch failed: "
-                           f"cudaError {err} for q {tuple(q.shape)} k "
-                           f"{tuple(k.shape)} {q.dtype}")
+                           f"error {err} on the {path} path for q "
+                           f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     LAUNCHES.backward += 1
-    LAUNCHES.grids += 2
+    LAUNCHES.grids += _BWD_GRIDS[path]
+    _count(path, mask, 4)
     return dq, dk, dv
 
 

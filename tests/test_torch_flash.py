@@ -12,8 +12,18 @@ inputs, on the CPU.
   atol 1e-5 (fp32, another summation order);
 * ``MatmulFn`` with each epilogue and a bias against autograd of
   ``matmul_fused_ref``, atol 1e-5;
+* ``choose_path`` picks the tensor-core kernels for bf16 at hd 64 and 128
+  and the FMA kernels otherwise, from the dtype and hd alone;
 * the ``cuda``-marked tests hold the kernels against their plain versions
-  on a card, forward and backward, and skip elsewhere.
+  on a card, forward and backward, causal and not, on the path their
+  dtype and hd name (fp32 within 2e-3 x max|plain|, bf16 outputs element
+  by element within 8e-3 x their row's max|plain| + 1e-5 x max|plain|, the
+  rule of chip_smoke.py's phase 7), hold kernel forward then kernel
+  backward against plain forward then plain backward (gradients within
+  2e-3 x max|plain| in fp32, 2e-2 x in bf16), check that the backward's
+  bits repeat
+  and that operands no tensor map describes go through the copy loader;
+  they skip elsewhere.
 """
 
 import numpy as np
@@ -163,6 +173,82 @@ def test_flash_rejects_what_it_does_not_compute():
         fa.flash_attention_bwd_cuda(q, q, q, q, torch.zeros((1, 4, 8)), q)
 
 
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_choose_path_by_dtype_and_head_dim(dtype, hd):
+    """bf16 at hd 64 and 128 takes the tensor cores, everything else the
+    FMA kernels; B, S and the heads never enter (the function takes
+    neither)."""
+    want = "tensor_core" if dtype == torch.bfloat16 and hd in (64, 128) \
+        else "fma"
+    assert fa.choose_path(dtype, hd) == want
+    assert want in fa.PATHS
+
+
+def test_choose_path_rejects_what_no_kernel_takes():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.choose_path(torch.float16, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.choose_path(torch.bfloat16, 96)
+
+
+def test_tma_ok_reads_strides_and_alignment():
+    """A tensor map takes hd-contiguous operands whose other strides step
+    16-byte multiples; a strided hd or an odd pitch goes to the copy
+    loader."""
+    x = torch.zeros((2, 8, 4, 64), dtype=torch.bfloat16)
+    assert fa.tma_ok(x)
+    assert fa.tma_ok(torch.zeros((2, 8, 1, 64), dtype=torch.bfloat16)
+                     .expand(2, 8, 1, 64))
+    assert not fa.tma_ok(torch.zeros((2, 8, 4, 128),
+                                     dtype=torch.bfloat16)[..., ::2])
+    assert not fa.tma_ok(torch.zeros((2, 8, 4, 65),
+                                     dtype=torch.bfloat16)[..., :64])
+    assert fa.tma_ok(x.transpose(1, 2))  # heads-major storage, hd last
+
+
+_PTXAS = """\
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the function '_ZN4_GLOBAL18repro_flash_tc_dkvILi128EEEvNS_7BwdArgsE'
+ptxas info    : Compiling entry function '_ZN4_GLOBAL18repro_flash_tc_dkvILi128EEEvNS_7BwdArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL18repro_flash_tc_dkvILi128EEEvNS_7BwdArgsE
+    192 bytes stack frame, 316 bytes spill stores, 224 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 192 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN4_GLOBAL18repro_flash_tc_fwdILi64EEEvNS_7FwdArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL18repro_flash_tc_fwdILi64EEEvNS_7FwdArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 154 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN4_GLOBAL9flash_fwdIfLi64EEEvNS_7Tensor4E' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL9flash_fwdIfLi64EEEvNS_7Tensor4E
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+
+
+def test_chip_smoke_reads_the_flash_ptxas_report():
+    """chip_smoke.py's ptxas reader, on a report of the form nvcc -Xptxas
+    -v prints: kernels, registers, spills and C75xx notices by path, the
+    tensor-core kernels named apart from the FMA ones."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    got = smoke.ptxas_summary(_PTXAS, smoke.FLASH_PTXAS_KINDS)
+    assert got["tensor_core"]["kernels"] == 2
+    assert got["tensor_core"]["registers"] == [154, 168]
+    assert got["tensor_core"]["spill_bytes"] == 316
+    assert got["tensor_core"]["notices"] == ["C7512"]
+    assert got["tensor_core"]["serialized_wgmma"] == 0  # C7520 only
+    assert got["fma"]["kernels"] == 1 and got["fma"]["notices"] == []
+    assert smoke.LIBRARY_ATTENTION.search("void flash_fwd_kernel<Flash_fwd")
+    assert smoke.LIBRARY_ATTENTION.search("fmha_cutlassB_f32_aligned_64x64")
+    assert not any(smoke.LIBRARY_ATTENTION.search(name)
+                   for name in smoke.FLASH_KERNELS.values())
+    assert not smoke.LIBRARY_GEMM.search("repro_flash_tc_dkv")
+
+
 def test_attention_auto_keeps_the_reference_rule_on_cpu():
     """On the CPU ``impl="auto"`` is still dense/chunked (the reference's
     XLA paths), equal to the flash plain version within tolerance."""
@@ -248,35 +334,120 @@ def _card():
                     "pytest --noconftest -m cuda tests/test_torch_flash.py`")
 
 
+def _held(got, want):
+    """(max abs err, its ratio to the limit): bf16 element by element
+    within 8e-3 x the largest |plain| of its row (the last axis) + 1e-5 x
+    max|plain|, fp32 within 2e-3 x max|plain| (chip_smoke.py phase 7)."""
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    top = mag.max().item()
+    if want.dtype == torch.bfloat16:
+        limit = 8e-3 * mag.amax(-1, keepdim=True) + 1e-5 * top
+    else:
+        limit = torch.full_like(mag, 2e-3 * top)
+    return diff.max().item(), (diff / limit).max().item()
+
+
+def _card_inputs(shape, dtype, causal, seed):
+    b, s, hq, hkv, hd = shape
+    skv = s if causal else s + 37  # non-causal attention takes Skv != S
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, s, hq, hd), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, skv, hkv, hd), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    do = torch.randn((b, s, hq, hd), generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 256, 32, 4, 64), (3, 100, 8, 2, 64),
-                                   (2, 70, 4, 2, 16), (1, 130, 4, 1, 128)],
+                                   (2, 70, 4, 2, 16), (1, 130, 4, 1, 128),
+                                   (3, 100, 8, 1, 64), (2, 300, 16, 2, 128)],
                          ids=lambda s: "x".join(map(str, s)))
-def test_flash_kernels_match_plain_on_card(shape, dtype):
+def test_flash_kernels_match_plain_on_card(shape, dtype, causal):
     """Forward and backward kernels against their plain versions on the
-    same inputs: fp32 within 2e-3 x max|plain|, bf16 within 2e-2 x
-    max|plain| (a few bf16 roundings: the inputs' and the output's)."""
+    same inputs, on the path the dtype and hd name.  Each kernel alone
+    (the backward fed the plain forward's output and lse): fp32 within
+    2e-3 x max|plain|, bf16 outputs element by element within 8e-3 x their
+    row's max|plain| (about one bf16 rounding) + 1e-5 x max|plain|.  The
+    chain as training runs it, kernel forward then kernel backward against
+    plain forward then plain backward: gradients within 2e-3 (fp32) or
+    2e-2 (bf16) x max|plain|, where the bf16 output the backward reads
+    brings its own rounding."""
     _card()
     dt = getattr(torch, dtype)
-    tol = 2e-3 if dt == torch.float32 else 2e-2
-    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
-    b, s, hq, hkv, hd = shape
-    q, k, v = (torch.randn((b, s, h, hd), generator=gen, device="cuda")
-               .to(dt) for h in (hq, hkv, hkv))
-    do = torch.randn((b, s, hq, hd), generator=gen, device="cuda").to(dt)
-    before = (fa.LAUNCHES.forward, fa.LAUNCHES.backward)
-    o, lse = fa.flash_attention_fwd_cuda(q, k, v)
-    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
-    assert (fa.LAUNCHES.forward, fa.LAUNCHES.backward) == (
-        before[0] + 1, before[1] + 1)
-    o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v)
-    grads_p = ref.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do)
+    q, k, v, do = _card_inputs(shape, dt, causal, sum(shape))
+    path = fa.choose_path(dt, shape[4])
+    before = (fa.LAUNCHES.forward, fa.LAUNCHES.backward,
+              fa.LAUNCHES.by_path[path], fa.LAUNCHES.copied_operands)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
+    o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v, causal)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, causal)
+    chained = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    assert (fa.LAUNCHES.forward, fa.LAUNCHES.backward,
+            fa.LAUNCHES.by_path[path], fa.LAUNCHES.copied_operands) == (
+        before[0] + 1, before[1] + 2, before[2] + 3, before[3])
+    grads_p = ref.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, causal)
     torch.cuda.synchronize()
     for name, got, want in [("o", o, o_p), ("lse", lse, lse_p),
                             *zip(("dq", "dk", "dv"), grads, grads_p)]:
+        err, ratio = _held(got, want)
+        assert ratio <= 1.0, (name, err, ratio)
+    tol = 2e-3 if dt == torch.float32 else 2e-2
+    for name, got, want in zip(("dq", "dk", "dv"), chained, grads_p):
         err = (got.float() - want.float()).abs().max().item()
-        assert err <= tol * want.float().abs().max().item(), (name, err)
+        assert err <= tol * want.float().abs().max().item(), (
+            f"chained {name}", err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 512, 32, 4, 64), (1, 200, 8, 2, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_backward_bits_repeat_on_card(shape):
+    """The bf16 backward has no atomics and sums each kv head's group in a
+    fixed order: two runs on the same inputs give the same bits."""
+    _card()
+    q, k, v, do = _card_inputs(shape, torch.bfloat16, True, 11)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    first = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    second = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    o2, lse2 = fa.flash_attention_fwd_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_flash_copy_loader_on_card():
+    """Operands no tensor map describes (hd strided, a pitch of 65) run the
+    tensor-core kernels through the producer's copy loader, and agree with
+    the plain versions by the bf16 rule."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, s, hq, hkv, hd = 2, 150, 8, 2, 64
+    q = torch.randn((b, s, hq, 2 * hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)[..., ::2]
+    k = torch.randn((b, s, hkv, hd + 1), generator=gen,
+                    device="cuda").to(torch.bfloat16)[..., :hd]
+    v = torch.randn((b, s, hkv, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    do = torch.randn((b, s, hq, hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    assert not fa.tma_ok(q) and not fa.tma_ok(k) and fa.tma_ok(v)
+    before = fa.LAUNCHES.copied_operands
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    assert fa.LAUNCHES.copied_operands - before == 4  # q, k twice each
+    o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v)
+    grads_p = ref.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, got, want in [("o", o, o_p), ("lse", lse, lse_p),
+                            *zip(("dq", "dk", "dv"), grads, grads_p)]:
+        err, ratio = _held(got, want)
+        assert ratio <= 1.0, (name, err, ratio)
 
 
 @pytest.mark.cuda

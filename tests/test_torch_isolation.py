@@ -119,6 +119,31 @@ def test_kernel_build_failures_raise(tmp_path, monkeypatch):
     assert not build.library_path("matmul").exists()
 
 
+def test_library_path_tracks_the_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every ``csrc/*.cuh``: an
+    edited header renames (so rebuilds) every library, an edited source
+    only its own."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    assert (csrc / "hopper.cuh").exists()
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert before == {n: build.library_path(n) for n in build.SOURCES}
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {n: build.library_path(n) for n in build.SOURCES}
+    assert all(edited[n] != before[n] for n in build.SOURCES)
+    source = csrc / "flash_attention.cu"
+    source.write_text(source.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n) for n in build.SOURCES}
+    assert [n for n in build.SOURCES if after[n] != edited[n]] == [
+        "flash_attention"]
+
+
 def test_cuda_tensor_never_takes_the_plain_path():
     """Without a card a CUDA tensor cannot exist; the wrapper refuses any
     non-CUDA operand rather than running the plain version."""

@@ -7,7 +7,7 @@ Phases, one report line each (any failure exits non-zero):
      and the build of every kernel from csrc/ (seconds), with matmul.cu's
      and flash_attention.cu's registers, spills and serialized-wgmma
      notices by path (ptxas -v); any spill or such notice in a flash
-     tensor-core kernel fails the run;
+     tensor-core kernel, or any spill in a sort kernel, fails the run;
   2. each kernel against its plain PyTorch version at the shapes the main
      path gives it (tinyllama-1.1b serving, bf16), with the matmul path it
      took, timed with CUDA events with a cold L2 beside the plain version,
@@ -21,8 +21,12 @@ Phases, one report line each (any failure exits non-zero):
   4. the paper's sort domain: the bitonic sort kernel, its plain version
      and torch.sort, exactly equal, at the paper's Table 3 sizes, the
      bench's, 2^26 fp32, 2^24 int32, (4096, 4096) and (8, 100), each timed
-     beside its bound, and one 2^26 call's device time by launch kind
-     (torch.profiler); then distributed_sort(local_sort="kernel",
+     beside its bound and its schedule's bound (passes x one read and one
+     write), and one 2^26 call's device time, launches and HBM rate by
+     launch kind (torch.profiler); the kernel bit for bit its plain
+     version on hard inputs (NaN, +-inf, -0.0 beside +0.0, int32 extremes,
+     sorted and reversed rows) across the tile boundary, one launch a
+     pass; then distributed_sort(local_sort="kernel",
      measure=True) at n = 2000 and 2^26 (the sort's main path, its launch
      count read), with the ledger's predicted and measured rows;
   5. serving: Runtime(device="cuda").serve of full-width tinyllama-1.1b
@@ -366,9 +370,23 @@ def main() -> int:
         log("build", f"FAIL: the flash tensor-core kernels must build (7 "
             f"kernels) with no spill and no C75xx notice: {tc}; {notices}")
         return 1
+    sort_ptxas = ptxas_summary(build.LOGS.get("bitonic_sort", ""),
+                               SORT_PTXAS_KINDS)
+    for kind, row in sort_ptxas.items():
+        log("build", f"bitonic_sort.cu {kind}: {row['kernels']} kernels, "
+            f"{row['registers'][0]}-{row['registers'][1]} registers a "
+            f"thread, spill stores/loads up to {row['spill_bytes']} bytes "
+            f"(ptxas -v)")
+    sort_counts = {k: v["kernels"] for k, v in sort_ptxas.items()}
+    if sort_counts != {"block": 4, "global": 2} or any(
+            v["spill_bytes"] for v in sort_ptxas.values()):
+        log("build", f"FAIL: the sort kernels (first and finishing block "
+            f"passes, global pass; fp32 and int32) must build with no "
+            f"spill: {sort_ptxas}")
+        return 1
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s, matmul_ptxas=ptxas,
-                  flash_ptxas=flash_ptxas)
+                  flash_ptxas=flash_ptxas, sort_ptxas=sort_ptxas)
 
     # ------------------------------------------------------------------ 2
     cfg = get_config("tinyllama-1.1b")
@@ -520,7 +538,9 @@ def main() -> int:
     record["sort_rows"] = sort_rows
     big = next(r for r in sort_rows
                if r["shape"] == [1 << 26] and r["dtype"] == "float32")
-    record["sort_stages"] = sort_stages(gen, bitonic_sort)
+    record["sort_stages"] = sort_stages(gen, bitonic_sort.bitonic_sort_cuda)
+    if not sort_hard_inputs(bitonic_sort, ref):
+        return 1
     sort_engine = CostEngine()
     xs = [torch.randn(n, generator=gen, device=dev) for n in SORT_MAIN_NS]
     torch.cuda.synchronize()
@@ -774,6 +794,15 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "bitonic_sort", "route": "cuda",
+        "design": f"block passes on tiles of "
+                  f"2^{bitonic_sort.TILE.bit_length() - 1} in dynamic "
+                  f"shared memory, {1 << bitonic_sort.LOG_E} elements a "
+                  f"thread in registers, up to {bitonic_sort.LOG_E} stages "
+                  f"a register window, one padded exchange between "
+                  f"windows; global passes of up to {bitonic_sort.LOG_GROUP}"
+                  f" stages, {1 << bitonic_sort.LOG_GROUP} elements a "
+                  f"thread ({big['launches_per_call']} launches for "
+                  f"2^{big['n_pad'].bit_length() - 1})",
         "source": "src/repro_torch/csrc/bitonic_sort.cu",
         "replaces": "src/repro/kernels/bitonic_sort.py:62",
         "launches": sort_launches,
@@ -915,6 +944,9 @@ def invariance_gate(ops, mm, gen, d, f):
 MATMUL_PTXAS_KINDS = (("split", "matmul_wgmma_split"),
                       ("tensor_core", "matmul_wgmma"), ("fma", "matmul_kernel"))
 FLASH_PTXAS_KINDS = (("tensor_core", "repro_flash_tc_"), ("fma", "flash_"))
+# the sort kernel's device-side names (bitonic_sort.cu), by launch kind
+SORT_KERNELS = ("first_block_pass", "global_pass", "finish_block_pass")
+SORT_PTXAS_KINDS = (("block", "block_pass"), ("global", "global_pass"))
 
 
 def ptxas_summary(text, kinds=MATMUL_PTXAS_KINDS) -> dict:
@@ -992,39 +1024,104 @@ def sort_case(shape, dtype, gen, ops, ref, bitonic_sort, flush):
     # any comparison sort makes, at the fp32 rate
     t_bytes = 2 * rows * n_pad * x.element_size() / HBM_BW * 1e3
     t_ops = rows * n_pad * math.log2(n_pad) / F32_PEAK * 1e3
+    # the schedule's own bound: every pass reads and writes the array once
     row = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
                n_pad=n_pad, launches_per_call=grids, max_abs_err=err,
                ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               schedule_bound_ms=grids * t_bytes)
     log("sort", f"{name:24s} n_pad {n_pad:>9d}: kernel == plain == "
         f"torch.sort; kernel {k_ms:.4g} ms ({grids} launches)  plain "
         f"{p_ms:.4g} ms  torch.sort {l_ms:.4g} ms  bound "
-        f"{row['bound_ms']:.4g} ms ({row['bound_by']}); cold L2")
+        f"{row['bound_ms']:.4g} ms ({row['bound_by']}), schedule bound "
+        f"{row['schedule_bound_ms']:.4g} ms ({grids} passes); cold L2")
     return row
 
 
-def sort_stages(gen, bitonic_sort) -> dict:
-    """Where one 2^26 fp32 sort's device time goes, by the kernel's three
-    launch kinds (torch.profiler): the tile sort, the global stages, the
-    tile finishes."""
+def sort_hard_inputs(bitonic_sort, ref) -> bool:
+    """The sort kernel bit for bit (compared as int32: -0.0 is not +0.0,
+    NaN is itself) its plain version on hard values, fp32 and int32: small
+    integers (duplicates), -0.0 beside +0.0, +-inf and NaN, the int32
+    extremes, sorted and reversed rows; at n = 2, T/2, T, 2T, the first n
+    with a k whose global stages end in a group of 1 after a full one, and
+    several rows below and above the tile, and a view not 16-byte
+    aligned.  Every call's launches equal grid_launches; torch.sort beside
+    them where every value is finite."""
+    tile, ok = bitonic_sort.TILE, True
+    short = tile << (bitonic_sort.LOG_GROUP + 1)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for dtype in (torch.float32, torch.int32):
+        cases = []
+        for rows, n in [(1, 2), (1, tile // 2), (1, tile), (1, 2 * tile),
+                        (1, short), (3, tile // 4), (3, 2 * tile)]:
+            x = torch.randint(-4, 5, (rows, n), generator=g, device="cuda")
+            pick = torch.randint(0, 16, (rows, n), generator=g, device="cuda")
+            if dtype == torch.int32:
+                x = torch.where(pick == 0, -2**31, x)
+                x = torch.where(pick == 1, 2**31 - 1, x).to(torch.int32)
+            else:
+                x = x.float()
+                x = torch.where((x == 0) & (pick < 8), -0.0, x)
+                for v, special in enumerate((float("nan"), float("inf"),
+                                             -float("inf"))):
+                    x = torch.where(pick == 8 + v, special, x)
+            cases.append((f"hard ({rows}, {n})", x))
+        ramp = torch.arange(1 << 16, device="cuda").to(dtype).view(1, -1)
+        cases += [("sorted (1, 65536)", ramp),
+                  ("reversed (1, 65536)", ramp.flip(1).contiguous()),
+                  # 4 bytes past an allocation: the fill's element path
+                  ("misaligned (1, 2T)", torch.cat(
+                      [cases[3][1][0, :1], cases[3][1][0]])[1:].view(1, -1))]
+        for name, x in cases:
+            grids = bitonic_sort.LAUNCHES.grids
+            got = bitonic_sort.bitonic_sort_cuda(x)
+            grids = bitonic_sort.LAUNCHES.grids - grids
+            want = ref.bitonic_sort_ref(x)
+            bits = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            finite = dtype == torch.int32 or bool(torch.isfinite(x).all())
+            lib = torch.equal(got, torch.sort(x, dim=-1).values) \
+                if finite else None
+            good = bits and lib is not False and \
+                grids == bitonic_sort.grid_launches(x.shape[1])
+            ok &= good
+            log("sort", f"{'ok' if good else 'FAIL'} {name} "
+                f"{str(dtype)[6:]}: bits equal to the plain network "
+                f"{bits}, torch.sort {'-' if lib is None else lib}, "
+                f"{grids} launches")
+    return ok
+
+
+def sort_stages(gen, sort) -> dict:
+    """Where one 2^26 fp32 ``sort(x)``'s device time goes, by the kernel's
+    launch kinds (torch.profiler): the first block pass, the global passes,
+    the finishing block passes; each with its launches and HBM rate (one
+    read and one write of the array a launch)."""
     x = torch.randn((1, 1 << 26), generator=gen, device="cuda")
-    by_name, events = device_ms_by_kernel(
-        lambda: bitonic_sort.bitonic_sort_cuda(x))
-    stages = {}
-    for stage in ("sort_tiles", "merge_global", "merge_tiles"):
-        names = [k for k in by_name if stage in k]
-        stages[stage] = sum(by_name[k] for k in names) if names else None
-    if events == 0:
-        log("sort", "one 2^26 fp32 call by stage: not measured (the "
+    nbytes = 2 * x.numel() * x.element_size()
+    sort(x)  # warm
+    counts = {}
+    by_name, events = device_ms_by_kernel(lambda: sort(x), counts)
+    kinds = {}
+    for name, ms in by_name.items():
+        kind = next((k for k in SORT_KERNELS if k in name), name)
+        row = kinds.setdefault(kind, dict(launches=0, ms=0.0))
+        row["launches"] += counts[name]
+        row["ms"] += ms
+    for row in kinds.values():
+        row["tb_per_s"] = row["launches"] * nbytes / row["ms"] / 1e9
+    total = sum(by_name.values())
+    if not events:
+        log("sort", "one 2^26 fp32 call by launch kind: not measured (the "
             "profiler saw no kernels)")
     else:
-        log("sort", f"one 2^26 fp32 call by torch.profiler, {events} device "
-            f"events: " + ", ".join(
-                f"{k} {'-' if v is None else f'{v:.3f}'} ms"
-                for k, v in stages.items())
-            + f"; total {sum(by_name.values()):.3f} ms")
-    return dict(events=events, ms=stages, total_ms=sum(by_name.values()))
+        log("sort", f"one 2^26 fp32 call by torch.profiler, {events} "
+            f"device events: " + "; ".join(
+                f"{k} {v['launches']} launches {v['ms']:.3f} ms "
+                f"({v['ms'] / v['launches']:.4f} ms, {v['tb_per_s']:.2f} "
+                f"TB/s a launch)" for k, v in kinds.items())
+            + f"; total {total:.3f} ms")
+    return dict(events=events, kinds=kinds, total_ms=total)
 
 
 def device_ms_by_kernel(run, counts=None) -> tuple:

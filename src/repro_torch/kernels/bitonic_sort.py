@@ -4,14 +4,15 @@ The kernel replaces ``src/repro/kernels/bitonic_sort.py::
 bitonic_sort_pallas``: the same bitonic network on every row of a (rows, n)
 array, n a power of 2.  Its plain PyTorch version, step by step, is
 ``kernels/ref.py::bitonic_sort_ref``.  The source note in
-``bitonic_sort.cu`` says what bounds it on an H100 and how its launches
-split the network between shared and device memory.
+``bitonic_sort.cu`` says what bounds it on an H100 and how its passes
+split the network between registers, shared and device memory;
+``passes`` states that schedule in Python.
 
 ``bitonic_sort_cuda`` is the only place the kernel is launched.  It checks
 what the kernel takes and raises on anything else, allocates the output
 with ``torch.empty``, launches on the current stream, raises if a launch
 reports an error, and counts the call in ``LAUNCHES`` (``count``: calls;
-``grids``: the CUDA kernel launches they made, 120 for a 2^26 row).
+``grids``: the CUDA kernel launches they made, 31 for a 2^26 row).
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1}
-TILE = 4096  # elements one block sorts in shared memory (kTile)
+TILE = 1 << 14  # elements a block pass holds in shared memory (kTile)
+LOG_E = 5  # log2 of the elements a block-pass thread holds (kLogE)
+LOG_GROUP = 6  # stages a global pass runs at most (kLogGroup)
 
 
 class LaunchCounter:
@@ -42,16 +45,46 @@ class LaunchCounter:
 LAUNCHES = LaunchCounter()
 
 
+def passes(n: int, tile: int = TILE, group: int = LOG_GROUP) -> list:
+    """The kernel's launches for rows of length ``n``, in order, each as
+    (kind, stages): ``"block"`` runs its (k, j) stages on tiles of ``tile``
+    elements in shared memory and registers, ``"global"`` runs up to
+    ``group`` consecutive stages j >= ``tile`` of one k over device memory.
+    The first pass takes every k <= min(n, tile); for each k > tile, the
+    stages j >= tile in groups from the top (the last one shorter), then a
+    block pass finishes j < tile.  The stages, concatenated, are the
+    network's."""
+    def stages(k, j_top, j_low):
+        out = []
+        while j_top >= j_low:
+            out.append((k, j_top))
+            j_top //= 2
+        return out
+
+    first, k = [], 2
+    while k <= min(n, tile):
+        first += stages(k, k // 2, 1)
+        k *= 2
+    out = [("block", first)]
+    while k <= n:
+        wide = stages(k, k // 2, tile)
+        out += [("global", wide[i:i + group])
+                for i in range(0, len(wide), group)]
+        out.append(("block", stages(k, tile // 2, 1)))
+        k *= 2
+    return out
+
+
 def grid_launches(n: int) -> int:
-    """CUDA launches the kernel makes for rows of length ``n``: one tile
-    sort, then for each k > TILE one launch per j >= TILE and one to finish
-    the tiles."""
-    s, t = n.bit_length() - 1, min(n, TILE).bit_length() - 1
-    return 1 + sum(m - t + 1 for m in range(t + 1, s + 1))
+    """CUDA launches the kernel makes for rows of length ``n``: one a pass
+    (31 for n = 2^26)."""
+    return len(passes(n))
 
 
-def _function():
-    fn = build.load("bitonic_sort").repro_bitonic_sort
+def _function(defines=()):
+    """The C entry point; ``defines`` build it with another tile or group
+    (``SORT_LOG_TILE=15``), which only ``tools/sort_tile_sweep.py`` asks."""
+    fn = build.load("bitonic_sort", defines).repro_bitonic_sort
     if fn.argtypes is None:
         # every pointer and the stream as c_void_p: ctypes would otherwise
         # pass a Python int as a 32-bit int and cut the address

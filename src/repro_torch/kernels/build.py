@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("matmul", "bitonic_sort", "flash_attention", "wkv")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[tuple, ctypes.CDLL] = {}
 LOGS: Dict[str, str] = {}  # source name -> nvcc's output of its last build
 
 
@@ -43,25 +43,30 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin)")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines=()) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives: its name hashes the
-    source and every ``csrc/*.cuh`` (in name order), which a source may
-    include."""
+    source, every ``csrc/*.cuh`` (in name order), which a source may
+    include, and the macros ``defines`` (``NAME=VALUE``) it is built with."""
     digest = hashlib.sha256()
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    for define in defines:
+        digest.update(b"-D" + define.encode() + b"\0")
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build_all(names=SOURCES) -> List[Path]:
-    """Compile every source in ``names`` that has no current library, all
-    ``nvcc`` processes started together; raise if any fails."""
-    todo = [(n, library_path(n)) for n in names if not library_path(n).exists()]
+def build_all(names=SOURCES, defines=()) -> List[Path]:
+    """Compile every source in ``names`` that has no current library, with
+    the macros ``defines``, all ``nvcc`` processes started together; raise
+    if any fails."""
+    todo = [(n, library_path(n, defines)) for n in names
+            if not library_path(n, defines).exists()]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []
@@ -75,14 +80,15 @@ def build_all(names=SOURCES) -> List[Path]:
         tmp.replace(out)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
-    return [library_path(n) for n in names]
+    return [library_path(n, defines) for n in names]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` with the macros
+    ``defines`` (none for the port's own), built first if needed."""
+    lib = _loaded.get((name, tuple(defines)))
     if lib is None:
-        (path,) = build_all((name,))
+        (path,) = build_all((name,), defines)
         lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
+        _loaded[(name, tuple(defines))] = lib
     return lib

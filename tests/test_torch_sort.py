@@ -8,10 +8,18 @@
   distributed_sort``: the same output, report and ledger rows, with the
   port's ``local_sort`` ``"torch"``/``"kernel"`` standing for the
   reference's ``"xla"``/``"pallas"``;
+* the kernel's schedule (``bitonic_sort.passes``) emulated in plain torch
+  with each pass kind's index arithmetic (block passes: the tile, its
+  padded shared-memory words, each thread's register window and the
+  exchanges between windows; global passes: each thread's register group),
+  at small tiles and windows, equal to the network bit for bit;
 * on a CUDA card (marked ``cuda``; skipped elsewhere), the kernel
   (``csrc/bitonic_sort.cu``) exactly equal to its plain version and to
-  ``torch.sort``.
+  ``torch.sort``, and bit for bit to its plain version on hard inputs.
 """
+
+import itertools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,9 +33,12 @@ from repro_torch.hw import H100, HardwareSpec  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.bitonic_sort import (  # noqa: E402
     LAUNCHES,
+    LOG_E,
+    LOG_GROUP,
     TILE,
     bitonic_sort_cuda,
     grid_launches,
+    passes,
 )
 
 try:  # the reference; a card machine without jax runs only the cuda test
@@ -136,41 +147,220 @@ def test_bitonic_network_equals_sort_ref(shape, dtype):
     assert torch.equal(ref.bitonic_sort_ref(x), ref.sort_ref(x))
 
 
-def _flat_network(x: torch.Tensor) -> torch.Tensor:
-    """The network as the kernel indexes it: on the flattened (rows, n)
-    array, pair q of stage (k, j) joins element p = 2q - (q & (j - 1)) and
-    p + j, in the direction of p's index within its row, p & (n - 1)."""
+def test_grid_launches_follow_the_tile_split():
+    """One launch a pass: the first block pass, then for each k > TILE the
+    groups of up to LOG_GROUP global stages and one finishing block
+    pass."""
+    assert (TILE, LOG_E, LOG_GROUP) == (1 << 14, 5, 6)
+    assert grid_launches(8) == grid_launches(TILE) == 1
+    assert grid_launches(2 * TILE) == 3  # first, one global group, finish
+    assert [grid_launches(1 << s) for s in (17, 20, 24, 26)] == [7, 13, 25,
+                                                                 31]
+
+
+def _network(n):
+    return [(k, j) for k in (1 << a for a in range(1, n.bit_length()))
+            for j in (1 << b for b in range(k.bit_length() - 2, -1, -1))]
+
+
+@pytest.mark.parametrize("tile,group", [(TILE, LOG_GROUP), (64, 2), (32, 5)])
+@pytest.mark.parametrize("n", [2, 8, 32, 1 << 10, 1 << 14, 1 << 15, 1 << 21,
+                               1 << 26])
+def test_passes_concatenate_to_the_network(n, tile, group):
+    got = passes(n, tile, group)
+    assert [st for _, sts in got for st in sts] == _network(n)
+    assert got[0][0] == "block"
+    for kind, sts in got:
+        (k,) = {k for k, _ in sts} if kind == "global" else (sts[0][0],)
+        if kind == "global":  # up to group consecutive stages j >= tile
+            assert 1 <= len(sts) <= group and sts[-1][1] >= tile
+            assert [j for _, j in sts] == [sts[0][1] >> i
+                                           for i in range(len(sts))]
+        elif k > tile:  # a finishing pass: every j < tile of its k
+            assert sts == [(k, tile >> i) for i in range(1, tile.bit_length())]
+
+
+def _pad(e):
+    """Shared-memory word of tile element e (``pad`` in the source): one
+    word of padding after every 32."""
+    return e + (e >> 5)
+
+
+def _block_tile(rows, n, tile, log_e):
+    """The launcher's tile: ``tile``, or T / n whole rows where n < T (all
+    the rows there are, rounded up to a power of 2), at least 2^log_e."""
+    if n >= tile:
+        return tile
+    r = 1
+    while r < rows and r * n < tile:
+        r *= 2
+    return max(r * n, 1 << log_e)
+
+
+def _order(a, b, up):
+    """``order``: each element by its own comparison with its partner."""
+    return torch.where((b < a) == up, b, a), torch.where((a < b) == up, b, a)
+
+
+def _register_stages(r, stages, lo, up, reg_k):
+    """``register_stages``: the stages on r (..., threads, E), register i
+    holding element base + (i << lo); a pair ascends where ``up`` (per
+    thread) and (i & reg_k) == 0."""
+    e = r.shape[-1]
+    i = torch.arange(e)
+    for _, j in stages:
+        s = j.bit_length() - 1 - lo
+        assert 0 <= s and 1 << s < e  # the stage's bit lies in the window
+        low = i[(i & (1 << s)) == 0]
+        asc = up[..., None] & ((low & reg_k) == 0)
+        r[..., low], r[..., low | (1 << s)] = _order(
+            r[..., low], r[..., low | (1 << s)], asc)
+
+
+def _block_pass(x, rows, n, stages, tile, log_e):
+    """``first_block_pass`` / ``finish_block_pass`` on the flat array x:
+    each tile filled into padded shared memory, the stages run window by
+    window in registers with an exchange where the window moves, then
+    drained.  Returns the number of windows loaded a tile."""
+    e_count = 1 << log_e
+    tile = _block_tile(rows, n, tile, log_e)
+    total = x.numel()
+    tiles = -(-total // tile)
+    buf = torch.zeros(tiles * tile, dtype=x.dtype)  # beyond the last row
+    buf[:total] = x
+    words = _pad(torch.arange(tile))
+    smem = torch.empty((tiles, _pad(tile)), dtype=x.dtype)
+    smem[:, words] = buf.view(tiles, tile)
+    t, i = torch.arange(tile // e_count), torch.arange(e_count)
+    tb = (torch.arange(tiles) * tile) & (n - 1)
+    cur, loads, r, at = None, 0, None, None
+    for k, group in itertools.groupby(stages, key=lambda st: st[0]):
+        group = list(group)
+        kk = 0 if k == n else k
+        h = group[0][1].bit_length() - 1  # the top j bit
+        assert h == min(k, tile).bit_length() - 2
+        while h >= 0:
+            lo = max(h - (log_e - 1), 0)
+            run = [st for st in group if st[1] >= 1 << lo]
+            group = group[len(run):]
+            assert [j for _, j in run] == [1 << b for b in range(h, lo - 1,
+                                                                 -1)]
+            tbase = (t & ((1 << lo) - 1)) | ((t >> lo) << (lo + log_e))
+            if lo != cur:
+                if cur is not None:
+                    smem[:, at] = r
+                at = _pad(tbase)[:, None] + _pad(i << lo)  # pad(tbase | i<<lo)
+                r, cur, loads = smem[:, at], lo, loads + 1
+            up = ((tb[:, None] | tbase[None, :]) & kk) == 0
+            _register_stages(r, run, lo, up, (kk >> lo) & (e_count - 1))
+            h = lo - 1
+        assert not group
+    smem[:, at] = r
+    x.copy_(smem[:, words].reshape(-1)[:total])
+    return loads
+
+
+def _global_pass(x, n, stages, log_g):
+    """``global_pass``: thread q holds the 2^log_g elements p + (i << lo),
+    window [lo, top], and runs the group's stages from the top."""
+    (k,) = {k for k, _ in stages}
+    kk = 0 if k == n else k
+    top = stages[0][1].bit_length() - 1
+    lo = top - (log_g - 1)
+    q = torch.arange(x.numel() >> log_g)
+    p = (q & ((1 << lo) - 1)) | ((q >> lo) << (lo + log_g))
+    at = p[:, None] + (torch.arange(1 << log_g) << lo)
+    r = x[at]
+    _register_stages(r, stages, lo, (p & kk) == 0, 0)
+    x[at] = r
+
+
+def _emulate(x, tile, log_e, log_g):
+    """The kernel's schedule on (rows, n), pass by pass, block passes with
+    2^log_e registers a thread, global ones with 2^log_g; also the windows
+    each block pass loaded a tile."""
     rows, n = x.shape
-    x = x.reshape(-1).clone()
-    q = torch.arange(x.numel() // 2)
-    k = 2
-    while k <= n:
-        j = k // 2
-        while j >= 1:
-            p = 2 * q - (q & (j - 1))
-            a, b = x[p], x[p + j]
-            up = ((p & (n - 1)) & k) == 0
-            lo, hi = torch.where(b < a, b, a), torch.where(b < a, a, b)
-            x[p], x[p + j] = torch.where(up, lo, hi), torch.where(up, hi, lo)
-            j //= 2
-        k *= 2
-    return x.reshape(rows, n)
+    flat = x.reshape(-1).clone()
+    windows = []
+    for kind, stages in passes(n, tile, log_g):
+        if kind == "block":
+            windows.append(_block_pass(flat, rows, n, stages, tile, log_e))
+        else:
+            _global_pass(flat, n, stages, log_g)
+    return flat.reshape(rows, n), windows
+
+
+def _hard(rows, n, dtype, seed):
+    """Values the network must order as the plain version does, bit for
+    bit: duplicates, -0.0 beside +0.0, +-inf and NaN (float32), the int32
+    extremes."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-4, 5, (rows, n), generator=g)
+    if dtype == torch.int32:
+        ends = torch.tensor([-2**31, 2**31 - 1], dtype=torch.int32)
+        x = x.to(torch.int32)
+        pick = torch.randint(0, 8, (rows, n), generator=g)
+        return torch.where(pick < 2, ends[pick.clamp(max=1)], x)
+    x = x.to(torch.float32)
+    x = torch.where(x == 0, torch.where(torch.rand((rows, n), generator=g)
+                                        < 0.5, -0.0, 0.0), x)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                            -float("nan")])
+    pick = torch.randint(0, 16, (rows, n), generator=g)
+    return torch.where(pick < 4, special[pick.clamp(max=3)], x)
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("tile,log_e,log_g,rows,n", [
+    (64, 2, 2, 1, 32), (64, 2, 2, 3, 16), (64, 2, 2, 5, 2),
+    (64, 2, 2, 1, 64), (64, 2, 2, 2, 128), (64, 2, 2, 1, 512),
+    (64, 2, 3, 3, 1024), (128, 3, 3, 1, 1 << 14), (128, 3, 4, 7, 32),
+    (32, 5, 5, 3, 8), (32, 5, 5, 2, 256),
+    (TILE, LOG_E, LOG_GROUP, 3, 1 << 12),
+    (TILE, LOG_E, LOG_GROUP, 1, 1 << 17)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_emulated_schedule_is_the_network(tile, log_e, log_g, rows, n,
+                                          dtype):
+    """The schedule with each pass kind's index arithmetic equals the plain
+    network bit for bit: n across the tile boundary (512 at (64, 2, 2),
+    1024 at (64, 2, 3) and 2^14 at (128, 3, 3) have a k whose global
+    stages end in a short group after a full one), several rows to a tile,
+    several tiles to a row."""
+    x = _hard(rows, n, dtype, n + rows)
+    got, _ = _emulate(x, tile, log_e, log_g)
+    assert torch.equal(_bits(got), _bits(ref.bitonic_sort_ref(x)))
 
 
 @pytest.mark.parametrize("rows,n", [(3, 1024), (1, 64), (4, 8)])
 def test_kernel_index_arithmetic(rows, n):
-    """The kernel's pair indexing and its row-relative direction bit, over
-    several rows in one flat array, give the network's result."""
+    """The kernel's own index arithmetic, at its tile and register counts,
+    over several rows in one flat array, gives the network's result."""
     g = torch.Generator().manual_seed(n)
     x = torch.randn((rows, n), generator=g)
-    assert torch.equal(_flat_network(x), ref.sort_ref(x))
+    got, _ = _emulate(x, TILE, LOG_E, LOG_GROUP)
+    assert torch.equal(got, ref.sort_ref(x))
 
 
-def test_grid_launches_follow_the_tile_split():
-    assert TILE == 4096
-    assert grid_launches(8) == grid_launches(TILE) == 1
-    assert grid_launches(2 * TILE) == 3  # tiles, one global j, finish
-    assert grid_launches(1 << 26) == 120
+def test_constants_match_the_source():
+    """TILE, LOG_E and LOG_GROUP are the source's kTile, kLogE and its
+    default SORT_LOG_GROUP, as the launcher computes the schedule."""
+    src = (Path(ops.__file__).parents[1] / "csrc" /
+           "bitonic_sort.cu").read_text()
+    assert f"#define SORT_LOG_TILE {TILE.bit_length() - 1}\n" in src
+    assert f"#define SORT_LOG_GROUP {LOG_GROUP}\n" in src
+    assert f"constexpr int kLogE = {LOG_E};" in src
+
+
+def test_emulated_windows_match_the_source_note():
+    """A full first tile loads 23 register windows (all k <= 32 in one,
+    two for k = 64 ... 1024, three above), a finishing pass three."""
+    x = _hard(1, 2 * TILE, torch.float32, 3)
+    got, windows = _emulate(x, TILE, LOG_E, LOG_GROUP)
+    assert windows == [23, 3]
+    assert torch.equal(_bits(got), _bits(ref.bitonic_sort_ref(x)))
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -252,3 +442,44 @@ def test_kernel_matches_plain_on_card(dtype):
         assert torch.equal(ops.sort(x), ref.sort_ref(x)), shape
     with pytest.raises(ValueError, match="CUDA"):
         bitonic_sort_cuda(torch.ones((2, 8), dtype=dtype))
+
+
+def _card_hard_inputs(dtype):
+    """(name, (rows, n) CUDA tensor) of the card test: hard values, sorted
+    and reversed rows, at n = 2, T/2, T, 2T, the first n with a k whose
+    global stages end in a short group after a full one, several rows
+    below and above the tile, and a view not 16-byte aligned."""
+    short = TILE << (LOG_GROUP + 1)  # k = 2^21: 7 global stages, 6 + 1
+    assert [len(st) for kind, st in passes(short)
+            if kind == "global"][-2:] == [LOG_GROUP, 1]
+    cases = []
+    for rows, n in [(1, 2), (1, TILE // 2), (1, TILE), (1, 2 * TILE),
+                    (1, short), (3, TILE // 4), (3, 2 * TILE)]:
+        x = _hard(rows, n, dtype, n + rows).cuda()
+        cases.append((f"hard ({rows}, {n})", x))
+    ramp = torch.arange(1 << 16, device="cuda").to(dtype).view(1, -1)
+    cases += [("sorted (1, 65536)", ramp), ("reversed (1, 65536)",
+                                              ramp.flip(1).contiguous())]
+    # a view 4 bytes past an allocation: the tile fill's element path
+    buf = _hard(1, 2 * TILE + 1, dtype, 5).cuda().view(-1)
+    cases.append(("misaligned (1, 2T)", buf[1:].view(1, -1)))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_kernel_matches_plain_on_hard_inputs_on_card(dtype):
+    """Bit for bit (compared as int32: -0.0 is not +0.0, NaN is itself) the
+    plain network on the card, with one CUDA launch a pass; torch.sort
+    beside them where every value is finite (its order of NaN and of -0.0
+    and +0.0 is not the network's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); on a card run `python -m "
+                    "pytest --noconftest -m cuda tests/test_torch_sort.py`")
+    for name, x in _card_hard_inputs(dtype):
+        grids = LAUNCHES.grids
+        got = bitonic_sort_cuda(x)
+        assert LAUNCHES.grids == grids + grid_launches(x.shape[1]), name
+        assert torch.equal(_bits(got), _bits(ref.bitonic_sort_ref(x))), name
+        if dtype == torch.int32 or torch.isfinite(x).all():
+            assert torch.equal(got, torch.sort(x, dim=-1).values), name

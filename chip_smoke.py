@@ -8,6 +8,10 @@ Phases, one report line each (any failure exits non-zero):
      and flash_attention.cu's registers, spills and serialized-wgmma
      notices by path (ptxas -v); any spill or such notice in a flash
      tensor-core kernel, or any spill in a sort kernel, fails the run;
+     wkv.cu's registers and spills by kernel (ptxas -v) and, for the
+     training instantiations, threads, shared memory, registers, local
+     bytes and CTAs an SM as the runtime reports them, written to
+     chiprun_out/wkv_build.json; any spill in a WKV kernel fails the run;
   2. each kernel against its plain PyTorch version at the shapes the main
      path gives it (tinyllama-1.1b serving, bf16), with the matmul path it
      took, timed with CUDA events with a cold L2 beside the plain version,
@@ -69,11 +73,15 @@ Phases, one report line each (any failure exits non-zero):
      one step profiled (device busy share, device ms by kernel, matmul
      path and flash kernel, no library GEMM or attention kernel);
  10. wkv: the WKV kernels, forward and backward (every gradient), against
-     their plain versions at rwkv6-3b's training shape (2, 2048, 40, 64)
-     with bf16 r/k/v and fp32 logw made as the time mix makes them, the
-     same shape in fp32, an awkward (3, 100, 5, 64) in fp32 and that shape
-     at logw = -50 (every output finite), each timed (CUDA events, cold
-     L2) beside the plain version and the bound;
+     their plain versions (with the kernels' sub-chunk factorization) at
+     rwkv6-3b's training shape (2, 2048, 40, 64) with bf16 r/k/v and fp32
+     logw made as the time mix makes them, the same shape in fp32, an
+     awkward (3, 100, 5, 64) in fp32, that shape at logw = -50 and at heavy
+     mixed decays (every output finite); the backward called twice with
+     the same bits, the CUDA launches of each call by kernel; each timed
+     (CUDA events, cold L2) beside the plain version and the bound, and at
+     the bf16 training shape one forward and one backward profiled by
+     kernel (state pass against the per-chunk kernel);
  11. rwkv card against CPU in fp32 (2 layers, full width): prefill logits
      (the WKV kernel) and token-by-token decode_step logits;
  12. rwkv serving: Runtime.serve of full-width, full-depth rwkv6-3b in bf16
@@ -86,9 +94,10 @@ Phases, one report line each (any failure exits non-zero):
  14. rwkv train: Runtime.train of full-width, full-depth rwkv6-3b in bf16
      for 4 steps at batch 2 x 2048 (no checkpoint): every loss finite, the
      WKV kernels' calls per step (64 forward with the recomputation, 32
-     backward), step wall, tokens/s, peak memory, and one profiled step
-     (device busy share, device ms by kernel and matmul path, every
-     call's routing checked, no library GEMM kernel).
+     backward; two CUDA launches each), step wall, tokens/s, peak memory,
+     and one profiled step (device busy share, device ms by kernel, matmul
+     path and WKV kernel, every call's routing checked, no library GEMM
+     kernel).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
 chiprun_out/chip_smoke.json.  Exits non-zero, printing no result, where
@@ -143,12 +152,21 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 2048  # TinyLlama's context
 # (B, S, H, N, dtype, logw) the WKV kernels are held at: rwkv6-3b's
 # training shape at batch 2 x 2048 (logw as the time mix makes it), in both
 # types, an awkward one (S not a multiple of the 64-position chunk, 5
-# heads), and that one at the strongest decay the reference tests
+# heads), that one at the strongest decay the reference tests, and at
+# heavy mixed decays (logw = -exp(3 + N(0, 1)): cumulative decays near
+# -1000 a chunk, the CPU tests' log_offset=3)
 WKV_SHAPES = [(2, 2048, 40, 64, "bfloat16", "model"),
               (2, 2048, 40, 64, "float32", "model"),
               (3, 100, 5, 64, "float32", "model"),
-              (3, 100, 5, 64, "float32", -50.0)]
+              (3, 100, 5, 64, "float32", -50.0),
+              (3, 100, 5, 64, "float32", "heavy")]
 WKV_CHUNK = 64
+# the WKV kernels' device-side names (wkv.cu), by part: the state pass runs
+# forward (template flag false) and in reverse for the backward (true)
+WKV_KERNELS = {"wkv state forward": r"wkv_state<.*false>",
+               "wkv output": r"wkv_fwd_out<",
+               "wkv state backward": r"wkv_state<.*true>",
+               "wkv backward chunk": r"wkv_bwd_chunk<"}
 # WKV limits: fp32 outputs within 1e-4 x max|plain| (the reference's WKV
 # tolerance, 1e-4 at unit scale, tests/test_kernels.py); bf16 gradients
 # (dr, dk, dv) element by element within BF16_TOL x the largest |plain| of
@@ -241,9 +259,9 @@ LIBRARY_ATTENTION = re.compile(
 
 def group_device_ms(by_name, groups) -> dict:
     """Device ms of a profile by group: each matmul path, the ``groups``
-    given ({label: kernel name part}), everything else, and the matmul
-    total."""
-    split = {g: sum(v for k, v in by_name.items() if key in k)
+    given ({label: pattern a kernel's name matches}), everything else, and
+    the matmul total."""
+    split = {g: sum(v for k, v in by_name.items() if re.search(key, k))
              for g, key in {**MATMUL_KERNELS, **groups}.items()}
     split["other"] = sum(by_name.values()) - sum(split.values())
     split["matmul"] = sum(split[g] for g in MATMUL_KERNELS)
@@ -318,6 +336,7 @@ def main() -> int:
     from repro_torch.kernels import bitonic_sort, build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import wkv as wkv_k
     from repro_torch.kernels.matmul import LAUNCHES
     from repro_torch.models import build_model
     from repro_torch.runtime import Runtime, synthetic_trace
@@ -384,9 +403,24 @@ def main() -> int:
             f"passes, global pass; fp32 and int32) must build with no "
             f"spill: {sort_ptxas}")
         return 1
+    wkv_build = wkv_build_report(wkv_k, build.LOGS.get("wkv", ""))
+    (ROOT / "chiprun_out" / "wkv_build.json").write_text(
+        json.dumps(wkv_build, indent=1))
+    n_inst = len(wkv_k.CHUNKS) * len(wkv_k.HEAD_SIZES) * 2  # L x N x dtype
+    counts = {kind: row["kernels"] for kind, row in wkv_build["ptxas"].items()}
+    if wkv_build["spills"] or counts != {
+            kind: n_inst for kind in ("state forward", "output",
+                                      "state backward", "backward chunk")} \
+            or wkv_k.design()["subchunk"] != wkv_k.SUBCHUNK:
+        log("build", f"FAIL: the WKV kernels (state pass both ways, output, "
+            f"backward chunk; {n_inst} instantiations each) must build with "
+            f"no spill, on sub-chunks of wkv.SUBCHUNK rows: kernels {counts}, "
+            f"spilling {wkv_build['spills']}, design {wkv_k.design()}")
+        return 1
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s, matmul_ptxas=ptxas,
-                  flash_ptxas=flash_ptxas, sort_ptxas=sort_ptxas)
+                  flash_ptxas=flash_ptxas, sort_ptxas=sort_ptxas,
+                  wkv_build=wkv_build)
 
     # ------------------------------------------------------------------ 2
     cfg = get_config("tinyllama-1.1b")
@@ -734,8 +768,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 10
-    from repro_torch.kernels import wkv as wkv_k
-
     wkv_rows = []
     for shape in WKV_SHAPES:
         row = wkv_case(shape, gen, ref, wkv_k, flush)
@@ -770,6 +802,7 @@ def main() -> int:
         return 1
     record["rwkv_train"] = rtrain
     wkv_main = wkv_rows[0]  # the bf16 training shape
+    wd = wkv_k.design()
 
     # ---------------------------------------------------------------- out
     out_dir = ROOT / "chiprun_out"
@@ -831,11 +864,20 @@ def main() -> int:
         + flash_main["bwd_library_ms"],
     }, {
         "name": "wkv", "route": "cuda",
+        "design": f"state pass one CTA per (b, h, {wd['state_cols']} value "
+                  f"columns), {wd['state_threads']} threads, sequential over "
+                  f"the chunks, next chunk by cp.async; per-chunk kernels one "
+                  f"CTA per (b, h, chunk), {wd['chunk_threads']} threads; "
+                  f"pairwise decay factored by sub-chunks of "
+                  f"{wd['subchunk']} rows; FP32 FMA register tiles "
+                  f"({len(wkv_k.FORWARD_KERNELS)} launches forward, "
+                  f"{len(wkv_k.BACKWARD_KERNELS)} backward)",
         "source": "src/repro_torch/csrc/wkv.cu",
         "replaces": "src/repro/kernels/wkv.py:81",
         # wrapper calls per rwkv6-3b training step: forward (each layer,
         # and again in its recomputation) and backward (each layer)
         "launches": rtrain["wkv_calls_per_step"],
+        "cuda_launches": rtrain["wkv_cuda_launches_per_step"],
         "max_abs_err": max(r["max_abs_err"] for r in wkv_rows),
         # the bf16 training shape, forward (keeping the chunk-start states,
         # as training does) plus backward
@@ -1704,7 +1746,8 @@ def wkv_inputs(shape, gen):
     """r, k, v (B, S, H, N) in the shape's dtype, logw fp32, u fp32 on the
     card: r, v ~ N(0, 1); logw as rwkv_time_mix makes it at its init,
     -exp(w0 + tanh(x W1) W2) with w0 = -2, x ~ N(0, 1) and fan-in scaled
-    W1 (D, 64), W2 (64, D) (or the constant given); k ~ N(0, 1) scaled by
+    W1 (D, 64), W2 (64, D) ("heavy": -exp(3 + N(0, 1)); or the constant
+    given); k ~ N(0, 1) scaled by
     1 - e^{logw}; u ~ 0.1 N(0, 1), as bonus_u's init."""
     b, s, h, n, dtype_name, decay = shape
     dt = getattr(torch, dtype_name)
@@ -1716,6 +1759,9 @@ def wkv_inputs(shape, gen):
         w1 = torch.randn((d, 64), generator=gen, device=dev) / d ** 0.5
         w2 = torch.randn((64, d), generator=gen, device=dev) / 8.0
         logw = -torch.exp(-2.0 + torch.tanh(x @ w1) @ w2).reshape(b, s, h, n)
+    elif decay == "heavy":
+        logw = -torch.exp(3.0 + torch.randn((b, s, h, n), generator=gen,
+                                            device=dev))
     else:
         logw = torch.full((b, s, h, n), float(decay), device=dev)
     k = k * (1.0 - torch.exp(logw))
@@ -1737,25 +1783,52 @@ def wkv_held(got, want, scale=None) -> float:
     return (diff / limit.clamp(min=1e-30)).max().item()
 
 
+def wkv_exps(b, h, nc, L, n, sub) -> tuple:
+    """(forward, backward) exponentials the WKV kernels take: the state
+    pass's L x N a chunk in each of its N/16 column CTAs; per chunk, the
+    diagonal blocks' pairs (A; and dr, dk together in the backward), the
+    factors (qf, kf_i; r e^{cwe} in the forward, kd in the backward) and
+    the backward's scalings and assembly."""
+    nb = L // sub
+    pairs = sub * (sub - 1) // 2 * nb * n
+    kf = sub * nb * (nb - 1) // 2 * n
+    qf = (L - sub) * n
+    state = (n // 16) * L * n
+    fwd = state + pairs + qf + kf + L * n
+    bwd = state + 2 * pairs + 2 * (qf + kf) + L * n + 2 * L * n
+    return b * h * nc * fwd, b * h * nc * bwd
+
+
 def wkv_case(shape, gen, ref, wkv_k, flush):
-    """Hold the WKV kernels at ``shape`` against their plain versions,
-    forward (out, final state, chunk-start states) and backward (dr, dk,
-    dv, dlogw, du; fed the plain forward's chunk-start states and a random
-    dout), and time both beside the plain versions and the bound.  None if
-    they disagree or an output is not finite."""
+    """Hold the WKV kernels at ``shape`` against their plain versions
+    (``wkv_fwd_plain`` / ``wkv_bwd_plain`` with the kernels' sub-chunk
+    factorization), forward (out, final state, chunk-start states) and
+    backward (dr, dk, dv, dlogw, du; fed the plain forward's chunk-start
+    states and a random dout), the backward twice with the same bits;
+    check the wrapper calls and the CUDA launches by kernel; time both
+    beside the plain versions and the bound, and at the training shape
+    profile one forward and one backward by kernel.  None if they disagree
+    or an output is not finite."""
     b, s, h, n, dtype_name, decay = shape
     r, k, v, logw, u = wkv_inputs(shape, gen)
     do = torch.randn((b, s, h, n), generator=gen, device="cuda")
+    sub = wkv_k.SUBCHUNK
     before = (wkv_k.LAUNCHES.forward, wkv_k.LAUNCHES.backward)
+    cuda_before = dict(wkv_k.LAUNCHES.cuda)
     out, state, starts = wkv_k.wkv_fwd_cuda(r, k, v, logw, u, WKV_CHUNK,
                                             keep_states=True)
-    p_out, p_state, p_starts = ref.wkv_fwd_plain(r, k, v, logw, u, WKV_CHUNK)
+    p_out, p_state, p_starts = ref.wkv_fwd_plain(r, k, v, logw, u, WKV_CHUNK,
+                                                 sub)
     grads = wkv_k.wkv_bwd_cuda(r, k, v, logw, u, p_starts, do, None,
                                WKV_CHUNK)
+    again = wkv_k.wkv_bwd_cuda(r, k, v, logw, u, p_starts, do, None,
+                               WKV_CHUNK)
     p_grads = ref.wkv_bwd_plain(r, k, v, logw, u, p_starts, do, None,
-                                WKV_CHUNK)
+                                WKV_CHUNK, sub)
     calls = (wkv_k.LAUNCHES.forward - before[0],
              wkv_k.LAUNCHES.backward - before[1])
+    cuda_calls = {kk: vv - cuda_before.get(kk, 0)
+                  for kk, vv in wkv_k.LAUNCHES.cuda.items()}
     torch.cuda.synchronize()
     name = f"{tuple(shape[:4])} {dtype_name} logw {decay}"
     dlogw_scale = max((p_grads[3].abs().max().item(),
@@ -1776,9 +1849,17 @@ def wkv_case(shape, gen, ref, wkv_k, flush):
             log("wkv", f"FAIL {name} {what}: finite {finite}, max abs err "
                 f"{err:.3e}, {ratio:.2f} x its limit")
             return None
-    if calls != (1, 1):
-        log("wkv", f"FAIL {name}: wrapper calls {calls}, expected one "
-            f"forward and one backward")
+    same_bits = all(torch.equal(x, y) for x, y in zip(grads, again))
+    if not same_bits:
+        log("wkv", f"FAIL {name}: two backward calls gave other bits")
+        return None
+    want_cuda = {}
+    for kern in wkv_k.FORWARD_KERNELS + 2 * wkv_k.BACKWARD_KERNELS:
+        want_cuda[kern] = want_cuda.get(kern, 0) + 1
+    if calls != (1, 2) or cuda_calls != want_cuda:
+        log("wkv", f"FAIL {name}: wrapper calls {calls}, CUDA launches "
+            f"{cuda_calls}; expected one forward and two backward calls, "
+            f"{want_cuda}")
         return None
     big = s >= 1024
     reps = 5 if big else 10
@@ -1786,11 +1867,11 @@ def wkv_case(shape, gen, ref, wkv_k, flush):
         fwd_ms=cuda_ms(lambda: wkv_k.wkv_fwd_cuda(
             r, k, v, logw, u, WKV_CHUNK, keep_states=True), flush, reps),
         fwd_plain_ms=cuda_ms(lambda: ref.wkv_fwd_plain(
-            r, k, v, logw, u, WKV_CHUNK), flush, 2 if big else reps, 1),
+            r, k, v, logw, u, WKV_CHUNK, sub), flush, 2 if big else reps, 1),
         bwd_ms=cuda_ms(lambda: wkv_k.wkv_bwd_cuda(
             r, k, v, logw, u, p_starts, do, None, WKV_CHUNK), flush, reps),
         bwd_plain_ms=cuda_ms(lambda: ref.wkv_bwd_plain(
-            r, k, v, logw, u, p_starts, do, None, WKV_CHUNK), flush,
+            r, k, v, logw, u, p_starts, do, None, WKV_CHUNK, sub), flush,
             2 if big else reps, 1))
     # the chunked form over full L x L tiles: forward A and A v (2 L^2 N
     # FLOPs each), (r e^cwe) S and (k e^{cw_L - cw})^T v (2 L N^2 each);
@@ -1811,9 +1892,11 @@ def wkv_case(shape, gen, ref, wkv_k, flush):
         + (3 * esz + 4) * elems + 4 * h * n
     t_ops = (flops_f + flops_b) / peak * 1e3
     t_bytes = (bytes_f + bytes_b) / HBM_BW * 1e3
+    exps_f, exps_b = wkv_exps(b, h, nc, L, n, sub)
     row = dict(shape=list(shape[:4]), dtype=dtype_name, logw=decay,
                chunk=WKV_CHUNK, max_abs_err=worst, errors=errs,
-               exps_fwd=tiles * L * L * n, exps_bwd=3 * tiles * L * L * n,
+               backward_bits_repeat=same_bits, cuda_launches=cuda_calls,
+               exps_fwd=exps_f, exps_bwd=exps_b,
                fwd_bound_ms=max(flops_f / peak, bytes_f / HBM_BW) * 1e3,
                bwd_bound_ms=max(flops_b / peak, bytes_b / HBM_BW) * 1e3,
                fwd_bound_by="operations" if flops_f / peak > bytes_f / HBM_BW
@@ -1822,18 +1905,86 @@ def wkv_case(shape, gen, ref, wkv_k, flush):
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                fwd_gflop=flops_f / 1e9, bwd_gflop=flops_b / 1e9,
                fwd_mb=bytes_f / 1e6, bwd_mb=bytes_b / 1e6, **times)
-    log("wkv", f"{name}: kernel == plain within limits, all finite (" +
+    log("wkv", f"{name}: kernel == plain (sub-chunk {sub}) within limits, "
+        f"all finite, backward bits repeat (" +
         ", ".join(f"{w} {e['err']:.1e} = {e['of_limit']:.2f} x limit"
                   for w, e in errs.items()) + ")")
     log("wkv", f"  forward: kernel {times['fwd_ms']:.4f} ms  plain "
         f"{times['fwd_plain_ms']:.4f} ms  bound {row['fwd_bound_ms']:.4f} ms "
         f"({row['fwd_mb']:.1f} MB, {row['fwd_gflop']:.2f} GFLOP, "
-        f"{row['exps_fwd']:.3g} exp); 1 launch; cold L2")
+        f"{exps_f:.3g} exp); {len(wkv_k.FORWARD_KERNELS)} launches; cold L2")
     log("wkv", f"  backward: kernel {times['bwd_ms']:.4f} ms  plain "
         f"{times['bwd_plain_ms']:.4f} ms  bound {row['bwd_bound_ms']:.4f} ms "
         f"({row['bwd_mb']:.1f} MB, {row['bwd_gflop']:.2f} GFLOP, "
-        f"{row['exps_bwd']:.3g} exp); 1 launch; cold L2")
+        f"{exps_b:.3g} exp); {len(wkv_k.BACKWARD_KERNELS)} launches; cold L2")
+    if big and dtype_name == "bfloat16":
+        prof, reps = {}, 5
+        for part, run in (("forward", lambda: wkv_k.wkv_fwd_cuda(
+                r, k, v, logw, u, WKV_CHUNK, keep_states=True)),
+                          ("backward", lambda: wkv_k.wkv_bwd_cuda(
+                              r, k, v, logw, u, p_starts, do, None,
+                              WKV_CHUNK))):
+            flush.zero_()
+            by_name, events = device_ms_by_kernel(
+                lambda: [run() for _ in range(reps)])
+            prof[part] = {g: sum(ms for kk, ms in by_name.items()
+                                 if re.search(key, kk)) / reps
+                          for g, key in WKV_KERNELS.items()}
+            prof[part] = {g: ms for g, ms in prof[part].items() if ms}
+            log("wkv", f"  profiled {part} (torch.profiler device ms a call, "
+                f"mean of {reps}): " + (", ".join(
+                    f"{g} {ms:.4f}" for g, ms in prof[part].items())
+                    if prof[part] else f"not measured ({events} device "
+                    f"events)"))
+        row["profile"] = prof
     return row
+
+
+def wkv_build_report(wkv_k, text) -> dict:
+    """The WKV kernels' ptxas -v report (registers and spill bytes of each
+    compiled kernel, by part) and the CUDA runtime's view of the training
+    instantiations (threads, shared memory, registers, local bytes, CTAs an
+    SM), logged; ``spills`` lists every kernel that spills."""
+    parts, kind = {}, None
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            kind = ("state backward" if "wkv_state" in mangled and "Lb1E" in
+                    mangled else "state forward" if "wkv_state" in mangled
+                    else "output" if "wkv_fwd_out" in mangled
+                    else "backward chunk" if "wkv_bwd_chunk" in mangled
+                    else None)
+            if kind:
+                parts.setdefault(kind, dict(kernels=0, registers=[999, 0],
+                                            spill_bytes=0))["kernels"] += 1
+        elif kind and "spill" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+            parts[kind]["spill_bytes"] = max([parts[kind]["spill_bytes"]] +
+                                             nums)
+        elif kind and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            reg = parts[kind]["registers"]
+            reg[0], reg[1] = min(reg[0], regs), max(reg[1], regs)
+    for kind, row in parts.items():
+        log("build", f"wkv.cu {kind}: {row['kernels']} kernels, "
+            f"{row['registers'][0]}-{row['registers'][1]} registers a "
+            f"thread, spill stores/loads up to {row['spill_bytes']} bytes "
+            f"(ptxas -v)")
+    runtime = {}
+    for dt in ("bfloat16", "float32"):
+        info = wkv_k.kernel_info(getattr(torch, dt), WKV_CHUNK, 64)
+        runtime[dt] = info
+        for kern, x in info.items():
+            log("build", f"wkv {dt} L {WKV_CHUNK} N 64 {kern}: "
+                f"{x['threads']} threads, {x['smem_bytes']} bytes dynamic "
+                f"shared memory, {x['registers']} registers, "
+                f"{x['local_bytes']} local bytes a thread, "
+                f"{x['ctas_per_sm']} CTAs an SM")
+    spills = [k for k, row in parts.items() if row["spill_bytes"]] + [
+        f"{dt} {kern}" for dt, info in runtime.items()
+        for kern, x in info.items() if x["local_bytes"]]
+    return dict(ptxas=parts, runtime=runtime, spills=spills)
 
 
 def rwkv_card_vs_cpu(cfg, wkv_k):
@@ -1990,7 +2141,9 @@ def rwkv_train_phase(cfg, wkv_k, mm_launches):
     torch.cuda.synchronize()
     counts = dict(matmul=mm_launches.count, wkv_forward=wkv_k.LAUNCHES.forward,
                   wkv_backward=wkv_k.LAUNCHES.backward,
-                  **{f"matmul {p}": n for p, n in mm_launches.by_path.items()})
+                  wkv_cuda=sum(wkv_k.LAUNCHES.cuda.values()),
+                  **{f"matmul {p}": n for p, n in mm_launches.by_path.items()},
+                  **{f"wkv {kk}": n for kk, n in wkv_k.LAUNCHES.cuda.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = [dict(step=int(m.group(1)), loss=float(m.group(2)),
                   ms=float(m.group(3))) for m in
@@ -2016,11 +2169,15 @@ def rwkv_train_phase(cfg, wkv_k, mm_launches):
           and counts["matmul"] > 0
           and per_step["wkv_forward"] == 2 * cfg.n_layers
           and per_step["wkv_backward"] == cfg.n_layers
+          and per_step["wkv_cuda"] == 2 * cfg.n_layers * len(
+              wkv_k.FORWARD_KERNELS) + cfg.n_layers * len(
+              wkv_k.BACKWARD_KERNELS)
           and all(v % TRAIN_STEPS == 0 for v in counts.values()))
     if not ok:
         log("rwkv-train", "FAIL: a step was not finite, the run stopped "
             "early, or the WKV kernels did not run once forward per layer "
-            "and recomputation and once backward per layer")
+            "and recomputation and once backward per layer (each call its "
+            "kernels once)")
         return None
 
     # one more step timed, and one profiled, from the trained state, each
@@ -2042,8 +2199,14 @@ def rwkv_train_phase(cfg, wkv_k, mm_launches):
     with RouteAudit(ops, mm) as audit:
         by_name, events = device_ms_by_kernel(lambda: step_fn(state, batch))
     device_ms = sum(by_name.values())
-    split = group_device_ms(by_name, {"wkv forward": "wkv_fwd",
-                                      "wkv backward": "wkv_bwd"})
+    split = group_device_ms(by_name, {
+        "wkv forward": "|".join((WKV_KERNELS["wkv state forward"],
+                                 WKV_KERNELS["wkv output"])),
+        "wkv backward": "|".join((WKV_KERNELS["wkv state backward"],
+                                  WKV_KERNELS["wkv backward chunk"]))})
+    wkv_parts = {g: sum(ms for kk, ms in by_name.items()
+                        if re.search(key, kk))
+                 for g, key in WKV_KERNELS.items()}
     if events == 0:
         log("rwkv-train", f"one more step: wall {wall:.1f} ms, loss "
             f"{extra_loss:.4f}; device time not measured (the profiler saw "
@@ -2054,6 +2217,8 @@ def rwkv_train_phase(cfg, wkv_k, mm_launches):
             f"busy {device_ms:.1f} ms ({100 * device_ms / wall:.1f}% of the "
             f"timed step); " + ", ".join(f"{g} {v:.1f} ms"
                                          for g, v in split.items()))
+        log("rwkv-train", "  wkv by kernel: " + ", ".join(
+            f"{g} {v:.1f} ms" for g, v in wkv_parts.items()))
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log("rwkv-train", f"  {ms:9.2f} ms  {name[:90]}")
     if not math.isfinite(extra_loss) or not audit.report("rwkv-train") \
@@ -2069,8 +2234,10 @@ def rwkv_train_phase(cfg, wkv_k, mm_launches):
                           rnn_chunk=plan.rnn_chunk, fits_hbm=plan.fits_hbm,
                           hbm_per_chip=plan.hbm_per_chip),
                 extra_step_ms=wall, extra_step_loss=extra_loss,
+                wkv_cuda_launches_per_step=per_step["wkv_cuda"],
                 profile=dict(events=events, device_ms=device_ms,
                              wall_ms=wall, by_group=split,
+                             wkv_by_kernel=wkv_parts,
                              top=sorted(by_name.items(),
                                         key=lambda kv: -kv[1])[:12]))
 

@@ -236,102 +236,303 @@ def _wkv_decay(cw, cwe, tri):
     return torch.exp(torch.where(tri[:, :, None], diff, float("-inf")))
 
 
-def wkv_fwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  logw: torch.Tensor, u: torch.Tensor, chunk: int = 64):
-    """The WKV forward kernel's computation: the chunked form in fp32 from
-    a zero state, in the kernel's order.  Per chunk of L positions
-    ``cw = cumsum(logw)``, ``cwe = cw - logw``,
-    ``A[t, s] = sum_n r[t, n] k[s, n] exp(cwe[t, n] - cw[s, n])`` for s < t
-    and ``sum_n r[t, n] u[n] k[t, n]`` on the diagonal,
-    ``o = A v + (r e^{cwe}) S`` and
-    ``S <- e^{cw_L} S + (k e^{cw_L - cw})ᵀ v``.  Returns (out (B, S, H, N),
-    final state (B, H, N, N), the state at each chunk's start (B, H, nc,
-    N, N)), all fp32 (float64 for float64 inputs); the backward reads the
-    last."""
+def _wkv_cumsums(wj: torch.Tensor, subchunk: Optional[int]):
+    """(cw, cwe) of one chunk's logw (B, H, L, N): cw its cumulative sum
+    over the rows, cwe the exclusive one.  With ``subchunk`` None cwe is
+    ``cw - logw`` (the arithmetic of the first kernels); with the sub-chunk
+    factorization it is cw shifted down a row (0 at the first), which never
+    exceeds the cw of an earlier row, so every exponent the factors take
+    is <= 0 in fp32 too (``cw - logw`` can round an ulp above it)."""
+    cw = torch.cumsum(wj, dim=2)
+    if subchunk is None:
+        return cw, cw - wj
+    return cw, F.pad(cw[:, :, :-1], (0, 0, 1, 0))
+
+
+def wkv_factor_exponents(cw: torch.Tensor, cwe: torch.Tensor,
+                         subchunk: int):
+    """The exponents of the pairwise decay factored by sub-chunk, for one
+    chunk's cw, cwe (B, H, L, N) cut into sub-chunks of ``subchunk`` rows,
+    with c_i = cwe at sub-chunk i's first row (= cw at the row before):
+
+    * query (B, H, L, N): ``cwe_t - c_i`` for t in sub-chunk i;
+    * key (B, H, nb, L, N): ``c_i - cw_s`` for s before sub-chunk i, -inf
+      from it on;
+    * diag (B, H, nb, sc, sc, N): ``cwe_t - cw_s`` for s < t within one
+      sub-chunk, -inf elsewhere.
+
+    For s in sub-chunk j < i and t in sub-chunk i, e^{cwe_t - cw_s} =
+    e^{cwe_t - c_i} e^{c_i - cw_s}; cw never increases (logw <= 0), so every
+    finite exponent here is <= 0 and no factor overflows."""
+    b, h, L, n = cw.shape
+    if L % subchunk:
+        raise ValueError(f"chunk {L} is not a multiple of the sub-chunk "
+                         f"{subchunk}")
+    nb = L // subchunk
+    c = cwe[:, :, ::subchunk]  # (B, H, nb, N)
+    query = cwe - c.repeat_interleave(subchunk, dim=2)
+    rows = torch.arange(L, device=cw.device)
+    before = rows[None, :] < torch.arange(nb, device=cw.device)[:, None] \
+        * subchunk  # (nb, L)
+    key = torch.where(before[:, :, None],
+                      c[:, :, :, None, :] - cw[:, :, None, :, :],
+                      float("-inf"))
+    cwb = cw.reshape(b, h, nb, subchunk, n)
+    cweb = cwe.reshape(b, h, nb, subchunk, n)
+    tri = torch.tril(torch.ones((subchunk, subchunk), dtype=torch.bool,
+                                device=cw.device), diagonal=-1)
+    diag = torch.where(tri[:, :, None],
+                       cweb[..., :, None, :] - cwb[..., None, :, :],
+                       float("-inf"))
+    return query, key, diag
+
+
+def wkv_max_exponent(logw: torch.Tensor, chunk: int = 64,
+                     subchunk: int = 16) -> float:
+    """The largest exponent the factored WKV takes for logw (B, S, H, N):
+    the state factors (cwe, cw_L - cw, cw_L) and the three of
+    ``wkv_factor_exponents``, over every chunk.  <= 0 for any logw <= 0."""
+    wc = _wkv_chunks(logw, chunk, _wkv_acc_dtype(logw))  # (B, H, nc, L, N)
+    b, h, nc, L, n = wc.shape
+    cw, cwe = _wkv_cumsums(wc.reshape(b, h * nc, L, n), subchunk)
+    wl = cw[:, :, -1:]
+    found = [cwe.max(), (wl - cw).max(), wl.max()]
+    for e in wkv_factor_exponents(cw, cwe, subchunk):
+        e = e[torch.isfinite(e)]
+        if e.numel():
+            found.append(e.max())
+    return max(float(x) for x in found)
+
+
+def _block_diag(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, nb, sc, sc) blocks -> (B, H, L, L) with them on the diagonal,
+    zero elsewhere."""
+    b, h, nb, sc, _ = x.shape
+    return torch.diag_embed(x.permute(0, 1, 3, 4, 2)).permute(
+        0, 1, 4, 2, 5, 3).reshape(b, h, nb * sc, nb * sc)
+
+
+def _diag_blocks(x: torch.Tensor, sc: int) -> torch.Tensor:
+    """(B, H, L, L) -> its diagonal (B, H, nb, sc, sc) blocks."""
+    b, h, L, _ = x.shape
+    return x.reshape(b, h, L // sc, sc, L // sc, sc).diagonal(
+        dim1=2, dim2=4).permute(0, 1, 4, 2, 3)
+
+
+def _wkv_factors(rj, kj, cw, cwe, subchunk: int) -> dict:
+    """The factored decay's tiles for one chunk (see
+    ``wkv_factor_exponents``): qe = e^{query} (B, H, nb, sc, N) and
+    qf = r qe; ke = e^{key} (B, H, nb, L, N), zero from sub-chunk i on, and
+    kf = k ke; de = e^{diag} (B, H, nb, sc, sc, N); r and k by sub-chunk."""
+    b, h, L, n = rj.shape
+    nb = L // subchunk
+    query, key, diag = wkv_factor_exponents(cw, cwe, subchunk)
+    rb = rj.reshape(b, h, nb, subchunk, n)
+    kb = kj.reshape(b, h, nb, subchunk, n)
+    qe = torch.exp(query).reshape(b, h, nb, subchunk, n)
+    ke = torch.exp(key)
+    return dict(qe=qe, qf=rb * qe, ke=ke, kf=kj[:, :, None] * ke,
+                de=torch.exp(diag), rb=rb, kb=kb)
+
+
+def _wkv_a(rj, kj, cw, cwe, uf, subchunk: Optional[int]):
+    """A (B, H, L, L) of one chunk: ``sum_n r[t, n] k[s, n] e^{cwe[t, n] -
+    cw[s, n]}`` below the diagonal, ``sum_n r[t, n] u[n] k[t, n]`` on it.
+    ``subchunk`` None takes the decay per (t, s, n); otherwise it is
+    factored by sub-chunk: elementwise within the diagonal blocks, the
+    product ``(r e^{cwe - c_i}) (k e^{c_i - cw})ᵀ`` below them."""
+    L = rj.shape[2]
+    if subchunk is None:
+        tri = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                    device=rj.device), diagonal=-1)
+        a = torch.einsum("bhtn,bhtsn,bhsn->bhts", rj,
+                         _wkv_decay(cw, cwe, tri), kj)
+    else:
+        a = _wkv_a_factored(_wkv_factors(rj, kj, cw, cwe, subchunk))
+    return a + torch.diag_embed((rj * uf * kj).sum(-1))
+
+
+def _wkv_a_factored(f: dict) -> torch.Tensor:
+    b, h, nb, sc, _ = f["qf"].shape
+    off = torch.einsum("bhisn,bhizn->bhisz", f["qf"], f["kf"])
+    blk = torch.einsum("bhitn,bhitsn,bhisn->bhits", f["rb"], f["de"],
+                       f["kb"])
+    return off.reshape(b, h, nb * sc, nb * sc) + _block_diag(blk)
+
+
+def wkv_states_plain(k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+                     chunk: int = 64, subchunk: Optional[int] = None):
+    """The forward's state pass alone: from a zero state, chunk by chunk,
+    ``S <- e^{cw_L} S + (k e^{cw_L - cw})ᵀ v``.  Returns (the state at each
+    chunk's start (B, H, nc, N, N), the final state (B, H, N, N)), fp32
+    (float64 for float64 inputs).  ``subchunk`` changes only cwe, which
+    this pass does not read."""
+    b, s, h, n = k.shape
+    acc = _wkv_acc_dtype(k)
+    kc, vc, wc = (_wkv_chunks(x, chunk, acc) for x in (k, v, logw))
+    nc = kc.shape[2]
+    state = torch.zeros((b, h, n, n), dtype=acc, device=k.device)
+    starts = []
+    for c in range(nc):
+        starts.append(state)
+        cw, _ = _wkv_cumsums(wc[:, :, c], subchunk)
+        wl = cw[:, :, -1:]
+        kd = kc[:, :, c] * torch.exp(wl - cw)
+        state = torch.exp(wl[:, :, 0, :, None]) * state + kd.transpose(
+            -1, -2) @ vc[:, :, c]
+    if not nc:
+        return torch.zeros((b, h, 0, n, n), dtype=acc, device=k.device), \
+            state
+    return torch.stack(starts, dim=2), state
+
+
+def wkv_out_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  logw: torch.Tensor, u: torch.Tensor,
+                  chunk_states: torch.Tensor, chunk: int = 64,
+                  subchunk: Optional[int] = None) -> torch.Tensor:
+    """The forward's output pass alone: each chunk's output from its start
+    state (``chunk_states`` (B, H, nc, N, N)) and nothing carried,
+    ``o = A v + (r e^{cwe}) S_c``.  Returns out (B, S, H, N) fp32 (float64
+    for float64 inputs)."""
     b, s, h, n = r.shape
     acc = _wkv_acc_dtype(r)
     rc, kc, vc, wc = (_wkv_chunks(x, chunk, acc) for x in (r, k, v, logw))
     uf = u.to(acc)[None, :, None, :]  # (1, H, 1, N)
+    outs = []
+    for c in range(rc.shape[2]):
+        rj, kj, vj = rc[:, :, c], kc[:, :, c], vc[:, :, c]
+        cw, cwe = _wkv_cumsums(wc[:, :, c], subchunk)
+        a = _wkv_a(rj, kj, cw, cwe, uf, subchunk)
+        outs.append(a @ vj + (rj * torch.exp(cwe)) @
+                    chunk_states[:, :, c].to(acc))
+    if not outs:
+        return torch.zeros((b, 0, h, n), dtype=acc, device=r.device)
+    return _wkv_unchunk(torch.stack(outs, dim=2), s)
+
+
+def wkv_fwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  logw: torch.Tensor, u: torch.Tensor, chunk: int = 64,
+                  subchunk: Optional[int] = None):
+    """The WKV forward kernels' computation: the chunked form in fp32 from
+    a zero state, as the state pass (``wkv_states_plain``) and the output
+    pass (``wkv_out_plain``).  Per chunk of L positions
+    ``cw = cumsum(logw)``, cwe its exclusive form,
+    ``A[t, s] = sum_n r[t, n] k[s, n] exp(cwe[t, n] - cw[s, n])`` for s < t
+    and ``sum_n r[t, n] u[n] k[t, n]`` on the diagonal,
+    ``o = A v + (r e^{cwe}) S`` and
+    ``S <- e^{cw_L} S + (k e^{cw_L - cw})ᵀ v``.  ``subchunk`` (the kernels'
+    16) factors the pairwise decay by sub-chunk (``wkv_factor_exponents``)
+    and takes cwe as cw shifted a row; None keeps the first kernels'
+    arithmetic.  Returns (out (B, S, H, N), final state (B, H, N, N), the
+    state at each chunk's start (B, H, nc, N, N)), all fp32 (float64 for
+    float64 inputs); the backward reads the last."""
+    starts, state = wkv_states_plain(k, v, logw, chunk, subchunk)
+    out = wkv_out_plain(r, k, v, logw, u, starts, chunk, subchunk)
+    return out, state, starts
+
+
+def wkv_dstates_plain(r: torch.Tensor, logw: torch.Tensor,
+                      dout: torch.Tensor,
+                      dstate: Optional[torch.Tensor] = None,
+                      chunk: int = 64,
+                      subchunk: Optional[int] = None) -> torch.Tensor:
+    """The backward's reverse state pass alone: from ``dS = dstate`` (zero
+    if None) at the last chunk's end, chunk by chunk in reverse, record dS
+    (the gradient of that chunk's end state), then
+    ``dS <- (r e^{cwe})ᵀ dO + e^{cw_L} dS``.  Returns (B, H, nc, N, N)."""
+    b, s, h, n = r.shape
+    acc = _wkv_acc_dtype(r)
+    rc, wc, dc = (_wkv_chunks(x, chunk, acc) for x in (r, logw, dout))
     nc = rc.shape[2]
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=r.device), diagonal=-1)
-    state = torch.zeros((b, h, n, n), dtype=acc, device=r.device)
-    outs, starts = [], []
-    for c in range(nc):
-        rj, kj, vj, wj = rc[:, :, c], kc[:, :, c], vc[:, :, c], wc[:, :, c]
-        starts.append(state)
-        cw = torch.cumsum(wj, dim=2)
-        cwe = cw - wj
-        dec = _wkv_decay(cw, cwe, tri)
-        a = torch.einsum("bhtn,bhtsn,bhsn->bhts", rj, dec, kj)
-        a = a + torch.diag_embed((rj * uf * kj).sum(-1))
-        outs.append(a @ vj + (rj * torch.exp(cwe)) @ state)
-        wl = cw[:, :, -1:]
-        kd = kj * torch.exp(wl - cw)
-        state = torch.exp(wl[:, :, 0, :, None]) * state + kd.transpose(
-            -1, -2) @ vj
-    if nc:
-        out = _wkv_unchunk(torch.stack(outs, dim=2), s)
-        chunk_states = torch.stack(starts, dim=2)
-    else:
-        out = torch.zeros((b, 0, h, n), dtype=acc, device=r.device)
-        chunk_states = torch.zeros((b, h, 0, n, n), dtype=acc,
-                                   device=r.device)
-    return out, state, chunk_states
+    ds = torch.zeros((b, h, n, n), dtype=acc, device=r.device) \
+        if dstate is None else dstate.to(acc)
+    ends = [None] * nc
+    for c in reversed(range(nc)):
+        ends[c] = ds
+        cw, cwe = _wkv_cumsums(wc[:, :, c], subchunk)
+        ds = (rc[:, :, c] * torch.exp(cwe)).transpose(-1, -2) @ \
+            dc[:, :, c] + torch.exp(cw[:, :, -1, :, None]) * ds
+    if not nc:
+        return torch.zeros((b, h, 0, n, n), dtype=acc, device=r.device)
+    return torch.stack(ends, dim=2)
+
+
+def _wkv_intra_factored(rj, kj, cw, cwe, da, subchunk: int):
+    """(A without its diagonal, dr_intra, dk_intra) of one chunk through
+    the factored decay: ``dr_intra = [dA k e^{cwe_t - cw_s}]``,
+    ``dk_intra = [dAᵀ r e^{cwe_t - cw_s}]`` (s < t), from dA (B, H, L, L).
+    Below the diagonal blocks, dr takes ``qe (dA kf)`` for each query
+    sub-chunk and dk ``ke (dAᵀ qf)`` summed over the query sub-chunks
+    after it; within them the decay is elementwise."""
+    b, h, L, n = rj.shape
+    f = _wkv_factors(rj, kj, cw, cwe, subchunk)
+    a = _wkv_a_factored(f)
+    rows = da.reshape(b, h, L // subchunk, subchunk, L)  # query sub-chunks
+    blocks = _diag_blocks(da, subchunk)  # de is 0 on and above the diagonal
+    dr = torch.einsum("bhisz,bhizn->bhisn", rows, f["kf"]) * f["qe"] + \
+        torch.einsum("bhits,bhitsn,bhisn->bhitn", blocks, f["de"], f["kb"])
+    dk = (torch.einsum("bhitz,bhitn->bhizn", rows, f["qf"]) * f["ke"]).sum(2)
+    dk = dk + torch.einsum("bhits,bhitsn,bhitn->bhisn", blocks, f["de"],
+                           f["rb"]).reshape(b, h, L, n)
+    return a, dr.reshape(b, h, L, n), dk
 
 
 def wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   logw: torch.Tensor, u: torch.Tensor,
                   chunk_states: torch.Tensor, dout: torch.Tensor,
-                  dstate: Optional[torch.Tensor] = None, chunk: int = 64):
-    """The WKV backward kernel's computation, in closed form: a reverse
-    sweep over the chunks carrying ``dS``, the gradient of the state at
-    the chunk's end (``dstate`` for the last, zero if None).  Within a
-    chunk, from its start state ``S0`` and the forward's A, cw, cwe:
-    ``dA = dO vᵀ`` (s <= t), ``dv = Aᵀ dO + kd dS``,
+                  dstate: Optional[torch.Tensor] = None, chunk: int = 64,
+                  subchunk: Optional[int] = None):
+    """The WKV backward kernels' computation, in closed form: the reverse
+    state pass (``wkv_dstates_plain``) gives ``dS``, the gradient of each
+    chunk's end state (``dstate`` for the last, zero if None); then each
+    chunk on its own, from its start state ``S0`` and the forward's A, cw,
+    cwe: ``dA = dO vᵀ`` (s <= t), ``dv = Aᵀ dO + kd dS``,
     ``dr = [dA k e^{cwe_t - cw_s}] + dA_tt u k + (dO S0ᵀ) e^{cwe}``,
     ``dk = [dAᵀ r e^{cwe_t - cw_s}] + dA_ss u r + (v dSᵀ) e^{cw_L - cw}``,
     ``du = sum dA_tt r k``; the exponents' gradients ``dcwe = r [..]_r``,
     ``dcw = -k [..]_k - (v dSᵀ) kd`` plus
     ``dcw_L = sum (v dSᵀ) kd + e^{cw_L} rowsum(S0 dS)`` at the last row,
-    and ``dlogw`` their reverse cumulative sums; then
-    ``dS <- (r e^{cwe})ᵀ dO + e^{cw_L} dS``.  Returns (dr, dk, dv, dlogw,
-    du) in the dtypes of (r, k, v, logw, u)."""
+    and ``dlogw`` their reverse cumulative sums.  ``subchunk`` as in
+    ``wkv_fwd_plain`` (the bracketed pairwise terms through the factored
+    decay).  Returns (dr, dk, dv, dlogw, du) in the dtypes of (r, k, v,
+    logw, u)."""
     b, s, h, n = r.shape
     acc = _wkv_acc_dtype(r)
     rc, kc, vc, wc, dc = (_wkv_chunks(x, chunk, acc)
                           for x in (r, k, v, logw, dout))
+    ends = wkv_dstates_plain(r, logw, dout, dstate, chunk, subchunk)
     uf = u.to(acc)[None, :, None, :]
     nc = rc.shape[2]
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=r.device), diagonal=-1)
     lower = torch.tril(torch.ones((chunk, chunk), dtype=acc,
                                   device=r.device))
-    ds = torch.zeros((b, h, n, n), dtype=acc, device=r.device) \
-        if dstate is None else dstate.to(acc)
     grads = [[None] * nc for _ in range(4)]
     du = torch.zeros((h, n), dtype=acc, device=r.device)
     for c in reversed(range(nc)):
         rj, kj, vj, wj, doj = (x[:, :, c] for x in (rc, kc, vc, wc, dc))
         s0 = chunk_states[:, :, c].to(acc)
-        cw = torch.cumsum(wj, dim=2)
-        cwe = cw - wj
+        ds = ends[:, :, c]
+        cw, cwe = _wkv_cumsums(wj, subchunk)
         wl = cw[:, :, -1:]
         ecwe = torch.exp(cwe)
         edk = torch.exp(wl - cw)
         kd = kj * edk
-        dec = _wkv_decay(cw, cwe, tri)
-        diag = (rj * uf * kj).sum(-1)
-        a = torch.einsum("bhtn,bhtsn,bhsn->bhts", rj, dec, kj) + \
-            torch.diag_embed(diag)
         da = (doj @ vj.transpose(-1, -2)) * lower
         dda = torch.diagonal(da, dim1=-2, dim2=-1)[..., None]  # (B,H,L,1)
-        da_l = da * tri
+        if subchunk is None:
+            dec = _wkv_decay(cw, cwe, tri)
+            a = torch.einsum("bhtn,bhtsn,bhsn->bhts", rj, dec, kj)
+            da_l = da * tri
+            dr_intra = torch.einsum("bhts,bhtsn,bhsn->bhtn", da_l, dec, kj)
+            dk_intra = torch.einsum("bhts,bhtsn,bhtn->bhsn", da_l, dec, rj)
+        else:
+            a, dr_intra, dk_intra = _wkv_intra_factored(rj, kj, cw, cwe, da,
+                                                        subchunk)
+        a = a + torch.diag_embed((rj * uf * kj).sum(-1))
         dv = a.transpose(-1, -2) @ doj + kd @ ds
         drd = doj @ s0.transpose(-1, -2)
         dkd = vj @ ds.transpose(-1, -2)
-        dr_intra = torch.einsum("bhts,bhtsn,bhsn->bhtn", da_l, dec, kj)
-        dk_intra = torch.einsum("bhts,bhtsn,bhtn->bhsn", da_l, dec, rj)
         dr = dr_intra + dda * uf * kj + drd * ecwe
         dk = dk_intra + dda * uf * rj + dkd * edk
         du = du + (dda * rj * kj).sum(dim=(0, 2))
@@ -343,8 +544,6 @@ def wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dw = torch.flip(torch.cumsum(torch.flip(tot, [2]), 2), [2]) - dcwe
         for i, g in enumerate((dr, dk, dv, dw)):
             grads[i][c] = g
-        ds = (rj * ecwe).transpose(-1, -2) @ doj + \
-            torch.exp(wl[:, :, 0, :, None]) * ds
     outs = []
     for g, like in zip(grads, (r, k, v, logw)):
         full = _wkv_unchunk(torch.stack(g, dim=2), s) if nc else \

@@ -7,14 +7,24 @@ logw (B, S, H, N) fp32 read through their strides, u (H, N) fp32; out (B,
 S, H, N) and the final state (B, H, N, N) in fp32.  The TPU kernel has no
 backward; the port trains through this one, so the gradient is a kernel
 too.  Their plain PyTorch versions are ``kernels/ref.py::wkv_fwd_plain``
-and ``wkv_bwd_plain``; the source note in ``wkv.cu`` says what bounds them
-on an H100.
+and ``wkv_bwd_plain`` with ``subchunk=SUBCHUNK`` (the pairwise decay
+factored by sub-chunk, as the kernels take it); the source note in
+``wkv.cu`` says what bounds them on an H100.
 
 ``wkv_fwd_cuda`` and ``wkv_bwd_cuda`` are the only places the kernels are
 launched.  Each checks what the kernels take and raises on anything else,
-allocates its outputs with ``torch.empty``, launches on the current
-stream, raises if a launch reports an error, and counts the call in
-``LAUNCHES`` (``forward``, ``backward``; one CUDA launch each).
+allocates its outputs and scratch with ``torch.empty``, launches on the
+current stream, raises if a launch reports an error, and counts the call
+in ``LAUNCHES``.  CUDA launches per call (``LAUNCHES.cuda`` counts them by
+kernel):
+
+* forward, 2: ``wkv_state`` (the state pass: one CTA per (b, h, 16 value
+  columns), sequential over the chunks, writing every chunk's start state)
+  then ``wkv_fwd_out`` (one CTA per (b, h, chunk));
+* backward, 2: ``wkv_state`` in reverse (the gradient of every chunk's end
+  state) then ``wkv_bwd_chunk`` (one CTA per (b, h, chunk)); du's shares
+  are summed by one ``torch.sum`` in a fixed order.
+
 ``WkvFn`` is the autograd Function around them; on CPU tensors it runs the
 plain versions in their place, so its plumbing is tested without a card.
 """
@@ -32,39 +42,82 @@ from repro_torch.kernels.ref import wkv_bwd_plain, wkv_fwd_plain
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (16, 32, 64)  # N the kernels are instantiated for
 CHUNKS = (16, 32, 64)  # chunk lengths L likewise
+SUBCHUNK = 16  # rows of a sub-chunk (wkv.cu kSub)
+# CUDA kernels launched by each call, in order
+FORWARD_KERNELS = ("wkv_state", "wkv_fwd_out")
+BACKWARD_KERNELS = ("wkv_state", "wkv_bwd_chunk")
+INFO_KERNELS = ("wkv_state forward", "wkv_fwd_out", "wkv_state backward",
+                "wkv_bwd_chunk")
 _MAX_GRID = 2**31 - 1
 
 
 class LaunchCounter:
-    """Forward and backward kernel calls since the last ``reset``."""
+    """Forward and backward wrapper calls, and CUDA launches by kernel,
+    since the last ``reset``."""
 
     def __init__(self):
-        self.forward = 0
-        self.backward = 0
+        self.reset()
 
     def reset(self) -> None:
         self.forward = 0
         self.backward = 0
+        self.cuda = {}
+
+    def add(self, kernels) -> None:
+        """One launch of each kernel named in ``kernels``."""
+        for name in kernels:
+            self.cuda[name] = self.cuda.get(name, 0) + 1
 
 
 LAUNCHES = LaunchCounter()
 
 
-def _functions():
+def _library():
     lib = build.load("wkv")
-    fwd, bwd = lib.repro_wkv_fwd, lib.repro_wkv_bwd
-    if fwd.argtypes is None:
+    if lib.repro_wkv_fwd.argtypes is None:
         # every pointer and the stream as c_void_p: ctypes would otherwise
         # pass a Python int as a 32-bit int and cut the address
         p, i = ctypes.c_void_p, ctypes.c_int
         s = ctypes.POINTER(ctypes.c_longlong)
-        fwd.argtypes = [p, s, p, s, p, s, p, s, p, p, p, p,
-                        i, i, i, i, i, i, p]
-        fwd.restype = ctypes.c_int
-        bwd.argtypes = [p, s, p, s, p, s, p, s, p, p, s, p, p,
-                        p, p, p, p, p, i, i, i, i, i, i, p]
-        bwd.restype = ctypes.c_int
-    return fwd, bwd
+        ints = ctypes.POINTER(ctypes.c_int)
+        lib.repro_wkv_fwd.argtypes = [p, s, p, s, p, s, p, s, p, p, p, p,
+                                      i, i, i, i, i, i, p]
+        lib.repro_wkv_bwd.argtypes = [p, s, p, s, p, s, p, s, p, p, s, p, p,
+                                      p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.repro_wkv_design.argtypes = [ints]
+        lib.repro_wkv_info.argtypes = [i, i, i, ints]
+        lib.repro_wkv_fwd.restype = lib.repro_wkv_bwd.restype = i
+        lib.repro_wkv_info.restype = i
+        lib.repro_wkv_design.restype = None
+    return lib
+
+
+def _functions():
+    lib = _library()
+    return lib.repro_wkv_fwd, lib.repro_wkv_bwd
+
+
+def design() -> dict:
+    """The compiled design's constants (``wkv.cu``): sub-chunk rows, value
+    columns and threads of a state-pass CTA, threads of a per-chunk CTA."""
+    out = (ctypes.c_int * 4)()
+    _library().repro_wkv_design(out)
+    return dict(subchunk=out[0], state_cols=out[1], state_threads=out[2],
+                chunk_threads=out[3])
+
+
+def kernel_info(dtype: torch.dtype, chunk: int, n: int) -> dict:
+    """For one instantiation, each kernel's threads, dynamic shared memory,
+    registers and local (spill) bytes a thread, and resident CTAs an SM,
+    as the CUDA runtime reports them on the current card."""
+    out = (ctypes.c_int * 20)()
+    err = _library().repro_wkv_info(_DTYPE_CODE[dtype], chunk, n, out)
+    if err != 0:
+        raise RuntimeError(f"wkv kernel info failed: cudaError {err}")
+    keys = ("threads", "smem_bytes", "registers", "local_bytes",
+            "ctas_per_sm")
+    return {name: dict(zip(keys, out[5 * i:5 * i + 5]))
+            for i, name in enumerate(INFO_KERNELS)}
 
 
 def _strides(t: torch.Tensor):
@@ -99,7 +152,7 @@ def _check_cuda(r, k, v, logw, u, chunk: int) -> None:
     if n not in HEAD_SIZES or chunk not in CHUNKS:
         raise ValueError(f"wkv kernel takes head size N in {HEAD_SIZES} and "
                          f"chunk in {CHUNKS}, got N={n}, chunk={chunk}")
-    if r.shape[0] * r.shape[2] > _MAX_GRID:
+    if r.shape[0] * r.shape[2] * _n_chunks(r.shape[1], chunk) > _MAX_GRID:
         raise ValueError(f"wkv kernel grid too large: {tuple(r.shape)}")
 
 
@@ -111,7 +164,8 @@ def wkv_fwd_cuda(r, k, v, logw, u, chunk: int = 64,
                  keep_states: bool = False):
     """Launch the forward: (out (B, S, H, N), final state (B, H, N, N),
     the state at each chunk's start (B, H, nc, N, N) if ``keep_states``
-    else None), all fp32."""
+    else None), all fp32.  The state pass writes the chunk-start states in
+    either case (into scratch when they are not kept)."""
     check_shapes(r, k, v, logw, u)
     _check_cuda(r, k, v, logw, u, chunk)
     b, s, h, n = r.shape
@@ -119,12 +173,12 @@ def wkv_fwd_cuda(r, k, v, logw, u, chunk: int = 64,
     out = torch.empty((b, s, h, n), dtype=torch.float32, device=dev)
     state = torch.empty((b, h, n, n), dtype=torch.float32, device=dev)
     starts = torch.empty((b, h, _n_chunks(s, chunk), n, n),
-                         dtype=torch.float32, device=dev) if keep_states \
-        else None
+                         dtype=torch.float32, device=dev)
+    kept = starts if keep_states else None
     if b * h == 0:
-        return out, state, starts
+        return out, state, kept
     if s == 0:
-        return out, state.zero_(), starts
+        return out, state.zero_(), kept
     u = u.contiguous()
     fwd, _ = _functions()
     with torch.cuda.device(dev):
@@ -132,14 +186,14 @@ def wkv_fwd_cuda(r, k, v, logw, u, chunk: int = 64,
         err = fwd(r.data_ptr(), _strides(r), k.data_ptr(), _strides(k),
                   v.data_ptr(), _strides(v), logw.data_ptr(),
                   _strides(logw), u.data_ptr(), out.data_ptr(),
-                  state.data_ptr(),
-                  None if starts is None else starts.data_ptr(),
+                  state.data_ptr(), starts.data_ptr(),
                   _DTYPE_CODE[r.dtype], b, s, h, n, chunk, stream)
     if err != 0:
         raise RuntimeError(f"wkv forward launch failed: cudaError {err} for "
                            f"{tuple(r.shape)} {r.dtype} chunk {chunk}")
     LAUNCHES.forward += 1
-    return out, state, starts
+    LAUNCHES.add(FORWARD_KERNELS)
+    return out, state, kept
 
 
 def wkv_bwd_cuda(r, k, v, logw, u, chunk_states, dout,
@@ -151,7 +205,8 @@ def wkv_bwd_cuda(r, k, v, logw, u, chunk_states, dout,
     _check_cuda(r, k, v, logw, u, chunk)
     b, s, h, n = r.shape
     dev = r.device
-    if chunk_states.shape != (b, h, _n_chunks(s, chunk), n, n) or \
+    nc = _n_chunks(s, chunk)
+    if chunk_states.shape != (b, h, nc, n, n) or \
             chunk_states.dtype != torch.float32 or \
             not chunk_states.is_contiguous() or chunk_states.device != dev:
         raise ValueError(f"wkv backward: chunk states must be contiguous "
@@ -169,9 +224,11 @@ def wkv_bwd_cuda(r, k, v, logw, u, chunk_states, dout,
     dr, dk, dv = (torch.empty((b, s, h, n), dtype=r.dtype, device=dev)
                   for _ in range(3))
     dw = torch.empty((b, s, h, n), dtype=torch.float32, device=dev)
-    du_part = torch.empty((b, h, n), dtype=torch.float32, device=dev)
+    du_part = torch.empty((b, h, nc, n), dtype=torch.float32, device=dev)
     if b * h == 0 or s == 0:
-        return dr, dk, dv, dw, du_part.zero_().sum(0)
+        return dr, dk, dv, dw, torch.zeros((h, n), dtype=torch.float32,
+                                           device=dev)
+    ends = torch.empty((b, h, nc, n, n), dtype=torch.float32, device=dev)
     u = u.contiguous()
     _, bwd = _functions()
     with torch.cuda.device(dev):
@@ -181,15 +238,17 @@ def wkv_bwd_cuda(r, k, v, logw, u, chunk_states, dout,
                   _strides(logw), u.data_ptr(), dout.data_ptr(),
                   _strides(dout), chunk_states.data_ptr(),
                   None if dstate is None else dstate.data_ptr(),
-                  dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-                  du_part.data_ptr(), _DTYPE_CODE[r.dtype], b, s, h, n,
-                  chunk, stream)
+                  ends.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
+                  _DTYPE_CODE[r.dtype], b, s, h, n, chunk, stream)
     if err != 0:
         raise RuntimeError(f"wkv backward launch failed: cudaError {err} "
                            f"for {tuple(r.shape)} {r.dtype} chunk {chunk}")
     LAUNCHES.backward += 1
-    # du is shared over the batch: the kernel writes each (b, h)'s share
-    return dr, dk, dv, dw, du_part.sum(0)
+    LAUNCHES.add(BACKWARD_KERNELS)
+    # du is shared over the batch and the chunks: the kernel writes each
+    # (b, h, chunk)'s share, summed here in a fixed order
+    return dr, dk, dv, dw, du_part.sum((0, 2))
 
 
 class WkvFn(torch.autograd.Function):

@@ -97,7 +97,21 @@ Phases, one report line each (any failure exits non-zero):
      backward; two CUDA launches each), step wall, tokens/s, peak memory,
      and one profiled step (device busy share, device ms by kernel, matmul
      path and WKV kernel, every call's routing checked, no library GEMM
-     kernel).
+     kernel);
+ 15. paged serving: Runtime.serve of full-width tinyllama-1.1b (bf16,
+     seed 0) with paged=True, pages of 16 tokens: P1, phase 5's trace
+     with K and the prefill chunk pinned, paged (default kv_blocks) beside
+     dense and streamed: tokens equal phase 5's, host syncs equal the
+     dense run's, the stream carries the outputs, the matmul kernel's
+     launches counted from 0; P2, 16 requests of 320 + 32 tokens sharing
+     a 264-token prefix, static, dense, paged with prefix_cache="force"
+     and "auto": token-identical, the forced run prefilling at most half
+     the dense run's 5,120 prompt tokens, the serve_prefix ledger rows;
+     a trie dedupe swap's pages bit for bit the pages they replace; one
+     paged and one dense decode step profiled (matmul against the
+     indexing kernels, launches); rwkv6-3b (full width, 4 layers) paged
+     == dense == static with prefix reuse off; examples/torch_quickstart.py
+     on the card.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
 chiprun_out/chip_smoke.json.  Exits non-zero, printing no result, where
@@ -109,12 +123,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -125,6 +141,16 @@ BF16_TOL = 8e-3      # x max|plain|: about one bf16 rounding
 F32_TOL = 1e-5       # x max|plain|
 CHAIN_TOL = 1e-4     # x max|left-to-right product|: fp32, another order
 PROMPT, MAX_NEW, SLOTS, REQUESTS = 64, 32, 4, 8
+# phase 15: pages of 16 tokens; P2 is system-prompt traffic, 16 requests of
+# 320 prompt tokens opening with one 264-token prefix (16.5 pages, so a
+# partial tail page is copied on write); P1 pins the horizon K and the
+# prefill chunk, so its host syncs compare with the dense run's
+PAGE = 16
+P2_REQUESTS, P2_PROMPT, P2_PREFIX = 16, 320, 264
+PIN = dict(macro_step=8, prefill_chunk=PROMPT)
+# the indexing kernels of a decode step: a paged step's page gathers and KV
+# scatter, a dense step's cache write; the embedding lookup in both
+INDEX_KERNELS = r"index|gather|scatter"
 # (B, S, Hq, Hkv, hd, dtype) the flash kernels are held at: the training
 # shape of tinyllama-1.1b at batch 2 x 2048 in both types, an awkward one
 # (S not a multiple of the block, a GQA group of 4), mistral-nemo's heads
@@ -655,6 +681,7 @@ def main() -> int:
     step = replay_step(calls, ops, ref, flush)
     if step is None or not audit.report("serve") or prof["library_gemms"]:
         return 1
+    p1_want = {r: np.asarray(v) for r, v in cont.outputs.items()}
     worst = max(worst, step["max_abs_err"])
     if prof["matmul_ms"] > 0 and step["plain_device_ms"] > 0:
         step.update(ms=prof["matmul_ms"], plain_ms=step["plain_device_ms"],
@@ -803,6 +830,14 @@ def main() -> int:
     record["rwkv_train"] = rtrain
     wkv_main = wkv_rows[0]  # the bf16 training shape
     wd = wkv_k.design()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- 15
+    paged = paged_phase(cfg, rcfg, p1_want, LAUNCHES, card,
+                        prof["device_events"])
+    if paged is None:
+        return 1
+    record["paged"] = paged
 
     # ---------------------------------------------------------------- out
     out_dir = ROOT / "chiprun_out"
@@ -816,6 +851,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:103",
         "launches": launches, "max_abs_err": worst,
+        # phase 15's paged serving run (P1), counted from 0 just before it
+        "launches_paged_serve": paged["p1"]["matmul_launches"],
         # one decode step's matmul calls: the kernel in the real step, the
         # plain version on the same operands, the bound of the same work
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -1268,14 +1305,7 @@ def profile_decode_step(model, params, state, feed) -> dict:
     synchronized steps, profiler off) against the device time of the
     kernels it launches (torch.profiler), split into the matmul kernel and
     everything else."""
-    model.decode_step(params, state, feed)
-    torch.cuda.synchronize()
-    reps = 5
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        model.decode_step(params, state, feed)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    wall_ms = step_wall(model, params, state, feed)
     by_name, n_kernels = device_ms_by_kernel(
         lambda: model.decode_step(params, state, feed))
     device_ms = sum(by_name.values())
@@ -2112,6 +2142,367 @@ def rwkv_serve(cfg, mm_launches, wkv_k):
                 launches_per_decode_step_by_path=step_paths,
                 routing=audit.counts, tokens_identical=same,
                 decode_step_profile=prof)
+
+
+def count_syncs(fn) -> tuple:
+    """(fn(), the synchronizing CUDA calls it made), the calls counted by
+    torch's sync debug mode, one warning each."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def step_wall(model, params, state, batch, reps: int = 5) -> float:
+    """Mean wall ms of one decode step: host clock around synchronized
+    steps, profiler off."""
+    model.decode_step(params, state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        model.decode_step(params, state, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def step_split(model, params, state, batch, wall_ms) -> dict:
+    """One decode step's device time (torch.profiler), kernel launches,
+    and the device ms of the matmul kernel and of the indexing kernels (the
+    page gathers and the KV scatter of a paged step; the cache write and
+    the embedding lookup of a dense one), beside its wall ``wall_ms``."""
+    by_name, n_kernels = device_ms_by_kernel(
+        lambda: model.decode_step(params, state, batch))
+    groups = group_device_ms(by_name, {"indexing": INDEX_KERNELS})
+    return dict(wall_ms=wall_ms, device_ms=sum(by_name.values()),
+                matmul_ms=groups["matmul"], indexing_ms=groups["indexing"],
+                other_ms=groups["other"], launches=n_kernels,
+                library_gemms=library_gemms("paged", by_name),
+                indexing_kernels=sorted(
+                    (k, v) for k, v in by_name.items()
+                    if re.search(INDEX_KERNELS, k)))
+
+
+def dedupe_check(model, params, trace, card) -> dict:
+    """Two of a shared-prefix trace's requests admitted as ONE group into a
+    fresh paged engine (the split that would defer the second is bypassed),
+    so the trie keeps the first's pages and swaps out the second's
+    duplicates.  Each duplicate must hold the bits of the page it is
+    swapped for, in every layer's pk and pv: the same tokens at the same
+    positions, computed in another row of the batch.  None on a
+    mismatch."""
+    from repro_torch.serving import ContinuousServeEngine
+    from repro_torch.tree import leaves_with_paths
+
+    engine = ContinuousServeEngine(model, params, n_slots=2,
+                                   max_len=P2_PROMPT + MAX_NEW, eos_id=-1,
+                                   paged=True, block_size=PAGE,
+                                   prefix_cache="force")
+    swapped, unequal = [], []
+    apply_swaps = engine.pool.apply_swaps
+
+    def checked(slot, swaps):
+        for _, old, new in swaps:
+            for path, leaf in leaves_with_paths(engine.pool.state["layers"]):
+                if path.endswith(("pk", "pv")) and not torch.equal(
+                        leaf[old], leaf[new]):
+                    unequal.append((path, old, new))
+            swapped.append((old, new))
+        apply_swaps(slot, swaps)
+
+    engine.pool.apply_swaps = checked
+    reqs = trace[:2]
+    for r in reqs:
+        r.reset_lifecycle()
+    engine._group_pad = P2_PROMPT
+    engine._admit_group(reqs, lambda: 0.0)
+    n_pages = sum(1 for p, _ in leaves_with_paths(engine.pool.state["layers"])
+                  if p.endswith(("pk", "pv")))
+    # a page copy (copy-on-write) and a table upload make no host sync
+    donor = int(engine.pool.slot_table(0)[0])
+    engine.pool.blocks.incref(donor)  # the pin cow_block releases
+    _, cow_syncs = count_syncs(lambda: engine.pool.cow_block(1, donor))
+    _, table_syncs = count_syncs(engine.pool.block_tables)
+    log("paged", f"dedupe: {len(swapped)} trie swaps, each page compared "
+        f"bit for bit in {n_pages} pools: {len(unequal)} unequal; host "
+        f"syncs of a copy-on-write {cow_syncs}, of a table upload "
+        f"{table_syncs} ({card})")
+    if not swapped or unequal or cow_syncs or table_syncs:
+        log("paged", f"FAIL: a deduplicated page differs from the page that "
+            f"replaces it (or none was swapped), or a page copy or table "
+            f"upload synced: {unequal[:4]}")
+        return None
+    return dict(swaps=len(swapped), pools=n_pages, unequal=0,
+                cow_syncs=cow_syncs, table_syncs=table_syncs)
+
+
+def paged_phase(cfg, rcfg, p1_want, mm_launches, card, dense_step_launches):
+    """Phase 15: paged KV and the radix prefix cache through Runtime.serve
+    at full width and depth (tinyllama-1.1b bf16, random weights, seed 0),
+    rwkv6-3b paged (full width, 4 layers), the token stream, one profiled
+    paged decode step, and the quickstart on the card.  None on any
+    failed gate."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Runtime, synthetic_trace
+    from repro_torch.serving.paging import default_kv_blocks
+
+    out: dict = {"card": card}
+    rt = Runtime(device="cuda")
+    model = build_model(cfg, rt.device)
+    params = model.init(0)
+
+    def same(a, b) -> bool:
+        return a.keys() == b.keys() and all(
+            np.array_equal(np.asarray(a[r]), np.asarray(b[r])) for r in a)
+
+    # --- P1: phase 5's trace, paged (default kv_blocks), K and chunk pinned
+    trace1 = lambda: synthetic_trace(  # noqa: E731
+        REQUESTS, prompt_len=PROMPT, max_new=MAX_NEW,
+        vocab_size=cfg.vocab_size, arrival="all", seed=0)
+    # each run also counts the synchronizing CUDA calls it really made
+    # (torch's sync debug mode): paging and the stream may add none
+    kw = dict(model=model, params=params, slots=SLOTS, eos_id=-1, **PIN)
+    dense1, dense_syncs = count_syncs(lambda: rt.serve(cfg, trace1(), **kw))
+    torch.cuda.synchronize()
+    mm_launches.reset()
+    paged1, paged_syncs = count_syncs(lambda: rt.serve(
+        cfg, trace1(), paged=True, block_size=PAGE, **kw))
+    torch.cuda.synchronize()
+    launches = mm_launches.count
+    streamed, stream_syncs = count_syncs(lambda: rt.serve(
+        cfg, trace1(), paged=True, block_size=PAGE, stream=True, **kw))
+    # dense again, so the paged runs sit between two dense ones: the
+    # host's speed drifts, and a first run may pay a one-off sync, so the
+    # syncs gate on this one
+    dense1b, dense_syncs_b = count_syncs(lambda: rt.serve(cfg, trace1(),
+                                                          **kw))
+    dense_tps = (dense1.tok_per_s + dense1b.tok_per_s) / 2
+    kv_blocks = paged1.engine.kv_blocks
+    r1, d1, s1 = paged1.report, dense1.report, streamed.report
+    stream_ok = all(streamed.stream.tokens(r) == list(streamed.outputs[r])
+                    for r in streamed.outputs)
+    p1 = dict(
+        kv_blocks=kv_blocks, reserved_blocks=r1.reserved_blocks,
+        live_tokens=r1.live_tokens, paged_tok_per_s=paged1.tok_per_s,
+        dense_tok_per_s=[dense1.tok_per_s, dense1b.tok_per_s],
+        paged_over_dense=paged1.tok_per_s / dense_tps,
+        paged_host_syncs=r1.host_syncs, dense_host_syncs=d1.host_syncs,
+        paged_host_syncs_per_token=r1.host_syncs_per_token,
+        dense_host_syncs_per_token=d1.host_syncs_per_token,
+        stream_host_syncs=s1.host_syncs, streamed_tokens=s1.streamed_tokens,
+        cuda_syncs=dict(dense=[dense_syncs, dense_syncs_b],
+                        paged=paged_syncs, streamed=stream_syncs),
+        stream_events=s1.stream_events, stream_tok_per_s=streamed.tok_per_s,
+        matmul_launches=launches,
+        tokens_equal_phase5=same(paged1.outputs, p1_want),
+        dense_equal_phase5=same(dense1.outputs, p1_want),
+        stream_equal=same(streamed.outputs, p1_want) and stream_ok)
+    out["p1"] = p1
+    log("paged", f"P1 ({REQUESTS} x {PROMPT}+{MAX_NEW}, {SLOTS} slots, pages "
+        f"of {PAGE}, kv_blocks {kv_blocks}, K {PIN['macro_step']}, chunk "
+        f"{PIN['prefill_chunk']}): paged {paged1.tok_per_s:.2f} tok/s, dense "
+        f"{dense1.tok_per_s:.2f} and {dense1b.tok_per_s:.2f} tok/s before "
+        f"and after (x{p1['paged_over_dense']:.3f} their mean); "
+        f"reserved_blocks {r1.reserved_blocks}, live_tokens "
+        f"{r1.live_tokens}; host_syncs/token paged "
+        f"{r1.host_syncs_per_token:.4f}, dense {d1.host_syncs_per_token:.4f}, "
+        f"streamed {s1.host_syncs_per_token:.4f}; synchronizing CUDA calls "
+        f"(sync debug mode, warmup included) dense {dense_syncs} and "
+        f"{dense_syncs_b}, paged {paged_syncs}, streamed {stream_syncs}; "
+        f"matmul kernel launches "
+        f"{launches} ({card})")
+    log("paged", f"P1 tokens == phase 5 static and continuous: paged "
+        f"{p1['tokens_equal_phase5']}, dense {p1['dense_equal_phase5']}, "
+        f"streamed {p1['stream_equal']} ({s1.streamed_tokens} tokens in "
+        f"{s1.stream_events} events)")
+    if not (p1["tokens_equal_phase5"] and p1["dense_equal_phase5"]
+            and p1["stream_equal"] and launches > 0
+            and kv_blocks == default_kv_blocks(SLOTS, PROMPT + MAX_NEW, PAGE)
+            and r1.host_syncs == d1.host_syncs == s1.host_syncs
+            and paged_syncs == stream_syncs == dense_syncs_b
+            and same(dense1b.outputs, p1_want)
+            and s1.streamed_tokens == streamed.generated_tokens):
+        log("paged", "FAIL: P1 gate (tokens, stream, host syncs, launches)")
+        return None
+
+    # --- P2: system-prompt traffic, four ways
+    trace2 = lambda: synthetic_trace(  # noqa: E731
+        P2_REQUESTS, prompt_len=P2_PROMPT, max_new=MAX_NEW,
+        vocab_size=cfg.vocab_size, arrival="all", prefix_share=1.0,
+        prefix_len=P2_PREFIX, seed=0)
+    kw = dict(model=model, params=params, slots=SLOTS, eos_id=-1)
+    static2 = rt.serve(cfg, trace2(), mode="static", **kw)
+    runs, rows, prefill_s = {}, {}, {}
+    # dense before and after the paged runs (the host's speed drifts); the
+    # prefill walls are the ledger's measured prefill rows of the timed run
+    for how in ("dense", "force", "auto", "dense after"):
+        n0 = len(rt.ledger.entries)
+        paging = {} if how.startswith("dense") else dict(
+            paged=True, block_size=PAGE, prefix_cache=how)
+        runs[how] = rt.serve(cfg, trace2(), **paging, **kw)
+        new = rt.ledger.entries[n0:]
+        rows[how] = [dict(choice=e.choice, hit=e.query["hit_tokens"],
+                          predicted_s=e.predicted_s, measured_s=e.measured_s,
+                          note=e.note)
+                     for e in new
+                     if e.site == "serve_prefix" and e.measured_s is not None
+                     and "hit=" in (e.note or "")]
+        prefill = [e.measured_s for e in new if e.site == "serve"
+                   and e.measured_s is not None
+                   and (e.note or "").startswith("prefill")]
+        prefill_s[how] = sum(prefill[1:])  # the warmup's prefill left out
+    dense2 = runs.pop("dense")
+    dense2b = runs.pop("dense after")
+    dense2_tps = (dense2.tok_per_s + dense2b.tok_per_s) / 2
+    want = static2.outputs
+    p2 = dict(static_tok_per_s=static2.tok_per_s,
+              dense_tok_per_s=[dense2.tok_per_s, dense2b.tok_per_s],
+              dense_prefill_s=[prefill_s["dense"], prefill_s["dense after"]],
+              dense_prefilled_tokens=dense2.report.prefilled_tokens,
+              dense_host_syncs_per_token=dense2.report.host_syncs_per_token,
+              dense_equal=same(dense2.outputs, want)
+              and same(dense2b.outputs, want))
+    for how, res in runs.items():
+        rep = res.report
+        chose = {}
+        for r in rows[how]:
+            chose[r["choice"]] = chose.get(r["choice"], 0) + 1
+        p2[how] = dict(
+            tok_per_s=res.tok_per_s,
+            over_dense=res.tok_per_s / dense2_tps,
+            prefill_s=prefill_s[how],
+            prefilled_tokens=rep.prefilled_tokens,
+            prefix_hit_tokens=rep.prefix_hit_tokens,
+            prefix_hit_rate=rep.prefix_hit_rate, cow_count=rep.cow_count,
+            reserved_blocks=rep.reserved_blocks, host_syncs=rep.host_syncs,
+            host_syncs_per_token=rep.host_syncs_per_token,
+            device_dispatches=rep.device_dispatches, verdicts=chose,
+            serve_prefix_rows=rows[how], equal=same(res.outputs, want))
+        log("paged", f"P2 {how}: {res.tok_per_s:.2f} tok/s "
+            f"(x{p2[how]['over_dense']:.3f} dense), prefill walls "
+            f"{prefill_s[how]:.3f} s, prefilled "
+            f"{rep.prefilled_tokens} of {P2_REQUESTS * P2_PROMPT} prompt "
+            f"tokens, prefix_hit_tokens {rep.prefix_hit_tokens}, hit rate "
+            f"{rep.prefix_hit_rate:.4f}, CoW {rep.cow_count}, reserved_blocks "
+            f"{rep.reserved_blocks}, host_syncs/token "
+            f"{rep.host_syncs_per_token:.4f}; serve_prefix verdicts {chose} "
+            f"({card})")
+        for r in rows[how][:3]:
+            log("ledger", f"  serve_prefix {r['choice']} {r['note']}: "
+                f"predicted {r['predicted_s']:.3e} s, measured "
+                f"{r['measured_s']:.3e} s")
+    log("paged", f"P2 ({P2_REQUESTS} x {P2_PROMPT}+{MAX_NEW}, prefix "
+        f"{P2_PREFIX}, {SLOTS} slots): static {static2.tok_per_s:.2f} tok/s, "
+        f"dense {dense2.tok_per_s:.2f} and {dense2b.tok_per_s:.2f} tok/s "
+        f"before and after (prefill walls {prefill_s['dense']:.3f} and "
+        f"{prefill_s['dense after']:.3f} s, prefilled "
+        f"{dense2.report.prefilled_tokens}); tokens equal to static: dense "
+        f"{p2['dense_equal']}, force {p2['force']['equal']}, auto "
+        f"{p2['auto']['equal']}")
+    out["p2"] = p2
+    if not (p2["dense_equal"] and p2["force"]["equal"] and p2["auto"]["equal"]
+            and p2["dense_prefilled_tokens"] == P2_REQUESTS * P2_PROMPT
+            and 2 * p2["force"]["prefilled_tokens"]
+            <= p2["dense_prefilled_tokens"]):
+        log("paged", "FAIL: P2 gate (four runs token-identical, the forced "
+            "run prefilling at most half the dense run's tokens)")
+        return None
+    out["dedupe"] = dedupe_check(model, params, trace2(), card)
+    if out["dedupe"] is None:
+        return None
+    del static2, dense2, dense2b, runs
+
+    # --- one decode step, paged against dense (P1's shape)
+    max_len = PROMPT + MAX_NEW
+    feed = torch.ones((SLOTS, 1), dtype=torch.int64, device="cuda")
+    dense_state = model.init_decode_state(SLOTS, max_len, per_slot=True)
+    per_slot = -(-max_len // PAGE)
+    paged_state = model.init_decode_state(
+        SLOTS, max_len, per_slot=True,
+        paging=(SLOTS * per_slot + 1, PAGE))
+    tables = torch.arange(1, SLOTS * per_slot + 1, device="cuda").reshape(
+        SLOTS, per_slot)
+    batch = {"tokens": feed, "block_tables": tables}
+    mm_launches.reset()
+    with RouteAudit(ops, mm) as audit:
+        model.decode_step(params, paged_state, batch)
+    step_matmul_launches = mm_launches.count
+    # walls in turns (dense, paged, paged, dense): the host's speed drifts
+    args = {"dense": (dense_state, {"tokens": feed}),
+            "paged": (paged_state, batch)}
+    walls = {"dense": [], "paged": []}
+    for how in ("dense", "paged", "paged", "dense"):
+        walls[how].append(step_wall(model, params, *args[how]))
+    steps = {how: step_split(model, params, *args[how],
+                             sum(walls[how]) / len(walls[how]))
+             for how in args}
+    for how, st in steps.items():
+        log("paged", f"one {how} decode step ({SLOTS} slots, max_len "
+            f"{max_len}): wall {st['wall_ms']:.3f} ms, device "
+            f"{st['device_ms']:.3f} ms, matmul {st['matmul_ms']:.3f} ms, "
+            f"indexing kernels {st['indexing_ms']:.3f} ms, other "
+            f"{st['other_ms']:.3f} ms; {st['launches']} kernel launches "
+            f"(phase 5's dense step: {dense_step_launches}) ({card})")
+    log("paged", f"  paged indexing kernels: {steps['paged']['indexing_kernels']}")
+    out["decode_step"] = dict(steps, matmul_launches=step_matmul_launches,
+                              routing=audit.counts)
+    if not audit.report("paged") or any(
+            st["library_gemms"] for st in steps.values()):
+        return None
+    del dense_state, paged_state, model, params
+    torch.cuda.empty_cache()
+
+    # --- rwkv6-3b paged: full width, depth cut to 4 layers
+    rcfg4 = dataclasses.replace(rcfg, n_layers=4)
+    rmodel = build_model(rcfg4, rt.device)
+    rparams = rmodel.init(0)
+    kw = dict(model=rmodel, params=rparams, slots=SLOTS, eos_id=-1)
+    rstatic = rt.serve(rcfg4, trace1(), mode="static", **kw)
+    rdense = rt.serve(rcfg4, trace1(), **kw)
+    rpaged = rt.serve(rcfg4, trace1(), paged=True, block_size=PAGE,
+                      prefix_cache="force", **kw)
+    rw = dict(layers=rcfg4.n_layers, static_tok_per_s=rstatic.tok_per_s,
+              dense_tok_per_s=rdense.tok_per_s,
+              paged_tok_per_s=rpaged.tok_per_s,
+              prefix_reuse=rpaged.engine.prefix_cache,
+              prefix_hit_tokens=rpaged.report.prefix_hit_tokens,
+              equal=same(rpaged.outputs, rdense.outputs)
+              and same(rdense.outputs, rstatic.outputs))
+    out["rwkv"] = rw
+    log("paged", f"rwkv6-3b full width, 4 of {rcfg.n_layers} layers, bf16: "
+        f"paged == dense == static tokens {rw['equal']}; prefix reuse "
+        f"{rw['prefix_reuse']}; paged {rpaged.tok_per_s:.2f} tok/s, dense "
+        f"{rdense.tok_per_s:.2f} ({card})")
+    if not rw["equal"] or rw["prefix_reuse"] or rw["prefix_hit_tokens"]:
+        log("paged", "FAIL: rwkv6-3b paged gate")
+        return None
+    del rmodel, rparams, rstatic, rdense, rpaged
+    torch.cuda.empty_cache()
+
+    # --- the quickstart on the card (reduced config)
+    t0 = time.perf_counter()
+    qs = subprocess.run([sys.executable,
+                         str(ROOT / "examples" / "torch_quickstart.py")],
+                        capture_output=True, text=True, timeout=600,
+                        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    out["quickstart"] = dict(rc=qs.returncode,
+                             wall_s=time.perf_counter() - t0,
+                             tail=qs.stdout[-1500:])
+    log("paged", f"examples/torch_quickstart.py on the card: exit "
+        f"{qs.returncode} in {out['quickstart']['wall_s']:.1f} s; "
+        + " / ".join(line for line in qs.stdout.splitlines()
+                     if "matched" in line))
+    if qs.returncode != 0:
+        log("paged", f"FAIL: quickstart: {qs.stderr[-2000:]}")
+        return None
+    return out
 
 
 def rwkv_train_phase(cfg, wkv_k, mm_launches):

@@ -19,6 +19,8 @@ version runs instead.
     trace = repro_torch.synthetic_trace(8, prompt_len=64, max_new=32,
                                         vocab_size=cfg.vocab_size)
     served = rt.serve(cfg, trace, slots=4, eos_id=-1)
+    paged = rt.serve(cfg, trace, slots=4, eos_id=-1, paged=True,
+                     prefix_cache="auto", stream=True)
     trained = rt.train(cfg, steps=4, batch=2, seq=2048)
     print(rt.ledger.report())
 
@@ -34,6 +36,8 @@ __all__ = [
     "RuntimeConfig",
     "ServeResult",
     "TrainResult",
+    "default_runtime",
+    "set_default_runtime",
     "synthetic_trace",
     # architectures + model construction
     "ModelConfig",
@@ -49,6 +53,7 @@ __all__ = [
     "RequestState",
     "InvalidRequestError",
     "ServeReport",
+    "TokenStream",
     # cost subsystem (the Runtime's internals, exposed for injection)
     "CorrectionState",
     "CostEngine",
@@ -71,6 +76,8 @@ _EXPORTS = {
     "RuntimeConfig": "repro_torch.runtime",
     "ServeResult": "repro_torch.runtime",
     "TrainResult": "repro_torch.runtime",
+    "default_runtime": "repro_torch.runtime",
+    "set_default_runtime": "repro_torch.runtime",
     "synthetic_trace": "repro_torch.runtime",
     "ModelConfig": "repro_torch.configs",
     "get_config": "repro_torch.configs",
@@ -83,6 +90,7 @@ _EXPORTS = {
     "RequestState": "repro_torch.serving",
     "InvalidRequestError": "repro_torch.serving",
     "ServeReport": "repro_torch.serving",
+    "TokenStream": "repro_torch.serving",
     "CorrectionState": "repro_torch.core.costs",
     "CostEngine": "repro_torch.core.costs",
     "CostQuery": "repro_torch.core.costs",

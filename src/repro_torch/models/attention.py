@@ -17,7 +17,11 @@ serves every step of the serving path; its two contractions (q·k and p·v)
 run on the matmul kernel, read straight out of the cache through strides.
 That keeps the serving path batch-invariant: a slot's scores and outputs do
 not depend on how many other slots share the step (a library batched
-matmul may choose its algorithm from the batch count).
+matmul may choose its algorithm from the batch count).  A paged cache
+(``paged_update_kv_cache``, ``paged_gather_kv``) keeps the KV of every
+slot in one shared pool of pages; the gather hands ``decode_attention``
+the same (B, S, Hkv, hd) view a dense cache gives it, so both
+contractions stay on the matmul kernel.
 """
 
 from __future__ import annotations
@@ -176,3 +180,55 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
     k_cache[rows, cols] = k_new.to(k_cache.dtype)
     v_cache[rows, cols] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache: shared page pool + per-slot block tables
+# ---------------------------------------------------------------------------
+
+
+def paged_update_kv_cache(pk, pv, k_new, v_new, pos, block_tables,
+                          block_size: int):
+    """Scatter (B, S_new, Hkv, hd) new KV into the shared page pools, IN
+    PLACE, and return them.
+
+    ``pk``/``pv`` are (n_blocks, block_size, Hkv, hd) pools shared by all
+    slots; ``block_tables`` is (B, max_blocks) mapping each slot's logical
+    block index to a physical page; ``pos`` is a 0-d or (B,) tensor of
+    logical write offsets.  Writes at logical positions past the table (or
+    rows whose table entry is unallocated) land in block 0, the reserved
+    null page, so masked slots and clamped indices never touch live pages.
+    Several writes to one row of block 0 leave any one of them there; that
+    page is only ever read where the attention length limit masks it.
+    The reference writes a donated buffer; here the pools are written in
+    place, never copied per layer and step."""
+    b, sq = k_new.shape[:2]
+    dev = k_new.device
+    max_blocks = block_tables.shape[1]
+    pos = pos.reshape(-1).expand(b)  # 0-d or (B,) -> (B,)
+    logical = pos[:, None] + torch.arange(sq, device=dev)[None]  # (B, S_new)
+    valid = logical < max_blocks * block_size
+    bidx = torch.clamp(torch.div(logical, block_size, rounding_mode="floor"),
+                       0, max_blocks - 1)
+    table = torch.gather(block_tables.to(torch.int64), 1, bidx)
+    table = torch.where(valid, table, 0)  # out of range -> null block
+    flat = (table * block_size + logical % block_size).reshape(-1)
+    rows = pk.shape[2:]
+    pk.view((-1,) + rows)[flat] = k_new.reshape((b * sq,) + rows).to(pk.dtype)
+    pv.view((-1,) + rows)[flat] = v_new.reshape((b * sq,) + rows).to(pv.dtype)
+    return pk, pv
+
+
+def paged_gather_kv(pk, pv, block_tables, block_size: int):
+    """Each slot's logical KV view gathered from the page pools:
+    (n_blocks, bs, Hkv, hd) x (B, max_blocks) -> (B, max_blocks*bs, Hkv, hd).
+
+    The result feeds ``decode_attention`` unchanged: its length limit masks
+    every position past the slot's fill level, so whatever stale or null
+    data the unwritten page tails hold gets exactly zero probability."""
+    b, max_blocks = block_tables.shape
+    kc = pk[block_tables]  # (B, max_blocks, bs, Hkv, hd)
+    vc = pv[block_tables]
+    kc = kc.reshape((b, max_blocks * block_size) + pk.shape[2:])
+    vc = vc.reshape((b, max_blocks * block_size) + pv.shape[2:])
+    return kc, vc

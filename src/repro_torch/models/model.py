@@ -4,9 +4,10 @@ serving path, with the reference package's functional interface.
 Batch conventions: ``{"tokens": (B, S) int64}``.  Parameters are a dict
 ``{"embed", "layers": [per-layer dict, ...], "final_norm", "unembed"}``;
 the decode state is ``{"layers": [per-layer tree, ...], "pos"}`` — a
-layer's tree is ``{"k", "v"}`` for attention and ``{"time": {"S",
-"shift"}, "channel": {"shift"}}`` for rwkv — with every per-slot leaf's
-slot axis first.  ``loss`` is the training objective:
+layer's tree is ``{"k", "v"}`` for attention (``{"pk", "pv"}``, a page
+pool shared by the slots, when paged) and ``{"time": {"S", "shift"},
+"channel": {"shift"}}`` for rwkv — with every per-slot leaf's slot axis
+first.  ``loss`` is the training objective:
 next-token cross-entropy plus the weighted auxiliary and z losses, through
 ``xent_auto`` (direct up to 2048 positions, chunked and recomputed above).
 The port has the dense decoder-only family (full attention, RoPE, dense
@@ -30,12 +31,26 @@ from repro_torch.models.common import (
     rmsnorm_init,
     unembed,
 )
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves_with_paths, tree_map_with_path
 
 
 AUX_LOSS_WEIGHT = 0.01
 Z_LOSS_WEIGHT = 1e-4
 XENT_CHUNK = 1024
+
+
+def is_page_pool(path: str) -> bool:
+    """Whether the decode-state leaf at ``path`` is a paged page pool
+    (``pk``/``pv``): shared storage with no slot axis, addressed by block
+    tables."""
+    return path.rsplit("/", 1)[-1] in ("pk", "pv")
+
+
+def _slot_leaves(layers) -> list:
+    """Every per-slot leaf of a decode state's layers (page pools left
+    out)."""
+    return [leaf for path, leaf in leaves_with_paths(layers)
+            if not is_page_pool(path)]
 
 
 def _offset_positions(b: int, s: int, offset: torch.Tensor) -> torch.Tensor:
@@ -147,13 +162,16 @@ class Model:
     # ------------------------------------------------------------------
 
     def init_decode_state(self, batch_size: int, max_len: int,
-                          per_slot: bool = False) -> dict:
+                          per_slot: bool = False, paging=None) -> dict:
         """``per_slot=True`` gives every batch row its own cache position
-        (continuous batching); the default 0-d position is lockstep decode."""
+        (continuous batching); the default 0-d position is lockstep decode.
+        ``paging=(n_blocks, block_size)`` swaps full-attention KV for a
+        page pool shared by the slots, addressed by per-row block tables
+        (``batch["block_tables"]`` of each ``decode_step``)."""
         pos_shape = (batch_size,) if per_slot else ()
         return {
             "layers": tfm.stack_init_state(self.cfg, batch_size, max_len,
-                                           self.device),
+                                           self.device, paging),
             "pos": torch.zeros(pos_shape, dtype=torch.int64,
                                device=self.device),
         }
@@ -161,12 +179,14 @@ class Model:
     def decode_step(self, params, state, batch):
         """Feed ``batch["tokens"]`` (B, S_new) at each row's cache position.
         Returns ((B, S_new, V) fp32 logits, new state); ``state`` is left
-        as it was."""
+        as it was, but for its page pools: a paged state's pools are
+        written in place through ``batch["block_tables"]`` (B,
+        max_blocks), and the new state holds the same pool tensors."""
         pos = state["pos"]
         x, positions = self._embed(params, batch, decode_offset=pos)
-        x, new_layers, _ = tfm.stack_apply(params["layers"], self.cfg, x,
-                                           positions, states=state["layers"],
-                                           cache_pos=pos)
+        x, new_layers, _ = tfm.stack_apply(
+            params["layers"], self.cfg, x, positions, states=state["layers"],
+            cache_pos=pos, block_tables=batch.get("block_tables"))
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return unembed(params["unembed"], x), {
             "layers": new_layers, "pos": pos + batch["tokens"].shape[1]}
@@ -175,20 +195,27 @@ class Model:
     # Slot-indexed decode-state surgery (continuous batching)
     # ------------------------------------------------------------------
 
+    # Page pools (``pk``/``pv``) have no slot axis: a slot's pages are its
+    # block-table row, which the SlotPool owns.  All three surgeries below
+    # pass the pools through untouched, as the reference's stack_state_map
+    # does (a pool's row ``slot`` is a page of some other request).
+
     def reset_decode_slots(self, state, slot_mask) -> dict:
         """Zero, in place, the decode state of every slot where the host
-        mask ``slot_mask`` is True (per-slot state only), every leaf of
-        every layer's tree on its slot axis (0)."""
+        mask ``slot_mask`` is True (per-slot state only), every per-slot
+        leaf of every layer's tree on its slot axis (0)."""
         for slot in np.flatnonzero(np.asarray(slot_mask, bool)):
-            for leaf in leaves(state["layers"]):
+            for leaf in _slot_leaves(state["layers"]):
                 leaf[int(slot)].zero_()
             state["pos"][int(slot)] = 0
         return state
 
     def insert_decode_slot(self, state, src, slot: int) -> dict:
         """Copy, in place, the single slot of ``src`` (batch 1, per-slot)
-        into slot ``slot`` of a pooled state, leaf by leaf."""
-        for dst, one in zip(leaves(state["layers"]), leaves(src["layers"])):
+        into slot ``slot`` of a pooled state, leaf by leaf (the
+        destination's page pools are kept)."""
+        for dst, one in zip(_slot_leaves(state["layers"]),
+                            _slot_leaves(src["layers"])):
             dst[slot].copy_(one[0])
         state["pos"][slot] = src["pos"][0]
         return state
@@ -197,13 +224,16 @@ class Model:
         """Per-slot select: slots where the device mask ``active`` (B,) is
         True take the stepped state, the rest stay exactly frozen
         (positions, caches and recurrent state).  The mask is shaped to
-        each leaf's rank, slot axis first."""
-        def select(new, old):
+        each leaf's rank, slot axis first.  Page pools come from
+        ``new_state``: a masked slot's writes went to the null page."""
+        def select(path, new, old):
+            if is_page_pool(path):
+                return new
             keep = active.reshape((-1,) + (1,) * (new.dim() - 1))
             return torch.where(keep, new, old)
 
-        return {"layers": tree_map(select, new_state["layers"],
-                                   old_state["layers"]),
+        return {"layers": tree_map_with_path(select, new_state["layers"],
+                                             old_state["layers"]),
                 "pos": torch.where(active, new_state["pos"],
                                    old_state["pos"])}
 

@@ -75,8 +75,10 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
 
 
 def _attn_apply(params, cfg: ModelConfig, x, positions, *, cache=None,
-                cache_pos=None):
-    """Returns (out, new_cache)."""
+                cache_pos=None, block_tables=None):
+    """Returns (out, new_cache).  A cache with ``pk``/``pv`` is a paged
+    pool: the new KV is written into it in place through ``block_tables``
+    and each slot's view is gathered back for the attention."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = project(x, params["wq"]).reshape(b, s, cfg.n_heads, hd)
@@ -85,7 +87,14 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, cache=None,
     if cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if cache is not None:
+    if cache is not None and "pk" in cache:
+        bs = cache["pk"].shape[1]
+        pk, pv = attn_lib.paged_update_kv_cache(
+            cache["pk"], cache["pv"], k, v, cache_pos, block_tables, bs)
+        kc, vc = attn_lib.paged_gather_kv(pk, pv, block_tables, bs)
+        out = attn_lib.decode_attention(q, kc, vc, cache_pos + s)
+        new_cache = {"pk": pk, "pv": pv}
+    elif cache is not None:
         kc, vc = attn_lib.update_kv_cache(cache["k"], cache["v"], k, v,
                                           cache_pos)
         out = attn_lib.decode_attention(q, kc, vc, cache_pos + s)
@@ -97,8 +106,8 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, cache=None,
 
 
 def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
-                state=None, cache_pos=None,
-                rnn_chunk: int = 64) -> Tuple[torch.Tensor, Any, float]:
+                state=None, cache_pos=None, rnn_chunk: int = 64,
+                block_tables=None) -> Tuple[torch.Tensor, Any, float]:
     """Pre-norm residual block: norm, mixer (attention or the rwkv time
     mix), residual; norm, FFN (or the rwkv channel mix), residual.  Returns
     (x, new_state, aux_loss); these layers have no auxiliary loss, so it is
@@ -109,7 +118,8 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "attn":
         out, new_state = _attn_apply(params["attn"], cfg, h, positions,
-                                     cache=state, cache_pos=cache_pos)
+                                     cache=state, cache_pos=cache_pos,
+                                     block_tables=block_tables)
     else:
         out, new_time = rwkv_lib.rwkv_time_mix(
             params["time"], h, cfg.rnn_head_dim,
@@ -132,15 +142,25 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
 
 
 def layer_init_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype, device) -> Dict[str, Any]:
-    """A layer's decode state, slot axis first on every leaf: the KV cache
-    {"k", "v"} (B, max_len, Hkv, hd), or the rwkv state {"time": {"S",
-    "shift"}, "channel": {"shift"}}."""
+                     dtype, device, paging=None) -> Dict[str, Any]:
+    """A layer's decode state: the KV cache {"k", "v"} (B, max_len, Hkv,
+    hd), or the rwkv state {"time": {"S", "shift"}, "channel": {"shift"}},
+    slot axis first on every leaf.  ``paging=(n_blocks, block_size)``
+    turns an attention layer's cache into a page pool shared by all slots,
+    {"pk", "pv"} (n_blocks, block_size, Hkv, hd) with no slot axis,
+    zero-filled so that every page only ever holds finite values (a masked
+    position's probability is exactly 0, and 0 x NaN would be NaN).  The
+    rwkv state stays dense per slot."""
     if kind == "rwkv":
         return rwkv_lib.rwkv_init_state(batch, cfg.d_model, cfg.rnn_head_dim,
                                         dtype, device)
     if kind != "attn":
         raise _unported(kind)
+    if paging is not None:
+        n_blocks, block_size = paging
+        shape = (n_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"pk": torch.zeros(shape, dtype=dtype, device=device),
+                "pv": torch.zeros(shape, dtype=dtype, device=device)}
     shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -158,21 +178,22 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> List[dict]:
 
 
 def stack_init_state(cfg: ModelConfig, batch: int, max_len: int,
-                     device) -> List[dict]:
+                     device, paging=None) -> List[dict]:
     dtype = dtype_of(cfg.dtype)
     return [layer_init_state(cfg, cfg.block_kind(i), batch, max_len, dtype,
-                             device)
+                             device, paging)
             for i in range(cfg.n_layers)]
 
 
 def stack_apply(layers: List[dict], cfg: ModelConfig, x, positions, *,
                 states: Optional[List[dict]] = None, cache_pos=None,
-                remat: bool = True, rnn_chunk: int = 64):
+                remat: bool = True, rnn_chunk: int = 64, block_tables=None):
     """Run all layers.  Returns (x, new_states, aux_total).
 
     With ``remat`` and no decode state, each layer keeps only its input for
     the backward pass and runs again there
-    (``torch.utils.checkpoint``, non-reentrant)."""
+    (``torch.utils.checkpoint``, non-reentrant).  ``block_tables`` (B,
+    max_blocks) addresses paged attention caches."""
     decode = states is not None
     aux_total = 0.0
     new_states = [] if decode else None
@@ -185,7 +206,7 @@ def stack_apply(layers: List[dict], cfg: ModelConfig, x, positions, *,
             x, new_st, aux = layer_apply(
                 lp, cfg, kind, x, positions,
                 state=states[i] if decode else None, cache_pos=cache_pos,
-                rnn_chunk=rnn_chunk)
+                rnn_chunk=rnn_chunk, block_tables=block_tables)
             if decode:
                 new_states.append(new_st)
         aux_total = aux_total + aux

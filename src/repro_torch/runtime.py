@@ -16,17 +16,22 @@ overhead ledger.
 Two Runtimes are fully isolated: separate engines, decision caches and
 ledgers.  The entry points run on ``cuda`` unless the caller asks for the
 CPU; a Runtime asked for a card that is not there raises, it does not fall
-back to the CPU.  Meshes (planning, training or serving over several GPUs)
-and the robustness, paging and front-end options of the reference's
-``Runtime.serve`` come with later slices of the port.
+back to the CPU.  ``default_runtime()`` is a lazily built session
+configured from the environment (``RuntimeConfig.from_env()``); the port's
+decision sites never fall back to it, a Runtime passes its own engine to
+everything it drives.  Meshes (planning, training or serving over several
+GPUs), ``Runtime.bench`` and the robustness and multi-process front-end
+options of the reference's ``Runtime.serve`` come with later slices of the
+port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -64,6 +69,22 @@ class RuntimeConfig:
     cache_dir: Optional[Path] = None
     hardware: Optional[HardwareSpec] = None
 
+    @classmethod
+    def from_env(cls, env: Optional[Mapping[str, str]] = None,
+                 **overrides: Any) -> "RuntimeConfig":
+        """The one place the ``REPRO_*`` environment variables are read,
+        for the fields the port has: ``REPRO_CALIBRATE=1`` -> calibrate,
+        ``REPRO_COST_CACHE`` -> cache_dir.  ``env`` defaults to
+        ``os.environ``; keyword overrides win over it."""
+        env = os.environ if env is None else env
+        cache = env.get("REPRO_COST_CACHE")
+        fields: Dict[str, Any] = {
+            "calibrate": env.get("REPRO_CALIBRATE") == "1",
+            "cache_dir": Path(cache) if cache else None,
+        }
+        fields.update(overrides)
+        return cls(**fields)
+
 
 # ---------------------------------------------------------------------------
 # Result records
@@ -97,21 +118,38 @@ class ServeResult:
     outputs: Dict[str, np.ndarray]  # rid -> generated tokens
     report: Any = None  # serving.ServeReport (continuous mode)
     engine: Any = None  # the serve engine, reusable for follow-up traces
+    stream: Any = None  # serving.frontend.TokenStream (when streaming)
 
 
 def synthetic_trace(n_requests: int, *, prompt_len: int, max_new: int,
                     vocab_size: int, arrival: str = "staggered",
                     gap_ms: float = 20.0, rate: float = 50.0,
-                    seed: int = 0) -> List[Any]:
+                    seed: int = 0, prefix_share: float = 0.0,
+                    prefix_len: int = 0) -> List[Any]:
     """Deterministic request trace: random prompts from numpy's generator
     and an arrival process (``all`` at t=0, ``staggered`` every
     ``gap_ms``, or ``poisson`` at ``rate``/s) — the same prompts and
-    arrivals as the reference's builder for the same arguments."""
+    arrivals as the reference's builder for the same arguments.
+
+    ``prefix_share`` > 0 makes that fraction of the requests (the first
+    ``round(prefix_share * n)``) open with ONE fixed random prefix of
+    ``prefix_len`` tokens followed by private random suffixes: the
+    system-prompt traffic the radix prefix cache exists for."""
     from repro_torch.serving.scheduler import Request
 
     rng = np.random.default_rng(seed)
     prompts = rng.integers(
         1, vocab_size, (n_requests, prompt_len)).astype(np.int32)
+    if prefix_share:
+        if not 0.0 < prefix_share <= 1.0:
+            raise ValueError(
+                f"prefix_share must be in (0, 1], got {prefix_share}")
+        if not 0 < prefix_len < prompt_len:
+            raise ValueError(
+                f"prefix_len must be in (0, prompt_len={prompt_len}), "
+                f"got {prefix_len}")
+        shared = rng.integers(1, vocab_size, (prefix_len,)).astype(np.int32)
+        prompts[: int(round(prefix_share * n_requests)), :prefix_len] = shared
     if arrival == "all":
         arrivals = np.zeros(n_requests)
     elif arrival == "staggered":
@@ -279,7 +317,9 @@ class Runtime:
               params=None, seed: int = 0, slots: int = 4,
               max_len: Optional[int] = None, eos_id: int = 0,
               pad_id: Optional[int] = None, prefill_chunk="auto",
-              macro_step="auto", warmup: bool = True,
+              macro_step="auto", warmup: bool = True, paged: bool = False,
+              block_size: int = 16, kv_blocks: Optional[int] = None,
+              prefix_cache="auto", stream="auto",
               now_fn=time.perf_counter) -> ServeResult:
         """Run a request ``trace`` (a list of ``repro_torch.Request``).
 
@@ -288,6 +328,18 @@ class Runtime:
         decisions land as ``site=serve``/``site=serve_macro`` ledger rows
         with measured step times).  ``macro_step``: ``"auto"`` lets the
         CostEngine pick K per composition, an int pins it.
+
+        Paged KV (continuous mode only): ``paged=True`` stores
+        full-attention KV in a shared BlockPool of ``block_size``-token
+        pages (``kv_blocks`` overrides the can-never-run-out default) with
+        per-slot block tables, and ``prefix_cache`` controls radix prefix
+        reuse at admission (``"auto"``: the serve_prefix CostQuery decides
+        per prompt; ``"force"`` pins reuse on; ``False`` keeps no trie).
+        ``stream`` attaches a per-request incremental token stream fed at
+        the macro-step boundaries the engine already synchronizes on (no
+        added device syncs): ``True`` makes a ``TokenStream``, an instance
+        is used as it is, ``"auto"`` is off (the port has no front end to
+        turn it on); ``ServeResult.stream`` holds it.
 
         ``static`` is the lockstep baseline: the batch forms at the last
         arrival and every request's latency includes that wait; it requires
@@ -298,11 +350,22 @@ class Runtime:
         from repro_torch.models import build_model
         from repro_torch.serving import ContinuousServeEngine, ServeEngine
         from repro_torch.serving.engine import emitted_count
+        from repro_torch.serving.frontend import TokenStream
 
         if not trace:
             raise ValueError("serve() needs a non-empty trace of Requests")
         if mode not in ("static", "continuous"):
             raise ValueError(f"unknown serve mode: {mode!r}")
+        if mode == "static" and paged:
+            raise ValueError(
+                "paged KV needs the slot pool of mode='continuous'; the "
+                "static lockstep baseline keeps dense per-row caches")
+        if mode == "static" and stream not in ("auto", False, None):
+            raise ValueError(
+                "token streaming needs the macro-step boundaries of "
+                "mode='continuous'; the static baseline emits one matrix")
+        if paged and block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
         if model is None:
             model = build_model(cfg, self.device)
         if params is None:
@@ -334,13 +397,50 @@ class Runtime:
         engine = ContinuousServeEngine(
             model, params, n_slots=slots, max_len=max_len, eos_id=eos_id,
             pad_id=pad_id, cost_engine=self.engine,
-            prefill_chunk=prefill_chunk, macro_step=macro_step)
+            prefill_chunk=prefill_chunk, macro_step=macro_step,
+            paged=paged, block_size=block_size, kv_blocks=kv_blocks,
+            prefix_cache=True if prefix_cache == "auto" else prefix_cache)
         if warmup:
             engine.warmup(max(r.prompt_len for r in trace),
                           max_new_tokens=max(r.max_new_tokens for r in trace))
-        report = engine.run(list(trace), now_fn=now_fn)
+        stream_obj = None
+        if stream is True:
+            stream_obj = TokenStream()
+        elif isinstance(stream, TokenStream):
+            stream_obj = stream
+        # attached after warmup, so the dummy request streams nothing
+        engine.stream = stream_obj
+        try:
+            report = engine.run(list(trace), now_fn=now_fn)
+        finally:
+            engine.stream = None  # the engine stays reusable stream-free
+        if stream_obj is not None:
+            stream_obj.close()
         pct = report.latency_percentiles()
         return ServeResult(
             "continuous", report.wall_s, report.generated_tokens,
             report.tok_per_s, pct["p50"], pct["p95"], report.outputs(),
-            report=report, engine=engine)
+            report=report, engine=engine, stream=stream_obj)
+
+
+# ---------------------------------------------------------------------------
+# The default Runtime
+# ---------------------------------------------------------------------------
+
+_default_runtime: Optional[Runtime] = None
+
+
+def default_runtime() -> Runtime:
+    """The process-default Runtime, built lazily from the environment
+    (``RuntimeConfig.from_env()``): on the card, like every Runtime that
+    is not asked for the CPU."""
+    global _default_runtime
+    if _default_runtime is None:
+        _default_runtime = Runtime(RuntimeConfig.from_env())
+    return _default_runtime
+
+
+def set_default_runtime(runtime: Optional[Runtime]) -> None:
+    """Replace (or, with None, reset) the process-default Runtime."""
+    global _default_runtime
+    _default_runtime = runtime

@@ -14,12 +14,18 @@ consulted once per MACRO-STEP, not once per token:
   * admitted requests prefill as a GROUP directly into the pooled state
     (one batched prefill per group, one host sync);
   * every host synchronization and device dispatch is counted, the way the
-    reference counts them, and lands in ``ServeReport.as_dict()``.
+    reference counts them, and lands in ``ServeReport.as_dict()``;
+  * ``paged=True`` keeps full-attention KV in a shared pool of
+    ``block_size``-token pages with per-slot block tables, and the radix
+    prefix cache lets a prompt that opens with resident pages prefill only
+    its suffix (the ``serve_prefix`` decision, the tenth cost site);
+  * an attached ``TokenStream`` receives every request's tokens at the
+    boundaries the engine already synchronizes on.
 
-Every admission / prefill-chunk / macro-horizon choice is a CostEngine
-``CostQuery -> Decision`` ledgered with the measured wall time attached.
-Deadlines, preemption, fault injection, paged KV, the prefix cache, meshes
-and the multi-process front end come with later slices of the port.
+Every admission / prefill-chunk / macro-horizon / prefix-reuse choice is a
+CostEngine ``CostQuery -> Decision`` ledgered with the measured wall time
+attached.  Deadlines, preemption, fault injection, meshes and the
+multi-process front end come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ import torch
 
 from repro_torch.core.costs.engine import CostEngine
 from repro_torch.models.model import Model
+from repro_torch.serving.frontend.stream import StreamBroken, TokenStream
+from repro_torch.serving.paging import default_kv_blocks
 from repro_torch.serving.scheduler import (
     Request,
     RequestState,
@@ -41,7 +49,7 @@ from repro_torch.serving.scheduler import (
     supports_chunked_prefill,
     validate_request,
 )
-from repro_torch.serving.slots import SlotPool
+from repro_torch.serving.slots import SlotPool, upload
 from repro_torch.training.step import (
     make_batched_prefill,
     make_decode_macro_step,
@@ -155,8 +163,16 @@ class ServeReport:
     pad_id: int
     host_syncs: int = 0
     device_dispatches: int = 0
+    # paged-KV accounting (zero on a dense engine but for the first two),
+    # all from host mirrors the engine keeps: reading them costs no sync
     live_tokens: int = 0        # peak sum of per-slot cache positions
     prefilled_tokens: int = 0   # prompt tokens prefilled
+    reserved_blocks: int = 0    # peak BlockPool pages in use (slots + trie)
+    prefix_hit_tokens: int = 0  # prompt tokens served from the prefix cache
+    cow_count: int = 0          # copy-on-write page duplications
+    # token stream accounting (zero without a stream)
+    streamed_tokens: int = 0    # tokens published to the attached stream
+    stream_events: int = 0      # publish calls (bursts) on the stream
 
     def state_counts(self) -> Dict[str, int]:
         """How many requests ended in each lifecycle state."""
@@ -191,6 +207,13 @@ class ServeReport:
     def host_syncs_per_token(self) -> float:
         return self.host_syncs / max(self.generated_tokens, 1)
 
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of prompt tokens served from the radix prefix cache
+        instead of being prefilled (0.0 on a dense engine)."""
+        total = self.prefix_hit_tokens + self.prefilled_tokens
+        return self.prefix_hit_tokens / total if total else 0.0
+
     def latency_percentiles(self, qs=(50, 95)) -> Dict[str, float]:
         lats = [r.latency_s for r in self.requests if r.latency_s is not None]
         if not lats:
@@ -214,7 +237,13 @@ class ServeReport:
             "states": self.state_counts(),
             "all_terminal": self.all_terminal,
             "live_tokens": self.live_tokens,
+            "reserved_blocks": self.reserved_blocks,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
             "prefilled_tokens": self.prefilled_tokens,
+            "prefix_hit_rate": self.prefix_hit_rate,
+            "cow_count": self.cow_count,
+            "streamed_tokens": self.streamed_tokens,
+            "stream_events": self.stream_events,
             **self.latency_percentiles(),
             **self.ttft_percentiles(),
         }
@@ -227,14 +256,29 @@ class ContinuousServeEngine:
     the same greedy decode over the same caches, with slots admitted,
     retired and refilled independently instead of in lockstep, and the
     decode loop running as K-token macro-steps (``macro_step="auto"`` lets
-    the scheduler pick K; an int pins it; K=1 is the per-token loop)."""
+    the scheduler pick K; an int pins it; K=1 is the per-token loop).
+
+    ``paged=True`` stores full-attention KV in a shared BlockPool of
+    ``block_size``-token pages (``kv_blocks`` overrides the can-never-run-
+    out default).  ``prefix_cache`` controls radix prefix reuse at
+    admission: ``True``/``"auto"`` asks the ``serve_prefix`` CostQuery per
+    prompt, ``"force"`` pins the verdict to reuse (still priced and
+    ledgered), ``False`` keeps no trie.  Reuse skips prefilling the matched
+    tokens, so it arms only when every layer is full attention: the rwkv
+    state stays dense per slot, and such a model pages its attention (if
+    any) but always prefills in full.  ``stream`` (assignable later) is a
+    ``TokenStream`` fed at the prefill and macro-step boundaries."""
 
     def __init__(self, model: Model, params, *, n_slots: int = 4,
                  max_len: int = 256, eos_id: int = 0,
                  pad_id: Optional[int] = None,
                  cost_engine: Optional[CostEngine] = None,
                  prefill_chunk: Union[str, int] = "auto",
-                 macro_step: Union[str, int] = "auto"):
+                 macro_step: Union[str, int] = "auto",
+                 paged: bool = False, block_size: int = 16,
+                 kv_blocks: Optional[int] = None,
+                 prefix_cache: Union[bool, str] = True,
+                 stream: Optional[TokenStream] = None):
         self.model = model
         self.params = params
         self.max_len = max_len
@@ -246,8 +290,35 @@ class ContinuousServeEngine:
         if macro_step != "auto":
             macro_step = max(int(macro_step), 1)
         self.macro_step = macro_step
+        self.paged = bool(paged)
+        self.block_size = int(block_size)
+        self.kv_blocks: Optional[int] = None
+        if self.paged:
+            if self.block_size < 1:
+                raise ValueError(
+                    f"block_size must be >= 1, got {block_size}")
+            if kv_blocks is None:
+                kv_blocks = default_kv_blocks(n_slots, max_len,
+                                              self.block_size)
+            self.kv_blocks = int(kv_blocks)
+        if prefix_cache not in (True, False, "auto", "force"):
+            raise ValueError(
+                f"prefix_cache must be True/False/'auto'/'force', "
+                f"got {prefix_cache!r}")
+        all_attn = all(model.cfg.block_kind(i) == "attn"
+                       for i in range(model.cfg.n_layers))
+        self.prefix_cache = (prefix_cache is not False
+                             and self.paged and all_attn)
+        self._prefix_override = ("use_prefix" if prefix_cache == "force"
+                                 else None)
+        self.stream = stream
+        self._stream_dead = False
+        self._stream_reason = ""
         self.scheduler = ServeScheduler(model.cfg, cost_engine, max_len=max_len)
-        self.pool = SlotPool(model, n_slots, max_len)
+        self.pool = SlotPool(
+            model, n_slots, max_len,
+            block_size=self.block_size if self.paged else None,
+            kv_blocks=self.kv_blocks)
         self._prefill = make_batched_prefill(model)
         self._macro_fns: Dict[int, Callable] = {}
         # host mirrors of per-slot last token / remaining token budget
@@ -260,8 +331,11 @@ class ContinuousServeEngine:
         # overhead accounting (engine-lifetime; ServeReport carries deltas)
         self.host_syncs = 0
         self.device_dispatches = 0
+        self.prefix_hit_tokens = 0
         self.prefilled_tokens = 0
+        self.cow_count = 0
         self._peak_live_tokens = 0
+        self._peak_blocks = 0
 
     def _macro(self, horizon: int) -> Callable:
         """K-token macro-step, cached per horizon (the candidate set is
@@ -279,16 +353,135 @@ class ContinuousServeEngine:
         self._last_tok[slot] = self.pad_id
         self._budget[slot] = 0
 
+    def _publish(self, req: Request, tokens, done: bool, t: float) -> None:
+        """Publish a request's newly emitted tokens to the attached stream
+        (no-op without one).  A broken stream flips ``_stream_dead``;
+        ``run()`` then fails everything in flight, because tokens that
+        cannot reach the client are not worth generating."""
+        if self.stream is None or self._stream_dead:
+            return
+        try:
+            self.stream.publish(req.rid, tokens, done=done, t=t)
+        except StreamBroken as e:
+            self._stream_dead = True
+            self._stream_reason = f"stream broken: {e}"
+
+    def _fail_inflight(self, reqs: List[Request], t: float,
+                       reason: str) -> None:
+        """Mark ``reqs`` FAILED and return the pool to empty (every slot
+        released, every page reclaimed)."""
+        for r in reqs:
+            if not r.state.terminal:
+                r.mark(RequestState.FAILED, t, reason=reason)
+                self._publish(r, (), done=True, t=t)
+        self.pool.drain()
+        self._last_tok[:] = self.pad_id
+        self._budget[:] = 0
+        self._last_macro_key = None
+
+    def _split_group(self, group: List[Request]):
+        """Within-group prefix sharing.  The radix lookups all run before
+        the group's one batched prefill, so members are blind to each
+        other's pages.  A member whose block-aligned shared prefix with an
+        earlier KEPT member is not yet resident is deferred to the next
+        admission round, where the donor's published pages turn its
+        prefill into an ordinary radix hit.  Deferral fires only when the
+        serve_prefix cost model would APPLY that hit (the pricing the
+        member meets at its own admission), and only behind a donor kept
+        in this group, so every round admits at least one request."""
+        bs = self.block_size
+        sch = self.scheduler
+        kept: List[Request] = []
+        kept_prompts: List[List[int]] = []
+        deferred: List[Request] = []
+        for r in group:
+            p = [int(t) for t in r.prompt]
+            plen = len(p)
+            # lookup()'s cap: at most plen - 1 prompt tokens come from the
+            # cache, and only in full blocks
+            cap = ((plen - 1) // bs) * bs
+            shared = 0
+            for q in kept_prompts:
+                n = 0
+                for a, b in zip(p, q):
+                    if a != b:
+                        break
+                    n += 1
+                shared = max(shared, min((n // bs) * bs, cap))
+            if (shared >= bs and self.pool.blocks.resident_prefix_tokens(
+                    p[:shared]) < shared):
+                kw = dict(flops_per_token=sch.flops_per_token,
+                          weight_bytes=sch.weight_bytes, block_size=bs,
+                          kv_bytes_per_token=sch.kv_bytes_per_token,
+                          dtype_bytes=sch.dtype_bytes)
+                reuse = sch.engine.model.serve_prefix_cost(
+                    plen, shared, plen, **kw)
+                base = sch.engine.model.serve_prefix_cost(plen, 0, plen, **kw)
+                if (self._prefix_override == "use_prefix"
+                        or reuse.total <= base.total):
+                    deferred.append(r)
+                    continue
+            kept.append(r)
+            kept_prompts.append(p)
+        return kept, deferred
+
+    def _lookup_prefix(self, slot: int, prompt: np.ndarray):
+        """Paged admission of one prompt into ``slot``: the radix lookup,
+        the ``serve_prefix`` verdict, then the matched pages pinned into
+        the slot's table (a partial-tail match copied on write into one
+        private page) or the pins dropped, and the table grown to cover
+        the prompt.  Returns (applied hit length, decision)."""
+        bs = self.block_size
+        plen = int(prompt.shape[-1])
+        match = (self.pool.blocks.lookup(tuple(int(t) for t in prompt))
+                 if self.prefix_cache else None)
+        hit = match.hit_tokens(bs) if match is not None else 0
+        cow = int(match is not None and match.tail_donor is not None)
+        applied, dec = self.scheduler.serve_prefix(
+            plen, hit_tokens=hit, cow_blocks=cow, block_size=bs,
+            override=self._prefix_override)
+        if applied > 0:
+            self.pool.assign_prefix(slot, match.block_ids)
+            if match.tail_donor is not None:
+                self.pool.cow_block(slot, match.tail_donor)
+                self.cow_count += 1
+        elif match is not None:  # full-prefill verdict: drop the pins
+            self.pool.blocks.release(match.block_ids)
+            if match.tail_donor is not None:
+                self.pool.blocks.decref(match.tail_donor)
+        self.pool.ensure_blocks(slot, plen)
+        return applied, dec
+
     def _admit_group(self, reqs: List[Request], now) -> None:
         """Admit a group with ONE batched prefill lowered directly into
         their pooled slots (one host sync for the whole group).  First
-        tokens are stamped after prefill returns, so TTFT includes it."""
+        tokens are stamped after prefill returns, so TTFT includes it.
+
+        Paged admission adds the radix prefix cache: each prompt is looked
+        up in the page trie, a ``use_prefix`` verdict pins the matched
+        pages into the slot's table and prefills only the suffix, and the
+        full prompt's pages go back into the trie after the prefill, so
+        the next request sharing the prefix hits."""
         dev = self.model.device
         slots = [self.pool.acquire(r) for r in reqs]
         prompts = [np.asarray(r.prompt, np.int64) for r in reqs]
-        self.prefilled_tokens += sum(int(p.shape[-1]) for p in prompts)
-        lmax = max([int(p.shape[-1]) for p in prompts]
-                   + [self._group_pad or 0])
+        starts = np.zeros((self.pool.n_slots,), np.int64)
+        prefix_decs = []  # (decision, prompt_len, applied) per request
+        if self.paged:
+            for s, p in zip(slots, prompts):
+                applied, dec_p = self._lookup_prefix(s, p)
+                starts[s] = applied
+                self.prefix_hit_tokens += applied
+                prefix_decs.append((dec_p, int(p.shape[-1]), applied))
+        self.prefilled_tokens += sum(int(p.shape[-1]) for p in prompts) \
+            - int(starts.sum())
+        # hit rows prefill their SUFFIX only (never empty: lookup caps a hit
+        # at prompt_len - 1); a group with a hit pads to its longest suffix
+        # instead of the trace-wide prompt pad
+        suffixes = [p[int(starts[s]):] for s, p in zip(slots, prompts)]
+        any_hit = bool(starts.any())
+        lmax = max([int(sfx.shape[-1]) for sfx in suffixes]
+                   + ([] if any_hit else [self._group_pad or 0]))
         override = None if self.prefill_chunk == "auto" else self.prefill_chunk
         chunk, dec = self.scheduler.prefill_chunk(
             lmax, active_decodes=self.pool.active_count - len(reqs),
@@ -296,23 +489,30 @@ class ContinuousServeEngine:
         tokens = np.zeros((self.pool.n_slots, lmax), np.int64)
         lengths = np.zeros((self.pool.n_slots,), np.int64)
         t_adm = now()
-        for r, s, p in zip(reqs, slots, prompts):
+        for r, s, sfx in zip(reqs, slots, suffixes):
             if r.admitted_s is None:
                 r.admitted_s = t_adm
             r.mark(RequestState.PREFILLING, t_adm)
-            tokens[s, : p.shape[-1]] = p
-            lengths[s] = p.shape[-1]
+            tokens[s, : sfx.shape[-1]] = sfx
+            lengths[s] = sfx.shape[-1]
         chunks = _to_device(_prefill_chunks(tokens, chunk), dev)
         lens = _to_device(lengths, dev)
+        # the paged inputs go up without a host sync: paging adds none
+        extra = ((upload(starts, dev), self.pool.block_tables())
+                 if self.paged else ())
         t0 = time.perf_counter()
         first, self.pool.state = self._prefill(self.params, self.pool.state,
-                                               chunks, lens)
+                                               chunks, lens, *extra)
         first_np = first.cpu().numpy()  # THE host sync for the group
         dt = time.perf_counter() - t0
         self.device_dispatches += 1
         self.host_syncs += 1
         self.scheduler.record_measured(
             dec, dt, note=f"prefill group={len(reqs)} len={lmax} chunk={chunk}")
+        for dec_p, plen, applied in prefix_decs:
+            self.scheduler.record_measured(
+                dec_p, dt, note=f"serve_prefix len={plen} hit={applied} "
+                                f"group={len(reqs)}")
         t_first = now()
         for r, s, p in zip(reqs, slots, prompts):
             tk = int(first_np[s])
@@ -320,15 +520,27 @@ class ContinuousServeEngine:
             if r.first_token_s is None:
                 r.first_token_s = t_first
             self.pool.set_pos(s, int(p.shape[-1]))
-            if tk == self.eos_id or len(r.tokens) >= r.max_new_tokens:
+            if self.prefix_cache:
+                # publish the prompt's full pages into the trie before any
+                # release, so they survive slot turnover (dedupe swaps
+                # repoint this slot at resident duplicates)
+                swaps = self.pool.blocks.insert(
+                    tuple(int(t) for t in p), self.pool.slot_table(s))
+                self.pool.apply_swaps(s, swaps)
+            done = tk == self.eos_id or len(r.tokens) >= r.max_new_tokens
+            if done:
                 r.mark(RequestState.COMPLETED, t_first)
                 self._release(s)
             else:
                 r.mark(RequestState.DECODING, t_first)
                 self._last_tok[s] = tk
                 self._budget[s] = r.max_new_tokens - len(r.tokens)
+            self._publish(r, (tk,), done=done, t=t_first)
         self._peak_live_tokens = max(self._peak_live_tokens,
                                      int(self.pool.positions().sum()))
+        if self.paged:
+            self._peak_blocks = max(self._peak_blocks,
+                                    self.pool.blocks.used_blocks)
 
     # ------------------------------------------------------------------
 
@@ -347,8 +559,16 @@ class ContinuousServeEngine:
         active: Dict[int, Request] = {}
         sync0 = self.host_syncs
         disp0 = self.device_dispatches + self.pool.dispatch_count
-        pf0 = self.prefilled_tokens
+        hit0, pf0, cow0 = (self.prefix_hit_tokens, self.prefilled_tokens,
+                           self.cow_count)
+        ev0 = tok0 = 0
+        if self.stream is not None:
+            ev0 = self.stream.published_events
+            tok0 = self.stream.published_tokens
+        self._stream_dead = False
+        self._stream_reason = ""
         self._peak_live_tokens = 0
+        self._peak_blocks = 0
         t0 = now_fn()
         offset = 0.0  # event-skip accumulator for frozen (virtual) clocks
         now = lambda: now_fn() - t0 + offset  # noqa: E731
@@ -358,6 +578,16 @@ class ContinuousServeEngine:
                 waiting.append(pending.popleft())
 
         while pending or waiting or active:
+            if self._stream_dead:
+                # the stream's consumer is gone: fail everything not yet
+                # terminal (typed) and empty the pool
+                self._fail_inflight(
+                    [r for r in requests if not r.state.terminal], now(),
+                    reason=self._stream_reason)
+                pending.clear()
+                waiting.clear()
+                active = {}
+                break
             intake(now())
             # --- admission (one batched prefill per admitted group) ---
             while (pending or waiting) and self.pool.free_count:
@@ -371,6 +601,11 @@ class ContinuousServeEngine:
                     break
                 want = min(n_admit, self.pool.free_count, len(waiting))
                 group, waiting[:] = waiting[:want], waiting[want:]
+                if self.prefix_cache and len(group) > 1:
+                    group, deferred = self._split_group(group)
+                    # back to the queue head: next round, the donor's pages
+                    # are published and these become radix hits
+                    waiting[0:0] = deferred
                 self._admit_group(group, now)
                 active = {s: self.pool.owner(s)
                           for s in self.pool.active_slots()}
@@ -404,11 +639,23 @@ class ContinuousServeEngine:
                 remaining, override=override,
                 record=key != self._last_macro_key)
             self._last_macro_key = key
+            mextra = ()
+            if self.paged:
+                # grow each live slot's table to cover this macro-step's K
+                # cache writes, then upload the tables (no host sync)
+                pos = self.pool.positions()
+                for s in active:
+                    self.pool.ensure_blocks(s, int(pos[s]) + horizon)
+                mextra = (self.pool.block_tables(),)
+                self._peak_live_tokens = max(self._peak_live_tokens,
+                                             int(pos.sum()))
+                self._peak_blocks = max(self._peak_blocks,
+                                        self.pool.blocks.used_blocks)
             t_step = time.perf_counter()
             emitted, self.pool.state = self._macro(horizon)(
                 self.params, self.pool.state, _to_device(self._last_tok, dev),
                 _to_device(self.pool.active_mask(), dev),
-                _to_device(self._budget, dev))
+                _to_device(self._budget, dev), *mextra)
             em = emitted.cpu().numpy()  # THE host sync for K tokens
             dt_step = time.perf_counter() - t_step
             self.device_dispatches += 1
@@ -429,6 +676,9 @@ class ContinuousServeEngine:
                         break
                 n_emitted = len(req.tokens) - n_before
                 self.pool.advance(slot, n_emitted)  # before release zeroes
+                # the macro-step's one host sync already happened: streaming
+                # this burst costs no extra device traffic
+                burst = tuple(req.tokens[n_before:])
                 if finished:
                     req.mark(RequestState.COMPLETED, t_emit)
                     self._release(slot)
@@ -436,6 +686,7 @@ class ContinuousServeEngine:
                 else:
                     self._last_tok[slot] = int(em[slot, horizon - 1])
                     self._budget[slot] -= n_emitted
+                self._publish(req, burst, done=finished, t=t_emit)
             self._peak_live_tokens = max(self._peak_live_tokens,
                                          int(self.pool.positions().sum()))
 
@@ -445,7 +696,14 @@ class ContinuousServeEngine:
             device_dispatches=(self.device_dispatches
                                + self.pool.dispatch_count - disp0),
             live_tokens=self._peak_live_tokens,
-            prefilled_tokens=self.prefilled_tokens - pf0)
+            reserved_blocks=self._peak_blocks,
+            prefix_hit_tokens=self.prefix_hit_tokens - hit0,
+            prefilled_tokens=self.prefilled_tokens - pf0,
+            cow_count=self.cow_count - cow0,
+            streamed_tokens=(self.stream.published_tokens - tok0
+                             if self.stream is not None else 0),
+            stream_events=(self.stream.published_events - ev0
+                           if self.stream is not None else 0))
 
     def warmup(self, prompt_len: int, max_new_tokens: int = 2) -> None:
         """Run one short dummy request through the normal machinery before

@@ -292,6 +292,32 @@ class ServeScheduler:
             dtype_bytes=self.dtype_bytes, record=record)
         return int(dec.value), dec
 
+    def serve_prefix(self, prompt_len: int, *, hit_tokens: int,
+                     cow_blocks: int, block_size: int,
+                     override: Optional[str] = None
+                     ) -> Tuple[int, Decision]:
+        """Prefix-cache reuse vs full prefill for one admitted prompt — the
+        tenth decision site (CostQuery kind=serve_prefix).
+
+        ``hit_tokens`` is the radix-trie match length the BlockPool found
+        (full shared pages plus an optional partial tail served by one
+        copy-on-write page duplication, ``cow_blocks``).  The sweep weighs
+        the skipped prefill compute for those tokens against the host
+        lookup walk and the page copy; the engine executes the verdict
+        (suffix-only prefill, or dropping the pins) and attaches the
+        admitted group's measured prefill wall time.  ``override``
+        (``"use_prefix"`` / ``"full_prefill"``) pins the verdict, still
+        priced and ledgered.  Returns the applied hit length (0 = full
+        prefill)."""
+        dec = self.engine.decide_serve_prefix(
+            prompt_len, hit_tokens=hit_tokens, cow_blocks=cow_blocks,
+            chunk=prompt_len, block_size=block_size,
+            flops_per_token=self.flops_per_token,
+            weight_bytes=self.weight_bytes,
+            kv_bytes_per_token=self.kv_bytes_per_token,
+            dtype_bytes=self.dtype_bytes, override=override)
+        return int(dec.value), dec
+
     def record_measured(self, decision: Decision, seconds: float,
                         note: str = ""):
         """Attach a measured wall time to ``decision``'s ledger row.

@@ -1,4 +1,4 @@
-"""Slot-pooled decode-state manager for continuous batching (dense KV).
+"""Slot-pooled decode-state manager for continuous batching.
 
 The pool owns ONE device-resident decode state sized for ``n_slots``
 concurrent requests, with a per-slot cache position.  Requests borrow a slot
@@ -11,32 +11,72 @@ The engine prefills admitted groups straight into the pooled state; release
 zeroes a slot's tensors in place (the reference donates the buffers to a
 jitted program instead).  Occupancy and per-slot positions
 are HOST MIRRORS kept by acquire/release/``advance``: reading them never
-synchronizes with the device.  Paged KV and the prefix cache come with a
-later slice.
+synchronizes with the device.
+
+``block_size`` switches full-attention KV storage to a PAGED pool: one
+shared set of pages per attention layer, a reference-counted
+``BlockPool`` over them with a radix prefix trie (``serving/paging.py``),
+and per-slot block tables kept as a host mirror.  The tables go to the
+device once per dispatch, copied from pinned memory without waiting for
+the device; copy-on-write duplicates a page on the device, also without a
+host sync.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, is_page_pool
+from repro_torch.serving.paging import BlockPool, default_kv_blocks
+from repro_torch.tree import leaves_with_paths
+
+
+def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A fresh device copy of ``host``.  To a card it goes from pinned
+    memory without waiting for the device: the pinned copy is not reused
+    before the transfer has run, so ``host`` may change at once."""
+    t = torch.from_numpy(host)
+    if device.type == "cpu":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 class SlotPool:
-    def __init__(self, model: Model, n_slots: int, max_len: int):
+    def __init__(self, model: Model, n_slots: int, max_len: int,
+                 block_size: Optional[int] = None,
+                 kv_blocks: Optional[int] = None):
+        """``block_size`` pages the attention KV: ``kv_blocks`` shared pages
+        (default: enough that every slot can run to ``max_len``, so
+        allocation never fails) addressed by per-slot block tables."""
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
-        self.state = model.init_decode_state(n_slots, max_len, per_slot=True)
+        self.paged = block_size is not None
+        paging = None
+        self.blocks: Optional[BlockPool] = None
+        if self.paged:
+            if kv_blocks is None:
+                kv_blocks = default_kv_blocks(n_slots, max_len, block_size)
+            self.block_size = int(block_size)
+            self.max_blocks = math.ceil(max_len / self.block_size)
+            self.blocks = BlockPool(kv_blocks, self.block_size)
+            # host mirror of the per-slot block tables; entry 0 = null block
+            self._table = np.zeros((n_slots, self.max_blocks), np.int64)
+            self._slot_nblocks = np.zeros((n_slots,), np.int64)
+            paging = (kv_blocks, self.block_size)
+        self.state = model.init_decode_state(n_slots, max_len, per_slot=True,
+                                             paging=paging)
         self._free: List[int] = list(range(n_slots))
         self._owner: List[Optional[object]] = [None] * n_slots
         self._active = np.zeros((n_slots,), bool)
         self._host_pos = np.zeros((n_slots,), np.int64)
-        self.dispatch_count = 0  # slot resets issued
+        self.dispatch_count = 0  # slot resets and page copies issued
 
     # ------------------------------------------------------------------
 
@@ -71,17 +111,106 @@ class SlotPool:
 
     def release(self, slot: int) -> None:
         """Evict the slot's request: zero its decode state (position 0,
-        empty caches) and return it to the free list."""
+        empty caches) and return it to the free list.  Paged mode also
+        drops the slot's page references (shared prefix pages survive in
+        the trie; private pages return to the free list) and zeroes its
+        table row."""
         if self._owner[slot] is None:
             raise ValueError(f"slot {slot} is not in use")
         mask = np.zeros((self.n_slots,), bool)
         mask[slot] = True
         self.model.reset_decode_slots(self.state, mask)
         self.dispatch_count += 1
+        if self.paged:
+            n = int(self._slot_nblocks[slot])
+            self.blocks.release(self._table[slot, :n])
+            self._table[slot] = 0
+            self._slot_nblocks[slot] = 0
         self._owner[slot] = None
         self._active[slot] = False
         self._host_pos[slot] = 0
         self._free.append(slot)
+
+    def drain(self) -> None:
+        """Release every slot: zero the per-slot state and, in paged mode,
+        reclaim the WHOLE BlockPool, trie included."""
+        self.model.reset_decode_slots(self.state,
+                                      np.ones((self.n_slots,), bool))
+        self.dispatch_count += 1
+        if self.paged:
+            self.blocks.drain()
+            self._table[:] = 0
+            self._slot_nblocks[:] = 0
+        self._free = list(range(self.n_slots))
+        self._owner = [None] * self.n_slots
+        self._active[:] = False
+        self._host_pos[:] = 0
+
+    # ------------------------------------------------------------------
+    # Paged block tables (host mirrors + per-dispatch device upload)
+    # ------------------------------------------------------------------
+
+    def block_tables(self) -> torch.Tensor:
+        """A fresh device copy of the (n_slots, max_blocks) block-table
+        mirror, uploaded without a host sync."""
+        return upload(self._table, self.model.device)
+
+    def ensure_blocks(self, slot: int, n_tokens: int) -> None:
+        """Grow ``slot``'s table to cover ``n_tokens`` logical positions,
+        allocating private pages (and LRU-evicting idle trie pages) as
+        needed.  Raises RuntimeError if the pool is exhausted."""
+        need = math.ceil(min(n_tokens, self.max_len) / self.block_size)
+        have = int(self._slot_nblocks[slot])
+        if need <= have:
+            return
+        fresh = self.blocks.alloc(need - have)
+        self._table[slot, have:need] = fresh
+        self._slot_nblocks[slot] = need
+
+    def assign_prefix(self, slot: int, block_ids) -> None:
+        """Point the (freshly acquired, empty) slot's table at pinned
+        prefix-cache pages.  The caller owns the pins (one slot reference
+        per page, taken by ``BlockPool.lookup``)."""
+        n = len(block_ids)
+        if int(self._slot_nblocks[slot]) != 0:
+            raise RuntimeError(
+                f"assign_prefix on slot {slot} with live blocks")
+        self._table[slot, :n] = np.asarray(block_ids, np.int64)
+        self._slot_nblocks[slot] = n
+
+    def cow_block(self, slot: int, donor: int) -> int:
+        """Copy-on-write: duplicate pinned page ``donor`` into a fresh
+        private page appended to ``slot``'s table (one device copy per
+        attention layer's pk and pv, counted as one dispatch, as the
+        reference's one copy program), then release the donor pin.
+        Returns the new page id."""
+        (fresh,) = self.blocks.alloc(1)
+        for path, leaf in leaves_with_paths(self.state["layers"]):
+            if is_page_pool(path):
+                leaf[fresh].copy_(leaf[donor])
+        self.dispatch_count += 1
+        idx = int(self._slot_nblocks[slot])
+        self._table[slot, idx] = fresh
+        self._slot_nblocks[slot] = idx + 1
+        self.blocks.decref(donor)
+        return fresh
+
+    def slot_table(self, slot: int) -> np.ndarray:
+        """This slot's live table entries (host mirror)."""
+        return self._table[slot, : int(self._slot_nblocks[slot])].copy()
+
+    def apply_swaps(self, slot: int, swaps) -> None:
+        """Apply trie-insert dedupe swaps ((index, old, new) triples from
+        ``BlockPool.insert``) to the table mirror.  ``insert`` has already
+        moved the refcounts; the pages hold the same values because the
+        same tokens at the same positions give the same KV bits (the
+        matmul kernel, rope, rmsnorm and the softmax compute each row
+        alone, whatever the batch)."""
+        for idx, old, new in swaps:
+            if self._table[slot, idx] != old:
+                raise RuntimeError(
+                    f"dedupe swap mismatch at slot {slot} block {idx}")
+            self._table[slot, idx] = new
 
     # ------------------------------------------------------------------
     # Host position mirror (the engine advances it as tokens land)

@@ -138,21 +138,29 @@ def make_decode_macro_step(model: Model, horizon: int, *, eos_id: int,
                            pad_id: int) -> Callable:
     """K lockstep greedy decode steps per host consultation.
 
-    Returns ``macro_fn(params, state, tok, active, budget) -> (emitted (B,
-    K), new_state)``: ``tok`` is each slot's last token, ``active`` the live
-    slot mask and ``budget`` the per-slot remaining token allowance, all
-    device tensors.  A slot that emits ``eos_id`` or exhausts its budget is
-    masked for the rest of the macro-step (state frozen, emissions padded
-    with ``pad_id``); an active slot's EOS is emitted, then it goes quiet.
+    Returns ``macro_fn(params, state, tok, active, budget,
+    block_tables=None) -> (emitted (B, K), new_state)``: ``tok`` is each
+    slot's last token, ``active`` the live slot mask and ``budget`` the
+    per-slot remaining token allowance, all device tensors.  A slot that
+    emits ``eos_id`` or exhausts its budget is masked for the rest of the
+    macro-step (state frozen, emissions padded with ``pad_id``); an active
+    slot's EOS is emitted, then it goes quiet.  ``block_tables`` (B,
+    max_blocks) addresses a paged state's pools; a masked row's table is
+    zeroed for the step, so its writes land in the null page (its pages
+    may already belong to another request).
     """
     k_steps = max(int(horizon), 1)
 
-    def macro_fn(params, state, tok, active, budget):
+    def macro_fn(params, state, tok, active, budget, block_tables=None):
         st, tk, act, bud = state, tok, active, budget
         emitted = []
         for _ in range(k_steps):
             feed = torch.where(act, tk, pad_id)[:, None]
-            logits, new_st = model.decode_step(params, st, {"tokens": feed})
+            batch = {"tokens": feed}
+            if block_tables is not None:
+                batch["block_tables"] = torch.where(act[:, None],
+                                                    block_tables, 0)
+            logits, new_st = model.decode_step(params, st, batch)
             new_st = model.merge_decode_state(new_st, st, act)
             nxt = torch.argmax(logits[:, -1], dim=-1)
             emitted.append(torch.where(act, nxt, pad_id))
@@ -174,21 +182,36 @@ def make_batched_prefill(model: Model) -> Callable:
     positions beyond each row's advance limit, where the causal
     ``decode_attention`` mask never reads it before a real write.
 
-    ``prefill_fn(params, state, chunks, lengths) -> (first_tok (B,),
-    state)`` with ``chunks`` (n_chunks, B, c) padded prompt chunks and
-    ``lengths`` (B,) true prompt lengths (0 marks a slot not prefilled).
+    ``prefill_fn(params, state, chunks, lengths, starts=None,
+    block_tables=None) -> (first_tok (B,), state)`` with ``chunks``
+    (n_chunks, B, c) padded prompt chunks and ``lengths`` (B,) true prompt
+    lengths (0 marks a slot not prefilled).
+
+    After a radix prefix-cache hit, ``chunks``/``lengths`` carry only the
+    SUFFIX tokens and ``starts`` (B,) gives each prefilled row's first
+    logical position (its hit length): positions, cache writes and the
+    length limit all continue from the reused prefix.  ``block_tables``
+    routes paged cache writes; rows not being prefilled get their table
+    row zeroed, so their masked writes land in the null page.
     """
 
-    def prefill_fn(params, state, chunks, lengths):
+    def prefill_fn(params, state, chunks, lengths, starts=None,
+                   block_tables=None):
         n_chunks, b, c = chunks.shape
         st = state
+        if starts is not None:
+            st = dict(state)
+            st["pos"] = torch.where(lengths > 0, starts, state["pos"])
         first = torch.zeros((b,), dtype=torch.int64, device=chunks.device)
         for i in range(n_chunks):
             off = i * c
             valid = torch.clamp(lengths - off, 0, c)  # true tokens this chunk
             act = valid > 0
-            logits, new_st = model.decode_step(params, st,
-                                               {"tokens": chunks[i]})
+            batch = {"tokens": chunks[i]}
+            if block_tables is not None:
+                batch["block_tables"] = torch.where(act[:, None],
+                                                    block_tables, 0)
+            logits, new_st = model.decode_step(params, st, batch)
             new_st = model.merge_decode_state(new_st, st, act)
             # decode_step advanced active rows by the full chunk width;
             # ragged rows only consumed ``valid`` prompt tokens

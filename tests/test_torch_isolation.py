@@ -4,7 +4,8 @@ agrees with the kernel's plain version on the card.
 * every ``repro_torch`` module imports without pulling in ``jax`` or
   ``repro`` (checked in a fresh interpreter), the rwkv6 family's
   (``models/rwkv.py``, ``kernels/wkv.py``, ``configs/rwkv6_3b.py``)
-  among them;
+  among them, and so do the paging and token-stream modules and
+  ``examples/torch_quickstart.py``'s imports;
 * ``repro_torch.Runtime()`` with no device asks for the GPU and raises
   where there is none, naming the missing card, instead of falling back;
 * a tensor that is not on the CPU never takes a kernel's plain version:
@@ -70,6 +71,27 @@ def test_rwkv_modules_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split(" ", 1) == ["32", "[]\n"]
+
+
+_IMPORT_SERVING = """
+import importlib.util, sys
+import repro_torch.serving.paging, repro_torch.serving.frontend.stream
+spec = importlib.util.spec_from_file_location("torch_quickstart", sys.argv[1])
+quickstart = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(quickstart)  # its imports; main() does not run
+print(callable(quickstart.main), sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_paging_stream_and_quickstart_import_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    quickstart = SRC.parent / "examples" / "torch_quickstart.py"
+    out = subprocess.run([sys.executable, "-c", _IMPORT_SERVING,
+                          str(quickstart)], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(" ", 1) == ["True", "[]\n"]
 
 
 def test_runtime_without_device_needs_the_card():

@@ -102,16 +102,45 @@ Phases, one report line each (any failure exits non-zero):
      seed 0) with paged=True, pages of 16 tokens: P1, phase 5's trace
      with K and the prefill chunk pinned, paged (default kv_blocks) beside
      dense and streamed: tokens equal phase 5's, host syncs equal the
-     dense run's, the stream carries the outputs, the matmul kernel's
-     launches counted from 0; P2, 16 requests of 320 + 32 tokens sharing
-     a 264-token prefix, static, dense, paged with prefix_cache="force"
+     dense run's and the counts the engine made before it had the
+     request lifecycle (10 host syncs, 54-55 synchronizing CUDA calls), the stream carries the outputs, the matmul kernel's
+     launches counted from 0; the odd row, phase 5's trace at a max_len of
+     101 (not a multiple of the page: 7 pages gather 112 positions),
+     static, dense and paged token-identical; P2, 16 requests of 320 + 32
+     tokens sharing a 264-token prefix, static, dense, paged with
+     prefix_cache="force"
      and "auto": token-identical, the forced run prefilling at most half
      the dense run's 5,120 prompt tokens, the serve_prefix ledger rows;
      a trie dedupe swap's pages bit for bit the pages they replace; one
      paged and one dense decode step profiled (matmul against the
      indexing kernels, launches); rwkv6-3b (full width, 4 layers) paged
      == dense == static with prefix reuse off; examples/torch_quickstart.py
-     on the card.
+     on the card;
+ 16. the request lifecycle: full-width tinyllama-1.1b (bf16, seed 0, 4
+     slots, phase 5's trace and max_len), dense and paged (pages of 16),
+     on a virtual clock that advances per read: phase 5's serve again with
+     its tokens and host syncs, no thread started and no serve_admit
+     query; priority preemption (a late priority-5 request evicts one of
+     four; every token, the victim's too, equal to phase 5's; paged: pages
+     back to the trie's pins, the prefix re-pinned); deadlines (expiry
+     while queued, TIMED_OUT while decoding with the slot freed,
+     queue_full, deadline_infeasible with a serve_admit row); the fault
+     classes (raise and stall under a 1 s watchdog retried to phase 5's
+     tokens, raise at the prefill site, nan failing exactly the poisoned
+     request, exhausted retries failing what is in flight, a fatal fault
+     propagating with the paged BlockPool empty), each followed by phase
+     5's trace on the same engine with equal tokens; the guarded step on
+     a worker thread with the direct step's matmul launches by path, the
+     caller's stream and no autograd graph; a step abandoned by the
+     watchdog that later writes into the pools it captured, which the
+     drained pool's new tensors escape; a stop mid-run; the launcher
+     (python -m repro_torch.launch.serve ... --inject-fault raise) exits
+     0; recorded, not gated: overload on the real clock (Poisson arrivals
+     at 2x the unloaded service rate, a queue of 8, deadlines at 8x the
+     unloaded latency), serve_admit with and without the correction loop
+     on a calibrated runtime, rwkv6-3b (4 layers) raise (gated) and
+     preemption drills; the serve, serve_macro and serve_admit ledger
+     rows go to the JSON record.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
 chiprun_out/chip_smoke.json.  Exits non-zero, printing no result, where
@@ -148,6 +177,23 @@ PROMPT, MAX_NEW, SLOTS, REQUESTS = 64, 32, 4, 8
 PAGE = 16
 P2_REQUESTS, P2_PROMPT, P2_PREFIX = 16, 320, 264
 PIN = dict(macro_step=8, prefill_chunk=PROMPT)
+# phase 15's odd row: a max_len that is not a multiple of the page, so a
+# slot's gathered pages (7 x 16 = 112 positions) are longer than its row
+ODD_MAX_LEN = PROMPT + MAX_NEW + 5
+# the unperturbed counts measured before the engine had the request
+# lifecycle, held again with it: phase 5's continuous host syncs,
+# P1's host syncs and its synchronizing CUDA calls (torch's sync debug
+# mode; 54 or 55 from run to run)
+BASE_PHASE5_SYNCS, BASE_P1_SYNCS, BASE_P1_CUDA_SYNCS = 12, 10, (54, 55)
+# phase 16 (the request lifecycle): the drills' trace is phase 5's first
+# DRILL_REQUESTS requests with DRILL_NEW new tokens (eos -1: the tokens
+# are the first DRILL_NEW of phase 5's); overload follows the reference's
+# stress bench (benchmarks/stress_bench.py): Poisson arrivals at
+# OVERLOAD_FACTOR x the unloaded service rate, a queue of 2 x slots,
+# deadlines at DEADLINE_X x the unloaded mean latency
+DRILL_REQUESTS, DRILL_NEW = 4, 16
+STALL_WATCHDOG_S = 1.0
+OVERLOAD_REQUESTS, OVERLOAD_FACTOR, DEADLINE_X = 16, 2.0, 8.0
 # the indexing kernels of a decode step: a paged step's page gathers and KV
 # scatter, a dense step's cache write; the embedding lookup in both
 INDEX_KERNELS = r"index|gather|scatter"
@@ -838,6 +884,14 @@ def main() -> int:
     if paged is None:
         return 1
     record["paged"] = paged
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- 16
+    life = lifecycle_phase(cfg, rcfg, p1_want, record["serve"]["host_syncs"],
+                           LAUNCHES, card)
+    if life is None:
+        return 1
+    record["lifecycle"] = life
 
     # ---------------------------------------------------------------- out
     out_dir = ROOT / "chiprun_out"
@@ -853,6 +907,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": worst,
         # phase 15's paged serving run (P1), counted from 0 just before it
         "launches_paged_serve": paged["p1"]["matmul_launches"],
+        # phase 16's dense preemption drill, counted from 0 just before it
+        "launches_lifecycle_serve": life["matmul_launches"],
         # one decode step's matmul calls: the kernel in the real step, the
         # plain version on the same operands, the bound of the same work
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -2322,15 +2378,49 @@ def paged_phase(cfg, rcfg, p1_want, mm_launches, card, dense_step_launches):
         f"{p1['tokens_equal_phase5']}, dense {p1['dense_equal_phase5']}, "
         f"streamed {p1['stream_equal']} ({s1.streamed_tokens} tokens in "
         f"{s1.stream_events} events)")
+    lo, hi = BASE_P1_CUDA_SYNCS
     if not (p1["tokens_equal_phase5"] and p1["dense_equal_phase5"]
             and p1["stream_equal"] and launches > 0
             and kv_blocks == default_kv_blocks(SLOTS, PROMPT + MAX_NEW, PAGE)
             and r1.host_syncs == d1.host_syncs == s1.host_syncs
+            == BASE_P1_SYNCS
             and paged_syncs == stream_syncs == dense_syncs_b
+            and lo <= paged_syncs <= hi
             and same(dense1b.outputs, p1_want)
             and s1.streamed_tokens == streamed.generated_tokens):
-        log("paged", "FAIL: P1 gate (tokens, stream, host syncs, launches)")
+        log("paged", f"FAIL: P1 gate (tokens, stream, host syncs "
+            f"{BASE_P1_SYNCS} and CUDA syncs {lo}-{hi} as before the "
+            f"lifecycle, "
+            f"launches)")
         return None
+
+    # --- the odd row: max_len not a multiple of the page, so each slot's
+    # gathered pages are longer than its dense row; paged == dense ==
+    # static at that max_len (and, recorded, against phase 5's max_len)
+    odd_pages = -(-ODD_MAX_LEN // PAGE)
+    kw = dict(model=model, params=params, slots=SLOTS, eos_id=-1,
+              max_len=ODD_MAX_LEN)
+    odd_static = rt.serve(cfg, trace1(), mode="static", **kw)
+    odd_dense = rt.serve(cfg, trace1(), **kw)
+    odd_paged = rt.serve(cfg, trace1(), paged=True, block_size=PAGE, **kw)
+    odd = dict(max_len=ODD_MAX_LEN, pages_per_slot=odd_pages,
+               gathered_len=odd_pages * PAGE,
+               paged_equal_dense=same(odd_paged.outputs, odd_dense.outputs),
+               dense_equal_static=same(odd_dense.outputs, odd_static.outputs),
+               equal_phase5=same(odd_paged.outputs, p1_want),
+               paged_tok_per_s=odd_paged.tok_per_s,
+               dense_tok_per_s=odd_dense.tok_per_s)
+    out["odd_max_len"] = odd
+    log("paged", f"odd row: max_len {ODD_MAX_LEN} ({odd_pages} pages of "
+        f"{PAGE} = {odd_pages * PAGE} gathered positions): paged == dense "
+        f"{odd['paged_equal_dense']}, dense == static "
+        f"{odd['dense_equal_static']}; == phase 5 (max_len "
+        f"{PROMPT + MAX_NEW}) {odd['equal_phase5']} ({card})")
+    if not (odd["paged_equal_dense"] and odd["dense_equal_static"]):
+        log("paged", "FAIL: the odd row's paged tokens differ from the "
+            "dense and static runs' at the same max_len")
+        return None
+    del odd_static, odd_dense, odd_paged
 
     # --- P2: system-prompt traffic, four ways
     trace2 = lambda: synthetic_trace(  # noqa: E731
@@ -2631,6 +2721,633 @@ def rwkv_train_phase(cfg, wkv_k, mm_launches):
                              wkv_by_kernel=wkv_parts,
                              top=sorted(by_name.items(),
                                         key=lambda kv: -kv[1])[:12]))
+
+
+class StartedThreads:
+    """Counts the threads started inside the block (threading.Thread.start
+    wrapped): the unperturbed path must start none, the watchdog one a
+    guarded step."""
+
+    def __enter__(self):
+        import threading
+
+        self.names = []
+        self._start = start = threading.Thread.start
+        names = self.names
+
+        def counting(thread, *a, **kw):
+            names.append(thread.name)
+            return start(thread, *a, **kw)
+
+        threading.Thread.start = counting
+        return self
+
+    def __exit__(self, *exc):
+        import threading
+
+        threading.Thread.start = self._start
+        return False
+
+
+class TripAfter:
+    """A stop event that 'fires' once the engine has polled it ``polls``
+    times: a shutdown in the middle of a run, on no clock."""
+
+    def __init__(self, polls):
+        self.left = polls
+
+    def is_set(self):
+        self.left -= 1
+        return self.left < 0
+
+
+def tick_clock(dt=1e-3):
+    """A clock that advances ``dt`` on every read: deadlines and arrivals
+    resolve the same on a fast host and a slow one."""
+    t = [0.0]
+
+    def now():
+        t[0] += dt
+        return t[0]
+
+    return now
+
+
+def ledger_rows(ledger, sites=("serve", "serve_macro", "serve_admit")):
+    """The serve ledger's rows, predicted beside measured (None where the
+    row was not measured), for the JSON record."""
+    return [dict(site=e.site, choice=e.choice, predicted_s=e.predicted_s,
+                 measured_s=e.measured_s, correction=e.correction,
+                 note=e.note, query={k: v for k, v in e.query.items()
+                                     if isinstance(v, (int, float, str))})
+            for e in ledger.entries if e.site in sites]
+
+
+def lifecycle_phase(cfg, rcfg, p1_want, phase5_syncs, mm_launches, card):
+    """Phase 16: the serving request lifecycle on full-width tinyllama-1.1b
+    (bf16, seed 0, 4 slots, phase 5's trace and max_len), dense and paged
+    (pages of 16): the unperturbed path untouched, priority preemption,
+    deadlines, the fault classes under the watchdog and retries,
+    abandonment, graceful stops and the launcher; overload on the real
+    clock and serve_admit with and without the correction loop recorded;
+    rwkv6-3b (4 layers) raise and preemption drills.  None on any failed
+    gate."""
+    import threading
+
+    from repro_torch.models import build_model
+    from repro_torch.models.model import is_page_pool
+    from repro_torch.runtime import Runtime, RuntimeConfig, synthetic_trace
+    from repro_torch.serving import (ContinuousServeEngine, FatalFault,
+                                     FaultInjector, FaultSpec, Request)
+    from repro_torch.serving.scheduler import ServeScheduler
+    from repro_torch.tree import leaves_with_paths
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card}
+    rt = Runtime(device="cuda")
+    model = build_model(cfg, rt.device)
+    params = model.init(0)
+    max_len = PROMPT + MAX_NEW
+    trace = lambda: synthetic_trace(  # noqa: E731
+        REQUESTS, prompt_len=PROMPT, max_new=MAX_NEW,
+        vocab_size=cfg.vocab_size, arrival="all", seed=0)
+    prompts = {r.rid: np.asarray(r.prompt) for r in trace()}
+    fails = []
+
+    def gate(ok: bool, what: str) -> bool:
+        if not ok:
+            fails.append(what)
+            log("lifecycle", f"FAIL: {what}")
+        return ok
+
+    def want(rid, n=MAX_NEW):
+        return [int(t) for t in p1_want[rid][:n]]
+
+    def toks(r):
+        return [int(t) for t in r.tokens]
+
+    def reqs(n, new, extra=None):
+        """phase 5's first ``n`` requests with ``new`` tokens each;
+        ``extra`` maps a rid to Request keywords."""
+        extra = extra or {}
+        return [Request(f"r{i}", prompts[f"r{i}"], new,
+                        **extra.get(f"r{i}", {})) for i in range(n)]
+
+    def engine(**kw):
+        kw.setdefault("n_slots", SLOTS)
+        kw.setdefault("max_len", max_len)
+        kw.setdefault("eos_id", -1)
+        return ContinuousServeEngine(model, params, cost_engine=rt.engine,
+                                     **kw)
+
+    def drill_clean(rep, n=DRILL_REQUESTS, new=DRILL_NEW):
+        return all(toks(r) == want(r.rid, new) for r in rep.requests
+                   if r.state.value == "COMPLETED")
+
+    def serve_again(eng, label):
+        """After a drill, the same engine serves phase 5's trace again."""
+        eng.injector, eng.watchdog_s, eng.max_retries = None, None, 2
+        rep = eng.run(trace(), now_fn=lambda: 0.0)
+        ok = (rep.state_counts() == {"COMPLETED": REQUESTS}
+              and all(toks(r) == want(r.rid) for r in rep.requests))
+        gate(ok, f"{label}: the engine serves phase 5's trace again with "
+             f"equal tokens")
+        return ok
+
+    # --- the unperturbed path: phase 5's continuous serve, untouched
+    n0 = len(rt.ledger.entries)
+    with StartedThreads() as threads:
+        base, base_cuda_syncs = count_syncs(lambda: rt.serve(
+            cfg, trace(), model=model, params=params, slots=SLOTS,
+            eos_id=-1))
+    admits = [e for e in rt.ledger.entries[n0:] if e.site == "serve_admit"]
+    out["unperturbed"] = dict(
+        host_syncs=base.report.host_syncs, phase5_host_syncs=phase5_syncs,
+        cuda_syncs=base_cuda_syncs, threads_started=len(threads.names),
+        serve_admit_rows=len(admits), tok_per_s=base.tok_per_s,
+        tokens_equal_phase5=all([int(t) for t in v] == want(r)
+                                for r, v in base.outputs.items()))
+    log("lifecycle", f"unperturbed phase 5 trace: tokens == phase 5 "
+        f"{out['unperturbed']['tokens_equal_phase5']}, host syncs "
+        f"{base.report.host_syncs} (phase 5 {phase5_syncs}, before the "
+        f"lifecycle "
+        f"{BASE_PHASE5_SYNCS}), synchronizing CUDA calls {base_cuda_syncs}, "
+        f"threads started {len(threads.names)}, serve_admit queries "
+        f"{len(admits)} ({card})")
+    gate(out["unperturbed"]["tokens_equal_phase5"]
+         and base.report.host_syncs == phase5_syncs == BASE_PHASE5_SYNCS
+         and not threads.names and not admits,
+         "unperturbed: phase 5's tokens and host syncs, no thread, no "
+         "serve_admit query")
+    del base
+
+    # --- priority preemption, dense and paged: 4 low-priority requests fill
+    # the slots, a late priority-5 request evicts one; the victim
+    # re-prefills prompt + generated (paged: re-pinning its prompt's pages)
+    for how in ("dense", "paged"):
+        paging = dict(paged=True, block_size=PAGE, prefix_cache="force",
+                      kv_blocks=2 * (SLOTS * -(-max_len // PAGE)) + 1) \
+            if how == "paged" else {}
+        eng = engine(**paging)
+        # the late request arrives after the first macro-step (every clock
+        # read is 1 ms), while the others still have tokens to make
+        rs = reqs(SLOTS + 1, MAX_NEW,
+                  {f"r{SLOTS}": dict(arrival_s=0.003, priority=5)})
+        if how == "dense":
+            mm_launches.reset()
+        rep = eng.run(rs, now_fn=tick_clock())
+        if how == "dense":
+            torch.cuda.synchronize()
+            out["matmul_launches"] = mm_launches.count
+        victims = [r for r in rep.requests if r.preemptions]
+        row = dict(states=rep.state_counts(), preemptions=rep.preemptions,
+                   victims=[r.rid for r in victims],
+                   tokens_equal={r.rid: toks(r) == want(r.rid)
+                                 for r in rep.requests},
+                   first_token_s={r.rid: r.first_token_s
+                                  for r in rep.requests},
+                   prefix_hit_tokens=rep.prefix_hit_tokens,
+                   host_syncs=rep.host_syncs)
+        if how == "paged":
+            blocks = eng.pool.blocks
+            row.update(used_blocks=blocks.used_blocks,
+                       trie_blocks=blocks.trie_blocks)
+        out[f"preempt_{how}"] = row
+        log("lifecycle", f"preemption {how}: states {row['states']}, "
+            f"victims {row['victims']} ({rep.preemptions} preemptions), "
+            f"tokens == phase 5 {row['tokens_equal']}, prefix hits "
+            f"{rep.prefix_hit_tokens}"
+            + (f", used_blocks {row['used_blocks']} == trie pins "
+               f"{row['trie_blocks']}" if how == "paged" else "")
+            + f" ({card})")
+        gate(row["states"] == {"COMPLETED": SLOTS + 1} and victims
+             and all(row["tokens_equal"].values())
+             and (how == "dense" or (row["used_blocks"] == row["trie_blocks"]
+                                     and rep.prefix_hit_tokens > 0)),
+             f"preemption {how}: a victim, every token equal to phase 5's"
+             + (", pages back to the trie's pins, the prefix re-pinned"
+                if how == "paged" else ""))
+        del eng
+    gate(out.get("matmul_launches", 0) > 0,
+         "the matmul kernel launched on the lifecycle path")
+
+    # --- deadlines on the tick clock
+    dl = {}
+    eng = engine(n_slots=1)
+    rep = eng.run(reqs(2, 8, {"r1": dict(deadline_s=0.002)}),
+                  now_fn=tick_clock())
+    late = rep.requests[1]
+    dl["queued"] = dict(states=rep.state_counts(), reason=late.reason)
+    gate(late.state.value == "TIMED_OUT"
+         and late.reason == "deadline expired while queued"
+         and toks(rep.requests[0]) == want("r0", 8),
+         "a deadline expiring while queued ends TIMED_OUT")
+    eng = engine(n_slots=1, macro_step=1)
+    rep = eng.run(reqs(1, MAX_NEW, {"r0": dict(deadline_s=0.1)}),
+                  now_fn=tick_clock(5e-3))
+    r0 = rep.requests[0]
+    dl["decoding"] = dict(state=r0.state.value, reason=r0.reason,
+                          tokens=len(r0.tokens),
+                          free_slots=eng.pool.free_count)
+    gate(r0.state.value == "TIMED_OUT" and "decoding" in (r0.reason or "")
+         and 0 < len(r0.tokens) < MAX_NEW and eng.pool.free_count == 1
+         and toks(r0) == want("r0", len(r0.tokens)),
+         "a deadline passing while decoding ends TIMED_OUT and frees the "
+         "slot")
+    eng = engine(n_slots=1, queue_limit=1)
+    rep = eng.run(reqs(4, 4), now_fn=lambda: 0.0)
+    dl["queue_full"] = dict(states=rep.state_counts(),
+                            reasons=[r.reason for r in rep.requests])
+    gate(rep.state_counts() == {"COMPLETED": 1, "REJECTED": 3}
+         and all(r.reason == "queue_full" for r in rep.requests
+                 if r.state.value == "REJECTED"),
+         "queue_limit rejects the overflow as queue_full")
+    n0 = len(rt.ledger.entries)
+    eng = engine(n_slots=2)
+    rep = eng.run(reqs(2, 4, {"r1": dict(deadline_s=1e-12)}),
+                  now_fn=lambda: 0.0)
+    shed = [e for e in rt.ledger.entries[n0:] if e.site == "serve_admit"]
+    dl["infeasible"] = dict(states=rep.state_counts(),
+                            reason=rep.requests[1].reason,
+                            serve_admit=[(e.choice, e.predicted_s)
+                                         for e in shed])
+    gate(rep.requests[1].reason == "deadline_infeasible"
+         and rep.requests[1].state.value == "REJECTED"
+         and any(e.choice == "shed" for e in shed)
+         and rep.requests[0].state.value == "COMPLETED",
+         "an infeasible deadline is shed as deadline_infeasible with a "
+         "serve_admit row")
+    out["deadlines"] = dl
+    log("lifecycle", f"deadlines: {dl} ({card})")
+    del eng
+
+    # --- the fault classes on one dense engine, each followed by phase 5's
+    # trace on the same engine
+    eng = engine()
+    drills = [("raise macro", FaultSpec("raise", site="macro", after=1),
+               None, 2),
+              ("stall macro", FaultSpec("stall", site="macro", after=1,
+                                        stall_s=30.0), STALL_WATCHDOG_S, 2),
+              ("raise prefill", FaultSpec("raise", site="prefill", after=0),
+               None, 2),
+              ("nan macro", FaultSpec("nan", site="macro", after=0), None,
+               2),
+              ("exhausted", FaultSpec("raise", site="macro", after=0,
+                                      count=100), None, 1)]
+    faults = {}
+    for label, spec, watchdog, retries in drills:
+        eng.injector = FaultInjector((spec,))
+        eng.watchdog_s, eng.max_retries = watchdog, retries
+        t0 = time.perf_counter()
+        with StartedThreads() as threads:
+            rep = eng.run(reqs(DRILL_REQUESTS, DRILL_NEW),
+                          now_fn=lambda: 0.0)
+        wall = time.perf_counter() - t0
+        states = rep.state_counts()
+        faults[label] = dict(states=states, retries=rep.step_retries,
+                             watchdog_fires=rep.watchdog_fires,
+                             threads_started=len(threads.names),
+                             reasons=sorted({r.reason for r in rep.requests
+                                             if r.reason}),
+                             injected=eng.injector.injected, wall_s=wall)
+        if label == "nan macro":
+            ok = (states == {"COMPLETED": DRILL_REQUESTS - 1, "FAILED": 1}
+                  and drill_clean(rep)
+                  and all("corrupt" in (r.reason or "") for r in
+                          rep.requests if r.state.value == "FAILED"))
+        elif label == "exhausted":
+            ok = (states == {"FAILED": DRILL_REQUESTS}
+                  and all("macro step failed" in r.reason
+                          for r in rep.requests)
+                  and eng.pool.free_count == SLOTS)
+        else:
+            ok = (states == {"COMPLETED": DRILL_REQUESTS}
+                  and rep.step_retries >= 1 and drill_clean(rep)
+                  and (watchdog is None or (rep.watchdog_fires >= 1
+                                            and threads.names)))
+        log("lifecycle", f"fault {label}: states {states}, retries "
+            f"{rep.step_retries}, watchdog fires {rep.watchdog_fires}, "
+            f"threads {len(threads.names)}, {wall:.2f} s ({card})")
+        gate(ok, f"fault {label} behaves as its class says")
+        serve_again(eng, f"fault {label}")
+    del eng
+    eng = engine(paged=True, block_size=PAGE)
+    eng.injector = FaultInjector((FaultSpec("raise", site="macro", after=0,
+                                            fatal=True),))
+    rs = reqs(DRILL_REQUESTS, DRILL_NEW)
+    try:
+        eng.run(rs, now_fn=lambda: 0.0)
+        raised = False
+    except FatalFault:
+        raised = True
+    blocks = eng.pool.blocks
+    faults["fatal paged"] = dict(
+        raised=raised, states=sorted({r.state.value for r in rs}),
+        used_blocks=blocks.used_blocks, trie_blocks=blocks.trie_blocks,
+        free_slots=eng.pool.free_count)
+    log("lifecycle", f"fault fatal (paged): {faults['fatal paged']}")
+    gate(raised and all(r.state.terminal for r in rs)
+         and blocks.used_blocks == 0 and blocks.trie_blocks == 0
+         and eng.pool.free_count == SLOTS,
+         "a fatal fault propagates and leaves the BlockPool empty")
+    serve_again(eng, "fault fatal paged")
+    out["faults"] = faults
+    del eng
+
+    # --- the guarded call runs the same kernels as the direct call, on a
+    # worker thread under the caller's device, stream and grad mode (a
+    # parameter that needs a gradient, served under no_grad)
+    guarded = {}
+    leaf = params["unembed"]
+    for how in ("dense", "paged"):
+        paging = dict(paged=True, block_size=PAGE) if how == "paged" else {}
+        eng = engine(**PIN, **paging)
+        seen = []
+        main_stream = torch.cuda.current_stream().cuda_stream
+        real_prefill, real_macro = eng._prefill, eng._macro(PIN["macro_step"])
+
+        def spy(fn):
+            def wrapped(*a):
+                first, st = fn(*a)
+                seen.append(dict(
+                    thread=threading.current_thread().name,
+                    grad=torch.is_grad_enabled(),
+                    requires_grad=first.requires_grad,
+                    device=torch.cuda.current_device(),
+                    stream=torch.cuda.current_stream().cuda_stream))
+                return first, st
+            return wrapped
+
+        eng._prefill = spy(real_prefill)
+        eng._macro_fns[PIN["macro_step"]] = spy(real_macro)
+        runs = {}
+        leaf.requires_grad_(True)
+        try:
+            for mode, wd in (("direct", None), ("guarded", 5.0)):
+                eng.watchdog_s = wd
+                seen.clear()
+                torch.cuda.synchronize()
+                mm_launches.reset()
+                with torch.no_grad(), StartedThreads() as threads:
+                    rep = eng.run(reqs(DRILL_REQUESTS, DRILL_NEW),
+                                  now_fn=lambda: 0.0)
+                torch.cuda.synchronize()
+                runs[mode] = dict(
+                    by_path=dict(mm_launches.by_path),
+                    launches=mm_launches.count,
+                    threads_started=len(threads.names),
+                    workers=sorted({s["thread"] for s in seen}),
+                    grad=any(s["grad"] for s in seen),
+                    requires_grad=any(s["requires_grad"] for s in seen),
+                    same_stream=all(s["stream"] == main_stream
+                                    for s in seen),
+                    same_device=all(s["device"] == torch.cuda.current_device()
+                                    for s in seen),
+                    tokens_equal=drill_clean(rep)
+                    and rep.state_counts() == {"COMPLETED": DRILL_REQUESTS})
+        finally:
+            leaf.requires_grad_(False)
+        guarded[how] = runs
+        d, g = runs["direct"], runs["guarded"]
+        log("lifecycle", f"guarded vs direct ({how}): matmul launches by "
+            f"path {g['by_path']} vs {d['by_path']}; threads started "
+            f"{g['threads_started']} vs {d['threads_started']}; on the "
+            f"worker: grad {g['grad']}, output requires grad "
+            f"{g['requires_grad']}, same stream {g['same_stream']}, same "
+            f"device {g['same_device']}; tokens equal {g['tokens_equal']}, "
+            f"{d['tokens_equal']}")
+        gate(g["by_path"] == d["by_path"] and g["launches"] > 0
+             and g["threads_started"] > 0 and d["threads_started"] == 0
+             and "MainThread" not in g["workers"]
+             and not g["grad"] and not g["requires_grad"]
+             and g["same_stream"] and g["same_device"]
+             and g["tokens_equal"] and d["tokens_equal"],
+             f"the guarded step ({how}) runs the direct step's kernels on "
+             f"a worker under the caller's stream and grad mode")
+        del eng
+    out["guarded"] = guarded
+
+    # --- abandonment: a step that ignores cancellation outlives the grace
+    # join, then writes into the pools it captured
+    eng = engine(paged=True, block_size=PAGE, **PIN)
+    k = PIN["macro_step"]
+    real = eng._macro(k)
+    woke, checked = threading.Event(), threading.Event()
+    worker = []
+
+    def pools(state):
+        return [leaf_ for path, leaf_ in leaves_with_paths(state["layers"])
+                if is_page_pool(path)]
+
+    def hung(params_, state, *args):
+        worker.append(threading.current_thread())
+        time.sleep(1.5)
+        for p_ in pools(state):
+            p_.fill_(7.0)
+        torch.cuda.synchronize()
+        woke.set()
+        checked.wait(30.0)
+        return real(params_, state, *args)
+
+    eng._macro_fns[k] = hung
+    eng.watchdog_s = 0.5
+    before = pools(eng.pool.state)
+    rep = eng.run(reqs(DRILL_REQUESTS, DRILL_NEW), now_fn=lambda: 0.0)
+    after = pools(eng.pool.state)
+    woke.wait(30.0)
+    try:
+        torch.cuda.synchronize()
+        old_written = all(bool((b == 7).all()) for b in before)
+        new_untouched = all(not bool(a.any()) for a in after)
+    finally:
+        checked.set()
+        if worker:
+            worker[0].join(60.0)
+    torch.cuda.synchronize()
+    ab = dict(states=rep.state_counts(), reasons=sorted(
+        {r.reason for r in rep.requests}), watchdog_fires=rep.watchdog_fires,
+        new_tensors=all(a.data_ptr() != b.data_ptr()
+                        for a, b in zip(after, before)),
+        old_pools_written=old_written, new_pools_untouched=new_untouched,
+        used_blocks=eng.pool.blocks.used_blocks)
+    eng._macro_fns[k] = real
+    eng.watchdog_s = None
+    again = eng.run(reqs(DRILL_REQUESTS, DRILL_NEW), now_fn=lambda: 0.0)
+    ab["next_trace_equal"] = drill_clean(again) and \
+        again.state_counts() == {"COMPLETED": DRILL_REQUESTS}
+    out["abandoned"] = ab
+    log("lifecycle", f"abandonment: {ab} ({card})")
+    gate(ab["states"] == {"FAILED": DRILL_REQUESTS}
+         and all("abandon" in r for r in ab["reasons"])
+         and ab["new_tensors"] and ab["old_pools_written"]
+         and ab["new_pools_untouched"] and ab["used_blocks"] == 0
+         and ab["next_trace_equal"],
+         "an abandoned step fails what is in flight and cannot reach the "
+         "drained pool")
+    del eng, before, after
+
+    # --- stopping: a stop mid-run drains the active slots, rejects the queue
+    eng = engine()
+    eng.stop_event = TripAfter(1)
+    rep = eng.run(reqs(SLOTS + 2, DRILL_NEW), now_fn=lambda: 0.0)
+    stop = dict(states=rep.state_counts(),
+                reasons={r.rid: r.reason for r in rep.requests})
+    out["stop"] = stop
+    log("lifecycle", f"stop mid-run: {stop}")
+    gate(rep.state_counts() == {"COMPLETED": SLOTS, "REJECTED": 2}
+         and drill_clean(rep)
+         and all(r.reason == "shutdown: intake stopped"
+                 for r in rep.requests if r.state.value == "REJECTED"),
+         "a stop mid-run completes the active slots and rejects the queue")
+    del eng
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "tinyllama-1.1b", "--requests", "8", "--max-new", "16",
+           "--slots", "4", "--engine", "continuous", "--deadline-ms",
+           "60000", "--inject-fault", "raise", "--watchdog-ms", "5000"]
+    t0 = time.perf_counter()
+    ls = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                        cwd=ROOT, env=dict(os.environ,
+                                           PYTHONPATH=str(ROOT / "src")))
+    states_line = [ln.strip() for ln in ls.stdout.splitlines()
+                   if ln.strip().startswith("states ")]
+    out["launcher"] = dict(cmd=" ".join(cmd[1:]), rc=ls.returncode,
+                           wall_s=time.perf_counter() - t0,
+                           states=states_line, stdout=ls.stdout[-3000:],
+                           stderr=ls.stderr[-2000:])
+    log("lifecycle", f"launcher: exit {ls.returncode} in "
+        f"{out['launcher']['wall_s']:.1f} s; {states_line}")
+    gate(ls.returncode == 0 and states_line
+         and "retries 1" in states_line[0]
+         and "'COMPLETED': 8" in states_line[0],
+         "the launcher exits 0 and prints the lifecycle report")
+
+    # --- recorded: overload on the real clock (the reference stress
+    # bench's recipe, without its front end)
+    kw = dict(model=model, params=params, slots=SLOTS, eos_id=-1,
+              max_len=max_len)
+    unloaded = rt.serve(cfg, trace(), **kw)
+    rep_u = unloaded.report
+    lat = [r.latency_s for r in rep_u.requests if r.latency_s is not None]
+    mean_latency = float(np.mean(lat))
+    service_rate = REQUESTS / rep_u.wall_s
+    deadline_ms = DEADLINE_X * mean_latency * 1e3
+    rate = OVERLOAD_FACTOR * service_rate
+    over = rt.serve(cfg, synthetic_trace(
+        OVERLOAD_REQUESTS, prompt_len=PROMPT, max_new=MAX_NEW,
+        vocab_size=cfg.vocab_size, arrival="poisson", rate=rate, seed=1),
+        queue_limit=2 * SLOTS, deadline_ms=deadline_ms,
+        watchdog_ms=max(5000.0, 10 * deadline_ms), **kw)
+    rep_o = over.report
+    done = [r for r in rep_o.requests if r.state.value == "COMPLETED"]
+    goodput = sum(len(r.tokens) for r in done) / rep_o.wall_s
+    ttft = rep_o.ttft_percentiles()
+    out["overload"] = dict(
+        unloaded_tok_per_s=rep_u.tok_per_s, unloaded_mean_latency_s=mean_latency,
+        service_rate_rps=service_rate, rate_rps=rate, deadline_ms=deadline_ms,
+        queue_limit=2 * SLOTS, states=rep_o.state_counts(),
+        completed_frac=len(done) / OVERLOAD_REQUESTS,
+        goodput_tok_per_s=goodput,
+        goodput_over_unloaded=goodput / rep_u.tok_per_s,
+        ttft_p99_s=ttft["ttft_p99"],
+        ttft_p99_over_unloaded_latency=ttft["ttft_p99"] / mean_latency,
+        watchdog_fires=rep_o.watchdog_fires, wall_s=rep_o.wall_s,
+        all_terminal=rep_o.all_terminal)
+    log("lifecycle", f"overload (recorded): {out['overload']} ({card})")
+    gate(rep_o.all_terminal and done,
+         "overload: every request terminal, at least one completed")
+    del unloaded, over
+
+    # --- recorded: serve_admit with and without the correction loop, on a
+    # calibrated runtime (phase 5's calibration cache), one warm trace first
+    cache = ROOT / "build" / "calibration"
+    probe_rt = Runtime(RuntimeConfig(device="cuda", calibrate=True,
+                                     cache_dir=cache))
+    sched = ServeScheduler(cfg, probe_rt.engine, max_len=max_len)
+    _, raw = sched.serve_admit(Request("d0", prompts["r0"], MAX_NEW,
+                                       deadline_s=1.0),
+                               now=0.0, active=0, n_slots=SLOTS)
+    deadline_s = 3.0 * raw.baseline.total  # admits unless corrected > 3x
+    admit = {"raw_predicted_s": raw.baseline.total,
+             "deadline_s": deadline_s}
+    for corr in (False, True):
+        crt = Runtime(RuntimeConfig(device="cuda", calibrate=True,
+                                    corrections=corr, cache_dir=cache))
+        crt.serve(cfg, trace(), **kw)  # the warm trace
+        n0 = len(crt.ledger.entries)
+        res = crt.serve(cfg, [Request("d0", prompts["r0"], MAX_NEW,
+                                      deadline_s=deadline_s)], **kw)
+        rows = [e for e in crt.ledger.entries[n0:]
+                if e.site == "serve_admit"]
+        d0 = res.report.requests[0]
+        factors = ({s: crt.engine.corrections.factor(s)
+                    for s in crt.engine.corrections.sites()}
+                   if crt.engine.corrections is not None else {})
+        admit["on" if corr else "off"] = dict(
+            verdicts=[e.choice for e in rows],
+            predicted_s=[e.predicted_s for e in rows],
+            corrections=[e.correction for e in rows],
+            measured_latency_s=d0.latency_s, state=d0.state.value,
+            reason=d0.reason, site_factors=factors)
+    admit["flipped"] = admit["off"]["verdicts"][-1:] != \
+        admit["on"]["verdicts"][-1:]
+    out["serve_admit"] = admit
+    log("lifecycle", f"serve_admit (recorded): {admit} ({card})")
+
+    out["ledger"] = ledger_rows(rt.ledger)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # --- rwkv6-3b, full width, 4 layers: a raise drill (gated) and a
+    # preemption drill (recorded: re-prefill runs the chunked WKV kernel
+    # over the generated tokens where decode ran wkv_step)
+    rcfg4 = dataclasses.replace(rcfg, n_layers=4)
+    rmodel = build_model(rcfg4, rt.device)
+    rparams = rmodel.init(0)
+    rkw = dict(n_slots=SLOTS, max_len=max_len, eos_id=-1,
+               cost_engine=rt.engine)
+
+    def rreqs(n, new, extra=None):
+        extra = extra or {}
+        return [Request(f"r{i}", prompts[f"r{i}"], new,
+                        **extra.get(f"r{i}", {})) for i in range(n)]
+
+    clean_eng = ContinuousServeEngine(rmodel, rparams, **rkw)
+    clean = {r.rid: toks(r) for r in clean_eng.run(
+        rreqs(SLOTS + 1, MAX_NEW), now_fn=lambda: 0.0).requests}
+    reng = ContinuousServeEngine(rmodel, rparams, **rkw, injector=FaultInjector(
+        (FaultSpec("raise", site="macro", after=1),)))
+    rep = reng.run(rreqs(SLOTS, MAX_NEW), now_fn=lambda: 0.0)
+    rw = dict(raise_states=rep.state_counts(), raise_retries=rep.step_retries,
+              raise_equal=all(toks(r) == clean[r.rid] for r in rep.requests))
+    gate(rep.state_counts() == {"COMPLETED": SLOTS} and rep.step_retries >= 1
+         and rw["raise_equal"],
+         "rwkv6-3b: a raise retries to the clean tokens")
+    peng = ContinuousServeEngine(rmodel, rparams, **rkw)
+    rep = peng.run(rreqs(SLOTS + 1, MAX_NEW,
+                         {f"r{SLOTS}": dict(arrival_s=0.003, priority=5)}),
+                   now_fn=tick_clock())
+    first_diff = {}
+    for r in rep.requests:
+        got = toks(r)
+        diff = next((i for i, (a, b) in enumerate(zip(got, clean[r.rid]))
+                     if a != b), None)
+        first_diff[r.rid] = diff
+    rw.update(preempt_states=rep.state_counts(),
+              preempt_victims=[r.rid for r in rep.requests if r.preemptions],
+              preempt_first_diff=first_diff,
+              preempt_equal={r.rid: first_diff[r.rid] is None
+                             for r in rep.requests})
+    out["rwkv"] = rw
+    log("lifecycle", f"rwkv6-3b, 4 layers: {rw} ({card})")
+    gate(rep.all_terminal, "rwkv6-3b preemption: every request terminal")
+    del rmodel, rparams, clean_eng, reng, peng
+    torch.cuda.empty_cache()
+
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["fails"] = fails
+    log("lifecycle", f"phase 16 wall {out['wall_s']:.1f} s; "
+        f"{len(fails)} failed gates ({card})")
+    return None if fails else out
 
 
 if __name__ == "__main__":

@@ -54,6 +54,13 @@ __all__ = [
     "InvalidRequestError",
     "ServeReport",
     "TokenStream",
+    # serving faults (drills and the guarded device step)
+    "FaultInjector",
+    "FaultSpec",
+    "FatalFault",
+    "InjectedFault",
+    "StepFailed",
+    "WatchdogTimeout",
     # cost subsystem (the Runtime's internals, exposed for injection)
     "CorrectionState",
     "CostEngine",
@@ -91,6 +98,12 @@ _EXPORTS = {
     "InvalidRequestError": "repro_torch.serving",
     "ServeReport": "repro_torch.serving",
     "TokenStream": "repro_torch.serving",
+    "FaultInjector": "repro_torch.serving",
+    "FaultSpec": "repro_torch.serving",
+    "FatalFault": "repro_torch.serving",
+    "InjectedFault": "repro_torch.serving",
+    "StepFailed": "repro_torch.serving",
+    "WatchdogTimeout": "repro_torch.serving",
     "CorrectionState": "repro_torch.core.costs",
     "CostEngine": "repro_torch.core.costs",
     "CostQuery": "repro_torch.core.costs",

@@ -19,10 +19,13 @@ CPU; a Runtime asked for a card that is not there raises, it does not fall
 back to the CPU.  ``default_runtime()`` is a lazily built session
 configured from the environment (``RuntimeConfig.from_env()``); the port's
 decision sites never fall back to it, a Runtime passes its own engine to
-everything it drives.  Meshes (planning, training or serving over several
-GPUs), ``Runtime.bench`` and the robustness and multi-process front-end
-options of the reference's ``Runtime.serve`` come with later slices of the
-port.
+everything it drives.  ``RuntimeConfig(corrections=True)`` closes the
+ledger loop (per-site correction factors learned from measured rows,
+persisted with the calibration), and ``Runtime.serve`` takes the
+reference's robustness options (bounded queue, deadlines, injected faults
+under a watchdog, graceful stop).  Meshes (planning, training or serving
+over several GPUs), ``Runtime.bench`` and the multi-process front end of
+the reference's ``Runtime.serve`` come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.costs.corrections import CorrectionState
 from repro_torch.core.costs.engine import CostEngine
 from repro_torch.core.costs.ledger import OverheadLedger
 from repro_torch.hw import H100, HardwareSpec
@@ -59,27 +63,51 @@ class RuntimeConfig:
     ``hardware``   — base :class:`HardwareSpec` for the analytic model
                      (default: the H100 data sheet).  Calibration replaces
                      measured fields on top of it.
+    ``corrections`` — close the ledger loop: learn per-site multiplicative
+                     corrections from measured ledger rows and apply them
+                     at query time (clamped, rollback- and
+                     invalidation-guarded; persisted in the calibration
+                     cache).  Off by default: an open-loop session prices
+                     decisions exactly as the analytic model does.
+    ``auto_recalibrate`` — let ``Runtime.serve`` act on sustained raw
+                     drift after a trace drains: targeted re-runs of only
+                     the drifting sites' calibration probes
+                     (``engine.maybe_recalibrate``, on the card).
+                     Requires ``calibrate`` to persist the healed spec.
+    ``drift_window`` / ``drift_threshold`` — session defaults for the
+                     ledger's per-site drift statistic; ``drift_overrides``
+                     maps a site name to ``{"window": ..., "threshold":
+                     ...}``.  One knob set, shared by the warning path
+                     (``ledger.report()``), the correction loop and the
+                     recalibration trigger.
 
-    The reference's autotune, mesh, correction-loop and drift knobs come
-    with the slices that port those subsystems.
+    The reference's autotune and mesh knobs come with the slices that port
+    those subsystems.
     """
 
     device: Optional[str] = None
     calibrate: bool = False
     cache_dir: Optional[Path] = None
     hardware: Optional[HardwareSpec] = None
+    corrections: bool = False
+    auto_recalibrate: bool = False
+    drift_window: int = 20
+    drift_threshold: float = 3.0
+    drift_overrides: Optional[Mapping[str, Mapping[str, Any]]] = None
 
     @classmethod
     def from_env(cls, env: Optional[Mapping[str, str]] = None,
                  **overrides: Any) -> "RuntimeConfig":
         """The one place the ``REPRO_*`` environment variables are read,
         for the fields the port has: ``REPRO_CALIBRATE=1`` -> calibrate,
-        ``REPRO_COST_CACHE`` -> cache_dir.  ``env`` defaults to
-        ``os.environ``; keyword overrides win over it."""
+        ``REPRO_CORRECTIONS=1`` -> corrections, ``REPRO_COST_CACHE`` ->
+        cache_dir.  ``env`` defaults to ``os.environ``; keyword overrides
+        win over it."""
         env = os.environ if env is None else env
         cache = env.get("REPRO_COST_CACHE")
         fields: Dict[str, Any] = {
             "calibrate": env.get("REPRO_CALIBRATE") == "1",
+            "corrections": env.get("REPRO_CORRECTIONS") == "1",
             "cache_dir": Path(cache) if cache else None,
         }
         fields.update(overrides)
@@ -202,14 +230,22 @@ class Runtime:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         if engine is None:
+            ledger = OverheadLedger(
+                drift_window=self.config.drift_window,
+                drift_threshold=self.config.drift_threshold,
+                drift_overrides=self.config.drift_overrides)
             base = self.config.hardware if self.config.hardware is not None \
                 else H100
+            corrections = (CorrectionState()
+                           if self.config.corrections else None)
             if self.config.calibrate:
                 engine = CostEngine.calibrated(
                     base, cache_dir=self.config.cache_dir,
-                    device=str(self.device))
+                    device=str(self.device), ledger=ledger,
+                    corrections=corrections)
             else:
-                engine = CostEngine(hw=base)
+                engine = CostEngine(hw=base, ledger=ledger,
+                                    corrections=corrections)
         self.engine = engine
 
     @property
@@ -317,9 +353,15 @@ class Runtime:
               params=None, seed: int = 0, slots: int = 4,
               max_len: Optional[int] = None, eos_id: int = 0,
               pad_id: Optional[int] = None, prefill_chunk="auto",
-              macro_step="auto", warmup: bool = True, paged: bool = False,
-              block_size: int = 16, kv_blocks: Optional[int] = None,
-              prefix_cache="auto", stream="auto",
+              macro_step="auto", warmup: bool = True,
+              queue_limit: Optional[int] = None,
+              deadline_ms: Optional[float] = None,
+              ttft_deadline_ms: Optional[float] = None,
+              inject_fault: Optional[str] = None,
+              watchdog_ms: Optional[float] = None, max_retries: int = 2,
+              paged: bool = False, block_size: int = 16,
+              kv_blocks: Optional[int] = None, prefix_cache="auto",
+              stream="auto", stop_event=None,
               now_fn=time.perf_counter) -> ServeResult:
         """Run a request ``trace`` (a list of ``repro_torch.Request``).
 
@@ -328,6 +370,23 @@ class Runtime:
         decisions land as ``site=serve``/``site=serve_macro`` ledger rows
         with measured step times).  ``macro_step``: ``"auto"`` lets the
         CostEngine pick K per composition, an int pins it.
+
+        Robustness (continuous mode only): ``queue_limit`` bounds the
+        waiting queue (overflow -> typed REJECTED backpressure);
+        ``deadline_ms``/``ttft_deadline_ms`` apply a default per-request
+        latency budget to requests that don't carry their own (enforced at
+        admission via the ``serve_admit`` CostQuery and at macro-step
+        boundaries -> TIMED_OUT); ``inject_fault`` arms one injected device
+        fault of the named class (``raise`` | ``nan`` | ``stall``) for
+        failure drills; ``watchdog_ms`` bounds any single device step
+        (required for ``stall``), with up to ``max_retries`` backoff
+        retries before in-flight requests FAIL.  The watchdog and the
+        injector are armed after warmup.  ``stop_event`` (anything with
+        ``is_set()``, e.g. a ``threading.Event`` set from a signal
+        handler) stops intake: queued requests end REJECTED, active ones
+        decode to the end, and the report is still returned.  With
+        ``RuntimeConfig(auto_recalibrate=True)`` the drifting sites'
+        probes re-run once the trace has drained.
 
         Paged KV (continuous mode only): ``paged=True`` stores
         full-attention KV in a shared BlockPool of ``block_size``-token
@@ -350,12 +409,40 @@ class Runtime:
         from repro_torch.models import build_model
         from repro_torch.serving import ContinuousServeEngine, ServeEngine
         from repro_torch.serving.engine import emitted_count
+        from repro_torch.serving.faults import FaultInjector, FaultSpec
         from repro_torch.serving.frontend import TokenStream
 
         if not trace:
             raise ValueError("serve() needs a non-empty trace of Requests")
         if mode not in ("static", "continuous"):
             raise ValueError(f"unknown serve mode: {mode!r}")
+        # fail-fast robustness-flag validation (before any model build)
+        if inject_fault is not None and inject_fault not in ("raise", "nan",
+                                                             "stall"):
+            raise ValueError(
+                f"inject_fault must be 'raise', 'nan' or 'stall', got "
+                f"{inject_fault!r}")
+        if deadline_ms is not None and deadline_ms <= 0:
+            raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
+        if ttft_deadline_ms is not None and ttft_deadline_ms <= 0:
+            raise ValueError(
+                f"ttft_deadline_ms must be > 0, got {ttft_deadline_ms}")
+        if queue_limit is not None and queue_limit < 1:
+            raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
+        if watchdog_ms is not None and watchdog_ms <= 0:
+            raise ValueError(f"watchdog_ms must be > 0, got {watchdog_ms}")
+        if inject_fault == "stall" and watchdog_ms is None:
+            raise ValueError(
+                "inject_fault='stall' without watchdog_ms would hang the "
+                "trace for the stall duration; pass watchdog_ms")
+        robustness = any(v is not None for v in (
+            queue_limit, deadline_ms, ttft_deadline_ms, inject_fault,
+            watchdog_ms))
+        if mode == "static" and robustness:
+            raise ValueError(
+                "queue_limit/deadline/fault/watchdog options need the "
+                "request lifecycle of mode='continuous'; the static "
+                "lockstep baseline has no per-request scheduling")
         if mode == "static" and paged:
             raise ValueError(
                 "paged KV needs the slot pool of mode='continuous'; the "
@@ -394,15 +481,35 @@ class Runtime:
                 float(np.percentile(lats, 50)), float(np.percentile(lats, 95)),
                 outputs, engine=engine)
 
+        # default deadlines apply to requests that don't carry their own
+        if deadline_ms is not None or ttft_deadline_ms is not None:
+            for r in trace:
+                if deadline_ms is not None and r.deadline_s is None:
+                    r.deadline_s = deadline_ms / 1e3
+                if ttft_deadline_ms is not None and r.ttft_deadline_s is None:
+                    r.ttft_deadline_s = ttft_deadline_ms / 1e3
+        injector = None
+        if inject_fault is not None:
+            # one fault partway into the trace (the third macro-step), a
+            # stall long enough to need the watchdog
+            stall_s = (watchdog_ms or 0) / 1e3 * 20 + 1.0
+            injector = FaultInjector((FaultSpec(
+                inject_fault, site="macro", after=2, stall_s=stall_s),))
         engine = ContinuousServeEngine(
             model, params, n_slots=slots, max_len=max_len, eos_id=eos_id,
             pad_id=pad_id, cost_engine=self.engine,
             prefill_chunk=prefill_chunk, macro_step=macro_step,
+            queue_limit=queue_limit, max_retries=max_retries,
             paged=paged, block_size=block_size, kv_blocks=kv_blocks,
             prefix_cache=True if prefix_cache == "auto" else prefix_cache)
         if warmup:
             engine.warmup(max(r.prompt_len for r in trace),
                           max_new_tokens=max(r.max_new_tokens for r in trace))
+        # arm the watchdog and the injector only AFTER warmup: the first
+        # call builds and loads the kernels and must not trip either
+        engine.watchdog_s = None if watchdog_ms is None else watchdog_ms / 1e3
+        engine.injector = injector
+        engine.stop_event = stop_event
         stream_obj = None
         if stream is True:
             stream_obj = TokenStream()
@@ -416,6 +523,11 @@ class Runtime:
             engine.stream = None  # the engine stays reusable stream-free
         if stream_obj is not None:
             stream_obj.close()
+        if self.config.auto_recalibrate:
+            # drift -> action at the drain boundary: the trace's measured
+            # rows are in, the device is idle, and a healed spec is what
+            # the NEXT trace should be scheduled on
+            self.engine.maybe_recalibrate()
         pct = report.latency_percentiles()
         return ServeResult(
             "continuous", report.wall_s, report.generated_tokens,

@@ -1,13 +1,24 @@
 """Serving stack of the port: request lifecycle + CostEngine scheduler,
 slot-pooled decode state (dense, or paged with the radix prefix cache of
-``paging.py``), the static and continuous engines, and the in-process
-token stream (``frontend/``)."""
+``paging.py``), the static and continuous engines (deadlines, priority
+preemption, a bounded queue, graceful stop), fault injection and the
+watchdogged, retried device step (``faults.py``), and the in-process token
+stream (``frontend/``)."""
 
 from repro_torch.serving.engine import (  # noqa: F401
     ContinuousServeEngine,
     ServeEngine,
     ServeReport,
     emitted_count,
+)
+from repro_torch.serving.faults import (  # noqa: F401
+    FatalFault,
+    FaultInjector,
+    FaultSpec,
+    InjectedFault,
+    StepFailed,
+    WatchdogTimeout,
+    guarded_call,
 )
 from repro_torch.serving.frontend import (  # noqa: F401
     StreamBroken,

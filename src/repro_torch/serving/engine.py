@@ -20,16 +20,27 @@ consulted once per MACRO-STEP, not once per token:
     prefix cache lets a prompt that opens with resident pages prefill only
     its suffix (the ``serve_prefix`` decision, the tenth cost site);
   * an attached ``TokenStream`` receives every request's tokens at the
-    boundaries the engine already synchronizes on.
+    boundaries the engine already synchronizes on;
+  * every request moves through the lifecycle state machine of
+    ``scheduler.py``: a bounded waiting queue (``queue_full``), deadlines
+    (expiry while queued, ``deadline_infeasible`` shedding through the
+    ``serve_admit`` decision, ``TIMED_OUT`` at macro-step boundaries),
+    priority order and priority preemption (the victim re-queues and
+    re-prefills its prompt plus the tokens it has generated), injected
+    faults under a watchdog with bounded retries (``faults.py``), and a
+    graceful stop of intake.  An unperturbed trace (no deadline, one
+    priority, no injector or watchdog) takes exactly the path it took
+    without them: no thread, no extra query, no extra host sync.
 
-Every admission / prefill-chunk / macro-horizon / prefix-reuse choice is a
-CostEngine ``CostQuery -> Decision`` ledgered with the measured wall time
-attached.  Deadlines, preemption, fault injection, meshes and the
-multi-process front end come with later slices of the port.
+Every admission / prefill-chunk / macro-horizon / prefix-reuse / admit
+choice is a CostEngine ``CostQuery -> Decision`` ledgered with the
+measured wall time attached.  Meshes and the multi-process front end come
+with later slices of the port.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -40,6 +51,7 @@ import torch
 
 from repro_torch.core.costs.engine import CostEngine
 from repro_torch.models.model import Model
+from repro_torch.serving.faults import FaultInjector, StepFailed, guarded_call
 from repro_torch.serving.frontend.stream import StreamBroken, TokenStream
 from repro_torch.serving.paging import default_kv_blocks
 from repro_torch.serving.scheduler import (
@@ -163,6 +175,9 @@ class ServeReport:
     pad_id: int
     host_syncs: int = 0
     device_dispatches: int = 0
+    # failure-path accounting (all zero on an unperturbed trace)
+    step_retries: int = 0
+    watchdog_fires: int = 0
     # paged-KV accounting (zero on a dense engine but for the first two),
     # all from host mirrors the engine keeps: reading them costs no sync
     live_tokens: int = 0        # peak sum of per-slot cache positions
@@ -183,7 +198,13 @@ class ServeReport:
 
     @property
     def all_terminal(self) -> bool:
+        """The drain invariant: a finished run leaves NO request in a
+        non-terminal state, whatever faults fired."""
         return all(r.state.terminal for r in self.requests)
+
+    @property
+    def preemptions(self) -> int:
+        return sum(r.preemptions for r in self.requests)
 
     def output(self, rid: str, max_new_tokens: Optional[int] = None) -> np.ndarray:
         req = next(r for r in self.requests if r.rid == rid)
@@ -236,6 +257,9 @@ class ServeReport:
             "host_syncs_per_token": self.host_syncs_per_token,
             "states": self.state_counts(),
             "all_terminal": self.all_terminal,
+            "step_retries": self.step_retries,
+            "watchdog_fires": self.watchdog_fires,
+            "preemptions": self.preemptions,
             "live_tokens": self.live_tokens,
             "reserved_blocks": self.reserved_blocks,
             "prefix_hit_tokens": self.prefix_hit_tokens,
@@ -246,6 +270,22 @@ class ServeReport:
             "stream_events": self.stream_events,
             **self.latency_percentiles(),
             **self.ttft_percentiles(),
+            "requests": [
+                {
+                    "rid": r.rid,
+                    "prompt_len": r.prompt_len,
+                    "generated": len(r.tokens),
+                    "arrival_s": r.arrival_s,
+                    "queue_wait_s": r.queue_wait_s,
+                    "ttft_s": r.ttft_s,
+                    "latency_s": r.latency_s,
+                    "state": r.state.value,
+                    "reason": r.reason,
+                    "preemptions": r.preemptions,
+                    "retries": r.retries,
+                }
+                for r in self.requests
+            ],
         }
 
 
@@ -267,7 +307,16 @@ class ContinuousServeEngine:
     tokens, so it arms only when every layer is full attention: the rwkv
     state stays dense per slot, and such a model pages its attention (if
     any) but always prefills in full.  ``stream`` (assignable later) is a
-    ``TokenStream`` fed at the prefill and macro-step boundaries."""
+    ``TokenStream`` fed at the prefill and macro-step boundaries.
+
+    Robustness knobs, all off by default (and all assignable later, as
+    ``Runtime.serve`` arms the watchdog and injector after warmup):
+    ``queue_limit`` bounds the waiting queue, ``watchdog_s`` bounds one
+    device step (the step then runs on a worker thread), ``max_retries``
+    and ``retry_backoff_s`` set the retry policy of a failed step, and
+    ``injector`` fires ``FaultSpec`` faults around the steps.
+    ``stop_event`` (anything with ``is_set()``) or ``request_stop()`` stops
+    intake gracefully."""
 
     def __init__(self, model: Model, params, *, n_slots: int = 4,
                  max_len: int = 256, eos_id: int = 0,
@@ -275,15 +324,35 @@ class ContinuousServeEngine:
                  cost_engine: Optional[CostEngine] = None,
                  prefill_chunk: Union[str, int] = "auto",
                  macro_step: Union[str, int] = "auto",
+                 queue_limit: Optional[int] = None,
+                 watchdog_s: Optional[float] = None,
+                 max_retries: int = 2, retry_backoff_s: float = 0.01,
+                 injector: Optional[FaultInjector] = None,
                  paged: bool = False, block_size: int = 16,
                  kv_blocks: Optional[int] = None,
                  prefix_cache: Union[bool, str] = True,
-                 stream: Optional[TokenStream] = None):
+                 stream: Optional[TokenStream] = None,
+                 stop_event=None):
         self.model = model
         self.params = params
         self.max_len = max_len
         self.eos_id = eos_id
         self.pad_id = eos_id if pad_id is None else pad_id
+        # --- robustness knobs (all default OFF: the unperturbed hot path
+        # stays thread-free with zero extra queries or host syncs) ---
+        if queue_limit is not None and queue_limit < 1:
+            raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
+        if watchdog_s is not None and watchdog_s <= 0:
+            raise ValueError(f"watchdog_s must be > 0, got {watchdog_s}")
+        if max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        self.queue_limit = queue_limit
+        self.watchdog_s = watchdog_s
+        self.max_retries = max_retries
+        self.retry_backoff_s = retry_backoff_s
+        self.injector = injector
+        self.step_retries = 0  # engine-lifetime; reports carry deltas
+        self.watchdog_fires = 0
         if prefill_chunk != "auto":
             prefill_chunk = int(prefill_chunk)
         self.prefill_chunk = prefill_chunk
@@ -314,6 +383,11 @@ class ContinuousServeEngine:
         self.stream = stream
         self._stream_dead = False
         self._stream_reason = ""
+        # graceful shutdown: either hook stops INTAKE only (queued and
+        # unarrived requests end REJECTED "shutdown: intake stopped"),
+        # active slots decode to completion, and run() returns its report
+        self.stop_event = stop_event
+        self._stop_requested = False
         self.scheduler = ServeScheduler(model.cfg, cost_engine, max_len=max_len)
         self.pool = SlotPool(
             model, n_slots, max_len,
@@ -353,6 +427,69 @@ class ContinuousServeEngine:
         self._last_tok[slot] = self.pad_id
         self._budget[slot] = 0
 
+    # ------------------------------------------------------------------
+
+    def _thread_context(self) -> Callable[[], contextlib.ExitStack]:
+        """The calling thread's grad mode, inference mode and, on a card,
+        CUDA device and stream, captured so a watchdog's worker thread can
+        run the step under the same ones: torch keeps each per thread, and
+        a worker left to its defaults could build an autograd graph or
+        launch on another device or stream."""
+        grad = torch.is_grad_enabled()
+        inference = torch.is_inference_mode_enabled()
+        dev = self.model.device
+        index = stream = None
+        if dev.type == "cuda":
+            # "cuda" without an index means this thread's current device
+            index = dev.index if dev.index is not None \
+                else torch.cuda.current_device()
+            stream = torch.cuda.current_stream(index)
+
+        def enter() -> contextlib.ExitStack:
+            stack = contextlib.ExitStack()
+            stack.enter_context(torch.inference_mode(inference))
+            stack.enter_context(torch.set_grad_enabled(grad))
+            if stream is not None:
+                stack.enter_context(torch.cuda.device(index))
+                stack.enter_context(torch.cuda.stream(stream))
+            return stack
+
+        return enter
+
+    def _dispatch(self, site: str, thunk, touched: List[Request]):
+        """Execute one device-step thunk.  Without an injector or watchdog
+        this is a DIRECT call — the unperturbed hot path stays thread-free.
+        With either, the step runs under ``guarded_call``: injected faults
+        fire, the watchdog bounds a stall (the step then runs on a worker
+        thread under this thread's device, stream and grad mode), transient
+        failures retry with backoff (counted onto the engine and the
+        ``touched`` requests), and exhaustion or abandonment surfaces as
+        ``StepFailed`` for ``run()`` to convert into per-request FAILED and
+        a pool drain.  A failed step is never retried on the CPU or through
+        a plain version: the retry runs the same kernels."""
+        if self.injector is None and not self.watchdog_s:
+            return thunk(None)
+        context = self._thread_context()
+
+        def before_thunk(cancel):
+            with context():
+                if self.injector is not None:
+                    self.injector.before(site, cancel)
+                return thunk(cancel)
+
+        def on_retry(attempt, err):
+            self.step_retries += 1
+            for r in touched:
+                r.retries += 1
+
+        def on_watchdog(attempt):
+            self.watchdog_fires += 1
+
+        return guarded_call(
+            before_thunk, watchdog_s=self.watchdog_s,
+            retries=self.max_retries, backoff_s=self.retry_backoff_s,
+            on_retry=on_retry, on_watchdog=on_watchdog)
+
     def _publish(self, req: Request, tokens, done: bool, t: float) -> None:
         """Publish a request's newly emitted tokens to the attached stream
         (no-op without one).  A broken stream flips ``_stream_dead``;
@@ -367,17 +504,28 @@ class ContinuousServeEngine:
             self._stream_reason = f"stream broken: {e}"
 
     def _fail_inflight(self, reqs: List[Request], t: float,
-                       reason: str) -> None:
+                       reason: str, fresh: bool = False) -> None:
         """Mark ``reqs`` FAILED and return the pool to empty (every slot
-        released, every page reclaimed)."""
+        released, every page reclaimed).  ``fresh`` (after an abandoned
+        step) gives the pool new state tensors instead of zeroing the ones
+        the abandoned worker may still write into."""
         for r in reqs:
             if not r.state.terminal:
                 r.mark(RequestState.FAILED, t, reason=reason)
                 self._publish(r, (), done=True, t=t)
-        self.pool.drain()
+        self.pool.drain(fresh=fresh)
         self._last_tok[:] = self.pad_id
         self._budget[:] = 0
         self._last_macro_key = None
+
+    @staticmethod
+    def _full_prompt(r: Request) -> np.ndarray:
+        """What admission prefills: the prompt, plus, for a request
+        re-admitted after preemption, the tokens it already generated."""
+        p = np.asarray(r.prompt, np.int64)
+        if r.tokens:
+            p = np.concatenate([p, np.asarray(r.tokens, np.int64)])
+        return p
 
     def _split_group(self, group: List[Request]):
         """Within-group prefix sharing.  The radix lookups all run before
@@ -395,7 +543,7 @@ class ContinuousServeEngine:
         kept_prompts: List[List[int]] = []
         deferred: List[Request] = []
         for r in group:
-            p = [int(t) for t in r.prompt]
+            p = [int(t) for t in self._full_prompt(r)]
             plen = len(p)
             # lookup()'s cap: at most plen - 1 prompt tokens come from the
             # cache, and only in full blocks
@@ -457,14 +605,20 @@ class ContinuousServeEngine:
         their pooled slots (one host sync for the whole group).  First
         tokens are stamped after prefill returns, so TTFT includes it.
 
+        A request re-admitted after preemption prefills its prompt plus
+        the tokens it already generated: greedy decode is deterministic,
+        so its continuation equals an uninterrupted run's (its first
+        ``admitted_s`` / ``first_token_s`` stamps are kept).
+
         Paged admission adds the radix prefix cache: each prompt is looked
         up in the page trie, a ``use_prefix`` verdict pins the matched
         pages into the slot's table and prefills only the suffix, and the
         full prompt's pages go back into the trie after the prefill, so
-        the next request sharing the prefix hits."""
+        the next request sharing the prefix hits.  A preempted request
+        re-pins its own prompt's pages the same way."""
         dev = self.model.device
         slots = [self.pool.acquire(r) for r in reqs]
-        prompts = [np.asarray(r.prompt, np.int64) for r in reqs]
+        prompts = [self._full_prompt(r) for r in reqs]
         starts = np.zeros((self.pool.n_slots,), np.int64)
         prefix_decs = []  # (decision, prompt_len, applied) per request
         if self.paged:
@@ -500,10 +654,18 @@ class ContinuousServeEngine:
         # the paged inputs go up without a host sync: paging adds none
         extra = ((upload(starts, dev), self.pool.block_tables())
                  if self.paged else ())
+
+        def thunk(cancel, _state=self.pool.state):
+            # the state is bound here, on this thread: a worker the
+            # watchdog abandons keeps these tensors, never a later pool's
+            first, new_state = self._prefill(self.params, _state, chunks,
+                                             lens, *extra)
+            # THE host sync for the group, inside the guarded call, so the
+            # watchdog covers the device's execution, not only the launches
+            return first.cpu().numpy(), new_state
+
         t0 = time.perf_counter()
-        first, self.pool.state = self._prefill(self.params, self.pool.state,
-                                               chunks, lens, *extra)
-        first_np = first.cpu().numpy()  # THE host sync for the group
+        first_np, self.pool.state = self._dispatch("prefill", thunk, reqs)
         dt = time.perf_counter() - t0
         self.device_dispatches += 1
         self.host_syncs += 1
@@ -544,21 +706,50 @@ class ContinuousServeEngine:
 
     # ------------------------------------------------------------------
 
+    def request_stop(self) -> None:
+        """Ask a running trace to shut down gracefully: intake stops at the
+        next loop boundary (queued requests -> typed REJECTED), in-flight
+        slots decode to terminal states, run() returns its report.  Safe to
+        call from a signal handler or another thread — it only sets a
+        flag.  Sticky until ``reset_stop()``."""
+        self._stop_requested = True
+
+    def reset_stop(self) -> None:
+        """Re-arm after a graceful shutdown so the engine can serve another
+        trace (``stop_event`` holders must also clear their event)."""
+        self._stop_requested = False
+
+    def _should_stop(self) -> bool:
+        return self._stop_requested or (
+            self.stop_event is not None and self.stop_event.is_set())
+
     def run(self, requests: List[Request],
             now_fn=time.perf_counter) -> ServeReport:
         """Run a request trace to completion: every request reaches a
-        terminal state.  ``now_fn`` is injectable so tests can pin a virtual
-        clock (arrivals then resolve instantly)."""
+        terminal lifecycle state (the drain invariant), whatever deadlines,
+        preemptions or injected faults fire along the way.  ``now_fn`` is
+        injectable so tests can pin a virtual clock (arrivals then resolve
+        instantly).
+
+        An unperturbed trace — no deadlines, uniform priorities, no
+        injector or watchdog — takes EXACTLY the path it takes without the
+        lifecycle: the same CostQuery sequence, the same launches, no
+        thread and no extra host sync, and therefore the same tokens."""
         for r in requests:
             validate_request(r, self.max_len)  # typed, names the rid
             r.reset_lifecycle()
         self._group_pad = max((r.prompt_len for r in requests), default=0)
+        # deadline machinery only engages when a request asks for it
+        any_deadlines = any(r.deadline_s is not None
+                            or r.ttft_deadline_s is not None
+                            for r in requests)
         dev = self.model.device
         pending = deque(sorted(requests, key=lambda r: r.arrival_s))  # stable
-        waiting: List[Request] = []
+        waiting: List[Request] = []  # arrived, QUEUED (incl. re-queued)
         active: Dict[int, Request] = {}
         sync0 = self.host_syncs
         disp0 = self.device_dispatches + self.pool.dispatch_count
+        ret0, wd0 = self.step_retries, self.watchdog_fires
         hit0, pf0, cow0 = (self.prefix_hit_tokens, self.prefilled_tokens,
                            self.cow_count)
         ev0 = tok0 = 0
@@ -574,127 +765,273 @@ class ContinuousServeEngine:
         now = lambda: now_fn() - t0 + offset  # noqa: E731
 
         def intake(t: float) -> None:
+            """Move arrived requests into the waiting queue, bouncing off a
+            full bounded queue (backpressure -> typed REJECTED) and expiring
+            deadlines that lapsed while QUEUED."""
             while pending and pending[0].arrival_s <= t:
-                waiting.append(pending.popleft())
+                r = pending.popleft()
+                if (self.queue_limit is not None
+                        and len(waiting) >= self.queue_limit):
+                    r.mark(RequestState.REJECTED, t, reason="queue_full")
+                    continue
+                waiting.append(r)
+            if any_deadlines:
+                still = []
+                for r in waiting:
+                    if (r.deadline_s is not None
+                            and t - r.arrival_s > r.deadline_s):
+                        r.mark(RequestState.TIMED_OUT, t,
+                               reason="deadline expired while queued")
+                    else:
+                        still.append(r)
+                waiting[:] = still
 
-        while pending or waiting or active:
-            if self._stream_dead:
-                # the stream's consumer is gone: fail everything not yet
-                # terminal (typed) and empty the pool
-                self._fail_inflight(
-                    [r for r in requests if not r.state.terminal], now(),
-                    reason=self._stream_reason)
-                pending.clear()
-                waiting.clear()
-                active = {}
-                break
-            intake(now())
-            # --- admission (one batched prefill per admitted group) ---
-            while (pending or waiting) and self.pool.free_count:
+        try:
+            while pending or waiting or active:
+                if self._should_stop() and (pending or waiting):
+                    # graceful shutdown: intake stops NOW — everything not
+                    # yet holding a slot ends REJECTED (typed, so a client
+                    # can tell "shed at shutdown" from a fault) — while
+                    # active slots keep decoding to completion below
+                    t_stop = now()
+                    for r in list(pending) + waiting:
+                        r.mark(RequestState.REJECTED, t_stop,
+                               reason="shutdown: intake stopped")
+                    pending.clear()
+                    waiting.clear()
+                if self._stream_dead:
+                    # the stream's consumer is gone: fail everything not yet
+                    # terminal (typed) and empty the pool
+                    self._fail_inflight(
+                        [r for r in requests if not r.state.terminal],
+                        now(), reason=self._stream_reason)
+                    pending.clear()
+                    waiting.clear()
+                    active = {}
+                    break
+                # intake runs even when the pool is full, so bounded-queue
+                # backpressure and queued-deadline expiry act on arrival,
+                # not on the next free slot
                 intake(now())
-                if not waiting:
-                    break
-                n_admit, _ = self.scheduler.admission(
-                    active=self.pool.active_count, waiting=len(waiting),
-                    free_slots=self.pool.free_count)
-                if n_admit <= 0:
-                    break
-                want = min(n_admit, self.pool.free_count, len(waiting))
-                group, waiting[:] = waiting[:want], waiting[want:]
-                if self.prefix_cache and len(group) > 1:
-                    group, deferred = self._split_group(group)
-                    # back to the queue head: next round, the donor's pages
-                    # are published and these become radix hits
-                    waiting[0:0] = deferred
-                self._admit_group(group, now)
-                active = {s: self.pool.owner(s)
-                          for s in self.pool.active_slots()}
-
-            if not active:
-                if pending and not waiting:
-                    # sleep straight to the next arrival; a pinned test
-                    # clock (no progress over a 1 ms probe) jumps instead
-                    wait = pending[0].arrival_s - now()
-                    if wait > 0:
-                        before = now()
-                        time.sleep(min(wait, 0.001))
-                        if now() <= before:
-                            offset += wait
-                        else:
-                            rest = pending[0].arrival_s - now()
-                            if rest > 0:
-                                time.sleep(rest)
-                continue
-
-            # --- one K-token macro-step over the pool ---
-            batch_size = len(active)
-            remaining = tuple(sorted(int(self._budget[s]) for s in active))
-            override = None if self.macro_step == "auto" else self.macro_step
-            # key on the budget clipping the CostEngine applies, so repeat
-            # compositions dedupe instead of re-recording
-            cap = max(self.scheduler.macro_candidates) if override is None \
-                else override
-            key = (batch_size, tuple(min(r, cap) for r in remaining))
-            horizon, dec = self.scheduler.macro_horizon(
-                remaining, override=override,
-                record=key != self._last_macro_key)
-            self._last_macro_key = key
-            mextra = ()
-            if self.paged:
-                # grow each live slot's table to cover this macro-step's K
-                # cache writes, then upload the tables (no host sync)
-                pos = self.pool.positions()
-                for s in active:
-                    self.pool.ensure_blocks(s, int(pos[s]) + horizon)
-                mextra = (self.pool.block_tables(),)
-                self._peak_live_tokens = max(self._peak_live_tokens,
-                                             int(pos.sum()))
-                self._peak_blocks = max(self._peak_blocks,
-                                        self.pool.blocks.used_blocks)
-            t_step = time.perf_counter()
-            emitted, self.pool.state = self._macro(horizon)(
-                self.params, self.pool.state, _to_device(self._last_tok, dev),
-                _to_device(self.pool.active_mask(), dev),
-                _to_device(self._budget, dev), *mextra)
-            em = emitted.cpu().numpy()  # THE host sync for K tokens
-            dt_step = time.perf_counter() - t_step
-            self.device_dispatches += 1
-            self.host_syncs += 1
-            self.scheduler.record_measured(
-                dec, dt_step, note=f"macro K={horizon} b={batch_size}")
-            t_emit = now()
-            for slot in list(active):
-                req = active[slot]
-                n_before = len(req.tokens)
-                finished = False
-                for j in range(horizon):
-                    tk = int(em[slot, j])
-                    req.tokens.append(tk)
-                    if (tk == self.eos_id
-                            or len(req.tokens) >= req.max_new_tokens):
-                        finished = True
+                # --- admission (one batched prefill per admitted group) ---
+                while (pending or waiting) and self.pool.free_count:
+                    t = now()
+                    intake(t)
+                    if not waiting:
                         break
-                n_emitted = len(req.tokens) - n_before
-                self.pool.advance(slot, n_emitted)  # before release zeroes
-                # the macro-step's one host sync already happened: streaming
-                # this burst costs no extra device traffic
-                burst = tuple(req.tokens[n_before:])
-                if finished:
-                    req.mark(RequestState.COMPLETED, t_emit)
-                    self._release(slot)
-                    del active[slot]
-                else:
-                    self._last_tok[slot] = int(em[slot, horizon - 1])
-                    self._budget[slot] -= n_emitted
-                self._publish(req, burst, done=finished, t=t_emit)
-            self._peak_live_tokens = max(self._peak_live_tokens,
-                                         int(self.pool.positions().sum()))
+                    n_admit, _ = self.scheduler.admission(
+                        active=self.pool.active_count, waiting=len(waiting),
+                        free_slots=self.pool.free_count)
+                    if n_admit <= 0:
+                        break
+                    # stable sort: priority first, then arrival order — at
+                    # uniform priority this IS the FIFO order
+                    waiting.sort(key=lambda r: (-r.priority, r.arrival_s))
+                    group: List[Request] = []
+                    want = min(n_admit, self.pool.free_count, len(waiting))
+                    while len(group) < want and waiting:
+                        r = waiting[0]
+                        if (r.deadline_s is not None
+                                or r.ttft_deadline_s is not None):
+                            ok, _ = self.scheduler.serve_admit(
+                                r, now=t,
+                                active=self.pool.active_count + len(group),
+                                n_slots=self.pool.n_slots)
+                            if not ok:
+                                waiting.pop(0)
+                                r.mark(RequestState.REJECTED, t,
+                                       reason="deadline_infeasible")
+                                continue
+                        group.append(waiting.pop(0))
+                    if not group:
+                        continue  # everything at the head was shed
+                    if self.prefix_cache and len(group) > 1:
+                        group, deferred = self._split_group(group)
+                        # back to the queue head: next round, the donor's
+                        # pages are published and these become radix hits
+                        waiting[0:0] = deferred
+                    try:
+                        self._admit_group(group, now)
+                    except StepFailed as e:
+                        # prefill died (retries exhausted or abandoned):
+                        # fail the group AND anything in flight, drain,
+                        # keep serving
+                        self._fail_inflight(
+                            group + list(active.values()), now(),
+                            reason=f"prefill step failed: {e}",
+                            fresh=e.abandoned)
+                        active = {}
+                        continue
+                    active = {s: self.pool.owner(s)
+                              for s in self.pool.active_slots()}
+
+                # --- priority preemption: a strictly-higher-priority
+                # waiter evicts the lowest-priority active slot (the victim
+                # re-queues and later re-prefills prompt + generated, so
+                # its greedy output is unchanged).  Never fires at uniform
+                # priority: the unperturbed path skips all of it.
+                if (waiting and active and not self.pool.free_count
+                        and max(r.priority for r in waiting)
+                        > min(r.priority for r in active.values())):
+                    t = now()
+                    victim_slot = min(
+                        active, key=lambda s: (active[s].priority, -s))
+                    victim = active.pop(victim_slot)
+                    self._release(victim_slot)
+                    self._last_macro_key = None
+                    victim.preemptions += 1
+                    victim.mark(RequestState.PREEMPTED, t)
+                    victim.mark(RequestState.QUEUED, t)
+                    waiting.append(victim)
+                    continue  # admission fills the freed slot
+
+                if not active:
+                    if waiting:
+                        continue  # admission re-runs (sheds or admits)
+                    if pending:
+                        # sleep straight to the next arrival; a pinned test
+                        # clock (no progress over a 1 ms probe) jumps
+                        # instead
+                        wait = pending[0].arrival_s - now()
+                        if wait > 0:
+                            before = now()
+                            time.sleep(min(wait, 0.001))
+                            if now() <= before:
+                                offset += wait
+                            else:
+                                rest = pending[0].arrival_s - now()
+                                if rest > 0:
+                                    time.sleep(rest)
+                    continue
+
+                # --- one K-token macro-step over the pool ---
+                batch_size = len(active)
+                remaining = tuple(sorted(int(self._budget[s]) for s in active))
+                override = None if self.macro_step == "auto" \
+                    else self.macro_step
+                # key on the budget clipping the CostEngine applies, so
+                # repeat compositions dedupe instead of re-recording
+                cap = max(self.scheduler.macro_candidates) \
+                    if override is None else override
+                key = (batch_size, tuple(min(r, cap) for r in remaining))
+                horizon, dec = self.scheduler.macro_horizon(
+                    remaining, override=override,
+                    record=key != self._last_macro_key)
+                self._last_macro_key = key
+                mextra = ()
+                if self.paged:
+                    # grow each live slot's table to cover this macro-step's
+                    # K cache writes, then upload the tables (no host sync)
+                    pos = self.pool.positions()
+                    for s in active:
+                        self.pool.ensure_blocks(s, int(pos[s]) + horizon)
+                    mextra = (self.pool.block_tables(),)
+                    self._peak_live_tokens = max(self._peak_live_tokens,
+                                                 int(pos.sum()))
+                    self._peak_blocks = max(self._peak_blocks,
+                                            self.pool.blocks.used_blocks)
+                t_step = time.perf_counter()
+                macro_args = (_to_device(self._last_tok, dev),
+                              _to_device(self.pool.active_mask(), dev),
+                              _to_device(self._budget, dev), *mextra)
+
+                def thunk(cancel, _fn=self._macro(horizon),
+                          _state=self.pool.state, _args=macro_args):
+                    emitted, new_state = _fn(self.params, _state, *_args)
+                    # THE host sync for K tokens, inside the guard so the
+                    # watchdog covers device execution, not just launches
+                    return emitted.cpu().numpy(), new_state
+
+                try:
+                    em, self.pool.state = self._dispatch(
+                        "macro", thunk, list(active.values()))
+                except StepFailed as e:
+                    self._fail_inflight(list(active.values()), now(),
+                                        reason=f"macro step failed: {e}",
+                                        fresh=e.abandoned)
+                    active = {}
+                    continue
+                dt_step = time.perf_counter() - t_step
+                self.device_dispatches += 1
+                self.host_syncs += 1
+                self.scheduler.record_measured(
+                    dec, dt_step, note=f"macro K={horizon} b={batch_size}")
+                # the injected NaN fault class: NaN logits argmax to garbage
+                # tokens; the injector corrupts the host copy and the
+                # validation below (on the macro-step's host copy the engine
+                # already synced: no extra sync) catches it
+                bad_slots: set = set()
+                if self.injector is not None:
+                    em = self.injector.corrupt("macro", em, sorted(active))
+                    vocab = self.model.cfg.vocab_size
+                    bad = np.argwhere((em < 0) | (em >= vocab))
+                    bad_slots = {int(s) for s in bad[:, 0]} & set(active)
+                t_emit = now()
+                for slot in list(active):
+                    req = active[slot]
+                    if slot in bad_slots:
+                        # poison output fails THIS request; the other
+                        # slots' device state advanced normally
+                        req.mark(RequestState.FAILED, t_emit,
+                                 reason="corrupt step output (NaN logits)")
+                        self._release(slot)
+                        self._last_macro_key = None
+                        self._publish(req, (), done=True, t=t_emit)
+                        del active[slot]
+                        continue
+                    n_before = len(req.tokens)
+                    finished = False
+                    for j in range(horizon):
+                        tk = int(em[slot, j])
+                        req.tokens.append(tk)
+                        if (tk == self.eos_id
+                                or len(req.tokens) >= req.max_new_tokens):
+                            finished = True
+                            break
+                    n_emitted = len(req.tokens) - n_before
+                    self.pool.advance(slot, n_emitted)  # before release zeroes
+                    # the macro-step's one host sync already happened:
+                    # streaming this burst costs no extra device traffic
+                    burst = tuple(req.tokens[n_before:])
+                    if finished:
+                        req.mark(RequestState.COMPLETED, t_emit)
+                        self._release(slot)
+                        del active[slot]
+                    elif (any_deadlines and req.deadline_s is not None
+                          and t_emit - req.arrival_s > req.deadline_s):
+                        # deadlines are enforced at macro-step boundaries:
+                        # evict to TIMED_OUT, free the slot at once
+                        req.mark(RequestState.TIMED_OUT, t_emit,
+                                 reason="total-latency deadline exceeded "
+                                        "while decoding")
+                        self._release(slot)
+                        self._last_macro_key = None
+                        del active[slot]
+                        finished = True
+                    else:
+                        self._last_tok[slot] = int(em[slot, horizon - 1])
+                        self._budget[slot] -= n_emitted
+                    self._publish(req, burst, done=finished, t=t_emit)
+                self._peak_live_tokens = max(self._peak_live_tokens,
+                                             int(self.pool.positions().sum()))
+        except BaseException:
+            # abort safety net (fatal faults, KeyboardInterrupt, bugs):
+            # leave the ENGINE reusable — in-flight requests FAILED, the
+            # pool drained back to a valid empty state — then re-raise.
+            # PREFILLING catches a group that died inside _admit_group.
+            inflight = [r for r in requests
+                        if r.state in (RequestState.PREFILLING,
+                                       RequestState.DECODING)]
+            self._fail_inflight(inflight, now(), reason="run aborted")
+            raise
 
         return ServeReport(
             requests=list(requests), wall_s=now(), pad_id=self.pad_id,
             host_syncs=self.host_syncs - sync0,
             device_dispatches=(self.device_dispatches
                                + self.pool.dispatch_count - disp0),
+            step_retries=self.step_retries - ret0,
+            watchdog_fires=self.watchdog_fires - wd0,
             live_tokens=self._peak_live_tokens,
             reserved_blocks=self._peak_blocks,
             prefix_hit_tokens=self.prefix_hit_tokens - hit0,

@@ -8,9 +8,7 @@ the other fork-join decision sites.  The scheduler never touches
 device state; it hands verdicts to the ContinuousServeEngine, which
 executes them and attaches measured wall times back onto the ledger rows.
 
-Every ``Request`` moves through an explicit state machine (the port's
-engine drives QUEUED -> PREFILLING -> DECODING -> COMPLETED; preemption,
-deadlines and faults come with the robustness slice):
+Every ``Request`` moves through an explicit state machine:
 
     QUEUED -> PREFILLING -> DECODING -> COMPLETED
        |           |            |
@@ -37,6 +35,23 @@ import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.costs.engine import CostEngine, Decision, resolve_engine
+
+
+def _quantize_us(slack_s: Optional[float]) -> Optional[int]:
+    """Quantize a deadline slack (seconds) to two significant figures of
+    microseconds.  serve_admit CostQueries embed the slack; without
+    quantization every query is unique and the decision cache grows without
+    bound as a long-running server counts budgets down.  Negative slack
+    (already past deadline) pins to -1: one cache entry for 'hopeless'."""
+    if slack_s is None:
+        return None
+    us = slack_s * 1e6
+    if us <= 0:
+        return -1
+    exp = max(int(np.floor(np.log10(us))) - 1, 0)
+    step = 10 ** exp
+    return int(us // step) * step
+
 
 PREFILL_CHUNK_CANDIDATES = (1, 8, 16, 32, 64, 128, 256)
 # decode macro-step horizons: a FIXED candidate set (filtered, never clamped
@@ -291,6 +306,36 @@ class ServeScheduler:
             kv_bytes_per_slot=self.kv_bytes_per_slot,
             dtype_bytes=self.dtype_bytes, record=record)
         return int(dec.value), dec
+
+    def serve_admit(self, req: Request, *, now: float, active: int,
+                    n_slots: int) -> Tuple[bool, Decision]:
+        """Admission control for a deadlined request about to take a free
+        slot — the ninth decision site (CostQuery kind=serve_admit).
+
+        Queue delay already spent (``now - arrival``) has eaten into the
+        request's budgets; the sweep compares the analytic residual service
+        time (one prefill + the remaining decode steps at the post-admit
+        occupancy) against the remaining TTFT / total-latency slack and
+        SHEDS the request (typed REJECTED) when it cannot finish in time.
+        It is the one serve site that compares an absolute predicted time
+        with a budget, so the site's correction factor enters the
+        comparison; that factor learns only from measured serve_admit
+        rows, and the engine, like the reference's, records none.  Slacks
+        are quantized to two significant figures so the decision cache
+        stays bounded as a long-running server counts budgets down."""
+        slack = None if req.deadline_s is None else \
+            req.deadline_s - (now - req.arrival_s)
+        ttft_slack = None if req.ttft_deadline_s is None else \
+            req.ttft_deadline_s - (now - req.arrival_s)
+        dec = self.engine.decide_serve_admit(
+            active, n_slots=n_slots, prompt_len=req.prompt_len,
+            new_tokens=req.max_new_tokens,
+            slack_us=_quantize_us(slack), ttft_slack_us=_quantize_us(ttft_slack),
+            flops_per_token=self.flops_per_token,
+            weight_bytes=self.weight_bytes,
+            kv_bytes_per_slot=self.kv_bytes_per_slot,
+            dtype_bytes=self.dtype_bytes)
+        return bool(dec.value), dec
 
     def serve_prefix(self, prompt_len: int, *, hit_tokens: int,
                      cow_blocks: int, block_size: int,

@@ -131,12 +131,27 @@ class SlotPool:
         self._host_pos[slot] = 0
         self._free.append(slot)
 
-    def drain(self) -> None:
-        """Release every slot: zero the per-slot state and, in paged mode,
-        reclaim the WHOLE BlockPool, trie included."""
-        self.model.reset_decode_slots(self.state,
-                                      np.ones((self.n_slots,), bool))
-        self.dispatch_count += 1
+    def drain(self, fresh: bool = False) -> None:
+        """Failure-path reset: release every slot and leave a valid, empty
+        pooled state whatever the failed step left behind.  Paged mode
+        reclaims the WHOLE BlockPool, trie included.
+
+        By default the existing tensors are zeroed in place.  ``fresh=True``
+        (after a step abandoned by the watchdog, ``StepFailed(abandoned=
+        True)``) allocates new state with ``init_decode_state`` instead,
+        page pools included: the abandoned worker thread still holds the
+        old tensors and may write into them when it wakes, and it cannot
+        reach the new ones.  (The reference falls back to the same fresh
+        init when an abandoned program consumed its donated buffers.)"""
+        if fresh:
+            paging = ((self.blocks.n_blocks, self.block_size)
+                      if self.paged else None)
+            self.state = self.model.init_decode_state(
+                self.n_slots, self.max_len, per_slot=True, paging=paging)
+        else:
+            self.model.reset_decode_slots(self.state,
+                                          np.ones((self.n_slots,), bool))
+            self.dispatch_count += 1
         if self.paged:
             self.blocks.drain()
             self._table[:] = 0

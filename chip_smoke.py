@@ -140,7 +140,31 @@ Phases, one report line each (any failure exits non-zero):
      unloaded latency), serve_admit with and without the correction loop
      on a calibrated runtime, rwkv6-3b (4 layers) raise (gated) and
      preemption drills; the serve, serve_macro and serve_admit ledger
-     rows go to the JSON record.
+     rows go to the JSON record;
+ 17. the multi-process front end: full-width tinyllama-1.1b (bf16, seed
+     0, 4 slots, phase 5's trace and max_len) through Runtime(device=
+     "cuda").serve(..., frontend=2, pin=True, stream=True), dense and
+     paged (pages of 16): tokens equal phase 5's, texts the engine's
+     tokens detokenized, the stream the outputs, host syncs phase 5's and
+     (dense) the synchronizing CUDA calls of the same trace served in
+     process and streamed, measured serve_ipc rows for both ops, the
+     matmul kernel's launches counted from 0; the reference chaos bench's
+     respawn drill (intake workers killed and healed, the emission worker
+     killed and its transcript replayed) with nvidia-smi listing no
+     worker among the processes holding a context on the card; with
+     respawn=0 a killed emission worker fails what is in flight
+     ("frontend stream broken"), then the same engine serves phase 5's
+     trace again through an unpinned front end; the launcher (python -m
+     repro_torch.launch.serve ... --workers 2 --pin --stream) exits 0;
+     every worker joined at the end; recorded, not gated: the host's
+     layout, the affinity plan, the card's PCI bus id and NUMA node,
+     engine and workers pinned, spawn-to-first-pong and respawn seconds,
+     IPC messages and bytes, phase 5's calibrated IPC constants,
+     frontend="auto"'s verdict against the measured intake, tok/s in
+     process, unpinned and pinned, and phase 16's overload recipe through
+     the front end.  The calling thread's CPU mask is restored after it.
+     Before each of phases 2-17, gc.collect(): a gen-2 collection of this
+     script's heap took 0.2-0.75 s inside a timed step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
 chiprun_out/chip_smoke.json.  Exits non-zero, printing no result, where
@@ -150,6 +174,7 @@ torch.cuda.is_available() is false or the repository is missing.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -160,7 +185,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
 
 ROOT = Path(__file__).resolve().parent
 BF16_PEAK = 989e12   # H100 SXM data sheet, dense bf16 tensor cores
@@ -194,6 +218,9 @@ BASE_PHASE5_SYNCS, BASE_P1_SYNCS, BASE_P1_CUDA_SYNCS = 12, 10, (54, 55)
 DRILL_REQUESTS, DRILL_NEW = 4, 16
 STALL_WATCHDOG_S = 1.0
 OVERLOAD_REQUESTS, OVERLOAD_FACTOR, DEADLINE_X = 16, 2.0, 8.0
+# phase 17 (the multi-process front end): intake worker processes (the
+# emission worker comes with them)
+FE_WORKERS = 2
 # the indexing kernels of a decode step: a paged step's page gathers and KV
 # scatter, a dense step's cache write; the embedding lookup in both
 INDEX_KERNELS = r"index|gather|scatter"
@@ -495,6 +522,7 @@ def main() -> int:
                   wkv_build=wkv_build)
 
     # ------------------------------------------------------------------ 2
+    gc.collect()  # now, not as a gen-2 pass inside a timed step
     cfg = get_config("tinyllama-1.1b")
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
     hq, hkv, g = cfg.n_heads, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
@@ -578,6 +606,7 @@ def main() -> int:
         return 1
 
     # ------------------------------------------------------------------ 3
+    gc.collect()
     engine = CostEngine()
     paper = []
     for order in (1024, 4096, 8192):
@@ -634,6 +663,7 @@ def main() -> int:
                                   left_to_right_ms=ltr_ms)
 
     # ------------------------------------------------------------------ 4
+    gc.collect()
     sort_rows = []
     for shape, dtype_name in SORT_SHAPES:
         row = sort_case(shape, getattr(torch, dtype_name), gen, ops, ref,
@@ -680,6 +710,7 @@ def main() -> int:
                                ledger=ledger_rows)
 
     # ------------------------------------------------------------------ 5
+    gc.collect()
     rt = Runtime(device="cuda")
     model = build_model(cfg, rt.device)
     params = model.init(0)
@@ -768,6 +799,7 @@ def main() -> int:
     record["calibration"] = cal.measurements
 
     # ------------------------------------------------------------------ 6
+    gc.collect()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p_gpu = tree_map(lambda t: t.float(), params)
     p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
@@ -813,6 +845,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ 7
+    gc.collect()
     flash_rows = []
     for shape in FLASH_SHAPES:
         row = flash_case(shape, gen, ref, fa, flush)
@@ -823,6 +856,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ 8
+    gc.collect()
     parity = train_parity(cfg)
     if parity is None:
         return 1
@@ -830,6 +864,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ 9
+    gc.collect()
     record["train_matmuls"] = train_matmuls(cfg, ops, ref, flush)
     if record["train_matmuls"] is None:
         return 1
@@ -841,6 +876,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 10
+    gc.collect()
     wkv_rows = []
     for shape in WKV_SHAPES:
         row = wkv_case(shape, gen, ref, wkv_k, flush)
@@ -852,24 +888,28 @@ def main() -> int:
     rcfg = get_config("rwkv6-3b")
 
     # ----------------------------------------------------------------- 11
+    gc.collect()
     record["rwkv_card_vs_cpu"] = rwkv_card_vs_cpu(rcfg, wkv_k)
     if record["rwkv_card_vs_cpu"] is None:
         return 1
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 12
+    gc.collect()
     record["rwkv_serve"] = rwkv_serve(rcfg, LAUNCHES, wkv_k)
     if record["rwkv_serve"] is None:
         return 1
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 13
+    gc.collect()
     record["rwkv_train_parity"] = train_parity(rcfg, leaves=47)
     if record["rwkv_train_parity"] is None:
         return 1
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 14
+    gc.collect()
     rtrain = rwkv_train_phase(rcfg, wkv_k, LAUNCHES)
     if rtrain is None:
         return 1
@@ -879,6 +919,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 15
+    gc.collect()
     paged = paged_phase(cfg, rcfg, p1_want, LAUNCHES, card,
                         prof["device_events"])
     if paged is None:
@@ -887,11 +928,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 16
+    gc.collect()
     life = lifecycle_phase(cfg, rcfg, p1_want, record["serve"]["host_syncs"],
                            LAUNCHES, card)
     if life is None:
         return 1
     record["lifecycle"] = life
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- 17
+    gc.collect()
+    front = frontend_phase(cfg, p1_want, record["serve"]["host_syncs"],
+                           record["calibration"], LAUNCHES, card)
+    if front is None:
+        return 1
+    record["frontend"] = front
 
     # ---------------------------------------------------------------- out
     out_dir = ROOT / "chiprun_out"
@@ -909,6 +960,8 @@ def main() -> int:
         "launches_paged_serve": paged["p1"]["matmul_launches"],
         # phase 16's dense preemption drill, counted from 0 just before it
         "launches_lifecycle_serve": life["matmul_launches"],
+        # phase 17's dense front-end serve, counted from 0 just before it
+        "launches_frontend_serve": front["dense"]["matmul_launches"],
         # one decode step's matmul calls: the kernel in the real step, the
         # plain version on the same operands, the bound of the same work
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -3350,5 +3403,385 @@ def lifecycle_phase(cfg, rcfg, p1_want, phase5_syncs, mm_launches, card):
     return None if fails else out
 
 
+def compute_pids() -> list:
+    """Pids nvidia-smi lists as holding a CUDA context on the card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return [int(x) for x in smi.stdout.split()]
+
+
+def card_pci() -> tuple:
+    """(the card's PCI address as torch reads it, as nvidia-smi prints it,
+    the NUMA node sysfs gives that PCI function; None where sysfs has no
+    such file)."""
+    props = torch.cuda.get_device_properties(0)
+    addr = (f"{props.pci_domain_id:04x}:{props.pci_bus_id:02x}:"
+            f"{props.pci_device_id:02x}.0")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pci.bus_id", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    path = Path(f"/sys/bus/pci/devices/{addr}/numa_node")
+    try:
+        node = int(path.read_text())
+    except (OSError, ValueError):
+        node = None
+    return addr, smi.stdout.strip(), node
+
+
+def frontend_phase(cfg, p1_want, phase5_syncs, calibration, mm_launches,
+                   card):
+    """Phase 17: the multi-process front end on full-width tinyllama-1.1b
+    (bf16, seed 0, 4 slots, phase 5's trace and max_len) through
+    Runtime.serve(frontend=2, pin=True, stream=True), dense and paged, the
+    respawn drills, the launcher with --workers/--pin; the host's layout,
+    spawn and respawn times, IPC counts, tok/s in-process, unpinned and
+    pinned, serve_ipc's "auto" verdict and overload through the front end
+    recorded.  The calling thread's CPU mask is restored on the way out.
+    None on any failed gate."""
+    import multiprocessing as mp
+
+    saved_mask = os.sched_getaffinity(0)
+    try:
+        return _frontend_phase(cfg, p1_want, phase5_syncs, calibration,
+                               mm_launches, card, mp)
+    finally:
+        os.sched_setaffinity(0, saved_mask)
+
+
+def _frontend_phase(cfg, p1_want, phase5_syncs, calibration, mm_launches,
+                    card, mp):
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Runtime, synthetic_trace
+    from repro_torch.serving import Request
+    from repro_torch.serving.frontend import (FrontendConfig,
+                                              ServingFrontend, discover,
+                                              plan_affinity)
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card}
+    fails = []
+
+    def gate(ok: bool, what: str) -> bool:
+        if not ok:
+            fails.append(what)
+            log("frontend", f"FAIL: {what}")
+        return ok
+
+    rt = Runtime(device="cuda")
+    model = build_model(cfg, rt.device)
+    params = model.init(0)
+    max_len = PROMPT + MAX_NEW
+    trace = lambda: synthetic_trace(  # noqa: E731
+        REQUESTS, prompt_len=PROMPT, max_new=MAX_NEW,
+        vocab_size=cfg.vocab_size, arrival="all", seed=0)
+    kw = dict(model=model, params=params, slots=SLOTS, eos_id=-1)
+    want = {r: [int(t) for t in v] for r, v in p1_want.items()}
+    subs = [dict(rid=r.rid, prompt=[int(t) for t in r.prompt],
+                 max_new_tokens=r.max_new_tokens) for r in trace()]
+
+    def toks(rep):
+        return {r.rid: [int(t) for t in r.tokens] for r in rep.requests}
+
+    def served(res) -> dict:
+        rep = res.report
+        t = toks(rep)
+        return dict(
+            tok_per_s=res.tok_per_s, host_syncs=rep.host_syncs,
+            states=rep.state_counts(), tokens_equal_phase5=t == want,
+            texts_equal=res.texts == {r: " ".join(map(str, v))
+                                      for r, v in t.items()},
+            stream_equal=res.stream is not None and all(
+                res.stream.tokens(r) == v for r, v in t.items()),
+            ipc_messages=rep.ipc_messages, ipc_bytes=rep.ipc_bytes,
+            frontend_workers=rep.frontend_workers,
+            frontend_respawns=rep.frontend_respawns,
+            streamed_tokens=rep.streamed_tokens,
+            stream_events=rep.stream_events)
+
+    # --- the host: its layout, the plan, the card's PCI function and node
+    topo = discover()
+    plan = plan_affinity(topo, FE_WORKERS + 1)
+    bus, smi_bus, node = card_pci()
+    node_of = {c.cpu: c.node for c in topo.cpus}
+    out["host"] = dict(
+        topology=topo.describe(), source=topo.source,
+        cpu_mask=sorted(os.sched_getaffinity(0)),
+        plan_engine_cpus=sorted(plan.engine_cpus),
+        plan_worker_cpus=[sorted(m) for m in plan.worker_cpus],
+        plan_nodes=sorted({node_of[c] for c in plan.engine_cpus}),
+        pci_address=bus, pci_bus_id_smi=smi_bus, card_numa_node=node,
+        ipc_round_trip_s=calibration.get("ipc_round_trip_s"),
+        ipc_bytes_per_s=calibration.get("ipc_bytes_per_s"))
+    log("frontend", f"host {topo.describe()}, mask {len(out['host']['cpu_mask'])}"
+        f" cpus; plan: engine {out['host']['plan_engine_cpus']} (node "
+        f"{out['host']['plan_nodes']}), workers "
+        f"{out['host']['plan_worker_cpus']}; card {bus} on NUMA node {node}; "
+        f"calibrated ipc_round_trip_s {out['host']['ipc_round_trip_s']}, "
+        f"ipc_bytes_per_s {out['host']['ipc_bytes_per_s']} ({card})")
+
+    # --- in process, streamed, twice: the first run of a phase may pay a
+    # one-off synchronizing call (phase 15), so the front end is held to
+    # the second run's syncs
+    first, first_cuda = count_syncs(lambda: rt.serve(
+        cfg, trace(), stream=True, **kw))
+    inproc, in_cuda = count_syncs(lambda: rt.serve(cfg, trace(), stream=True,
+                                                   **kw))
+    out["in_process"] = {**served(inproc), "cuda_syncs": in_cuda,
+                         "first_run": dict(tok_per_s=first.tok_per_s,
+                                           cuda_syncs=first_cuda)}
+    del first
+
+    # --- the front end, pinned, dense; the kernel's launches from 0
+    torch.cuda.synchronize()
+    mm_launches.reset()
+    n0 = len(rt.ledger.entries)
+    dense, fe_cuda = count_syncs(lambda: rt.serve(
+        cfg, trace(), frontend=FE_WORKERS, pin=True, stream=True, **kw))
+    torch.cuda.synchronize()
+    launches = mm_launches.count
+    ipc = [e for e in rt.ledger.entries[n0:] if e.site == "serve_ipc"]
+    out["dense"] = {**served(dense), "cuda_syncs": fe_cuda,
+                    "matmul_launches": launches,
+                    "mask_after": sorted(os.sched_getaffinity(0)),
+                    "serve_ipc": ledger_rows(rt.ledger, ("serve_ipc",))[
+                        -len(ipc):] if ipc else []}
+    d = out["dense"]
+    log("frontend", f"dense, frontend={FE_WORKERS} pinned, streamed: "
+        f"{d['tok_per_s']:.2f} tok/s (in process {inproc.tok_per_s:.2f}, "
+        f"first run {out['in_process']['first_run']['tok_per_s']:.2f} with "
+        f"{first_cuda} synchronizing CUDA calls); "
+        f"tokens == phase 5 {d['tokens_equal_phase5']}, texts "
+        f"{d['texts_equal']}, stream {d['stream_equal']}; host syncs "
+        f"{d['host_syncs']} (phase 5 {phase5_syncs}); synchronizing CUDA "
+        f"calls {fe_cuda} (in process, streamed {in_cuda}); IPC "
+        f"{d['ipc_messages']} messages, {d['ipc_bytes']} bytes; matmul "
+        f"launches {launches}; serve_ipc rows "
+        f"{[(e.query.get('op'), e.choice, e.predicted_s, e.measured_s, e.note) for e in ipc]} ({card})")
+    gate(d["tokens_equal_phase5"] and d["texts_equal"] and d["stream_equal"]
+         and d["frontend_workers"] == FE_WORKERS and launches > 0,
+         "dense front end: phase 5's tokens, texts and stream")
+    gate(d["host_syncs"] == phase5_syncs and fe_cuda == in_cuda,
+         "dense front end: phase 5's host syncs, the in-process run's CUDA "
+         "syncs")
+    gate({e.query.get("op") for e in ipc if e.measured_s is not None}
+         == {"workers", "coalesce"},
+         "both serve_ipc ops have predicted and measured rows")
+    gate(out["in_process"]["tokens_equal_phase5"],
+         "in process, streamed: phase 5's tokens")
+
+    # --- the front end, pinned, paged
+    paged, paged_cuda = count_syncs(lambda: rt.serve(
+        cfg, trace(), frontend=FE_WORKERS, pin=True, stream=True, paged=True,
+        block_size=PAGE, **kw))
+    out["paged"] = {**served(paged), "cuda_syncs": paged_cuda}
+    p = out["paged"]
+    log("frontend", f"paged (pages of {PAGE}), frontend={FE_WORKERS} pinned,"
+        f" streamed: {p['tok_per_s']:.2f} tok/s; tokens == phase 5 "
+        f"{p['tokens_equal_phase5']}, texts {p['texts_equal']}, stream "
+        f"{p['stream_equal']}; host syncs {p['host_syncs']}; synchronizing "
+        f"CUDA calls {paged_cuda}; IPC {p['ipc_messages']} messages, "
+        f"{p['ipc_bytes']} bytes ({card})")
+    gate(p["tokens_equal_phase5"] and p["texts_equal"] and p["stream_equal"]
+         and p["host_syncs"] == phase5_syncs,
+         "paged front end: phase 5's tokens, texts, stream and host syncs")
+
+    # --- frontend="auto": the verdict, against the intake measured above
+    sched = dense.engine.scheduler
+    rows = [e for e in ipc if e.query.get("op") == "workers"]
+    w, dec = sched.serve_ipc_workers(
+        REQUESTS, msg_bytes=rows[0].query["msg_bytes"] if rows else 0,
+        prompt_len=PROMPT)
+    out["auto"] = dict(
+        workers=w, choice=dec.choice, predicted_s=dec.predicted_s,
+        alternatives={a.strategy: a.total for a in dec.alternatives},
+        measured_intake_s=[e.measured_s for e in rows],
+        measured_workers=FE_WORKERS)
+    log("frontend", f'frontend="auto" verdict (recorded): {out["auto"]} '
+        f"({card})")
+
+    # --- the respawn drill (the reference chaos bench's): intake workers
+    # killed and healed, the emission worker killed and its log replayed;
+    # no worker may hold a CUDA context
+    pids_before = compute_pids()
+    fe = ServingFrontend(FrontendConfig(workers=FE_WORKERS, pin=True,
+                                        respawn=2), max_len=max_len)
+    fe.start()
+    try:
+        kids = {p.pid for p in fe._intake_procs} | {fe._emit_proc.pid}
+        pids_during = compute_pids()
+        drill = dict(spawn_s=fe.spawn_s, ping_round_trips_s=list(
+            fe.ping_round_trips_s), engine_pinned=fe.engine_pinned,
+            workers_pinned=fe.workers_pinned,
+            engine_mask=sorted(os.sched_getaffinity(0)))
+        ok, bad = fe.submit(subs)
+        fe.kill_intake_workers()
+        ok2, bad2 = fe.submit(subs)
+        intake_respawns = fe.respawns
+        stream = fe.stream()
+        stream.publish("b0", (11, 12), False, 0.0)
+        stream.publish("b1", (21,), False, 0.0)
+        fe.kill_emission_worker()
+        stream.publish("b0", (13,), True, 0.1)  # respawn + replay here
+        stream.publish("b1", (22,), True, 0.1)
+        kids |= {p.pid for p in fe._intake_procs} | {fe._emit_proc.pid}
+        pids_respawned = compute_pids()
+        transcript = fe.finish()
+        drill.update(
+            validated=[len(ok), len(ok2)], failures=[bad, bad2],
+            intake_respawns=intake_respawns, respawns=fe.respawns,
+            respawn_s=list(fe.respawn_s), workers_pinned_after=fe.workers_pinned,
+            transcript={r: v["tokens"] for r, v in transcript.items()},
+            ipc_messages=fe.ipc_messages, ipc_bytes=fe.ipc_bytes,
+            compute_pids=dict(before=pids_before, during=pids_during,
+                              respawned=pids_respawned, parent=os.getpid(),
+                              workers=sorted(kids)))
+    finally:
+        fe.close()
+    out["drill"] = drill
+    log("frontend", f"respawn drill: spawn to first pong {drill['spawn_s']:.3f}"
+        f" s, respawns {drill['respawns']} in "
+        f"{[round(s, 3) for s in drill['respawn_s']]} s, engine pinned "
+        f"{drill['engine_pinned']} to {drill['engine_mask']}, workers pinned "
+        f"{drill['workers_pinned']}; nvidia-smi compute pids "
+        f"{drill['compute_pids']} ({card})")
+    gate(drill["validated"] == [REQUESTS, REQUESTS]
+         and not any(drill["failures"])
+         and intake_respawns == FE_WORKERS
+         and drill["respawns"] == FE_WORKERS + 1
+         and drill["transcript"] == {"b0": [11, 12, 13], "b1": [21, 22]},
+         "respawn drill: intake healed, the emission transcript replayed")
+    gate(not kids & set(pids_during + pids_respawned)
+         and len(pids_during) == len(pids_respawned) == len(pids_before),
+         "while the workers live, only the parent holds a CUDA context")
+
+    # --- respawn=0: a killed emission worker fails what is in flight; the
+    # same engine then serves phase 5's trace again, through an unpinned
+    # front end (its tok/s: the front end unpinned)
+    eng = dense.engine
+    coalesce = max((int(e.choice.rsplit("c", 1)[1]) for e in ipc
+                    if e.query.get("op") == "coalesce"), default=1)
+    fe0 = ServingFrontend(FrontendConfig(workers=FE_WORKERS, respawn=0),
+                          max_len=max_len)
+    fe0.start()
+    try:
+        eng.stream = fe0.stream()
+        fe0.kill_emission_worker()
+        rep0 = eng.run([Request(r.rid, r.prompt, DRILL_NEW)
+                        for r in trace()[:DRILL_REQUESTS]],
+                       now_fn=lambda: 0.0)
+    finally:
+        eng.stream = None
+        fe0.close()
+    fe1 = ServingFrontend(FrontendConfig(workers=FE_WORKERS,
+                                         coalesce=coalesce),
+                          max_len=max_len)
+    fe1.start()
+    try:
+        ok, bad = fe1.submit(subs)
+        eng.stream = fe1.stream()
+        rep1 = eng.run(trace())
+        eng.stream.close()
+        transcript = fe1.finish()
+    finally:
+        eng.stream = None
+        fe1.close()
+    out["no_respawn"] = dict(
+        states=rep0.state_counts(),
+        reasons=sorted({r.reason for r in rep0.requests}),
+        again_states=rep1.state_counts(),
+        again_tokens_equal_phase5=toks(rep1) == want,
+        again_transcript_equal={r: v["tokens"] for r, v in
+                                transcript.items()} == toks(rep1),
+        unpinned_tok_per_s=rep1.tok_per_s, coalesce=coalesce,
+        validated=len(ok), failures=bad)
+    n = out["no_respawn"]
+    log("frontend", f"respawn=0, emission worker killed: {n['states']} "
+        f"{n['reasons']}; the same engine again through an unpinned front "
+        f"end: {n['again_states']}, tokens == phase 5 "
+        f"{n['again_tokens_equal_phase5']}, transcript "
+        f"{n['again_transcript_equal']}, {n['unpinned_tok_per_s']:.2f} tok/s "
+        f"({card})")
+    gate(n["states"] == {"FAILED": DRILL_REQUESTS}
+         and all("frontend stream broken" in (r or "") for r in n["reasons"]),
+         "respawn=0: a dead emission worker fails what is in flight")
+    gate(n["again_tokens_equal_phase5"] and n["again_transcript_equal"]
+         and n["validated"] == REQUESTS and not n["failures"],
+         "respawn=0: the same engine then serves phase 5's trace")
+    out["tok_per_s"] = dict(in_process=inproc.tok_per_s,
+                            unpinned=rep1.tok_per_s, pinned=dense.tok_per_s)
+    del eng, paged, dense
+
+    # --- the launcher: --workers 2 --pin --stream
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "tinyllama-1.1b", "--requests", "4", "--max-new", "8", "--slots",
+           "4", "--engine", "continuous", "--eos-id", "-1", "--workers",
+           str(FE_WORKERS), "--pin", "--stream"]
+    t0 = time.perf_counter()
+    ls = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                        cwd=ROOT, env=dict(os.environ,
+                                           PYTHONPATH=str(ROOT / "src")))
+    lines = [ln.strip() for ln in ls.stdout.splitlines()
+             if ln.strip().startswith(("states ", "frontend: "))]
+    out["launcher"] = dict(cmd=" ".join(cmd[1:]), rc=ls.returncode,
+                           wall_s=time.perf_counter() - t0, lines=lines,
+                           stdout=ls.stdout[-3000:], stderr=ls.stderr[-2000:])
+    log("frontend", f"launcher: exit {ls.returncode} in "
+        f"{out['launcher']['wall_s']:.1f} s; {lines}")
+    gate(ls.returncode == 0 and "states {'COMPLETED': 4}" in lines
+         and any(ln.startswith(f"frontend: {FE_WORKERS} intake")
+                 for ln in lines),
+         "the launcher with --workers --pin --stream exits 0")
+
+    # --- recorded: phase 16's overload recipe through the front end (the
+    # reference stress bench's own), unloaded = the in-process run above
+    base_rep = inproc.report
+    lat = [r.latency_s for r in base_rep.requests if r.latency_s is not None]
+    del inproc
+    mean_latency = float(np.mean(lat))
+    service_rate = REQUESTS / base_rep.wall_s
+    deadline_ms = DEADLINE_X * mean_latency * 1e3
+    rate = OVERLOAD_FACTOR * service_rate
+    over = rt.serve(cfg, synthetic_trace(
+        OVERLOAD_REQUESTS, prompt_len=PROMPT, max_new=MAX_NEW,
+        vocab_size=cfg.vocab_size, arrival="poisson", rate=rate, seed=1),
+        queue_limit=2 * SLOTS, deadline_ms=deadline_ms,
+        watchdog_ms=max(5000.0, 10 * deadline_ms), frontend=FE_WORKERS,
+        stream=True, max_len=max_len, **kw)
+    rep_o = over.report
+    done = [r for r in rep_o.requests if r.state.value == "COMPLETED"]
+    goodput = sum(len(r.tokens) for r in done) / rep_o.wall_s
+    ttft = rep_o.ttft_percentiles()
+    out["overload"] = dict(
+        unloaded_tok_per_s=base_rep.tok_per_s,
+        unloaded_mean_latency_s=mean_latency, service_rate_rps=service_rate,
+        rate_rps=rate, deadline_ms=deadline_ms, queue_limit=2 * SLOTS,
+        states=rep_o.state_counts(), completed_frac=len(done) /
+        OVERLOAD_REQUESTS, goodput_tok_per_s=goodput,
+        goodput_over_unloaded=goodput / base_rep.tok_per_s,
+        ttft_p99_s=ttft["ttft_p99"],
+        ttft_p99_over_unloaded_latency=ttft["ttft_p99"] / mean_latency,
+        ipc_messages=rep_o.ipc_messages, ipc_bytes=rep_o.ipc_bytes,
+        wall_s=rep_o.wall_s, all_terminal=rep_o.all_terminal)
+    log("frontend", f"overload through the front end (recorded): "
+        f"{out['overload']} ({card})")
+    gate(rep_o.all_terminal and done,
+         "overload: every request terminal, at least one completed")
+    del over, model, params
+    torch.cuda.empty_cache()
+
+    alive = mp.active_children()
+    gate(not alive, f"every front end closed, its workers joined: {alive}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["fails"] = fails
+    log("frontend", f"phase 17 wall {out['wall_s']:.1f} s; "
+        f"{len(fails)} failed gates ({card})")
+    return None if fails else out
+
+
 if __name__ == "__main__":
+    # torch is imported here, not with the module: the front end's spawned
+    # workers (phase 17) re-import this file, and need none of it
+    import torch
+
     sys.exit(main())

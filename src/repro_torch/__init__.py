@@ -53,6 +53,7 @@ __all__ = [
     "RequestState",
     "InvalidRequestError",
     "ServeReport",
+    "FrontendConfig",
     "TokenStream",
     # serving faults (drills and the guarded device step)
     "FaultInjector",
@@ -97,6 +98,7 @@ _EXPORTS = {
     "RequestState": "repro_torch.serving",
     "InvalidRequestError": "repro_torch.serving",
     "ServeReport": "repro_torch.serving",
+    "FrontendConfig": "repro_torch.serving",
     "TokenStream": "repro_torch.serving",
     "FaultInjector": "repro_torch.serving",
     "FaultSpec": "repro_torch.serving",

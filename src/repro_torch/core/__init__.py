@@ -8,23 +8,44 @@ sort.py       — the paper's sort domain (the serial path, on torch.sort or
                 the port's bitonic sort kernel)
 dependency.py — torch.fx dependency analysis (available parallelism)
 planner.py    — per-layer shard-or-replicate plan and HBM check (one GPU)
+
+Names resolve lazily, as in ``repro_torch``: the serving scheduler (which
+a spawned front-end worker imports to validate requests) reaches
+``core.costs`` without loading the torch-backed modules beside it.
 """
 
-from repro_torch.core.costs import (  # noqa: F401
-    CostBreakdown,
-    CostEngine,
-    CostQuery,
-    Decision,
-    OverheadLedger,
-    OverheadModel,
-    resolve_engine,
-)
-from repro_torch.core.dispatch import (  # noqa: F401
-    adaptive_matmul,
-    decide_matmul,
-    fork_join,
-    matmul_chain,
-)
-from repro_torch.core.sort import distributed_sort  # noqa: F401
-from repro_torch.core.dependency import analyze_dependencies  # noqa: F401
-from repro_torch.core.planner import Plan, plan_model  # noqa: F401
+_EXPORTS = {
+    "CostBreakdown": "repro_torch.core.costs",
+    "CostEngine": "repro_torch.core.costs",
+    "CostQuery": "repro_torch.core.costs",
+    "Decision": "repro_torch.core.costs",
+    "OverheadLedger": "repro_torch.core.costs",
+    "OverheadModel": "repro_torch.core.costs",
+    "resolve_engine": "repro_torch.core.costs",
+    "adaptive_matmul": "repro_torch.core.dispatch",
+    "decide_matmul": "repro_torch.core.dispatch",
+    "fork_join": "repro_torch.core.dispatch",
+    "matmul_chain": "repro_torch.core.dispatch",
+    "distributed_sort": "repro_torch.core.sort",
+    "analyze_dependencies": "repro_torch.core.dependency",
+    "Plan": "repro_torch.core.planner",
+    "plan_model": "repro_torch.core.planner",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(
+            f"module 'repro_torch.core' has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value  # cache: subsequent lookups skip __getattr__
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

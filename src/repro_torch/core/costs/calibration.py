@@ -26,6 +26,9 @@ directory, never beside the reference package's.
 A measurement needs the card: asked for any other device, calibration
 raises instead of timing the CPU.  A probe that does not apply (the
 collectives on one GPU) returns None and the field keeps its base value.
+torch is imported where a probe runs, not with the module: the CostEngine
+imports this module, and so does a spawned front-end worker that
+validates requests through the serving scheduler.
 """
 
 from __future__ import annotations
@@ -37,14 +40,14 @@ import time
 from pathlib import Path
 from typing import Optional
 
-import torch
-
 from repro_torch.hw import H100, HardwareSpec
 
 _SCHEMA_VERSION = 1
 
 
-def _require_cuda(device) -> torch.device:
+def _require_cuda(device) -> "torch.device":
+    import torch
+
     dev = torch.device(device)
     if dev.type != "cuda":
         raise RuntimeError(f"calibration times the GPU and needs a CUDA "
@@ -57,6 +60,8 @@ def _require_cuda(device) -> torch.device:
 
 def backend_fingerprint(device="cuda") -> str:
     """Stable id of the running card: what the calibration cache keys on."""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda":
         parts = ("cuda", torch.cuda.get_device_name(dev),
@@ -88,9 +93,11 @@ def _timeit(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps
 
 
-def _time_events(fn, reps: int, device: torch.device) -> float:
+def _time_events(fn, reps: int, device: "torch.device") -> float:
     """Device seconds per call from CUDA events around ``reps`` calls,
     after one warm-up call."""
+    import torch
+
     fn()
     torch.cuda.synchronize(device)
     start = torch.cuda.Event(enable_timing=True)
@@ -106,12 +113,16 @@ def _time_events(fn, reps: int, device: torch.device) -> float:
 def _measure_launch_latency(device, reps: int = 200) -> float:
     """Seconds per launch of a trivial kernel, back to back — the measured
     analogue of the paper's thread-creation overhead."""
+    import torch
+
     x = torch.zeros((8,), dtype=torch.float32, device=device)
     return _time_events(lambda: x.add_(1.0), reps, device)
 
 
 def _measure_memory_bw(device, nbytes: int = 1 << 28, reps: int = 10) -> float:
     """Effective bytes/s of a read + write sweep over ``nbytes``."""
+    import torch
+
     x = torch.ones((nbytes // 4,), dtype=torch.float32, device=device)
     y = torch.empty_like(x)
     dt = _time_events(lambda: torch.mul(x, 2.0, out=y), reps, device)
@@ -119,11 +130,15 @@ def _measure_memory_bw(device, nbytes: int = 1 << 28, reps: int = 10) -> float:
 
 
 def _measure_matmul_flops(device, order: int = 1024, reps: int = 10,
-                          dtype: torch.dtype = torch.float32) -> float:
-    """Achieved FLOP/s of the port's matmul kernel at an order^3 product."""
+                          dtype: str = "float32") -> float:
+    """Achieved FLOP/s of the port's matmul kernel at an order^3 product
+    in ``dtype`` (a torch dtype's name)."""
+    import torch
+
     from repro_torch.kernels import ops
 
-    a = torch.ones((order, order), dtype=dtype, device=device)
+    a = torch.ones((order, order), dtype=getattr(torch, dtype),
+                   device=device)
     dt = _time_events(lambda: ops.matmul(a, a), reps, device)
     return 2.0 * order**3 / max(dt, 1e-12)
 
@@ -131,6 +146,8 @@ def _measure_matmul_flops(device, order: int = 1024, reps: int = 10,
 def _measure_host_sync(device, reps: int = 50) -> float:
     """Wall seconds of one device->host round trip on a tiny READY tensor —
     the per-macro-step tax the serve horizon amortizes over K tokens."""
+    import torch
+
     y = torch.zeros((8,), dtype=torch.float32, device=device) + 1.0
     torch.cuda.synchronize(device)
     return _timeit(lambda: y[0].item(), reps)
@@ -190,6 +207,8 @@ def _measure_ipc(small_reps: int = 200, large_reps: int = 5,
 
 
 def _cross_device_sum(nbytes: int):
+    import torch
+
     n = torch.cuda.device_count()
     xs = [torch.ones((max(nbytes // 4, 1),), dtype=torch.float32,
                      device=f"cuda:{i}") for i in range(n)]
@@ -204,6 +223,8 @@ def _cross_device_sum(nbytes: int):
 def _measure_collective_base(reps: int = 20) -> Optional[float]:
     """Wall seconds of a tiny reduction across every GPU; None with fewer
     than 2 GPUs."""
+    import torch
+
     if torch.cuda.device_count() < 2:
         return None
     return _timeit(_cross_device_sum(4 * torch.cuda.device_count()), reps)
@@ -215,6 +236,8 @@ def _measure_interconnect_bw(nbytes: int = 1 << 26, reps: int = 5,
     GPU, inverted through the ring all-reduce model ``collective_time``
     charges (2·(c-1)/c · bytes over ici_links/2 links).  None with fewer
     than 2 GPUs."""
+    import torch
+
     c = torch.cuda.device_count()
     if c < 2:
         return None
@@ -254,9 +277,9 @@ PROBES = {
     "prefix_lookup_s": lambda base, order, dev: _measure_prefix_lookup(),
     "hbm_bw": lambda base, order, dev: _measure_memory_bw(dev),
     "peak_flops_f32": lambda base, order, dev: _measure_matmul_flops(
-        dev, order, dtype=torch.float32),
+        dev, order, dtype="float32"),
     "peak_flops_bf16": lambda base, order, dev: _measure_matmul_flops(
-        dev, order, dtype=torch.bfloat16),
+        dev, order, dtype="bfloat16"),
     "collective_base_s": lambda base, order, dev: _measure_collective_base(),
     "ici_bw_per_link": lambda base, order, dev: _measure_interconnect_bw(
         links=base.ici_links),
@@ -268,6 +291,8 @@ def run_probe_fields(fields, base: HardwareSpec = H100, *,
     """Run the probes for ``fields`` on ``device``.  A field with no probe
     is skipped; a probe that does not apply reports None so the caller
     keeps the current value for that field."""
+    import torch
+
     dev = _require_cuda(device)
     probes = {}
     for name in fields:

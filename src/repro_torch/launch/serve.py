@@ -4,9 +4,13 @@
 Builds a request trace (all at once, staggered, or Poisson arrivals) with
 ``repro_torch.synthetic_trace``, runs it through the chosen engine(s), and
 reports per-request lifecycle (state, reason, queue wait, TTFT, latency),
-aggregate throughput, and the serve slice of the Runtime's overhead ledger
-(every admission / prefill-chunk / decode-horizon / admit / prefix
-decision, predicted against measured).
+aggregate throughput, the front end's IPC counts, and the serve slice of
+the Runtime's overhead ledger (every admission / prefill-chunk /
+decode-horizon / admit / prefix / IPC decision, predicted against
+measured).  ``--workers`` puts request intake and token emission in
+worker processes (the multi-process front end; ``--stream`` then defaults
+on), ``--pin`` pins the engine thread and the workers to whole physical
+cores.
 
 Runs on the GPU (``cuda``) unless ``--device cpu`` asks for the plain
 PyTorch path on the CPU; without a card and without ``--device cpu`` it
@@ -29,6 +33,11 @@ Usage:
       --reduced --device cpu --requests 8 --prompt-len 8 --max-new 8 \\
       --slots 1 --arrival all --engine continuous --paged --block-size 4 \\
       --prefix-cache force --prefix-share 1.0 --prefix-len 6
+
+  # the multi-process front end: 2 pinned intake workers + the emission
+  # worker, tokens streamed
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --reduced --device cpu --workers 2 --pin --stream
 """
 
 from __future__ import annotations
@@ -39,21 +48,21 @@ import signal
 import sys
 import threading
 
-from repro_torch.configs import get_config
-from repro_torch.models import build_model
-from repro_torch.runtime import Runtime, RuntimeConfig, synthetic_trace
-
 # options of the reference's launcher that belong to slices of the port
 # not taken yet: each fails at argument parsing, never silently ignored
 LATER_SLICES = {
     "--mesh": "multi-GPU serving (the serve mesh)",
     "--serve-shard": "multi-GPU serving (the serve_shard decision)",
-    "--workers": "the multi-process front end",
-    "--pin": "the multi-process front end (topology pinning)",
 }
 
 
 def main(argv=None):
+    # imported here, not with the module: the front end's spawned workers
+    # re-import the main module, and need none of these (nor torch)
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Runtime, RuntimeConfig, synthetic_trace
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -112,10 +121,20 @@ def main(argv=None):
     ap.add_argument("--prefix-len", type=int, default=0,
                     help="length of the shared prefix in tokens "
                          "(0 < prefix_len < prompt_len)")
+    ap.add_argument("--workers", default=None,
+                    help="multi-process front end: 'auto' asks the "
+                         "serve_ipc CostQuery (may decide inline), an int "
+                         "pins that many intake workers (continuous engine "
+                         "only)")
+    ap.add_argument("--pin", action="store_true",
+                    help="pin the engine thread to a reserved physical "
+                         "core and the front-end workers to the remaining "
+                         "cores (degrades gracefully without "
+                         "sched_setaffinity)")
     ap.add_argument("--stream", action="store_true",
                     help="per-request incremental token streams at "
-                         "macro-step boundaries; prints TTFT from the "
-                         "stream stamps")
+                         "macro-step boundaries (default on when --workers "
+                         "is set); prints TTFT from the stream stamps")
     ap.add_argument("--corrections", action="store_true",
                     help="enable the online correction loop: per-site "
                          "multiplicative factors learned from measured "
@@ -123,12 +142,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the GPU")
     for flag, slice_name in LATER_SLICES.items():
-        if flag == "--pin":
-            ap.add_argument(flag, action="store_true",
-                            help=f"not in the port yet: {slice_name}")
-        else:
-            ap.add_argument(flag, default=None,
-                            help=f"not in the port yet: {slice_name}")
+        ap.add_argument(flag, default=None,
+                        help=f"not in the port yet: {slice_name}")
     args = ap.parse_args(argv)
 
     for flag, slice_name in LATER_SLICES.items():
@@ -163,8 +178,26 @@ def main(argv=None):
         if not 0 < args.prefix_len < args.prompt_len:
             ap.error(f"--prefix-len must be in (0, prompt_len="
                      f"{args.prompt_len}), got {args.prefix_len}")
-    if args.stream and args.engine == "static":
-        ap.error("--stream needs --engine continuous")
+    frontend = None
+    if args.workers is not None:
+        # the reference refuses --workers unless --engine continuous; the
+        # port runs it with --engine both too (the static baseline stays
+        # in-process), as it does --pin and --stream
+        if args.engine == "static":
+            ap.error("--workers needs the continuous engine (the front end "
+                     "feeds its request lifecycle)")
+        if args.workers == "auto":
+            frontend = "auto"
+        else:
+            try:
+                frontend = int(args.workers)
+            except ValueError:
+                ap.error(f"--workers must be 'auto' or an int, "
+                         f"got {args.workers!r}")
+            if frontend < 1:
+                ap.error(f"--workers must be >= 1, got {frontend}")
+    if (args.pin or args.stream) and args.engine == "static":
+        ap.error("--pin/--stream need --engine continuous")
 
     if args.max_len is None:
         args.max_len = args.prompt_len + args.max_new
@@ -228,6 +261,8 @@ def main(argv=None):
                 inject_fault=args.inject_fault, watchdog_ms=args.watchdog_ms,
                 paged=args.paged and mode == "continuous",
                 block_size=args.block_size, prefix_cache=prefix_cache,
+                frontend=frontend if mode == "continuous" else None,
+                pin=args.pin,
                 stop_event=stop_event if mode == "continuous" else None,
                 stream=(True if args.stream and mode == "continuous"
                         else "auto")))
@@ -260,6 +295,13 @@ def main(argv=None):
                       f"(rate {res.report.prefix_hit_rate:.2f}), "
                       f"prefilled {res.report.prefilled_tokens}, "
                       f"CoW {res.report.cow_count}")
+            if res.report.frontend_workers:
+                print(f"    frontend: {res.report.frontend_workers} intake "
+                      f"workers, IPC {res.report.ipc_messages} msgs / "
+                      f"{res.report.ipc_bytes} B, streamed "
+                      f"{res.report.streamed_tokens} tokens in "
+                      f"{res.report.stream_events} bursts, respawns "
+                      f"{res.report.frontend_respawns}")
             if res.stream is not None:
                 ttft = res.report.ttft_percentiles()
                 print(f"    stream TTFT p50 {ms(ttft['ttft_p50'])} "
@@ -283,7 +325,7 @@ def main(argv=None):
 
     serve_rows = [e for e in rt.ledger.entries
                   if e.site in ("serve", "serve_macro", "serve_admit",
-                                "serve_prefix")]
+                                "serve_prefix", "serve_ipc")]
     measured = [e for e in serve_rows if e.measured_s is not None]
     print(f"serve ledger: {len(serve_rows)} decisions, "
           f"{len(measured)} with measured wall time")
@@ -293,6 +335,7 @@ def main(argv=None):
         op = e.query.get("op", {"serve_macro": "macro_horizon",
                                 "serve_admit": "serve_admit",
                                 "serve_prefix": "serve_prefix",
+                                "serve_ipc": "serve_ipc",
                                 }.get(e.site, "?"))
         meas = f"{e.measured_s:.3e}s" if e.measured_s is not None else "-"
         print(f"    {op:14s} {e.choice:14s} "

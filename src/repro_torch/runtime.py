@@ -23,9 +23,10 @@ everything it drives.  ``RuntimeConfig(corrections=True)`` closes the
 ledger loop (per-site correction factors learned from measured rows,
 persisted with the calibration), and ``Runtime.serve`` takes the
 reference's robustness options (bounded queue, deadlines, injected faults
-under a watchdog, graceful stop).  Meshes (planning, training or serving
-over several GPUs), ``Runtime.bench`` and the multi-process front end of
-the reference's ``Runtime.serve`` come with later slices of the port.
+under a watchdog, graceful stop) and its multi-process front end (pinned
+intake and emission worker processes, the ``serve_ipc`` decisions).
+Meshes (planning, training or serving over several GPUs) and
+``Runtime.bench`` come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -147,6 +148,7 @@ class ServeResult:
     report: Any = None  # serving.ServeReport (continuous mode)
     engine: Any = None  # the serve engine, reusable for follow-up traces
     stream: Any = None  # serving.frontend.TokenStream (when streaming)
+    texts: Optional[Dict[str, str]] = None  # rid -> detok text (front end)
 
 
 def synthetic_trace(n_requests: int, *, prompt_len: int, max_new: int,
@@ -361,8 +363,8 @@ class Runtime:
               watchdog_ms: Optional[float] = None, max_retries: int = 2,
               paged: bool = False, block_size: int = 16,
               kv_blocks: Optional[int] = None, prefix_cache="auto",
-              stream="auto", stop_event=None,
-              now_fn=time.perf_counter) -> ServeResult:
+              frontend=None, stream="auto", pin: bool = False,
+              stop_event=None, now_fn=time.perf_counter) -> ServeResult:
         """Run a request ``trace`` (a list of ``repro_torch.Request``).
 
         ``continuous`` is the slot-pooled engine scheduled by this
@@ -394,11 +396,27 @@ class Runtime:
         per-slot block tables, and ``prefix_cache`` controls radix prefix
         reuse at admission (``"auto"``: the serve_prefix CostQuery decides
         per prompt; ``"force"`` pins reuse on; ``False`` keeps no trie).
-        ``stream`` attaches a per-request incremental token stream fed at
-        the macro-step boundaries the engine already synchronizes on (no
-        added device syncs): ``True`` makes a ``TokenStream``, an instance
-        is used as it is, ``"auto"`` is off (the port has no front end to
-        turn it on); ``ServeResult.stream`` holds it.
+
+        Front end + streaming (continuous mode only): ``frontend`` moves
+        request intake (validation + pre-processing) and token emission
+        (detokenization) into worker PROCESSES off the engine thread,
+        spawned after warmup and stopped before this returns.
+        ``frontend="auto"`` lets the ``serve_ipc`` CostQuery (the eleventh
+        decision site) choose between inline intake and 1/2/4 workers; an
+        int pins the worker count (still priced and ledgered); a
+        ``FrontendConfig`` pins every knob.  ``pin`` requests
+        topology-aware CPU affinity (the calling thread on a reserved
+        physical core for the run, workers on the other cores; hosts
+        without ``sched_setaffinity`` run unpinned).  ``stream`` attaches
+        a per-request incremental token stream fed at the macro-step
+        boundaries the engine already synchronizes on (no added device
+        syncs): ``True`` makes one, an instance is used as it is,
+        ``"auto"`` is on exactly when a front end is on;
+        ``ServeResult.stream`` holds it.  Token generation never leaves
+        the engine process, so front-end output is token-identical by
+        construction, and the emission worker's transcript is checked
+        against the engine's tokens (``FrontendError`` on any difference);
+        ``ServeResult.texts`` holds its detokenized texts.
 
         ``static`` is the lockstep baseline: the batch forms at the last
         arrival and every request's latency includes that wait; it requires
@@ -410,7 +428,12 @@ class Runtime:
         from repro_torch.serving import ContinuousServeEngine, ServeEngine
         from repro_torch.serving.engine import emitted_count
         from repro_torch.serving.faults import FaultInjector, FaultSpec
-        from repro_torch.serving.frontend import TokenStream
+        from repro_torch.serving.frontend import (FrontendConfig,
+                                                  FrontendError,
+                                                  ServingFrontend,
+                                                  StreamBroken, TokenStream)
+        from repro_torch.serving.frontend.workers import _pickled_size
+        from repro_torch.serving.scheduler import RequestState
 
         if not trace:
             raise ValueError("serve() needs a non-empty trace of Requests")
@@ -447,10 +470,24 @@ class Runtime:
             raise ValueError(
                 "paged KV needs the slot pool of mode='continuous'; the "
                 "static lockstep baseline keeps dense per-row caches")
+        if mode == "static" and frontend is not None:
+            raise ValueError(
+                "the multi-process front end feeds the continuous engine's "
+                "request lifecycle; mode='static' has no admission to take "
+                "off the engine thread")
         if mode == "static" and stream not in ("auto", False, None):
             raise ValueError(
                 "token streaming needs the macro-step boundaries of "
                 "mode='continuous'; the static baseline emits one matrix")
+        if frontend is not None and not (
+                frontend == "auto" or isinstance(frontend, int)
+                or isinstance(frontend, FrontendConfig)):
+            raise ValueError(
+                f"frontend must be None, 'auto', an int worker count or a "
+                f"FrontendConfig, got {frontend!r}")
+        if isinstance(frontend, int) and frontend < 1:
+            raise ValueError(f"frontend worker count must be >= 1, "
+                             f"got {frontend}")
         if paged and block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if model is None:
@@ -510,19 +547,125 @@ class Runtime:
         engine.watchdog_s = None if watchdog_ms is None else watchdog_ms / 1e3
         engine.injector = injector
         engine.stop_event = stop_event
+
+        # --- the multi-process front end: the serve_ipc decisions (workers,
+        # coalesce) are made here, at the layer that owns the processes;
+        # the engine only ever sees a TokenStream
+        fe_cfg = None
+        dec_w = dec_c = None
+        if frontend is not None:
+            submissions = [{
+                "rid": r.rid,
+                "prompt": [int(t) for t in np.asarray(r.prompt).tolist()],
+                "max_new_tokens": int(r.max_new_tokens),
+                "arrival_s": float(r.arrival_s),
+                "priority": int(r.priority),
+                "deadline_s": r.deadline_s,
+                "ttft_deadline_s": r.ttft_deadline_s,
+            } for r in trace]
+            msg_bytes = max(_pickled_size(("req", s)) for s in submissions)
+            plen = max(r.prompt_len for r in trace)
+            if isinstance(frontend, FrontendConfig):
+                fe_cfg = frontend
+                _, dec_w = engine.scheduler.serve_ipc_workers(
+                    len(trace), msg_bytes=msg_bytes, prompt_len=plen,
+                    candidates=(fe_cfg.workers,), override="frontend")
+            else:
+                w, dec_w = engine.scheduler.serve_ipc_workers(
+                    len(trace), msg_bytes=msg_bytes, prompt_len=plen,
+                    candidates=((1, 2, 4) if frontend == "auto"
+                                else (int(frontend),)),
+                    override=None if frontend == "auto" else "frontend")
+                if w > 0:
+                    fe_cfg = FrontendConfig(workers=w, pin=pin)
+                # an 'auto' inline verdict serves without a front end: the
+                # ledgered decision is the cost site doing its job
+        want_stream = (stream is True or isinstance(stream, TokenStream)
+                       or (stream == "auto" and fe_cfg is not None))
+        if fe_cfg is not None and want_stream:
+            event_bytes = _pickled_size((trace[0].rid, (0,), False, 0.0))
+            pinned = isinstance(frontend, FrontendConfig)
+            c, dec_c = engine.scheduler.serve_ipc_coalesce(
+                slots, event_bytes=event_bytes,
+                candidates=((fe_cfg.coalesce,) if pinned
+                            else (1, 2, 4, 8, 16)))
+            if not pinned:
+                fe_cfg = dataclasses.replace(fe_cfg, coalesce=max(c, 1))
+
+        fe = None
+        texts = None
         stream_obj = None
-        if stream is True:
-            stream_obj = TokenStream()
-        elif isinstance(stream, TokenStream):
-            stream_obj = stream
-        # attached after warmup, so the dummy request streams nothing
-        engine.stream = stream_obj
+        run_trace = list(trace)
+        failed_intake: List[Any] = []
         try:
-            report = engine.run(list(trace), now_fn=now_fn)
+            if fe_cfg is not None:
+                fe = ServingFrontend(fe_cfg, max_len=max_len)
+                fe.start()
+                t_sub = time.perf_counter()
+                _, failures = fe.submit(submissions)
+                engine.scheduler.record_measured(
+                    dec_w, time.perf_counter() - t_sub,
+                    note=f"serve_ipc intake n={len(trace)} "
+                         f"workers={fe_cfg.workers} "
+                         f"pinned={fe.workers_pinned}")
+                if failures:
+                    # intake shed these BEFORE the engine: invalid -> typed
+                    # REJECTED, worker death -> typed FAILED; both terminal
+                    run_trace = []
+                    for r in trace:
+                        why = failures.get(r.rid)
+                        if why is None:
+                            run_trace.append(r)
+                            continue
+                        r.mark(RequestState.FAILED
+                               if why.startswith("frontend:")
+                               else RequestState.REJECTED, 0.0, reason=why)
+                        failed_intake.append(r)
+            if want_stream:
+                if isinstance(stream, TokenStream):
+                    stream_obj = stream
+                elif fe is not None:
+                    stream_obj = fe.stream()
+                else:
+                    stream_obj = TokenStream()
+                # attached after warmup, so the dummy request streams nothing
+                engine.stream = stream_obj
+
+            report = engine.run(run_trace, now_fn=now_fn)
+
+            if stream_obj is not None:
+                stream_obj.close()  # flush any coalesced tail burst
+            if fe is not None:
+                if stream_obj is not None:
+                    try:
+                        transcript = fe.finish()
+                    except StreamBroken:
+                        transcript = None  # the engine already failed typed
+                    if transcript is not None:
+                        texts = {rid: rec["text"]
+                                 for rid, rec in transcript.items()}
+                        for r in run_trace:
+                            rec = transcript.get(r.rid)
+                            if rec is not None and rec["tokens"] != [
+                                    int(t) for t in r.tokens]:
+                                raise FrontendError(
+                                    f"emission transcript diverged from "
+                                    f"engine for {r.rid!r}: token identity "
+                                    f"violated")
+                if dec_c is not None and fe.ping_round_trips_s:
+                    engine.scheduler.record_measured(
+                        dec_c, float(np.mean(fe.ping_round_trips_s)),
+                        note=f"serve_ipc coalesce={fe_cfg.coalesce} "
+                             f"per-message ping round trip")
+                report.ipc_messages = fe.ipc_messages
+                report.ipc_bytes = fe.ipc_bytes
+                report.frontend_workers = fe_cfg.workers
+                report.frontend_respawns = fe.respawns
+                report.requests.extend(failed_intake)
         finally:
+            if fe is not None:
+                fe.close()
             engine.stream = None  # the engine stays reusable stream-free
-        if stream_obj is not None:
-            stream_obj.close()
         if self.config.auto_recalibrate:
             # drift -> action at the drain boundary: the trace's measured
             # rows are in, the device is idle, and a healed spec is what
@@ -532,7 +675,7 @@ class Runtime:
         return ServeResult(
             "continuous", report.wall_s, report.generated_tokens,
             report.tok_per_s, pct["p50"], pct["p95"], report.outputs(),
-            report=report, engine=engine, stream=stream_obj)
+            report=report, engine=engine, stream=stream_obj, texts=texts)
 
 
 # ---------------------------------------------------------------------------

@@ -34,8 +34,9 @@ consulted once per MACRO-STEP, not once per token:
 
 Every admission / prefill-chunk / macro-horizon / prefix-reuse / admit
 choice is a CostEngine ``CostQuery -> Decision`` ledgered with the
-measured wall time attached.  Meshes and the multi-process front end come
-with later slices of the port.
+measured wall time attached.  The multi-process front end
+(``frontend/workers.py``) sits in front of the engine, which only ever
+sees its ``TokenStream``; meshes come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -185,9 +186,15 @@ class ServeReport:
     reserved_blocks: int = 0    # peak BlockPool pages in use (slots + trie)
     prefix_hit_tokens: int = 0  # prompt tokens served from the prefix cache
     cow_count: int = 0          # copy-on-write page duplications
-    # token stream accounting (zero without a stream)
+    # token stream and front-end accounting (zero without a stream or a
+    # multi-process front end); Runtime.serve fills the IPC fields from
+    # the ServingFrontend's counters: the engine never sees a queue
     streamed_tokens: int = 0    # tokens published to the attached stream
     stream_events: int = 0      # publish calls (bursts) on the stream
+    ipc_messages: int = 0       # front-end queue messages (intake + emission)
+    ipc_bytes: int = 0          # pickled payload bytes through those queues
+    frontend_workers: int = 0   # intake worker processes (0 = in-process)
+    frontend_respawns: int = 0  # crashed workers respawned mid-trace
 
     def state_counts(self) -> Dict[str, int]:
         """How many requests ended in each lifecycle state."""
@@ -268,6 +275,10 @@ class ServeReport:
             "cow_count": self.cow_count,
             "streamed_tokens": self.streamed_tokens,
             "stream_events": self.stream_events,
+            "ipc_messages": self.ipc_messages,
+            "ipc_bytes": self.ipc_bytes,
+            "frontend_workers": self.frontend_workers,
+            "frontend_respawns": self.frontend_respawns,
             **self.latency_percentiles(),
             **self.ttft_percentiles(),
             "requests": [
@@ -501,7 +512,7 @@ class ContinuousServeEngine:
             self.stream.publish(req.rid, tokens, done=done, t=t)
         except StreamBroken as e:
             self._stream_dead = True
-            self._stream_reason = f"stream broken: {e}"
+            self._stream_reason = f"frontend stream broken: {e}"
 
     def _fail_inflight(self, reqs: List[Request], t: float,
                        reason: str, fresh: bool = False) -> None:

@@ -13,9 +13,9 @@ first tokens are captured.
 producer, callers read per-request event lists after (or, from another
 thread, during) the run.  A consumer that can no longer take tokens raises
 :class:`StreamBroken` from ``publish``; the engine turns that into typed
-FAILED terminal states for everything in flight.  The reference's
-multi-process front end (``FrontendStream`` and its workers) is not ported
-yet.
+FAILED terminal states for everything in flight.  The multi-process front
+end subclasses it (``FrontendStream`` in ``workers.py``) to forward each
+publish over an IPC queue to the emission worker.
 """
 
 from __future__ import annotations

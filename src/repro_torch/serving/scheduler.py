@@ -363,6 +363,50 @@ class ServeScheduler:
             dtype_bytes=self.dtype_bytes, override=override)
         return int(dec.value), dec
 
+    def serve_ipc_workers(self, n_requests: int, *, msg_bytes: int,
+                          prompt_len: int,
+                          candidates: Tuple[int, ...] = (1, 2, 4),
+                          override: Optional[str] = None
+                          ) -> Tuple[int, Decision]:
+        """Intake worker count for the multi-process front end — the
+        eleventh decision site (CostQuery kind=serve_ipc, op=workers).
+
+        The sweep prices moving validation + pre-processing of
+        ``n_requests`` submissions onto N pinned worker processes: each
+        submission pays a queue round trip and two serializations at the
+        calibrated ``ipc_round_trip_s`` / ``ipc_bytes_per_s``, against the
+        inline baseline of validating on the engine thread (a per-token
+        host walk, priced like the trie walk: ``prompt_len`` x
+        ``prefix_lookup_s``).  ``override='frontend'`` pins a worker
+        verdict when the caller explicitly deployed a front end; the
+        inline alternative is still priced and ledgered.  Returns the
+        worker count (0 = inline)."""
+        validate_s = max(prompt_len, 1) * self.engine.hw.prefix_lookup_s
+        dec = self.engine.decide_serve_ipc_workers(
+            n_requests, msg_bytes=msg_bytes,
+            validate_us=_quantize_us(validate_s) or 0,
+            candidates=candidates, override=override)
+        return int(dec.value), dec
+
+    def serve_ipc_coalesce(self, n_streams: int, *, event_bytes: int,
+                           candidates: Tuple[int, ...] = (1, 2, 4, 8, 16)
+                           ) -> Tuple[int, Decision]:
+        """Emission coalescing factor — serve_ipc, op=coalesce.  Amortizes
+        the per-message queue round trip over bursts of token events
+        against delivery staleness at the predicted decode-step interval
+        (one batched step at occupancy ``n_streams``).  Returns how many
+        events ride one IPC message to the emission worker."""
+        step = self.engine.model.serve_decode_step_cost(
+            max(n_streams, 1), flops_per_token=self.flops_per_token,
+            weight_bytes=self.weight_bytes,
+            kv_bytes_per_slot=self.kv_bytes_per_slot,
+            dtype_bytes=self.dtype_bytes)
+        dec = self.engine.decide_serve_ipc_coalesce(
+            n_streams, event_bytes=event_bytes,
+            token_interval_us=_quantize_us(step.total) or 0,
+            candidates=candidates)
+        return int(dec.value), dec
+
     def record_measured(self, decision: Decision, seconds: float,
                         note: str = ""):
         """Attach a measured wall time to ``decision``'s ledger row.

@@ -6,6 +6,9 @@ agrees with the kernel's plain version on the card.
   (``models/rwkv.py``, ``kernels/wkv.py``, ``configs/rwkv6_3b.py``)
   among them, and so do the paging and token-stream modules and
   ``examples/torch_quickstart.py``'s imports;
+* what a spawned front-end worker imports loads no torch either, and on a
+  card (marked ``cuda``) the workers of a front end spawned beside a CUDA
+  tensor hold no context on it;
 * ``repro_torch.Runtime()`` with no device asks for the GPU and raises
   where there is none, naming the missing card, instead of falling back;
 * a tensor that is not on the CPU never takes a kernel's plain version:
@@ -92,6 +95,64 @@ def test_paging_stream_and_quickstart_import_neither_jax_nor_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split(" ", 1) == ["True", "[]\n"]
+
+
+_IMPORT_WORKER = """
+import sys
+import repro_torch.serving.frontend.workers
+import repro_torch.serving.scheduler  # what _intake_main imports
+import repro_torch.launch.serve  # a launcher's worker re-imports it
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "torch")))
+"""
+
+
+def test_frontend_worker_imports_neither_torch_nor_jax_nor_repro():
+    """A spawned front-end worker imports its module, the topology module
+    and the scheduler's request validation (and, under the launcher, the
+    launcher module): none of that may load torch, jax or the reference."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_WORKER], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _compute_pids():
+    """Pids nvidia-smi lists as holding a CUDA context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return [int(x) for x in out.stdout.split()]
+
+
+@pytest.mark.cuda
+def test_frontend_workers_create_no_cuda_context():
+    """A front end spawned next to a live CUDA tensor: its workers answer
+    (readiness pings, one validated submission, a streamed burst) and none
+    of them appears among the processes holding a context on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); on a card run `python -m "
+                    "pytest --noconftest -m cuda tests/test_torch_isolation.py`")
+    from repro_torch.serving.frontend import FrontendConfig, ServingFrontend
+
+    x = torch.ones(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    before = _compute_pids()
+    fe = ServingFrontend(FrontendConfig(workers=2), max_len=16)
+    fe.start()
+    try:
+        ok, bad = fe.submit([{"rid": "a", "prompt": [1, 2],
+                              "max_new_tokens": 2}])
+        fe.stream().publish("a", x[:2].long(), done=True, t=0.0)
+        children = {p.pid for p in fe._intake_procs} | {fe._emit_proc.pid}
+        during = _compute_pids()
+        assert fe.finish()["a"]["tokens"] == [1, 1]
+    finally:
+        fe.close()
+    assert set(ok) == {"a"} and not bad
+    assert not children & set(during), (children, during)
+    assert len(during) == len(before), (before, during)
 
 
 def test_runtime_without_device_needs_the_card():

@@ -30,7 +30,8 @@ test's own assertions hold on the port.
 * the launcher ``python -m repro_torch.launch.serve --device cpu
   --reduced``, in a subprocess: the robustness flags give the reference
   launcher's report, SIGINT after the first tokens exits 0 with the queue
-  rejected, and the options of later slices fail at argument parsing.
+  rejected, and the options of later slices (the serve mesh and the
+  serve_shard decision) fail at argument parsing.
 """
 
 import os
@@ -936,10 +937,10 @@ def test_launcher_sigint_after_first_tokens_drains_and_exits_zero():
 
 
 @pytest.mark.parametrize("flags,missing", [
-    (("--workers", "2"), "multi-process front end"),
-    (("--mesh", "data=1,model=2"), "multi-GPU"),
-    (("--pin",), "multi-process front end"),
-    (("--serve-shard", "shard"), "multi-GPU"),
+    (("--mesh", "data=1,model=2"), "serve mesh"),
+    (("--mesh", "data=2,model=1"), "serve mesh"),
+    (("--serve-shard", "shard"), "serve_shard decision"),
+    (("--serve-shard", "replicate"), "serve_shard decision"),
 ])
 def test_launcher_options_of_later_slices_fail_at_parsing(flags, missing,
                                                           capsys):

@@ -29,6 +29,9 @@ def cb(phase, info):
                   f"collected {info['collected']}", flush=True)
 
 
-gc.callbacks.append(cb)
-sys.argv = ["chip_smoke.py"]
-runpy.run_path("chip_smoke.py", run_name="__main__")
+if __name__ == "__main__":
+    # guarded: a process chip_smoke.py spawns (the calibration's echo
+    # child, the front end's workers) re-imports this file
+    gc.callbacks.append(cb)
+    sys.argv = ["chip_smoke.py"]
+    runpy.run_path("chip_smoke.py", run_name="__main__")

@@ -162,8 +162,29 @@ Phases, one report line each (any failure exits non-zero):
      IPC messages and bytes, phase 5's calibrated IPC constants,
      frontend="auto"'s verdict against the measured intake, tok/s in
      process, unpinned and pinned, and phase 16's overload recipe through
-     the front end.  The calling thread's CPU mask is restored after it.
-     Before each of phases 2-17, gc.collect(): a gen-2 collection of this
+     the front end.  The calling thread's CPU mask is restored after it;
+ 18. the dense and hybrid families: Runtime(device="cuda").serve of
+     mistral-nemo-12b, phi3-mini-3.8b, gemma-2b and recurrentgemma-2b at
+     full width and depth (bf16, seed 0, phase 5's trace, 4 slots), static
+     and continuous (recurrentgemma also paged, pages of 16): tokens equal,
+     tok/s, host syncs per token, the matmul kernel's launches by path
+     counted from 0 before each run; Model.prefill of 4 x 64 at full depth
+     in bf16 (flash forward calls by path counted from 0 before it, one
+     per full-attention layer); one call of every matmul signature the
+     serves and that prefill ran (shapes, strides, dtypes, epilogue)
+     against the plain version at phase 2's tolerance, its path checked
+     against its dtypes; one decode step each, every matmul
+     call on the path its dtypes name, profiled (device ms, launches, busy
+     share; no library GEMM or attention kernel); each family at full
+     width cut to 2 layers (recurrentgemma 3) in fp32, card against CPU:
+     Model.prefill (flash at hd 96/128/256, the windowed forms, the RG-LRU
+     scan; its flash calls counted), a batched prefill and 4 decode steps
+     within 2e-3 x max|logit|, and recurrentgemma with its window cut to
+     64 streaming 80 tokens (the ring buffer wraps) against the CPU and
+     its own full forward; the flash forward at (1, 2048, 32, 32, 96) and
+     (1, 2048, 8, 1, 256) in bf16 and fp32 against its plain version on
+     the path choose_path names, timed beside it, SDPA and the bound.
+     Before each of phases 2-18, gc.collect(): a gen-2 collection of this
      script's heap took 0.2-0.75 s inside a timed step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
@@ -285,6 +306,19 @@ SORT_SHAPES = [((1000,), "float32"), ((1100,), "float32"),
                ((1 << 26,), "float32"), ((1 << 24,), "int32"),
                ((4096, 4096), "float32"), ((8, 100), "float32")]
 SORT_MAIN_NS = (2000, 1 << 26)  # distributed_sort's runs
+# phase 18: the dense and hybrid families served at full width and depth,
+# in the order of the port's roadmap (cheapest first)
+FAMILIES = ("mistral-nemo-12b", "phi3-mini-3.8b", "gemma-2b",
+            "recurrentgemma-2b")
+# the flash forward at the head dims they bring: phi3-mini's MHA at hd 96
+# and gemma's MQA at hd 256, at a 2048-token prompt
+FAMILY_FLASH_SHAPES = [(1, 2048, 32, 32, 96, "bfloat16"),
+                       (1, 2048, 32, 32, 96, "float32"),
+                       (1, 2048, 8, 1, 256, "bfloat16"),
+                       (1, 2048, 8, 1, 256, "float32")]
+# recurrentgemma's card-against-CPU stream: the window cut to RING_WINDOW,
+# RING_STREAM tokens one at a time, so the ring buffer wraps
+RING_WINDOW, RING_STREAM = 64, 80
 
 
 def log(phase: str, msg: str) -> None:
@@ -418,6 +452,36 @@ class RouteAudit:
     def report(self, phase) -> bool:
         log(phase, f"routing: {self.counts}; misrouted {len(self.wrong)}")
         return not self.wrong and bool(self.counts)
+
+
+class MatmulShapes:
+    """Inside the block every ``ops.matmul`` call is seen, and the first
+    call of each signature (the operands' shapes, strides and dtypes, the
+    bias's, the activation, the output dtype) is kept, operands included,
+    in ``calls``.  It costs a tuple and a dict lookup a call."""
+
+    def __init__(self, ops):
+        self.ops, self.calls, self.seen = ops, {}, 0
+
+    def __enter__(self):
+        self.launch = self.ops.matmul
+
+        def recording(a, b, **kw):
+            bias = kw.get("bias")
+            key = (tuple(a.shape), a.stride(), a.dtype, tuple(b.shape),
+                   b.stride(), b.dtype,
+                   None if bias is None else (tuple(bias.shape), bias.dtype),
+                   kw.get("activation"), kw.get("out_dtype"))
+            self.seen += 1
+            if key not in self.calls:
+                self.calls[key] = (a, b, kw)
+            return self.launch(a, b, **kw)
+
+        self.ops.matmul = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.matmul = self.launch
 
 
 def main() -> int:
@@ -943,6 +1007,14 @@ def main() -> int:
     if front is None:
         return 1
     record["frontend"] = front
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- 18
+    gc.collect()
+    families = families_phase(mm, fa, ops, ref, gen, flush, card)
+    if families is None:
+        return 1
+    record["families"] = families
 
     # ---------------------------------------------------------------- out
     out_dir = ROOT / "chiprun_out"
@@ -955,13 +1027,24 @@ def main() -> int:
                   "FP32 FMA kernel (fp32 x fp32)",
         "source": "src/repro_torch/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:103",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches,
+        # phase 2's shapes, phase 5's decode step and one call of every
+        # signature phase 18's families ran
+        "max_abs_err": max([worst] + [
+            rec["matmul_checks"]["max_abs_err"]
+            for rec in families["serve"].values()]),
         # phase 15's paged serving run (P1), counted from 0 just before it
         "launches_paged_serve": paged["p1"]["matmul_launches"],
         # phase 16's dense preemption drill, counted from 0 just before it
         "launches_lifecycle_serve": life["matmul_launches"],
         # phase 17's dense front-end serve, counted from 0 just before it
         "launches_frontend_serve": front["dense"]["matmul_launches"],
+        # phase 18's serves of the four families, static and continuous
+        # (and recurrentgemma paged), each counted from 0 just before it
+        "launches_families_serve": {
+            arch: {mode: n["count"] for mode, n in
+                   rec["matmul_launches"].items()}
+            for arch, rec in families["serve"].items()},
         # one decode step's matmul calls: the kernel in the real step, the
         # plain version on the same operands, the bound of the same work
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -1000,7 +1083,21 @@ def main() -> int:
         # wrapper calls per training step: forward (each layer, and again
         # in its recomputation) and backward (each layer)
         "launches": train["flash_calls_per_step"],
-        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        # phase 18: forward calls by path in each family's Model.prefill
+        # at full width and depth in bf16 (SLOTS x PROMPT), counted from 0
+        # just before it, and the forward at the new head dims (FMA path)
+        # beside its plain version, SDPA and its bound
+        "launches_families_prefill": {
+            arch: {"head_dim": rec["prefill"]["head_dim"],
+                   "forward": rec["prefill"]["flash_forward_calls"],
+                   "by_path": rec["prefill"]["flash_by_path"]}
+            for arch, rec in families["serve"].items()},
+        "families_forward": [
+            {k: r[k] for k in ("shape", "dtype", "path", "max_abs_err", "ms",
+                               "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")} for r in families["flash"]],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows
+                           + families["flash"]),
         # the bf16 training shape, forward plus backward
         "ms": flash_main["fwd_ms"] + flash_main["bwd_ms"],
         "plain_ms": flash_main["fwd_plain_ms"] + flash_main["bwd_plain_ms"],
@@ -3776,6 +3873,401 @@ def _frontend_phase(cfg, p1_want, phase5_syncs, calibration, mm_launches,
     out["fails"] = fails
     log("frontend", f"phase 17 wall {out['wall_s']:.1f} s; "
         f"{len(fails)} failed gates ({card})")
+    return None if fails else out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the dense and hybrid families
+# ---------------------------------------------------------------------------
+
+
+def family_step(phase, model, params, state, feed, ops, mm):
+    """One decode step of a served model: every matmul call's path checked
+    against its dtypes (RouteAudit), the kernel's launches by path, then
+    the step's wall (host clock around synchronized steps) and its device
+    time, launches and busy share (torch.profiler), with the library GEMM
+    and attention kernels it ran (none may)."""
+    mm.LAUNCHES.reset()
+    with RouteAudit(ops, mm) as audit:
+        model.decode_step(params, state, feed)
+    torch.cuda.synchronize()
+    paths = dict(mm.LAUNCHES.by_path)
+    launches = mm.LAUNCHES.count
+    wall_ms = step_wall(model, params, state, feed)
+    by_name, n_kernels = device_ms_by_kernel(
+        lambda: model.decode_step(params, state, feed))
+    device_ms = sum(by_name.values())
+    groups = group_device_ms(by_name, {})
+    lib_attn = sorted(k for k in by_name if LIBRARY_ATTENTION.search(k))
+    out = dict(wall_ms=wall_ms, device_ms=device_ms,
+               busy_share=device_ms / wall_ms if wall_ms else None,
+               device_events=n_kernels, matmul_ms=groups["matmul"],
+               matmul_ms_by_path={g[7:]: groups[g] for g in MATMUL_KERNELS},
+               matmul_launches=launches, matmul_launches_by_path=paths,
+               routing=audit.counts, misrouted=audit.wrong,
+               library_gemms=library_gemms(phase, by_name),
+               library_attention=lib_attn,
+               top=sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+    log(phase, f"one decode step ({SLOTS} slots): wall {wall_ms:.3f} ms, "
+        f"device {device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}% busy), "
+        f"{n_kernels} device launches; matmul kernel {groups['matmul']:.3f} "
+        f"ms in {launches} launches (by path {paths}); routing "
+        f"{audit.counts}, misrouted {len(audit.wrong)}; library GEMM "
+        f"{out['library_gemms']}, library attention {lib_attn}")
+    return out
+
+
+def family_prefill(arch, model, params, prompts, fa, shapes):
+    """Model.prefill of phase 5's prompt shape (SLOTS x PROMPT) at full
+    width and depth in bf16: the flash forward's calls by path counted
+    from 0 just before it, one per full-attention layer on the path
+    choose_path names for the model's head dim (recurrentgemma's local
+    layers take the windowed forms, never flash); finite logits of shape
+    (SLOTS, 1, vocab).  Its matmul calls go to ``shapes``.  Returns
+    (record, failures)."""
+    cfg = model.cfg
+    hd = cfg.resolved_head_dim
+    n_attn = sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
+    path = fa.choose_path(torch.bfloat16, hd)
+    torch.cuda.synchronize()
+    fa.LAUNCHES.reset()
+    with torch.inference_mode(), shapes:
+        logits = model.prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    calls, by_path = fa.LAUNCHES.forward, dict(fa.LAUNCHES.by_path)
+    fails = []
+    if calls != n_attn or by_path[path] != n_attn:
+        fails.append(f"{arch}: Model.prefill made {calls} flash forward "
+                     f"calls ({by_path}), expected {n_attn} on the {path} "
+                     f"path (one per full-attention layer, hd {hd})")
+    want = (prompts.shape[0], 1, cfg.vocab_size)
+    finite = bool(torch.isfinite(logits).all())
+    if tuple(logits.shape) != want or not finite:
+        fails.append(f"{arch}: Model.prefill logits {tuple(logits.shape)}, "
+                     f"finite {finite}; expected {want}")
+    log("families", f"{arch} Model.prefill {tuple(prompts.shape)} full "
+        f"depth bf16: flash forward calls {calls} by path {by_path} "
+        f"(hd {hd}, {n_attn} full-attention layers), logits "
+        f"{tuple(logits.shape)} finite {finite}")
+    return dict(shape=list(prompts.shape), head_dim=hd, flash_path=path,
+                flash_forward_calls=calls, flash_by_path=by_path,
+                attn_layers=n_attn), fails
+
+
+def family_matmuls(arch, calls, ops, ref, mm):
+    """Hold one call of every matmul signature a family's serves and
+    prefill ran (phase 18's shapes: the projections at its width, the
+    FFN, the unembedding at its vocab, decode_attention's and the
+    windowed forms' contractions at its head dim) against the plain
+    version, at phase 2's tolerance (BF16_TOL or F32_TOL x max|plain| by
+    the output's dtype), each call's path checked against its dtypes
+    (RouteAudit).  Returns (record, failures)."""
+    fails, worst, worst_call = [], 0.0, None
+    with torch.inference_mode(), RouteAudit(ops, mm) as audit:
+        for a, b, kw in calls:
+            err, tol = kernel_error(ops, ref, a, b, kw)
+            call = (f"{tuple(a.shape)} {str(a.dtype)[6:]} @ {tuple(b.shape)} "
+                    f"{str(b.dtype)[6:]} {kw.get('activation')} -> "
+                    f"{str(kw.get('out_dtype') or a.dtype)[6:]}")
+            if not err <= tol:
+                fails.append(f"{arch} matmul {call}: max abs err {err:.3e} > "
+                             f"{tol:.3e}")
+            if err >= worst:
+                worst, worst_call = err, f"{call}: {err:.3e} (tol {tol:.3e})"
+    torch.cuda.synchronize()
+    if audit.wrong:
+        fails.append(f"{arch}: misrouted matmul calls {audit.wrong}")
+    for f in fails:
+        log("families", f"FAIL {f}")
+    log("families", f"{arch}: {len(calls)} matmul signatures of its serves "
+        f"and prefill against the plain version, routing {audit.counts}, "
+        f"misrouted {len(audit.wrong)}; largest error {worst_call}")
+    return dict(signatures=len(calls), max_abs_err=worst,
+                worst_call=worst_call, routing=audit.counts), fails
+
+
+def family_serve(arch, mm, fa, ops, ref, card):
+    """Runtime.serve of one family at full width and depth in bf16 (random
+    weights, seed 0), phase 5's trace on 4 slots, static and continuous
+    (and, for recurrentgemma, continuous with paged=True, pages of 16),
+    the matmul kernel's launches counted from 0 just before each run; then
+    Model.prefill at full depth (family_prefill), one call of every matmul
+    signature those ran against the plain version (family_matmuls), and
+    one decode step (family_step).  Returns (record, failures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Runtime, synthetic_trace
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch)
+    fails = []
+    rt = Runtime(device="cuda")
+    model = build_model(cfg, rt.device)
+    params = model.init(0)
+    n_params = sum(t.numel() for t in leaves(params))
+    trace = lambda: synthetic_trace(  # noqa: E731
+        REQUESTS, prompt_len=PROMPT, max_new=MAX_NEW,
+        vocab_size=cfg.vocab_size, arrival="all", seed=0)
+    runs, launches = {}, {}
+    modes = [("static", {}), ("continuous", {})]
+    if any(k != "attn" for k in cfg.block_pattern):
+        modes.append(("paged", dict(paged=True, block_size=PAGE)))
+    shapes = MatmulShapes(ops)
+    for name, kw in modes:
+        torch.cuda.synchronize()
+        mm.LAUNCHES.reset()
+        with shapes:
+            runs[name] = rt.serve(cfg, trace(), model=model, params=params,
+                                  mode="static" if name == "static"
+                                  else "continuous", slots=SLOTS, eos_id=-1,
+                                  **kw)
+        torch.cuda.synchronize()
+        launches[name] = dict(count=mm.LAUNCHES.count,
+                              by_path=dict(mm.LAUNCHES.by_path))
+        if mm.LAUNCHES.count <= 0:
+            fails.append(f"{arch} {name}: the matmul kernel never launched")
+    static = runs["static"]
+    same = {name: all(np.array_equal(static.outputs[r], run.outputs[r])
+                      for r in static.outputs)
+            for name, run in runs.items() if name != "static"}
+    ntok = {name: sum(len(v) for v in run.outputs.values())
+            for name, run in runs.items()}
+    cont = runs["continuous"]
+    log("families", f"{arch} full width ({cfg.n_layers} layers, "
+        f"{n_params / 1e9:.2f} B parameters) bf16, {REQUESTS} requests x "
+        f"{PROMPT}+{MAX_NEW} tokens, {SLOTS} slots: "
+        + ", ".join(f"{n} {r.tok_per_s:.2f} tok/s" for n, r in runs.items())
+        + f"; host_syncs_per_token {cont.report.host_syncs_per_token:.4f} "
+        f"({cont.report.host_syncs} syncs, {cont.report.device_dispatches} "
+        f"dispatches); tokens equal static's: {same}; matmul launches "
+        f"{launches} ({card})")
+    if not all(same.values()):
+        fails.append(f"{arch}: tokens differ from static's: {same}")
+    if any(n != REQUESTS * MAX_NEW for n in ntok.values()):
+        fails.append(f"{arch}: generated tokens {ntok}")
+    prompts = torch.as_tensor(np.stack([r.prompt for r in trace()[:SLOTS]]),
+                              dtype=torch.int64, device="cuda")
+    prefill, f = family_prefill(arch, model, params, prompts, fa, shapes)
+    fails += f
+    checks, f = family_matmuls(arch, list(shapes.calls.values()), ops, ref,
+                               mm)
+    fails += f
+    shapes.calls.clear()
+    state = model.init_decode_state(SLOTS, PROMPT + MAX_NEW, per_slot=True)
+    feed = {"tokens": torch.ones((SLOTS, 1), dtype=torch.int64,
+                                 device="cuda")}
+    step = family_step("families", model, params, state, feed, ops, mm)
+    if step["misrouted"] or not step["routing"]:
+        fails.append(f"{arch}: misrouted matmul calls {step['misrouted']}")
+    if step["library_gemms"] or step["library_attention"]:
+        fails.append(f"{arch}: library kernels in a decode step: "
+                     f"{step['library_gemms'] + step['library_attention']}")
+    rec = dict(n_layers=cfg.n_layers, parameters=n_params,
+               tok_per_s={n: r.tok_per_s for n, r in runs.items()},
+               wall_s={n: r.wall_s for n, r in runs.items()},
+               host_syncs=cont.report.host_syncs,
+               device_dispatches=cont.report.device_dispatches,
+               host_syncs_per_token=cont.report.host_syncs_per_token,
+               generated_tokens=ntok, tokens_equal_static=same,
+               matmul_launches=launches, prefill=prefill,
+               matmul_checks=checks, decode_step=step)
+    del runs, static, cont, model, params, state, shapes
+    return rec, fails
+
+
+def family_card_vs_cpu(arch, fa, card, stream=False):
+    """One family at full width cut to 2 layers (recurrentgemma to 3, one
+    period), fp32, on the card and on the CPU from the same parameters:
+    Model.prefill of a 2 x 16 prompt (no decode state: flash at the
+    model's head dim, the windowed forms and the RG-LRU scan), then one
+    batched prefill of it through decode_step and 4 greedy steps; each
+    logits within 2e-3 x max|logit| (phase 6's limit), and the card's
+    Model.prefill within it of its own decode at the last prompt token.
+    ``stream``: recurrentgemma with its window cut to RING_WINDOW, a
+    prompt of RING_STREAM tokens fed one at a time, so that the ring
+    buffer wraps on the card; each step's logits card against CPU, and the
+    card's last step against its full forward.  Returns (record,
+    failures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import synthetic_trace
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch)
+    n_layers = len(cfg.block_pattern) if len(cfg.block_pattern) > 1 else 2
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    if stream:
+        cfg = dataclasses.replace(cfg, window_size=RING_WINDOW)
+    p_gpu = build_model(cfg, "cuda").init(0)
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+    plen = RING_STREAM if stream else 16
+    prompt = torch.as_tensor(synthetic_trace(
+        1, prompt_len=plen, max_new=1, vocab_size=cfg.vocab_size,
+        arrival="all", seed=3)[0].prompt, dtype=torch.int64)
+    prompts = torch.stack([prompt, prompt.flip(0)])
+    logits, flash_calls = {}, 0
+    for where, p_dev in (("cuda", p_gpu), ("cpu", p_cpu)):
+        model = build_model(cfg, where)
+        toks = prompts.to(where)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            fa.LAUNCHES.reset()
+        if stream:
+            pre = model.forward_logits(p_dev, {"tokens": toks})[0][:, -1]
+        else:
+            pre = model.prefill(p_dev, {"tokens": toks})[:, -1]
+        if where == "cuda":
+            torch.cuda.synchronize()
+            flash_calls = fa.LAUNCHES.forward
+        st = model.init_decode_state(2, plen + 8, per_slot=True)
+        steps = []
+        if stream:  # token by token: the ring buffer wraps past the window
+            for i in range(plen):
+                out, st = model.decode_step(
+                    p_dev, st, {"tokens": toks[:, i:i + 1]})
+                if i % 8 == 7 or i == plen - 1:
+                    steps.append(out[:, -1])
+        else:
+            out, st = model.decode_step(p_dev, st, {"tokens": toks})
+            steps.append(out[:, -1])
+            for _ in range(4):
+                tok = steps[-1].argmax(-1)[:, None]
+                out, st = model.decode_step(p_dev, st, {"tokens": tok})
+                steps.append(out[:, -1])
+        logits[where] = [t.float().cpu() for t in [pre] + steps]
+        del model, st
+    fails, worst = [], 0.0
+    last_prompt = -1 if stream else 1  # the decode step at the prompt's end
+    pairs = list(zip(logits["cuda"], logits["cpu"])) + [
+        (logits["cuda"][0], logits["cuda"][last_prompt])]
+    for i, (lg, lc) in enumerate(pairs):
+        top = lc.abs().max().item()
+        err = (lg - lc).abs().max().item()
+        worst = max(worst, err / top)
+        if not err <= 2e-3 * top:
+            fails.append(f"{arch} card vs CPU comparison {i}: logits err "
+                         f"{err:.3e} > {2e-3 * top:.3e}")
+    attn_layers = sum(cfg.block_kind(i) == "attn" for i in range(n_layers))
+    if flash_calls != attn_layers:
+        fails.append(f"{arch}: the card's prefill made {flash_calls} flash "
+                     f"forward calls, expected {attn_layers} (one per "
+                     f"full-attention layer)")
+    what = (f"window {RING_WINDOW}, {plen} tokens streamed one at a time "
+            f"(the ring buffer wraps), every 8th step and the last, and the "
+            f"forward's last position" if stream else
+            "Model.prefill 2x16 and batched prefill + 4 decode steps")
+    for f in fails:
+        log("families-card-vs-cpu", f"FAIL {f}")
+    log("families-card-vs-cpu", f"{arch} full width, {n_layers} layers, "
+        f"fp32: {what}, card against CPU and the card's prefill against its "
+        f"decode: max err {worst:.2e} x max|logit| (limit 2e-3); flash "
+        f"forward calls in the card's prefill {flash_calls} ({card})")
+    del p_gpu, p_cpu
+    return dict(rel_err=worst, n_layers=n_layers, flash_forward_calls=
+                flash_calls, stream=stream), fails
+
+
+def family_flash(shape, gen, ref, fa, flush, card):
+    """The flash forward at a new head dim against its plain version, on
+    the path choose_path names (the launch counted by path), timed (CUDA
+    events, cold L2) beside the plain version,
+    scaled_dot_product_attention and the forward's bound.  Returns (row,
+    failures)."""
+    import torch.nn.functional as F
+
+    b, s, hq, hkv, hd, dtype_name = shape
+    dt = getattr(torch, dtype_name)
+    q, k, v = (torch.randn((b, s, h, hd), generator=gen, device="cuda")
+               .to(dt) for h in (hq, hkv, hkv))
+    path = fa.choose_path(dt, hd)
+    before = fa.LAUNCHES.by_path[path]
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    torch.cuda.synchronize()
+    ran = fa.LAUNCHES.by_path[path] - before
+    o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v)
+    fails, errs = [], {}
+    for name, got, want in (("o", o, o_p), ("lse", lse, lse_p)):
+        diff = (got.float() - want.float()).abs()
+        mag = want.float().abs()
+        top = mag.max().item()
+        if want.dtype == torch.bfloat16:
+            limit = BF16_TOL * mag.amax(-1, keepdim=True) + F32_TOL * top
+        else:
+            limit = torch.full_like(mag, FLASH_F32_TOL * top)
+        err, ratio = diff.max().item(), (diff / limit).max().item()
+        errs[name] = dict(err=err, of_limit=ratio)
+        if not ratio <= 1.0:
+            fails.append(f"flash {shape} {name}: max abs err {err:.3e}, "
+                         f"{ratio:.2f} x its limit")
+    if ran != 1:
+        fails.append(f"flash {shape}: {ran} forward calls on the {path} "
+                     f"path, expected 1")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    times = dict(
+        ms=cuda_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v), flush, 5),
+        plain_ms=cuda_ms(lambda: ref.flash_attention_fwd_plain(q, k, v),
+                         flush, 5),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush, 5))
+    pairs = b * hq * s * (s + 1) / 2
+    flops = 4.0 * pairs * hd
+    peak = BF16_PEAK if dt == torch.bfloat16 else F32_PEAK
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) \
+        + 4 * b * hq * s
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BW * 1e3
+    row = dict(shape=list(shape[:5]), dtype=dtype_name, path=path,
+               max_abs_err=max(e["err"] for e in errs.values()), errors=errs,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               tflops=flops / times["ms"] / 1e9, **times)
+    for f in fails:
+        log("families-flash", f"FAIL {f}")
+    log("families-flash", f"forward {tuple(shape[:5])} {dtype_name} ({path} "
+        f"path, 1 launch): o err {errs['o']['err']:.2e} = "
+        f"{errs['o']['of_limit']:.2f} x limit, lse {errs['lse']['err']:.2e}; "
+        f"kernel {times['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s), plain "
+        f"{times['plain_ms']:.4f} ms, sdpa {times['library_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); cold L2 "
+        f"({card})")
+    del q, k, v, o, lse, o_p, lse_p
+    return row, fails
+
+
+def families_phase(mm, fa, ops, ref, gen, flush, card):
+    """Phase 18: serve mistral-nemo-12b, phi3-mini-3.8b, gemma-2b and
+    recurrentgemma-2b at full width and depth (family_serve), each family
+    card against CPU in fp32 (family_card_vs_cpu, the ring buffer wrapping
+    too), and the flash forward at hd 96 and 256 (family_flash).  None on
+    any failure."""
+    t_phase = time.perf_counter()
+    out: dict = {"card": card, "serve": {}, "card_vs_cpu": {}}
+    fails = []
+    for arch in FAMILIES:
+        rec, f = family_serve(arch, mm, fa, ops, ref, card)
+        out["serve"][arch], fails = rec, fails + f
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in FAMILIES:
+        rec, f = family_card_vs_cpu(arch, fa, card)
+        out["card_vs_cpu"][arch], fails = rec, fails + f
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec, f = family_card_vs_cpu("recurrentgemma-2b", fa, card, stream=True)
+    out["card_vs_cpu"]["recurrentgemma-2b ring"], fails = rec, fails + f
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["flash"] = []
+    for shape in FAMILY_FLASH_SHAPES:
+        row, f = family_flash(shape, gen, ref, fa, flush, card)
+        out["flash"].append(row)
+        fails += f
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["fails"] = fails
+    for f in fails:
+        log("families", f"FAIL {f}")
+    log("families", f"phase 18 wall {out['wall_s']:.1f} s; {len(fails)} "
+        f"failures ({card})")
     return None if fails else out
 
 

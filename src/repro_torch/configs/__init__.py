@@ -1,8 +1,16 @@
-"""Model configurations of the port (tinyllama-1.1b, rwkv6-3b) and input
+"""Model configurations of the port (tinyllama-1.1b, rwkv6-3b,
+mistral-nemo-12b, phi3-mini-3.8b, gemma-2b, recurrentgemma-2b) and input
 shapes."""
 
 # importing each config module registers it
-from repro_torch.configs import rwkv6_3b, tinyllama_1_1b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    gemma_2b,
+    mistral_nemo_12b,
+    phi3_mini_3_8b,
+    recurrentgemma_2b,
+    rwkv6_3b,
+    tinyllama_1_1b,
+)
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     ShapeSpec,

@@ -7,12 +7,18 @@ package never imports jax), and returns the port's parameter dict on
 
   * unrolled, ``layers/layer_{i}/...`` — stacks of fewer than 4 layers;
   * scan-stacked, every layer leaf with a leading (n_layers,) axis — any
-    uniform stack of 4 or more layers, full-size tinyllama included.
+    uniform stack of 4 or more layers, full-size tinyllama included;
+  * period-scan, a hybrid pattern of P kinds with at least two periods
+    (recurrentgemma's ``(rglru, rglru, local)``): ``groups/{p}`` stacked
+    over the n_groups periods holds layer ``g * P + p`` at index g, and
+    ``rest_{j}`` is layer ``n_groups * P + j``.
 
 Layouts change where the port keeps a projection as one (in, out) matrix:
 ``wq`` (d, Hq, hd) becomes (d, Hq*hd), ``wk``/``wv`` likewise, and ``wo``
 (Hq, hd, d) or (Hq*hd, d) becomes (Hq*hd, d).  An rwkv layer's ``time``
-and ``channel`` leaves keep their shapes.  Values are unchanged.
+and ``channel`` leaves and an RG-LRU layer's ``rglru`` leaves keep their
+shapes.  A tree with tied embeddings has no ``unembed``, and neither has
+the result.  Values are unchanged.
 """
 
 from __future__ import annotations
@@ -46,7 +52,11 @@ _TIME_KEYS = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "w_r", "w_k", "w_v",
               "w_g", "w_o", "decay_w0", "decay_w1", "decay_w2", "bonus_u",
               "ln_x_scale")
 _CHANNEL_KEYS = ("mu_k", "mu_r", "w_k", "w_v", "w_r")
-_FP32_KEYS = ("decay_w0", "decay_w1", "decay_w2", "bonus_u", "ln_x_scale")
+# RG-LRU leaves in the port's init order; the gates and the decay stay fp32
+_RGLRU_KEYS = ("w_x", "w_gate", "conv_w", "w_rec_gate", "b_rec_gate",
+               "w_in_gate", "b_in_gate", "lam", "w_out")
+_FP32_KEYS = ("decay_w0", "decay_w1", "decay_w2", "bonus_u", "ln_x_scale",
+              "w_rec_gate", "b_rec_gate", "w_in_gate", "b_in_gate", "lam")
 
 
 def _named_tensors(tree: Dict[str, Any], keys, device,
@@ -68,10 +78,17 @@ def _layer(lp: Dict[str, Any], cfg: ModelConfig, device,
                                        wdtype),
                 "channel": _named_tensors(lp["channel"], _CHANNEL_KEYS,
                                           device, wdtype)}
-    if "attn" not in lp or "ffn" not in lp or "router" in lp["ffn"]:
+    if "ffn" not in lp or "router" in lp["ffn"] or not (
+            "attn" in lp or "rglru" in lp):
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention + dense FFN and rwkv layers "
-            f"are ported")
+            f"{cfg.name}: only attention or RG-LRU layers with a dense FFN "
+            f"and rwkv layers are ported")
+    ffn = {k: _tensor(v, device, wdtype) for k, v in lp["ffn"].items()}
+    if "rglru" in lp:
+        return {**norms,
+                "rglru": _named_tensors(lp["rglru"], _RGLRU_KEYS, device,
+                                        wdtype),
+                "ffn": ffn}
     d = cfg.d_model
     attn = lp["attn"]
     return {
@@ -82,8 +99,23 @@ def _layer(lp: Dict[str, Any], cfg: ModelConfig, device,
             "wv": _tensor(np.reshape(attn["wv"], (d, -1)), device, wdtype),
             "wo": _tensor(np.reshape(attn["wo"], (-1, d)), device, wdtype),
         },
-        "ffn": {k: _tensor(v, device, wdtype) for k, v in lp["ffn"].items()},
+        "ffn": ffn,
     }
+
+
+def _per_layer(layers_tree: Dict[str, Any], cfg: ModelConfig) -> list:
+    """The reference's layer tree as one tree per layer, in layer order,
+    whichever of its three layouts it has."""
+    if "groups" in layers_tree:
+        period = len(cfg.block_pattern)
+        n_groups, rest = divmod(cfg.n_layers, period)
+        groups = layers_tree["groups"]
+        return [_layer_slice(groups[str(i % period)], i // period)
+                for i in range(n_groups * period)] + \
+            [layers_tree[f"rest_{j}"] for j in range(rest)]
+    if "layer_0" in layers_tree:
+        return [layers_tree[f"layer_{i}"] for i in range(cfg.n_layers)]
+    return [_layer_slice(layers_tree, i) for i in range(cfg.n_layers)]
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
@@ -92,14 +124,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
     (numpy leaves).  ``dtype`` overrides the weights' dtype (default: the
     config's); norm scales stay fp32, as the reference keeps them."""
     wdtype = dtype or dtype_of(cfg.dtype)
-    layers_tree = tree["layers"]
-    if "groups" in layers_tree:
-        raise NotImplementedError(
-            f"{cfg.name}: period-scan (hybrid) layouts are not ported yet")
-    if "layer_0" in layers_tree:
-        per_layer = [layers_tree[f"layer_{i}"] for i in range(cfg.n_layers)]
-    else:
-        per_layer = [_layer_slice(layers_tree, i) for i in range(cfg.n_layers)]
+    per_layer = _per_layer(tree["layers"], cfg)
     params = {
         "embed": _tensor(tree["embed"], device, wdtype),
         "layers": [_layer(lp, cfg, device, wdtype) for lp in per_layer],

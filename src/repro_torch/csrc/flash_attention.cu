@@ -32,11 +32,17 @@
 //   * tensor core (bf16 at hd 64 and 128): repro_flash_tc_fwd, then for
 //     the backward repro_flash_tc_dq (which writes D), repro_flash_tc_dkv
 //     and repro_flash_tc_group_sum;
-//   * FMA (fp32, and bf16 at hd 16 and 32): flash_fwd, flash_bwd_dq and
-//     flash_bwd_dkv, the first port's kernels, unchanged: every operand in
-//     shared memory as fp32 on the FP32 pipe (67 TFLOP/s on the data
-//     sheet), one CTA per (batch, head, 64-row block); the fp32 gates hold
-//     them.
+//   * FMA (fp32, and bf16 at hd 16, 32, 96 and 256): flash_fwd,
+//     flash_bwd_dq and flash_bwd_dkv, the first port's kernels, unchanged:
+//     every operand in shared memory as fp32 on the FP32 pipe (67 TFLOP/s
+//     on the data sheet), one CTA per (batch, head, 64-row block); the
+//     fp32 gates hold them.  At hd 96 (phi3-mini) and hd 256 (gemma,
+//     recurrentgemma) only the forward is instantiated, which is what
+//     serving and prefill run: its three tiles and the score tile take
+//     89 KiB and 210 KiB of the 227 KiB a CTA may have.  The backward at
+//     those head dims returns cudaErrorInvalidValue (the Python wrapper
+//     refuses it first): at hd 256 the dK/dV kernel's tiles would take
+//     292 KiB, so that one needs a design of its own.
 //
 // What bounds it on an H100: at tinyllama-1.1b's training shape (B 2, S
 // 2048, 32 query heads, 4 kv heads, hd 64) the forward is two products of
@@ -94,9 +100,9 @@ namespace {
 enum DtypeCode { kF32 = 0, kBF16 = 1 };
 
 // ---------------------------------------------------------------------------
-// FMA path (fp32; bf16 at hd 16 and 32).  Shared-memory rows are padded by
-// one float so that the transposed reads and writes of a warp fall in
-// distinct banks.
+// FMA path (fp32; bf16 at hd 16, 32, 96 and 256).  Shared-memory rows are
+// padded by one float so that the transposed reads and writes of a warp
+// fall in distinct banks.
 // ---------------------------------------------------------------------------
 
 constexpr float kNegInf = -1e30f;
@@ -569,6 +575,9 @@ cudaError_t by_head_dim(const Problem& p, int hd) {
     case 32: return kBackward ? backward<T, 32>(p) : forward<T, 32>(p);
     case 64: return kBackward ? backward<T, 64>(p) : forward<T, 64>(p);
     case 128: return kBackward ? backward<T, 128>(p) : forward<T, 128>(p);
+    // forward only: the dK/dV kernel's tiles do not fit (header note)
+    case 96: return kBackward ? cudaErrorInvalidValue : forward<T, 96>(p);
+    case 256: return kBackward ? cudaErrorInvalidValue : forward<T, 256>(p);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1380,7 +1389,7 @@ TcTensor tc_tensor(const void* ptr, const long long* st, int rows, int heads,
 // copy the others.  Launches on ``stream``, does not synchronise, returns
 // cudaGetLastError() after the launch, or a code of 10000 and above where
 // a tensor map could not be made (the caller raises on anything but 0).
-// hd must be 16, 32, 64 or 128.
+// hd must be 16, 32, 64, 96, 128 or 256.
 extern "C" int repro_flash_fwd(const void* q, const long long* q_st,
                                const void* k, const long long* k_st,
                                const void* v, const long long* v_st, void* o,

@@ -12,8 +12,15 @@ outputs the reference's).  On the CPU ``impl="auto"`` keeps the
 reference's rule, ``dense_attention`` up to ``2 * chunk`` query positions
 and ``chunked_attention`` above (plain PyTorch, as they are XLA in the
 reference), and ``impl="flash"`` takes the flash kernels' plain versions.
-Sliding windows are not ported.  ``decode_attention``
-serves every step of the serving path; its two contractions (q·k and p·v)
+A sliding window (``window > 0``, recurrentgemma's local layers) never runs
+on flash, as the reference's flash refuses windows: ``attention`` keeps
+the reference's dispatch, the banded ``local_attention`` above
+``2 * window`` query positions and the masked dense or chunked form below.
+The dense, chunked and banded forms share one body each, window or not,
+and run their two contractions through ``ops.matmul`` as
+``decode_attention`` does: the matmul kernel on the card (4-D, no
+backward, so a windowed form there serves inference only), its plain
+version on the CPU.  ``decode_attention`` serves every step of the serving path; its two contractions (q·k and p·v)
 run on the matmul kernel, read straight out of the cache through strides.
 That keeps the serving path batch-invariant: a slot's scores and outputs do
 not depend on how many other slots share the step (a library batched
@@ -26,9 +33,13 @@ contractions stay on the matmul kernel.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import matmul_fused_ref
 
 NEG_INF = -1e30
 
@@ -44,23 +55,74 @@ def _group_query(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _causal_mask(sq: int, kpos: torch.Tensor) -> torch.Tensor:
-    """(S, len(kpos)) mask: query i sees the keys at positions <= i."""
-    return kpos[None, :] <= torch.arange(sq, device=kpos.device)[:, None]
-
-
-def dense_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """Full-materialization attention."""
-    b, sq, hq, hd = q.shape
-    n_kv = k.shape[2]
-    qg = _group_query(q, n_kv).float()
-    scores = torch.einsum("bsngd,btnd->bngst", qg * hd ** -0.5, k.float())
+def _mask(sq: int, kpos: torch.Tensor, causal: bool,
+          window: int) -> Optional[torch.Tensor]:
+    """(S, len(kpos)) mask, None where every key is seen: query i sees the
+    keys at positions <= i (``causal``) and > i - ``window`` (window > 0)."""
+    qpos = torch.arange(sq, device=kpos.device)[:, None]
+    kpos = kpos[None, :]
+    if causal and window:
+        return (kpos <= qpos) & (kpos > qpos - window)
     if causal:
-        mask = _causal_mask(sq, torch.arange(k.shape[1], device=q.device))
-        scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bngst,btnd->bsngd", probs, v.float())
-    return out.reshape(b, sq, hq, hd).to(q.dtype)
+        return kpos <= qpos
+    if window:
+        return kpos > qpos - window
+    return None
+
+
+def _grouped(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, S, Hq, hd) -> (B, Hkv, S*G, hd) fp32 queries scaled by hd^-0.5,
+    the rows ordered by query position, then by the group's heads."""
+    b, s, hq, hd = q.shape
+    qg = (_group_query(q, n_kv).float() * hd ** -0.5).permute(0, 2, 1, 3, 4)
+    return qg.reshape(b, n_kv, s * (hq // n_kv), hd)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in fp32 for 4-D batches, on the matmul kernel (its plain
+    version on the CPU).  The 4-D kernel has no backward, so where a CPU
+    operand needs a gradient (training on the CPU, the autograd oracle of
+    the flash tests) the plain product runs under autograd instead; on the
+    card ``ops.matmul`` refuses it."""
+    if a.device.type == "cpu" and torch.is_grad_enabled() and (
+            a.requires_grad or b.requires_grad):
+        return matmul_fused_ref(a, b, out_dtype=torch.float32)
+    return ops.matmul(a, b, out_dtype=torch.float32)
+
+
+def _scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B', Hkv, R, hd) fp32 queries against keys (B', T, Hkv, hd): (B',
+    Hkv, R, T) fp32, on the matmul kernel reading k through its strides."""
+    return _product(qg, k.permute(0, 2, 3, 1))
+
+
+def _mix(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B', Hkv, R, T) fp32 probabilities times values (B', T, Hkv, hd):
+    (B', Hkv, R, hd) fp32, on the matmul kernel."""
+    return _product(probs, v.permute(0, 2, 1, 3))
+
+
+def _ungroup(out: torch.Tensor, sq: int, hq: int, dtype) -> torch.Tensor:
+    """(B, Hkv, S*G, hd) -> (B, S, Hq, hd) in ``dtype``."""
+    b, n_kv, _, hd = out.shape
+    out = out.view(b, n_kv, sq, hq // n_kv, hd).permute(0, 2, 1, 3, 4)
+    return out.reshape(b, sq, hq, hd).to(dtype)
+
+
+def dense_attention(q, k, v, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """Full-materialization attention; ``window`` > 0 masks each query to
+    the ``window`` keys ending at its own position."""
+    b, sq, hq, _ = q.shape
+    n_kv = k.shape[2]
+    g = hq // n_kv
+    scores = _scores(_grouped(q, n_kv), k).view(b, n_kv, sq, g, -1)
+    mask = _mask(sq, torch.arange(k.shape[1], device=q.device), causal,
+                 window)
+    if mask is not None:
+        scores = torch.where(mask[:, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).view(b, n_kv, sq * g, -1)
+    return _ungroup(_mix(probs, v), sq, hq, q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -68,35 +130,75 @@ def dense_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def chunked_attention(q, k, v, *, causal: bool = True,
+def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention looping over KV chunks: peak live memory
     O(B*H*S*chunk), masked like ``dense_attention``."""
     b, sq, hq, hd = q.shape
-    skv = k.shape[1]
     n_kv = k.shape[2]
     g = hq // n_kv
     dev = q.device
-    qg = _group_query(q, n_kv).float() * hd ** -0.5
+    qg = _grouped(q, n_kv)  # (B, Hkv, S*G, hd)
     m = torch.full((b, n_kv, sq, g), NEG_INF, device=dev)
     l = torch.zeros((b, n_kv, sq, g), device=dev)
-    acc = torch.zeros((b, n_kv, sq, g, hd), device=dev)
-    for start in range(0, skv, chunk):
-        kj = k[:, start:start + chunk].float()
-        vj = v[:, start:start + chunk].float()
-        kpos = start + torch.arange(kj.shape[1], device=dev)
-        s = torch.einsum("bsngd,btnd->bnsgt", qg, kj)
-        if causal:
-            mask = _causal_mask(sq, kpos)
+    acc = torch.zeros((b, n_kv, sq * g, hd), device=dev)
+    for start in range(0, k.shape[1], chunk):
+        kj, vj = k[:, start:start + chunk], v[:, start:start + chunk]
+        s = _scores(qg, kj).view(b, n_kv, sq, g, -1)
+        mask = _mask(sq, start + torch.arange(kj.shape[1], device=dev),
+                     causal, window)
+        if mask is not None:
             s = torch.where(mask[:, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bnsgt,btnd->bnsgd", p, vj)
+        acc = acc * corr.reshape(b, n_kv, sq * g, 1) + _mix(
+            p.view(b, n_kv, sq * g, -1), vj)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 2, 1, 3, 4).reshape(b, sq, hq, hd).to(q.dtype)
+    out = acc / torch.clamp(l, min=1e-30).reshape(b, n_kv, sq * g, 1)
+    return _ungroup(out, sq, hq, q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Local (sliding-window) attention: the exact banded form, O(S * W)
+# ---------------------------------------------------------------------------
+
+
+def local_attention(q, k, v, *, window: int) -> torch.Tensor:
+    """Causal sliding-window attention: each token attends to the
+    ``window`` tokens ending at itself.  Block form: each block of
+    ``window`` queries attends to [previous block | own block], both
+    contractions on the matmul kernel with the blocks folded into the
+    batch."""
+    b, s, hq, hd = q.shape
+    n_kv = k.shape[2]
+    g = hq // n_kv
+    w = window
+    pad = (-s) % w
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    nb = q.shape[1] // w
+    kb = k.reshape(b, nb, w, n_kv, hd)
+    vb = v.reshape(b, nb, w, n_kv, hd)
+    # block 0's "previous" block is zeros, fully masked
+    k2 = torch.cat([F.pad(kb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1], kb], dim=2)
+    v2 = torch.cat([F.pad(vb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1], vb], dim=2)
+    qg = _grouped(q.reshape(b * nb, w, hq, hd), n_kv)  # (B*nb, Hkv, w*G, hd)
+    scores = _scores(qg, k2.reshape(b * nb, 2 * w, n_kv, hd))
+    dev = q.device
+    qpos = torch.arange(w, device=dev)[:, None]
+    kpos = torch.arange(2 * w, device=dev)[None, :] - w  # from block start
+    band = (kpos <= qpos) & (kpos > qpos - w)  # (w, 2w)
+    valid_prev = ((torch.arange(nb, device=dev) > 0)[:, None, None]
+                  | (kpos >= 0)[None])  # (nb, 1, 2w)
+    mask = (band[None] & valid_prev).repeat(b, 1, 1)  # (B*nb, w, 2w)
+    scores = scores.view(b * nb, n_kv, w, g, 2 * w)
+    scores = torch.where(mask[:, None, :, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).view(b * nb, n_kv, w * g, 2 * w)
+    out = _ungroup(_mix(probs, v2.reshape(b * nb, 2 * w, n_kv, hd)), w, hq,
+                   q.dtype)
+    return out.reshape(b, nb * w, hq, hd)[:, :s]
 
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
@@ -106,18 +208,25 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               chunk: int = 1024, impl: str = "auto") -> torch.Tensor:
-    """Attention without a cache.  A CUDA tensor runs the flash kernels
-    whatever ``impl`` says.  On the CPU ``"auto"`` is dense up to
-    ``2 * chunk`` query positions and chunked above (the reference's static
-    crossover rule) and ``"flash"`` the flash kernels' plain versions."""
+    """Attention without a cache.  Without a window a CUDA tensor runs the
+    flash kernels whatever ``impl`` says.  On the CPU ``"auto"`` is dense up
+    to ``2 * chunk`` query positions and chunked above (the reference's
+    static crossover rule) and ``"flash"`` the flash kernels' plain
+    versions.  A window keeps the reference's dispatch on both devices:
+    ``local_attention`` above ``2 * window`` query positions, else the
+    masked dense or chunked form; ``impl="flash"`` refuses it."""
     if impl not in ("auto", "flash"):
         raise ValueError(f"impl must be 'auto' or 'flash', got {impl!r}")
     if window:
         if impl == "flash":
             raise ValueError("impl='flash' does not support sliding windows; "
                              "use the local_attention path")
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (other families)")
+        if q.shape[1] > 2 * window:
+            return local_attention(q, k, v, window=window)
+        if q.shape[1] <= 2 * chunk:
+            return dense_attention(q, k, v, causal=causal, window=window)
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 chunk=chunk)
     if impl == "flash" or q.is_cuda:
         return flash_attention(q, k, v, causal=causal)
     if q.shape[1] <= 2 * chunk:
@@ -140,15 +249,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     its own fill level.  Queries are causal within the chunk: query ``i``
     attends to ``kpos < cache_pos - (S_new - 1) + i``.
     """
-    b, sq, hq, hd = q.shape
+    b, sq, hq, _ = q.shape
     skv, n_kv = k_cache.shape[1], k_cache.shape[2]
     g = hq // n_kv
     dev = q.device
-    # (B, Hkv, S_new*G, hd) fp32, pre-scaled like the reference
-    qg = (_group_query(q, n_kv).float() * hd ** -0.5).permute(0, 2, 1, 3, 4)
-    qg = qg.reshape(b, n_kv, sq * g, hd)
-    scores = ops.matmul(qg, k_cache.permute(0, 2, 3, 1),
-                        out_dtype=torch.float32)  # (B, Hkv, S_new*G, Smax)
+    # fp32 queries pre-scaled like the reference's
+    scores = _scores(_grouped(q, n_kv), k_cache)  # (B, Hkv, S_new*G, Smax)
     kpos = torch.arange(skv, device=dev)
     limit = (cache_pos.reshape(-1, 1) - (sq - 1)
              + torch.arange(sq, device=dev)[None])  # (1 or B, S_new)
@@ -156,10 +262,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.where(mask[:, None, :, None, :],
                          scores.reshape(b, n_kv, sq, g, skv), NEG_INF)
     probs = torch.softmax(scores, dim=-1).view(b, n_kv, sq * g, skv)
-    out = ops.matmul(probs, v_cache.permute(0, 2, 1, 3),
-                     out_dtype=torch.float32)  # (B, Hkv, S_new*G, hd)
-    out = out.view(b, n_kv, sq, g, hd).permute(0, 2, 1, 3, 4)
-    return out.reshape(b, sq, hq, hd).to(q.dtype)
+    return _ungroup(_mix(probs, v_cache), sq, hq, q.dtype)
 
 
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):

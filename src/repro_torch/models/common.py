@@ -135,11 +135,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
+                 scale: Optional[float] = None) -> torch.Tensor:
     """Rows of ``table``; a negative id counts from the end, as in numpy
     and the reference's ``jnp.take`` (serving feeds masked slots the pad
-    id, which may be -1)."""
-    return F.embedding(torch.where(ids < 0, ids + table.shape[0], ids), table)
+    id, which may be -1).  ``scale`` multiplies the rows after it is
+    rounded to the table's dtype, as the reference's ``jnp.asarray(scale,
+    out.dtype)`` rounds it: in bf16, sqrt(2560) becomes 50.5.  The
+    rounding happens on the host; the product of two bf16 values is exact
+    in the fp32 the multiply computes in, so one rounding follows, as in
+    the reference."""
+    out = F.embedding(torch.where(ids < 0, ids + table.shape[0], ids), table)
+    if scale is not None:
+        out = out * float(torch.tensor(scale, dtype=out.dtype))
+    return out
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

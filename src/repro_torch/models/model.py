@@ -5,13 +5,19 @@ Batch conventions: ``{"tokens": (B, S) int64}``.  Parameters are a dict
 ``{"embed", "layers": [per-layer dict, ...], "final_norm", "unembed"}``;
 the decode state is ``{"layers": [per-layer tree, ...], "pos"}`` — a
 layer's tree is ``{"k", "v"}`` for attention (``{"pk", "pv"}``, a page
-pool shared by the slots, when paged) and ``{"time": {"S", "shift"},
-"channel": {"shift"}}`` for rwkv — with every per-slot leaf's slot axis
-first.  ``loss`` is the training objective:
+pool shared by the slots, when paged), ``{"k", "v"}`` ring buffers of the
+window's length for local attention, ``{"h", "conv"}`` for the RG-LRU and
+``{"time": {"S", "shift"}, "channel": {"shift"}}`` for rwkv — with every
+per-slot leaf's slot axis first.  With tied embeddings (gemma's) there is
+no ``unembed``: the logits read ``embed``, and the embedded tokens are
+scaled by sqrt(d_model) rounded to the weights' dtype.  ``loss`` is the
+training objective:
 next-token cross-entropy plus the weighted auxiliary and z losses, through
 ``xent_auto`` (direct up to 2048 positions, chunked and recomputed above).
 The port has the dense decoder-only family (full attention, RoPE, dense
-GLU FFN) and the rwkv6 family; the others raise ``NotImplementedError``.
+GLU FFN, tied or untied embeddings), the hybrid family (RG-LRU and local
+attention) and the rwkv6 family; mixture of experts, encoder-decoder,
+mrope and the vision and audio frontends raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,14 +77,13 @@ class Model:
             unported.append("encoder-decoder")
         if cfg.is_moe:
             unported.append("mixture of experts")
-        if any(k not in ("attn", "rwkv") for k in cfg.block_pattern):
+        if any(k not in ("attn", "local", "rglru", "rwkv")
+               for k in cfg.block_pattern):
             unported.append(f"block pattern {cfg.block_pattern}")
         if cfg.pos_type not in ("rope", "none"):
             unported.append(f"pos_type {cfg.pos_type!r}")
         if cfg.frontend != "none":
             unported.append(f"frontend {cfg.frontend!r}")
-        if cfg.tie_embeddings:
-            unported.append("tied embeddings")
         if unported:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(unported)} not ported yet "
@@ -94,18 +99,26 @@ class Model:
         ``torch.Generator`` seeded with ``seed`` on the model's device."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        return {
+        params = {
             "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, self.dtype),
             "layers": tfm.stack_init(gen, cfg),
             "final_norm": rmsnorm_init(cfg.d_model, self.device),
-            "unembed": embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                  self.dtype),
         }
+        if not cfg.tie_embeddings:
+            params["unembed"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                           self.dtype)
+        return params
+
+    def _table(self, params) -> torch.Tensor:
+        """The (vocab, d) table the logits read: ``embed`` when tied."""
+        return params["embed" if self.cfg.tie_embeddings else "unembed"]
 
     def _embed(self, params, batch, decode_offset=None):
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = embed_lookup(params["embed"], tokens)
+        scale = float(self.cfg.d_model) ** 0.5 \
+            if self.cfg.tie_embeddings else None
+        x = embed_lookup(params["embed"], tokens, scale)
         if decode_offset is None:
             decode_offset = torch.zeros((), dtype=torch.int64,
                                         device=tokens.device)
@@ -127,7 +140,7 @@ class Model:
         x, _, aux = tfm.stack_apply(params["layers"], self.cfg, x, positions,
                                     remat=remat)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        return unembed(params["unembed"], x), self._aux(aux)
+        return unembed(self._table(params), x), self._aux(aux)
 
     def prefill(self, params, batch):
         """Inference prefill: full forward, logits only at the last position."""
@@ -135,7 +148,7 @@ class Model:
         x, _, _ = tfm.stack_apply(params["layers"], self.cfg, x, positions,
                                   remat=False)
         x = rmsnorm(params["final_norm"], x[:, -1:], self.cfg.norm_eps)
-        return unembed(params["unembed"], x)
+        return unembed(self._table(params), x)
 
     def loss(self, params, batch, remat: bool = True):
         """Next-token training loss on ``batch["tokens"]`` (B, S): targets
@@ -152,7 +165,7 @@ class Model:
         targets = tokens[:, 1:]
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=tokens.device)
-        ce, z = xent_auto(params["unembed"], x[:, :-1], targets, mask)
+        ce, z = xent_auto(self._table(params), x[:, :-1], targets, mask)
         aux = self._aux(aux)
         total = ce + AUX_LOSS_WEIGHT * aux + Z_LOSS_WEIGHT * z
         return total, {"ce": ce, "aux": aux, "z": z}
@@ -188,7 +201,7 @@ class Model:
             params["layers"], self.cfg, x, positions, states=state["layers"],
             cache_pos=pos, block_tables=batch.get("block_tables"))
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        return unembed(params["unembed"], x), {
+        return unembed(self._table(params), x), {
             "layers": new_layers, "pos": pos + batch["tokens"].shape[1]}
 
     # ------------------------------------------------------------------

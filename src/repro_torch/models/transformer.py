@@ -2,9 +2,12 @@
 applied in a loop (the reference scans stacked parameters; the port's
 ``convert.params_from_jax`` unstacks them).  Without a decode state each
 layer is recomputed in the backward pass (``remat``), as the reference
-wraps its scan body in ``jax.checkpoint``.  The port has the full-attention
-and the rwkv layer kinds; the others raise ``NotImplementedError``.  Every
-kind exposes the same (x, state) -> (x, state, aux) interface.
+wraps its scan body in ``jax.checkpoint``.  The port has the layer kinds
+of the dense, rwkv and hybrid families: full attention (``attn``),
+sliding-window attention over a ring buffer (``local``), the RG-LRU
+(``rglru``) and rwkv; mixture-of-experts layers raise
+``NotImplementedError``.  Every kind exposes the same (x, state) -> (x,
+state, aux) interface.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.common import (
     apply_rope,
@@ -55,8 +59,15 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                dtype) -> Dict[str, Any]:
     p: Dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, gen.device),
                          "ln2": rmsnorm_init(cfg.d_model, gen.device)}
-    if kind == "attn" and not cfg.is_moe:
+    if cfg.is_moe:
+        raise _unported("moe")
+    if kind in ("attn", "local"):
         p["attn"] = _attn_init(gen, cfg, dtype)
+        p["ffn"] = ffn_lib.ffn_init(gen, cfg.d_model, cfg.d_ff,
+                                    cfg.activation, dtype)
+    elif kind == "rglru":
+        p["rglru"] = rglru_lib.rglru_init(gen, cfg.d_model,
+                                          cfg.lru_width or cfg.d_model, dtype)
         p["ffn"] = ffn_lib.ffn_init(gen, cfg.d_model, cfg.d_ff,
                                     cfg.activation, dtype)
     elif kind == "rwkv":
@@ -65,7 +76,7 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
         p["channel"] = rwkv_lib.rwkv_channel_mix_init(gen, cfg.d_model,
                                                       cfg.d_ff, dtype)
     else:
-        raise _unported("moe" if cfg.is_moe else kind)
+        raise _unported(kind)
     return p
 
 
@@ -74,11 +85,15 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
 # ---------------------------------------------------------------------------
 
 
-def _attn_apply(params, cfg: ModelConfig, x, positions, *, cache=None,
-                cache_pos=None, block_tables=None):
+def _attn_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
+                cache=None, cache_pos=None, block_tables=None):
     """Returns (out, new_cache).  A cache with ``pk``/``pv`` is a paged
     pool: the new KV is written into it in place through ``block_tables``
-    and each slot's view is gathered back for the attention."""
+    and each slot's view is gathered back for the attention.  With a
+    ``window`` the cache is a ring buffer of that many positions: the new
+    KV goes to ``cache_pos % W`` and the queries attend to the
+    ``min(cache_pos + S_new, W)`` entries written, in any order (RoPE has
+    already placed them)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = project(x, params["wq"]).reshape(b, s, cfg.n_heads, hd)
@@ -87,7 +102,14 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, cache=None,
     if cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if cache is not None and "pk" in cache:
+    if cache is not None and window:
+        w = cache["k"].shape[1]
+        kc, vc = attn_lib.update_kv_cache(cache["k"], cache["v"], k, v,
+                                          cache_pos % w)
+        out = attn_lib.decode_attention(q, kc, vc,
+                                        torch.clamp(cache_pos + s, max=w))
+        new_cache = {"k": kc, "v": vc}
+    elif cache is not None and "pk" in cache:
         bs = cache["pk"].shape[1]
         pk, pv = attn_lib.paged_update_kv_cache(
             cache["pk"], cache["pv"], k, v, cache_pos, block_tables, bs)
@@ -100,7 +122,7 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, cache=None,
         out = attn_lib.decode_attention(q, kc, vc, cache_pos + s)
         new_cache = {"k": kc, "v": vc}
     else:
-        out = attn_lib.attention(q, k, v)
+        out = attn_lib.attention(q, k, v, window=window)
         new_cache = None
     return project(out.reshape(b, s, -1), params["wo"]), new_cache
 
@@ -113,20 +135,23 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
     (x, new_state, aux_loss); these layers have no auxiliary loss, so it is
     the float 0.0 (no launch).  ``rnn_chunk`` is the WKV chunk length (the
     reference's ``ctx.rnn_chunk``, 64 without a context)."""
-    if kind not in ("attn", "rwkv"):
+    if kind not in ("attn", "local", "rglru", "rwkv"):
         raise _unported(kind)
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    if kind == "attn":
-        out, new_state = _attn_apply(params["attn"], cfg, h, positions,
-                                     cache=state, cache_pos=cache_pos,
-                                     block_tables=block_tables)
+    if kind in ("attn", "local"):
+        out, new_state = _attn_apply(
+            params["attn"], cfg, h, positions,
+            window=cfg.window_size if kind == "local" else 0, cache=state,
+            cache_pos=cache_pos, block_tables=block_tables)
+    elif kind == "rglru":
+        out, new_state = rglru_lib.rglru_apply(params["rglru"], h, state)
     else:
         out, new_time = rwkv_lib.rwkv_time_mix(
             params["time"], h, cfg.rnn_head_dim,
             state["time"] if state is not None else None, chunk=rnn_chunk)
     x = x + out
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    if kind == "attn":
+    if kind != "rwkv":
         return x + ffn_lib.ffn_apply(params["ffn"], h2, cfg.activation), \
             new_state, 0.0
     out2, new_channel = rwkv_lib.rwkv_channel_mix(
@@ -144,24 +169,34 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
 def layer_init_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device, paging=None) -> Dict[str, Any]:
     """A layer's decode state: the KV cache {"k", "v"} (B, max_len, Hkv,
-    hd), or the rwkv state {"time": {"S", "shift"}, "channel": {"shift"}},
-    slot axis first on every leaf.  ``paging=(n_blocks, block_size)``
-    turns an attention layer's cache into a page pool shared by all slots,
-    {"pk", "pv"} (n_blocks, block_size, Hkv, hd) with no slot axis,
-    zero-filled so that every page only ever holds finite values (a masked
-    position's probability is exactly 0, and 0 x NaN would be NaN).  The
-    rwkv state stays dense per slot."""
+    hd); a local layer's ring buffer {"k", "v"} (B, window, Hkv, hd); the
+    RG-LRU state {"h" (B, W) fp32, "conv" (B, 3, W)}; or the rwkv state
+    {"time": {"S", "shift"}, "channel": {"shift"}}; slot axis first on
+    every leaf.  ``paging=(n_blocks, block_size)`` turns an attention
+    layer's cache into a page pool shared by all slots, {"pk", "pv"}
+    (n_blocks, block_size, Hkv, hd) with no slot axis, zero-filled so that
+    every page only ever holds finite values (a masked position's
+    probability is exactly 0, and 0 x NaN would be NaN).  Ring buffers and
+    recurrent states stay dense per slot, as in the reference."""
+    hd = cfg.resolved_head_dim
     if kind == "rwkv":
         return rwkv_lib.rwkv_init_state(batch, cfg.d_model, cfg.rnn_head_dim,
                                         dtype, device)
+    if kind == "rglru":
+        return rglru_lib.rglru_init_state(batch, cfg.lru_width or cfg.d_model,
+                                          dtype, device)
+    if kind == "local":
+        shape = (batch, cfg.window_size, cfg.n_kv_heads, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
     if kind != "attn":
         raise _unported(kind)
     if paging is not None:
         n_blocks, block_size = paging
-        shape = (n_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+        shape = (n_blocks, block_size, cfg.n_kv_heads, hd)
         return {"pk": torch.zeros(shape, dtype=dtype, device=device),
                 "pv": torch.zeros(shape, dtype=dtype, device=device)}
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    shape = (batch, max_len, cfg.n_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

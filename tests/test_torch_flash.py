@@ -13,7 +13,8 @@ inputs, on the CPU.
 * ``MatmulFn`` with each epilogue and a bias against autograd of
   ``matmul_fused_ref``, atol 1e-5;
 * ``choose_path`` picks the tensor-core kernels for bf16 at hd 64 and 128
-  and the FMA kernels otherwise, from the dtype and hd alone;
+  and the FMA kernels otherwise, from the dtype and hd alone, and refuses
+  the backward at hd 96 and 256, which have a forward only;
 * the ``cuda``-marked tests hold the kernels against their plain versions
   on a card, forward and backward, causal and not, on the path their
   dtype and hd name (fp32 within 2e-3 x max|plain|, bf16 outputs element
@@ -186,10 +187,21 @@ def test_choose_path_by_dtype_and_head_dim(dtype, hd):
 
 
 def test_choose_path_rejects_what_no_kernel_takes():
+    """No kernel takes fp16 or hd 48; hd 96 and 256 have a forward (FMA)
+    and no backward yet: its wrapper raises before it looks at the device."""
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.choose_path(torch.float16, 64)
     with pytest.raises(ValueError, match="head dim"):
-        fa.choose_path(torch.bfloat16, 96)
+        fa.choose_path(torch.bfloat16, 48)
+    assert set(fa.BWD_HEAD_DIMS) == set(fa.HEAD_DIMS) - {96, 256}
+    for hd in (96, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert fa.choose_path(dtype, hd) == "fma"
+            q = torch.zeros((1, 4, 2, hd), dtype=dtype)
+            lse = torch.zeros((1, 2, 4))
+            with pytest.raises(NotImplementedError,
+                               match=f"flash backward at hd {hd} not ported"):
+                fa.flash_attention_bwd_cuda(q, q, q, q, lse, q)
 
 
 def test_tma_ok_reads_strides_and_alignment():

@@ -365,24 +365,28 @@ def test_idle_jumps_on_pinned_clock(llama):
 
 
 def test_idle_sleeps_to_next_arrival_not_fixed_polls(llama, monkeypatch):
+    """On a virtual clock that only the sleep spy advances (by the seconds
+    asked, with no real sleep), so r0's service time never races the gap:
+    the idle branch's 1 ms probe sees the clock move and then sleeps the
+    rest of the gap in one call, in both packages."""
     prompts = _prompts(llama[0], 3)
-    real_sleep = time.sleep
     got = []
     for mod, req_cls, engine in zip((j_eng_mod, t_eng_mod),
                                     (JRequest, Request),
                                     _engines(llama, n_slots=1)):
         engine.run([req_cls("warm", prompts[2], 2)], now_fn=lambda: 0.0)
-        sleeps = []
+        sleeps, clock = [], [0.0]
 
-        def spy(seconds, sleeps=sleeps):
+        def spy(seconds, sleeps=sleeps, clock=clock):
             sleeps.append(seconds)
-            real_sleep(seconds)
+            clock[0] += seconds
 
         gap = 0.3
         with monkeypatch.context() as mp:
             mp.setattr(mod.time, "sleep", spy)
             rep = engine.run([req_cls("r0", prompts[0], 2, arrival_s=0.0),
-                              req_cls("r1", prompts[1], 2, arrival_s=gap)])
+                              req_cls("r1", prompts[1], 2, arrival_s=gap)],
+                             now_fn=lambda clock=clock: clock[0])
         assert rep.state_counts() == {"COMPLETED": 2}
         # one computed sleep covers (nearly) the whole idle gap
         assert max(sleeps) >= 0.5 * gap

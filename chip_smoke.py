@@ -183,8 +183,25 @@ Phases, one report line each (any failure exits non-zero):
      64 streaming 80 tokens (the ring buffer wraps) against the CPU and
      its own full forward; the flash forward at (1, 2048, 32, 32, 96) and
      (1, 2048, 8, 1, 256) in bf16 and fp32 against its plain version on
-     the path choose_path names, timed beside it, SDPA and the bound.
-     Before each of phases 2-18, gc.collect(): a gen-2 collection of this
+     the path choose_path names, timed beside it, SDPA and the bound;
+ 19. the mixture-of-experts family and the VLM backbone: as phase 18,
+     moonshot-v1-16b-a3b at full width and depth (48 layers, 56.1 GB),
+     qwen3-moe-235b-a22b (10 of 94 layers) and qwen2-vl-72b (28 of 80,
+     M-RoPE with the text-only positions) at full width, bf16, each freed
+     before the next is built: served static and continuous, tokens equal;
+     Model.prefill 4 x 64 (one tensor-core flash forward a layer); every
+     matmul signature (the fp32 router at N 64 and 128, the experts side
+     by side at N = E*F and K = E*F, d_ff 29568, the unembedding at vocab
+     163840 and 152064) against the plain version, its path and its
+     operands' TMA recorded; one profiled decode step, and the MoE blocks
+     of one alone against the bound of the expert weights they read;
+     card against CPU in fp32 at 2 layers (qwen3-moe 1): prefill, batched
+     prefill and 4 steps within 2e-3 x max|logit|, the selected experts
+     compared token by token (a swap allowed only between experts whose
+     probabilities differ by less than twice the card-vs-CPU difference),
+     and qwen2-vl's forward with vision embeddings and distinct (t, h, w)
+     positions.
+     Before each of phases 2-19, gc.collect(): a gen-2 collection of this
      script's heap took 0.2-0.75 s inside a timed step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
@@ -310,6 +327,15 @@ SORT_MAIN_NS = (2000, 1 << 26)  # distributed_sort's runs
 # in the order of the port's roadmap (cheapest first)
 FAMILIES = ("mistral-nemo-12b", "phi3-mini-3.8b", "gemma-2b",
             "recurrentgemma-2b")
+# phase 19: the mixture-of-experts family and the VLM backbone at full
+# width, served at the depth one 80 GB card holds in bf16 (None: all of
+# it): moonshot 56.1 GB whole; a qwen3-moe layer is 4.98 GB, a qwen2-vl
+# layer 1.76 GB
+MOE_VLM = (("moonshot-v1-16b-a3b", None), ("qwen3-moe-235b-a22b", 10),
+           ("qwen2-vl-72b", 28))
+# their card-against-CPU depths in fp32, each CPU copy under about 20 GB
+MOE_VLM_CPU_LAYERS = {"moonshot-v1-16b-a3b": 2, "qwen3-moe-235b-a22b": 1,
+                      "qwen2-vl-72b": 2}
 # the flash forward at the head dims they bring: phi3-mini's MHA at hd 96
 # and gemma's MQA at hd 256, at a 2048-token prompt
 FAMILY_FLASH_SHAPES = [(1, 2048, 32, 32, 96, "bfloat16"),
@@ -482,6 +508,49 @@ class MatmulShapes:
 
     def __exit__(self, *exc):
         self.ops.matmul = self.launch
+
+
+class FlashCalls:
+    """Inside the block every ``ops.flash_attention`` call is seen, and the
+    first call of each signature (q's and k's shapes, the dtype, causal)
+    is kept in ``calls`` with its inputs and its output, so that the main
+    path's own result can be held against the plain version afterwards,
+    with no launch of its own."""
+
+    def __init__(self, ops):
+        self.ops, self.calls = ops, {}
+
+    def __enter__(self):
+        self.launch = self.ops.flash_attention
+
+        def recording(q, k, v, **kw):
+            out = self.launch(q, k, v, **kw)
+            key = (tuple(q.shape), tuple(k.shape), q.dtype,
+                   kw.get("causal", True))
+            if key not in self.calls:
+                self.calls[key] = (q, k, v, kw.get("causal", True), out)
+            return out
+
+        self.ops.flash_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.launch
+
+
+def flash_error(got, want) -> tuple:
+    """(max abs error, its largest share of the limit) of a flash output
+    against its plain version: bf16 element by element within BF16_TOL x
+    the largest |plain| in its row + F32_TOL x max|plain|, fp32 within
+    FLASH_F32_TOL x max|plain|."""
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    top = mag.max().item()
+    if want.dtype == torch.bfloat16:
+        limit = BF16_TOL * mag.amax(-1, keepdim=True) + F32_TOL * top
+    else:
+        limit = torch.full_like(mag, FLASH_F32_TOL * top)
+    return diff.max().item(), (diff / limit).max().item()
 
 
 def main() -> int:
@@ -1016,6 +1085,15 @@ def main() -> int:
         return 1
     record["families"] = families
 
+    # ----------------------------------------------------------------- 19
+    gc.collect()
+    del flush  # 512 MiB back for qwen3-moe's 52 GB
+    torch.cuda.empty_cache()
+    moe_vlm = moe_vlm_phase(mm, fa, ops, ref, card)
+    if moe_vlm is None:
+        return 1
+    record["moe_vlm"] = moe_vlm
+
     # ---------------------------------------------------------------- out
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1032,7 +1110,8 @@ def main() -> int:
         # signature phase 18's families ran
         "max_abs_err": max([worst] + [
             rec["matmul_checks"]["max_abs_err"]
-            for rec in families["serve"].values()]),
+            for rec in list(families["serve"].values())
+            + list(moe_vlm["serve"].values())]),
         # phase 15's paged serving run (P1), counted from 0 just before it
         "launches_paged_serve": paged["p1"]["matmul_launches"],
         # phase 16's dense preemption drill, counted from 0 just before it
@@ -1045,6 +1124,13 @@ def main() -> int:
             arch: {mode: n["count"] for mode, n in
                    rec["matmul_launches"].items()}
             for arch, rec in families["serve"].items()},
+        # phase 19's serves of moonshot (48 layers), qwen3-moe (10) and
+        # qwen2-vl (28), static and continuous, each counted from 0 just
+        # before it
+        "launches_moe_vlm_serve": {
+            arch: {mode: n["count"] for mode, n in
+                   rec["matmul_launches"].items()}
+            for arch, rec in moe_vlm["serve"].items()},
         # one decode step's matmul calls: the kernel in the real step, the
         # plain version on the same operands, the bound of the same work
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -1092,12 +1178,24 @@ def main() -> int:
                    "forward": rec["prefill"]["flash_forward_calls"],
                    "by_path": rec["prefill"]["flash_by_path"]}
             for arch, rec in families["serve"].items()},
+        # phase 19: the same for moonshot, qwen3-moe and qwen2-vl (hd 128,
+        # tensor-core path) at their served depths
+        "launches_moe_vlm_prefill": {
+            arch: {"head_dim": rec["prefill"]["head_dim"],
+                   "forward": rec["prefill"]["flash_forward_calls"],
+                   "by_path": rec["prefill"]["flash_by_path"]}
+            for arch, rec in moe_vlm["serve"].items()},
         "families_forward": [
             {k: r[k] for k in ("shape", "dtype", "path", "max_abs_err", "ms",
                                "plain_ms", "library_ms", "bound_ms",
                                "bound_by")} for r in families["flash"]],
-        "max_abs_err": max(r["max_abs_err"] for r in flash_rows
-                           + families["flash"]),
+        # and the first call of each signature of phases 18 and 19's
+        # bf16 prefills against the plain forward
+        "max_abs_err": max([r["max_abs_err"] for r in flash_rows
+                            + families["flash"]] + [
+            rec["prefill"]["flash_max_abs_err"]
+            for rec in list(families["serve"].values())
+            + list(moe_vlm["serve"].values())]),
         # the bf16 training shape, forward plus backward
         "ms": flash_main["fwd_ms"] + flash_main["bwd_ms"],
         "plain_ms": flash_main["fwd_plain_ms"] + flash_main["bwd_plain_ms"],
@@ -1160,7 +1258,9 @@ def invariance_gate(ops, mm, gen, d, f):
     a product of M rows (M in INVARIANCE_ROWS; i the first, middle and last
     row) equals that row multiplied alone (torch.equal), for every
     epilogue, with transposed and 4-D operands, at tinyllama-1.1b's widths
-    (K = d; N = d_ff, tile 128, and N = d, tile 64).  None on a mismatch."""
+    (K = d; N = d_ff, tile 128, and N = d, tile 64), and an fp32 result at
+    K 8192, which ops.matmul runs as K blocks (ops.k_blocked: one launch
+    a block, the bias in the first).  None on a mismatch."""
     def rand(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(dtype)
@@ -1171,6 +1271,8 @@ def invariance_gate(ops, mm, gen, d, f):
     x32 = rand(4096, d)
     w = {n: rand(d, n, dtype=bf, scale=d ** -0.5) for n in (d, f)}
     bias = rand(f)
+    x8k, w8k = rand(4096, 8192, dtype=bf), rand(8192, d, dtype=bf,
+                                                 scale=8192 ** -0.5)
     cases = [(f"tensor_core N={n}", x, w[n], {}) for n in (d, f)]
     cases += [(f"tensor_core {act}", x, w[f], dict(activation=act))
               for act in ("relu", "gelu", "silu", "tanh")]
@@ -1185,7 +1287,17 @@ def invariance_gate(ops, mm, gen, d, f):
         ("split A N=d -> fp32", x32, w[d], dict(out_dtype=torch.float32)),
         ("split B aᵀ dz", xt, rand(d, f), dict(out_dtype=bf)),
         ("fma tanh", x32, w[f].float(), dict(activation="tanh")),
+        ("tensor_core K=8192 bias -> fp32 (K blocks)", x8k, w8k,
+         dict(bias=bias[:d], out_dtype=torch.float32)),
     ]
+    blocks = -(-8192 // ops.TC_K_BLOCK)
+    before = mm.LAUNCHES.count
+    ops.matmul(x8k[:1], w8k, out_dtype=torch.float32)
+    if mm.LAUNCHES.count - before != blocks:
+        log("invariance", f"FAIL K=8192 -> fp32: "
+            f"{mm.LAUNCHES.count - before} launches, expected {blocks} K "
+            f"blocks of {ops.TC_K_BLOCK}")
+        return None
     checked = {}
     for name, a, b, kw in cases:
         path = mm.choose_path(a.dtype, b.dtype)
@@ -1217,8 +1329,8 @@ def invariance_gate(ops, mm, gen, d, f):
                     checked[path] = checked.get(path, 0) + 1
     log("invariance", f"rows bit-identical alone and in products of "
         f"{list(INVARIANCE_ROWS)} rows: {checked} comparisons by path "
-        f"({len(cases)} 2-D cases, every epilogue, aᵀ, bᵀ, 4-D cache "
-        f"views)")
+        f"({len(cases)} 2-D cases, every epilogue, aᵀ, bᵀ, K 8192 -> fp32 "
+        f"in {blocks} K blocks, 4-D cache views)")
     if set(checked) != set(mm.PATHS):
         return None
     return checked
@@ -1579,14 +1691,7 @@ def flash_case(shape, gen, ref, fa, flush):
     for name, got, want in [("o", o, o_p), ("lse", lse, lse_p),
                             ("o vs flash_attention_ref", fold(o), oracle),
                             *zip(("dq", "dk", "dv"), grads, grads_p)]:
-        diff = (got.float() - want.float()).abs()
-        mag = want.float().abs()
-        top = mag.max().item()
-        if want.dtype == torch.bfloat16:
-            limit = BF16_TOL * mag.amax(-1, keepdim=True) + F32_TOL * top
-        else:
-            limit = torch.full_like(mag, FLASH_F32_TOL * top)
-        err, ratio = diff.max().item(), (diff / limit).max().item()
+        err, ratio = flash_error(got, want)
         errs[name] = dict(err=err, of_limit=ratio)
         worst = max(worst, err)
         if not ratio <= 1.0:
@@ -3917,25 +4022,48 @@ def family_step(phase, model, params, state, feed, ops, mm):
     return out
 
 
-def family_prefill(arch, model, params, prompts, fa, shapes):
+def family_prefill(arch, model, params, prompts, fa, ops, ref, shapes,
+                   label="families"):
     """Model.prefill of phase 5's prompt shape (SLOTS x PROMPT) at full
     width and depth in bf16: the flash forward's calls by path counted
     from 0 just before it, one per full-attention layer on the path
     choose_path names for the model's head dim (recurrentgemma's local
     layers take the windowed forms, never flash); finite logits of shape
-    (SLOTS, 1, vocab).  Its matmul calls go to ``shapes``.  Returns
-    (record, failures)."""
+    (SLOTS, 1, vocab); the output of the first flash call of each
+    signature (FlashCalls) against the plain forward on the same q, k, v,
+    at phase 7's tolerance (flash_error).  An mrope model gets the
+    text-only (t, h, w) positions.  Its matmul calls go to ``shapes``.
+    Returns (record, failures)."""
+    from repro_torch.models.model import mrope_positions
+
     cfg = model.cfg
     hd = cfg.resolved_head_dim
     n_attn = sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
     path = fa.choose_path(torch.bfloat16, hd)
+    batch = {"tokens": prompts}
+    if cfg.pos_type == "mrope":
+        batch["positions"] = mrope_positions(*prompts.shape, 0, "cuda")
     torch.cuda.synchronize()
     fa.LAUNCHES.reset()
-    with torch.inference_mode(), shapes:
-        logits = model.prefill(params, {"tokens": prompts})
+    with torch.inference_mode(), shapes, FlashCalls(ops) as flash:
+        logits = model.prefill(params, batch)
     torch.cuda.synchronize()
     calls, by_path = fa.LAUNCHES.forward, dict(fa.LAUNCHES.by_path)
-    fails = []
+    fails, checks = [], []
+    with torch.inference_mode():
+        for q, k, v, causal, o in flash.calls.values():
+            want, _ = ref.flash_attention_fwd_plain(q, k, v, causal)
+            err, ratio = flash_error(o, want)
+            sig = (f"q {tuple(q.shape)} k {tuple(k.shape)} "
+                   f"{str(q.dtype)[6:]}")
+            checks.append(dict(call=sig, max_abs_err=err, of_limit=ratio))
+            if not ratio <= 1.0:
+                fails.append(f"{arch}: flash forward {sig} in Model.prefill: "
+                             f"max abs err {err:.3e}, {ratio:.2f} x its "
+                             f"limit")
+    if n_attn and not checks:
+        fails.append(f"{arch}: no flash call in Model.prefill to check")
+    flash_err = max((c["max_abs_err"] for c in checks), default=0.0)
     if calls != n_attn or by_path[path] != n_attn:
         fails.append(f"{arch}: Model.prefill made {calls} flash forward "
                      f"calls ({by_path}), expected {n_attn} on the {path} "
@@ -3945,30 +4073,39 @@ def family_prefill(arch, model, params, prompts, fa, shapes):
     if tuple(logits.shape) != want or not finite:
         fails.append(f"{arch}: Model.prefill logits {tuple(logits.shape)}, "
                      f"finite {finite}; expected {want}")
-    log("families", f"{arch} Model.prefill {tuple(prompts.shape)} full "
-        f"depth bf16: flash forward calls {calls} by path {by_path} "
+    log(label, f"{arch} Model.prefill {tuple(prompts.shape)} "
+        f"{cfg.n_layers} layers bf16: flash forward calls {calls} by path {by_path} "
         f"(hd {hd}, {n_attn} full-attention layers), logits "
-        f"{tuple(logits.shape)} finite {finite}")
+        f"{tuple(logits.shape)} finite {finite}; flash outputs against the "
+        f"plain forward: {checks}")
     return dict(shape=list(prompts.shape), head_dim=hd, flash_path=path,
                 flash_forward_calls=calls, flash_by_path=by_path,
-                attn_layers=n_attn), fails
+                attn_layers=n_attn, flash_checks=checks,
+                flash_max_abs_err=flash_err), fails
 
 
-def family_matmuls(arch, calls, ops, ref, mm):
+def family_matmuls(arch, calls, ops, ref, mm, label="families"):
     """Hold one call of every matmul signature a family's serves and
     prefill ran (phase 18's shapes: the projections at its width, the
     FFN, the unembedding at its vocab, decode_attention's and the
-    windowed forms' contractions at its head dim) against the plain
-    version, at phase 2's tolerance (BF16_TOL or F32_TOL x max|plain| by
-    the output's dtype), each call's path checked against its dtypes
-    (RouteAudit).  Returns (record, failures)."""
-    fails, worst, worst_call = [], 0.0, None
+    windowed forms' contractions at its head dim; phase 19's router and
+    expert products) against the plain version, at phase 2's tolerance
+    (BF16_TOL or F32_TOL x max|plain| by the output's dtype), each call's
+    path checked against its dtypes (RouteAudit), and which of a
+    tensor-core call's operands a tensor map loads (TMA) and which the
+    producer's threads copy.  Returns (record, failures)."""
+    fails, worst, worst_call, copied = [], 0.0, None, []
     with torch.inference_mode(), RouteAudit(ops, mm) as audit:
         for a, b, kw in calls:
             err, tol = kernel_error(ops, ref, a, b, kw)
             call = (f"{tuple(a.shape)} {str(a.dtype)[6:]} @ {tuple(b.shape)} "
                     f"{str(b.dtype)[6:]} {kw.get('activation')} -> "
                     f"{str(kw.get('out_dtype') or a.dtype)[6:]}")
+            if mm.choose_path(a.dtype, b.dtype) == "tensor_core":
+                tma = {o: mm.operand_mode(t, o)[1]
+                       for o, t in (("a", a), ("b", b))}
+                if not all(tma.values()):
+                    copied.append(f"{call}: on TMA {tma}")
             if not err <= tol:
                 fails.append(f"{arch} matmul {call}: max abs err {err:.3e} > "
                              f"{tol:.3e}")
@@ -3978,28 +4115,36 @@ def family_matmuls(arch, calls, ops, ref, mm):
     if audit.wrong:
         fails.append(f"{arch}: misrouted matmul calls {audit.wrong}")
     for f in fails:
-        log("families", f"FAIL {f}")
-    log("families", f"{arch}: {len(calls)} matmul signatures of its serves "
+        log(label, f"FAIL {f}")
+    log(label, f"{arch}: {len(calls)} matmul signatures of its serves "
         f"and prefill against the plain version, routing {audit.counts}, "
-        f"misrouted {len(audit.wrong)}; largest error {worst_call}")
+        f"misrouted {len(audit.wrong)}; largest error {worst_call}; "
+        f"tensor-core calls with an operand off TMA: {copied or 'none'}")
     return dict(signatures=len(calls), max_abs_err=worst,
-                worst_call=worst_call, routing=audit.counts), fails
+                worst_call=worst_call, routing=audit.counts,
+                off_tma=copied), fails
 
 
-def family_serve(arch, mm, fa, ops, ref, card):
-    """Runtime.serve of one family at full width and depth in bf16 (random
-    weights, seed 0), phase 5's trace on 4 slots, static and continuous
-    (and, for recurrentgemma, continuous with paged=True, pages of 16),
-    the matmul kernel's launches counted from 0 just before each run; then
-    Model.prefill at full depth (family_prefill), one call of every matmul
-    signature those ran against the plain version (family_matmuls), and
-    one decode step (family_step).  Returns (record, failures)."""
+def family_serve(arch, mm, fa, ops, ref, card, n_layers=None,
+                 label="families"):
+    """Runtime.serve of one family at full width and depth (``n_layers``
+    cuts the depth) in bf16 (random weights, seed 0), phase 5's trace on 4
+    slots, static and continuous (and, for recurrentgemma, continuous with
+    paged=True, pages of 16), the matmul kernel's launches counted from 0
+    just before each run; then Model.prefill at that depth
+    (family_prefill), one call of every matmul signature those ran against
+    the plain version (family_matmuls), and one decode step (family_step;
+    for a mixture of experts also its MoE layers alone, moe_layers_ms).
+    Returns (record, failures)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
+    from repro_torch.models.model import mrope_positions
     from repro_torch.runtime import Runtime, synthetic_trace
-    from repro_torch.tree import leaves
+    from repro_torch.tree import leaves, leaves_with_paths
 
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     fails = []
     rt = Runtime(device="cuda")
     model = build_model(cfg, rt.device)
@@ -4033,7 +4178,7 @@ def family_serve(arch, mm, fa, ops, ref, card):
     ntok = {name: sum(len(v) for v in run.outputs.values())
             for name, run in runs.items()}
     cont = runs["continuous"]
-    log("families", f"{arch} full width ({cfg.n_layers} layers, "
+    log(label, f"{arch} full width ({cfg.n_layers} layers, "
         f"{n_params / 1e9:.2f} B parameters) bf16, {REQUESTS} requests x "
         f"{PROMPT}+{MAX_NEW} tokens, {SLOTS} slots: "
         + ", ".join(f"{n} {r.tok_per_s:.2f} tok/s" for n, r in runs.items())
@@ -4047,21 +4192,32 @@ def family_serve(arch, mm, fa, ops, ref, card):
         fails.append(f"{arch}: generated tokens {ntok}")
     prompts = torch.as_tensor(np.stack([r.prompt for r in trace()[:SLOTS]]),
                               dtype=torch.int64, device="cuda")
-    prefill, f = family_prefill(arch, model, params, prompts, fa, shapes)
+    prefill, f = family_prefill(arch, model, params, prompts, fa, ops, ref,
+                                shapes, label)
     fails += f
     checks, f = family_matmuls(arch, list(shapes.calls.values()), ops, ref,
-                               mm)
+                               mm, label)
     fails += f
     shapes.calls.clear()
     state = model.init_decode_state(SLOTS, PROMPT + MAX_NEW, per_slot=True)
     feed = {"tokens": torch.ones((SLOTS, 1), dtype=torch.int64,
                                  device="cuda")}
-    step = family_step("families", model, params, state, feed, ops, mm)
+    if cfg.pos_type == "mrope":
+        feed["positions"] = mrope_positions(SLOTS, 1, state["pos"])
+    step = family_step(label, model, params, state, feed, ops, mm)
     if step["misrouted"] or not step["routing"]:
         fails.append(f"{arch}: misrouted matmul calls {step['misrouted']}")
     if step["library_gemms"] or step["library_attention"]:
         fails.append(f"{arch}: library kernels in a decode step: "
                      f"{step['library_gemms'] + step['library_attention']}")
+    # every weight but the embedding table (a decode step gathers SLOTS
+    # rows of it) is read once a step: the step's bound by bytes
+    weight_bytes = sum(t.numel() * t.element_size() for path, t in
+                       leaves_with_paths(params)
+                       if path != "embed" or cfg.tie_embeddings)
+    step["weight_bound_ms"] = weight_bytes / HBM_BW * 1e3
+    if cfg.is_moe:
+        step["moe"] = moe_layers_ms(label, model, params, card)
     rec = dict(n_layers=cfg.n_layers, parameters=n_params,
                tok_per_s={n: r.tok_per_s for n, r in runs.items()},
                wall_s={n: r.wall_s for n, r in runs.items()},
@@ -4075,29 +4231,76 @@ def family_serve(arch, mm, fa, ops, ref, card):
     return rec, fails
 
 
-def family_card_vs_cpu(arch, fa, card, stream=False):
+def route_check(card_routes, cpu_routes, k) -> tuple:
+    """The experts the router selected on the card against the CPU's, call
+    by call (each MoE layer of each forward, in order).  A token whose
+    expert set differs is a flip; a flip is explained only where the
+    swapped experts' CPU probabilities differ by no more than twice that
+    token's largest card-vs-CPU probability difference (fp32 rounding of
+    the same inputs).  Reports the smallest gap met between the k-th and
+    the (k+1)-th CPU probability.  Returns (record, failures)."""
+    fails, flips, rows = [], [], 0
+    gap_min, perr_max = float("inf"), 0.0
+    if len(card_routes) != len(cpu_routes):
+        fails.append(f"router calls: card {len(card_routes)}, CPU "
+                     f"{len(cpu_routes)}")
+    for call, ((lg, ig), (lc, ic)) in enumerate(zip(card_routes,
+                                                    cpu_routes)):
+        pg = torch.softmax(lg.double(), -1)
+        pc = torch.softmax(lc.double(), -1)
+        perr = (pg - pc).abs().amax(-1)
+        srt = pc.sort(-1, descending=True).values
+        gap_min = min(gap_min, (srt[:, k - 1] - srt[:, k]).min().item())
+        perr_max = max(perr_max, perr.max().item())
+        rows += ig.shape[0]
+        for row in range(ig.shape[0]):
+            a, b = set(ig[row].tolist()), set(ic[row].tolist())
+            if a == b:
+                continue
+            swapped = sorted(a ^ b)
+            spread = (pc[row, swapped].max() - pc[row, swapped].min()).item()
+            flips.append(dict(call=call, row=row, swapped=swapped,
+                              spread=spread, prob_err=perr[row].item()))
+            if spread > 2 * perr[row].item():
+                fails.append(f"router call {call} token {row}: experts "
+                             f"{swapped} swapped, probabilities {spread:.3e} "
+                             f"apart, more than twice the card-vs-CPU "
+                             f"difference {perr[row].item():.3e}")
+    return dict(calls=len(cpu_routes), tokens=rows, flips=flips,
+                smallest_gap=gap_min, max_prob_err=perr_max), fails
+
+
+def family_card_vs_cpu(arch, fa, card, stream=False, n_layers=None):
     """One family at full width cut to 2 layers (recurrentgemma to 3, one
-    period), fp32, on the card and on the CPU from the same parameters:
-    Model.prefill of a 2 x 16 prompt (no decode state: flash at the
-    model's head dim, the windowed forms and the RG-LRU scan), then one
-    batched prefill of it through decode_step and 4 greedy steps; each
-    logits within 2e-3 x max|logit| (phase 6's limit), and the card's
-    Model.prefill within it of its own decode at the last prompt token.
-    ``stream``: recurrentgemma with its window cut to RING_WINDOW, a
-    prompt of RING_STREAM tokens fed one at a time, so that the ring
-    buffer wraps on the card; each step's logits card against CPU, and the
-    card's last step against its full forward.  Returns (record,
-    failures)."""
+    period; ``n_layers`` sets it), fp32, on the card and on the CPU from
+    the same parameters: Model.prefill of a 2 x 16 prompt (no decode
+    state: flash at the model's head dim, the windowed forms and the
+    RG-LRU scan), then one batched prefill of it through decode_step and 4
+    greedy steps; each logits within 2e-3 x max|logit| (phase 6's limit),
+    and the card's Model.prefill within it of its own decode at the last
+    prompt token.  An mrope model gets the text-only (t, h, w) positions on
+    every call, and a vision model one more forward_logits with vision
+    embeddings over the first 2 positions and distinct (t, h, w) planes;
+    a mixture of experts' selected experts are compared, card against CPU
+    (route_check).  ``stream``: recurrentgemma with its window cut to
+    RING_WINDOW, a prompt of RING_STREAM tokens fed one at a time, so that
+    the ring buffer wraps on the card; each step's logits card against
+    CPU, and the card's last step against its full forward.  Returns
+    (record, failures)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, ffn
+    from repro_torch.models.model import mrope_positions
     from repro_torch.runtime import synthetic_trace
     from repro_torch.tree import tree_map
 
     cfg = get_config(arch)
-    n_layers = len(cfg.block_pattern) if len(cfg.block_pattern) > 1 else 2
+    if n_layers is None:
+        n_layers = len(cfg.block_pattern) if len(cfg.block_pattern) > 1 \
+            else 2
     cfg = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
     if stream:
         cfg = dataclasses.replace(cfg, window_size=RING_WINDOW)
+    mrope = cfg.pos_type == "mrope"
     p_gpu = build_model(cfg, "cuda").init(0)
     p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
     plen = RING_STREAM if stream else 16
@@ -4105,37 +4308,69 @@ def family_card_vs_cpu(arch, fa, card, stream=False):
         1, prompt_len=plen, max_new=1, vocab_size=cfg.vocab_size,
         arrival="all", seed=3)[0].prompt, dtype=torch.int64)
     prompts = torch.stack([prompt, prompt.flip(0)])
+    if cfg.frontend == "vision":  # 2 patch embeddings, distinct planes
+        rng = np.random.default_rng(3)
+        vision = {"tokens": prompts, "vision_embeds": torch.from_numpy(
+            (rng.standard_normal((2, 2, cfg.d_model)) * 0.02).astype(
+                np.float32)), "positions": torch.from_numpy(np.stack(
+                    [np.arange(plen)[None].repeat(2, 0),
+                     rng.integers(0, 6, (2, plen)),
+                     rng.integers(0, 9, (2, plen))], -1))}
+
+    def batch(toks, offset):
+        out = {"tokens": toks}
+        if mrope:
+            out["positions"] = mrope_positions(*toks.shape, offset,
+                                               toks.device)
+        return out
+
     logits, flash_calls = {}, 0
-    for where, p_dev in (("cuda", p_gpu), ("cpu", p_cpu)):
-        model = build_model(cfg, where)
-        toks = prompts.to(where)
-        if where == "cuda":
-            torch.cuda.synchronize()
-            fa.LAUNCHES.reset()
-        if stream:
-            pre = model.forward_logits(p_dev, {"tokens": toks})[0][:, -1]
-        else:
-            pre = model.prefill(p_dev, {"tokens": toks})[:, -1]
-        if where == "cuda":
-            torch.cuda.synchronize()
-            flash_calls = fa.LAUNCHES.forward
-        st = model.init_decode_state(2, plen + 8, per_slot=True)
-        steps = []
-        if stream:  # token by token: the ring buffer wraps past the window
-            for i in range(plen):
-                out, st = model.decode_step(
-                    p_dev, st, {"tokens": toks[:, i:i + 1]})
-                if i % 8 == 7 or i == plen - 1:
-                    steps.append(out[:, -1])
-        else:
-            out, st = model.decode_step(p_dev, st, {"tokens": toks})
-            steps.append(out[:, -1])
-            for _ in range(4):
-                tok = steps[-1].argmax(-1)[:, None]
-                out, st = model.decode_step(p_dev, st, {"tokens": tok})
+    routes = {"cuda": [], "cpu": []}
+    topk = ffn._router_topk
+
+    def recording(lg, k):
+        w, ids = topk(lg, k)
+        routes[where].append((lg.float().cpu(), ids.cpu()))
+        return w, ids
+
+    ffn._router_topk = recording
+    try:
+        for where, p_dev in (("cuda", p_gpu), ("cpu", p_cpu)):
+            model = build_model(cfg, where)
+            toks = prompts.to(where)
+            if where == "cuda":
+                torch.cuda.synchronize()
+                fa.LAUNCHES.reset()
+            if stream:
+                pre = model.forward_logits(p_dev, {"tokens": toks})[0][:, -1]
+            else:
+                pre = model.prefill(p_dev, batch(toks, 0))[:, -1]
+            if where == "cuda":
+                torch.cuda.synchronize()
+                flash_calls = fa.LAUNCHES.forward
+            st = model.init_decode_state(2, plen + 8, per_slot=True)
+            steps = []
+            if stream:  # token by token: the ring buffer wraps
+                for i in range(plen):
+                    out, st = model.decode_step(
+                        p_dev, st, {"tokens": toks[:, i:i + 1]})
+                    if i % 8 == 7 or i == plen - 1:
+                        steps.append(out[:, -1])
+            else:
+                out, st = model.decode_step(p_dev, st, batch(toks, st["pos"]))
                 steps.append(out[:, -1])
-        logits[where] = [t.float().cpu() for t in [pre] + steps]
-        del model, st
+                for _ in range(4):
+                    tok = steps[-1].argmax(-1)[:, None]
+                    out, st = model.decode_step(p_dev, st,
+                                                batch(tok, st["pos"]))
+                    steps.append(out[:, -1])
+            if cfg.frontend == "vision":
+                steps.append(model.forward_logits(p_dev, {
+                    k: v.to(where) for k, v in vision.items()})[0])
+            logits[where] = [t.float().cpu() for t in [pre] + steps]
+            del model, st
+    finally:
+        ffn._router_topk = topk
     fails, worst = [], 0.0
     last_prompt = -1 if stream else 1  # the decode step at the prompt's end
     pairs = list(zip(logits["cuda"], logits["cpu"])) + [
@@ -4152,19 +4387,81 @@ def family_card_vs_cpu(arch, fa, card, stream=False):
         fails.append(f"{arch}: the card's prefill made {flash_calls} flash "
                      f"forward calls, expected {attn_layers} (one per "
                      f"full-attention layer)")
+    experts = None
+    if cfg.is_moe:
+        experts, f = route_check(routes["cuda"], routes["cpu"],
+                                 cfg.experts_per_token)
+        fails += [f"{arch}: {x}" for x in f]
     what = (f"window {RING_WINDOW}, {plen} tokens streamed one at a time "
             f"(the ring buffer wraps), every 8th step and the last, and the "
             f"forward's last position" if stream else
-            "Model.prefill 2x16 and batched prefill + 4 decode steps")
+            "Model.prefill 2x16 and batched prefill + 4 decode steps"
+            + (", forward_logits with vision embeddings and distinct "
+               "(t, h, w) positions" if cfg.frontend == "vision" else ""))
     for f in fails:
         log("families-card-vs-cpu", f"FAIL {f}")
     log("families-card-vs-cpu", f"{arch} full width, {n_layers} layers, "
         f"fp32: {what}, card against CPU and the card's prefill against its "
         f"decode: max err {worst:.2e} x max|logit| (limit 2e-3); flash "
-        f"forward calls in the card's prefill {flash_calls} ({card})")
+        f"forward calls in the card's prefill {flash_calls}"
+        + ("" if experts is None else
+           f"; selected experts: {experts['calls']} router calls, "
+           f"{experts['tokens']} tokens, {len(experts['flips'])} flips, "
+           f"smallest top-k gap {experts['smallest_gap']:.3e}, largest "
+           f"probability difference {experts['max_prob_err']:.3e}")
+        + f" ({card})")
     del p_gpu, p_cpu
     return dict(rel_err=worst, n_layers=n_layers, flash_forward_calls=
-                flash_calls, stream=stream), fails
+                flash_calls, stream=stream, experts=experts), fails
+
+
+def moe_layers_ms(label, model, params, card) -> dict:
+    """The mixture-of-experts blocks of one decode step alone: moe_dense
+    (no auxiliary loss, as decode runs it) of every layer on SLOTS random
+    bf16 tokens, profiled (device ms, launches, the matmul kernel's ms by
+    path), against the bound of the work: every expert's weights and the
+    router read once (bytes at the memory rate; the FLOPs at the bf16 peak
+    take far less)."""
+    from repro_torch.models import ffn
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = (torch.randn((SLOTS, 1, cfg.d_model), generator=gen, device="cuda")
+         * 0.5).to(model.dtype)
+    layers = [lp["ffn"] for lp in params["layers"]]
+
+    def run():
+        for p in layers:
+            ffn.moe_dense(p, x, top_k=cfg.experts_per_token,
+                          activation=cfg.activation, aux=False)
+
+    with torch.inference_mode():
+        run()
+        torch.cuda.synchronize()
+        by_name, n_kernels = device_ms_by_kernel(run)
+    groups = group_device_ms(by_name, {})
+    device_ms = sum(by_name.values())
+    nbytes = sum(t.numel() * t.element_size() for p in layers
+                 for t in p.values())
+    ef = layers[0]["w_in"].shape[1]
+    n_mats = len(layers[0]) - 1  # the expert matrices, router left out
+    flops = len(layers) * 2.0 * SLOTS * cfg.d_model * (
+        ef * n_mats + cfg.n_experts)
+    t_bytes, t_ops = nbytes / HBM_BW * 1e3, flops / BF16_PEAK * 1e3
+    out = dict(layers=len(layers), device_ms=device_ms, launches=n_kernels,
+               matmul_ms=groups["matmul"],
+               matmul_ms_by_path={g[7:]: groups[g] for g in MATMUL_KERNELS},
+               weight_bytes=nbytes, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               gb_per_s=nbytes / device_ms / 1e6 if device_ms else None)
+    log(label, f"{cfg.name}: the {len(layers)} MoE blocks of a decode step "
+        f"({SLOTS} tokens, every expert): device {device_ms:.3f} ms in "
+        f"{n_kernels} launches (matmul {groups['matmul']:.3f} ms, by path "
+        f"{out['matmul_ms_by_path']}), bound {out['bound_ms']:.3f} ms "
+        f"({out['bound_by']}: {nbytes / 1e9:.2f} GB of experts and routers "
+        f"at {HBM_BW / 1e12:.2f} TB/s), {out['gb_per_s'] or 0:.0f} GB/s "
+        f"({card})")
+    return out
 
 
 def family_flash(shape, gen, ref, fa, flush, card):
@@ -4187,14 +4484,7 @@ def family_flash(shape, gen, ref, fa, flush, card):
     o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v)
     fails, errs = [], {}
     for name, got, want in (("o", o, o_p), ("lse", lse, lse_p)):
-        diff = (got.float() - want.float()).abs()
-        mag = want.float().abs()
-        top = mag.max().item()
-        if want.dtype == torch.bfloat16:
-            limit = BF16_TOL * mag.amax(-1, keepdim=True) + F32_TOL * top
-        else:
-            limit = torch.full_like(mag, FLASH_F32_TOL * top)
-        err, ratio = diff.max().item(), (diff / limit).max().item()
+        err, ratio = flash_error(got, want)
         errs[name] = dict(err=err, of_limit=ratio)
         if not ratio <= 1.0:
             fails.append(f"flash {shape} {name}: max abs err {err:.3e}, "
@@ -4267,6 +4557,41 @@ def families_phase(mm, fa, ops, ref, gen, flush, card):
     for f in fails:
         log("families", f"FAIL {f}")
     log("families", f"phase 18 wall {out['wall_s']:.1f} s; {len(fails)} "
+        f"failures ({card})")
+    return None if fails else out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the mixture-of-experts family and the VLM backbone
+# ---------------------------------------------------------------------------
+
+
+def moe_vlm_phase(mm, fa, ops, ref, card):
+    """Phase 19: serve moonshot-v1-16b-a3b whole, qwen3-moe-235b-a22b and
+    qwen2-vl-72b at full width and the depths MOE_VLM gives
+    (family_serve, each model freed before the next is built), then each
+    card against CPU in fp32 at MOE_VLM_CPU_LAYERS (family_card_vs_cpu:
+    the selected experts compared, qwen2-vl's vision forward too).  None
+    on any failure."""
+    t_phase = time.perf_counter()
+    out: dict = {"card": card, "serve": {}, "card_vs_cpu": {}}
+    fails = []
+    for arch, depth in MOE_VLM:
+        rec, f = family_serve(arch, mm, fa, ops, ref, card, n_layers=depth,
+                              label="moe-vlm")
+        out["serve"][arch], fails = rec, fails + f
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, depth in MOE_VLM_CPU_LAYERS.items():
+        rec, f = family_card_vs_cpu(arch, fa, card, n_layers=depth)
+        out["card_vs_cpu"][arch], fails = rec, fails + f
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["fails"] = fails
+    for f in fails:
+        log("moe-vlm", f"FAIL {f}")
+    log("moe-vlm", f"phase 19 wall {out['wall_s']:.1f} s; {len(fails)} "
         f"failures ({card})")
     return None if fails else out
 

@@ -15,10 +15,13 @@ package never imports jax), and returns the port's parameter dict on
 
 Layouts change where the port keeps a projection as one (in, out) matrix:
 ``wq`` (d, Hq, hd) becomes (d, Hq*hd), ``wk``/``wv`` likewise, and ``wo``
-(Hq, hd, d) or (Hq*hd, d) becomes (Hq*hd, d).  An rwkv layer's ``time``
-and ``channel`` leaves and an RG-LRU layer's ``rglru`` leaves keep their
-shapes.  A tree with tied embeddings has no ``unembed``, and neither has
-the result.  Values are unchanged.
+(Hq, hd, d) or (Hq*hd, d) becomes (Hq*hd, d).  A mixture of experts'
+``ffn`` lays its experts side by side (``models/ffn.py``): ``w_in`` and
+``w_gate`` (E, d, F) become (d, E*F), expert e in columns [e*F, (e+1)*F),
+``w_out`` (E, F, d) becomes (E*F, d), and the ``router`` (d, E) stays
+fp32.  An rwkv layer's ``time`` and ``channel`` leaves and an RG-LRU
+layer's ``rglru`` leaves keep their shapes.  A tree with tied embeddings
+has no ``unembed``, and neither has the result.  Values are unchanged.
 """
 
 from __future__ import annotations
@@ -66,6 +69,24 @@ def _named_tensors(tree: Dict[str, Any], keys, device,
             for k in keys}
 
 
+def _ffn(tree: Dict[str, Any], device,
+         wdtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """A dense FFN's leaves as they are; a mixture of experts' in the
+    port's side-by-side layout, the router fp32."""
+    if "router" not in tree:
+        return {k: _tensor(v, device, wdtype) for k, v in tree.items()}
+    out = {"router": _tensor(tree["router"], device, torch.float32)}
+    for k in ("w_in", "w_gate"):
+        if k in tree:
+            e, d, f = np.shape(tree[k])
+            out[k] = _tensor(np.reshape(np.transpose(tree[k], (1, 0, 2)),
+                                        (d, e * f)), device, wdtype)
+    e, f, d = np.shape(tree["w_out"])
+    out["w_out"] = _tensor(np.reshape(tree["w_out"], (e * f, d)), device,
+                           wdtype)
+    return out
+
+
 def _layer(lp: Dict[str, Any], cfg: ModelConfig, device,
            wdtype: torch.dtype) -> Dict[str, Any]:
     norms = {
@@ -78,12 +99,11 @@ def _layer(lp: Dict[str, Any], cfg: ModelConfig, device,
                                        wdtype),
                 "channel": _named_tensors(lp["channel"], _CHANNEL_KEYS,
                                           device, wdtype)}
-    if "ffn" not in lp or "router" in lp["ffn"] or not (
-            "attn" in lp or "rglru" in lp):
+    if "ffn" not in lp or not ("attn" in lp or "rglru" in lp):
         raise NotImplementedError(
-            f"{cfg.name}: only attention or RG-LRU layers with a dense FFN "
-            f"and rwkv layers are ported")
-    ffn = {k: _tensor(v, device, wdtype) for k, v in lp["ffn"].items()}
+            f"{cfg.name}: only attention or RG-LRU layers with an FFN and "
+            f"rwkv layers are ported")
+    ffn = _ffn(lp["ffn"], device, wdtype)
     if "rglru" in lp:
         return {**norms,
                 "rglru": _named_tensors(lp["rglru"], _RGLRU_KEYS, device,

@@ -9,6 +9,11 @@
   (exponent 1.1), the rest follow a periodic backbone ``(a·t + b) % V``
   with (a, b) drawn per row, so a model can learn it.
 
+A vision (VLM) config's batch adds the stub frontend's inputs, as the
+reference's does: ``vision_embeds`` (B, P, d), normal x 0.02 fp32 with P
+= ``_vlm_patches(cfg, seq_len)``, and the text-only (B, S, 3) M-RoPE
+``positions``.
+
 The mixture and its distributions are the reference's
 (``src/repro/data/pipeline.py``), but not its bits: the reference draws
 from ``jax.random`` (threefry), this from torch's generator, so the same
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import _vlm_patches, mrope_positions
 
 ZIPF_EXPONENT = 1.1
 
@@ -65,10 +71,19 @@ class SyntheticLMData:
         return torch.where((t % 4) == 3, uni, backbone)
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
-        """``{"tokens": (host_batch, seq_len) int64}`` for ``step``."""
-        if self.cfg.frontend == "vision" or self.cfg.is_encdec:
+        """``{"tokens": (host_batch, seq_len) int64}`` for ``step``, and for
+        a vision config ``vision_embeds`` (host_batch, P, d) fp32 and
+        ``positions`` (host_batch, seq_len, 3) int64."""
+        if self.cfg.is_encdec:
             raise NotImplementedError(
-                f"{self.cfg.name}: vision and encoder-decoder inputs are not "
-                f"ported yet (other families)")
-        tokens = self._tokens(self._generator(step), self.host_batch)
-        return {"tokens": tokens.to(self.device)}
+                f"{self.cfg.name}: encoder-decoder inputs are not ported yet "
+                f"(other families)")
+        gen = self._generator(step)
+        b = self.host_batch
+        batch = {"tokens": self._tokens(gen, b)}
+        if self.cfg.frontend == "vision":
+            p = _vlm_patches(self.cfg, self.seq_len)
+            batch["vision_embeds"] = torch.randn(
+                (b, p, self.cfg.d_model), generator=gen) * 0.02
+            batch["positions"] = mrope_positions(b, self.seq_len, 0)
+        return {k: v.to(self.device) for k, v in batch.items()}

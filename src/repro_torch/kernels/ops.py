@@ -6,6 +6,10 @@ raises.  The matmul has no padding to tile multiples: the kernel masks its
 ragged edges, so a decode step with 4 rows pays for 4 rows, not 128.  The
 sort pads rows to a power of 2, which the network needs.
 
+An fp32 product on the tensor cores with K above ``TC_K_BLOCK`` runs as
+consecutive K blocks added in fp32 (``_matmul``): the kernel's fp32 sum
+drifts over a long k walk.
+
 Gradients run on the kernels too.  ``matmul`` goes through ``MatmulFn``
 whenever an operand needs a gradient: its backward recomputes the product
 without the epilogue, applies the activation's derivative elementwise and
@@ -24,8 +28,13 @@ import torch
 
 from repro_torch.kernels.bitonic_sort import bitonic_sort_cuda
 from repro_torch.kernels.flash_attention import FlashAttentionFn, check_shapes
-from repro_torch.kernels.matmul import EPILOGUE_ACTIVATIONS, matmul_cuda
+from repro_torch.kernels.matmul import (
+    EPILOGUE_ACTIVATIONS,
+    choose_path,
+    matmul_cuda,
+)
 from repro_torch.kernels.ref import (
+    EPILOGUES,
     bitonic_sort_ref,
     matmul_fused_ref,
     wkv_fwd_plain,
@@ -57,13 +66,49 @@ ACTIVATION_GRADS = {
 }
 
 
+# K per launch of an fp32-output product on the tensor cores.  The kernel's
+# fp32 sum drifts over a long k walk (at K 8192, qwen2-vl's unembedding,
+# it read 1.25e-5 x max|plain| from the plain fp32 product, past phase 2's
+# 1e-5; chip_smoke.py phase 19 on an H100), so a longer K runs as launches
+# of TC_K_BLOCK, added in fp32 in k order
+TC_K_BLOCK = 4096
+
+
 def _matmul(a, b, bias, activation, out_dtype):
-    """One product: the plain version for CPU operands, else the kernel."""
+    """One product: the plain version for CPU operands, else the kernel.
+    An fp32 result on a tensor-core path with K above ``TC_K_BLOCK`` is
+    ``k_blocked``'s (the split depends on K alone, so a row's bits still do
+    not depend on the other rows)."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_fused_ref(a, b, bias=bias, activation=activation,
                                 out_dtype=out_dtype)
-    return matmul_cuda(a, b, bias=bias, activation=activation,
-                       out_dtype=out_dtype)
+    if (out_dtype or a.dtype) != torch.float32 or \
+            a.shape[-1] <= TC_K_BLOCK or choose_path(a.dtype, b.dtype) == "fma":
+        return matmul_cuda(a, b, bias=bias, activation=activation,
+                           out_dtype=out_dtype)
+    return k_blocked(a, b, bias, activation)
+
+
+def k_blocked(a, b, bias=None, activation=None) -> torch.Tensor:
+    """fp32 ``a @ b + bias`` as the kernel's fp32 products over consecutive
+    K blocks of ``TC_K_BLOCK``, added in k order, the bias in the first
+    block's epilogue.  An activation raises: the sum of the blocks has no
+    epilogue to run it in, and no such product on a path has one (the
+    unembeddings and the backward's recomputed products)."""
+    if activation is not None:
+        raise NotImplementedError(
+            f"an fp32 result with activation {activation!r} at K "
+            f"{a.shape[-1]} > TC_K_BLOCK ({TC_K_BLOCK}) on the tensor cores "
+            f"is not ported: it runs as K blocks, whose sum has no fused "
+            f"epilogue")
+    out = None
+    for k0 in range(0, a.shape[-1], TC_K_BLOCK):
+        part = matmul_cuda(a[..., k0:k0 + TC_K_BLOCK],
+                           b[..., k0:k0 + TC_K_BLOCK, :],
+                           bias=bias if k0 == 0 else None,
+                           out_dtype=torch.float32)
+        out = part if out is None else out.add_(part)
+    return out
 
 
 class MatmulFn(torch.autograd.Function):

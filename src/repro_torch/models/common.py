@@ -1,5 +1,5 @@
-"""Shared model building blocks: norms, embeddings, RoPE, activations and
-the dense projection.
+"""Shared model building blocks: norms, embeddings, RoPE and M-RoPE,
+activations and the dense projection.
 
 Parameters are plain dictionaries of tensors with the reference package's
 names and layouts (a projection's weight is one (in, out) matrix), so the
@@ -116,18 +116,62 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (..., S, H, hd); positions: (..., S) integers.  Rotates the two
-    halves of each head (not interleaved pairs)."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)
-    angles = positions[..., None].float() * freqs  # (..., S, hd/2)
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate the two halves of each head of ``x`` (..., S, H, hd) by
+    ``angles`` (..., S, hd/2), in fp32, cast back to ``x``'s dtype."""
     angles = angles[..., None, :]  # broadcast over heads
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S) integers.  Rotates the two
+    halves of each head (not interleaved pairs)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+MROPE_SECTIONS = (16, 24, 24)
+
+
+def mrope_sections(head_dim: int, sections=MROPE_SECTIONS) -> tuple:
+    """Frequency pairs per (t, h, w) axis: ``sections`` scaled to hd/2 by
+    integer floor, the last taking the remainder, as the reference does
+    (hd 128: (16, 24, 24); hd 16: (2, 3, 3))."""
+    half = head_dim // 2
+    total = sum(sections)
+    secs = [s * half // total for s in sections]
+    secs[-1] = half - sum(secs[:-1])
+    return tuple(secs)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=MROPE_SECTIONS) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: x (..., S, H, hd); positions (..., S, 3) integer
+    (t, h, w) ids.  Frequency pair j rotates by the position of the axis
+    whose section holds j (``mrope_sections``).  When the three planes
+    carry the same index the angles are RoPE's, bit for bit."""
+    hd = x.shape[-1]
+    pos = positions.float()
+    pos = torch.cat([pos[..., i:i + 1].expand(pos.shape[:-1] + (n,))
+                     for i, n in enumerate(mrope_sections(hd, sections))],
+                    dim=-1)  # (..., S, hd/2)
+    return _rotate(x, pos * rope_freqs(hd, theta, x.device))
+
+
+def positional(x: torch.Tensor, positions: torch.Tensor, pos_type: str,
+               theta: float) -> torch.Tensor:
+    """The model's position encoding of q or k: RoPE, M-RoPE or none."""
+    if pos_type == "rope":
+        return apply_rope(x, positions, theta)
+    if pos_type == "mrope":
+        return apply_mrope(x, positions, theta)
+    if pos_type == "none":
+        return x
+    raise ValueError(f"unknown pos_type {pos_type!r}")
 
 
 # ---------------------------------------------------------------------------

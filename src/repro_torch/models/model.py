@@ -1,7 +1,11 @@
 """``build_model(cfg, device) -> Model``: the decoder-only model behind the
 serving path, with the reference package's functional interface.
 
-Batch conventions: ``{"tokens": (B, S) int64}``.  Parameters are a dict
+Batch conventions: ``{"tokens": (B, S) int64}``; a vision (VLM) config
+adds ``"vision_embeds"`` (B, P, d), spliced over the first P positions,
+and an ``mrope`` config ``"positions"`` (B, S, 3), the (t, h, w) ids, on
+every call (decode included: ``mrope_positions`` builds the text-only
+ones).  Parameters are a dict
 ``{"embed", "layers": [per-layer dict, ...], "final_norm", "unembed"}``;
 the decode state is ``{"layers": [per-layer tree, ...], "pos"}`` — a
 layer's tree is ``{"k", "v"}`` for attention (``{"pk", "pv"}``, a page
@@ -11,13 +15,14 @@ window's length for local attention, ``{"h", "conv"}`` for the RG-LRU and
 per-slot leaf's slot axis first.  With tied embeddings (gemma's) there is
 no ``unembed``: the logits read ``embed``, and the embedded tokens are
 scaled by sqrt(d_model) rounded to the weights' dtype.  ``loss`` is the
-training objective:
-next-token cross-entropy plus the weighted auxiliary and z losses, through
-``xent_auto`` (direct up to 2048 positions, chunked and recomputed above).
-The port has the dense decoder-only family (full attention, RoPE, dense
-GLU FFN, tied or untied embeddings), the hybrid family (RG-LRU and local
-attention) and the rwkv6 family; mixture of experts, encoder-decoder,
-mrope and the vision and audio frontends raise ``NotImplementedError``.
+training objective: next-token cross-entropy (the vision patches'
+positions masked) plus the weighted auxiliary (the mixture of experts'
+load-balance) and z losses, through ``xent_auto`` (direct up to 2048
+positions, chunked and recomputed above).  The port has the reference's
+decoder-only families: dense (RoPE, GLU FFN, tied or untied embeddings),
+mixture of experts, the hybrid family (RG-LRU and local attention), rwkv6
+and the VLM backbone (M-RoPE, the vision stub); encoder-decoder and the
+audio frontend raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ from repro_torch.tree import leaves_with_paths, tree_map_with_path
 AUX_LOSS_WEIGHT = 0.01
 Z_LOSS_WEIGHT = 1e-4
 XENT_CHUNK = 1024
+# the vision stub: one position in VLM_PATCH_FRACTION holds a patch
+# embedding in training batches, at most 1024 (the reference's)
+VLM_PATCH_FRACTION = 8
 
 
 def is_page_pool(path: str) -> bool:
@@ -65,6 +73,25 @@ def _offset_positions(b: int, s: int, offset: torch.Tensor) -> torch.Tensor:
     return (off + torch.arange(s, device=offset.device)[None]).expand(b, s)
 
 
+def mrope_positions(b: int, s: int, offset, device=None) -> torch.Tensor:
+    """(B, S, 3) text-only M-RoPE positions: the three planes share the
+    sequential index from ``offset``: an int (filled on ``device``, no
+    copy from the host) or a 0-d or per-slot (B,) tensor, whose device
+    they take.  The one helper the prefill and decode serving paths use."""
+    if isinstance(offset, int):
+        offset = torch.full((), offset, dtype=torch.int64, device=device)
+    return _offset_positions(b, s, offset)[..., None].expand(b, s, 3)
+
+
+def _vlm_patches(cfg: ModelConfig, s: int) -> int:
+    """Vision patch positions at the head of a training sequence of ``s``
+    tokens: s // VLM_PATCH_FRACTION up to 1024, none for s <= 8 or a
+    config without the vision frontend."""
+    if cfg.frontend != "vision" or s <= 8:
+        return 0
+    return min(1024, s // VLM_PATCH_FRACTION)
+
+
 class Model:
     """A decoder-only model on ``device``: the reference's ``Model`` record
     as methods.  Decode-state surgery on single slots
@@ -75,14 +102,12 @@ class Model:
         unported = []
         if cfg.is_encdec:
             unported.append("encoder-decoder")
-        if cfg.is_moe:
-            unported.append("mixture of experts")
         if any(k not in ("attn", "local", "rglru", "rwkv")
                for k in cfg.block_pattern):
             unported.append(f"block pattern {cfg.block_pattern}")
-        if cfg.pos_type not in ("rope", "none"):
+        if cfg.pos_type not in ("rope", "mrope", "none"):
             unported.append(f"pos_type {cfg.pos_type!r}")
-        if cfg.frontend != "none":
+        if cfg.frontend not in ("none", "vision"):
             unported.append(f"frontend {cfg.frontend!r}")
         if unported:
             raise NotImplementedError(
@@ -114,11 +139,25 @@ class Model:
         return params["embed" if self.cfg.tie_embeddings else "unembed"]
 
     def _embed(self, params, batch, decode_offset=None):
+        """Embedded tokens (the vision embeddings over the first P
+        positions, where the batch has them) and the positions the
+        attention rotates by: ``batch["positions"]`` (B, S, 3) for M-RoPE,
+        which is never inferred, else (B, S) from ``decode_offset``."""
         tokens = batch["tokens"]
         b, s = tokens.shape
-        scale = float(self.cfg.d_model) ** 0.5 \
-            if self.cfg.tie_embeddings else None
+        cfg = self.cfg
+        scale = float(cfg.d_model) ** 0.5 if cfg.tie_embeddings else None
         x = embed_lookup(params["embed"], tokens, scale)
+        if cfg.frontend == "vision" and "vision_embeds" in batch:
+            vis = batch["vision_embeds"]
+            x = torch.cat([vis.to(x.dtype), x[:, vis.shape[1]:]], dim=1)
+        if cfg.pos_type == "mrope":
+            if "positions" not in batch:
+                raise ValueError(
+                    f"{cfg.name}: an mrope model needs batch['positions'] "
+                    f"(B, S, 3) on every call; mrope_positions builds the "
+                    f"text-only ones")
+            return x, batch["positions"]
         if decode_offset is None:
             decode_offset = torch.zeros((), dtype=torch.int64,
                                         device=tokens.device)
@@ -152,19 +191,21 @@ class Model:
 
     def loss(self, params, batch, remat: bool = True):
         """Next-token training loss on ``batch["tokens"]`` (B, S): targets
-        are the tokens shifted by one with an all-ones mask (the dense
-        family has no vision patches).  Returns ``(ce + AUX_LOSS_WEIGHT *
-        aux + Z_LOSS_WEIGHT * z, {"ce", "aux", "z"})``, all 0-d tensors on
-        the model's device.  ``remat`` recomputes each layer in the
-        backward pass, as the reference's loss does."""
+        are the tokens shifted by one, masked where they fall on the first
+        ``_vlm_patches(cfg, S)`` positions (vision configs; none otherwise).
+        Returns ``(ce + AUX_LOSS_WEIGHT * aux + Z_LOSS_WEIGHT * z, {"ce",
+        "aux", "z"})``, all 0-d tensors on the model's device.  ``remat``
+        recomputes each layer in the backward pass, as the reference's loss
+        does."""
         tokens = batch["tokens"]
         x, positions = self._embed(params, batch)
         x, _, aux = tfm.stack_apply(params["layers"], self.cfg, x, positions,
                                     remat=remat)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         targets = tokens[:, 1:]
-        mask = torch.ones(targets.shape, dtype=torch.float32,
-                          device=tokens.device)
+        patches = _vlm_patches(self.cfg, tokens.shape[1])
+        mask = (torch.arange(targets.shape[1], device=tokens.device)
+                >= patches).float().expand(targets.shape)
         ce, z = xent_auto(self._table(params), x[:, :-1], targets, mask)
         aux = self._aux(aux)
         total = ce + AUX_LOSS_WEIGHT * aux + Z_LOSS_WEIGHT * z

@@ -2,11 +2,13 @@
 applied in a loop (the reference scans stacked parameters; the port's
 ``convert.params_from_jax`` unstacks them).  Without a decode state each
 layer is recomputed in the backward pass (``remat``), as the reference
-wraps its scan body in ``jax.checkpoint``.  The port has the layer kinds
-of the dense, rwkv and hybrid families: full attention (``attn``),
-sliding-window attention over a ring buffer (``local``), the RG-LRU
-(``rglru``) and rwkv; mixture-of-experts layers raise
-``NotImplementedError``.  Every kind exposes the same (x, state) -> (x,
+wraps its scan body in ``jax.checkpoint``.  The port has the reference's
+decoder layer kinds: full attention (``attn``), sliding-window attention
+over a ring buffer (``local``), the RG-LRU (``rglru``) and rwkv.  An
+attention or RG-LRU layer's FFN is dense or, in a mixture-of-experts
+config, ``ffn.moe_apply``, whose load-balance loss is the layer's
+auxiliary loss.  Queries and keys rotate by the config's position encoding
+(RoPE, M-RoPE or none).  Every kind exposes the same (x, state) -> (x,
 state, aux) interface.
 """
 
@@ -23,9 +25,9 @@ from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.common import (
-    apply_rope,
     dense_init,
     dtype_of,
+    positional,
     project,
     rmsnorm,
     rmsnorm_init,
@@ -55,21 +57,25 @@ def _attn_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     }
 
 
+def _ffn_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    if cfg.is_moe:
+        return ffn_lib.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                cfg.activation, dtype)
+    return ffn_lib.ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                            dtype)
+
+
 def layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                dtype) -> Dict[str, Any]:
     p: Dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, gen.device),
                          "ln2": rmsnorm_init(cfg.d_model, gen.device)}
-    if cfg.is_moe:
-        raise _unported("moe")
     if kind in ("attn", "local"):
         p["attn"] = _attn_init(gen, cfg, dtype)
-        p["ffn"] = ffn_lib.ffn_init(gen, cfg.d_model, cfg.d_ff,
-                                    cfg.activation, dtype)
+        p["ffn"] = _ffn_init(gen, cfg, dtype)
     elif kind == "rglru":
         p["rglru"] = rglru_lib.rglru_init(gen, cfg.d_model,
                                           cfg.lru_width or cfg.d_model, dtype)
-        p["ffn"] = ffn_lib.ffn_init(gen, cfg.d_model, cfg.d_ff,
-                                    cfg.activation, dtype)
+        p["ffn"] = _ffn_init(gen, cfg, dtype)
     elif kind == "rwkv":
         p["time"] = rwkv_lib.rwkv_time_mix_init(gen, cfg.d_model,
                                                 cfg.rnn_head_dim, dtype)
@@ -99,9 +105,8 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
     q = project(x, params["wq"]).reshape(b, s, cfg.n_heads, hd)
     k = project(x, params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
     v = project(x, params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-    if cfg.pos_type == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q = positional(q, positions, cfg.pos_type, cfg.rope_theta)
+    k = positional(k, positions, cfg.pos_type, cfg.rope_theta)
     if cache is not None and window:
         w = cache["k"].shape[1]
         kc, vc = attn_lib.update_kv_cache(cache["k"], cache["v"], k, v,
@@ -127,14 +132,28 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
     return project(out.reshape(b, s, -1), params["wo"]), new_cache
 
 
+def _ffn_apply(params, cfg: ModelConfig, x, want_aux: bool):
+    """The layer's FFN and its auxiliary loss: a mixture of experts' 0-d
+    fp32 load-balance loss (when ``want_aux``), else the float 0.0 (no
+    launch)."""
+    if not cfg.is_moe:
+        return ffn_lib.ffn_apply(params, x, cfg.activation), 0.0
+    y, aux = ffn_lib.moe_apply(params, x, top_k=cfg.experts_per_token,
+                               activation=cfg.activation, aux=want_aux)
+    return y, 0.0 if aux is None else aux
+
+
 def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
                 state=None, cache_pos=None, rnn_chunk: int = 64,
-                block_tables=None) -> Tuple[torch.Tensor, Any, float]:
-    """Pre-norm residual block: norm, mixer (attention or the rwkv time
-    mix), residual; norm, FFN (or the rwkv channel mix), residual.  Returns
-    (x, new_state, aux_loss); these layers have no auxiliary loss, so it is
-    the float 0.0 (no launch).  ``rnn_chunk`` is the WKV chunk length (the
-    reference's ``ctx.rnn_chunk``, 64 without a context)."""
+                block_tables=None, want_aux: bool = True
+                ) -> Tuple[torch.Tensor, Any, Any]:
+    """Pre-norm residual block: norm, mixer (attention, the RG-LRU or the
+    rwkv time mix), residual; norm, FFN (or the rwkv channel mix),
+    residual.  Returns (x, new_state, aux_loss): a mixture of experts'
+    load-balance loss as a 0-d fp32 tensor, else the float 0.0 (no launch);
+    ``want_aux=False`` skips computing it (decode returns none).
+    ``rnn_chunk`` is the WKV chunk length (the reference's
+    ``ctx.rnn_chunk``, 64 without a context)."""
     if kind not in ("attn", "local", "rglru", "rwkv"):
         raise _unported(kind)
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
@@ -152,8 +171,8 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
     x = x + out
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     if kind != "rwkv":
-        return x + ffn_lib.ffn_apply(params["ffn"], h2, cfg.activation), \
-            new_state, 0.0
+        out2, aux = _ffn_apply(params["ffn"], cfg, h2, want_aux)
+        return x + out2, new_state, aux
     out2, new_channel = rwkv_lib.rwkv_channel_mix(
         params["channel"], h2, state["channel"] if state is not None else None)
     new_state = {"time": new_time, "channel": new_channel} \
@@ -223,7 +242,10 @@ def stack_init_state(cfg: ModelConfig, batch: int, max_len: int,
 def stack_apply(layers: List[dict], cfg: ModelConfig, x, positions, *,
                 states: Optional[List[dict]] = None, cache_pos=None,
                 remat: bool = True, rnn_chunk: int = 64, block_tables=None):
-    """Run all layers.  Returns (x, new_states, aux_total).
+    """Run all layers.  Returns (x, new_states, aux_total): the sum of the
+    layers' auxiliary losses, a 0-d fp32 tensor for a mixture of experts
+    (the float 0.0 for other stacks, and with a decode state, which skips
+    it).
 
     With ``remat`` and no decode state, each layer keeps only its input for
     the backward pass and runs again there
@@ -241,7 +263,8 @@ def stack_apply(layers: List[dict], cfg: ModelConfig, x, positions, *,
             x, new_st, aux = layer_apply(
                 lp, cfg, kind, x, positions,
                 state=states[i] if decode else None, cache_pos=cache_pos,
-                rnn_chunk=rnn_chunk, block_tables=block_tables)
+                rnn_chunk=rnn_chunk, block_tables=block_tables,
+                want_aux=not decode)
             if decode:
                 new_states.append(new_st)
         aux_total = aux_total + aux

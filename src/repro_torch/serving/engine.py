@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.costs.engine import CostEngine
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, mrope_positions
 from repro_torch.serving.faults import FaultInjector, StepFailed, guarded_call
 from repro_torch.serving.frontend.stream import StreamBroken, TokenStream
 from repro_torch.serving.paging import default_kv_blocks
@@ -140,6 +140,7 @@ class ServeEngine:
         _check_fits(p, max_new_tokens, self.max_len, "ServeEngine.generate")
         dev = self.model.device
         state = self.model.init_decode_state(b, self.max_len, per_slot=True)
+        mrope = self.model.cfg.pos_type == "mrope"
         chunk = p if supports_chunked_prefill(self.model.cfg) else 1
         chunks = _prefill_chunks(np.asarray(prompts, np.int64), chunk)
         tok, state = self._prefill(self.params, state,
@@ -154,8 +155,10 @@ class ServeEngine:
             if done.all() or i == max_new_tokens - 1:
                 break
             feed = np.where(done, self.pad_id, cur).astype(np.int64)
-            nxt, state = self._step(self.params, state,
-                                    {"tokens": _to_device(feed[:, None], dev)})
+            batch = {"tokens": _to_device(feed[:, None], dev)}
+            if mrope:
+                batch["positions"] = mrope_positions(b, 1, p + i, dev)
+            nxt, state = self._step(self.params, state, batch)
             cur = nxt.cpu().numpy()
         return out
 

@@ -23,7 +23,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, mrope_positions
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.compression import compress_gradients, init_compression
 from repro_torch.optim.schedule import warmup_cosine
@@ -147,9 +147,12 @@ def make_decode_macro_step(model: Model, horizon: int, *, eos_id: int,
     slot's EOS is emitted, then it goes quiet.  ``block_tables`` (B,
     max_blocks) addresses a paged state's pools; a masked row's table is
     zeroed for the step, so its writes land in the null page (its pages
-    may already belong to another request).
+    may already belong to another request).  An mrope model's positions
+    come from each slot's device position (``mrope_positions``), with no
+    host-built tensor.
     """
     k_steps = max(int(horizon), 1)
+    mrope = model.cfg.pos_type == "mrope"
 
     def macro_fn(params, state, tok, active, budget, block_tables=None):
         st, tk, act, bud = state, tok, active, budget
@@ -160,6 +163,9 @@ def make_decode_macro_step(model: Model, horizon: int, *, eos_id: int,
             if block_tables is not None:
                 batch["block_tables"] = torch.where(act[:, None],
                                                     block_tables, 0)
+            if mrope:
+                batch["positions"] = mrope_positions(feed.shape[0], 1,
+                                                     st["pos"])
             logits, new_st = model.decode_step(params, st, batch)
             new_st = model.merge_decode_state(new_st, st, act)
             nxt = torch.argmax(logits[:, -1], dim=-1)
@@ -192,8 +198,10 @@ def make_batched_prefill(model: Model) -> Callable:
     logical position (its hit length): positions, cache writes and the
     length limit all continue from the reused prefix.  ``block_tables``
     routes paged cache writes; rows not being prefilled get their table
-    row zeroed, so their masked writes land in the null page.
+    row zeroed, so their masked writes land in the null page.  An mrope
+    model's positions for each chunk come from each row's position.
     """
+    mrope = model.cfg.pos_type == "mrope"
 
     def prefill_fn(params, state, chunks, lengths, starts=None,
                    block_tables=None):
@@ -211,6 +219,8 @@ def make_batched_prefill(model: Model) -> Callable:
             if block_tables is not None:
                 batch["block_tables"] = torch.where(act[:, None],
                                                     block_tables, 0)
+            if mrope:
+                batch["positions"] = mrope_positions(b, c, st["pos"])
             logits, new_st = model.decode_step(params, st, batch)
             new_st = model.merge_decode_state(new_st, st, act)
             # decode_step advanced active rows by the full chunk width;

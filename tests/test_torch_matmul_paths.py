@@ -292,3 +292,49 @@ def test_both_tile_widths_give_the_same_bits(monkeypatch):
                        ops.matmul(a32, b, out_dtype=F32))
     for x, y in zip(outs[64], outs[128]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape", [((37, 9000), (9000, 65)),
+                                   ((2, 3, 5, 4097), (2, 3, 4097, 17))],
+                         ids=["2d", "4d"])
+def test_k_blocked_fp32_product_equals_one_product(shape, monkeypatch):
+    """An fp32 result on a tensor-core path with K above TC_K_BLOCK runs as
+    launches over consecutive K blocks, added in k order: with the plain
+    version as the launch, one launch a block, the blocks' last one
+    ragged, the bias in the first block only, and the sum within 1e-5 x
+    max of one product (fp32, another order of the sums)."""
+    ash, bsh = shape
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(ash, generator=gen).to(torch.bfloat16)
+    b = torch.randn(bsh, generator=gen).to(torch.bfloat16)
+    bias = torch.randn((bsh[-1],), generator=gen)
+    seen = []
+
+    def launch(x, y, bias=None, activation=None, out_dtype=None):
+        seen.append((x.shape[-1], y.shape[-2], bias is not None, activation,
+                     out_dtype))
+        return ref.matmul_fused_ref(x, y, bias=bias, out_dtype=out_dtype)
+
+    monkeypatch.setattr(ops, "matmul_cuda", launch)
+    got = ops.k_blocked(a, b, bias)
+    k = ash[-1]
+    assert [s[0] for s in seen] == [min(ops.TC_K_BLOCK, k - k0) for k0 in
+                                    range(0, k, ops.TC_K_BLOCK)]
+    assert [s[2] for s in seen] == [True] + [False] * (len(seen) - 1)
+    assert all(s[0] == s[1] and s[3] is None and s[4] == torch.float32
+               for s in seen)
+    want = ref.matmul_fused_ref(a, b, bias=bias, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    top = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-5 * top
+
+
+def test_k_blocked_refuses_an_activation(monkeypatch):
+    """The K blocks' sum has no fused epilogue: an activation raises
+    before any launch."""
+    monkeypatch.setattr(ops, "matmul_cuda", lambda *a, **kw: pytest.fail(
+        "launched"))
+    a = torch.zeros((2, ops.TC_K_BLOCK + 1), dtype=torch.bfloat16)
+    b = torch.zeros((ops.TC_K_BLOCK + 1, 3), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="no fused"):
+        ops.k_blocked(a, b, activation="gelu")

@@ -49,11 +49,15 @@ Phases, one report line each (any failure exits non-zero):
      then kernel backward against the plain chain)
      at the training shape (2, 2048, 32, 4, 64) in bf16 and fp32, an
      awkward (3, 100, 8, 2, 64) in fp32, mistral-nemo's heads (32 / 8, hd
-     128) in bf16 and a ragged MQA (3, 100, 8, 1, 64) in bf16; each call on
-     the path its dtype and hd name (bf16: the wgmma kernels, no operand
-     copied), the bf16 backward bit-identical on a second run, each timed
-     (CUDA events, cold L2) beside the plain version,
-     scaled_dot_product_attention and the bound;
+     128) in bf16 and a ragged MQA (3, 100, 8, 1, 64) in bf16, and the
+     non-causal modes: seamless-m4t-medium's encoder self-attention at
+     its training shape (2, 2048, 16, 16, 64) and ragged cross attentions
+     (3, 100 queries, 160 keys, 8, 8, 64, and 160 queries, 100 keys),
+     each in bf16 and fp32; each
+     call on the path its dtype and hd name (bf16: the wgmma kernels, no
+     operand copied), the bf16 backward bit-identical on a second run,
+     each timed (CUDA events, cold L2) beside the plain version,
+     scaled_dot_product_attention (is_causal as the case) and the bound;
   8. train-parity: one make_train_step of full-width tinyllama-1.1b cut to
      2 layers, fp32, batch 2 x 256, on the card and on the CPU from the
      same parameters and batch: the loss within 1e-4 relative, every
@@ -200,8 +204,31 @@ Phases, one report line each (any failure exits non-zero):
      compared token by token (a swap allowed only between experts whose
      probabilities differ by less than twice the card-vs-CPU difference),
      and qwen2-vl's forward with vision embeddings and distinct (t, h, w)
-     positions.
-     Before each of phases 2-19, gc.collect(): a gen-2 collection of this
+     positions;
+ 20. the encoder-decoder family: seamless-m4t-medium at full width and
+     depth (12 + 12 layers, vocab 256,206, bf16, seed 0): served static
+     and continuous on phase 5's trace (4 slots), tokens equal, tok/s,
+     host syncs per token, the matmul kernel's launches by path counted
+     from 0 before each run; Model.prefill 4 x 64 with frames (36
+     tensor-core flash forwards: 12 encoder and 12 cross non-causal, 12
+     causal; the first of each signature against the plain forward);
+     every matmul signature of those against the plain version; one
+     profiled decode step; paged=True refused with the reference's
+     ValueError; every distinct matmul call of one gradient at 2 x 2048
+     cut to 1 + 1 layers against the plain version, its path and which
+     operands a tensor map loads recorded (the unembedding's gradient
+     products step rows of 256,206 elements, which no tensor map takes),
+     timed beside torch.matmul; Runtime.train 4 steps at 2 x 2048 with
+     frames (every loss finite; tokens/s, peak memory, launches a step,
+     a checkpoint written) and a fixed batch whose loss falls, one step
+     profiled (busy share, device ms by kernel, flash calls by direction,
+     mode and path as the wrapper counts them where the kernels launch:
+     encoder and cross non-causal, decoder causal, all tensor core; no
+     library GEMM or attention kernel); card against CPU in fp32 at 2 + 2
+     layers: Model.prefill, a filled cross cache (cross_kv of
+     encode(frames)) and 5 decode steps within 2e-3 x max|logit|, the
+     loss within 1e-4 relative, every gradient within 2e-3 x max|grad|.
+     Before each of phases 2-20, gc.collect(): a gen-2 collection of this
      script's heap took 0.2-0.75 s inside a timed step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
@@ -272,6 +299,17 @@ FLASH_SHAPES = [(2, 2048, 32, 4, 64, "bfloat16"),
                 (3, 100, 8, 2, 64, "float32"),
                 (2, 1024, 32, 8, 128, "bfloat16"),
                 (3, 100, 8, 1, 64, "bfloat16")]
+# the non-causal modes, as (B, S, Hq, Hkv, hd, dtype, Skv, causal): the
+# encoder self-attention of seamless-m4t-medium at its training shape (16
+# MHA heads of 64, S == Skv == 2048) and ragged cross attentions (100
+# decoder queries against 160 encoder rows, and 160 against 100), each in
+# both types
+FLASH_NONCAUSAL_SHAPES = [(2, 2048, 16, 16, 64, "bfloat16", 2048, False),
+                          (2, 2048, 16, 16, 64, "float32", 2048, False),
+                          (3, 100, 8, 8, 64, "bfloat16", 160, False),
+                          (3, 100, 8, 8, 64, "float32", 160, False),
+                          (3, 160, 8, 8, 64, "bfloat16", 100, False),
+                          (3, 160, 8, 8, 64, "float32", 100, False)]
 FLASH_F32_TOL = 2e-3  # x max|plain|: tests/test_kernels.py's flash tolerance
 # bf16 flash outputs, element by element: BF16_TOL x the largest |plain| in
 # the element's row (the last axis), one bf16 rounding of that row, plus
@@ -342,6 +380,12 @@ FAMILY_FLASH_SHAPES = [(1, 2048, 32, 32, 96, "bfloat16"),
                        (1, 2048, 32, 32, 96, "float32"),
                        (1, 2048, 8, 1, 256, "bfloat16"),
                        (1, 2048, 8, 1, 256, "float32")]
+# phase 20: the encoder-decoder family at full width and depth; its
+# card-against-CPU run at 2 + 2 layers holds a decode state of
+# ENCDEC_MAX_LEN positions (as many cross-cache rows) and takes one
+# gradient at batch 2 x ENCDEC_CPU_SEQ
+ENCDEC = "seamless-m4t-medium"
+ENCDEC_MAX_LEN, ENCDEC_CPU_SEQ = 32, 128
 # recurrentgemma's card-against-CPU stream: the window cut to RING_WINDOW,
 # RING_STREAM tokens one at a time, so the ring buffer wraps
 RING_WINDOW, RING_STREAM = 64, 80
@@ -980,7 +1024,7 @@ def main() -> int:
     # ------------------------------------------------------------------ 7
     gc.collect()
     flash_rows = []
-    for shape in FLASH_SHAPES:
+    for shape in FLASH_SHAPES + FLASH_NONCAUSAL_SHAPES:
         row = flash_case(shape, gen, ref, fa, flush)
         if row is None:
             return 1
@@ -1094,6 +1138,16 @@ def main() -> int:
         return 1
     record["moe_vlm"] = moe_vlm
 
+    # ----------------------------------------------------------------- 20
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    encdec = encdec_phase(mm, fa, ops, ref, flush, card)
+    if encdec is None:
+        return 1
+    record["encdec"] = encdec
+    noncausal = [r for r in flash_rows if not r["causal"]]
+
     # ---------------------------------------------------------------- out
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1111,7 +1165,7 @@ def main() -> int:
         "max_abs_err": max([worst] + [
             rec["matmul_checks"]["max_abs_err"]
             for rec in list(families["serve"].values())
-            + list(moe_vlm["serve"].values())]),
+            + list(moe_vlm["serve"].values()) + [encdec["serve"]]]),
         # phase 15's paged serving run (P1), counted from 0 just before it
         "launches_paged_serve": paged["p1"]["matmul_launches"],
         # phase 16's dense preemption drill, counted from 0 just before it
@@ -1131,6 +1185,16 @@ def main() -> int:
             arch: {mode: n["count"] for mode, n in
                    rec["matmul_launches"].items()}
             for arch, rec in moe_vlm["serve"].items()},
+        # phase 20's serves of seamless-m4t-medium (12 + 12 layers), static
+        # and continuous, each counted from 0 just before it, and its
+        # Runtime.train's launches a step (by path)
+        "launches_encdec_serve": {
+            mode: n["count"] for mode, n in
+            encdec["serve"]["matmul_launches"].items()},
+        "launches_encdec_train_per_step": {
+            k[7:]: v for k, v in
+            encdec["train"]["launches_per_step"].items()
+            if k.startswith("matmul ")},
         # one decode step's matmul calls: the kernel in the real step, the
         # plain version on the same operands, the bound of the same work
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -1185,6 +1249,23 @@ def main() -> int:
                    "forward": rec["prefill"]["flash_forward_calls"],
                    "by_path": rec["prefill"]["flash_by_path"]}
             for arch, rec in moe_vlm["serve"].items()},
+        # phase 20: seamless-m4t-medium's Model.prefill (12 encoder
+        # non-causal, 12 decoder causal and 12 cross non-causal forward
+        # calls) and one profiled training step's calls by direction,
+        # mode and path (the recomputation's forwards among them)
+        "launches_encdec_prefill": {
+            "forward": encdec["serve"]["prefill"]["flash_forward_calls"],
+            "by_path": encdec["serve"]["prefill"]["flash_by_path"]},
+        "launches_encdec_train_step": encdec["train"]["profile"][
+            "flash_calls"],
+        # phase 7's non-causal cases (the encoder's training shape and a
+        # ragged cross attention) beside SDPA(is_causal=False) and the bound
+        "noncausal": [
+            {k: r[k] for k in ("shape", "skv", "dtype", "path", "max_abs_err",
+                               "fwd_ms", "bwd_ms", "fwd_plain_ms",
+                               "bwd_plain_ms", "fwd_library_ms",
+                               "bwd_library_ms", "bound_ms", "bound_by")}
+            for r in noncausal],
         "families_forward": [
             {k: r[k] for k in ("shape", "dtype", "path", "max_abs_err", "ms",
                                "plain_ms", "library_ms", "bound_ms",
@@ -1195,7 +1276,7 @@ def main() -> int:
                             + families["flash"]] + [
             rec["prefill"]["flash_max_abs_err"]
             for rec in list(families["serve"].values())
-            + list(moe_vlm["serve"].values())]),
+            + list(moe_vlm["serve"].values()) + [encdec["serve"]]]),
         # the bf16 training shape, forward plus backward
         "ms": flash_main["fwd_ms"] + flash_main["bwd_ms"],
         "plain_ms": flash_main["fwd_plain_ms"] + flash_main["bwd_plain_ms"],
@@ -1658,34 +1739,42 @@ def flash_case(shape, gen, ref, fa, flush):
     if they disagree."""
     import torch.nn.functional as F
 
-    b, s, hq, hkv, hd, dtype_name = shape
+    b, s, hq, hkv, hd, dtype_name, *mode = shape
+    skv, causal = mode or (s, True)
     dt = getattr(torch, dtype_name)
-    q, k, v, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda")
-                   .to(dt) for h in (hq, hkv, hkv, hq))
+    q, k, v, do = (torch.randn((b, rows, h, hd), generator=gen,
+                               device="cuda").to(dt)
+                   for rows, h in ((s, hq), (skv, hkv), (skv, hkv), (s, hq)))
     # the routing rule, stated apart from the wrapper's choose_path
     path = "tensor_core" if dt == torch.bfloat16 and hd in (64, 128) \
         else "fma"
+    mode = "causal" if causal else "non-causal"
+    modes = (f"forward {mode} {path}", f"backward {mode} {path}")
     before = (fa.LAUNCHES.forward, fa.LAUNCHES.backward, fa.LAUNCHES.grids,
-              fa.LAUNCHES.by_path[path], fa.LAUNCHES.copied_operands)
-    o, lse = fa.flash_attention_fwd_cuda(q, k, v)
-    o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v)
-    grads = fa.flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do)
-    grads_p = ref.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do)
+              fa.LAUNCHES.by_path[path], fa.LAUNCHES.copied_operands,
+              *(fa.LAUNCHES.by_mode[m] for m in modes))
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
+    o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v, causal)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, causal)
+    grads_p = ref.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, causal)
     calls = (fa.LAUNCHES.forward - before[0], fa.LAUNCHES.backward - before[1],
              fa.LAUNCHES.grids - before[2], fa.LAUNCHES.by_path[path]
-             - before[3], fa.LAUNCHES.copied_operands - before[4])
+             - before[3], fa.LAUNCHES.copied_operands - before[4],
+             *(fa.LAUNCHES.by_mode[m] - n for m, n in zip(modes, before[5:])))
     # the backward again on the same inputs: the same bits (no atomics, a
     # fixed order for the group sums)
-    again = fa.flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, causal)
     repeat = all(torch.equal(x, y) for x, y in zip(grads, again))
     # the chain as training runs it: the kernel backward fed the kernel
     # forward's o and lse, against the plain chain
-    chained = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    chained = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
     del again
     g = hq // hkv
     fold = lambda t: t.repeat_interleave(  # noqa: E731
-        hq // t.shape[2], dim=2).transpose(1, 2).reshape(b * hq, s, hd)
-    oracle = ref.flash_attention_ref(fold(q), fold(k), fold(v))
+        hq // t.shape[2], dim=2).transpose(1, 2).reshape(
+            b * hq, t.shape[1], hd)
+    oracle = ref.flash_attention_ref(fold(q), fold(k), fold(v),
+                                     causal=causal)
     torch.cuda.synchronize()
     errs, worst = {}, 0.0
     for name, got, want in [("o", o, o_p), ("lse", lse, lse_p),
@@ -1709,10 +1798,10 @@ def flash_case(shape, gen, ref, fa, flush):
                 f"{err:.3e}, {ratio:.2f} x its limit")
             return None
     del chained
-    if calls != (1, 1, grids, 2, 0):
+    if calls != (1, 1, grids, 2, 0, 1, 1):
         log("flash", f"FAIL {shape}: wrapper calls (forward, backward, CUDA "
-            f"launches, on the {path} path, operands copied) {calls}, "
-            f"expected (1, 1, {grids}, 2, 0)")
+            f"launches, on the {path} path, operands copied, {modes[0]}, "
+            f"{modes[1]}) {calls}, expected (1, 1, {grids}, 2, 0, 1, 1)")
         return None
     if not repeat:
         log("flash", f"FAIL {shape}: a second backward on the same inputs "
@@ -1723,7 +1812,7 @@ def flash_case(shape, gen, ref, fa, flush):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def sdpa(qq, kk, vv):
-        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
                                               enable_gqa=True)
 
     leaves = [t.detach().clone().requires_grad_(True) for t in (qt, kt, vt)]
@@ -1732,20 +1821,21 @@ def flash_case(shape, gen, ref, fa, flush):
     big = s >= 1024
     reps = 5 if big else 10
     times = dict(
-        fwd_ms=cuda_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v), flush,
-                       reps),
-        fwd_plain_ms=cuda_ms(lambda: ref.flash_attention_fwd_plain(q, k, v),
-                             flush, reps),
+        fwd_ms=cuda_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, causal),
+                       flush, reps),
+        fwd_plain_ms=cuda_ms(lambda: ref.flash_attention_fwd_plain(
+            q, k, v, causal), flush, reps),
         fwd_library_ms=cuda_ms(lambda: sdpa(qt, kt, vt), flush, reps),
         bwd_ms=cuda_ms(lambda: fa.flash_attention_bwd_cuda(
-            q, k, v, o_p, lse_p, do), flush, reps),
+            q, k, v, o_p, lse_p, do, causal), flush, reps),
         bwd_plain_ms=cuda_ms(lambda: ref.flash_attention_bwd_plain(
-            q, k, v, o_p, lse_p, do), flush, reps),
+            q, k, v, o_p, lse_p, do, causal), flush, reps),
         bwd_library_ms=cuda_ms(lambda: torch.autograd.grad(
             out_lib, leaves, do_t, retain_graph=True), flush, reps))
-    # the causal pairs col <= row; the forward's two products, the
-    # backward's at 2.5x; each input read once, each output written once
-    pairs = b * hq * s * (s + 1) / 2
+    # the pairs a query sees (causal: col <= row, else every key); the
+    # forward's two products, the backward's at 2.5x; each input read
+    # once, each output written once
+    pairs = b * hq * s * (s + 1) / 2 if causal else b * hq * s * skv
     flops_f = 4.0 * pairs * hd
     flops_b = 2.5 * flops_f
     peak = BF16_PEAK if dt == torch.bfloat16 else F32_PEAK
@@ -1756,7 +1846,8 @@ def flash_case(shape, gen, ref, fa, flush):
         + esz * (n_q + 2 * n_kv)  # q k v o do lse in, dq dk dv out
     t_ops = (flops_f + flops_b) / peak * 1e3
     t_bytes = (bytes_f + bytes_b) / HBM_BW * 1e3
-    row = dict(shape=list(shape[:5]), dtype=dtype_name, group=g, path=path,
+    row = dict(shape=list(shape[:5]), dtype=dtype_name, skv=skv,
+               causal=causal, group=g, path=path,
                backward_bits_repeat=repeat,
                max_abs_err=worst, errors=errs, launches=dict(
                    forward_calls=1, backward_calls=1, cuda_launches=grids),
@@ -1766,7 +1857,8 @@ def flash_case(shape, gen, ref, fa, flush):
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                fwd_tflops=flops_f / times["fwd_ms"] / 1e9,
                bwd_tflops=flops_b / times["bwd_ms"] / 1e9, **times)
-    log("flash", f"{tuple(shape[:5])} {dtype_name} ({path} path; backward "
+    log("flash", f"{tuple(shape[:5])} {dtype_name} Skv {skv} "
+        f"{'causal' if causal else 'non-causal'} ({path} path; backward "
         f"bits repeat): kernel == plain within tol (worst {worst:.2e}; "
         + ", ".join(
             f"{k} {e['err']:.1e} = {e['of_limit']:.2f} x limit"
@@ -1848,23 +1940,46 @@ def train_parity(cfg, leaves=None):
                 worst_rel=worst)
 
 
-def train_matmuls(cfg, ops, ref, flush):
-    """Every distinct matmul call of one training gradient of full-width
-    tinyllama-1.1b in bf16 at batch 2 x 2048, cut to 1 layer (each layer
-    makes the same calls), held against the plain version on the call's
-    own operands, its path checked against its dtypes, and timed (CUDA
-    events, cold L2) beside torch.matmul where both operands are bf16 (a
-    yardstick only).  A call is its shapes, strides, dtypes and epilogue,
-    so the backward's products through transposed strides and with fp32
-    gradients against bf16 operands are among them.  None on a mismatch,
-    or if no such product was seen."""
+def tma_flags(a, b, path) -> dict:
+    """Whether a tensor map loads each operand of a tensor-core call: the
+    operand itself (bf16), or for an fp32 operand of the split path its
+    bf16 halves, which keep its strides (a meta tensor of those strides
+    stands in for them; a fresh allocation is aligned).  None on the FMA
+    path, which loads through no tensor map."""
+    from repro_torch.kernels import matmul as mm
+
+    if path == "fma":
+        return None
+
+    def bf16(t):
+        return t if t.dtype == torch.bfloat16 else torch.empty_strided(
+            t.shape, t.stride(), dtype=torch.bfloat16, device="meta")
+
+    return {"a": mm.operand_mode(bf16(a), "a")[1],
+            "b": mm.operand_mode(bf16(b), "b")[1]}
+
+
+def train_matmuls(cfg, ops, ref, flush, label="backward"):
+    """Every distinct matmul call of one training gradient of the
+    full-width model in bf16 at batch 2 x 2048, cut to 1 layer (an
+    encoder-decoder to 1 + 1; each layer makes the same calls), held
+    against the plain version on the call's own operands, its path checked
+    against its dtypes, which operands a tensor map loads (``tma``), and
+    timed (CUDA events, cold L2) beside torch.matmul where both operands
+    are bf16 (a yardstick only).  A call is its shapes, strides, dtypes
+    and epilogue, so the backward's products through transposed strides
+    and with fp32 gradients against bf16 operands are among them; a
+    mixed-dtype call is also timed beside torch.matmul of both operands in
+    fp32 (no TF32).  None on a mismatch, or if no such product was
+    seen."""
     from repro_torch.data import SyntheticLMData
     from repro_torch.kernels import matmul as mm
     from repro_torch.models import build_model
     from repro_torch.training import TrainLoopConfig, make_grad_fn
     from repro_torch.training import init_train_state
 
-    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    cfg1 = dataclasses.replace(cfg, n_layers=1,
+                               encoder_layers=min(cfg.encoder_layers, 1))
     model = build_model(cfg1, "cuda")
     params = init_train_state(model, 0, TrainLoopConfig())["params"]
     batch = SyntheticLMData(cfg1, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
@@ -1884,17 +1999,24 @@ def train_matmuls(cfg, ops, ref, flush):
             lib = a.dtype == b.dtype == torch.bfloat16
             tflops, gbs = rates(a, b, out.dtype, k_ms)
             t_ops, t_bytes = bound_terms(a, b, out.dtype)
+            path = mm.choose_path(a.dtype, b.dtype)
             rows[key] = dict(a=list(a.shape), a_stride=list(a.stride()),
                              a_dtype=str(a.dtype), b=list(b.shape),
                              b_stride=list(b.stride()), b_dtype=str(b.dtype),
                              bias=bias is not None, activation=activation,
                              out_dtype=str(out.dtype), err=err, tol=tol,
-                             path=mm.choose_path(a.dtype, b.dtype), ms=k_ms,
+                             path=path, tma=tma_flags(a, b, path), ms=k_ms,
                              tflops=tflops, gb_per_s=gbs,
                              bound_ms=max(t_ops, t_bytes),
                              torch_matmul_ms=cuda_ms(
                                  lambda: torch.matmul(a, b), flush, reps=5,
-                                 warm=1) if lib else None)
+                                 warm=1) if lib else None,
+                             torch_matmul_fp32_ms=None)
+            if a.dtype != b.dtype:  # the same product by torch.matmul in
+                af, bf = a.float(), b.float()  # fp32 (no TF32), a yardstick
+                rows[key]["torch_matmul_fp32_ms"] = cuda_ms(
+                    lambda: torch.matmul(af, bf), flush, reps=5, warm=1)
+                del af, bf
             if not err <= tol:
                 failed.append(rows[key])
         return out
@@ -1910,26 +2032,31 @@ def train_matmuls(cfg, ops, ref, flush):
         r[x + "_stride"][1] != 1 and r[x][1] > 1 for x in "ab")]
     mixed = [r for r in calls if r["a_dtype"] != r["b_dtype"]]
     for r in calls:
-        log("backward", f"{tuple(r['a'])}{tuple(r['a_stride'])} "
+        log(label, f"{tuple(r['a'])}{tuple(r['a_stride'])} "
             f"{r['a_dtype'][6:]} @ {tuple(r['b'])}{tuple(r['b_stride'])} "
             f"{r['b_dtype'][6:]} -> {r['out_dtype'][6:]}"
             f"{' +bias' if r['bias'] else ''}"
             f"{' ' + r['activation'] if r['activation'] else ''}: "
             f"max abs err {r['err']:.3e} (limit {r['tol']:.3e}); "
-            f"{r['path']} {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
-            f"{r['gb_per_s']:.0f} GB/s), torch.matmul "
+            f"{r['path']} (TMA {r['tma']}) {r['ms']:.4f} ms "
+            f"({r['tflops']:.1f} TFLOP/s, {r['gb_per_s']:.0f} GB/s), "
+            f"torch.matmul "
             + ("-" if r["torch_matmul_ms"] is None
-               else f"{r['torch_matmul_ms']:.4f} ms") + "; cold L2")
+               else f"{r['torch_matmul_ms']:.4f} ms")
+            + ("" if r["torch_matmul_fp32_ms"] is None
+               else f" (in fp32 {r['torch_matmul_fp32_ms']:.4f} ms)")
+            + "; cold L2")
     bf16 = [r for r in calls if r["torch_matmul_ms"] is not None]
-    log("backward", f"{len(calls)} distinct matmul calls in one gradient "
-        f"(batch {TRAIN_BATCH} x {TRAIN_SEQ}, 1 layer, bf16), "
+    log(label, f"{cfg.name}: {len(calls)} distinct matmul calls in one "
+        f"gradient (batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{'1 + 1 layers' if cfg.is_encdec else '1 layer'}, bf16), "
         f"{len(transposed)} with a transposed operand, {len(mixed)} with "
         f"mixed dtypes; {len(failed)} outside the limit; the {len(bf16)} "
         f"bf16 x bf16 calls: kernel {sum(r['ms'] for r in bf16):.4f} ms, "
         f"torch.matmul {sum(r['torch_matmul_ms'] for r in bf16):.4f} ms, "
         f"bound {sum(r['bound_ms'] for r in bf16):.4f} ms")
-    if failed or not transposed or not mixed or not audit.report("backward"):
-        log("backward", "FAIL: a product disagrees with the plain version, "
+    if failed or not transposed or not mixed or not audit.report(label):
+        log(label, "FAIL: a product disagrees with the plain version, "
             "or the backward's transposed or mixed-dtype products were not "
             "seen")
         return None
@@ -1938,11 +2065,13 @@ def train_matmuls(cfg, ops, ref, flush):
     return calls
 
 
-def train_phase(cfg, fa, mm_launches):
-    """Runtime.train of full-width tinyllama-1.1b (random weights, bf16):
-    every step finite, the kernels' launches per step, tokens/s, peak
-    memory and the plan; then a 4-step run on one fixed batch whose loss
-    must fall, with one step timed and one profiled.  None on a failure."""
+def train_phase(cfg, fa, mm_launches, label="train"):
+    """Runtime.train of the full-width model (random weights, bf16): every
+    step finite, the kernels' launches per step, tokens/s, peak memory and
+    the plan, a checkpoint written and deleted; then a
+    4-step run on one fixed batch whose loss must fall, with one step
+    timed and one profiled (its flash calls counted by mode and path).
+    None on a failure."""
     import re
     import shutil
 
@@ -1954,16 +2083,17 @@ def train_phase(cfg, fa, mm_launches):
                                       make_train_step)
 
     rt = Runtime(device="cuda")
-    ckpt = ROOT / "build" / "train_ckpt"
-    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     lines, plans = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mm_launches.reset()
     fa.LAUNCHES.reset()
     res = rt.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                   seed=0, ckpt_dir=str(ckpt), ckpt_every=10 ** 6,
-                   log_every=1, log=lines.append, on_plan=plans.append)
+                   seed=0, ckpt_dir=str(ckpt_dir),
+                   ckpt_every=10 ** 6, log_every=1, log=lines.append,
+                   on_plan=plans.append)
     torch.cuda.synchronize()
     counts = dict(matmul=mm_launches.count, flash_forward=fa.LAUNCHES.forward,
                   flash_backward=fa.LAUNCHES.backward,
@@ -1972,22 +2102,25 @@ def train_phase(cfg, fa, mm_launches):
                   **{f"matmul {p}": n for p, n in mm_launches.by_path.items()},
                   **{f"flash {p}": n for p, n in fa.LAUNCHES.by_path.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    saved = sorted(p.name for p in ckpt.iterdir()) if ckpt.exists() else []
-    shutil.rmtree(ckpt, ignore_errors=True)
+    saved = sorted(p.name for p in ckpt_dir.iterdir()) \
+        if ckpt_dir.exists() else []
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     steps = [dict(step=int(m.group(1)), loss=float(m.group(2)),
                   ms=float(m.group(3))) for m in
              (re.match(r"step\s+(\d+) loss (\S+) .* (\d+)ms$", x)
               for x in lines) if m]
     for line in lines:
-        log("train", line)
+        log(label, line)
     plan = plans[0]
     for line in plan.summary().splitlines():
-        log("train", "plan " + line.strip())
+        log(label, "plan " + line.strip())
     per_step = {k: v // TRAIN_STEPS for k, v in counts.items()}
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = [x["ms"] for x in steps[1:]]
     tok_s = tokens * len(steady) / (sum(steady) / 1e3) if steady else 0.0
-    log("train", f"tinyllama-1.1b full width ({cfg.n_layers} layers) bf16, "
+    depth = (f"{cfg.encoder_layers} + {cfg.n_layers} layers" if cfg.is_encdec
+             else f"{cfg.n_layers} layers")
+    log(label, f"{cfg.name} full width ({depth}) bf16, "
         f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: {res.steps_run} steps in "
         f"{res.wall_s:.2f} s, final loss {res.final_loss:.4f}, diverged "
         f"{res.diverged}; {tok_s:.1f} tokens/s over steps 1-"
@@ -2001,7 +2134,7 @@ def train_phase(cfg, fa, mm_launches):
           and counts["flash_backward"] > 0
           and all(v % TRAIN_STEPS == 0 for v in counts.values()))
     if not ok:
-        log("train", "FAIL: a step was not finite, the run stopped early, "
+        log(label, "FAIL: a step was not finite, the run stopped early, "
             "the checkpoint is missing or a kernel never launched")
         return None
     # bf16 at hd 64: every flash call on the wgmma kernels, through tensor
@@ -2009,7 +2142,7 @@ def train_phase(cfg, fa, mm_launches):
     if counts["flash fma"] or counts["flash_copied_operands"] or \
             counts["flash tensor_core"] != counts["flash_forward"] + \
             counts["flash_backward"]:
-        log("train", f"FAIL: a bf16 flash call left the tensor-core path or "
+        log(label, f"FAIL: a bf16 flash call left the tensor-core path or "
             f"copied an operand: {counts}")
         return None
     del res
@@ -2033,38 +2166,42 @@ def train_phase(cfg, fa, mm_launches):
     with torch.no_grad():
         end_loss = float(model.loss(state["params"], batch)[0])
     launched = {}
+    fa.LAUNCHES.reset()
     by_name, events = device_ms_by_kernel(lambda: step_fn(state, batch),
                                           launched)
+    modes = {k: n for k, n in fa.LAUNCHES.by_mode.items() if n}
     device_ms = sum(by_name.values())
     split = group_device_ms(by_name, FLASH_KERNELS)
     flash_ms = sum(split[g] for g in FLASH_KERNELS)
     wall = walls[-1]
-    log("train", f"fixed batch, lr 1e-3: losses {losses}, after "
+    log(label, f"fixed batch, lr 1e-3: losses {losses}, after "
         f"{TRAIN_STEPS} steps {end_loss:.4f} (must be below {losses[0]:.4f});"
         f" step walls {[round(w, 1) for w in walls]} ms")
+    log(label, f"profiled step's flash calls by direction, mode and path: "
+        f"{modes}")
     if events == 0:
-        log("train", "profiled step: device time not measured (the profiler "
+        log(label, "profiled step: device time not measured (the profiler "
             "saw no kernels)")
     else:
-        log("train", f"profiled step: {events} device events, device busy "
+        log(label, f"profiled step: {events} device events, device busy "
             f"{device_ms:.1f} ms of a {wall:.1f} ms step "
             f"({100 * device_ms / wall:.1f}%); " + ", ".join(
                 f"{g} {v:.1f} ms" for g, v in split.items()))
-        log("train", f"flash device time {flash_ms:.2f} ms by kernel: " +
+        log(label, f"flash device time {flash_ms:.2f} ms by kernel: " +
             ", ".join(f"{k} {v:.3f} ms ({n} launches)" for k, v, n in (
                 (name, sum(ms for kn, ms in by_name.items() if key in kn),
                  sum(n for kn, n in launched.items() if key in kn))
                 for name, key in FLASH_KERNELS.items())))
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            log("train", f"  {ms:9.2f} ms  {name[:90]}")
+            log(label, f"  {ms:9.2f} ms  {name[:90]}")
     if not (all(math.isfinite(x) for x in losses) and end_loss < losses[0]):
-        log("train", "FAIL: the loss did not fall on a fixed batch")
+        log(label, "FAIL: the loss did not fall on a fixed batch")
         return None
-    if library_gemms("train", by_name):
+    if library_gemms(label, by_name):
         return None
     library_attn = sorted(k for k in by_name if LIBRARY_ATTENTION.search(k))
     if library_attn or (events and not flash_ms):
-        log("train", f"FAIL: library attention kernels on the main path "
+        log(label, f"FAIL: library attention kernels on the main path "
             f"{library_attn}, or no repro_flash_tc kernel in the profile "
             f"(flash {flash_ms:.3f} ms)")
         return None
@@ -2078,6 +2215,7 @@ def train_phase(cfg, fa, mm_launches):
                           hbm_per_chip=plan.hbm_per_chip),
                 fixed_batch_losses=losses, fixed_batch_end_loss=end_loss,
                 fixed_batch_step_ms=walls, profile=dict(
+                    flash_calls=modes,
                     events=events, device_ms=device_ms, wall_ms=wall,
                     by_group=split, flash_ms=flash_ms, top=sorted(by_name.items(),
                                                key=lambda kv: -kv[1])[:12]))
@@ -4032,17 +4170,26 @@ def family_prefill(arch, model, params, prompts, fa, ops, ref, shapes,
     (SLOTS, 1, vocab); the output of the first flash call of each
     signature (FlashCalls) against the plain forward on the same q, k, v,
     at phase 7's tolerance (flash_error).  An mrope model gets the
-    text-only (t, h, w) positions.  Its matmul calls go to ``shapes``.
-    Returns (record, failures)."""
+    text-only (t, h, w) positions; an encoder-decoder model frames of the
+    prompts' length (N(0, 1) x 0.1, seed 0), and makes three flash calls a
+    layer pair: the encoder's non-causal self-attention, the decoder's
+    causal self-attention and its non-causal cross attention.  Its matmul
+    calls go to ``shapes``.  Returns (record, failures)."""
     from repro_torch.models.model import mrope_positions
 
     cfg = model.cfg
     hd = cfg.resolved_head_dim
     n_attn = sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
+    if cfg.is_encdec:
+        n_attn = cfg.encoder_layers + 2 * cfg.n_layers
     path = fa.choose_path(torch.bfloat16, hd)
     batch = {"tokens": prompts}
     if cfg.pos_type == "mrope":
         batch["positions"] = mrope_positions(*prompts.shape, 0, "cuda")
+    if cfg.is_encdec:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch["frames"] = torch.randn(prompts.shape + (cfg.d_model,),
+                                      generator=gen, device="cuda") * 0.1
     torch.cuda.synchronize()
     fa.LAUNCHES.reset()
     with torch.inference_mode(), shapes, FlashCalls(ops) as flash:
@@ -4055,7 +4202,7 @@ def family_prefill(arch, model, params, prompts, fa, ops, ref, shapes,
             want, _ = ref.flash_attention_fwd_plain(q, k, v, causal)
             err, ratio = flash_error(o, want)
             sig = (f"q {tuple(q.shape)} k {tuple(k.shape)} "
-                   f"{str(q.dtype)[6:]}")
+                   f"{str(q.dtype)[6:]}{'' if causal else ' non-causal'}")
             checks.append(dict(call=sig, max_abs_err=err, of_limit=ratio))
             if not ratio <= 1.0:
                 fails.append(f"{arch}: flash forward {sig} in Model.prefill: "
@@ -4074,7 +4221,8 @@ def family_prefill(arch, model, params, prompts, fa, ops, ref, shapes,
         fails.append(f"{arch}: Model.prefill logits {tuple(logits.shape)}, "
                      f"finite {finite}; expected {want}")
     log(label, f"{arch} Model.prefill {tuple(prompts.shape)} "
-        f"{cfg.n_layers} layers bf16: flash forward calls {calls} by path {by_path} "
+        f"{cfg.n_layers} layers{' (+ the encoder)' if cfg.is_encdec else ''}"
+        f" bf16: flash forward calls {calls} by path {by_path} "
         f"(hd {hd}, {n_attn} full-attention layers), logits "
         f"{tuple(logits.shape)} finite {finite}; flash outputs against the "
         f"plain forward: {checks}")
@@ -4178,7 +4326,9 @@ def family_serve(arch, mm, fa, ops, ref, card, n_layers=None,
     ntok = {name: sum(len(v) for v in run.outputs.values())
             for name, run in runs.items()}
     cont = runs["continuous"]
-    log(label, f"{arch} full width ({cfg.n_layers} layers, "
+    depth = (f"{cfg.encoder_layers} + {cfg.n_layers} layers"
+             if cfg.is_encdec else f"{cfg.n_layers} layers")
+    log(label, f"{arch} full width ({depth}, "
         f"{n_params / 1e9:.2f} B parameters) bf16, {REQUESTS} requests x "
         f"{PROMPT}+{MAX_NEW} tokens, {SLOTS} slots: "
         + ", ".join(f"{n} {r.tok_per_s:.2f} tok/s" for n, r in runs.items())
@@ -4211,10 +4361,15 @@ def family_serve(arch, mm, fa, ops, ref, card, n_layers=None,
         fails.append(f"{arch}: library kernels in a decode step: "
                      f"{step['library_gemms'] + step['library_attention']}")
     # every weight but the embedding table (a decode step gathers SLOTS
-    # rows of it) is read once a step: the step's bound by bytes
+    # rows of it), an encoder's and the cross attention's K and V
+    # projections (decode reads the cross caches in their place) is read
+    # once a step: the step's bound by bytes, weights only (the caches'
+    # reads are left out, as for every family)
     weight_bytes = sum(t.numel() * t.element_size() for path, t in
                        leaves_with_paths(params)
-                       if path != "embed" or cfg.tie_embeddings)
+                       if (path != "embed" or cfg.tie_embeddings)
+                       and not path.startswith(("encoder/", "enc_"))
+                       and not path.endswith(("cross/wk", "cross/wv")))
     step["weight_bound_ms"] = weight_bytes / HBM_BW * 1e3
     if cfg.is_moe:
         step["moe"] = moe_layers_ms(label, model, params, card)
@@ -4592,6 +4747,203 @@ def moe_vlm_phase(mm, fa, ops, ref, card):
     for f in fails:
         log("moe-vlm", f"FAIL {f}")
     log("moe-vlm", f"phase 19 wall {out['wall_s']:.1f} s; {len(fails)} "
+        f"failures ({card})")
+    return None if fails else out
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the encoder-decoder family
+# ---------------------------------------------------------------------------
+
+
+def encdec_card_vs_cpu(fa, card):
+    """seamless-m4t-medium at full width cut to 2 + 2 layers, fp32, on the
+    card and on the CPU from one set of parameters: Model.prefill of a
+    2 x 16 prompt against 2 x ENCDEC_MAX_LEN frames (encoder, cross
+    attention, decoder; its flash calls counted), then a decode state
+    whose cross caches hold ``cross_kv`` of ``encode(frames)``, the
+    prompt as one chunk and 4 more tokens one at a time (fixed tokens,
+    the same on both); each logits within 2e-3 x max|logit| (phase 6's
+    limit), and the card's prefill within it of its own decode at the
+    prompt's end.  Then one gradient at batch 2 x ENCDEC_CPU_SEQ from the
+    data pipeline (frames included): the loss within 1e-4 relative and
+    every gradient leaf within 2e-3 x max|grad|.  Returns (record,
+    failures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model, encdec
+    from repro_torch.runtime import synthetic_trace
+    from repro_torch.training import make_grad_fn
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    cfg = dataclasses.replace(get_config(ENCDEC), n_layers=2,
+                              encoder_layers=2, dtype="float32")
+    p_gpu = build_model(cfg, "cuda").init(0)
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+    prompt = torch.as_tensor(synthetic_trace(
+        1, prompt_len=16, max_new=1, vocab_size=cfg.vocab_size,
+        arrival="all", seed=3)[0].prompt, dtype=torch.int64)
+    toks = torch.stack([prompt, prompt.flip(0)])
+    feed = torch.stack([toks[:, 3], toks[:, 7], toks[:, 11], toks[:, 0]], 1)
+    rng = np.random.default_rng(3)
+    frames = torch.from_numpy((rng.standard_normal(
+        (2, ENCDEC_MAX_LEN, cfg.d_model)) * 0.1).astype(np.float32))
+    batch = SyntheticLMData(cfg, seq_len=ENCDEC_CPU_SEQ, global_batch=2,
+                            seed=0).batch_at(0)
+    out, flash_calls = {}, 0
+    for where, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        model = build_model(cfg, where)
+        t0 = time.perf_counter()
+        if where == "cuda":
+            torch.cuda.synchronize()
+            fa.LAUNCHES.reset()
+        fr = frames.to(where)
+        logits = [model.prefill(p, {"tokens": toks.to(where),
+                                    "frames": fr})[:, -1]]
+        if where == "cuda":
+            torch.cuda.synchronize()
+            flash_calls = fa.LAUNCHES.forward
+        st = model.init_decode_state(2, ENCDEC_MAX_LEN, per_slot=True)
+        enc = model.encode(p, fr, remat=False)
+        for lp, layer in zip(p["decoder"], st["layers"]):
+            layer["cross"]["k"], layer["cross"]["v"] = encdec.cross_kv(
+                lp, cfg, enc)
+        lg, st = model.decode_step(p, st, {"tokens": toks.to(where)})
+        logits.append(lg[:, -1])
+        for i in range(feed.shape[1]):
+            lg, st = model.decode_step(
+                p, st, {"tokens": feed[:, i:i + 1].to(where)})
+            logits.append(lg[:, -1])
+        loss, _, grads = make_grad_fn(model)(
+            p, {k: v.to(where) for k, v in batch.items()})
+        out[where] = dict(logits=[t.float().cpu() for t in logits],
+                          loss=float(loss),
+                          grads={k: g.cpu() for k, g in
+                                 leaves_with_paths(grads)},
+                          s=time.perf_counter() - t0)
+        del model, st, enc, grads
+    fails, worst = [], 0.0
+    gpu, cpu = out["cuda"], out["cpu"]
+    pairs = list(zip(gpu["logits"], cpu["logits"])) + [
+        (gpu["logits"][0], gpu["logits"][1])]
+    for i, (lg, lc) in enumerate(pairs):
+        top = lc.abs().max().item()
+        err = (lg - lc).abs().max().item()
+        worst = max(worst, err / top)
+        if not err <= 2e-3 * top:
+            fails.append(f"{ENCDEC} card vs CPU comparison {i}: logits err "
+                         f"{err:.3e} > {2e-3 * top:.3e}")
+    rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    if not rel <= 1e-4:
+        fails.append(f"{ENCDEC} loss card {gpu['loss']:.6f} cpu "
+                     f"{cpu['loss']:.6f}: rel {rel:.2e} > 1e-4")
+    worst_grad, worst_leaf = 0.0, None
+    for path, gc_ in cpu["grads"].items():
+        gg = gpu["grads"].get(path)
+        top = gc_.abs().max().item()
+        err = float("inf") if gg is None else (gg - gc_).abs().max().item()
+        if not err <= 2e-3 * top:
+            fails.append(f"{ENCDEC} gradient {path}: err {err:.3e} > "
+                         f"{2e-3 * top:.3e}")
+        if top > 0 and err / top >= worst_grad:
+            worst_grad, worst_leaf = err / top, path
+    want_flash = cfg.encoder_layers + 2 * cfg.n_layers
+    if flash_calls != want_flash:
+        fails.append(f"{ENCDEC}: the card's prefill made {flash_calls} flash "
+                     f"forward calls, expected {want_flash}")
+    for f in fails:
+        log("encdec-card-vs-cpu", f"FAIL {f}")
+    log("encdec-card-vs-cpu", f"{ENCDEC} full width, 2 + 2 layers, fp32: "
+        f"Model.prefill 2x16 against 2x{ENCDEC_MAX_LEN} frames, a filled "
+        f"cross cache + 5 decode steps: max err {worst:.2e} x max|logit| "
+        f"(limit 2e-3); loss card {gpu['loss']:.6f} cpu {cpu['loss']:.6f} "
+        f"(rel {rel:.2e}, limit 1e-4); {len(cpu['grads'])} gradients, worst "
+        f"leaf {worst_leaf} at {worst_grad:.2e} x max|grad| (limit 2e-3); "
+        f"flash forward calls in the card's prefill {flash_calls}; card "
+        f"{gpu['s']:.2f} s, cpu {cpu['s']:.2f} s ({card})")
+    del p_gpu, p_cpu, out
+    return dict(rel_err=worst, loss_rel_err=rel, grad_leaves=len(
+        cpu["grads"]), worst_grad_rel=worst_grad, worst_leaf=worst_leaf,
+        flash_forward_calls=flash_calls), fails
+
+
+def encdec_phase(mm, fa, ops, ref, flush, card):
+    """Phase 20: seamless-m4t-medium at full width and depth in bf16 (12 +
+    12 layers, random weights, seed 0): served static and continuous on
+    phase 5's trace (family_serve: tokens equal, Model.prefill's 36 flash
+    calls checked, every matmul signature against the plain version, one
+    profiled decode step), paged=True refused with the reference's
+    message; every distinct matmul call of one gradient at 1 + 1 layers
+    (train_matmuls, the vocabulary of 256,206 among them); Runtime.train
+    for 4 steps at 2 x 2048 and a fixed batch whose loss falls, one step
+    profiled (train_phase); card against CPU in fp32 at 2 + 2 layers
+    (encdec_card_vs_cpu).  None on any failure."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import Runtime, synthetic_trace
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC)
+    out: dict = {"card": card}
+    fails = []
+    rec, f = family_serve(ENCDEC, mm, fa, ops, ref, card, label="encdec")
+    out["serve"], fails = rec, fails + f
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace = synthetic_trace(2, prompt_len=8, max_new=2,
+                            vocab_size=cfg.vocab_size, arrival="all")
+    try:
+        Runtime(device="cuda").serve(cfg, trace, paged=True, warmup=False)
+        refusal = None
+    except ValueError as err:
+        refusal = str(err)
+    want = ("paged=True supports decoder-only models (enc-dec decode state "
+            "has no paged layout)")
+    log("encdec", f"paged=True: ValueError {refusal!r}")
+    if refusal != want:
+        fails.append(f"paged=True gave {refusal!r}, not the reference's "
+                     f"ValueError")
+    out["paged_refusal"] = refusal
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["train_matmuls"] = train_matmuls(cfg, ops, ref, flush,
+                                         label="encdec-backward")
+    out["train_matmuls_s"] = time.perf_counter() - t0
+    if out["train_matmuls"] is None:
+        fails.append("a matmul call of the gradient disagrees with its "
+                     "plain version or was misrouted")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["train"] = train_phase(cfg, fa, mm.LAUNCHES, label="encdec-train")
+    out["train_s"] = time.perf_counter() - t0
+    if out["train"] is None:
+        fails.append("Runtime.train or the fixed-batch run failed")
+    else:
+        # the encoder's and the cross attention's non-causal calls and the
+        # decoder's causal ones, forward and backward, all on the tensor
+        # cores (read where the kernels launch)
+        calls = out["train"]["profile"]["flash_calls"]
+        want = {f"{d} {m} tensor_core": 2 * cfg.n_layers if m == "non-causal"
+                else cfg.n_layers for d in ("forward", "backward")
+                for m in ("causal", "non-causal")}
+        got = {k: calls.get(k, 0) for k in want}
+        if any(got[k] < n for k, n in want.items()) or \
+                set(calls) - set(want):
+            fails.append(f"the profiled training step's flash calls "
+                         f"{calls}: each of {want} at least, on no other "
+                         f"path or mode")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"], f = encdec_card_vs_cpu(fa, card)
+    fails += f
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["fails"] = fails
+    for f in fails:
+        log("encdec", f"FAIL {f}")
+    log("encdec", f"phase 20 wall {out['wall_s']:.1f} s; {len(fails)} "
         f"failures ({card})")
     return None if fails else out
 

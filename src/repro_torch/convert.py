@@ -21,7 +21,11 @@ Layouts change where the port keeps a projection as one (in, out) matrix:
 ``w_out`` (E, F, d) becomes (E*F, d), and the ``router`` (d, E) stays
 fp32.  An rwkv layer's ``time`` and ``channel`` leaves and an RG-LRU
 layer's ``rglru`` leaves keep their shapes.  A tree with tied embeddings
-has no ``unembed``, and neither has the result.  Values are unchanged.
+has no ``unembed``, and neither has the result.  An encoder-decoder tree
+(``enc_{i}``, ``dec_{i}``, ``enc_final_norm``) becomes the port's
+``encoder`` and ``decoder`` lists, each decoder layer with its
+``ln_cross`` and ``cross`` projections; ``encdec_state_from_jax`` carries
+its decode state across.  Values are unchanged.
 """
 
 from __future__ import annotations
@@ -109,17 +113,23 @@ def _layer(lp: Dict[str, Any], cfg: ModelConfig, device,
                 "rglru": _named_tensors(lp["rglru"], _RGLRU_KEYS, device,
                                         wdtype),
                 "ffn": ffn}
-    d = cfg.d_model
-    attn = lp["attn"]
+    out = {**norms, "attn": _attn(lp["attn"], cfg.d_model, device, wdtype),
+           "ffn": ffn}
+    if "cross" in lp:  # an encoder-decoder's decoder layer
+        out["ln_cross"] = {"scale": _tensor(lp["ln_cross"]["scale"], device,
+                                            torch.float32)}
+        out["cross"] = _attn(lp["cross"], cfg.d_model, device, wdtype)
+    return out
+
+
+def _attn(attn: Dict[str, Any], d: int, device,
+          wdtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Attention projections as (in, out) matrices."""
     return {
-        **norms,
-        "attn": {
-            "wq": _tensor(np.reshape(attn["wq"], (d, -1)), device, wdtype),
-            "wk": _tensor(np.reshape(attn["wk"], (d, -1)), device, wdtype),
-            "wv": _tensor(np.reshape(attn["wv"], (d, -1)), device, wdtype),
-            "wo": _tensor(np.reshape(attn["wo"], (-1, d)), device, wdtype),
-        },
-        "ffn": ffn,
+        "wq": _tensor(np.reshape(attn["wq"], (d, -1)), device, wdtype),
+        "wk": _tensor(np.reshape(attn["wk"], (d, -1)), device, wdtype),
+        "wv": _tensor(np.reshape(attn["wv"], (d, -1)), device, wdtype),
+        "wo": _tensor(np.reshape(attn["wo"], (-1, d)), device, wdtype),
     }
 
 
@@ -144,6 +154,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
     (numpy leaves).  ``dtype`` overrides the weights' dtype (default: the
     config's); norm scales stay fp32, as the reference keeps them."""
     wdtype = dtype or dtype_of(cfg.dtype)
+    if cfg.is_encdec:
+        return _encdec_params(tree, cfg, device, wdtype)
     per_layer = _per_layer(tree["layers"], cfg)
     params = {
         "embed": _tensor(tree["embed"], device, wdtype),
@@ -154,3 +166,47 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
     if "unembed" in tree:
         params["unembed"] = _tensor(tree["unembed"], device, wdtype)
     return params
+
+
+def _norm(tree: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    return {"scale": _tensor(tree["scale"], device, torch.float32)}
+
+
+def _encdec_params(tree: Dict[str, Any], cfg: ModelConfig, device,
+                   wdtype: torch.dtype) -> Dict[str, Any]:
+    """An encoder-decoder tree: ``enc_{i}`` and ``dec_{i}`` (with
+    ``ln_cross`` and ``cross``) become the lists ``encoder`` and
+    ``decoder``; ``embed``, the untied ``unembed`` and both final norms
+    carry over."""
+    return {
+        "embed": _tensor(tree["embed"], device, wdtype),
+        "unembed": _tensor(tree["unembed"], device, wdtype),
+        "enc_final_norm": _norm(tree["enc_final_norm"], device),
+        "final_norm": _norm(tree["final_norm"], device),
+        "encoder": [_layer(tree[f"enc_{i}"], cfg, device, wdtype)
+                    for i in range(cfg.encoder_layers)],
+        "decoder": [_layer(tree[f"dec_{i}"], cfg, device, wdtype)
+                    for i in range(cfg.n_layers)],
+    }
+
+
+def encdec_state_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
+                          device="cuda",
+                          dtype: Optional[torch.dtype] = None
+                          ) -> Dict[str, Any]:
+    """The port's encoder-decoder decode state from the reference's
+    (numpy leaves): ``dec_{i}`` {"k", "v"} and ``cross_{i}`` {"k", "v"}
+    become ``layers[i]`` {"k", "v", "cross": {"k", "v"}}, and ``pos``
+    (int32, 0-d or per slot) an int64 tensor."""
+    wdtype = dtype or dtype_of(cfg.dtype)
+
+    def kv(t):
+        return {"k": _tensor(t["k"], device, wdtype),
+                "v": _tensor(t["v"], device, wdtype)}
+
+    return {
+        "layers": [{**kv(tree[f"dec_{i}"]), "cross": kv(tree[f"cross_{i}"])}
+                   for i in range(cfg.n_layers)],
+        "pos": torch.from_numpy(np.array(tree["pos"], dtype=np.int64)).to(
+            device),
+    }

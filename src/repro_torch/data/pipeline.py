@@ -12,7 +12,8 @@
 A vision (VLM) config's batch adds the stub frontend's inputs, as the
 reference's does: ``vision_embeds`` (B, P, d), normal x 0.02 fp32 with P
 = ``_vlm_patches(cfg, seq_len)``, and the text-only (B, S, 3) M-RoPE
-``positions``.
+``positions``.  An encoder-decoder config's batch adds the audio stub's
+``frames`` (B, S, d), normal x 0.1 fp32, one frame per token position.
 
 The mixture and its distributions are the reference's
 (``src/repro/data/pipeline.py``), but not its bits: the reference draws
@@ -71,13 +72,10 @@ class SyntheticLMData:
         return torch.where((t % 4) == 3, uni, backbone)
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
-        """``{"tokens": (host_batch, seq_len) int64}`` for ``step``, and for
+        """``{"tokens": (host_batch, seq_len) int64}`` for ``step``; for
         a vision config ``vision_embeds`` (host_batch, P, d) fp32 and
-        ``positions`` (host_batch, seq_len, 3) int64."""
-        if self.cfg.is_encdec:
-            raise NotImplementedError(
-                f"{self.cfg.name}: encoder-decoder inputs are not ported yet "
-                f"(other families)")
+        ``positions`` (host_batch, seq_len, 3) int64; for an
+        encoder-decoder config ``frames`` (host_batch, seq_len, d) fp32."""
         gen = self._generator(step)
         b = self.host_batch
         batch = {"tokens": self._tokens(gen, b)}
@@ -86,4 +84,7 @@ class SyntheticLMData:
             batch["vision_embeds"] = torch.randn(
                 (b, p, self.cfg.d_model), generator=gen) * 0.02
             batch["positions"] = mrope_positions(b, self.seq_len, 0)
+        if self.cfg.is_encdec:
+            batch["frames"] = torch.randn(
+                (b, self.seq_len, self.cfg.d_model), generator=gen) * 0.1
         return {k: v.to(self.device) for k, v in batch.items()}

@@ -55,7 +55,8 @@ _TMA_ALIGN = 16  # bytes: a tensor map's base and every stride it steps
 
 
 class LaunchCounter:
-    """Forward and backward calls (in total and by path), the CUDA
+    """Forward and backward calls (in total, by path, and by direction,
+    mode and path: ``by_mode["forward non-causal tensor_core"]``), the CUDA
     launches they made and the tensor-core operands copied by the producer
     warp, since the last ``reset``."""
 
@@ -67,6 +68,9 @@ class LaunchCounter:
         self.backward = 0
         self.grids = 0
         self.by_path = dict.fromkeys(PATHS, 0)
+        self.by_mode = dict.fromkeys(
+            (f"{d} {m} {p}" for d in ("forward", "backward")
+             for m in ("causal", "non-causal") for p in PATHS), 0)
         self.copied_operands = 0
 
 
@@ -108,8 +112,11 @@ def _tma_mask(tensors) -> int:
     return sum(1 << i for i, t in enumerate(tensors) if tma_ok(t))
 
 
-def _count(path: str, mask: int, n_operands: int) -> None:
+def _count(direction: str, causal: bool, path: str, mask: int,
+           n_operands: int) -> None:
     LAUNCHES.by_path[path] += 1
+    LAUNCHES.by_mode[f"{direction} {'causal' if causal else 'non-causal'} "
+                     f"{path}"] += 1
     if path == "tensor_core":
         LAUNCHES.copied_operands += n_operands - bin(mask).count("1")
 
@@ -204,7 +211,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                            f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     LAUNCHES.forward += 1
     LAUNCHES.grids += 1
-    _count(path, mask, 3)
+    _count("forward", causal, path, mask, 3)
     return o, lse
 
 
@@ -259,7 +266,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
                            f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     LAUNCHES.backward += 1
     LAUNCHES.grids += _BWD_GRIDS[path]
-    _count(path, mask, 4)
+    _count("backward", causal, path, mask, 4)
     return dq, dk, dv
 
 

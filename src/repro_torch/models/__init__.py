@@ -1,3 +1,4 @@
-"""Model families of the port (this slice: the dense decoder-only family)."""
+"""Model families of the port: the decoder-only families (``Model``) and
+the encoder-decoder family (``EncDecModel``); ``build_model`` picks one."""
 
-from repro_torch.models.model import Model, build_model  # noqa: F401
+from repro_torch.models.model import EncDecModel, Model, build_model  # noqa: F401

@@ -1,11 +1,14 @@
-"""Attention: GQA/MQA, dense and chunked (online-softmax) causal attention,
-and KV-cache decode.
+"""Attention: GQA/MQA, dense and chunked (online-softmax) causal or
+bidirectional attention, encoder-decoder cross attention, and KV-cache
+decode.
 
 Shapes: q (B, S, Hq, hd); k, v (B, Skv, Hkv, hd); Hq % Hkv == 0.
 
-``attention`` serves every causal attention without a cache
-(``forward_logits``, ``prefill``, the training loss).  On a CUDA tensor it
-runs the hand-written flash kernels, forward and backward (the reference
+``attention`` serves every self-attention without a cache
+(``forward_logits``, ``prefill``, the training loss; causal, or
+bidirectional in an encoder), and ``cross_attention`` a decoder's
+attention to its encoder's output.  On a CUDA tensor both
+run the hand-written flash kernels, forward and backward (the reference
 reaches its Pallas flash kernel only through ``impl="flash"``; the port
 takes it for the whole path, an implementation choice that leaves the
 outputs the reference's).  On the CPU ``impl="auto"`` keeps the
@@ -232,6 +235,20 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.shape[1] <= 2 * chunk:
         return dense_attention(q, k, v, causal=causal)
     return chunked_attention(q, k, v, causal=causal, chunk=chunk)
+
+
+def cross_attention(q, k, v, *, cached: bool = False) -> torch.Tensor:
+    """Unmasked attention of decoder queries q (B, S, Hq, hd) to encoder
+    keys and values (B, S_enc, Hkv, hd), S and S_enc free.  Without a
+    cache (``loss``, ``prefill``) a CUDA tensor runs the flash kernels with
+    ``causal=False``, forward and backward; the CPU keeps the reference's
+    ``dense_attention``.  From a decode cache (``cached``) both devices run
+    ``dense_attention``: its two contractions on the matmul kernel over
+    every cached row, as ``decode_attention`` runs them, so a slot's
+    result does not depend on the other slots of the step."""
+    if q.is_cuda and not cached:
+        return flash_attention(q, k, v, causal=False)
+    return dense_attention(q, k, v, causal=False)
 
 
 # ---------------------------------------------------------------------------

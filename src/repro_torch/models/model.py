@@ -18,14 +18,23 @@ scaled by sqrt(d_model) rounded to the weights' dtype.  ``loss`` is the
 training objective: next-token cross-entropy (the vision patches'
 positions masked) plus the weighted auxiliary (the mixture of experts'
 load-balance) and z losses, through ``xent_auto`` (direct up to 2048
-positions, chunked and recomputed above).  The port has the reference's
-decoder-only families: dense (RoPE, GLU FFN, tied or untied embeddings),
-mixture of experts, the hybrid family (RG-LRU and local attention), rwkv6
-and the VLM backbone (M-RoPE, the vision stub); encoder-decoder and the
-audio frontend raise ``NotImplementedError``.
+positions, chunked and recomputed above).  The port has every family
+of the reference: dense (RoPE, GLU FFN, tied or untied embeddings),
+mixture of experts, the hybrid family (RG-LRU and local attention), rwkv6,
+the VLM backbone (M-RoPE, the vision stub) and, in ``EncDecModel``,
+encoder-decoder (the audio stub: ``batch["frames"]`` (B, S_enc, d) feeds
+the encoder in ``loss`` and ``prefill``).  An encoder-decoder model's
+parameters are ``{"embed", "unembed", "enc_final_norm", "final_norm",
+"encoder": [...], "decoder": [...]}`` and its decode state ``{"layers":
+[{"k", "v", "cross": {"k", "v"}}, ...], "pos"}``: each decoder layer's
+self-attention cache beside its cross-attention cache of
+``min(ENCDEC_DECODE_ENC_LEN, max_len)`` encoder rows, slot axis first on
+every leaf, so the serving stack handles it as any other state.
 """
 
 from __future__ import annotations
+
+from typing import Union
 
 import numpy as np
 import torch
@@ -33,6 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (
     dtype_of,
@@ -51,6 +61,11 @@ XENT_CHUNK = 1024
 # the vision stub: one position in VLM_PATCH_FRACTION holds a patch
 # embedding in training batches, at most 1024 (the reference's)
 VLM_PATCH_FRACTION = 8
+# the audio stub: encoder frames a decode state's cross cache holds, at
+# most (the reference's; ``min(ENCDEC_DECODE_ENC_LEN, max_len)`` rows)
+ENCDEC_DECODE_ENC_LEN = 4096
+ENCDEC_PAGED_REFUSAL = ("paged=True supports decoder-only models (enc-dec "
+                        "decode state has no paged layout)")
 
 
 def is_page_pool(path: str) -> bool:
@@ -92,16 +107,70 @@ def _vlm_patches(cfg: ModelConfig, s: int) -> int:
     return min(1024, s // VLM_PATCH_FRACTION)
 
 
-class Model:
-    """A decoder-only model on ``device``: the reference's ``Model`` record
-    as methods.  Decode-state surgery on single slots
+class _DecodeSlots:
+    """Slot-indexed surgery on a decode state ``{"layers": [per-layer
+    tree, ...], "pos"}`` whose per-slot leaves have their slot axis first
+    (continuous batching).  Surgery on single slots
     (``reset_decode_slots``, ``insert_decode_slot``) writes in place, which
     is the port's stand-in for the reference's buffer donation."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.dtype = dtype_of(cfg.dtype)
+
+    # Page pools (``pk``/``pv``) have no slot axis: a slot's pages are its
+    # block-table row, which the SlotPool owns.  All three surgeries below
+    # pass the pools through untouched, as the reference's stack_state_map
+    # does (a pool's row ``slot`` is a page of some other request).
+
+    def reset_decode_slots(self, state, slot_mask) -> dict:
+        """Zero, in place, the decode state of every slot where the host
+        mask ``slot_mask`` is True (per-slot state only), every per-slot
+        leaf of every layer's tree on its slot axis (0)."""
+        for slot in np.flatnonzero(np.asarray(slot_mask, bool)):
+            for leaf in _slot_leaves(state["layers"]):
+                leaf[int(slot)].zero_()
+            state["pos"][int(slot)] = 0
+        return state
+
+    def insert_decode_slot(self, state, src, slot: int) -> dict:
+        """Copy, in place, the single slot of ``src`` (batch 1, per-slot)
+        into slot ``slot`` of a pooled state, leaf by leaf (the
+        destination's page pools are kept)."""
+        for dst, one in zip(_slot_leaves(state["layers"]),
+                            _slot_leaves(src["layers"])):
+            dst[slot].copy_(one[0])
+        state["pos"][slot] = src["pos"][0]
+        return state
+
+    def merge_decode_state(self, new_state, old_state, active) -> dict:
+        """Per-slot select: slots where the device mask ``active`` (B,) is
+        True take the stepped state, the rest stay exactly frozen
+        (positions, caches and recurrent state).  The mask is shaped to
+        each leaf's rank, slot axis first.  Page pools come from
+        ``new_state``: a masked slot's writes went to the null page."""
+        def select(path, new, old):
+            if is_page_pool(path):
+                return new
+            keep = active.reshape((-1,) + (1,) * (new.dim() - 1))
+            return torch.where(keep, new, old)
+
+        return {"layers": tree_map_with_path(select, new_state["layers"],
+                                             old_state["layers"]),
+                "pos": torch.where(active, new_state["pos"],
+                                   old_state["pos"])}
+
+
+class Model(_DecodeSlots):
+    """A decoder-only model on ``device``: the reference's ``Model`` record
+    as methods."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
         unported = []
         if cfg.is_encdec:
-            unported.append("encoder-decoder")
+            unported.append("encoder-decoder (build_model gives an "
+                            "EncDecModel)")
         if any(k not in ("attn", "local", "rglru", "rwkv")
                for k in cfg.block_pattern):
             unported.append(f"block pattern {cfg.block_pattern}")
@@ -113,9 +182,7 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(unported)} not ported yet "
                 f"(other model families)")
-        self.cfg = cfg
-        self.device = torch.device(device)
-        self.dtype = dtype_of(cfg.dtype)
+        super().__init__(cfg, device)
 
     # ------------------------------------------------------------------
 
@@ -245,54 +312,164 @@ class Model:
         return unembed(self._table(params), x), {
             "layers": new_layers, "pos": pos + batch["tokens"].shape[1]}
 
+
+class EncDecModel(_DecodeSlots):
+    """The encoder-decoder model (seamless-m4t-medium) on ``device``: the
+    reference's ``_build_encdec`` record as methods, the same ones as
+    ``Model`` but ``forward_logits``.  The encoder runs in ``loss`` and
+    ``prefill`` only; serving decodes through ``decode_step`` against the
+    state's cross caches, which ``init_decode_state`` fills with zeros and
+    nothing in serving writes (as in the reference: the cross term of a
+    served token is then exactly 0)."""
+
+    def init(self, seed: int = 0) -> dict:
+        """Fresh parameters with the reference's distributions, drawn from a
+        ``torch.Generator`` seeded with ``seed`` on the model's device."""
+        cfg = self.cfg
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return {
+            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, self.dtype),
+            "unembed": embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                  self.dtype),
+            "enc_final_norm": rmsnorm_init(cfg.d_model, self.device),
+            "final_norm": rmsnorm_init(cfg.d_model, self.device),
+            "encoder": [encdec_lib.encdec_layer_init(gen, cfg, False,
+                                                     self.dtype)
+                        for _ in range(cfg.encoder_layers)],
+            "decoder": [encdec_lib.encdec_layer_init(gen, cfg, True,
+                                                     self.dtype)
+                        for _ in range(cfg.n_layers)],
+        }
+
+    def encode(self, params, frames: torch.Tensor,
+               remat: bool = True) -> torch.Tensor:
+        """The encoder over ``frames`` (B, S_enc, d), cast to the weights'
+        dtype: (B, S_enc, d) after the final norm.  With ``remat`` and
+        gradients on, each layer keeps only its input for the backward
+        pass and runs again there."""
+        x = frames.to(self.dtype)
+        positions = _offset_positions(
+            x.shape[0], x.shape[1],
+            torch.zeros((), dtype=torch.int64, device=x.device))
+        remat = remat and torch.is_grad_enabled()
+        for lp in params["encoder"]:
+            if remat:
+                x = checkpoint(encdec_lib.encoder_layer_apply, lp, self.cfg,
+                               x, positions, use_reentrant=False)
+            else:
+                x = encdec_lib.encoder_layer_apply(lp, self.cfg, x, positions)
+        return rmsnorm(params["enc_final_norm"], x, self.cfg.norm_eps)
+
+    def _decode_stack(self, params, tokens, enc_out, remat: bool):
+        """The decoder, teacher-forced over ``tokens`` (B, S) against the
+        encoder output: (B, S, d) before the final norm.  Each layer's cross
+        K/V is projected outside its recomputed body, as the reference
+        does."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        x = embed_lookup(params["embed"], tokens)
+        positions = _offset_positions(
+            b, s, torch.zeros((), dtype=torch.int64, device=tokens.device))
+        remat = remat and torch.is_grad_enabled()
+        for lp in params["decoder"]:
+            enc_kv = encdec_lib.cross_kv(lp, cfg, enc_out)
+            if remat:
+                x = checkpoint(_decoder_body, lp, cfg, x, positions, enc_kv,
+                               use_reentrant=False)
+            else:
+                x = _decoder_body(lp, cfg, x, positions, enc_kv)
+        return x
+
+    def prefill(self, params, batch):
+        """Encode ``batch["frames"]``, run the decoder teacher-forced over
+        ``batch["tokens"]``, return the last position's logits (B, 1, V)
+        fp32; no decode state is filled (the reference's)."""
+        enc_out = self.encode(params, batch["frames"], remat=False)
+        x = self._decode_stack(params, batch["tokens"], enc_out, remat=False)
+        x = rmsnorm(params["final_norm"], x[:, -1:], self.cfg.norm_eps)
+        return unembed(params["unembed"], x)
+
+    def loss(self, params, batch, remat: bool = True):
+        """Next-token cross-entropy of the decoder over ``batch["tokens"]``
+        (B, S), conditioned on the encoded ``batch["frames"]``, plus the
+        weighted z loss.  Returns ``(ce + Z_LOSS_WEIGHT * z, {"ce", "z"})``,
+        0-d tensors on the model's device."""
+        tokens = batch["tokens"]
+        enc_out = self.encode(params, batch["frames"], remat)
+        x = self._decode_stack(params, tokens, enc_out, remat)
+        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        targets = tokens[:, 1:]
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=tokens.device)
+        ce, z = xent_auto(params["unembed"], x[:, :-1], targets, mask)
+        return ce + Z_LOSS_WEIGHT * z, {"ce": ce, "z": z}
+
     # ------------------------------------------------------------------
-    # Slot-indexed decode-state surgery (continuous batching)
+    # Decode
     # ------------------------------------------------------------------
 
-    # Page pools (``pk``/``pv``) have no slot axis: a slot's pages are its
-    # block-table row, which the SlotPool owns.  All three surgeries below
-    # pass the pools through untouched, as the reference's stack_state_map
-    # does (a pool's row ``slot`` is a page of some other request).
+    def init_decode_state(self, batch_size: int, max_len: int,
+                          per_slot: bool = False, paging=None) -> dict:
+        """Each decoder layer's self-attention cache {"k", "v"} (B, max_len,
+        Hkv, hd) and cross cache {"cross": {"k", "v"}} (B,
+        min(ENCDEC_DECODE_ENC_LEN, max_len), Hkv, hd), zero-filled, and the
+        position: (B,) with ``per_slot``, else 0-d.  There is no paged
+        layout (``paging`` raises the reference's ``ValueError``)."""
+        if paging is not None:
+            raise ValueError(ENCDEC_PAGED_REFUSAL)
+        cfg = self.cfg
+        hd = cfg.resolved_head_dim
+        enc_len = min(ENCDEC_DECODE_ENC_LEN, max_len)
 
-    def reset_decode_slots(self, state, slot_mask) -> dict:
-        """Zero, in place, the decode state of every slot where the host
-        mask ``slot_mask`` is True (per-slot state only), every per-slot
-        leaf of every layer's tree on its slot axis (0)."""
-        for slot in np.flatnonzero(np.asarray(slot_mask, bool)):
-            for leaf in _slot_leaves(state["layers"]):
-                leaf[int(slot)].zero_()
-            state["pos"][int(slot)] = 0
-        return state
+        def zeros(rows):
+            return torch.zeros((batch_size, rows, cfg.n_kv_heads, hd),
+                               dtype=self.dtype, device=self.device)
 
-    def insert_decode_slot(self, state, src, slot: int) -> dict:
-        """Copy, in place, the single slot of ``src`` (batch 1, per-slot)
-        into slot ``slot`` of a pooled state, leaf by leaf (the
-        destination's page pools are kept)."""
-        for dst, one in zip(_slot_leaves(state["layers"]),
-                            _slot_leaves(src["layers"])):
-            dst[slot].copy_(one[0])
-        state["pos"][slot] = src["pos"][0]
-        return state
+        pos_shape = (batch_size,) if per_slot else ()
+        return {
+            "layers": [{"k": zeros(max_len), "v": zeros(max_len),
+                        "cross": {"k": zeros(enc_len), "v": zeros(enc_len)}}
+                       for _ in range(cfg.n_layers)],
+            "pos": torch.zeros(pos_shape, dtype=torch.int64,
+                               device=self.device),
+        }
 
-    def merge_decode_state(self, new_state, old_state, active) -> dict:
-        """Per-slot select: slots where the device mask ``active`` (B,) is
-        True take the stepped state, the rest stay exactly frozen
-        (positions, caches and recurrent state).  The mask is shaped to
-        each leaf's rank, slot axis first.  Page pools come from
-        ``new_state``: a masked slot's writes went to the null page."""
-        def select(path, new, old):
-            if is_page_pool(path):
-                return new
-            keep = active.reshape((-1,) + (1,) * (new.dim() - 1))
-            return torch.where(keep, new, old)
-
-        return {"layers": tree_map_with_path(select, new_state["layers"],
-                                             old_state["layers"]),
-                "pos": torch.where(active, new_state["pos"],
-                                   old_state["pos"])}
+    def decode_step(self, params, state, batch):
+        """Feed ``batch["tokens"]`` (B, S_new) at each row's cache position
+        through the decoder, attending to the state's cross caches.
+        Returns ((B, S_new, V) fp32 logits, new state); ``state`` is left as
+        it was, and the new state holds the same cross-cache tensors."""
+        cfg = self.cfg
+        pos = state["pos"]
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = embed_lookup(params["embed"], tokens)
+        positions = _offset_positions(b, s, pos)
+        layers = []
+        for lp, st in zip(params["decoder"], state["layers"]):
+            cross = st["cross"]
+            x, cache = encdec_lib.decoder_layer_apply(
+                lp, cfg, x, positions, (cross["k"], cross["v"]),
+                self_cache=st, cache_pos=pos)
+            layers.append({**cache, "cross": cross})
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return unembed(params["unembed"], x), {"layers": layers,
+                                               "pos": pos + s}
 
 
-def build_model(cfg: ModelConfig, device="cuda") -> Model:
+# what build_model returns, and what the trainer, the serve steps, the
+# slot pool and the engines take
+AnyModel = Union[Model, EncDecModel]
+
+
+def _decoder_body(lp, cfg, x, positions, enc_kv):
+    return encdec_lib.decoder_layer_apply(lp, cfg, x, positions, enc_kv)[0]
+
+
+def build_model(cfg: ModelConfig, device="cuda") -> AnyModel:
+    """``EncDecModel`` for an encoder-decoder config, else ``Model``."""
+    if cfg.is_encdec:
+        return EncDecModel(cfg, device)
     return Model(cfg, device)
 
 

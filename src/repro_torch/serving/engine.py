@@ -18,7 +18,9 @@ consulted once per MACRO-STEP, not once per token:
   * ``paged=True`` keeps full-attention KV in a shared pool of
     ``block_size``-token pages with per-slot block tables, and the radix
     prefix cache lets a prompt that opens with resident pages prefill only
-    its suffix (the ``serve_prefix`` decision, the tenth cost site);
+    its suffix (the ``serve_prefix`` decision, the tenth cost site); an
+    encoder-decoder model has no paged layout and raises the reference's
+    ``ValueError``;
   * an attached ``TokenStream`` receives every request's tokens at the
     boundaries the engine already synchronizes on;
   * every request moves through the lifecycle state machine of
@@ -51,7 +53,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.costs.engine import CostEngine
-from repro_torch.models.model import Model, mrope_positions
+from repro_torch.models.model import (ENCDEC_PAGED_REFUSAL, AnyModel,
+                                     mrope_positions)
 from repro_torch.serving.faults import FaultInjector, StepFailed, guarded_call
 from repro_torch.serving.frontend.stream import StreamBroken, TokenStream
 from repro_torch.serving.paging import default_kv_blocks
@@ -121,7 +124,7 @@ class ServeEngine:
     padding until the whole batch finishes — the loop stops early once
     every slot is done."""
 
-    model: Model
+    model: AnyModel
     params: object
     max_len: int = 256
     eos_id: int = 0
@@ -332,7 +335,7 @@ class ContinuousServeEngine:
     ``stop_event`` (anything with ``is_set()``) or ``request_stop()`` stops
     intake gracefully."""
 
-    def __init__(self, model: Model, params, *, n_slots: int = 4,
+    def __init__(self, model: AnyModel, params, *, n_slots: int = 4,
                  max_len: int = 256, eos_id: int = 0,
                  pad_id: Optional[int] = None,
                  cost_engine: Optional[CostEngine] = None,
@@ -377,6 +380,8 @@ class ContinuousServeEngine:
         self.block_size = int(block_size)
         self.kv_blocks: Optional[int] = None
         if self.paged:
+            if model.cfg.is_encdec:
+                raise ValueError(ENCDEC_PAGED_REFUSAL)
             if self.block_size < 1:
                 raise ValueError(
                     f"block_size must be >= 1, got {block_size}")

@@ -30,7 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model, is_page_pool
+from repro_torch.models.model import AnyModel, is_page_pool
 from repro_torch.serving.paging import BlockPool, default_kv_blocks
 from repro_torch.tree import leaves_with_paths
 
@@ -46,7 +46,7 @@ def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class SlotPool:
-    def __init__(self, model: Model, n_slots: int, max_len: int,
+    def __init__(self, model: AnyModel, n_slots: int, max_len: int,
                  block_size: Optional[int] = None,
                  kv_blocks: Optional[int] = None):
         """``block_size`` pages the attention KV: ``kv_blocks`` shared pages

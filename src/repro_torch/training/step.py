@@ -23,7 +23,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.model import Model, mrope_positions
+from repro_torch.models.model import AnyModel, mrope_positions
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.compression import compress_gradients, init_compression
 from repro_torch.optim.schedule import warmup_cosine
@@ -40,7 +40,7 @@ class TrainLoopConfig:
     compression_keep_frac: float = 0.1
 
 
-def init_train_state(model: Model, seed: int, loop: TrainLoopConfig) -> dict:
+def init_train_state(model: AnyModel, seed: int, loop: TrainLoopConfig) -> dict:
     """``{"params", "opt", "step"}`` (and ``"compress"`` with compression)
     on the model's device, parameters drawn from ``seed``."""
     params = model.init(seed)
@@ -51,7 +51,7 @@ def init_train_state(model: Model, seed: int, loop: TrainLoopConfig) -> dict:
     return state
 
 
-def make_grad_fn(model: Model, *, remat: bool = True) -> Callable:
+def make_grad_fn(model: AnyModel, *, remat: bool = True) -> Callable:
     """``grad_fn(params, batch) -> (loss, metrics, grads)``: the loss and
     the gradient of every parameter (a tree like ``params``), by autograd
     through the kernels' backward passes.  Raises if a parameter gets no
@@ -75,7 +75,7 @@ def make_grad_fn(model: Model, *, remat: bool = True) -> Callable:
     return grad_fn
 
 
-def make_train_step(model: Model, loop: TrainLoopConfig, *,
+def make_train_step(model: AnyModel, loop: TrainLoopConfig, *,
                     donate: bool = False) -> Callable:
     """``step_fn(state, batch) -> (new_state, metrics)``; ``state`` is left
     as it was, unless ``donate``: then the update is written into the
@@ -124,7 +124,7 @@ def make_train_step(model: Model, loop: TrainLoopConfig, *,
     return step_fn
 
 
-def make_serve_step(model: Model) -> Callable:
+def make_serve_step(model: AnyModel) -> Callable:
     """One lockstep decode step: greedy next token + updated caches."""
 
     def serve_fn(params, decode_state, batch):
@@ -134,7 +134,7 @@ def make_serve_step(model: Model) -> Callable:
     return serve_fn
 
 
-def make_decode_macro_step(model: Model, horizon: int, *, eos_id: int,
+def make_decode_macro_step(model: AnyModel, horizon: int, *, eos_id: int,
                            pad_id: int) -> Callable:
     """K lockstep greedy decode steps per host consultation.
 
@@ -178,7 +178,7 @@ def make_decode_macro_step(model: Model, horizon: int, *, eos_id: int,
     return macro_fn
 
 
-def make_batched_prefill(model: Model) -> Callable:
+def make_batched_prefill(model: AnyModel) -> Callable:
     """Lower a whole padded prompt group into a per-slot decode state:
     a loop over fixed-width chunks through the same ``decode_step`` forward
     the decode path runs, with per-slot activity masks (slots not being

@@ -23,9 +23,8 @@ window 8, in the reference's period-scan layout).
   engine's and the dense ones; ``Runtime.serve`` and the launcher;
 * the bf16-rounded embedding scale, bit for bit the reference's;
 * slot surgery on ring buffers and RG-LRU state;
-* the model still refuses enc-dec and the audio frontend with their
-  messages (MoE and the VLM backbone: tests/test_torch_moe.py and
-  tests/test_torch_vlm.py);
+* (MoE and the VLM backbone: tests/test_torch_moe.py and
+  tests/test_torch_vlm.py; encoder-decoder: tests/test_torch_encdec.py);
 * on a card only (``cuda`` marker): the flash forward at hd 96 and 256
   against its plain version, on the FMA path.
 """
@@ -55,7 +54,7 @@ except ImportError:
 needs_reference = pytest.mark.skipif(
     jax is None, reason="needs jax and the reference package")
 
-from repro_torch.configs import ModelConfig, get_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.costs.engine import CostEngine  # noqa: E402
 from repro_torch.hw import HardwareSpec  # noqa: E402
@@ -462,23 +461,6 @@ def test_slot_surgery_on_ring_buffers_and_rglru_state():
         assert torch.equal(m_[1], old[1])
         assert torch.equal(m_[0], new[0]) and torch.equal(m_[2], new[2])
     assert merged["pos"].tolist() == [4, 3, 6]
-
-
-# ---------------------------------------------------------------------------
-# What the model still refuses
-# ---------------------------------------------------------------------------
-
-
-@needs_reference
-@pytest.mark.parametrize("arch,what", [
-    ("seamless-m4t-medium", "encoder-decoder"),
-])
-def test_model_refuses_unported_families(arch, what):
-    cfg = ModelConfig(**dataclasses.asdict(j_get_config(arch).reduced()))
-    with pytest.raises(NotImplementedError, match=what):
-        build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="frontend 'audio'"):
-        build_model(cfg, "cpu")
 
 
 # ---------------------------------------------------------------------------

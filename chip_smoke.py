@@ -12,6 +12,8 @@ Phases, one report line each (any failure exits non-zero):
      training instantiations, threads, shared memory, registers, local
      bytes and CTAs an SM as the runtime reports them, written to
      chiprun_out/wkv_build.json; any spill in a WKV kernel fails the run;
+     the FMA flash backward's registers and spills at hd 96 and 256 (dQ
+     and dK/dV, fp32 and bf16; recorded, not gated);
   2. each kernel against its plain PyTorch version at the shapes the main
      path gives it (tinyllama-1.1b serving, bf16), with the matmul path it
      took, timed with CUDA events with a cold L2 beside the plain version,
@@ -53,7 +55,10 @@ Phases, one report line each (any failure exits non-zero):
      non-causal modes: seamless-m4t-medium's encoder self-attention at
      its training shape (2, 2048, 16, 16, 64) and ragged cross attentions
      (3, 100 queries, 160 keys, 8, 8, 64, and 160 queries, 100 keys),
-     each in bf16 and fp32; each
+     each in bf16 and fp32, and the backward's new head dims on the FMA
+     path: phi3-mini's training shape (2, 2048, 32, 32, 96), gemma-2b's
+     (2, 2048, 8, 1, 256), recurrentgemma-2b's heads (2, 2048, 10, 1,
+     256) and a ragged (3, 100, 8, 2) at hd 96 and 256, in both types; each
      call on the path its dtype and hd name (bf16: the wgmma kernels, no
      operand copied), the bf16 backward bit-identical on a second run,
      each timed (CUDA events, cold L2) beside the plain version,
@@ -227,8 +232,31 @@ Phases, one report line each (any failure exits non-zero):
      library GEMM or attention kernel); card against CPU in fp32 at 2 + 2
      layers: Model.prefill, a filled cross cache (cross_kv of
      encode(frames)) and 5 decode steps within 2e-3 x max|logit|, the
-     loss within 1e-4 relative, every gradient within 2e-3 x max|grad|.
-     Before each of phases 2-20, gc.collect(): a gen-2 collection of this
+     loss within 1e-4 relative, every gradient within 2e-3 x max|grad|;
+ 21. the seven configurations that train on the card from this slice on
+     (mistral-nemo-12b, phi3-mini-3.8b, gemma-2b, recurrentgemma-2b,
+     moonshot-v1-16b-a3b, qwen3-moe-235b-a22b, qwen2-vl-72b), each built
+     and freed before the next: card against CPU in fp32 at full width, 2
+     layers (qwen3-moe 1, recurrentgemma one period with its window cut
+     to RING_WINDOW, once at 2 x 256 through local_attention and once at
+     2 x 128 through the masked dense form), batch 2 x 256: one gradient
+     and one make_train_step on the card, then one gradient on the CPU,
+     the loss within 1e-4 relative, every gradient within 2e-3 x
+     max|grad|, no selected expert flipped; every distinct matmul call of
+     one bf16 gradient at 2 x 2048 and one period of layers (1,
+     recurrentgemma 3: its windowed 4-D products and their backward)
+     against the plain version, as in phase 20; Runtime.train in bf16 at
+     full width, 4 steps at 2 x 2048 (phi3-mini, gemma and recurrentgemma
+     whole; mistral-nemo 15 of 40 layers, moonshot 8 of 48, qwen3-moe 1
+     of 94, qwen2-vl 2 of 80: each the deepest whose peak stays within
+     TRAIN_PEAK_LIMIT_GB, held on the run's own peak and printed with
+     it): every loss finite, every flash call on the path its dtype and
+     head dim name (bf16: hd 96 and 256 on the FMA kernels, hd 128 on the
+     tensor cores), every tensor-core matmul operand on a tensor map,
+     peak memory; one step profiled (its matmul calls each on their
+     dtypes' path, device ms by kernel, no library GEMM or attention
+     kernel); for the three whole models a fixed batch whose loss falls.
+     Before each of phases 2-21, gc.collect(): a gen-2 collection of this
      script's heap took 0.2-0.75 s inside a timed step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
@@ -310,6 +338,21 @@ FLASH_NONCAUSAL_SHAPES = [(2, 2048, 16, 16, 64, "bfloat16", 2048, False),
                           (3, 100, 8, 8, 64, "float32", 160, False),
                           (3, 160, 8, 8, 64, "bfloat16", 100, False),
                           (3, 160, 8, 8, 64, "float32", 100, False)]
+# the backward's new head dims (FMA path), as (B, S, Hq, Hkv, hd, dtype):
+# phi3-mini's training shape (32 MHA heads of 96), gemma-2b's (8 query
+# heads, 1 kv head of 256) and recurrentgemma-2b's head layout (10 / 1 of
+# 256) at batch 2 x 2048, and a ragged GQA (3, 100, 8, 2) at each head
+# dim, every one in both types
+FLASH_NEW_HD_SHAPES = [(2, 2048, 32, 32, 96, "bfloat16"),
+                       (2, 2048, 32, 32, 96, "float32"),
+                       (2, 2048, 8, 1, 256, "bfloat16"),
+                       (2, 2048, 8, 1, 256, "float32"),
+                       (2, 2048, 10, 1, 256, "bfloat16"),
+                       (2, 2048, 10, 1, 256, "float32"),
+                       (3, 100, 8, 2, 96, "bfloat16"),
+                       (3, 100, 8, 2, 96, "float32"),
+                       (3, 100, 8, 2, 256, "bfloat16"),
+                       (3, 100, 8, 2, 256, "float32")]
 FLASH_F32_TOL = 2e-3  # x max|plain|: tests/test_kernels.py's flash tolerance
 # bf16 flash outputs, element by element: BF16_TOL x the largest |plain| in
 # the element's row (the last axis), one bf16 rounding of that row, plus
@@ -380,6 +423,38 @@ FAMILY_FLASH_SHAPES = [(1, 2048, 32, 32, 96, "bfloat16"),
                        (1, 2048, 32, 32, 96, "float32"),
                        (1, 2048, 8, 1, 256, "bfloat16"),
                        (1, 2048, 8, 1, 256, "float32")]
+# phase 21: the seven configurations that train on the card from this
+# slice on, in bf16 at TRAIN_BATCH x TRAIN_SEQ, at full width and the
+# deepest depth whose Runtime.train peak stays within TRAIN_PEAK_LIMIT_GB
+# (None: all of it).  Training state takes 12 bytes a parameter (bf16
+# weights and gradients, fp32 AdamW moments), the activations of a 2 x
+# 2048 step another 10-15 GB.  Peaks measured on an H100 80GB HBM3 (85.0
+# GB): mistral-nemo at 14 layers 71.10 GB, a layer 3.27 GB more of state;
+# moonshot at 8 75.10 GB (a layer 6.85); qwen3-moe at 1 64.21 GB (a layer
+# 29.85); qwen2-vl at 2 67.06 GB (a layer 10.53).  family_train_phase
+# holds each depth to the rule on the run's own peak
+FAMILY_TRAIN = (("mistral-nemo-12b", 15), ("phi3-mini-3.8b", None),
+                ("gemma-2b", None), ("recurrentgemma-2b", None),
+                ("moonshot-v1-16b-a3b", 8), ("qwen3-moe-235b-a22b", 1),
+                ("qwen2-vl-72b", 2))
+# the headroom: a peak of allocated memory at most this, of the card's
+# 85.0 GB, leaves 9 GB for what max_memory_allocated does not count (the
+# CUDA context, the allocator's reserved but free blocks, the profiler's
+# buffers)
+TRAIN_PEAK_LIMIT_GB = 76.0
+# their card-against-CPU depths in fp32 (2, recurrentgemma one period):
+# the card holds the step's fp32 weights, gradient and two moments, 16
+# bytes a parameter, qwen2-vl's 4.25 B at 2 layers 68 GB (it fits since
+# the in-place AdamW updates a leaf by blocks of rows, adamw.INPLACE_BLOCK)
+FAMILY_TRAIN_CPU_LAYERS = {"qwen3-moe-235b-a22b": 1, "recurrentgemma-2b": 3}
+FAMILY_TRAIN_CPU_SEQ = 256
+# the fixed batch's peak rate for the three whole models.  From their
+# random weights Adam's first steps move every weight by about the rate, a
+# change of about rate x d in a product's output against its scale of 1:
+# with this constant at 1e-4 phi3-mini's loss rose (11.01 -> 14.13 ->
+# 12.05); at 1e-5 all three fall (phi3 11.01 -> 10.22 in 4 steps, gemma
+# 13.23 -> 12.44, recurrentgemma 14.90 -> 14.11; H100 80GB HBM3)
+FAMILY_TRAIN_FIXED_LR = 1e-5
 # phase 20: the encoder-decoder family at full width and depth; its
 # card-against-CPU run at 2 + 2 layers holds a decode state of
 # ENCDEC_MAX_LEN positions (as many cross-cache rows) and takes one
@@ -451,6 +526,12 @@ FLASH_KERNELS = {"flash forward": "repro_flash_tc_fwd",
                  "flash backward dq": "repro_flash_tc_dq",
                  "flash backward dk dv": "repro_flash_tc_dkv",
                  "flash group sum": "repro_flash_tc_group_sum"}
+# and on the FMA path (fp32; bf16 at hd 16, 32, 96 and 256), templates in
+# an anonymous namespace; no library kernel's name holds "::flash_fwd<"
+FLASH_FMA_KERNELS = {"flash fma forward": r"::flash_fwd<",
+                     "flash fma backward dq": r"::flash_bwd_dq<",
+                     "flash fma backward dk dv": r"::flash_bwd_dkv<"}
+FLASH_ALL_KERNELS = {**FLASH_KERNELS, **FLASH_FMA_KERNELS}
 # names of library attention kernels (FlashAttention-2 in PyTorch, the
 # memory-efficient CUTLASS kernels, cuDNN's SDPA); none may run on a main
 # path
@@ -658,6 +739,19 @@ def main() -> int:
             f"thread at launch, spill stores/loads up to "
             f"{row['spill_bytes']} bytes (ptxas -v); ptxas C75xx notices "
             f"(wgmma serialized, setmaxnreg ignored) {row['notices']}")
+    # the backward at hd 96 and 256: registers and spills written down, not
+    # gated (the FMA path; a spill there costs time, not correctness)
+    new_bwd = ptxas_summary(build.LOGS.get("flash_attention", ""),
+                            FLASH_NEW_BWD_KINDS)
+    for kind, row in new_bwd.items():
+        log("build", f"flash_attention.cu FMA backward {kind}: "
+            f"{row['registers'][1]} registers a thread, spill stores/loads "
+            f"up to {row['spill_bytes']} bytes (ptxas -v)")
+    if sorted(new_bwd) != sorted(k for k, _ in FLASH_NEW_BWD_KINDS) or any(
+            row["kernels"] != 1 for row in new_bwd.values()):
+        log("build", f"FAIL: the FMA backward must be built once at each of "
+            f"hd 96 and 256, dq and dk/dv, fp32 and bf16: {new_bwd}")
+        return 1
     tc = flash_ptxas.get("tensor_core")
     notices = [x for x in build.LOGS.get("flash_attention", "").splitlines()
                if "(C75" in x]  # every wgmma of flash_attention.cu is tc
@@ -695,7 +789,8 @@ def main() -> int:
         return 1
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s, matmul_ptxas=ptxas,
-                  flash_ptxas=flash_ptxas, sort_ptxas=sort_ptxas,
+                  flash_ptxas=flash_ptxas, flash_new_bwd_ptxas=new_bwd,
+                  sort_ptxas=sort_ptxas,
                   wkv_build=wkv_build)
 
     # ------------------------------------------------------------------ 2
@@ -1024,7 +1119,7 @@ def main() -> int:
     # ------------------------------------------------------------------ 7
     gc.collect()
     flash_rows = []
-    for shape in FLASH_SHAPES + FLASH_NONCAUSAL_SHAPES:
+    for shape in FLASH_SHAPES + FLASH_NONCAUSAL_SHAPES + FLASH_NEW_HD_SHAPES:
         row = flash_case(shape, gen, ref, fa, flush)
         if row is None:
             return 1
@@ -1147,6 +1242,16 @@ def main() -> int:
         return 1
     record["encdec"] = encdec
     noncausal = [r for r in flash_rows if not r["causal"]]
+    new_hd = [r for r in flash_rows if r["shape"][4] in (96, 256)]
+
+    # ----------------------------------------------------------------- 21
+    gc.collect()
+    del flush  # 512 MiB back for the deepest cut each model takes
+    torch.cuda.empty_cache()
+    family_train = family_train_phase(mm, fa, ops, ref, card)
+    if family_train is None:
+        return 1
+    record["family_train"] = family_train
 
     # ---------------------------------------------------------------- out
     out_dir = ROOT / "chiprun_out"
@@ -1195,6 +1300,14 @@ def main() -> int:
             k[7:]: v for k, v in
             encdec["train"]["launches_per_step"].items()
             if k.startswith("matmul ")},
+        # phase 21's Runtime.train of the seven new trainers: launches a
+        # step by path, and the tensor-core operands no tensor map loaded
+        "launches_family_train_per_step": {
+            arch: {**{k[7:]: v for k, v in rec["launches_per_step"].items()
+                      if k.startswith("matmul ")},
+                   "copied_operands":
+                       rec["launches_per_step"]["matmul_copied_operands"]}
+            for arch, rec in family_train["train"].items()},
         # one decode step's matmul calls: the kernel in the real step, the
         # plain version on the same operands, the bound of the same work
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -1258,6 +1371,22 @@ def main() -> int:
             "by_path": encdec["serve"]["prefill"]["flash_by_path"]},
         "launches_encdec_train_step": encdec["train"]["profile"][
             "flash_calls"],
+        # phase 21: each new trainer's profiled bf16 training step, flash
+        # calls by direction, mode and path (hd 96 and 256 on the FMA
+        # kernels, hd 128 on the tensor cores; recurrentgemma's windowed
+        # layers take none)
+        "launches_family_train_step": {
+            arch: rec["profile"]["flash_calls"]
+            for arch, rec in family_train["train"].items()},
+        # phase 7's backward at the new head dims (FMA path): phi3-mini's,
+        # gemma-2b's and recurrentgemma-2b's training shapes and ragged
+        # ones, beside the plain version, SDPA and the bound
+        "new_head_dims": [
+            {k: r[k] for k in ("shape", "dtype", "path", "max_abs_err",
+                               "fwd_ms", "bwd_ms", "fwd_plain_ms",
+                               "bwd_plain_ms", "fwd_library_ms",
+                               "bwd_library_ms", "bound_ms", "bound_by")}
+            for r in new_hd],
         # phase 7's non-causal cases (the encoder's training shape and a
         # ragged cross attention) beside SDPA(is_causal=False) and the bound
         "noncausal": [
@@ -1422,6 +1551,13 @@ def invariance_gate(ops, mm, gen, d, f):
 MATMUL_PTXAS_KINDS = (("split", "matmul_wgmma_split"),
                       ("tensor_core", "matmul_wgmma"), ("fma", "matmul_kernel"))
 FLASH_PTXAS_KINDS = (("tensor_core", "repro_flash_tc_"), ("fma", "flash_"))
+# the FMA backward's instantiations at the new head dims, by kernel, head
+# dim and type, as their mangled names hold them (hd 256 with 32-row kv
+# tiles: Li256ELi32E)
+FLASH_NEW_BWD_KINDS = tuple(
+    (f"{kernel} hd {hd} {name}", f"flash_bwd_{kernel}I{mangled}Li{hd}E")
+    for kernel in ("dq", "dkv") for hd in (96, 256)
+    for name, mangled in (("fp32", "f"), ("bf16", "13__nv_bfloat16")))
 # the sort kernel's device-side names (bitonic_sort.cu), by launch kind
 SORT_KERNELS = ("first_block_pass", "global_pass", "finish_block_pass")
 SORT_PTXAS_KINDS = (("block", "block_pass"), ("global", "global_pass"))
@@ -1464,8 +1600,10 @@ def ptxas_summary(text, kinds=MATMUL_PTXAS_KINDS) -> dict:
             found = re.search(r"(\d+) bytes smem", line)
             if found:
                 out[kind]["smem"] = f"{found.group(1)} bytes static"
-            elif kind != "fma":
+            elif kind in ("tensor_core", "split"):
                 out[kind]["smem"] = "dynamic (TcShape::kSmem)"
+            else:
+                out[kind]["smem"] = "dynamic"
     return out
 
 
@@ -1602,26 +1740,42 @@ def sort_stages(gen, sort) -> dict:
     return dict(events=events, kinds=kinds, total_ms=total)
 
 
+def profile_events(prof, device=None) -> list:
+    """[(demangled name, ms)] of a finished torch.profiler run's events on
+    ``device`` (a torch.autograd.DeviceType; CUDA by default), each kernel
+    once, read straight from the profiler's kineto results:
+    ``prof.events()`` first builds the tree of every host event, seconds
+    for a training step's hundreds of thousands.  Those results are
+    private to PyTorch, read as torch 2.11 and 2.13 have them
+    (``device_type()``, ``name()``, ``duration_ns()``,
+    ``is_hidden_event()``); tests/test_torch_flash.py holds the names on
+    the CPU and on a card."""
+    from torch.autograd import DeviceType
+
+    device = DeviceType.CUDA if device is None else device
+    return [(torch._C._demangle(ev.name()), ev.duration_ns() / 1e6)
+            for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == device and not getattr(
+                ev, "is_hidden_event", lambda: False)()]
+
+
 def device_ms_by_kernel(run, counts=None) -> tuple:
     """({kernel name: device ms}, device events) of what ``run()``
-    launches, from torch.profiler; ``counts``, where given, gets each
-    name's number of launches."""
-    from torch.autograd import DeviceType
+    launches, from torch.profiler (profile_events); ``counts``, where
+    given, gets each name's number of launches."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    by_name, n_kernels = {}, 0
-    for ev in prof.events():  # device-side events only: each kernel once
-        if ev.device_type == DeviceType.CUDA:
-            n_kernels += 1
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + \
-                ev.device_time_total / 1e3
-            if counts is not None:
-                counts[ev.name] = counts.get(ev.name, 0) + 1
-    return by_name, n_kernels
+    by_name = {}
+    events = profile_events(prof)
+    for name, ms in events:
+        by_name[name] = by_name.get(name, 0.0) + ms
+        if counts is not None:
+            counts[name] = counts.get(name, 0) + 1
+    return by_name, len(events)
 
 
 def step_matmuls(model, params, state, feed, ops) -> list:
@@ -1961,8 +2115,9 @@ def tma_flags(a, b, path) -> dict:
 
 def train_matmuls(cfg, ops, ref, flush, label="backward"):
     """Every distinct matmul call of one training gradient of the
-    full-width model in bf16 at batch 2 x 2048, cut to 1 layer (an
-    encoder-decoder to 1 + 1; each layer makes the same calls), held
+    full-width model in bf16 at batch 2 x 2048, cut to one period of its
+    block pattern (1 layer, an encoder-decoder 1 + 1, recurrentgemma 3:
+    every later layer repeats one of the period's calls), held
     against the plain version on the call's own operands, its path checked
     against its dtypes, which operands a tensor map loads (``tma``), and
     timed (CUDA events, cold L2) beside torch.matmul where both operands
@@ -1978,7 +2133,7 @@ def train_matmuls(cfg, ops, ref, flush, label="backward"):
     from repro_torch.training import TrainLoopConfig, make_grad_fn
     from repro_torch.training import init_train_state
 
-    cfg1 = dataclasses.replace(cfg, n_layers=1,
+    cfg1 = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern),
                                encoder_layers=min(cfg.encoder_layers, 1))
     model = build_model(cfg1, "cuda")
     params = init_train_state(model, 0, TrainLoopConfig())["params"]
@@ -2049,7 +2204,8 @@ def train_matmuls(cfg, ops, ref, flush, label="backward"):
     bf16 = [r for r in calls if r["torch_matmul_ms"] is not None]
     log(label, f"{cfg.name}: {len(calls)} distinct matmul calls in one "
         f"gradient (batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
-        f"{'1 + 1 layers' if cfg.is_encdec else '1 layer'}, bf16), "
+        f"{'1 + 1 layers' if cfg.is_encdec else f'{cfg1.n_layers} layers'}"
+        f", bf16), "
         f"{len(transposed)} with a transposed operand, {len(mixed)} with "
         f"mixed dtypes; {len(failed)} outside the limit; the {len(bf16)} "
         f"bf16 x bf16 calls: kernel {sum(r['ms'] for r in bf16):.4f} ms, "
@@ -2065,17 +2221,33 @@ def train_matmuls(cfg, ops, ref, flush, label="backward"):
     return calls
 
 
-def train_phase(cfg, fa, mm_launches, label="train"):
+def train_phase(cfg, fa, mm_launches, label="train", ckpt=True,
+                fixed_batch=True, tma_only=False, fixed_lr=1e-3):
     """Runtime.train of the full-width model (random weights, bf16): every
-    step finite, the kernels' launches per step, tokens/s, peak memory and
-    the plan, a checkpoint written and deleted; then a
-    4-step run on one fixed batch whose loss must fall, with one step
-    timed and one profiled (its flash calls counted by mode and path).
+    step finite, the kernels' launches per step (every flash call on the
+    path its dtype and head dim name, on tensor maps; a decoder-only
+    model's 2 forward calls, one in the recomputation, and 1 backward a
+    full-attention layer), tokens/s, peak memory and the plan.  With
+    ``ckpt`` a checkpoint is written, checked and deleted; phase 21 runs
+    without, since a 4-5 B-parameter state with its moments (about 60 GB)
+    would take minutes to write.  Then, with ``fixed_batch``, a 4-step run
+    on one fixed batch at a peak rate of ``fixed_lr`` whose loss must fall,
+    every step timed (without, Runtime.train's steps 1-3 give the wall).
+    One step is profiled (its matmul calls each on their dtypes' path, its
+    flash calls counted by mode and path; no library GEMM or attention
+    kernel).  ``tma_only``: no matmul operand of the run may miss a tensor
+    map; it is not the default because seamless-m4t-medium's unembedding
+    gradient at vocab 256,206 has fp32 rows no tensor map loads, which the
+    split path copies (ROADMAP Queue 2).  Every step updates its state in
+    place (``make_train_step(donate=True)``, the functional step's
+    values), so no second copy of the parameters and moments is made.
     None on a failure."""
     import re
     import shutil
 
     from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import Runtime
@@ -2086,12 +2258,13 @@ def train_phase(cfg, fa, mm_launches, label="train"):
     ckpt_dir = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     lines, plans = [], []
+    t_run = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mm_launches.reset()
     fa.LAUNCHES.reset()
     res = rt.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                   seed=0, ckpt_dir=str(ckpt_dir),
+                   seed=0, ckpt_dir=str(ckpt_dir) if ckpt else None,
                    ckpt_every=10 ** 6, log_every=1, log=lines.append,
                    on_plan=plans.append)
     torch.cuda.synchronize()
@@ -2099,8 +2272,10 @@ def train_phase(cfg, fa, mm_launches, label="train"):
                   flash_backward=fa.LAUNCHES.backward,
                   flash_cuda_launches=fa.LAUNCHES.grids,
                   flash_copied_operands=fa.LAUNCHES.copied_operands,
+                  matmul_copied_operands=mm_launches.copied_operands,
                   **{f"matmul {p}": n for p, n in mm_launches.by_path.items()},
                   **{f"flash {p}": n for p, n in fa.LAUNCHES.by_path.items()})
+    run_modes = {k: n for k, n in fa.LAUNCHES.by_mode.items() if n}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     saved = sorted(p.name for p in ckpt_dir.iterdir()) \
         if ckpt_dir.exists() else []
@@ -2124,59 +2299,95 @@ def train_phase(cfg, fa, mm_launches, label="train"):
         f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: {res.steps_run} steps in "
         f"{res.wall_s:.2f} s, final loss {res.final_loss:.4f}, diverged "
         f"{res.diverged}; {tok_s:.1f} tokens/s over steps 1-"
-        f"{TRAIN_STEPS - 1}; peak memory {peak_gb:.2f} GB; checkpoint "
-        f"{saved}; launches per step {per_step}")
+        f"{TRAIN_STEPS - 1}; peak memory {peak_gb:.2f} GB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}; "
+        f"checkpoint {saved}; launches per step {per_step}; flash calls by "
+        f"direction, mode and path {run_modes}")
+    # the flash calls a decoder-only model makes: each full-attention
+    # layer's forward, again in its recomputation, and its backward
+    n_attn = sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
     ok = (res.steps_run == TRAIN_STEPS and not res.diverged
           and math.isfinite(res.final_loss) and len(steps) == TRAIN_STEPS
           and all(math.isfinite(x["loss"]) for x in steps)
-          and saved == [f"step_{TRAIN_STEPS:08d}"]
-          and counts["matmul"] > 0 and counts["flash_forward"] > 0
-          and counts["flash_backward"] > 0
-          and all(v % TRAIN_STEPS == 0 for v in counts.values()))
+          and saved == ([f"step_{TRAIN_STEPS:08d}"] if ckpt else [])
+          and counts["matmul"] > 0
+          and all(v % TRAIN_STEPS == 0 for v in counts.values())
+          and (cfg.is_encdec or (per_step["flash_forward"] == 2 * n_attn
+                                 and per_step["flash_backward"] == n_attn)))
     if not ok:
         log(label, "FAIL: a step was not finite, the run stopped early, "
-            "the checkpoint is missing or a kernel never launched")
+            "the checkpoint is missing or a kernel was launched other "
+            f"than once a step per layer ({n_attn} full-attention layers)")
         return None
-    # bf16 at hd 64: every flash call on the wgmma kernels, through tensor
-    # maps (the producer's copy loader never needed)
-    if counts["flash fma"] or counts["flash_copied_operands"] or \
-            counts["flash tensor_core"] != counts["flash_forward"] + \
+    # bf16: every flash call on the path its head dim names (the wgmma
+    # kernels at hd 64 and 128, through tensor maps; the FMA kernels at hd
+    # 96 and 256), the rule stated apart from the wrapper's choose_path
+    hd = cfg.resolved_head_dim
+    path = "tensor_core" if hd in (64, 128) else "fma"
+    other = "fma" if path == "tensor_core" else "tensor_core"
+    if counts[f"flash {other}"] or counts["flash_copied_operands"] or \
+            counts[f"flash {path}"] != counts["flash_forward"] + \
             counts["flash_backward"]:
-        log(label, f"FAIL: a bf16 flash call left the tensor-core path or "
-            f"copied an operand: {counts}")
+        log(label, f"FAIL: a bf16 flash call at hd {hd} left the {path} "
+            f"path or copied an operand: {counts}")
         return None
-    del res
-    torch.cuda.empty_cache()
+    if tma_only and counts["matmul_copied_operands"]:
+        log(label, f"FAIL: {counts['matmul_copied_operands']} tensor-core "
+            f"matmul operands missed a tensor map")
+        return None
+    t_run = time.perf_counter() - t_run
+    t_after = time.perf_counter()
 
-    # one fixed batch: the loss must fall (optimizer and gradients wired)
     model = build_model(cfg, "cuda")
-    loop = TrainLoopConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=1,
-                           total_steps=TRAIN_STEPS)
-    state = init_train_state(model, 1, loop)
+    if fixed_batch:  # one fixed batch: the loss must fall
+        del res
+        torch.cuda.empty_cache()
+        loop = TrainLoopConfig(optimizer=AdamWConfig(lr=fixed_lr),
+                               warmup_steps=1, total_steps=TRAIN_STEPS)
+        state = init_train_state(model, 1, loop)
+        n_timed = TRAIN_STEPS
+    else:  # the trained state, profiled as it is
+        loop = TrainLoopConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+        state = res.state
+        del res
+        n_timed = 0
     batch = SyntheticLMData(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                             seed=1, device="cuda").batch_at(0)
-    step_fn = make_train_step(model, loop)
+    step_fn = make_train_step(model, loop, donate=True)
     losses, walls = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(n_timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))
         walls.append((time.perf_counter() - t0) * 1e3)
-    with torch.no_grad():
-        end_loss = float(model.loss(state["params"], batch)[0])
+    end_loss = None
+    if fixed_batch:
+        with torch.no_grad():
+            end_loss = float(model.loss(state["params"], batch)[0])
     launched = {}
     fa.LAUNCHES.reset()
-    by_name, events = device_ms_by_kernel(lambda: step_fn(state, batch),
-                                          launched)
+    t_prof = time.perf_counter()
+    with RouteAudit(ops, mm) as audit:
+        by_name, events = device_ms_by_kernel(lambda: step_fn(state, batch),
+                                              launched)
+    t_prof = time.perf_counter() - t_prof
+    t_after = time.perf_counter() - t_after
+    log(label, f"phase seconds: Runtime.train {t_run:.1f}, the timed and "
+        f"profiled steps {t_after:.1f} (the profiled one {t_prof:.1f})")
     modes = {k: n for k, n in fa.LAUNCHES.by_mode.items() if n}
     device_ms = sum(by_name.values())
-    split = group_device_ms(by_name, FLASH_KERNELS)
-    flash_ms = sum(split[g] for g in FLASH_KERNELS)
-    wall = walls[-1]
-    log(label, f"fixed batch, lr 1e-3: losses {losses}, after "
-        f"{TRAIN_STEPS} steps {end_loss:.4f} (must be below {losses[0]:.4f});"
-        f" step walls {[round(w, 1) for w in walls]} ms")
+    split = group_device_ms(by_name, FLASH_ALL_KERNELS)
+    flash_ms = sum(split[g] for g in FLASH_ALL_KERNELS)
+    wall = walls[-1] if walls else steady[-1]
+    if fixed_batch:
+        log(label, f"fixed batch, lr {fixed_lr:g}: losses {losses}, after "
+            f"{TRAIN_STEPS} steps {end_loss:.4f} (must be below "
+            f"{losses[0]:.4f}); step walls {[round(w, 1) for w in walls]} ms")
+    else:
+        log(label, f"the profiled step is the trained state's fifth; its "
+            f"wall is taken as Runtime.train's step {TRAIN_STEPS - 1}'s, "
+            f"{wall:.1f} ms")
     log(label, f"profiled step's flash calls by direction, mode and path: "
         f"{modes}")
     if events == 0:
@@ -2189,36 +2400,43 @@ def train_phase(cfg, fa, mm_launches, label="train"):
                 f"{g} {v:.1f} ms" for g, v in split.items()))
         log(label, f"flash device time {flash_ms:.2f} ms by kernel: " +
             ", ".join(f"{k} {v:.3f} ms ({n} launches)" for k, v, n in (
-                (name, sum(ms for kn, ms in by_name.items() if key in kn),
-                 sum(n for kn, n in launched.items() if key in kn))
-                for name, key in FLASH_KERNELS.items())))
+                (name, sum(ms for kn, ms in by_name.items()
+                           if re.search(key, kn)),
+                 sum(n for kn, n in launched.items() if re.search(key, kn)))
+                for name, key in FLASH_ALL_KERNELS.items())))
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(label, f"  {ms:9.2f} ms  {name[:90]}")
-    if not (all(math.isfinite(x) for x in losses) and end_loss < losses[0]):
-        log(label, "FAIL: the loss did not fall on a fixed batch")
+    if not all(math.isfinite(x) for x in losses) or (
+            fixed_batch and not end_loss < losses[0]):
+        log(label, "FAIL: a loss was not finite, or the loss did not fall "
+            "on a fixed batch")
         return None
-    if library_gemms(label, by_name):
+    if library_gemms(label, by_name) or not audit.report(label):
         return None
     library_attn = sorted(k for k in by_name if LIBRARY_ATTENTION.search(k))
-    if library_attn or (events and not flash_ms):
+    if library_attn or (events and bool(flash_ms) != bool(n_attn
+                                                          or cfg.is_encdec)):
         log(label, f"FAIL: library attention kernels on the main path "
-            f"{library_attn}, or no repro_flash_tc kernel in the profile "
-            f"(flash {flash_ms:.3f} ms)")
+            f"{library_attn}, or flash kernels in the profile ({flash_ms:.3f}"
+            f" ms) where the model has {n_attn} full-attention layers")
         return None
     return dict(steps=steps, final_loss=steps[-1]["loss"], tok_per_s=tok_s,
                 peak_memory_gb=peak_gb, launches_per_step=per_step,
                 flash_calls_per_step=per_step["flash_forward"]
-                + per_step["flash_backward"],
+                + per_step["flash_backward"], flash_modes_run=run_modes,
                 plan=dict(decisions=[dataclasses.asdict(d)
                                      for d in plan.decisions],
                           fits_hbm=plan.fits_hbm,
                           hbm_per_chip=plan.hbm_per_chip),
-                fixed_batch_losses=losses, fixed_batch_end_loss=end_loss,
-                fixed_batch_step_ms=walls, profile=dict(
-                    flash_calls=modes,
+                fixed_batch_losses=losses if fixed_batch else None,
+                fixed_batch_end_loss=end_loss, step_ms=walls or steady,
+                fixed_batch_step_ms=walls if fixed_batch else None,
+                seconds=dict(train=t_run, after=t_after, profiled=t_prof),
+                profile=dict(
+                    flash_calls=modes, routing=audit.counts,
                     events=events, device_ms=device_ms, wall_ms=wall,
-                    by_group=split, flash_ms=flash_ms, top=sorted(by_name.items(),
-                                               key=lambda kv: -kv[1])[:12]))
+                    by_group=split, flash_ms=flash_ms, top=sorted(
+                        by_name.items(), key=lambda kv: -kv[1])[:12]))
 
 
 def wkv_inputs(shape, gen):
@@ -4944,6 +5162,250 @@ def encdec_phase(mm, fa, ops, ref, flush, card):
     for f in fails:
         log("encdec", f"FAIL {f}")
     log("encdec", f"phase 20 wall {out['wall_s']:.1f} s; {len(fails)} "
+        f"failures ({card})")
+    return None if fails else out
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the seven configurations train on the card
+# ---------------------------------------------------------------------------
+
+
+def max_abs_diff(a, b, block: int = 1 << 21) -> tuple:
+    """(max |a - b|, max |b|) of two CPU tensors of one shape, a block of
+    rows at a time: the difference of a whole (152064, 8192) fp32 gradient
+    would be 5 GB more to allocate and fault in, and a block under the C
+    allocator's 32 MB mmap threshold is reused from its heap."""
+    if a.dim() == 0:
+        return (a - b).abs().item(), b.abs().item()
+    rows = max(1, block * a.shape[0] // max(a.numel(), 1))
+    err = top = 0.0
+    for r in range(0, a.shape[0], rows):
+        x, y = a[r:r + rows], b[r:r + rows]
+        err = max(err, (x - y).abs_().max().item())
+        lo, hi = torch.aminmax(y)
+        top = max(top, -lo.item(), hi.item())
+    return err, top
+
+
+def family_train_parity(arch, card, window=None, seq=FAMILY_TRAIN_CPU_SEQ):
+    """Card against CPU in fp32 at full width, cut to 2 layers (qwen3-moe 1,
+    recurrentgemma one period; FAMILY_TRAIN_CPU_LAYERS), batch 2 x ``seq``
+    from one seed: on the card, one gradient of the initial parameters
+    (make_grad_fn), then one make_train_step from them (its loss; the
+    update written in place, so that the state fits a card once); then on
+    the CPU one gradient (make_grad_fn without the recomputation, which
+    gives the same values), each held against the card's (max_abs_diff).
+    Gates: the loss within 1e-4 relative, every parameter's gradient
+    present and within 2e-3 x its max|grad|, and for a mixture of experts
+    the experts the router selected in the first forward of each, token by
+    token (route_check; a flip fails).  Returns (record, failures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model, ffn
+    from repro_torch.training import (TrainLoopConfig, init_train_state,
+                                      make_grad_fn, make_train_step)
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    cfg = get_config(arch)
+    n_layers = FAMILY_TRAIN_CPU_LAYERS.get(arch, 2)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    if window is not None:
+        cfg = dataclasses.replace(cfg, window_size=window)
+    loop = TrainLoopConfig(warmup_steps=1, total_steps=4)
+    batch = SyntheticLMData(cfg, seq_len=seq, global_batch=2,
+                            seed=0).batch_at(0)
+    routes, sink = {"cuda": [], "cpu": []}, None
+    topk = ffn._router_topk
+
+    def recording(lg, k):  # the router's choices in the two gradients
+        w, ids = topk(lg, k)
+        if sink is not None:
+            sink.append((lg.float().cpu(), ids.cpu()))
+        return w, ids
+
+    ffn._router_topk = recording
+    try:
+        t0 = time.perf_counter()
+        model = build_model(cfg, "cuda")
+        state = init_train_state(model, 0, loop)
+        p_cpu = tree_map(lambda t: t.cpu(), state["params"])
+        feed = {k: v.cuda() for k, v in batch.items()}
+        sink = routes["cuda"]
+        _, _, grads = make_grad_fn(model)(state["params"], feed)
+        sink = None
+        card_grads = {p: g.cpu() for p, g in leaves_with_paths(grads)}
+        del grads
+        _, metrics = make_train_step(model, loop, donate=True)(state, feed)
+        card_loss = float(metrics["loss"])
+        card_s = time.perf_counter() - t0
+        del state, metrics, model, feed
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        sink = routes["cpu"]
+        cpu_loss, _, g = make_grad_fn(build_model(cfg, "cpu"), remat=False)(
+            p_cpu, batch)
+        sink = None
+        cpu_loss, cpu_s = float(cpu_loss), time.perf_counter() - t0
+    finally:
+        ffn._router_topk = topk
+    del p_cpu
+    # (max |card - cpu|, max |cpu|) by leaf, None where the card has no
+    # such gradient
+    held = {path: None if path not in card_grads else
+            max_abs_diff(card_grads[path], x)
+            for path, x in leaves_with_paths(g)}
+    del g, card_grads
+    fails = []
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    if not rel <= 1e-4:
+        fails.append(f"{arch}: loss card {card_loss:.6f}, CPU "
+                     f"{cpu_loss:.6f}, rel {rel:.2e} > 1e-4")
+    worst, worst_leaf = 0.0, None
+    for path, pair in held.items():
+        if pair is None:
+            fails.append(f"{arch} {path}: no gradient on the card")
+            continue
+        err, top = pair
+        if not err <= 2e-3 * top:
+            fails.append(f"{arch} {path}: gradient err {err:.3e} > "
+                         f"{2e-3 * top:.3e}")
+        if top > 0 and err / top >= worst:
+            worst, worst_leaf = err / top, path
+    experts = None
+    if cfg.is_moe:  # the forward's router calls, one a layer
+        experts, f = route_check(routes["cuda"][:n_layers],
+                                 routes["cpu"][:n_layers],
+                                 cfg.experts_per_token)
+        fails += [f"{arch}: {x}" for x in f]
+        if experts["flips"]:
+            fails.append(f"{arch}: {len(experts['flips'])} selected "
+                         f"experts differ, card against CPU")
+    form = ""
+    if cfg.window_size:
+        form = ("; the windowed layers on local_attention"
+                if seq > 2 * cfg.window_size else
+                "; the windowed layers on the masked dense form")
+    for f in fails:
+        log("family-train-parity", f"FAIL {f}")
+    log("family-train-parity", f"{arch} full width, {n_layers} layers, "
+        f"fp32, batch 2 x {seq}{form}"
+        + (f", window {cfg.window_size}" if cfg.window_size else "")
+        + f": loss card {card_loss:.6f}, cpu {cpu_loss:.6f} (rel "
+        f"{rel:.2e}, limit 1e-4); {len(held)} gradients on the card, "
+        f"worst leaf {worst_leaf} at {worst:.2e} x max|grad| (limit 2e-3)"
+        + ("" if experts is None else
+           f"; selected experts: {experts['calls']} router calls, "
+           f"{experts['tokens']} tokens, {len(experts['flips'])} flips, "
+           f"smallest top-k gap {experts['smallest_gap']:.3e}")
+        + f"; card {card_s:.1f} s, cpu {cpu_s:.1f} s ({card})")
+    return dict(n_layers=n_layers, seq=seq, window=cfg.window_size,
+                loss_cuda=card_loss, loss_cpu=cpu_loss, rel_err=rel,
+                leaves=len(held), worst_leaf=worst_leaf, worst_rel=worst,
+                experts=experts, card_s=card_s, cpu_s=cpu_s), fails
+
+
+def depth_rule(arch, depth, n_layers, peak_gb, layer_gb) -> tuple:
+    """(reason, failure or None) of a training run's depth under the rule:
+    its measured peak within TRAIN_PEAK_LIMIT_GB, and for a cut model one
+    more layer past it.  One more layer adds at least its own state
+    (``layer_gb``, 12 bytes a parameter), so a peak plus that above the
+    limit shows the next depth goes past it."""
+    limit, nxt = TRAIN_PEAK_LIMIT_GB, peak_gb + layer_gb
+    reason = f"peak {peak_gb:.2f} GB, limit {limit:.1f} GB"
+    if depth is None:
+        reason = f"whole ({n_layers} layers): {reason}"
+    else:
+        reason = (f"cut to {depth} of {n_layers} layers: {reason}; one more "
+                  f"layer adds at least {layer_gb:.2f} GB of state, "
+                  f"{nxt:.2f} GB")
+    if peak_gb > limit:
+        return reason, f"{arch}: {reason}, over the limit"
+    if depth is not None and nxt <= limit:
+        deeper = depth + int((limit - peak_gb) // layer_gb)
+        return reason, (f"{arch}: {reason}, within the limit: the rule "
+                        f"gives at least {deeper} layers")
+    return reason, None
+
+
+def family_train_phase(mm, fa, ops, ref, card):
+    """Phase 21: the seven configurations that train on the card from this
+    slice on.  For each, in FAMILY_TRAIN's order, built and freed before
+    the next: card against CPU in fp32 (family_train_parity;
+    recurrentgemma twice, its window cut to RING_WINDOW: at 2 x 256
+    through local_attention and at 2 x 2 RING_WINDOW through the masked
+    dense form); every distinct matmul call of one bf16 gradient at 2 x
+    2048 and one period of layers, held against the plain version
+    (train_matmuls: recurrentgemma's windowed 4-D products and their
+    gradients among them); then Runtime.train at full width in bf16, 4
+    steps at 2 x 2048, at FAMILY_TRAIN's depth, every loss finite, every
+    flash and matmul call on the path its dtypes and head dim name with
+    every tensor-core operand on a tensor map, one step profiled
+    (train_phase); for the three models that run whole, a fixed batch
+    whose loss falls.  Each depth is held to TRAIN_PEAK_LIMIT_GB on the
+    run's own peak and printed with its reason (depth_rule).  None on any
+    failure."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card, "train": {}, "card_vs_cpu": {}, "cuts": {},
+                 "train_matmuls": {}}
+    fails = []
+    for arch, depth in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = full if depth is None else dataclasses.replace(
+            full, n_layers=depth)
+        n_params = cfg.param_count()
+        layer_gb = 12 * (n_params - dataclasses.replace(
+            cfg, n_layers=0).param_count()) / cfg.n_layers / 1e9
+        log("family-train", f"{arch}: {cfg.n_layers} of {full.n_layers} "
+            f"layers, {n_params / 1e9:.2f} B parameters, "
+            f"{12 * n_params / 1e9:.1f} GB of state at 12 bytes a "
+            f"parameter (bf16 weights and gradients, fp32 AdamW moments)")
+        cases = {arch: (None, FAMILY_TRAIN_CPU_SEQ)}
+        if arch == "recurrentgemma-2b":
+            cases = {arch: (RING_WINDOW, FAMILY_TRAIN_CPU_SEQ),
+                     arch + " dense": (RING_WINDOW, 2 * RING_WINDOW)}
+        for name, (w, seq) in cases.items():
+            out["card_vs_cpu"][name], f = family_train_parity(
+                arch, card, window=w, seq=seq)
+            fails += f
+            gc.collect()
+        torch.cuda.empty_cache()
+        flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+        calls = train_matmuls(full, ops, ref, flush, label="family-backward")
+        del flush
+        out["train_matmuls"][arch] = calls
+        if calls is None:
+            fails.append(f"{arch}: a matmul call of the gradient disagrees "
+                         f"with its plain version or was misrouted")
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = train_phase(cfg, fa, mm.LAUNCHES, label="family-train",
+                          ckpt=False, fixed_batch=depth is None,
+                          tma_only=True, fixed_lr=FAMILY_TRAIN_FIXED_LR)
+        out["train"][arch] = rec
+        if rec is None:
+            fails.append(f"{arch}: Runtime.train, the profiled step or the "
+                         f"fixed batch failed")
+        else:
+            reason, f = depth_rule(arch, depth, full.n_layers,
+                                   rec["peak_memory_gb"], layer_gb)
+            fails += [f] if f else []
+            log("family-train", f"{arch}: {reason} ({card})")
+            out["cuts"][arch] = dict(
+                layers=cfg.n_layers, of=full.n_layers, parameters=n_params,
+                state_gb=12 * n_params / 1e9, layer_state_gb=layer_gb,
+                peak_memory_gb=rec["peak_memory_gb"], reason=reason)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("family-train", f"{arch}: {time.perf_counter() - t0:.1f} s")
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["fails"] = fails
+    for f in fails:
+        log("family-train", f"FAIL {f}")
+    log("family-train", f"phase 21 wall {out['wall_s']:.1f} s; {len(fails)} "
         f"failures ({card})")
     return None if fails else out
 

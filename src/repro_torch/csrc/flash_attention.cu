@@ -33,16 +33,24 @@
 //     the backward repro_flash_tc_dq (which writes D), repro_flash_tc_dkv
 //     and repro_flash_tc_group_sum;
 //   * FMA (fp32, and bf16 at hd 16, 32, 96 and 256): flash_fwd,
-//     flash_bwd_dq and flash_bwd_dkv, the first port's kernels, unchanged:
-//     every operand in shared memory as fp32 on the FP32 pipe (67 TFLOP/s
-//     on the data sheet), one CTA per (batch, head, 64-row block); the
-//     fp32 gates hold them.  At hd 96 (phi3-mini) and hd 256 (gemma,
-//     recurrentgemma) only the forward is instantiated, which is what
-//     serving and prefill run: its three tiles and the score tile take
-//     89 KiB and 210 KiB of the 227 KiB a CTA may have.  The backward at
-//     those head dims returns cudaErrorInvalidValue (the Python wrapper
-//     refuses it first): at hd 256 the dK/dV kernel's tiles would take
-//     292 KiB, so that one needs a design of its own.
+//     flash_bwd_dq and flash_bwd_dkv, the first port's kernels: every
+//     operand in shared memory as fp32 on the FP32 pipe (67 TFLOP/s on
+//     the data sheet), one CTA per (batch, head, 64-row block); the fp32
+//     gates hold them.  Every kernel is instantiated at every head dim,
+//     forward and backward.  The forward's three tiles and score tile take
+//     89 KiB at hd 96 (phi3-mini) and 210 KiB at hd 256 (gemma,
+//     recurrentgemma) of the 227 KiB (232,448 bytes) a CTA may have, the
+//     backward's 113.5 KiB (dQ) and 130.3 KiB (dK/dV) at hd 96.  At hd 256
+//     with 64-row tiles both backward kernels would be over the limit (dQ
+//     274.8 KiB, dK/dV 291.5 KiB), so there the kv side of the backward
+//     takes 32-row tiles (kBwdKV below) and the query side stays at 64:
+//     dQ 207,616 bytes, dK/dV 216,576.  Halving the kv tile rather than
+//     the query tile keeps dK/dV's two accumulators at 2 x 16 registers a
+//     thread each (its rows are kv rows) and leaves the forward, the
+//     loaders and the closed form as they are; streaming hd in panels
+//     would instead re-read the score inputs once per panel.  The sums
+//     keep their fixed order (the group's query heads in head order, no
+//     atomics), so a backward's bits repeat at every head dim.
 //
 // What bounds it on an H100: at tinyllama-1.1b's training shape (B 2, S
 // 2048, 32 query heads, 4 kv heads, hd 64) the forward is two products of
@@ -107,14 +115,19 @@ enum DtypeCode { kF32 = 0, kBF16 = 1 };
 
 constexpr float kNegInf = -1e30f;
 constexpr int kBQ = 64;             // query rows per block
-constexpr int kBKV = 64;            // kv rows per block
+constexpr int kBKV = 64;            // kv rows per block (forward)
 constexpr int kTR = 16;             // thread rows
 constexpr int kTC = 16;             // thread columns (one half-warp)
 constexpr int kThreads = kTR * kTC;
-constexpr int kRM = kBQ / kTR;      // rows per thread
-constexpr int kCN = kBKV / kTC;     // score columns per thread
-constexpr int kKP = kBKV + 1;       // padded row of a (., 64) tile
-static_assert(kBQ == kBKV, "the causal loops assume square blocks");
+constexpr int kRM = kBQ / kTR;      // query rows per thread
+
+// kv rows per block of the backward: 64, and 32 at hd 256, where two
+// 64-row kv tiles and the query tiles would not fit (header note).  The
+// query blocks stay at kBQ; a causal loop over one side runs to the other
+// side's diagonal and the mask inside a block does the rest, so the two
+// sides need not be equal.
+template <int HD>
+constexpr int kBwdKV = HD > 128 ? 32 : 64;
 
 // Element (b, s, h, d) lives at ptr + b*s0 + s*s1 + h*s2 + d*s3.
 struct Tensor4 {
@@ -154,13 +167,13 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
   }
 }
 
-// The same tile transposed: dst[d * 65 + r].
-template <typename T, int HD>
+// A tile of BR rows, transposed: dst[d * (BR + 1) + r].
+template <typename T, int HD, int BR>
 __device__ __forceinline__ void load_cols(float* dst, const T* src,
                                           const Tensor4& t, int row0, int n) {
-  for (int e = threadIdx.x; e < kBKV * HD; e += kThreads) {
+  for (int e = threadIdx.x; e < BR * HD; e += kThreads) {
     const int r = e / HD, d = e % HD, gr = row0 + r;
-    dst[d * kKP + r] = gr < n ? to_f32(src[gr * t.s1 + d * t.s3]) : 0.f;
+    dst[d * (BR + 1) + r] = gr < n ? to_f32(src[gr * t.s1 + d * t.s3]) : 0.f;
   }
 }
 
@@ -178,27 +191,28 @@ __device__ __forceinline__ float row_max(float v) {
   return v;
 }
 
-// acc[i][j] = sum_d A[(tr + 16 i) * (HD + 1) + d] * BT[d * 65 + tc + 16 j]:
-// a 64 x 64 block of row-by-row dot products.
-template <int HD>
-__device__ __forceinline__ void dot_rows(float (&acc)[kRM][kCN],
+// acc[i][j] = sum_d A[(tr + 16 i) * (HD + 1) + d] * BT[d * (BN + 1) + tc +
+// 16 j]: a 64 x BN block of row-by-row dot products.
+template <int HD, int BN>
+__device__ __forceinline__ void dot_rows(float (&acc)[kRM][BN / kTC],
                                          const float* A, const float* BT,
                                          int tr, int tc) {
+  constexpr int CN = BN / kTC;
 #pragma unroll
   for (int i = 0; i < kRM; ++i)
 #pragma unroll
-    for (int j = 0; j < kCN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < HD; ++d) {
-    float a[kRM], b[kCN];
+    float a[kRM], b[CN];
 #pragma unroll
     for (int i = 0; i < kRM; ++i) a[i] = A[(tr + i * kTR) * (HD + 1) + d];
 #pragma unroll
-    for (int j = 0; j < kCN; ++j) b[j] = BT[d * kKP + tc + j * kTC];
+    for (int j = 0; j < CN; ++j) b[j] = BT[d * (BN + 1) + tc + j * kTC];
 #pragma unroll
     for (int i = 0; i < kRM; ++i)
 #pragma unroll
-      for (int j = 0; j < kCN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
@@ -212,11 +226,13 @@ __global__ void __launch_bounds__(kThreads)
               float* __restrict__ lse, int S, int Skv, int Hq, int group,
               float scale, int causal) {
   constexpr int HP = HD + 1;
-  constexpr int DN = HD / kTC;  // output columns per thread
+  constexpr int KP = kBKV + 1;
+  constexpr int CN = kBKV / kTC;  // score columns per thread
+  constexpr int DN = HD / kTC;    // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;              // [64][HP], q * scale
   float* KsT = Qs + kBQ * HP;    // [HD][65]
-  float* Vs = KsT + HD * kKP;    // [64][HP]
+  float* Vs = KsT + HD * KP;     // [64][HP]
   float* Ps = Vs + kBKV * HP;    // [64][65]
 
   const int row0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
@@ -237,17 +253,17 @@ __global__ void __launch_bounds__(kThreads)
   const int kv_end = causal ? min(Skv, row0 + kBQ) : Skv;
   for (int c0 = 0; c0 < kv_end; c0 += kBKV) {
     __syncthreads();  // the previous block is done with KsT, Vs and Ps
-    load_cols<T, HD>(KsT, K, k, c0, Skv);
+    load_cols<T, HD, kBKV>(KsT, K, k, c0, Skv);
     load_rows<T, HD>(Vs, V, v, c0, Skv, 1.f);
     __syncthreads();
-    float s[kRM][kCN];
-    dot_rows<HD>(s, Qs, KsT, tr, tc);
+    float s[kRM][CN];
+    dot_rows<HD, kBKV>(s, Qs, KsT, tr, tc);
 #pragma unroll
     for (int i = 0; i < kRM; ++i) {
       const int gr = row0 + tr + i * kTR;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < kCN; ++j) {
+      for (int j = 0; j < CN; ++j) {
         const int gc = c0 + tc + j * kTC;
         if (gc >= Skv || (causal && gc > gr)) s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
@@ -255,10 +271,10 @@ __global__ void __launch_bounds__(kThreads)
       const float m_new = fmaxf(m[i], row_max(mx));
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < kCN; ++j) {
+      for (int j = 0; j < CN; ++j) {
         s[i][j] = expf(s[i][j] - m_new);
         rs += s[i][j];
-        Ps[(tr + i * kTR) * kKP + tc + j * kTC] = s[i][j];
+        Ps[(tr + i * kTR) * KP + tc + j * kTC] = s[i][j];
       }
       const float corr = expf(m[i] - m_new);
       l[i] = l[i] * corr + row_sum(rs);
@@ -271,7 +287,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kBKV; ++c) {
       float p[kRM], vv[DN];
 #pragma unroll
-      for (int i = 0; i < kRM; ++i) p[i] = Ps[(tr + i * kTR) * kKP + c];
+      for (int i = 0; i < kRM; ++i) p[i] = Ps[(tr + i * kTR) * KP + c];
 #pragma unroll
       for (int j = 0; j < DN; ++j) vv[j] = Vs[c * HP + tc + j * kTC];
 #pragma unroll
@@ -295,23 +311,25 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dQ (and D): grid (query blocks, Hq, B).
+// Backward, dQ (and D): grid (query blocks, Hq, B); kv blocks of BKV rows.
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <typename T, int HD, int BKV>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
                  const float* __restrict__ lse, float* __restrict__ delta,
                  T* __restrict__ dq, int S, int Skv, int Hq, int group,
                  float scale, int causal) {
   constexpr int HP = HD + 1;
+  constexpr int KP = BKV + 1;
+  constexpr int CN = BKV / kTC;
   constexpr int DN = HD / kTC;
   extern __shared__ float smem[];
   float* Qs = smem;              // [64][HP], q * scale
   float* dOs = Qs + kBQ * HP;    // [64][HP]
-  float* KsT = dOs + kBQ * HP;   // [HD][65]
-  float* VsT = KsT + HD * kKP;   // [HD][65]
-  float* dSs = VsT + HD * kKP;   // [64][65]
+  float* KsT = dOs + kBQ * HP;   // [HD][KP]
+  float* VsT = KsT + HD * KP;    // [HD][KP]
+  float* dSs = VsT + HD * KP;    // [64][KP]
 
   const int row0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int tr = threadIdx.x / kTC, tc = threadIdx.x % kTC;
@@ -348,33 +366,33 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
 
   const int kv_end = causal ? min(Skv, row0 + kBQ) : Skv;
-  for (int c0 = 0; c0 < kv_end; c0 += kBKV) {
+  for (int c0 = 0; c0 < kv_end; c0 += BKV) {
     __syncthreads();  // the previous block is done with KsT, VsT and dSs
-    load_cols<T, HD>(KsT, K, k, c0, Skv);
-    load_cols<T, HD>(VsT, V, v, c0, Skv);
+    load_cols<T, HD, BKV>(KsT, K, k, c0, Skv);
+    load_cols<T, HD, BKV>(VsT, V, v, c0, Skv);
     __syncthreads();
-    float s[kRM][kCN], dp[kRM][kCN];
-    dot_rows<HD>(s, Qs, KsT, tr, tc);
-    dot_rows<HD>(dp, dOs, VsT, tr, tc);
+    float s[kRM][CN], dp[kRM][CN];
+    dot_rows<HD, BKV>(s, Qs, KsT, tr, tc);
+    dot_rows<HD, BKV>(dp, dOs, VsT, tr, tc);
 #pragma unroll
     for (int i = 0; i < kRM; ++i) {
       const int gr = row0 + tr + i * kTR;
 #pragma unroll
-      for (int j = 0; j < kCN; ++j) {
+      for (int j = 0; j < CN; ++j) {
         const int gc = c0 + tc + j * kTC;
         const bool keep = gr < S && gc < Skv && !(causal && gc > gr);
         const float p = keep ? expf(s[i][j] - ls[i]) : 0.f;
-        dSs[(tr + i * kTR) * kKP + tc + j * kTC] = p * (dp[i][j] - dd[i]);
+        dSs[(tr + i * kTR) * KP + tc + j * kTC] = p * (dp[i][j] - dd[i]);
       }
     }
     __syncthreads();
 #pragma unroll 8
-    for (int c = 0; c < kBKV; ++c) {
+    for (int c = 0; c < BKV; ++c) {
       float ds[kRM], kk[DN];
 #pragma unroll
-      for (int i = 0; i < kRM; ++i) ds[i] = dSs[(tr + i * kTR) * kKP + c];
+      for (int i = 0; i < kRM; ++i) ds[i] = dSs[(tr + i * kTR) * KP + c];
 #pragma unroll
-      for (int j = 0; j < DN; ++j) kk[j] = KsT[(tc + j * kTC) * kKP + c];
+      for (int j = 0; j < DN; ++j) kk[j] = KsT[(tc + j * kTC) * KP + c];
 #pragma unroll
       for (int i = 0; i < kRM; ++i)
 #pragma unroll
@@ -393,10 +411,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dK and dV: grid (kv blocks, Hkv, B).
+// Backward, dK and dV: grid (kv blocks of BKV rows, Hkv, B).
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <typename T, int HD, int BKV>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
                   const float* __restrict__ lse,
@@ -404,30 +422,33 @@ __global__ void __launch_bounds__(kThreads)
                   T* __restrict__ dv, int S, int Skv, int Hq, int group,
                   float scale, int causal) {
   constexpr int HP = HD + 1;
+  constexpr int KP = BKV + 1;
+  constexpr int CN = BKV / kTC;  // score columns per thread
+  constexpr int KM = BKV / kTR;  // kv rows per thread
   constexpr int DN = HD / kTC;
   extern __shared__ float smem[];
-  float* KsT = smem;             // [HD][65]
-  float* VsT = KsT + HD * kKP;   // [HD][65]
-  float* Qs = VsT + HD * kKP;    // [64][HP], q * scale
+  float* KsT = smem;             // [HD][KP]
+  float* VsT = KsT + HD * KP;    // [HD][KP]
+  float* Qs = VsT + HD * KP;     // [64][HP], q * scale
   float* dOs = Qs + kBQ * HP;    // [64][HP]
-  float* Ps = dOs + kBQ * HP;    // [64][65]
-  float* dSs = Ps + kBQ * kKP;   // [64][65]
-  float* lse_s = dSs + kBQ * kKP;  // [64]
+  float* Ps = dOs + kBQ * HP;    // [64][KP]
+  float* dSs = Ps + kBQ * KP;    // [64][KP]
+  float* lse_s = dSs + kBQ * KP;   // [64]
   float* dd_s = lse_s + kBQ;       // [64]
 
-  const int c0 = blockIdx.x * kBKV, hk = blockIdx.y, b = blockIdx.z;
+  const int c0 = blockIdx.x * BKV, hk = blockIdx.y, b = blockIdx.z;
   const int tr = threadIdx.x / kTC, tc = threadIdx.x % kTC;
-  load_cols<T, HD>(KsT, head<T>(k, b, hk), k, c0, Skv);
-  load_cols<T, HD>(VsT, head<T>(v, b, hk), v, c0, Skv);
+  load_cols<T, HD, BKV>(KsT, head<T>(k, b, hk), k, c0, Skv);
+  load_cols<T, HD, BKV>(VsT, head<T>(v, b, hk), v, c0, Skv);
 
   // rows tr + 16 i of this kv block, columns tc + 16 j of the head
-  float dk_acc[kRM][DN], dv_acc[kRM][DN];
+  float dk_acc[KM][DN], dv_acc[KM][DN];
 #pragma unroll
-  for (int i = 0; i < kRM; ++i)
+  for (int i = 0; i < KM; ++i)
 #pragma unroll
     for (int j = 0; j < DN; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  // query blocks at or below the diagonal of this kv block
+  // query blocks from this kv block's first row on (causal)
   const int r_begin = causal ? c0 : 0;
   for (int hh = 0; hh < group; ++hh) {
     const int h = hk * group + hh;
@@ -444,30 +465,30 @@ __global__ void __launch_bounds__(kThreads)
         dd_s[r] = gr < S ? delta[rows_at + gr] : 0.f;
       }
       __syncthreads();
-      float s[kRM][kCN], dp[kRM][kCN];
-      dot_rows<HD>(s, Qs, KsT, tr, tc);
-      dot_rows<HD>(dp, dOs, VsT, tr, tc);
+      float s[kRM][CN], dp[kRM][CN];
+      dot_rows<HD, BKV>(s, Qs, KsT, tr, tc);
+      dot_rows<HD, BKV>(dp, dOs, VsT, tr, tc);
 #pragma unroll
       for (int i = 0; i < kRM; ++i) {
         const int r = tr + i * kTR, gr = row0 + r;
 #pragma unroll
-        for (int j = 0; j < kCN; ++j) {
+        for (int j = 0; j < CN; ++j) {
           const int gc = c0 + tc + j * kTC;
           const bool keep = gr < S && gc < Skv && !(causal && gc > gr);
           const float p = keep ? expf(s[i][j] - lse_s[r]) : 0.f;
-          Ps[r * kKP + tc + j * kTC] = p;
-          dSs[r * kKP + tc + j * kTC] = p * (dp[i][j] - dd_s[r]);
+          Ps[r * KP + tc + j * kTC] = p;
+          dSs[r * KP + tc + j * kTC] = p * (dp[i][j] - dd_s[r]);
         }
       }
       __syncthreads();
       // dV += P^T dO and dK += dS^T (q * scale) over this block's rows
 #pragma unroll 4
       for (int r = 0; r < kBQ; ++r) {
-        float p[kRM], ds[kRM], g[DN], qq[DN];
+        float p[KM], ds[KM], g[DN], qq[DN];
 #pragma unroll
-        for (int i = 0; i < kRM; ++i) {
-          p[i] = Ps[r * kKP + tr + i * kTR];
-          ds[i] = dSs[r * kKP + tr + i * kTR];
+        for (int i = 0; i < KM; ++i) {
+          p[i] = Ps[r * KP + tr + i * kTR];
+          ds[i] = dSs[r * KP + tr + i * kTR];
         }
 #pragma unroll
         for (int j = 0; j < DN; ++j) {
@@ -475,7 +496,7 @@ __global__ void __launch_bounds__(kThreads)
           qq[j] = Qs[r * HP + tc + j * kTC];
         }
 #pragma unroll
-        for (int i = 0; i < kRM; ++i)
+        for (int i = 0; i < KM; ++i)
 #pragma unroll
           for (int j = 0; j < DN; ++j) {
             dv_acc[i][j] = fmaf(p[i], g[j], dv_acc[i][j]);
@@ -487,7 +508,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int hkv = Hq / group;
 #pragma unroll
-  for (int i = 0; i < kRM; ++i) {
+  for (int i = 0; i < KM; ++i) {
     const int gc = c0 + tr + i * kTR;
     if (gc >= Skv) continue;
     const long long at = ((static_cast<long long>(b) * Skv + gc) * hkv + hk) * HD;
@@ -513,17 +534,26 @@ struct Problem {
 
 template <int HD>
 constexpr size_t fwd_smem() {
-  return sizeof(float) * (2 * kBQ * (HD + 1) + HD * kKP + kBQ * kKP);
-}
-template <int HD>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * kBQ * (HD + 1) + 2 * HD * kKP + kBQ * kKP);
-}
-template <int HD>
-constexpr size_t dkv_smem() {
   return sizeof(float) *
-         (2 * HD * kKP + 2 * kBQ * (HD + 1) + 2 * kBQ * kKP + 2 * kBQ);
+         (2 * kBQ * (HD + 1) + HD * (kBKV + 1) + kBQ * (kBKV + 1));
 }
+template <int HD, int BKV>
+constexpr size_t dq_smem() {
+  return sizeof(float) *
+         (2 * kBQ * (HD + 1) + 2 * HD * (BKV + 1) + kBQ * (BKV + 1));
+}
+template <int HD, int BKV>
+constexpr size_t dkv_smem() {
+  return sizeof(float) * (2 * HD * (BKV + 1) + 2 * kBQ * (HD + 1) +
+                          2 * kBQ * (BKV + 1) + 2 * kBQ);
+}
+constexpr size_t kMaxSmem = 232448;  // bytes a CTA may have on sm_90
+static_assert(fwd_smem<256>() <= kMaxSmem, "forward tiles at hd 256");
+static_assert(dq_smem<256, kBwdKV<256>>() <= kMaxSmem, "dQ tiles at hd 256");
+static_assert(dkv_smem<256, kBwdKV<256>>() <= kMaxSmem,
+              "dK/dV tiles at hd 256");
+static_assert(dkv_smem<128, kBwdKV<128>>() <= kMaxSmem,
+              "dK/dV tiles at hd 128");
 
 // Every kernel here takes more than the default 48 KB of shared memory at
 // hd = 64, so each launch first raises the kernel's dynamic limit.
@@ -548,20 +578,22 @@ cudaError_t forward(const Problem& p) {
 
 template <typename T, int HD>
 cudaError_t backward(const Problem& p) {
+  constexpr int BKV = kBwdKV<HD>;
+  constexpr size_t dq_bytes = dq_smem<HD, BKV>(), dkv_bytes = dkv_smem<HD, BKV>();
   const int group = p.Hq / p.Hkv;
-  cudaError_t err = raise_smem(flash_bwd_dq<T, HD>, dq_smem<HD>());
+  cudaError_t err = raise_smem(flash_bwd_dq<T, HD, BKV>, dq_bytes);
   if (err != cudaSuccess) return err;
-  err = raise_smem(flash_bwd_dkv<T, HD>, dkv_smem<HD>());
+  err = raise_smem(flash_bwd_dkv<T, HD, BKV>, dkv_bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((p.S + kBQ - 1) / kBQ, p.Hq, p.B);
-  flash_bwd_dq<T, HD><<<grid_q, kThreads, dq_smem<HD>(), p.stream>>>(
+  flash_bwd_dq<T, HD, BKV><<<grid_q, kThreads, dq_bytes, p.stream>>>(
       p.q, p.k, p.v, p.o, p.dout, static_cast<const float*>(p.lse),
       static_cast<float*>(p.delta), static_cast<T*>(p.dq), p.S, p.Skv, p.Hq,
       group, p.scale, p.causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_kv((p.Skv + kBKV - 1) / kBKV, p.Hkv, p.B);
-  flash_bwd_dkv<T, HD><<<grid_kv, kThreads, dkv_smem<HD>(), p.stream>>>(
+  const dim3 grid_kv((p.Skv + BKV - 1) / BKV, p.Hkv, p.B);
+  flash_bwd_dkv<T, HD, BKV><<<grid_kv, kThreads, dkv_bytes, p.stream>>>(
       p.q, p.k, p.v, p.dout, static_cast<const float*>(p.lse),
       static_cast<const float*>(p.delta), static_cast<T*>(p.dk),
       static_cast<T*>(p.dv), p.S, p.Skv, p.Hq, group, p.scale, p.causal);
@@ -574,10 +606,9 @@ cudaError_t by_head_dim(const Problem& p, int hd) {
     case 16: return kBackward ? backward<T, 16>(p) : forward<T, 16>(p);
     case 32: return kBackward ? backward<T, 32>(p) : forward<T, 32>(p);
     case 64: return kBackward ? backward<T, 64>(p) : forward<T, 64>(p);
+    case 96: return kBackward ? backward<T, 96>(p) : forward<T, 96>(p);
     case 128: return kBackward ? backward<T, 128>(p) : forward<T, 128>(p);
-    // forward only: the dK/dV kernel's tiles do not fit (header note)
-    case 96: return kBackward ? cudaErrorInvalidValue : forward<T, 96>(p);
-    case 256: return kBackward ? cudaErrorInvalidValue : forward<T, 256>(p);
+    case 256: return kBackward ? backward<T, 256>(p) : forward<T, 256>(p);
     default: return cudaErrorInvalidValue;
   }
 }

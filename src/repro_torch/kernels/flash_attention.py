@@ -15,8 +15,9 @@ Two paths, picked by ``choose_path`` from the dtype and head dim alone
 (never B, S or the heads): bf16 at hd 64 and 128 runs the tensor-core
 kernels (wgmma fed by TMA; the backward's dK/dV per query head, summed per
 kv head in a fixed order), fp32 and bf16 at hd 16, 32, 96 and 256 the FMA
-kernels.  At hd 96 and 256 there is a forward only (``BWD_HEAD_DIMS``):
-the backward raises ``NotImplementedError``.
+kernels.  Both directions take every head dim (``BWD_HEAD_DIMS`` is
+``HEAD_DIMS``); at hd 256 the FMA backward works on 32-row kv tiles, so
+that its shared memory fits a CTA.
 
 ``flash_attention_fwd_cuda`` and ``flash_attention_bwd_cuda`` are the only
 places the kernels are launched.  Each checks what the kernels take and
@@ -46,7 +47,7 @@ from repro_torch.kernels.ref import (
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)  # hd the forward is instantiated for
-BWD_HEAD_DIMS = (16, 32, 64, 128)  # hd the backward is instantiated for
+BWD_HEAD_DIMS = HEAD_DIMS  # hd the backward is instantiated for
 TC_HEAD_DIMS = (64, 128)  # hd of the tensor-core kernels (bf16)
 PATHS = ("tensor_core", "fma")
 _BWD_GRIDS = {"fma": 2, "tensor_core": 3}
@@ -219,16 +220,10 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
                              sm_scale: Optional[float] = None):
     """Launch the backward (two kernels on the FMA path, three on the
     tensor-core path): (dq, dk, dv) in the inputs' dtype, dk and dv summed
-    over each kv head's group of query heads.  Head dims 96 and 256 have a
-    forward only (``BWD_HEAD_DIMS``): the backward raises
-    ``NotImplementedError`` there."""
+    over each kv head's group of query heads in head order."""
     check_shapes(q, k, v, causal)
     b, s, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if hd in HEAD_DIMS and hd not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash backward at hd {hd} not ported yet (the backward takes "
-            f"head dim in {BWD_HEAD_DIMS})")
     path = _check_cuda((q, k, v, o, do), hd)
     _grid_check(b, hq)
     if o.shape != q.shape or do.shape != q.shape or \

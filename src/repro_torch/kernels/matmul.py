@@ -16,8 +16,9 @@ path nor the tile (``tile_n``, from N alone) depends on M or the batch.
 ``matmul_cuda`` is the only place the kernel is launched.  It checks what
 the kernel takes and raises on anything else, allocates the output with
 ``torch.empty``, launches on the current stream, raises if the launch
-reports an error, and counts the launch in ``LAUNCHES`` (in total and by
-path).
+reports an error, and counts the launch in ``LAUNCHES`` (in total, by
+path, and the tensor-core operands no tensor map loads, which the
+producer's threads copy).
 """
 
 from __future__ import annotations
@@ -40,16 +41,17 @@ _TMA_ALIGN = 16  # bytes: a tensor map's base and every stride it steps
 
 
 class LaunchCounter:
-    """Kernel launches since the last ``reset`` (a plain integer), and the
-    same launches by path."""
+    """Kernel launches since the last ``reset`` (a plain integer), the same
+    launches by path, and the tensor-core operands that no tensor map
+    could load (a split operand counts once: its halves share strides)."""
 
     def __init__(self):
-        self.count = 0
-        self.by_path = dict.fromkeys(PATHS, 0)
+        self.reset()
 
     def reset(self) -> None:
         self.count = 0
         self.by_path = dict.fromkeys(PATHS, 0)
+        self.copied_operands = 0
 
 
 LAUNCHES = LaunchCounter()
@@ -199,13 +201,14 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
         else:
             b, b_lo = split_hi_lo(b)
     tc = path != "fma"  # the FMA kernel reads any strides, no modes
+    a_mode, b_mode = (_mode_code(a, "a"), _mode_code(b, "b")) if tc else (0, 0)
     fn = _function()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(_PATH_CODE[path], a.data_ptr(), _ptr(a_lo), _strides4(a),
-                 _DTYPE_CODE[a.dtype], tc and _mode_code(a, "a"),
+                 _DTYPE_CODE[a.dtype], a_mode,
                  b.data_ptr(), _ptr(b_lo), _strides4(b), _DTYPE_CODE[b.dtype],
-                 tc and _mode_code(b, "b"),
+                 b_mode,
                  None if bias_f32 is None else bias_f32.data_ptr(),
                  out.data_ptr(), _DTYPE_CODE[out_dtype], z1, z2, m, n, k,
                  _ACT_CODE[activation], tile_n(n), stream)
@@ -215,4 +218,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
                            f"{tuple(b.shape)}")
     LAUNCHES.count += 1
     LAUNCHES.by_path[path] += 1
+    if tc:  # bit 1 of a mode: a tensor map loads the operand
+        LAUNCHES.copied_operands += sum(not mode & 2 for mode in (a_mode,
+                                                                 b_mode))
     return out

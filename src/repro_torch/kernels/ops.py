@@ -112,11 +112,13 @@ def k_blocked(a, b, bias=None, activation=None) -> torch.Tensor:
 
 
 class MatmulFn(torch.autograd.Function):
-    """``epilogue(a @ b + bias)`` for 2-D operands, with a backward on the
-    same kernel: ``dZ = dOut * activation'(a @ b + bias)`` (the product
-    recomputed in fp32 without the epilogue), ``dA = dZ @ bᵀ`` and
-    ``dB = aᵀ @ dZ`` read through transposed strides, each accumulated in
-    fp32 and cast once to its operand's dtype, ``dbias = dZ.sum(0)``."""
+    """``epilogue(a @ b + bias)`` for 2-D operands or 4-D batches of them,
+    with a backward on the same kernel: ``dZ = dOut * activation'(a @ b +
+    bias)`` (the product recomputed in fp32 without the epilogue), ``dA =
+    dZ @ bᵀ`` and ``dB = aᵀ @ dZ`` with the last two axes transposed as
+    views the kernel reads through their strides, each accumulated in fp32
+    and cast once to its operand's dtype, ``dbias`` the sum of dZ over
+    every row of every batch."""
 
     @staticmethod
     def forward(ctx, a, b, bias, activation, out_dtype):
@@ -133,11 +135,11 @@ class MatmulFn(torch.autograd.Function):
             dz = dout.float() * ACTIVATION_GRADS[ctx.activation](z)
         da = db = dbias = None
         if ctx.needs_input_grad[0]:
-            da = _matmul(dz, b.t(), None, None, a.dtype)
+            da = _matmul(dz, b.transpose(-2, -1), None, None, a.dtype)
         if ctx.needs_input_grad[1]:
-            db = _matmul(a.t(), dz, None, None, b.dtype)
+            db = _matmul(a.transpose(-2, -1), dz, None, None, b.dtype)
         if bias is not None and ctx.needs_input_grad[2]:
-            dbias = dz.float().sum(0).to(bias.dtype)
+            dbias = dz.float().reshape(-1, dz.shape[-1]).sum(0).to(bias.dtype)
         return da, db, dbias, None, None
 
 
@@ -150,8 +152,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bias=None,
     ``a`` (M, K) and ``b`` (K, N), or 4-D batches ``(Z1, Z2, M, K)`` and
     ``(Z1, Z2, K, N)`` of them; ``bias`` (N,); ``activation`` one of
     ``relu | gelu | silu | tanh`` (gelu in its tanh form) or None.  Where an
-    operand needs a gradient the call goes through ``MatmulFn`` (2-D only:
-    the 4-D form serves decode attention and has no backward)."""
+    operand needs a gradient the call goes through ``MatmulFn``, whose
+    backward runs on the same kernel in either rank (the windowed
+    attention forms train through the 4-D one)."""
     if activation is not None and activation not in EPILOGUE_ACTIVATIONS:
         raise ValueError(f"activation must be one of {EPILOGUE_ACTIVATIONS}, "
                          f"got {activation!r}")
@@ -159,10 +162,6 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bias=None,
         t is not None and t.requires_grad for t in (a, b, bias))
     if not needs_grad:
         return _matmul(a, b, bias, activation, out_dtype)
-    if a.dim() != 2 or b.dim() != 2:
-        raise ValueError(f"the batched (4-D) matmul has no backward; got "
-                         f"{tuple(a.shape)} @ {tuple(b.shape)} with an "
-                         f"operand that needs a gradient")
     return MatmulFn.apply(a, b, bias, activation, out_dtype)
 
 

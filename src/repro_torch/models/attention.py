@@ -21,9 +21,9 @@ the reference's dispatch, the banded ``local_attention`` above
 ``2 * window`` query positions and the masked dense or chunked form below.
 The dense, chunked and banded forms share one body each, window or not,
 and run their two contractions through ``ops.matmul`` as
-``decode_attention`` does: the matmul kernel on the card (4-D, no
-backward, so a windowed form there serves inference only), its plain
-version on the CPU.  ``decode_attention`` serves every step of the serving path; its two contractions (q·k and p·v)
+``decode_attention`` does: the matmul kernel on the card (4-D, forward
+and, through ``ops.MatmulFn``, backward, so the windowed forms train
+there), its plain version on the CPU.  ``decode_attention`` serves every step of the serving path; its two contractions (q·k and p·v)
 run on the matmul kernel, read straight out of the cache through strides.
 That keeps the serving path batch-invariant: a slot's scores and outputs do
 not depend on how many other slots share the step (a library batched
@@ -83,10 +83,12 @@ def _grouped(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 
 def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b in fp32 for 4-D batches, on the matmul kernel (its plain
-    version on the CPU).  The 4-D kernel has no backward, so where a CPU
-    operand needs a gradient (training on the CPU, the autograd oracle of
-    the flash tests) the plain product runs under autograd instead; on the
-    card ``ops.matmul`` refuses it."""
+    version on the CPU).  On the card a gradient goes through
+    ``ops.MatmulFn``, whose backward is two more 4-D products on the
+    kernel.  Where a CPU operand needs a gradient (training on the CPU,
+    the autograd oracle of the flash and matmul tests) the plain fp32
+    product runs under PyTorch's own autograd instead, so the CPU keeps an
+    oracle independent of ``MatmulFn``."""
     if a.device.type == "cpu" and torch.is_grad_enabled() and (
             a.requires_grad or b.requires_grad):
         return matmul_fused_ref(a, b, out_dtype=torch.float32)

@@ -99,16 +99,19 @@ def gates(params, u: torch.Tensor):
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 along axis 1 of (B, S, W)
-    fp32 tensors, by the Hillis-Steele scan (module docstring)."""
-    a, h = a.clone(), b.clone()
+    fp32 tensors, by the Hillis-Steele scan (module docstring).  Each pass
+    builds new tensors rather than writing into the old ones: autograd
+    keeps the old ones for the backward, and under the per-layer
+    ``checkpoint`` a write into them is not caught, it silently changes
+    the recomputed values the gradient reads."""
+    h = b
     s = a.shape[1]
     step = 1
     while step < s:
         # the combine reads the pre-pass values: compute both from them
-        h_new = a[:, step:] * h[:, :-step] + h[:, step:]
-        a_new = a[:, step:] * a[:, :-step]
-        h[:, step:] = h_new
-        a[:, step:] = a_new
+        h = torch.cat([h[:, :step], a[:, step:] * h[:, :-step] + h[:, step:]],
+                      dim=1)
+        a = torch.cat([a[:, :step], a[:, step:] * a[:, :-step]], dim=1)
         step *= 2
     return h
 

@@ -279,6 +279,26 @@ def test_rows_are_batch_invariant_on_card(n):
 
 
 @pytest.mark.cuda
+def test_copied_operands_counted_on_card():
+    """``LAUNCHES.copied_operands`` counts the tensor-core operands no
+    tensor map loads (a pitch of 2049 bf16 is not a multiple of 16 bytes),
+    none for a fresh split operand, and never on the FMA path."""
+    gen = _card()
+    w = _rand(gen, 2048, 512, dtype=BF16, scale=2048 ** -0.5)
+    odd = _rand(gen, 300, 2049, dtype=BF16)[:, :2048]
+    cases = [(_rand(gen, 300, 2048, dtype=BF16), w, 0), (odd, w, 1),
+             (odd.float(), w, 0), (odd.float(), w.float(), 0)]
+    for a, b, copied in cases:
+        before = mm.LAUNCHES.copied_operands
+        got = ops.matmul(a, b, out_dtype=F32)
+        assert mm.LAUNCHES.copied_operands - before == copied, (a.dtype,
+                                                                a.stride())
+        want = ref.matmul_fused_ref(a, b, out_dtype=F32)
+        err = (got - want).abs().max().item()
+        assert err <= F32_TOL * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
 def test_both_tile_widths_give_the_same_bits(monkeypatch):
     """Every tile width the kernel can pick gives a row the same bits."""
     gen = _card()

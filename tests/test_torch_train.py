@@ -191,8 +191,39 @@ def test_adamw_keeps_bf16_params_and_fp32_moments():
     assert torch.all(p["w"] == 1)  # the input is left as it was
 
 
+@pytest.mark.parametrize("block", [1, 7, 1 << 24])
+def test_inplace_adamw_by_row_blocks_equals_functional(block, monkeypatch):
+    """The in-place update runs a leaf a block of rows at a time
+    (``adamw.INPLACE_BLOCK`` elements): the same values bit for bit as the
+    functional update, for a bf16 leaf with a transposed gradient, an fp32
+    one with decay and a 0-d one, at blocks of one element, a few rows,
+    and the whole leaf."""
+    monkeypatch.setattr(adamw, "INPLACE_BLOCK", block)
+    gen = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn((9, 5), generator=gen).to(torch.bfloat16),
+              "ln": {"scale": torch.randn((13,), generator=gen)},
+              "s": torch.randn((), generator=gen)}
+    grads = {"w": torch.randn((5, 9), generator=gen).to(torch.bfloat16).t(),
+             "ln": {"scale": torch.randn((13,), generator=gen)},
+             "s": torch.randn((), generator=gen)}
+    cfg = adamw.AdamWConfig(lr=1e-2)
+    st = adamw.adamw_init(params)
+    st["mu"] = tree_map(lambda t: torch.randn(t.shape, generator=gen),
+                        st["mu"])
+    want, want_st, _ = adamw.adamw_update(params, grads, st, cfg)
+    given = tree_map(torch.clone, params)
+    given_st = tree_map(torch.clone, st)
+    got, got_st, _ = adamw.adamw_update(given, grads, given_st, cfg,
+                                        inplace=True)
+    _same(got, want, 0.0, "params")
+    _same(got_st["mu"], want_st["mu"], 0.0, "mu")
+    _same(got_st["nu"], want_st["nu"], 0.0, "nu")
+    assert got["w"] is given["w"] and got_st["nu"]["s"] is given_st["nu"]["s"]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-3b", "gemma-2b",
+                                  "recurrentgemma-2b"])
 def test_donated_step_equals_functional_step_bit_for_bit(arch, dtype):
     """``make_train_step(donate=True)`` (what ``Runtime.train`` runs) writes
     the update into the state it is given and gives the functional step's

@@ -7,13 +7,18 @@ Phases, one report line each (any failure exits non-zero):
      and the build of every kernel from csrc/ (seconds), with matmul.cu's
      and flash_attention.cu's registers, spills and serialized-wgmma
      notices by path (ptxas -v); any spill or such notice in a flash
-     tensor-core kernel, or any spill in a sort kernel, fails the run;
+     tensor-core kernel (13: forward, dQ and dK/dV at hd 64, 96, 128 and
+     256, and the group sum), or any spill in a sort kernel, fails the run;
+     each tensor-core flash instantiation's shared memory, tiles,
+     registers, local bytes (none) and CTAs an SM as the runtime reports
+     them;
      wkv.cu's registers and spills by kernel (ptxas -v) and, for the
      training instantiations, threads, shared memory, registers, local
      bytes and CTAs an SM as the runtime reports them, written to
      chiprun_out/wkv_build.json; any spill in a WKV kernel fails the run;
-     the FMA flash backward's registers and spills at hd 96 and 256 (dQ
-     and dK/dV, fp32 and bf16; recorded, not gated);
+     the fp32 FMA flash backward's registers and spills at hd 96 and 256
+     (dQ and dK/dV; recorded, not gated), and no bf16 FMA flash kernel
+     built above hd 32;
   2. each kernel against its plain PyTorch version at the shapes the main
      path gives it (tinyllama-1.1b serving, bf16), with the matmul path it
      took, timed with CUDA events with a cold L2 beside the plain version,
@@ -55,14 +60,18 @@ Phases, one report line each (any failure exits non-zero):
      non-causal modes: seamless-m4t-medium's encoder self-attention at
      its training shape (2, 2048, 16, 16, 64) and ragged cross attentions
      (3, 100 queries, 160 keys, 8, 8, 64, and 160 queries, 100 keys),
-     each in bf16 and fp32, and the backward's new head dims on the FMA
-     path: phi3-mini's training shape (2, 2048, 32, 32, 96), gemma-2b's
-     (2, 2048, 8, 1, 256), recurrentgemma-2b's heads (2, 2048, 10, 1,
-     256) and a ragged (3, 100, 8, 2) at hd 96 and 256, in both types; each
-     call on the path its dtype and hd name (bf16: the wgmma kernels, no
-     operand copied), the bf16 backward bit-identical on a second run,
+     each in bf16 and fp32, and hd 96 and 256 (bf16 on the tensor cores,
+     fp32 on the FMA kernels): phi3-mini's training shape (2, 2048, 32,
+     32, 96), gemma-2b's (2, 2048, 8, 1, 256), recurrentgemma-2b's heads
+     (2, 2048, 10, 1, 256) and a ragged (3, 100, 8, 2) at hd 96 and 256,
+     in both types; each call on the path its dtype and hd name
+     (flash_path, stated apart from choose_path; bf16: the wgmma kernels,
+     no operand copied), the bf16 backward bit-identical on a second run,
      each timed (CUDA events, cold L2) beside the plain version,
      scaled_dot_product_attention (is_causal as the case) and the bound;
+     and the copy loader at hd 96 and 256 (q strided, k at an odd pitch:
+     four operands copied, hd 96's zero columns written by the producer)
+     against the plain versions;
   8. train-parity: one make_train_step of full-width tinyllama-1.1b cut to
      2 layers, fp32, batch 2 x 256, on the card and on the CPU from the
      same parameters and batch: the loss within 1e-4 relative, every
@@ -251,8 +260,8 @@ Phases, one report line each (any failure exits non-zero):
      of 94, qwen2-vl 2 of 80: each the deepest whose peak stays within
      TRAIN_PEAK_LIMIT_GB, held on the run's own peak and printed with
      it): every loss finite, every flash call on the path its dtype and
-     head dim name (bf16: hd 96 and 256 on the FMA kernels, hd 128 on the
-     tensor cores), every tensor-core matmul operand on a tensor map,
+     head dim name (bf16: hd 96, 128 and 256 on the tensor cores, no
+     operand copied), every tensor-core matmul operand on a tensor map,
      peak memory; one step profiled (its matmul calls each on their
      dtypes' path, device ms by kernel, no library GEMM or attention
      kernel); for the three whole models a fixed batch whose loss falls.
@@ -338,7 +347,8 @@ FLASH_NONCAUSAL_SHAPES = [(2, 2048, 16, 16, 64, "bfloat16", 2048, False),
                           (3, 100, 8, 8, 64, "float32", 160, False),
                           (3, 160, 8, 8, 64, "bfloat16", 100, False),
                           (3, 160, 8, 8, 64, "float32", 100, False)]
-# the backward's new head dims (FMA path), as (B, S, Hq, Hkv, hd, dtype):
+# hd 96 and 256 (bf16 on the tensor cores, fp32 on the FMA kernels), as
+# (B, S, Hq, Hkv, hd, dtype):
 # phi3-mini's training shape (32 MHA heads of 96), gemma-2b's (8 query
 # heads, 1 kv head of 256) and recurrentgemma-2b's head layout (10 / 1 of
 # 256) at batch 2 x 2048, and a ragged GQA (3, 100, 8, 2) at each head
@@ -526,7 +536,7 @@ FLASH_KERNELS = {"flash forward": "repro_flash_tc_fwd",
                  "flash backward dq": "repro_flash_tc_dq",
                  "flash backward dk dv": "repro_flash_tc_dkv",
                  "flash group sum": "repro_flash_tc_group_sum"}
-# and on the FMA path (fp32; bf16 at hd 16, 32, 96 and 256), templates in
+# and on the FMA path (fp32; bf16 at hd 16 and 32), templates in
 # an anonymous namespace; no library kernel's name holds "::flash_fwd<"
 FLASH_FMA_KERNELS = {"flash fma forward": r"::flash_fwd<",
                      "flash fma backward dq": r"::flash_bwd_dq<",
@@ -739,25 +749,48 @@ def main() -> int:
             f"thread at launch, spill stores/loads up to "
             f"{row['spill_bytes']} bytes (ptxas -v); ptxas C75xx notices "
             f"(wgmma serialized, setmaxnreg ignored) {row['notices']}")
-    # the backward at hd 96 and 256: registers and spills written down, not
-    # gated (the FMA path; a spill there costs time, not correctness)
+    # the fp32 backward at hd 96 and 256: registers and spills written
+    # down, not gated (the FMA path; a spill there costs time, not
+    # correctness); bf16 there takes the tensor cores, so no bf16 FMA
+    # kernel at those head dims may be built
     new_bwd = ptxas_summary(build.LOGS.get("flash_attention", ""),
                             FLASH_NEW_BWD_KINDS)
     for kind, row in new_bwd.items():
         log("build", f"flash_attention.cu FMA backward {kind}: "
             f"{row['registers'][1]} registers a thread, spill stores/loads "
             f"up to {row['spill_bytes']} bytes (ptxas -v)")
+    dead = [x for x in build.LOGS.get("flash_attention", "").splitlines()
+            if re.search(FLASH_FMA_BF16_DEAD, x)]
     if sorted(new_bwd) != sorted(k for k, _ in FLASH_NEW_BWD_KINDS) or any(
-            row["kernels"] != 1 for row in new_bwd.values()):
-        log("build", f"FAIL: the FMA backward must be built once at each of "
-            f"hd 96 and 256, dq and dk/dv, fp32 and bf16: {new_bwd}")
+            row["kernels"] != 1 for row in new_bwd.values()) or dead:
+        log("build", f"FAIL: the fp32 FMA backward must be built once at "
+            f"each of hd 96 and 256, dq and dk/dv, and no bf16 FMA kernel "
+            f"above hd 32: {new_bwd}; {dead}")
         return 1
     tc = flash_ptxas.get("tensor_core")
     notices = [x for x in build.LOGS.get("flash_attention", "").splitlines()
                if "(C75" in x]  # every wgmma of flash_attention.cu is tc
-    if not tc or tc["kernels"] != 7 or tc["spill_bytes"] or notices:
-        log("build", f"FAIL: the flash tensor-core kernels must build (7 "
-            f"kernels) with no spill and no C75xx notice: {tc}; {notices}")
+    if not tc or tc["kernels"] != FLASH_TC_KERNELS or tc["spill_bytes"] \
+            or notices:
+        log("build", f"FAIL: the flash tensor-core kernels must build "
+            f"({FLASH_TC_KERNELS} kernels) with no spill and no C75xx "
+            f"notice: {tc}; {notices}")
+        return 1
+    # each tensor-core instantiation as the runtime sees it: shared memory,
+    # tiles, registers at launch, local bytes (none), CTAs an SM (one)
+    flash_tc_info = {hd: fa.tc_kernel_info(hd) for hd in fa.TC_HEAD_DIMS}
+    for hd, info in flash_tc_info.items():
+        for kern, x in info.items():
+            log("build", f"flash tensor core hd {hd} {kern}: "
+                f"{x['smem_bytes']} bytes dynamic shared memory, "
+                f"{x['cta_rows']} rows a CTA, {x['stage_rows']} a stage, "
+                f"{x['stages']} stages, {x['registers']} registers a thread "
+                f"at launch, {x['local_bytes']} local bytes, "
+                f"{x['ctas_per_sm']} CTAs an SM")
+    if any(x["local_bytes"] or x["ctas_per_sm"] < 1
+           for info in flash_tc_info.values() for x in info.values()):
+        log("build", f"FAIL: a tensor-core flash kernel spills or cannot "
+            f"be resident: {flash_tc_info}")
         return 1
     sort_ptxas = ptxas_summary(build.LOGS.get("bitonic_sort", ""),
                                SORT_PTXAS_KINDS)
@@ -790,6 +823,7 @@ def main() -> int:
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s, matmul_ptxas=ptxas,
                   flash_ptxas=flash_ptxas, flash_new_bwd_ptxas=new_bwd,
+                  flash_tc_info=flash_tc_info,
                   sort_ptxas=sort_ptxas,
                   wkv_build=wkv_build)
 
@@ -1125,6 +1159,12 @@ def main() -> int:
             return 1
         flash_rows.append(row)
     record["flash_rows"] = flash_rows
+    record["flash_copy_rows"] = []
+    for hd in (96, 256):  # the padded tile's zero fill, the split backward
+        row = flash_copy_case(hd, gen, ref, fa)
+        if row is None:
+            return 1
+        record["flash_copy_rows"].append(row)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ 8
@@ -1340,7 +1380,9 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "design": "wgmma bf16 tensor cores fed by TMA, P and dS split into "
                   "bf16 hi + lo, dK/dV per query head summed per kv head "
-                  "(bf16 at hd 64 and 128); the FP32 FMA kernels (fp32)",
+                  "(bf16 at hd 64, 96 on padded hd-128 tiles, 128, and "
+                  "256 with dK/dV split by hd halves); the FP32 FMA "
+                  "kernels (fp32; bf16 at hd 16 and 32)",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86",
         # wrapper calls per training step: forward (each layer, and again
@@ -1348,8 +1390,8 @@ def main() -> int:
         "launches": train["flash_calls_per_step"],
         # phase 18: forward calls by path in each family's Model.prefill
         # at full width and depth in bf16 (SLOTS x PROMPT), counted from 0
-        # just before it, and the forward at the new head dims (FMA path)
-        # beside its plain version, SDPA and its bound
+        # just before it, and the forward at hd 96 and 256 beside its
+        # plain version, SDPA and its bound
         "launches_families_prefill": {
             arch: {"head_dim": rec["prefill"]["head_dim"],
                    "forward": rec["prefill"]["flash_forward_calls"],
@@ -1372,14 +1414,13 @@ def main() -> int:
         "launches_encdec_train_step": encdec["train"]["profile"][
             "flash_calls"],
         # phase 21: each new trainer's profiled bf16 training step, flash
-        # calls by direction, mode and path (hd 96 and 256 on the FMA
-        # kernels, hd 128 on the tensor cores; recurrentgemma's windowed
-        # layers take none)
+        # calls by direction, mode and path (hd 96, 128 and 256 on the
+        # tensor cores; recurrentgemma's windowed layers take none)
         "launches_family_train_step": {
             arch: rec["profile"]["flash_calls"]
             for arch, rec in family_train["train"].items()},
-        # phase 7's backward at the new head dims (FMA path): phi3-mini's,
-        # gemma-2b's and recurrentgemma-2b's training shapes and ragged
+        # phase 7 at hd 96 and 256 (bf16 tensor core, fp32 FMA):
+        # phi3-mini's, gemma-2b's and recurrentgemma-2b's training shapes and ragged
         # ones, beside the plain version, SDPA and the bound
         "new_head_dims": [
             {k: r[k] for k in ("shape", "dtype", "path", "max_abs_err",
@@ -1402,6 +1443,7 @@ def main() -> int:
         # and the first call of each signature of phases 18 and 19's
         # bf16 prefills against the plain forward
         "max_abs_err": max([r["max_abs_err"] for r in flash_rows
+                            + record["flash_copy_rows"]
                             + families["flash"]] + [
             rec["prefill"]["flash_max_abs_err"]
             for rec in list(families["serve"].values())
@@ -1551,13 +1593,28 @@ def invariance_gate(ops, mm, gen, d, f):
 MATMUL_PTXAS_KINDS = (("split", "matmul_wgmma_split"),
                       ("tensor_core", "matmul_wgmma"), ("fma", "matmul_kernel"))
 FLASH_PTXAS_KINDS = (("tensor_core", "repro_flash_tc_"), ("fma", "flash_"))
-# the FMA backward's instantiations at the new head dims, by kernel, head
-# dim and type, as their mangled names hold them (hd 256 with 32-row kv
-# tiles: Li256ELi32E)
+# the tensor-core kernels: forward, dQ and dK/dV at hd 64, 96, 128 and 256,
+# and the group sum
+FLASH_TC_KERNELS = 3 * 4 + 1
+# the fp32 FMA backward's instantiations at hd 96 and 256, by kernel and
+# head dim, as their mangled names hold them (hd 256 with 32-row kv tiles:
+# Li256ELi32E)
 FLASH_NEW_BWD_KINDS = tuple(
-    (f"{kernel} hd {hd} {name}", f"flash_bwd_{kernel}I{mangled}Li{hd}E")
-    for kernel in ("dq", "dkv") for hd in (96, 256)
-    for name, mangled in (("fp32", "f"), ("bf16", "13__nv_bfloat16")))
+    (f"{kernel} hd {hd} fp32", f"flash_bwd_{kernel}IfLi{hd}E")
+    for kernel in ("dq", "dkv") for hd in (96, 256))
+# a bf16 FMA kernel above hd 32, which no call reaches since bf16 at hd 64,
+# 96, 128 and 256 takes the tensor cores: phase 1 fails if one is built
+FLASH_FMA_BF16_DEAD = (r"Compiling entry function '\w*flash_"
+                       r"(fwd|bwd_dq|bwd_dkv)I13__nv_bfloat16"
+                       r"Li(64|96|128|256)E")
+
+
+def flash_path(dtype, hd: int) -> str:
+    """The flash kernels' routing rule, stated apart from the wrapper's
+    choose_path: bf16 at hd 64, 96, 128 and 256 on the tensor cores,
+    everything else (fp32; bf16 at hd 16 and 32) on the FMA kernels."""
+    return "tensor_core" if dtype == torch.bfloat16 and hd in (
+        64, 96, 128, 256) else "fma"
 # the sort kernel's device-side names (bitonic_sort.cu), by launch kind
 SORT_KERNELS = ("first_block_pass", "global_pass", "finish_block_pass")
 SORT_PTXAS_KINDS = (("block", "block_pass"), ("global", "global_pass"))
@@ -1899,9 +1956,7 @@ def flash_case(shape, gen, ref, fa, flush):
     q, k, v, do = (torch.randn((b, rows, h, hd), generator=gen,
                                device="cuda").to(dt)
                    for rows, h in ((s, hq), (skv, hkv), (skv, hkv), (s, hq)))
-    # the routing rule, stated apart from the wrapper's choose_path
-    path = "tensor_core" if dt == torch.bfloat16 and hd in (64, 128) \
-        else "fma"
+    path = flash_path(dt, hd)
     mode = "causal" if causal else "non-causal"
     modes = (f"forward {mode} {path}", f"backward {mode} {path}")
     before = (fa.LAUNCHES.forward, fa.LAUNCHES.backward, fa.LAUNCHES.grids,
@@ -2027,6 +2082,42 @@ def flash_case(shape, gen, ref, fa, flush):
         f" ms  sdpa {times['bwd_library_ms']:.4f} ms  bound "
         f"{row['bwd_bound_ms']:.4f} ms; {grids - 1} launches; cold L2")
     return row
+
+
+def flash_copy_case(hd, gen, ref, fa):
+    """The tensor-core kernels on operands no tensor map describes (q
+    strided in hd, k at a pitch of hd + 1), which the producer's copy
+    loader brings in, zero-filling hd 96's padded columns itself: the
+    forward and backward against their plain versions by phase 7's bf16
+    rule, four operands copied.  The row, or None if they disagree."""
+    b, s, hq, hkv = 2, 150, 8, 2
+    q = torch.randn((b, s, hq, 2 * hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)[..., ::2]
+    k = torch.randn((b, s, hkv, hd + 1), generator=gen,
+                    device="cuda").to(torch.bfloat16)[..., :hd]
+    v, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda")
+             .to(torch.bfloat16) for h in (hkv, hq))
+    before = fa.LAUNCHES.copied_operands
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    copied = fa.LAUNCHES.copied_operands - before
+    o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v)
+    grads_p = ref.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    errs = {name: flash_error(got, want) for name, got, want in [
+        ("o", o, o_p), ("lse", lse, lse_p),
+        *zip(("dq", "dk", "dv"), grads, grads_p)]}
+    shown = ", ".join(f"{k} {e:.1e} = {r:.2f} x limit"
+                      for k, (e, r) in errs.items())
+    if copied != 4 or not all(r <= 1.0 for _, r in errs.values()):
+        log("flash", f"FAIL copy loader hd {hd} {(b, s, hq, hkv)}: {copied} "
+            f"operands copied (expected 4: q and k, each way); {shown}")
+        return None
+    log("flash", f"copy loader hd {hd} {(b, s, hq, hkv)} bf16 (q strided, k "
+        f"at pitch {hd + 1}; 4 operands copied): kernel == plain within tol "
+        f"({shown})")
+    return dict(hd=hd, shape=[b, s, hq, hkv, hd], copied=copied,
+                max_abs_err=max(e for e, _ in errs.values()))
 
 
 def train_parity(cfg, leaves=None):
@@ -2320,10 +2411,10 @@ def train_phase(cfg, fa, mm_launches, label="train", ckpt=True,
             f"than once a step per layer ({n_attn} full-attention layers)")
         return None
     # bf16: every flash call on the path its head dim names (the wgmma
-    # kernels at hd 64 and 128, through tensor maps; the FMA kernels at hd
-    # 96 and 256), the rule stated apart from the wrapper's choose_path
+    # kernels at hd 64, 96, 128 and 256, through tensor maps), the rule
+    # stated apart from the wrapper's choose_path
     hd = cfg.resolved_head_dim
-    path = "tensor_core" if hd in (64, 128) else "fma"
+    path = flash_path(torch.bfloat16, hd)
     other = "fma" if path == "tensor_core" else "tensor_core"
     if counts[f"flash {other}"] or counts["flash_copied_operands"] or \
             counts[f"flash {path}"] != counts["flash_forward"] + \
@@ -4400,7 +4491,7 @@ def family_prefill(arch, model, params, prompts, fa, ops, ref, shapes,
     n_attn = sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
     if cfg.is_encdec:
         n_attn = cfg.encoder_layers + 2 * cfg.n_layers
-    path = fa.choose_path(torch.bfloat16, hd)
+    path = flash_path(torch.bfloat16, hd)
     batch = {"tokens": prompts}
     if cfg.pos_type == "mrope":
         batch["positions"] = mrope_positions(*prompts.shape, 0, "cuda")
@@ -4414,6 +4505,7 @@ def family_prefill(arch, model, params, prompts, fa, ops, ref, shapes,
         logits = model.prefill(params, batch)
     torch.cuda.synchronize()
     calls, by_path = fa.LAUNCHES.forward, dict(fa.LAUNCHES.by_path)
+    copied = fa.LAUNCHES.copied_operands
     fails, checks = [], []
     with torch.inference_mode():
         for q, k, v, causal, o in flash.calls.values():
@@ -4433,6 +4525,10 @@ def family_prefill(arch, model, params, prompts, fa, ops, ref, shapes,
         fails.append(f"{arch}: Model.prefill made {calls} flash forward "
                      f"calls ({by_path}), expected {n_attn} on the {path} "
                      f"path (one per full-attention layer, hd {hd})")
+    if hd in (96, 256) and copied:
+        fails.append(f"{arch}: Model.prefill's flash calls at hd {hd} "
+                     f"copied {copied} operands; every one should be on a "
+                     f"tensor map")
     want = (prompts.shape[0], 1, cfg.vocab_size)
     finite = bool(torch.isfinite(logits).all())
     if tuple(logits.shape) != want or not finite:
@@ -4440,12 +4536,13 @@ def family_prefill(arch, model, params, prompts, fa, ops, ref, shapes,
                      f"finite {finite}; expected {want}")
     log(label, f"{arch} Model.prefill {tuple(prompts.shape)} "
         f"{cfg.n_layers} layers{' (+ the encoder)' if cfg.is_encdec else ''}"
-        f" bf16: flash forward calls {calls} by path {by_path} "
-        f"(hd {hd}, {n_attn} full-attention layers), logits "
+        f" bf16: flash forward calls {calls} by path {by_path}, operands "
+        f"copied {copied} (hd {hd}, {n_attn} full-attention layers), logits "
         f"{tuple(logits.shape)} finite {finite}; flash outputs against the "
         f"plain forward: {checks}")
     return dict(shape=list(prompts.shape), head_dim=hd, flash_path=path,
                 flash_forward_calls=calls, flash_by_path=by_path,
+                flash_copied_operands=copied,
                 attn_layers=n_attn, flash_checks=checks,
                 flash_max_abs_err=flash_err), fails
 
@@ -4849,7 +4946,7 @@ def family_flash(shape, gen, ref, fa, flush, card):
     dt = getattr(torch, dtype_name)
     q, k, v = (torch.randn((b, s, h, hd), generator=gen, device="cuda")
                .to(dt) for h in (hq, hkv, hkv))
-    path = fa.choose_path(dt, hd)
+    path = flash_path(dt, hd)
     before = fa.LAUNCHES.by_path[path]
     o, lse = fa.flash_attention_fwd_cuda(q, k, v)
     torch.cuda.synchronize()

@@ -29,35 +29,31 @@
 // Two paths, chosen from the dtype and hd alone (tensor_core_path below;
 // kernels/flash_attention.py choose_path states the same rule), never
 // from B, S or the heads:
-//   * tensor core (bf16 at hd 64 and 128): repro_flash_tc_fwd, then for
-//     the backward repro_flash_tc_dq (which writes D), repro_flash_tc_dkv
-//     and repro_flash_tc_group_sum;
-//   * FMA (fp32, and bf16 at hd 16, 32, 96 and 256): flash_fwd,
+//   * tensor core (bf16 at hd 64, 96, 128 and 256): repro_flash_tc_fwd,
+//     then for the backward repro_flash_tc_dq (which writes D),
+//     repro_flash_tc_dkv and repro_flash_tc_group_sum;
+//   * FMA (fp32 at every head dim, bf16 at hd 16 and 32): flash_fwd,
 //     flash_bwd_dq and flash_bwd_dkv, the first port's kernels: every
 //     operand in shared memory as fp32 on the FP32 pipe (67 TFLOP/s on
 //     the data sheet), one CTA per (batch, head, 64-row block); the fp32
-//     gates hold them.  Every kernel is instantiated at every head dim,
-//     forward and backward.  The forward's three tiles and score tile take
-//     89 KiB at hd 96 (phi3-mini) and 210 KiB at hd 256 (gemma,
-//     recurrentgemma) of the 227 KiB (232,448 bytes) a CTA may have, the
+//     gates hold them.  bf16 is instantiated only at hd 16 and 32, where
+//     no tensor-core kernel runs, so no unreachable kernel is built.  The
+//     forward's three tiles and score tile take 89 KiB at hd 96 and 210
+//     KiB at hd 256 of the 227 KiB (232,448 bytes) a CTA may have, the
 //     backward's 113.5 KiB (dQ) and 130.3 KiB (dK/dV) at hd 96.  At hd 256
 //     with 64-row tiles both backward kernels would be over the limit (dQ
 //     274.8 KiB, dK/dV 291.5 KiB), so there the kv side of the backward
-//     takes 32-row tiles (kBwdKV below) and the query side stays at 64:
-//     dQ 207,616 bytes, dK/dV 216,576.  Halving the kv tile rather than
-//     the query tile keeps dK/dV's two accumulators at 2 x 16 registers a
-//     thread each (its rows are kv rows) and leaves the forward, the
-//     loaders and the closed form as they are; streaming hd in panels
-//     would instead re-read the score inputs once per panel.  The sums
-//     keep their fixed order (the group's query heads in head order, no
-//     atomics), so a backward's bits repeat at every head dim.
+//     takes 32-row tiles (kBwdKV below): dQ 207,616 bytes, dK/dV 216,576.
+//     The sums keep their fixed order (the group's query heads in head
+//     order, no atomics), so a backward's bits repeat at every head dim.
 //
 // What bounds it on an H100: at tinyllama-1.1b's training shape (B 2, S
 // 2048, 32 query heads, 4 kv heads, hd 64) the forward is two products of
 // 2 B Hq S^2 hd FLOPs halved by causality (34 GFLOP), the backward 2.5x
 // that, against 8 to 34 MB of operands: bound by operations, 0.122 ms for
-// forward + backward at the 989 TFLOP/s of bf16 tensor cores.  What the
-// tensor-core path does about it:
+// forward + backward at the 989 TFLOP/s of bf16 tensor cores; phi3-mini's
+// (2, 2048, 32, 32, 96) 0.182 ms, gemma-2b's (2, 2048, 8, 1, 256) 0.122.
+// What the tensor-core path does about it:
 //   - every product is a wgmma (bf16 in, fp32 accumulators in registers)
 //     from 128-byte-swizzled shared memory.  A CTA is three warpgroups:
 //     a producer warpgroup, of which one warp loads with TMA through a
@@ -78,17 +74,44 @@
 //     read MN-major through the transpose bit: no tile is transposed;
 //   - only a block crossing the diagonal or the ragged edge is masked, and
 //     the longest query blocks are scheduled first;
-//   - the dK/dV kernel runs one CTA per (batch, query head, 128 kv rows):
-//     1,024 CTAs at the training shape, where one per kv head (the FMA
-//     path's design) gives 256 of very unequal length (the causal
+//   - the dK/dV kernel runs one CTA per (batch, query head, kv block):
+//     1,024 CTAs at tinyllama's training shape, where one per kv head (the
+//     FMA path's design) gives 256 of very unequal length (the causal
 //     triangle) for 132 SMs.  Each writes its head's scale dK and dV as
 //     fp32 partials (67 MB at the training shape); repro_flash_tc_group_sum
 //     adds each kv head's g partials in head order and casts to bf16.
 //     That costs about 134 MB of traffic, some 40 us at 3.35 TB/s, and
 //     keeps the backward deterministic;
-//   - at hd 128 the dK/dV kernel takes 32 query rows a stage (64 at hd
-//     64), so its two hd-wide accumulators, Sᵀ and dPᵀ and their bf16
-//     halves fit in a consumer's 232 registers, without spills;
+//   - at hd 96, 128 and 256 the dK/dV kernel takes 32 query rows a stage
+//     (64 at hd 64), so its two accumulators (128 registers a thread), Sᵀ
+//     and dPᵀ (16 each) and their bf16 halves (32) fit in a consumer's 232
+//     registers, without spills;
+//   - hd 96 runs on the hd-128 tiles (pad64): the tensor maps take hd as
+//     their innermost extent with 64-column boxes, so the second box reads
+//     columns 64-95 and TMA writes zeros in 96-127 (the copy loader writes
+//     them itself).  Q Kᵀ, dO Vᵀ and their transposes contract over 6 of
+//     the 8 k steps; P V, dS K, Pᵀ dO and dSᵀ Q run at N = 128 (a 96-wide
+//     MN-major B would cut a 64-column swizzle panel in half), their zero
+//     columns never stored: 7/6 of the forward's hd-96 work, 8/7 of the
+//     backward's;
+//   - hd 256: for a warpgroup's 64 rows the O or dQ accumulator alone is
+//     128 fp32 registers a thread, so the forward's kv stages are 64 rows
+//     (S 32 registers, P's halves 16 each; Q 64 KiB + two stages of K and
+//     V 128 KiB = 197,672 bytes with barriers) and dQ's 32 rows (S and dP
+//     16 each; Q and dO 128 KiB + three stages 96 KiB = 230,968 bytes).
+//     P V and dS K go as two m64n128 wgmmas, one per 128-column half.
+//     Two 64 x 256 dK and dV accumulators would be 256 registers a thread,
+//     so the dK/dV kernel splits hd: both consumer warpgroups take the same
+//     64 kv rows and each accumulates one 128-column half of dK and dV
+//     (K, V 64 KiB + four stages of 32 query rows 128 KiB = 198,728
+//     bytes).  Sᵀ and dPᵀ contract over the whole hd, and both warpgroups
+//     compute them.  Handing them over through shared memory instead
+//     would put two named-barrier waits a stage between warpgroups that
+//     now run free, and 16 KiB of fp32 traffic a stage; computing them
+//     twice makes the backward's 7 products (S and dP in each kernel, dQ,
+//     dV, dK) 9, 9/7 of the work, with the register budget of hd 128's
+//     dK/dV kernel.  One CTA per (batch, query head, 64 kv rows): 8x the
+//     CTAs of the FMA kernel's one per kv head at gemma's MQA shape;
 //   - every wgmma sits on a path the compiler can prove warp-uniform (the
 //     warpgroup index through a shuffle, the barrier's retry loop inside
 //     its asm): otherwise ptxas serializes them (its C7520 notice).
@@ -101,6 +124,8 @@
 //             accurate).  hopper.cuh holds the Hopper primitives shared
 //             with matmul.cu.
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
@@ -108,7 +133,7 @@ namespace {
 enum DtypeCode { kF32 = 0, kBF16 = 1 };
 
 // ---------------------------------------------------------------------------
-// FMA path (fp32; bf16 at hd 16, 32, 96 and 256).  Shared-memory rows are
+// FMA path (fp32; bf16 at hd 16 and 32).  Shared-memory rows are
 // padded by one float so that the transposed reads and writes of a warp
 // fall in distinct banks.
 // ---------------------------------------------------------------------------
@@ -600,17 +625,26 @@ cudaError_t backward(const Problem& p) {
   return cudaGetLastError();
 }
 
+// fp32 at every head dim; bf16 only at hd 16 and 32, the head dims the
+// tensor-core kernels leave to this path (tensor_core_path), so that no
+// unreachable kernel is built
 template <bool kBackward, typename T>
 cudaError_t by_head_dim(const Problem& p, int hd) {
   switch (hd) {
     case 16: return kBackward ? backward<T, 16>(p) : forward<T, 16>(p);
     case 32: return kBackward ? backward<T, 32>(p) : forward<T, 32>(p);
-    case 64: return kBackward ? backward<T, 64>(p) : forward<T, 64>(p);
-    case 96: return kBackward ? backward<T, 96>(p) : forward<T, 96>(p);
-    case 128: return kBackward ? backward<T, 128>(p) : forward<T, 128>(p);
-    case 256: return kBackward ? backward<T, 256>(p) : forward<T, 256>(p);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (std::is_same<T, float>::value) {
+    switch (hd) {
+      case 64: return kBackward ? backward<T, 64>(p) : forward<T, 64>(p);
+      case 96: return kBackward ? backward<T, 96>(p) : forward<T, 96>(p);
+      case 128: return kBackward ? backward<T, 128>(p) : forward<T, 128>(p);
+      case 256: return kBackward ? backward<T, 256>(p) : forward<T, 256>(p);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <bool kBackward>
@@ -625,7 +659,7 @@ Tensor4 tensor4(const void* ptr, const long long* st) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path (bf16 at hd 64 and 128)
+// Tensor-core path (bf16 at hd 64, 96, 128 and 256)
 // ---------------------------------------------------------------------------
 
 constexpr int kTcConsumers = 256;  // two consumer warpgroups (warps 0-7)
@@ -649,25 +683,31 @@ struct TcTensor {
   int rows, heads, tma;
 };
 
-// An R-row tile of HD columns in shared memory: HD / 64 panels of R rows
-// of 128 bytes (64 bf16), each row swizzled as TMA's 128-byte swizzle
-// writes it; panel p starts p * R * 128 bytes in.
+// hd rounded up to whole 64-column panels: 128 at hd 96, whose tiles
+// carry 32 zero columns (TMA fills past the map's hd extent with zeros)
+__host__ __device__ constexpr int pad64(int hd) { return (hd + 63) / 64 * 64; }
+
+// An R-row tile of HD columns in shared memory: pad64(HD) / 64 panels of
+// R rows of 128 bytes (64 bf16), each row swizzled as TMA's 128-byte
+// swizzle writes it; panel p starts p * R * 128 bytes in.
 template <int R, int HD>
 __host__ __device__ constexpr int tile_bytes() {
-  return R * HD * 2;
+  return R * pad64(HD) * 2;
 }
 
 // The copy loader, for an operand no tensor map can describe: the producer
 // warp's lanes copy rows [row0, row0 + R) of head h, element by element,
-// into the layout TMA would have written (zeros past the operand's rows).
+// into the layout TMA would have written: zeros past the operand's rows
+// and, at hd 96, in columns 96-127 of the padded tile (TMA's fill there).
 template <int R, int HD>
 __device__ __forceinline__ void copy_tile(uint8_t* dst, const TcTensor& t,
                                           int row0, int h, int b, int lane) {
+  constexpr int HP = pad64(HD);
   const __nv_bfloat16* src = t.ptr + b * t.s0 + h * t.s2;
-  for (int e = lane; e < R * HD; e += kTcProducers) {
-    const int r = e / HD, d = e % HD, gr = row0 + r;
+  for (int e = lane; e < R * HP; e += kTcProducers) {
+    const int r = e / HP, d = e % HP, gr = row0 + r;
     __nv_bfloat16 v = __float2bfloat16_rn(0.f);
-    if (gr < t.rows) v = src[gr * t.s1 + d * t.s3];
+    if (gr < t.rows && d < HD) v = src[gr * t.s1 + d * t.s3];
     *reinterpret_cast<__nv_bfloat16*>(dst + (d >> 6) * (R * 128) +
                                       swizzled<0>(r, d & 63)) = v;
   }
@@ -707,7 +747,7 @@ __device__ __forceinline__ void fill(const Tile (&tiles)[N], uint64_t* bar,
     for (int i = 0; i < N; ++i) {
       if (!tiles[i].t->tma) continue;
 #pragma unroll
-      for (int p = 0; p < HD / 64; ++p)
+      for (int p = 0; p < pad64(HD) / 64; ++p)
         tma_load_4d(tiles[i].dst + p * R * 128, tiles[i].map, bar, 64 * p,
                     tiles[i].h, row0, b);
     }
@@ -750,6 +790,8 @@ __device__ __forceinline__ void to_a_split(const float* d, uint32_t* hi,
 
 // D = A Bᵀ over hd, HD / 16 k steps, the first overwriting D: A the 64
 // rows at ``a`` of a K-major RA-row tile, B a K-major N-row tile at ``b``.
+// At hd 96 that is 6 of the padded tile's 8 steps: its zero columns
+// are never read.
 template <int N, int HD, int RA>
 __device__ __forceinline__ void gemm_rows(float* d, uint32_t a, uint32_t b) {
 #pragma unroll
@@ -762,18 +804,24 @@ __device__ __forceinline__ void gemm_rows(float* d, uint32_t a, uint32_t b) {
 }
 
 // D += A B: A in registers (64 rows x KR, the hi and lo bf16 halves from
-// to_a_split, hi first at each k step), B the KR x HD tile at ``b`` read
-// MN-major (hd contiguous) through the transpose bit: 64-column panels
-// KR * 128 bytes apart (LBO), a k step 16 rows (2048 bytes).
-template <int HD, int KR>
+// to_a_split, hi first at each k step), B the N columns from the panel at
+// ``b`` of a KR-row tile, read MN-major (hd contiguous) through the
+// transpose bit: 64-column panels KR * 128 bytes apart (LBO), a k step 16
+// rows (2048 bytes).  N = 256 goes as two wgmmas of 128 columns, whose
+// fragments lie one after the other in D.
+template <int N, int KR>
 __device__ __forceinline__ void gemm_acc(float* d, const uint32_t* hi,
                                          const uint32_t* lo, uint32_t b) {
+  constexpr int NC = N > 128 ? 128 : N;
 #pragma unroll
-  for (int kk = 0; kk < KR / 16; ++kk) {
-    const uint64_t db = desc_sw128(b + kk * 2048, KR * 128);
-    wgmma_rs<HD, 1>(d, hi + 4 * kk, db, 1);
-    wgmma_rs<HD, 1>(d, lo + 4 * kk, db, 1);
-  }
+  for (int kk = 0; kk < KR / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < N / NC; ++c) {
+      const uint64_t db =
+          desc_sw128(b + c * (NC / 64) * KR * 128 + kk * 2048, KR * 128);
+      wgmma_rs<NC, 1>(d + c * NC / 2, hi + 4 * kk, db, 1);
+      wgmma_rs<NC, 1>(d + c * NC / 2, lo + 4 * kk, db, 1);
+    }
 }
 
 // Block x of a 1-D grid of tiles x Hq x B: its tile (reversed, longest
@@ -809,8 +857,11 @@ __device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty,
 
 template <int HD>
 struct FwdTc {
+  static constexpr int kHP = pad64(HD);  // columns of O a thread holds
   static constexpr int kBQ = 128;   // query rows a CTA: two warpgroups of 64
-  static constexpr int kBKV = 128;  // kv rows a stage
+  // kv rows a stage: at hd 256 O alone takes 128 registers a thread, so
+  // S gets 32 (and P's halves 16 each), not 64
+  static constexpr int kBKV = HD > 128 ? 64 : 128;
   static constexpr int kStages = HD == 64 ? 3 : 2;
   static constexpr int kQ = tile_bytes<kBQ, HD>();
   static constexpr int kKV = tile_bytes<kBKV, HD>();  // K, and V
@@ -875,10 +926,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int row = m0 + 64 * wg + 16 * warp + lane / 4;  // and row + 8
   const float sl2 = p.scale * kLog2e;
-  float o[HD / 2], sc[F::kBKV / 2];
+  float o[F::kHP / 2], sc[F::kBKV / 2];
   uint32_t pa[F::kBKV / 4], pl[F::kBKV / 4];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < F::kHP / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < F::kBKV / 2; ++i) sc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -929,13 +980,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       m[hh] = mx;
     }
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i / 2) % 2];
+    for (int i = 0; i < F::kHP / 2; ++i) o[i] *= corr[(i / 2) % 2];
     to_a_split<F::kBKV>(sc, pa, pl);
     wgmma_fence();
-    gemm_acc<HD, F::kBKV>(o, pa, pl, v_at);
+    gemm_acc<F::kHP, F::kBKV>(o, pa, pl, v_at);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<HD / 2>(o);
+    fence_regs<F::kHP / 2>(o);
     fence_regs<F::kBKV / 4>(pa);
     fence_regs<F::kBKV / 4>(pl);
     mbar_arrive(&empty[s]);
@@ -975,8 +1026,11 @@ struct BwdArgs {
 
 template <int HD>
 struct DqTc {
+  static constexpr int kHP = pad64(HD);  // columns of dQ a thread holds
   static constexpr int kBQ = 128;  // query rows a CTA: two warpgroups of 64
-  static constexpr int kBKV = 64;  // kv rows a stage
+  // kv rows a stage: at hd 256 dQ takes 128 registers a thread, so S and
+  // dP get 16 each, not 32
+  static constexpr int kBKV = HD > 128 ? 32 : 64;
   static constexpr int kStages = HD == 64 ? 4 : 3;
   static constexpr int kQ = tile_bytes<kBQ, HD>();    // Q, and dO
   static constexpr int kKV = tile_bytes<kBKV, HD>();  // K, and V
@@ -1057,10 +1111,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     dd[hh] = dsm[row - m0 + 8 * hh];
     ls[hh] = row + 8 * hh < p.S ? p.lse[rows_at + row + 8 * hh] * kLog2e : 0.f;
   }
-  float dq[HD / 2], sc[F::kBKV / 2], dp[F::kBKV / 2];
+  float dq[F::kHP / 2], sc[F::kBKV / 2], dp[F::kBKV / 2];
   uint32_t da[F::kBKV / 4], dl[F::kBKV / 4];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < F::kHP / 2; ++i) dq[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < F::kBKV / 2; ++i) sc[i] = dp[i] = 0.f;
   mbar_wait(once, 0);
@@ -1092,10 +1146,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     }
     to_a_split<F::kBKV>(sc, da, dl);
     wgmma_fence();
-    gemm_acc<HD, F::kBKV>(dq, da, dl, k_at);
+    gemm_acc<F::kHP, F::kBKV>(dq, da, dl, k_at);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<HD / 2>(dq);
+    fence_regs<F::kHP / 2>(dq);
     fence_regs<F::kBKV / 4>(da);
     fence_regs<F::kBKV / 4>(dl);
     mbar_arrive(&empty[s]);
@@ -1117,8 +1171,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 template <int HD>
 struct DkvTc {
-  static constexpr int kBKV = 128;  // kv rows a CTA: two warpgroups of 64
-  // query rows a stage: at hd 128 the two hd-wide accumulators take 128
+  // at hd 256 the two warpgroups split hd, not the kv rows: one 64 x 256
+  // dK and dV pair would be 256 registers a thread
+  static constexpr bool kSplitHd = HD > 128;
+  // kv rows a CTA: two warpgroups of 64, or both on the same 64 rows
+  static constexpr int kBKV = kSplitHd ? 64 : 128;
+  // columns of dK and dV a warpgroup accumulates (at hd 96 the padded 128)
+  static constexpr int kCols = kSplitHd ? pad64(HD) / 2 : pad64(HD);
+  // query rows a stage: at hd 96 and up the two accumulators take 128
   // registers a thread, so Sᵀ and dPᵀ get 16 each, not 32
   static constexpr int kBQ = HD == 64 ? 64 : 32;
   static constexpr int kStages = 4;
@@ -1183,17 +1243,21 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   setmaxnreg_inc<kConsumerRegs>();
 
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
-  const int row = c0 + 64 * wg + 16 * warp + lane / 4;  // kv; and row + 8
+  // this warpgroup's first kv row, and its first column of dK and dV
+  const int kv0 = F::kSplitHd ? c0 : c0 + 64 * wg;
+  const int col0 = F::kSplitHd ? wg * F::kCols : 0;
+  const int row = kv0 + 16 * warp + lane / 4;  // kv; and row + 8
   const float sl2 = p.scale * kLog2e;
-  float dk[HD / 2], dv[HD / 2], sc[F::kBQ / 2], dp[F::kBQ / 2];
+  float dk[F::kCols / 2], dv[F::kCols / 2], sc[F::kBQ / 2], dp[F::kBQ / 2];
   uint32_t pa[F::kBQ / 4], pl[F::kBQ / 4], da[F::kBQ / 4], dl[F::kBQ / 4];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < F::kCols / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < F::kBQ / 2; ++i) sc[i] = dp[i] = 0.f;
   mbar_wait(once, 0);
-  const uint32_t k_at = smem_u32(smem) + wg * 64 * 128;
+  const uint32_t k_at = smem_u32(smem) + (kv0 - c0) * 128;
   const uint32_t v_at = k_at + F::kKV;
+  const uint32_t cols_at = (col0 / 64) * F::kBQ * 128;  // its Q, dO panels
   for (int i = 0; i < nq; ++i) {
     const int s = i % F::kStages;
     const int r0 = r_begin + i * F::kBQ;
@@ -1208,8 +1272,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     wgmma_wait<0>();
     fence_regs<F::kBQ / 2>(sc);
     fence_regs<F::kBQ / 2>(dp);
-    const bool edge =
-        (p.causal && r0 < c0 + 64 * wg + 63) || r0 + F::kBQ > p.S;
+    const bool edge = (p.causal && r0 < kv0 + 63) || r0 + F::kBQ > p.S;
 #pragma unroll
     for (int j = 0; j < F::kBQ / 8; ++j) {
       const int cl = 8 * j + 2 * (lane % 4);  // query row in the block
@@ -1231,12 +1294,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     to_a_split<F::kBQ>(sc, pa, pl);
     to_a_split<F::kBQ>(dp, da, dl);
     wgmma_fence();
-    gemm_acc<HD, F::kBQ>(dv, pa, pl, do_at);
-    gemm_acc<HD, F::kBQ>(dk, da, dl, q_at);
+    gemm_acc<F::kCols, F::kBQ>(dv, pa, pl, do_at + cols_at);
+    gemm_acc<F::kCols, F::kBQ>(dk, da, dl, q_at + cols_at);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<HD / 2>(dv);
-    fence_regs<HD / 2>(dk);
+    fence_regs<F::kCols / 2>(dv);
+    fence_regs<F::kCols / 2>(dk);
     fence_regs<F::kBQ / 4>(pa);
     fence_regs<F::kBQ / 4>(pl);
     fence_regs<F::kBQ / 4>(da);
@@ -1246,15 +1309,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
   const long long half =
       static_cast<long long>(p.B) * p.Skv * p.Hq * HD;  // dK's, then dV's
+  // the columns this warpgroup stores: not the zero padding at hd 96
+  constexpr int kStored = F::kCols < HD ? F::kCols : HD;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = row + 8 * hh;
     if (r >= p.Skv) continue;
     float* pk = p.part +
                 ((static_cast<long long>(b) * p.Skv + r) * p.Hq + h) * HD +
-                2 * (lane % 4);
+                col0 + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < kStored / 8; ++j) {
       const int i = 4 * j + 2 * hh;
       *reinterpret_cast<float2*>(pk + 8 * j) =
           make_float2(p.scale * dk[i], p.scale * dk[i + 1]);
@@ -1298,6 +1363,17 @@ __global__ void __launch_bounds__(256)
     }
   }
 }
+
+// Every tensor-core kernel's shared memory within a CTA's 227 KiB; at hd
+// 256 the forward takes 197,672 bytes, dQ 230,968 and dK/dV 198,728.
+template <int HD>
+constexpr bool tc_fits() {
+  return FwdTc<HD>::kSmem <= kMaxSmem && DqTc<HD>::kSmem <= kMaxSmem &&
+         DkvTc<HD>::kSmem <= kMaxSmem;
+}
+static_assert(tc_fits<64>() && tc_fits<96>() && tc_fits<128>() &&
+                  tc_fits<256>(),
+              "tensor-core tiles within a CTA's shared memory");
 
 // ------------------------------------------------------------------ launch
 
@@ -1397,11 +1473,48 @@ int tc_backward(BwdArgs a, __nv_bfloat16* dk, __nv_bfloat16* dv, int Hkv,
 }
 
 // The path by dtype and hd alone, never B, S or the heads: the tensor
-// cores for bf16 at hd 64 and 128, the FMA kernels for the rest
+// cores for bf16 at hd 64, 96, 128 and 256, the FMA kernels for the rest
 // (kernels/flash_attention.py choose_path states the same rule, to count
 // the calls by path and to allocate the backward's partials).
 bool tensor_core_path(int dtype, int hd) {
-  return dtype == kBF16 && (hd == 64 || hd == 128);
+  return dtype == kBF16 && (hd == 64 || hd == 96 || hd == 128 || hd == 256);
+}
+
+// Seven ints of one tensor-core kernel at out: dynamic shared memory bytes,
+// rows a CTA owns, rows a stage brings, stages, registers a thread at
+// launch (setmaxnreg moves them later), local (spill) bytes a thread and
+// resident CTAs an SM, as the CUDA runtime reports them on this card.
+template <typename K>
+cudaError_t info_of(K kernel, int smem, int rows, int stage_rows, int stages,
+                    int* out) {
+  cudaError_t err = raise_smem(kernel, smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                        kTcThreads, smem);
+  if (err != cudaSuccess) return err;
+  const int row[7] = {smem, rows, stage_rows, stages, attr.numRegs,
+                      static_cast<int>(attr.localSizeBytes), ctas};
+  for (int i = 0; i < 7; ++i) out[i] = row[i];
+  return cudaSuccess;
+}
+
+template <int HD>
+cudaError_t tc_info(int* out) {
+  using F = FwdTc<HD>;
+  using Q = DqTc<HD>;
+  using K = DkvTc<HD>;
+  cudaError_t err = info_of(repro_flash_tc_fwd<HD>, F::kSmem, F::kBQ,
+                            F::kBKV, F::kStages, out);
+  if (err == cudaSuccess)
+    err = info_of(repro_flash_tc_dq<HD>, Q::kSmem, Q::kBQ, Q::kBKV,
+                  Q::kStages, out + 7);
+  if (err == cudaSuccess)
+    err = info_of(repro_flash_tc_dkv<HD>, K::kSmem, K::kBKV, K::kBQ,
+                  K::kStages, out + 14);
+  return err;
 }
 
 TcTensor tc_tensor(const void* ptr, const long long* st, int rows, int heads,
@@ -1443,7 +1556,12 @@ extern "C" int repro_flash_fwd(const void* q, const long long* q_st,
     a.group = Hq / Hkv;
     a.causal = causal;
     a.scale = scale;
-    return hd == 64 ? tc_forward<64>(a, st) : tc_forward<128>(a, st);
+    switch (hd) {
+      case 64: return tc_forward<64>(a, st);
+      case 96: return tc_forward<96>(a, st);
+      case 128: return tc_forward<128>(a, st);
+      default: return tc_forward<256>(a, st);
+    }
   }
   Problem p{};
   p.q = tensor4(q, q_st);
@@ -1500,8 +1618,12 @@ extern "C" int repro_flash_bwd(const void* q, const long long* q_st,
     a.scale = scale;
     auto* dk16 = static_cast<__nv_bfloat16*>(dk);
     auto* dv16 = static_cast<__nv_bfloat16*>(dv);
-    return hd == 64 ? tc_backward<64>(a, dk16, dv16, Hkv, st)
-                    : tc_backward<128>(a, dk16, dv16, Hkv, st);
+    switch (hd) {
+      case 64: return tc_backward<64>(a, dk16, dv16, Hkv, st);
+      case 96: return tc_backward<96>(a, dk16, dv16, Hkv, st);
+      case 128: return tc_backward<128>(a, dk16, dv16, Hkv, st);
+      default: return tc_backward<256>(a, dk16, dv16, Hkv, st);
+    }
   }
   Problem p{};
   p.q = tensor4(q, q_st);
@@ -1523,4 +1645,17 @@ extern "C" int repro_flash_bwd(const void* q, const long long* q_st,
   p.scale = scale;
   p.stream = st;
   return static_cast<int>(dispatch<true>(p, dtype, hd));
+}
+
+// The tensor-core kernels at head dim hd (64, 96, 128 or 256): seven ints
+// each (info_of) for the forward, dQ and dK/dV, 21 in all.  Returns a
+// cudaError_t.
+extern "C" int repro_flash_tc_info(int hd, int* out) {
+  switch (hd) {
+    case 64: return static_cast<int>(tc_info<64>(out));
+    case 96: return static_cast<int>(tc_info<96>(out));
+    case 128: return static_cast<int>(tc_info<128>(out));
+    case 256: return static_cast<int>(tc_info<256>(out));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -12,12 +12,14 @@ kernels too.  Their plain PyTorch versions are
 says what bounds them on an H100.
 
 Two paths, picked by ``choose_path`` from the dtype and head dim alone
-(never B, S or the heads): bf16 at hd 64 and 128 runs the tensor-core
-kernels (wgmma fed by TMA; the backward's dK/dV per query head, summed per
-kv head in a fixed order), fp32 and bf16 at hd 16, 32, 96 and 256 the FMA
-kernels.  Both directions take every head dim (``BWD_HEAD_DIMS`` is
-``HEAD_DIMS``); at hd 256 the FMA backward works on 32-row kv tiles, so
-that its shared memory fits a CTA.
+(never B, S or the heads): bf16 at hd 64, 96, 128 and 256 runs the
+tensor-core kernels (wgmma fed by TMA; the backward's dK/dV per query
+head, summed per kv head in a fixed order; hd 96 on the hd-128 tiles with
+32 zero columns, hd 256 on 64-row kv stages in the forward, 32-row ones in
+dQ, and dK/dV split by hd halves between the two consumer warpgroups),
+fp32 and bf16 at hd 16 and 32 the FMA kernels.  Both directions take every
+head dim (``BWD_HEAD_DIMS`` is ``HEAD_DIMS``); at hd 256 the FMA (fp32)
+backward works on 32-row kv tiles, so that its shared memory fits a CTA.
 
 ``flash_attention_fwd_cuda`` and ``flash_attention_bwd_cuda`` are the only
 places the kernels are launched.  Each checks what the kernels take and
@@ -48,7 +50,7 @@ from repro_torch.kernels.ref import (
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)  # hd the forward is instantiated for
 BWD_HEAD_DIMS = HEAD_DIMS  # hd the backward is instantiated for
-TC_HEAD_DIMS = (64, 128)  # hd of the tensor-core kernels (bf16)
+TC_HEAD_DIMS = (64, 96, 128, 256)  # hd of the tensor-core kernels (bf16)
 PATHS = ("tensor_core", "fma")
 _BWD_GRIDS = {"fma": 2, "tensor_core": 3}
 _MAX_GRID_YZ = 65535
@@ -80,8 +82,8 @@ LAUNCHES = LaunchCounter()
 
 def choose_path(dtype: torch.dtype, hd: int) -> str:
     """The kernel path for operands of this dtype and head dim:
-    ``tensor_core`` for bf16 at hd 64 and 128, ``fma`` for fp32 and for
-    bf16 at hd 16, 32, 96 and 256.  A function of these two alone: never
+    ``tensor_core`` for bf16 at hd 64, 96, 128 and 256, ``fma`` for fp32
+    and for bf16 at hd 16 and 32.  A function of these two alone: never
     of B, S or the number of heads.  The kernels' entry points apply the
     same rule themselves (``tensor_core_path`` in ``flash_attention.cu``);
     here it counts the calls by path and sizes the backward's scratch."""
@@ -137,6 +139,28 @@ def _functions():
                         i, i, i, i, i, i, f, i, i, p]
         bwd.restype = ctypes.c_int
     return fwd, bwd
+
+
+TC_INFO_KERNELS = ("forward", "dq", "dkv")
+TC_INFO_KEYS = ("smem_bytes", "cta_rows", "stage_rows", "stages",
+                "registers", "local_bytes", "ctas_per_sm")
+
+
+def tc_kernel_info(hd: int) -> dict:
+    """The tensor-core kernels at head dim ``hd`` (``TC_HEAD_DIMS``), by
+    kernel: dynamic shared memory, the rows a CTA owns (query rows; kv rows
+    for dK/dV) and a stage brings, stages, registers a thread at launch,
+    local (spill) bytes a thread and resident CTAs an SM, as the CUDA
+    runtime reports them on the current card."""
+    if hd not in TC_HEAD_DIMS:
+        raise ValueError(f"no tensor-core flash kernel at head dim {hd}")
+    out = (ctypes.c_int * (len(TC_INFO_KERNELS) * len(TC_INFO_KEYS)))()
+    err = build.load("flash_attention").repro_flash_tc_info(hd, out)
+    if err != 0:
+        raise RuntimeError(f"flash kernel info failed: cudaError {err}")
+    n = len(TC_INFO_KEYS)
+    return {name: dict(zip(TC_INFO_KEYS, out[n * i:n * i + n]))
+            for i, name in enumerate(TC_INFO_KERNELS)}
 
 
 def _strides(t: torch.Tensor):

@@ -26,7 +26,8 @@ window 8, in the reference's period-scan layout).
 * (MoE and the VLM backbone: tests/test_torch_moe.py and
   tests/test_torch_vlm.py; encoder-decoder: tests/test_torch_encdec.py);
 * on a card only (``cuda`` marker): the flash forward and backward at hd
-  96 and 256 against their plain versions, on the FMA path.
+  96 and 256 against their plain versions, bf16 on the tensor cores and
+  fp32 on the FMA path.
 """
 
 import dataclasses
@@ -474,11 +475,12 @@ def test_slot_surgery_on_ring_buffers_and_rglru_state():
                          ids=lambda s: "x".join(map(str, s)))
 def test_flash_forward_new_head_dims_on_card(shape, dtype):
     """phi3's MHA at hd 96 and gemma's MQA at hd 256: the forward kernel
-    (FMA path) against its plain version, fp32 within 2e-3 x max|plain|,
-    bf16 element by element within 8e-3 x its row's max|plain| + 1e-5 x
-    max|plain| (chip_smoke.py phase 7's rule); the backward kernel (FMA
-    path, fed the plain forward's output and lse) against the plain
-    backward by the same rule."""
+    (bf16 on the tensor cores, fp32 on the FMA path) against its plain
+    version, fp32 within 2e-3 x max|plain|, bf16 element by element within
+    8e-3 x its row's max|plain| + 1e-5 x max|plain| (chip_smoke.py phase
+    7's rule); the backward kernel (on the same path, fed the plain
+    forward's output and lse) against the plain backward by the same
+    rule."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA); on a card run `python -m "
                     "pytest --noconftest -m cuda "
@@ -488,14 +490,15 @@ def test_flash_forward_new_head_dims_on_card(shape, dtype):
     gen = torch.Generator(device="cuda").manual_seed(hd)
     q, k, v, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda")
                    .to(dt) for h in (hq, hkv, hkv, hq))
-    assert fa.choose_path(dt, hd) == "fma"
-    before = fa.LAUNCHES.by_path["fma"]
+    path = "tensor_core" if dt == torch.bfloat16 else "fma"
+    assert fa.choose_path(dt, hd) == path
+    before = fa.LAUNCHES.by_path[path]
     o, lse = fa.flash_attention_fwd_cuda(q, k, v)
     o_p, lse_p = kref.flash_attention_fwd_plain(q, k, v)
     grads = fa.flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do)
     grads_p = kref.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES.by_path["fma"] == before + 2
+    assert fa.LAUNCHES.by_path[path] == before + 2
     for got, want in ((o, o_p), (lse, lse_p), *zip(grads, grads_p)):
         diff = (got.float() - want.float()).abs()
         mag = want.float().abs()

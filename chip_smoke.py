@@ -48,7 +48,10 @@ Phases, one report line each (any failure exits non-zero):
      kernel), captured and replayed through the kernel,
      through the plain version and, where one torch.matmul computes the
      call, through it (held against each other, timed with
-     torch.profiler), and one calibration of the hardware spec;
+     torch.profiler), and one calibration of the hardware spec; phase
+     5's trace again at 4 of the 22 layers (CUT_LAYERS), static and
+     continuous, token-identical, its host syncs the whole model's: the
+     anchor phases 15-17 hold their tokens and host syncs to;
   6. card against CPU in fp32: one batched prefill + 4 decode steps;
   7. flash: the flash-attention kernels, forward and backward, against
      their plain versions (and the forward against flash_attention_ref;
@@ -73,7 +76,7 @@ Phases, one report line each (any failure exits non-zero):
      four operands copied, hd 96's zero columns written by the producer)
      against the plain versions;
   8. train-parity: one make_train_step of full-width tinyllama-1.1b cut to
-     2 layers, fp32, batch 2 x 256, on the card and on the CPU from the
+     2 layers, fp32, batch 2 x 128, on the card and on the CPU from the
      same parameters and batch: the loss within 1e-4 relative, every
      parameter's gradient present and within 2e-3 x max|grad| leaf by leaf;
   9. train: every distinct matmul call (shapes, strides, dtypes,
@@ -102,12 +105,14 @@ Phases, one report line each (any failure exits non-zero):
      kernel (state pass against the per-chunk kernel);
  11. rwkv card against CPU in fp32 (2 layers, full width): prefill logits
      (the WKV kernel) and token-by-token decode_step logits;
- 12. rwkv serving: Runtime.serve of full-width, full-depth rwkv6-3b in bf16
-     (random weights, seed 0), static and continuous, token identity,
+ 12. rwkv serving: Runtime.serve of full-width rwkv6-3b, 8 of 32 layers
+     (RWKV_SERVE_LAYERS), in bf16
+     (random weights, seed 0; phase 5's trace cut to 16 new tokens a
+     request, SHORT_NEW), static and continuous, token identity,
      tok/s, host syncs per token, the matmul kernel's launches by path,
      one decode step's routing checked and profiled by path;
  13. rwkv train-parity: one make_train_step of full-width rwkv6-3b cut to
-     2 layers, fp32, batch 2 x 256, card against CPU: the loss within 1e-4
+     2 layers, fp32, batch 2 x 128, card against CPU: the loss within 1e-4
      relative, all 47 gradients present and within 2e-3 x max|grad|;
  14. rwkv train: Runtime.train of full-width, full-depth rwkv6-3b in bf16
      for 4 steps at batch 2 x 2048 (no checkpoint): every loss finite, the
@@ -116,15 +121,15 @@ Phases, one report line each (any failure exits non-zero):
      and one profiled step (device busy share, device ms by kernel, matmul
      path and WKV kernel, every call's routing checked, no library GEMM
      kernel);
- 15. paged serving: Runtime.serve of full-width tinyllama-1.1b (bf16,
-     seed 0) with paged=True, pages of 16 tokens: P1, phase 5's trace
+ 15. paged serving: Runtime.serve of full-width tinyllama-1.1b at 4 of its
+     22 layers (CUT_LAYERS; bf16, seed 0) with paged=True, pages of 16 tokens: P1, phase 5's trace
      with K and the prefill chunk pinned, paged (default kv_blocks) beside
      dense and streamed: tokens equal phase 5's, host syncs equal the
      dense run's and the counts the engine made before it had the
      request lifecycle (10 host syncs, 54-55 synchronizing CUDA calls), the stream carries the outputs, the matmul kernel's
      launches counted from 0; the odd row, phase 5's trace at a max_len of
      101 (not a multiple of the page: 7 pages gather 112 positions),
-     static, dense and paged token-identical; P2, 16 requests of 320 + 32
+     static, dense and paged token-identical; P2, 16 requests of 320 + 16
      tokens sharing a 264-token prefix, static, dense, paged with
      prefix_cache="force"
      and "auto": token-identical, the forced run prefilling at most half
@@ -134,7 +139,8 @@ Phases, one report line each (any failure exits non-zero):
      indexing kernels, launches); rwkv6-3b (full width, 4 layers) paged
      == dense == static with prefix reuse off; examples/torch_quickstart.py
      on the card;
- 16. the request lifecycle: full-width tinyllama-1.1b (bf16, seed 0, 4
+ 16. the request lifecycle: full-width tinyllama-1.1b at 4 layers (bf16,
+     seed 0, 4
      slots, phase 5's trace and max_len), dense and paged (pages of 16),
      on a virtual clock that advances per read: phase 5's serve again with
      its tokens and host syncs, no thread started and no serve_admit
@@ -147,7 +153,8 @@ Phases, one report line each (any failure exits non-zero):
      tokens, raise at the prefill site, nan failing exactly the poisoned
      request, exhausted retries failing what is in flight, a fatal fault
      propagating with the paged BlockPool empty), each followed by phase
-     5's trace on the same engine with equal tokens; the guarded step on
+     5's trace (its 8 requests cut to 16 new tokens) on the same engine
+     with equal tokens; the guarded step on
      a worker thread with the direct step's matmul launches by path, the
      caller's stream and no autograd graph; a step abandoned by the
      watchdog that later writes into the pools it captured, which the
@@ -159,7 +166,8 @@ Phases, one report line each (any failure exits non-zero):
      on a calibrated runtime, rwkv6-3b (4 layers) raise (gated) and
      preemption drills; the serve, serve_macro and serve_admit ledger
      rows go to the JSON record;
- 17. the multi-process front end: full-width tinyllama-1.1b (bf16, seed
+ 17. the multi-process front end: full-width tinyllama-1.1b at 4 layers
+     (bf16, seed
      0, 4 slots, phase 5's trace and max_len) through Runtime(device=
      "cuda").serve(..., frontend=2, pin=True, stream=True), dense and
      paged (pages of 16): tokens equal phase 5's, texts the engine's
@@ -183,10 +191,12 @@ Phases, one report line each (any failure exits non-zero):
      the front end.  The calling thread's CPU mask is restored after it;
  18. the dense and hybrid families: Runtime(device="cuda").serve of
      mistral-nemo-12b, phi3-mini-3.8b, gemma-2b and recurrentgemma-2b at
-     full width and depth (bf16, seed 0, phase 5's trace, 4 slots), static
+     full width, 8, 8, 6 and 6 layers (FAMILY_SERVE_LAYERS; bf16, seed 0,
+     phase 5's trace cut to 16 new
+     tokens a request, SHORT_NEW, 4 slots), static
      and continuous (recurrentgemma also paged, pages of 16): tokens equal,
      tok/s, host syncs per token, the matmul kernel's launches by path
-     counted from 0 before each run; Model.prefill of 4 x 64 at full depth
+     counted from 0 before each run; Model.prefill of 4 x 64 at that depth
      in bf16 (flash forward calls by path counted from 0 before it, one
      per full-attention layer); one call of every matmul signature the
      serves and that prefill ran (shapes, strides, dtypes, epilogue)
@@ -203,8 +213,8 @@ Phases, one report line each (any failure exits non-zero):
      (1, 2048, 8, 1, 256) in bf16 and fp32 against its plain version on
      the path choose_path names, timed beside it, SDPA and the bound;
  19. the mixture-of-experts family and the VLM backbone: as phase 18,
-     moonshot-v1-16b-a3b at full width and depth (48 layers, 56.1 GB),
-     qwen3-moe-235b-a22b (10 of 94 layers) and qwen2-vl-72b (28 of 80,
+     moonshot-v1-16b-a3b (8 of 48 layers), qwen3-moe-235b-a22b (2 of 94)
+     and qwen2-vl-72b (4 of 80,
      M-RoPE with the text-only positions) at full width, bf16, each freed
      before the next is built: served static and continuous, tokens equal;
      Model.prefill 4 x 64 (one tensor-core flash forward a layer); every
@@ -221,7 +231,8 @@ Phases, one report line each (any failure exits non-zero):
      positions;
  20. the encoder-decoder family: seamless-m4t-medium at full width and
      depth (12 + 12 layers, vocab 256,206, bf16, seed 0): served static
-     and continuous on phase 5's trace (4 slots), tokens equal, tok/s,
+     and continuous on phase 5's trace cut to 16 new tokens (4 slots),
+     tokens equal, tok/s,
      host syncs per token, the matmul kernel's launches by path counted
      from 0 before each run; Model.prefill 4 x 64 with frames (36
      tensor-core flash forwards: 12 encoder and 12 cross non-causal, 12
@@ -233,8 +244,8 @@ Phases, one report line each (any failure exits non-zero):
      operands a tensor map loads recorded (the unembedding's gradient
      products step rows of 256,206 elements, which no tensor map takes),
      timed beside torch.matmul; Runtime.train 4 steps at 2 x 2048 with
-     frames (every loss finite; tokens/s, peak memory, launches a step,
-     a checkpoint written) and a fixed batch whose loss falls, one step
+     frames (every loss finite; tokens/s, peak memory, launches a step;
+     no checkpoint, which phase 9 writes) and a fixed batch whose loss falls, one step
      profiled (busy share, device ms by kernel, flash calls by direction,
      mode and path as the wrapper counts them where the kernels launch:
      encoder and cross non-causal, decoder causal, all tensor core; no
@@ -246,9 +257,10 @@ Phases, one report line each (any failure exits non-zero):
      (mistral-nemo-12b, phi3-mini-3.8b, gemma-2b, recurrentgemma-2b,
      moonshot-v1-16b-a3b, qwen3-moe-235b-a22b, qwen2-vl-72b), each built
      and freed before the next: card against CPU in fp32 at full width, 2
-     layers (qwen3-moe 1, recurrentgemma one period with its window cut
-     to RING_WINDOW, once at 2 x 256 through local_attention and once at
-     2 x 128 through the masked dense form), batch 2 x 256: one gradient
+     layers (qwen3-moe and qwen2-vl 1, recurrentgemma one period with its
+     window cut to RING_WINDOW, once at 2 x 256 through local_attention
+     and once at 2 x 128 through the masked dense form), batch 2 x 64:
+     one gradient
      and one make_train_step on the card, then one gradient on the CPU,
      the loss within 1e-4 relative, every gradient within 2e-3 x
      max|grad|, no selected expert flipped; every distinct matmul call of
@@ -264,8 +276,28 @@ Phases, one report line each (any failure exits non-zero):
      operand copied), every tensor-core matmul operand on a tensor map,
      peak memory; one step profiled (its matmul calls each on their
      dtypes' path, device ms by kernel, no library GEMM or attention
-     kernel); for the three whole models a fixed batch whose loss falls.
-     Before each of phases 2-21, gc.collect(): a gen-2 collection of this
+     kernel); for the three whole models a fixed batch whose loss falls;
+ 22. the kernel autotuner (autotune_phase): Runtime(RuntimeConfig(
+     autotune=True, cache_dir=build/autotune_smoke)) tunes by measurement
+     every distinct (path, N, K) of full-width tinyllama-1.1b's decode step
+     and bf16 training step (the matmul's tile, 64 or 128, timed at M =
+     2048 and at the decode step's 4 rows), WKV's chunk at rwkv6-3b's
+     training shape (2, 2048, 40, 64) in bf16 with a gradient, and the sort's tile and group at 10^5, 10^6
+     and 2^26 fp32 (the candidate builds made together first); every
+     candidate's output held against the prior's (the sort bit for bit),
+     none failing; each kernel module's shared-memory formula against the
+     runtime's report; phase 5's trace served static and continuous under
+     the tuned tiles (tokens equal, and equal to phase 5's); the decode step's
+     wall and matmul device ms with prior-only and tuned tiles in turns,
+     and the host cost of a lookup; Runtime.train 3 steps at 2 x 2048
+     with the tuned tiles and with the prior-only ones (tuned, prior,
+     tuned); phase 2's batch-invariance gate with every
+     product at each tile the tuner chose; two site=autotune ledger rows
+     a measured tune; a second Runtime on the same cache measuring nothing
+     and returning the same configs; a repeat tune from an empty cache
+     (which configs move, recorded).  The kernels line gains each
+     kernel's tuned configs.
+     Before each of phases 2-22, gc.collect(): a gen-2 collection of this
      script's heap took 0.2-0.75 s inside a timed step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
@@ -296,8 +328,17 @@ BF16_TOL = 8e-3      # x max|plain|: about one bf16 rounding
 F32_TOL = 1e-5       # x max|plain|
 CHAIN_TOL = 1e-4     # x max|left-to-right product|: fp32, another order
 PROMPT, MAX_NEW, SLOTS, REQUESTS = 64, 32, 4, 8
+# new tokens a request in the serves whose tokens nothing holds against
+# phase 5's (rwkv6-3b in phase 12, phase 15's P2, the families of phases
+# 18-20), to keep the script within its time limit on a slower host
+SHORT_NEW = 16
+# the batch of the card-against-CPU training checks: 2 x PARITY_SEQ tokens
+# in phases 8 and 13 (rwkv6-3b's two WKV chunks of 64), 2 x
+# FAMILY_TRAIN_CPU_SEQ in phase 21 (recurrentgemma's cases their own)
+PARITY_SEQ = 128
 # phase 15: pages of 16 tokens; P2 is system-prompt traffic, 16 requests of
-# 320 prompt tokens opening with one 264-token prefix (16.5 pages, so a
+# 320 prompt tokens (and SHORT_NEW new ones) opening with one 264-token
+# prefix (16.5 pages, so a
 # partial tail page is copied on write); P1 pins the horizon K and the
 # prefill chunk, so its host syncs compare with the dense run's
 PAGE = 16
@@ -414,16 +455,29 @@ SORT_SHAPES = [((1000,), "float32"), ((1100,), "float32"),
                ((1 << 26,), "float32"), ((1 << 24,), "int32"),
                ((4096, 4096), "float32"), ((8, 100), "float32")]
 SORT_MAIN_NS = (2000, 1 << 26)  # distributed_sort's runs
-# phase 18: the dense and hybrid families served at full width and depth,
-# in the order of the port's roadmap (cheapest first)
+# The serving checks other than phase 5's run at full width, their depth
+# cut: a decode step is host-bound, launched a layer at a time, so the
+# depth sets the wall, and the script must end within the chip check's
+# 1,200 s on card machines whose hosts differ by 1.6x in a decode step's
+# wall.  Phases 15-17 (paging, the request lifecycle, the front end)
+# serve tinyllama-1.1b at CUT_LAYERS of its 22 layers, held to phase 5's
+# trace served at that depth (phase 5's anchor run); phase 12 serves
+# rwkv6-3b at RWKV_SERVE_LAYERS of 32.  PERF.md keeps the runs that
+# served them whole.
+CUT_LAYERS = 4
+RWKV_SERVE_LAYERS = 8
+# phase 18: the dense and hybrid families served at full width, in the
+# order of the port's roadmap (cheapest first), at these depths (of 40,
+# 32, 18 and 26; recurrentgemma two periods of its pattern)
 FAMILIES = ("mistral-nemo-12b", "phi3-mini-3.8b", "gemma-2b",
             "recurrentgemma-2b")
+FAMILY_SERVE_LAYERS = {"mistral-nemo-12b": 8, "phi3-mini-3.8b": 8,
+                       "gemma-2b": 6, "recurrentgemma-2b": 6}
 # phase 19: the mixture-of-experts family and the VLM backbone at full
-# width, served at the depth one 80 GB card holds in bf16 (None: all of
-# it): moonshot 56.1 GB whole; a qwen3-moe layer is 4.98 GB, a qwen2-vl
-# layer 1.76 GB
-MOE_VLM = (("moonshot-v1-16b-a3b", None), ("qwen3-moe-235b-a22b", 10),
-           ("qwen2-vl-72b", 28))
+# width, served at these depths (of 48, 94 and 80; one 80 GB card holds
+# moonshot whole, 56.1 GB, and 10 qwen3-moe layers of 4.98 GB)
+MOE_VLM = (("moonshot-v1-16b-a3b", 8), ("qwen3-moe-235b-a22b", 2),
+           ("qwen2-vl-72b", 4))
 # their card-against-CPU depths in fp32, each CPU copy under about 20 GB
 MOE_VLM_CPU_LAYERS = {"moonshot-v1-16b-a3b": 2, "qwen3-moe-235b-a22b": 1,
                       "qwen2-vl-72b": 2}
@@ -452,12 +506,15 @@ FAMILY_TRAIN = (("mistral-nemo-12b", 15), ("phi3-mini-3.8b", None),
 # CUDA context, the allocator's reserved but free blocks, the profiler's
 # buffers)
 TRAIN_PEAK_LIMIT_GB = 76.0
-# their card-against-CPU depths in fp32 (2, recurrentgemma one period):
-# the card holds the step's fp32 weights, gradient and two moments, 16
-# bytes a parameter, qwen2-vl's 4.25 B at 2 layers 68 GB (it fits since
-# the in-place AdamW updates a leaf by blocks of rows, adamw.INPLACE_BLOCK)
-FAMILY_TRAIN_CPU_LAYERS = {"qwen3-moe-235b-a22b": 1, "recurrentgemma-2b": 3}
-FAMILY_TRAIN_CPU_SEQ = 256
+# their card-against-CPU depths in fp32 (2; qwen3-moe and qwen2-vl 1,
+# recurrentgemma one period): the card holds the step's fp32 weights,
+# gradient and two moments, 16 bytes a parameter, qwen2-vl's 4.25 B at 2
+# layers 68 GB (it fits since the in-place AdamW updates a leaf by blocks
+# of rows, adamw.INPLACE_BLOCK); qwen2-vl is cut to 1 layer (3.37 B), its
+# 2.49 B of embedding and unembedding kept, for the script's time limit
+FAMILY_TRAIN_CPU_LAYERS = {"qwen3-moe-235b-a22b": 1, "qwen2-vl-72b": 1,
+                           "recurrentgemma-2b": 3}
+FAMILY_TRAIN_CPU_SEQ = PARITY_SEQ // 2
 # the fixed batch's peak rate for the three whole models.  From their
 # random weights Adam's first steps move every weight by about the rate, a
 # change of about rate x d in a product's output against its scale of 1:
@@ -478,6 +535,39 @@ RING_WINDOW, RING_STREAM = 64, 80
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+class PhaseClock:
+    """Wall seconds of each phase of main(), logged as each ends and kept
+    in the record (``phase_s``): the script must end within the chip
+    check's time limit, and these say where its time goes."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds: dict = {}
+
+    def lap(self, phase: int) -> None:
+        now = time.perf_counter()
+        self.seconds[str(phase)] = now - self.last
+        self.last = now
+        log("clock", f"phase {phase}: {self.seconds[str(phase)]:.1f} s; "
+            f"{now - self.start:.1f} s since main() started; host memory "
+            f"{host_memory()}")
+
+
+def host_memory() -> str:
+    """This process's resident memory (and its peak, where /proc reports
+    it) and the host's total and available memory, in GB: a card machine
+    that runs out of host memory is lost with the run's output."""
+    try:
+        status = Path("/proc/self/status").read_text()
+        info = Path("/proc/meminfo").read_text()
+    except OSError:
+        return "not readable"
+    kb = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"^(VmHWM|VmRSS|MemAvailable|MemTotal):\s+(\d+) kB", status + info,
+        re.M)}
+    return ", ".join(f"{k} {v / 1e6:.1f}" for k, v in kb.items())
 
 
 def cuda_ms(fn, flush, reps: int = 10, warm: int = 2) -> float:
@@ -715,6 +805,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     record: dict = {}
+    clock = PhaseClock()
     dev = torch.device("cuda")
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
 
@@ -828,6 +919,7 @@ def main() -> int:
                   wkv_build=wkv_build)
 
     # ------------------------------------------------------------------ 2
+    clock.lap(1)
     gc.collect()  # now, not as a gen-2 pass inside a timed step
     cfg = get_config("tinyllama-1.1b")
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
@@ -912,6 +1004,7 @@ def main() -> int:
         return 1
 
     # ------------------------------------------------------------------ 3
+    clock.lap(2)
     gc.collect()
     engine = CostEngine()
     paper = []
@@ -969,6 +1062,7 @@ def main() -> int:
                                   left_to_right_ms=ltr_ms)
 
     # ------------------------------------------------------------------ 4
+    clock.lap(3)
     gc.collect()
     sort_rows = []
     for shape, dtype_name in SORT_SHAPES:
@@ -1016,6 +1110,7 @@ def main() -> int:
                                ledger=ledger_rows)
 
     # ------------------------------------------------------------------ 5
+    clock.lap(4)
     gc.collect()
     rt = Runtime(device="cuda")
     model = build_model(cfg, rt.device)
@@ -1065,6 +1160,28 @@ def main() -> int:
     if step is None or not audit.report("serve") or prof["library_gemms"]:
         return 1
     p1_want = {r: np.asarray(v) for r, v in cont.outputs.items()}
+    # the anchor of phases 15-17: phase 5's trace at CUT_LAYERS layers
+    cut_cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    cut_model = build_model(cut_cfg, rt.device)
+    cut_params = cut_model.init(0)
+    cut_runs = {mode: rt.serve(cut_cfg, trace(), mode=mode, model=cut_model,
+                               params=cut_params, slots=SLOTS, eos_id=-1)
+                for mode in ("static", "continuous")}
+    cut_same = all(np.array_equal(cut_runs["static"].outputs[r],
+                                  cut_runs["continuous"].outputs[r])
+                   for r in cut_runs["static"].outputs)
+    cut_syncs = cut_runs["continuous"].report.host_syncs
+    cut_want = {r: np.asarray(v)
+                for r, v in cut_runs["continuous"].outputs.items()}
+    log("serve", f"the anchor of phases 15-17, phase 5's trace at "
+        f"{CUT_LAYERS} of {cfg.n_layers} layers: static "
+        f"{cut_runs['static'].tok_per_s:.1f} tok/s, continuous "
+        f"{cut_runs['continuous'].tok_per_s:.1f} tok/s; static == "
+        f"continuous tokens {cut_same}; host syncs {cut_syncs} (the whole "
+        f"model's {cont.report.host_syncs})")
+    if not cut_same or cut_syncs != cont.report.host_syncs:
+        return 1
+    del cut_runs, cut_model, cut_params
     worst = max(worst, step["max_abs_err"])
     if prof["matmul_ms"] > 0 and step["plain_device_ms"] > 0:
         step.update(ms=prof["matmul_ms"], plain_ms=step["plain_device_ms"],
@@ -1105,6 +1222,7 @@ def main() -> int:
     record["calibration"] = cal.measurements
 
     # ------------------------------------------------------------------ 6
+    clock.lap(5)
     gc.collect()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p_gpu = tree_map(lambda t: t.float(), params)
@@ -1151,6 +1269,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ 7
+    clock.lap(6)
     gc.collect()
     flash_rows = []
     for shape in FLASH_SHAPES + FLASH_NONCAUSAL_SHAPES + FLASH_NEW_HD_SHAPES:
@@ -1168,6 +1287,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ 8
+    clock.lap(7)
     gc.collect()
     parity = train_parity(cfg)
     if parity is None:
@@ -1176,6 +1296,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ 9
+    clock.lap(8)
     gc.collect()
     record["train_matmuls"] = train_matmuls(cfg, ops, ref, flush)
     if record["train_matmuls"] is None:
@@ -1188,6 +1309,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 10
+    clock.lap(9)
     gc.collect()
     wkv_rows = []
     for shape in WKV_SHAPES:
@@ -1200,6 +1322,7 @@ def main() -> int:
     rcfg = get_config("rwkv6-3b")
 
     # ----------------------------------------------------------------- 11
+    clock.lap(10)
     gc.collect()
     record["rwkv_card_vs_cpu"] = rwkv_card_vs_cpu(rcfg, wkv_k)
     if record["rwkv_card_vs_cpu"] is None:
@@ -1207,13 +1330,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 12
+    clock.lap(11)
     gc.collect()
-    record["rwkv_serve"] = rwkv_serve(rcfg, LAUNCHES, wkv_k)
+    record["rwkv_serve"] = rwkv_serve(
+        dataclasses.replace(rcfg, n_layers=RWKV_SERVE_LAYERS), LAUNCHES,
+        wkv_k)
     if record["rwkv_serve"] is None:
         return 1
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 13
+    clock.lap(12)
     gc.collect()
     record["rwkv_train_parity"] = train_parity(rcfg, leaves=47)
     if record["rwkv_train_parity"] is None:
@@ -1221,6 +1348,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 14
+    clock.lap(13)
     gc.collect()
     rtrain = rwkv_train_phase(rcfg, wkv_k, LAUNCHES)
     if rtrain is None:
@@ -1231,8 +1359,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 15
+    clock.lap(14)
     gc.collect()
-    paged = paged_phase(cfg, rcfg, p1_want, LAUNCHES, card,
+    paged = paged_phase(cut_cfg, rcfg, cut_want, LAUNCHES, card,
                         prof["device_events"])
     if paged is None:
         return 1
@@ -1240,17 +1369,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 16
+    clock.lap(15)
     gc.collect()
-    life = lifecycle_phase(cfg, rcfg, p1_want, record["serve"]["host_syncs"],
-                           LAUNCHES, card)
+    life = lifecycle_phase(cut_cfg, rcfg, cut_want, cut_syncs, LAUNCHES,
+                           card)
     if life is None:
         return 1
     record["lifecycle"] = life
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 17
+    clock.lap(16)
     gc.collect()
-    front = frontend_phase(cfg, p1_want, record["serve"]["host_syncs"],
+    front = frontend_phase(cut_cfg, cut_want, cut_syncs,
                            record["calibration"], LAUNCHES, card)
     if front is None:
         return 1
@@ -1258,6 +1389,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- 18
+    clock.lap(17)
     gc.collect()
     families = families_phase(mm, fa, ops, ref, gen, flush, card)
     if families is None:
@@ -1265,6 +1397,7 @@ def main() -> int:
     record["families"] = families
 
     # ----------------------------------------------------------------- 19
+    clock.lap(18)
     gc.collect()
     del flush  # 512 MiB back for qwen3-moe's 52 GB
     torch.cuda.empty_cache()
@@ -1274,6 +1407,7 @@ def main() -> int:
     record["moe_vlm"] = moe_vlm
 
     # ----------------------------------------------------------------- 20
+    clock.lap(19)
     gc.collect()
     torch.cuda.empty_cache()
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
@@ -1285,6 +1419,7 @@ def main() -> int:
     new_hd = [r for r in flash_rows if r["shape"][4] in (96, 256)]
 
     # ----------------------------------------------------------------- 21
+    clock.lap(20)
     gc.collect()
     del flush  # 512 MiB back for the deepest cut each model takes
     torch.cuda.empty_cache()
@@ -1293,7 +1428,24 @@ def main() -> int:
         return 1
     record["family_train"] = family_train
 
+    # ----------------------------------------------------------------- 22
+    clock.lap(21)
+    gc.collect()
+    torch.cuda.empty_cache()
+    autotune = autotune_phase(cfg, p1_want, card)
+    if autotune is None:
+        return 1
+    record["autotune"] = autotune
+
+    def tuned(family):
+        """Phase 22's tuned configs of one kernel family."""
+        return [{k: r[k] for k in ("key", "source", "prior", "tuned",
+                                   "prior_ms", "tuned_ms")}
+                for r in autotune["results"] if r["family"] == family]
+
     # ---------------------------------------------------------------- out
+    clock.lap(22)
+    record["phase_s"] = clock.seconds
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -1323,9 +1475,9 @@ def main() -> int:
             arch: {mode: n["count"] for mode, n in
                    rec["matmul_launches"].items()}
             for arch, rec in families["serve"].items()},
-        # phase 19's serves of moonshot (48 layers), qwen3-moe (10) and
-        # qwen2-vl (28), static and continuous, each counted from 0 just
-        # before it
+        # phase 19's serves of moonshot, qwen3-moe and qwen2-vl at the
+        # depths MOE_VLM gives, static and continuous, each counted from 0
+        # just before it
         "launches_moe_vlm_serve": {
             arch: {mode: n["count"] for mode, n in
                    rec["matmul_launches"].items()}
@@ -1357,6 +1509,9 @@ def main() -> int:
         # torch.matmul beside every plain product of phase 2 and summed
         # over the step's calls that one torch.matmul computes
         "library_ms": None,
+        # phase 22: the tile of every (path, N, K) of tinyllama-1.1b's
+        # decode and training steps, measured at M = 2048
+        "tuned": tuned("matmul"),
     }, {
         "name": "bitonic_sort", "route": "cuda",
         "design": f"block passes on tiles of "
@@ -1376,6 +1531,8 @@ def main() -> int:
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
         "library_ms": big["library_ms"],
+        # phase 22: the tile and group at 10^5, 10^6 and 2^26 fp32
+        "tuned": tuned("sort"),
     }, {
         "name": "flash_attention", "route": "cuda",
         "design": "wgmma bf16 tensor cores fed by TMA, P and dS split into "
@@ -1389,7 +1546,8 @@ def main() -> int:
         # in its recomputation) and backward (each layer)
         "launches": train["flash_calls_per_step"],
         # phase 18: forward calls by path in each family's Model.prefill
-        # at full width and depth in bf16 (SLOTS x PROMPT), counted from 0
+        # at full width and its served depth in bf16 (SLOTS x PROMPT),
+        # counted from 0
         # just before it, and the forward at hd 96 and 256 beside its
         # plain version, SDPA and its bound
         "launches_families_prefill": {
@@ -1480,6 +1638,8 @@ def main() -> int:
         # no PyTorch call computes the WKV6 recurrence; the packages that
         # do are packages of finished kernels
         "library_ms": None,
+        # phase 22: the chunk at rwkv6-3b's training shape, with a gradient
+        "tuned": tuned("wkv"),
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2134,7 +2294,7 @@ def train_parity(cfg, leaves=None):
 
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     loop = TrainLoopConfig(warmup_steps=1, total_steps=4)
-    batch = SyntheticLMData(cfg2, seq_len=256, global_batch=2,
+    batch = SyntheticLMData(cfg2, seq_len=PARITY_SEQ, global_batch=2,
                             seed=0).batch_at(0)
     out = {}
     state = None
@@ -2170,7 +2330,7 @@ def train_parity(cfg, leaves=None):
         if top > 0 and err / top >= worst:
             worst, worst_leaf = err / top, path
     log("train-parity", f"{cfg.name} full width, 2 layers, fp32, batch "
-        f"2 x 256: loss card {gpu['step_loss']:.6f}, cpu "
+        f"2 x {PARITY_SEQ}: loss card {gpu['step_loss']:.6f}, cpu "
         f"{cpu['step_loss']:.6f} (rel {rel:.2e}, limit 1e-4); "
         f"{len(cpu['grads'])} gradients on the card, worst leaf {worst_leaf}"
         f" at {worst:.2e} x max|grad| (limit 2e-3); card {gpu['s']:.2f} s, "
@@ -2232,8 +2392,8 @@ def train_matmuls(cfg, ops, ref, flush, label="backward"):
                             seed=0, device="cuda").batch_at(0)
     rows, failed, launch = {}, [], ops._matmul
 
-    def checking(a, b, bias, activation, out_dtype):
-        out = launch(a, b, bias, activation, out_dtype)
+    def checking(a, b, bias, activation, out_dtype, tuner=None):
+        out = launch(a, b, bias, activation, out_dtype, tuner)
         key = (tuple(a.shape), a.stride(), str(a.dtype), tuple(b.shape),
                b.stride(), str(b.dtype), bias is not None, activation,
                str(out_dtype))
@@ -2319,9 +2479,10 @@ def train_phase(cfg, fa, mm_launches, label="train", ckpt=True,
     path its dtype and head dim name, on tensor maps; a decoder-only
     model's 2 forward calls, one in the recomputation, and 1 backward a
     full-attention layer), tokens/s, peak memory and the plan.  With
-    ``ckpt`` a checkpoint is written, checked and deleted; phase 21 runs
-    without, since a 4-5 B-parameter state with its moments (about 60 GB)
-    would take minutes to write.  Then, with ``fixed_batch``, a 4-step run
+    ``ckpt`` a checkpoint is written, checked and deleted (phase 9 only:
+    the write is the host's disk time, which varies from host to host, and
+    phase 21's 4-5 B-parameter states with their moments, about 60 GB,
+    would take minutes).  Then, with ``fixed_batch``, a 4-step run
     on one fixed batch at a peak rate of ``fixed_lr`` whose loss must fall,
     every step timed (without, Runtime.train's steps 1-3 give the wall).
     One step is profiled (its matmul calls each on their dtypes' path, its
@@ -2835,8 +2996,9 @@ def rwkv_card_vs_cpu(cfg, wkv_k):
 
 
 def rwkv_serve(cfg, mm_launches, wkv_k):
-    """Runtime.serve of full-width, full-depth rwkv6-3b in bf16 (random
-    weights, seed 0), static and continuous: identical tokens, the matmul
+    """Runtime.serve of full-width rwkv6-3b in bf16 at the depth ``cfg``
+    gives (random weights, seed 0; phase 5's trace cut to SHORT_NEW new
+    tokens a request), static and continuous: identical tokens, the matmul
     kernel launched, no WKV kernel (serving decodes through wkv_step);
     tok/s, host syncs per token and one profiled decode step.  None on a
     failure."""
@@ -2849,7 +3011,7 @@ def rwkv_serve(cfg, mm_launches, wkv_k):
     model = build_model(cfg, rt.device)
     params = model.init(0)
     trace = lambda: synthetic_trace(  # noqa: E731
-        REQUESTS, prompt_len=PROMPT, max_new=MAX_NEW,
+        REQUESTS, prompt_len=PROMPT, max_new=SHORT_NEW,
         vocab_size=cfg.vocab_size, arrival="all", seed=0)
     torch.cuda.synchronize()
     mm_launches.reset()
@@ -2864,7 +3026,7 @@ def rwkv_serve(cfg, mm_launches, wkv_k):
                for r in static.outputs)
     ntok = sum(len(v) for v in cont.outputs.values())
     log("rwkv-serve", f"rwkv6-3b full width ({cfg.n_layers} layers) bf16, "
-        f"{REQUESTS} requests x {PROMPT}+{MAX_NEW} tokens, {SLOTS} slots: "
+        f"{REQUESTS} requests x {PROMPT}+{SHORT_NEW} tokens, {SLOTS} slots: "
         f"static {static.tok_per_s:.2f} tok/s, continuous "
         f"{cont.tok_per_s:.2f} tok/s, host_syncs_per_token "
         f"{cont.report.host_syncs_per_token:.4f} ({cont.report.host_syncs} "
@@ -2872,7 +3034,8 @@ def rwkv_serve(cfg, mm_launches, wkv_k):
     log("rwkv-serve", f"static == continuous tokens: {same}; matmul kernel "
         f"launches during serving: {launches}; WKV kernel calls: "
         f"{wkv_calls}")
-    if not same or launches <= 0 or wkv_calls != 0 or ntok !=             REQUESTS * MAX_NEW:
+    if not same or launches <= 0 or wkv_calls != 0 or \
+            ntok != REQUESTS * SHORT_NEW:
         return None
     state = model.init_decode_state(SLOTS, PROMPT + MAX_NEW, per_slot=True)
     feed = {"tokens": torch.ones((SLOTS, 1), dtype=torch.int64,
@@ -3001,7 +3164,8 @@ def dedupe_check(model, params, trace, card) -> dict:
 
 def paged_phase(cfg, rcfg, p1_want, mm_launches, card, dense_step_launches):
     """Phase 15: paged KV and the radix prefix cache through Runtime.serve
-    at full width and depth (tinyllama-1.1b bf16, random weights, seed 0),
+    at full width and the depth ``cfg`` gives (tinyllama-1.1b bf16, random
+    weights, seed 0; ``p1_want`` phase 5's trace at that depth),
     rwkv6-3b paged (full width, 4 layers), the token stream, one profiled
     paged decode step, and the quickstart on the card.  None on any
     failed gate."""
@@ -3126,7 +3290,7 @@ def paged_phase(cfg, rcfg, p1_want, mm_launches, card, dense_step_launches):
 
     # --- P2: system-prompt traffic, four ways
     trace2 = lambda: synthetic_trace(  # noqa: E731
-        P2_REQUESTS, prompt_len=P2_PROMPT, max_new=MAX_NEW,
+        P2_REQUESTS, prompt_len=P2_PROMPT, max_new=SHORT_NEW,
         vocab_size=cfg.vocab_size, arrival="all", prefix_share=1.0,
         prefix_len=P2_PREFIX, seed=0)
     kw = dict(model=model, params=params, slots=SLOTS, eos_id=-1)
@@ -3190,7 +3354,7 @@ def paged_phase(cfg, rcfg, p1_want, mm_launches, card, dense_step_launches):
             log("ledger", f"  serve_prefix {r['choice']} {r['note']}: "
                 f"predicted {r['predicted_s']:.3e} s, measured "
                 f"{r['measured_s']:.3e} s")
-    log("paged", f"P2 ({P2_REQUESTS} x {P2_PROMPT}+{MAX_NEW}, prefix "
+    log("paged", f"P2 ({P2_REQUESTS} x {P2_PROMPT}+{SHORT_NEW}, prefix "
         f"{P2_PREFIX}, {SLOTS} slots): static {static2.tok_per_s:.2f} tok/s, "
         f"dense {dense2.tok_per_s:.2f} and {dense2b.tok_per_s:.2f} tok/s "
         f"before and after (prefill walls {prefill_s['dense']:.3f} and "
@@ -3241,7 +3405,8 @@ def paged_phase(cfg, rcfg, p1_want, mm_launches, card, dense_step_launches):
             f"{st['device_ms']:.3f} ms, matmul {st['matmul_ms']:.3f} ms, "
             f"indexing kernels {st['indexing_ms']:.3f} ms, other "
             f"{st['other_ms']:.3f} ms; {st['launches']} kernel launches "
-            f"(phase 5's dense step: {dense_step_launches}) ({card})")
+            f"(phase 5's whole model's dense step: {dense_step_launches}) "
+            f"({card})")
     log("paged", f"  paged indexing kernels: {steps['paged']['indexing_kernels']}")
     out["decode_step"] = dict(steps, matmul_launches=step_matmul_launches,
                               routing=audit.counts)
@@ -3487,7 +3652,9 @@ def ledger_rows(ledger, sites=("serve", "serve_macro", "serve_admit")):
 
 def lifecycle_phase(cfg, rcfg, p1_want, phase5_syncs, mm_launches, card):
     """Phase 16: the serving request lifecycle on full-width tinyllama-1.1b
-    (bf16, seed 0, 4 slots, phase 5's trace and max_len), dense and paged
+    at the depth ``cfg`` gives (bf16, seed 0, 4 slots, phase 5's trace and
+    max_len; ``p1_want`` and ``phase5_syncs`` phase 5's tokens and host
+    syncs at that depth), dense and paged
     (pages of 16): the unperturbed path untouched, priority preemption,
     deadlines, the fault classes under the watchdog and retries,
     abandonment, graceful stops and the launcher; overload on the real
@@ -3547,11 +3714,13 @@ def lifecycle_phase(cfg, rcfg, p1_want, phase5_syncs, mm_launches, card):
                    if r.state.value == "COMPLETED")
 
     def serve_again(eng, label):
-        """After a drill, the same engine serves phase 5's trace again."""
+        """After a drill, the same engine serves phase 5's trace again, its
+        8 requests cut to DRILL_NEW new tokens each."""
         eng.injector, eng.watchdog_s, eng.max_retries = None, None, 2
-        rep = eng.run(trace(), now_fn=lambda: 0.0)
+        rep = eng.run(reqs(REQUESTS, DRILL_NEW), now_fn=lambda: 0.0)
         ok = (rep.state_counts() == {"COMPLETED": REQUESTS}
-              and all(toks(r) == want(r.rid) for r in rep.requests))
+              and all(toks(r) == want(r.rid, DRILL_NEW)
+                      for r in rep.requests))
         gate(ok, f"{label}: the engine serves phase 5's trace again with "
              f"equal tokens")
         return ok
@@ -4080,7 +4249,9 @@ def card_pci() -> tuple:
 
 def frontend_phase(cfg, p1_want, phase5_syncs, calibration, mm_launches,
                    card):
-    """Phase 17: the multi-process front end on full-width tinyllama-1.1b
+    """Phase 17: the multi-process front end on full-width tinyllama-1.1b,
+    at the depth ``cfg`` gives (``p1_want``, ``phase5_syncs``: phase 5's
+    tokens and host syncs at that depth)
     (bf16, seed 0, 4 slots, phase 5's trace and max_len) through
     Runtime.serve(frontend=2, pin=True, stream=True), dense and paged, the
     respawn drills, the launcher with --workers/--pin; the host's layout,
@@ -4591,8 +4762,8 @@ def family_matmuls(arch, calls, ops, ref, mm, label="families"):
 def family_serve(arch, mm, fa, ops, ref, card, n_layers=None,
                  label="families"):
     """Runtime.serve of one family at full width and depth (``n_layers``
-    cuts the depth) in bf16 (random weights, seed 0), phase 5's trace on 4
-    slots, static and continuous (and, for recurrentgemma, continuous with
+    cuts the depth) in bf16 (random weights, seed 0), phase 5's trace cut
+    to SHORT_NEW new tokens a request on 4 slots, static and continuous (and, for recurrentgemma, continuous with
     paged=True, pages of 16), the matmul kernel's launches counted from 0
     just before each run; then Model.prefill at that depth
     (family_prefill), one call of every matmul signature those ran against
@@ -4614,7 +4785,7 @@ def family_serve(arch, mm, fa, ops, ref, card, n_layers=None,
     params = model.init(0)
     n_params = sum(t.numel() for t in leaves(params))
     trace = lambda: synthetic_trace(  # noqa: E731
-        REQUESTS, prompt_len=PROMPT, max_new=MAX_NEW,
+        REQUESTS, prompt_len=PROMPT, max_new=SHORT_NEW,
         vocab_size=cfg.vocab_size, arrival="all", seed=0)
     runs, launches = {}, {}
     modes = [("static", {}), ("continuous", {})]
@@ -4645,7 +4816,7 @@ def family_serve(arch, mm, fa, ops, ref, card, n_layers=None,
              if cfg.is_encdec else f"{cfg.n_layers} layers")
     log(label, f"{arch} full width ({depth}, "
         f"{n_params / 1e9:.2f} B parameters) bf16, {REQUESTS} requests x "
-        f"{PROMPT}+{MAX_NEW} tokens, {SLOTS} slots: "
+        f"{PROMPT}+{SHORT_NEW} tokens, {SLOTS} slots: "
         + ", ".join(f"{n} {r.tok_per_s:.2f} tok/s" for n, r in runs.items())
         + f"; host_syncs_per_token {cont.report.host_syncs_per_token:.4f} "
         f"({cont.report.host_syncs} syncs, {cont.report.device_dispatches} "
@@ -4653,7 +4824,7 @@ def family_serve(arch, mm, fa, ops, ref, card, n_layers=None,
         f"{launches} ({card})")
     if not all(same.values()):
         fails.append(f"{arch}: tokens differ from static's: {same}")
-    if any(n != REQUESTS * MAX_NEW for n in ntok.values()):
+    if any(n != REQUESTS * SHORT_NEW for n in ntok.values()):
         fails.append(f"{arch}: generated tokens {ntok}")
     prompts = torch.as_tensor(np.stack([r.prompt for r in trace()[:SLOTS]]),
                               dtype=torch.int64, device="cuda")
@@ -4995,7 +5166,8 @@ def family_flash(shape, gen, ref, fa, flush, card):
 
 def families_phase(mm, fa, ops, ref, gen, flush, card):
     """Phase 18: serve mistral-nemo-12b, phi3-mini-3.8b, gemma-2b and
-    recurrentgemma-2b at full width and depth (family_serve), each family
+    recurrentgemma-2b at full width and the depths FAMILY_SERVE_LAYERS
+    gives (family_serve), each family
     card against CPU in fp32 (family_card_vs_cpu, the ring buffer wrapping
     too), and the flash forward at hd 96 and 256 (family_flash).  None on
     any failure."""
@@ -5003,7 +5175,8 @@ def families_phase(mm, fa, ops, ref, gen, flush, card):
     out: dict = {"card": card, "serve": {}, "card_vs_cpu": {}}
     fails = []
     for arch in FAMILIES:
-        rec, f = family_serve(arch, mm, fa, ops, ref, card)
+        rec, f = family_serve(arch, mm, fa, ops, ref, card,
+                              n_layers=FAMILY_SERVE_LAYERS[arch])
         out["serve"][arch], fails = rec, fails + f
         gc.collect()
         torch.cuda.empty_cache()
@@ -5037,7 +5210,7 @@ def families_phase(mm, fa, ops, ref, gen, flush, card):
 
 
 def moe_vlm_phase(mm, fa, ops, ref, card):
-    """Phase 19: serve moonshot-v1-16b-a3b whole, qwen3-moe-235b-a22b and
+    """Phase 19: serve moonshot-v1-16b-a3b, qwen3-moe-235b-a22b and
     qwen2-vl-72b at full width and the depths MOE_VLM gives
     (family_serve, each model freed before the next is built), then each
     card against CPU in fp32 at MOE_VLM_CPU_LAYERS (family_card_vs_cpu:
@@ -5185,12 +5358,13 @@ def encdec_card_vs_cpu(fa, card):
 def encdec_phase(mm, fa, ops, ref, flush, card):
     """Phase 20: seamless-m4t-medium at full width and depth in bf16 (12 +
     12 layers, random weights, seed 0): served static and continuous on
-    phase 5's trace (family_serve: tokens equal, Model.prefill's 36 flash
+    phase 5's trace cut to SHORT_NEW tokens (family_serve: tokens equal, Model.prefill's 36 flash
     calls checked, every matmul signature against the plain version, one
     profiled decode step), paged=True refused with the reference's
     message; every distinct matmul call of one gradient at 1 + 1 layers
     (train_matmuls, the vocabulary of 256,206 among them); Runtime.train
-    for 4 steps at 2 x 2048 and a fixed batch whose loss falls, one step
+    for 4 steps at 2 x 2048 (no checkpoint: phase 9 writes one through the
+    same code) and a fixed batch whose loss falls, one step
     profiled (train_phase); card against CPU in fp32 at 2 + 2 layers
     (encdec_card_vs_cpu).  None on any failure."""
     from repro_torch.configs import get_config
@@ -5230,7 +5404,8 @@ def encdec_phase(mm, fa, ops, ref, flush, card):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out["train"] = train_phase(cfg, fa, mm.LAUNCHES, label="encdec-train")
+    out["train"] = train_phase(cfg, fa, mm.LAUNCHES, label="encdec-train",
+                               ckpt=False)
     out["train_s"] = time.perf_counter() - t0
     if out["train"] is None:
         fails.append("Runtime.train or the fixed-batch run failed")
@@ -5286,8 +5461,9 @@ def max_abs_diff(a, b, block: int = 1 << 21) -> tuple:
 
 
 def family_train_parity(arch, card, window=None, seq=FAMILY_TRAIN_CPU_SEQ):
-    """Card against CPU in fp32 at full width, cut to 2 layers (qwen3-moe 1,
-    recurrentgemma one period; FAMILY_TRAIN_CPU_LAYERS), batch 2 x ``seq``
+    """Card against CPU in fp32 at full width, cut to 2 layers (qwen3-moe
+    and qwen2-vl 1, recurrentgemma one period; FAMILY_TRAIN_CPU_LAYERS),
+    batch 2 x ``seq``
     from one seed: on the card, one gradient of the initial parameters
     (make_grad_fn), then one make_train_step from them (its loss; the
     update written in place, so that the state fits a card once); then on
@@ -5429,9 +5605,9 @@ def family_train_phase(mm, fa, ops, ref, card):
     """Phase 21: the seven configurations that train on the card from this
     slice on.  For each, in FAMILY_TRAIN's order, built and freed before
     the next: card against CPU in fp32 (family_train_parity;
-    recurrentgemma twice, its window cut to RING_WINDOW: at 2 x 256
-    through local_attention and at 2 x 2 RING_WINDOW through the masked
-    dense form); every distinct matmul call of one bf16 gradient at 2 x
+    recurrentgemma twice, its window cut to RING_WINDOW: at 2 x 4
+    RING_WINDOW through local_attention and at 2 x 2 RING_WINDOW through
+    the masked dense form); every distinct matmul call of one bf16 gradient at 2 x
     2048 and one period of layers, held against the plain version
     (train_matmuls: recurrentgemma's windowed 4-D products and their
     gradients among them); then Runtime.train at full width in bf16, 4
@@ -5462,7 +5638,8 @@ def family_train_phase(mm, fa, ops, ref, card):
             f"parameter (bf16 weights and gradients, fp32 AdamW moments)")
         cases = {arch: (None, FAMILY_TRAIN_CPU_SEQ)}
         if arch == "recurrentgemma-2b":
-            cases = {arch: (RING_WINDOW, FAMILY_TRAIN_CPU_SEQ),
+            # local_attention takes a sequence longer than 2 windows
+            cases = {arch: (RING_WINDOW, 4 * RING_WINDOW),
                      arch + " dense": (RING_WINDOW, 2 * RING_WINDOW)}
         for name, (w, seq) in cases.items():
             out["card_vs_cpu"][name], f = family_train_parity(
@@ -5503,6 +5680,358 @@ def family_train_phase(mm, fa, ops, ref, card):
     for f in fails:
         log("family-train", f"FAIL {f}")
     log("family-train", f"phase 21 wall {out['wall_s']:.1f} s; {len(fails)} "
+        f"failures ({card})")
+    return None if fails else out
+
+
+# phase 22: the sort at the paper's bench size, 10^6 and a 256 MiB array
+# (fp32, one row each), WKV at rwkv6-3b's training shape with a gradient
+AUTOTUNE_SORT_NS = (100_000, 1_000_000, 1 << 26)
+AUTOTUNE_WKV = (2, 2048, 40, 64)  # (B, S, H, N), bf16
+AUTOTUNE_TRAIN_STEPS = 3  # a run's first step warms up (and tunes)
+AUTOTUNE_LOOKUPS = 10_000  # memo hits timed on the host
+
+
+def autotune_check_formulas(mm, bs, wkv_k, fa, sort_configs) -> list:
+    """Each kernel module's shared-memory formula (what the tuner's filter
+    reads on the CPU) against what the CUDA runtime reports for the build:
+    the matmul at both tiles on both tensor-core paths, every sort build
+    the phase tunes, WKV at every chunk at N 64 in both types, and the
+    tensor-core flash kernels.  The mismatches, as text."""
+    bad = []
+    for tile in mm.TILES:
+        for split in (False, True):
+            info = mm.kernel_info(tile, split)
+            want = mm.tc_smem_bytes(tile, split)
+            log("autotune", f"matmul tile {tile}{' split' if split else ''}"
+                f": {info['smem_bytes']} bytes of shared memory (formula "
+                f"{want}), {info['stages']} stages, {info['registers']} "
+                f"registers, {info['local_bytes']} local bytes, "
+                f"{info['ctas_per_sm']} CTAs an SM")
+            if info["smem_bytes"] != want or info["local_bytes"]:
+                bad.append(f"matmul tile {tile} split {split}: {info}, "
+                           f"formula {want}")
+    for lt, lg in sort_configs:
+        info = bs.kernel_info(lt, lg)
+        want = bs.smem_bytes(lt, 4)
+        log("autotune", f"sort tile 2^{lt} group {lg}: {info['smem_bytes']}"
+            f" bytes (formula {want}), {info['threads']} threads, "
+            f"{info['registers']} registers, {info['ctas_per_sm']} blocks an "
+            f"SM")
+        if (info["log_tile"], info["log_group"], info["smem_bytes"]) != \
+                (lt, lg, want) or info["ctas_per_sm"] < 1:
+            bad.append(f"sort {lt}/{lg}: {info}, formula {want}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for chunk in wkv_k.CHUNKS:
+            info = wkv_k.kernel_info(dtype, chunk, 64)
+            want = wkv_k.smem_bytes(dtype, chunk, 64)
+            got = {k: v["smem_bytes"] for k, v in info.items()}
+            if got != want:
+                bad.append(f"wkv {dtype} chunk {chunk}: {got}, formula "
+                           f"{want}")
+    for hd in fa.TC_HEAD_DIMS:
+        got = {k: v["smem_bytes"] for k, v in fa.tc_kernel_info(hd).items()}
+        want = fa.tc_smem_bytes(hd)
+        if got != want:
+            bad.append(f"flash hd {hd}: {got}, formula {want}")
+    log("autotune", f"shared-memory formulas against the runtime: "
+        f"{len(bad)} mismatches (matmul {len(mm.TILES) * 2} builds, sort "
+        f"{len(sort_configs)}, wkv {2 * len(wkv_k.CHUNKS)}, flash "
+        f"{len(fa.TC_HEAD_DIMS)})")
+    return bad
+
+
+def autotune_retune(tuning, key, tuner):
+    """Resolve the lookup behind a memo's tuple ``key`` again on
+    ``tuner``."""
+    if key[0] == "matmul":
+        return tuning.tune_matmul(*key[1:], tuner=tuner)
+    if key[0] == "sort":
+        return tuning.tune_sort(*key[1:], tuner=tuner)
+    return tuning.tune_wkv(*key[1:], tuner=tuner)
+
+
+def autotune_row(res) -> dict:
+    """One tuned lookup as the record and the kernels line keep it."""
+    from repro_torch.core.costs.autotune import fmt_config
+
+    ms = lambda s: None if s is None else s * 1e3  # noqa: E731
+    failed = [dict(config=fmt_config(t["config"]), error=t["error"])
+              for t in res.trials if t.get("error")]
+    return dict(key=res.key, family=res.family, source=res.source,
+                prior=fmt_config(res.prior_config),
+                tuned=fmt_config(res.config),
+                prior_ms=ms(res.prior_measured_s), tuned_ms=ms(res.measured_s),
+                predicted_prior_ms=ms(res.prior_predicted_s),
+                trials=len(res.trials), failed=failed,
+                trial_ms={fmt_config(t["config"]): ms(t["seconds"])
+                          for t in res.trials})
+
+
+def autotune_phase(cfg, p1_want, card):
+    """Phase 22: the kernel autotuner on the card.  A Runtime with
+    RuntimeConfig(autotune=True) and its own cache directory tunes, by
+    measurement, every distinct (path, N, K) of full-width tinyllama-1.1b's
+    decode step (one step run under its tuner) and of its bf16 training
+    step (Runtime.train, whose first step tunes), each tile timed at 2048
+    rows and at the decode step's 4, WKV at rwkv6-3b's training shape in
+    bf16 with a gradient, and the sort at
+    AUTOTUNE_SORT_NS fp32 (its candidate builds made first, together);
+    each candidate's output is held against the prior's before it is
+    timed, and none may fail.  Printed for each: prior, tuned config,
+    prior and tuned ms, trials.  Then phase 5's trace served static and
+    continuous under the tuned runtime (tokens equal, and equal to phase
+    5's); the decode step's wall and matmul device ms under the prior-only
+    and the tuned tiles, in turns; the host cost of a lookup; Runtime.train's
+    steps with the tuned tiles and the prior-only ones, in turns (tuned,
+    prior, tuned); phase 2's batch-invariance gate with each tile the
+    tuner chose; two site=autotune ledger rows a measured tune; a second
+    Runtime on the same cache resolving every lookup again with no
+    measurement and the same configs; a repeat tune from an empty cache
+    (recorded: which configs move).  The shared-memory formulas the
+    candidate spaces are filtered by, against what the runtime reports.
+    None on any failure."""
+    import shutil
+
+    from repro_torch.core.costs.autotune import (Autotuner, TuneResult,
+                                                 fmt_config)
+    from repro_torch.core.costs.ledger import OverheadLedger
+    from repro_torch.kernels import bitonic_sort as bs
+    from repro_torch.kernels import build, ops, tuning
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import wkv as wkv_k
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Runtime, RuntimeConfig, synthetic_trace
+
+    t_phase = time.perf_counter()
+    cache = ROOT / "build" / "autotune_smoke"
+    shutil.rmtree(cache, ignore_errors=True)
+    out: dict = {"card": card}
+    fails = []
+    rt = Runtime(RuntimeConfig(autotune=True, cache_dir=cache))
+    tuner = rt.tuner
+    tuning.FIXED._memo.clear()  # a lookup that misses its tuner lands here
+
+    # the sort's candidate builds for every size, one nvcc each, together
+    npads = [1 << max((n - 1).bit_length(), 3) for n in AUTOTUNE_SORT_NS]
+    sort_configs = sorted({(c.config["log_tile"], c.config["log_group"])
+                           for n in npads
+                           for c in tuning.sort_candidates(1, n, 4)[1]})
+    t0 = time.perf_counter()
+    build.build_jobs([("bitonic_sort", bs.defines(*c))
+                      for c in sort_configs])
+    out["sort_build_s"] = time.perf_counter() - t0
+    log("autotune", f"sort builds {sort_configs} in {out['sort_build_s']:.1f}"
+        f" s (together)")
+    fails += autotune_check_formulas(mm, bs, wkv_k, fa, sort_configs)
+
+    # decode: one step under the tuner tunes its products
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda")
+    params = model.init(0)
+    max_len = PROMPT + MAX_NEW
+    state = model.init_decode_state(SLOTS, max_len, per_slot=True)
+    feed = {"tokens": torch.ones((SLOTS, 1), dtype=torch.int64,
+                                 device="cuda")}
+    with tuning.using(tuner):
+        model.decode_step(params, state, feed)
+    torch.cuda.synchronize()
+    decode_keys = set(tuner.results())
+    out["decode_tune_s"] = time.perf_counter() - t0
+
+    # phase 5's trace, static and continuous, under the tuned runtime
+    trace = lambda: synthetic_trace(  # noqa: E731
+        REQUESTS, prompt_len=PROMPT, max_new=MAX_NEW,
+        vocab_size=cfg.vocab_size, arrival="all", seed=0)
+    static = rt.serve(cfg, trace(), mode="static", model=model,
+                      params=params, slots=SLOTS, eos_id=-1)
+    cont = rt.serve(cfg, trace(), mode="continuous", model=model,
+                    params=params, slots=SLOTS, eos_id=-1)
+    same = all(np.array_equal(np.asarray(static.outputs[r]),
+                              np.asarray(cont.outputs[r]))
+               for r in static.outputs)
+    as_p5 = all(np.array_equal(np.asarray(cont.outputs[r]), p1_want[r])
+                for r in p1_want)
+    out["serve"] = dict(tokens_identical=same, tokens_equal_phase5=as_p5,
+                        static_tok_per_s=static.tok_per_s,
+                        continuous_tok_per_s=cont.tok_per_s)
+    log("autotune", f"phase 5's trace under the tuned runtime: static == "
+        f"continuous tokens {same}; equal to phase 5's {as_p5}; static "
+        f"{static.tok_per_s:.1f} tok/s, continuous {cont.tok_per_s:.1f} "
+        f"tok/s")
+    if not same:
+        fails.append("static and continuous tokens differ under the tuned "
+                     "tiles")
+    if not as_p5:
+        fails.append("tokens under the tuned tiles differ from phase 5's")
+
+    # the decode step under the prior-only and the tuned tiles, in turns
+    prior_t = Autotuner(cache_dir=cache / "prior-only", measure=False,
+                        device="cuda")
+    steps = {"prior": [], "tuned": []}
+    for name in ("prior", "tuned", "tuned", "prior"):
+        with tuning.using(prior_t if name == "prior" else tuner):
+            wall = step_wall(model, params, state, feed)
+            by_name, _ = device_ms_by_kernel(
+                lambda: model.decode_step(params, state, feed))
+        steps[name].append(dict(wall_ms=wall, matmul_ms=group_device_ms(
+            by_name, {})["matmul"], device_ms=sum(by_name.values())))
+    out["decode_step"] = steps
+    for name, runs in steps.items():
+        log("autotune", f"decode step ({SLOTS} slots), {name} tiles: wall "
+            + ", ".join(f"{r['wall_ms']:.3f}" for r in runs) + " ms; matmul "
+            "device " + ", ".join(f"{r['matmul_ms']:.3f}" for r in runs)
+            + " ms")
+    key = next(k for k in tuner._memo if isinstance(k, tuple)
+               and k[0] == "matmul" and len(k) == 6)
+    t0 = time.perf_counter()
+    for _ in range(AUTOTUNE_LOOKUPS):
+        tuning.matmul_tile(*key[1:], tuner)
+    out["lookup_us"] = (time.perf_counter() - t0) / AUTOTUNE_LOOKUPS * 1e6
+    log("autotune", f"one matmul tile lookup (memo hit): "
+        f"{out['lookup_us']:.3f} us on the host")
+    del model, params, state, static, cont
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training: the first tuned run's first step tunes the gradient's
+    # products; then prior-only and tuned runs in turns
+    prior_rt = Runtime(RuntimeConfig(cache_dir=cache / "prior-only"))
+    out["train"] = {"tuned": [], "prior": []}
+    for name, runtime in (("tuned", rt), ("prior", prior_rt),
+                          ("tuned", rt)):
+        lines = []
+        res = runtime.train(cfg, steps=AUTOTUNE_TRAIN_STEPS,
+                            batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0,
+                            log_every=1, log=lines.append)
+        steps_ = [dict(step=int(m.group(1)), loss=float(m.group(2)),
+                       ms=float(m.group(3))) for m in
+                  (re.match(r"step\s+(\d+) loss (\S+) .* (\d+)ms$", x)
+                   for x in lines) if m]
+        out["train"][name].append(steps_)
+        log("autotune", f"Runtime.train {cfg.name} bf16 {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ}, {name} tiles: steps " + ", ".join(
+                f"{x['ms']:.0f} ms (loss {x['loss']:.4f})" for x in steps_))
+        if res.diverged or len(steps_) != AUTOTUNE_TRAIN_STEPS or not all(
+                math.isfinite(x["loss"]) for x in steps_):
+            fails.append(f"training under the {name} tiles: {steps_}")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    train_keys = set(tuner.results()) - decode_keys
+    fell = sorted(tuning.FIXED.results())
+    out["train_keys"], out["fixed_lookups"] = len(train_keys), fell
+    log("autotune", f"the training step tuned {len(train_keys)} keys of "
+        f"its own (its backward's and recomputed products on autograd's "
+        f"thread); lookups that fell to the fixed choice under the tuned "
+        f"runtime: {fell}")
+    if not train_keys or fell:
+        fails.append(f"tuned runtime: {len(train_keys)} training keys, "
+                     f"lookups outside the tuner {fell}")
+
+    # WKV at rwkv6-3b's training shape, the sort at its three sizes
+    b, s_len, h, n = AUTOTUNE_WKV
+    if (b, s_len) != (tuning.WKV_TUNE_B, tuning.WKV_TUNE_S):
+        fails.append(f"WKV is timed at {tuning.WKV_TUNE_B} x "
+                     f"{tuning.WKV_TUNE_S}, not rwkv6-3b's {b} x {s_len}")
+    tuning.tune_wkv(h, n, torch.bfloat16, True, tuner=tuner)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for size in AUTOTUNE_SORT_NS:
+        x = torch.randn(size, generator=gen, device="cuda")
+        if not torch.equal(ops.sort(x, tuner=tuner), torch.sort(x).values):
+            fails.append(f"sort n={size} under the tuned build differs "
+                         f"from torch.sort")
+    torch.cuda.synchronize()
+
+    # every lookup the tuner resolved
+    results = tuner.results()
+    out["results"] = [autotune_row(r) for r in results.values()]
+    for row in out["results"]:
+        where = "decode" if row["key"] in decode_keys else ""
+        log("autotune", f"{row['key']} {where}: prior {row['prior']} "
+            f"{row['prior_ms']} ms, tuned {row['tuned']} {row['tuned_ms']} "
+            f"ms ({row['source']}, {row['trials']} trials: "
+            f"{row['trial_ms']}); failed {row['failed']}")
+        if row["failed"]:
+            fails.append(f"{row['key']}: candidates failed {row['failed']}")
+    measured = [r for r in results.values() if r.source == "measured"]
+    families = {r.family for r in measured}
+    if not {"matmul", "sort", "wkv"} <= families:
+        fails.append(f"measured families {families}")
+    rows = [e for e in rt.ledger.entries if e.site == "autotune"]
+    out["ledger_rows"] = len(rows)
+    log("autotune", f"{len(measured)} measured tunes, {len(rows)} "
+        f"site=autotune ledger rows (two a tune: "
+        f"{[e.note for e in rows[:2]]})")
+    if len(rows) != 2 * len(measured) or any(
+            e.measured_s is None for e in rows):
+        fails.append(f"{len(rows)} ledger rows for {len(measured)} tunes")
+
+    # phase 2's batch-invariance gate with each tile the tuner chose
+    class Pinned(Autotuner):
+        """Every matmul lookup answered with one tile."""
+
+        def __init__(self, tile):
+            super().__init__(cache_dir=cache / "pinned", device="cuda")
+            self.tile = tile
+
+        def tune(self, spec):
+            if spec.family != "matmul" or not any(
+                    c.config == {"tile_n": self.tile}
+                    for c in spec.candidates):
+                return super().tune(spec)
+            return TuneResult(spec.key, spec.family, {"tile_n": self.tile},
+                              "pinned", None, dict(spec.prior), None, None)
+
+    tiles = sorted({r.config["tile_n"] for r in results.values()
+                    if r.family == "matmul"})
+    out["invariance"] = {}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for tile in tiles:
+        with tuning.using(Pinned(tile)):
+            checked = invariance_gate(ops, mm, gen, cfg.d_model, cfg.d_ff)
+        out["invariance"][tile] = checked
+        log("autotune", f"batch invariance with every tensor-core product "
+            f"at tile {tile}: {checked}")
+        if checked is None:
+            fails.append(f"batch invariance at tile {tile}")
+
+    # a second Runtime on the same cache measures nothing
+    rt2 = Runtime(RuntimeConfig(autotune=True, cache_dir=cache))
+    keys = [k for k in tuner._memo if isinstance(k, tuple)
+            and not (k[0] == "matmul" and len(k) == 5)]
+    again = {k: autotune_retune(tuning, k, rt2.tuner) for k in keys}
+    differ = [k for k in keys if again[k].config != tuner._memo[k].config]
+    out["warm"] = dict(lookups=len(keys), bench_calls=rt2.tuner.bench_calls,
+                       differ=[str(k) for k in differ],
+                       from_cache=sum(r.source == "cache"
+                                      for r in again.values()))
+    log("autotune", f"a second Runtime on the same cache: {len(keys)} "
+        f"lookups, {out['warm']['from_cache']} from the cache, "
+        f"{rt2.tuner.bench_calls} measurements, {len(differ)} configs "
+        f"differ")
+    if rt2.tuner.bench_calls or differ:
+        fails.append(f"warm cache: {out['warm']}")
+
+    # a repeat tune from an empty cache: does it pick the same configs?
+    repeat = Autotuner(cache_dir=cache / "repeat", measure=True,
+                       device="cuda", ledger=OverheadLedger())
+    again = {k: autotune_retune(tuning, k, repeat) for k in keys}
+    moved = {str(k): (fmt_config(tuner._memo[k].config),
+                      fmt_config(again[k].config))
+             for k in keys if again[k].config != tuner._memo[k].config}
+    out["repeat"] = dict(lookups=len(keys), moved=moved,
+                         bench_calls=repeat.bench_calls)
+    log("autotune", f"a repeat tune from an empty cache: {len(moved)} of "
+        f"{len(keys)} configs moved {moved}")
+    shutil.rmtree(cache, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["fails"] = fails
+    for f in fails:
+        log("autotune", f"FAIL {f}")
+    log("autotune", f"phase 22 wall {out['wall_s']:.1f} s; {len(fails)} "
         f"failures ({card})")
     return None if fails else out
 

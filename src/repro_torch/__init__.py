@@ -63,6 +63,7 @@ __all__ = [
     "StepFailed",
     "WatchdogTimeout",
     # cost subsystem (the Runtime's internals, exposed for injection)
+    "Autotuner",
     "CorrectionState",
     "CostEngine",
     "CostQuery",
@@ -106,6 +107,7 @@ _EXPORTS = {
     "InjectedFault": "repro_torch.serving",
     "StepFailed": "repro_torch.serving",
     "WatchdogTimeout": "repro_torch.serving",
+    "Autotuner": "repro_torch.core.costs",
     "CorrectionState": "repro_torch.core.costs",
     "CostEngine": "repro_torch.core.costs",
     "CostQuery": "repro_torch.core.costs",

@@ -15,6 +15,7 @@ a spawned front-end worker imports to validate requests) reaches
 """
 
 _EXPORTS = {
+    "Autotuner": "repro_torch.core.costs",
     "CostBreakdown": "repro_torch.core.costs",
     "CostEngine": "repro_torch.core.costs",
     "CostQuery": "repro_torch.core.costs",

@@ -9,7 +9,19 @@ ledger.py      — predicted-vs-measured overhead ledger (JSON export + table)
 corrections.py — per-site multiplicative corrections learned online from
                  measured ledger rows, applied at query time behind
                  clamp / rollback / cache-invalidation guardrails
+autotune.py    — Autotuner: measured tile search per kernel family (the
+                 candidate spaces are kernels/tuning.py's), the analytic
+                 prior when not measuring, a JSON cache keyed by the
+                 card's fingerprint
 """
+
+from repro_torch.core.costs.autotune import (  # noqa: F401
+    Autotuner,
+    Candidate,
+    TuneResult,
+    TuneSpec,
+    fmt_config,
+)
 
 from repro_torch.core.costs.calibration import (  # noqa: F401
     CalibrationResult,

@@ -90,6 +90,16 @@ constexpr int kMaxLo = kLogTile - kLogE;  // the highest window's low bit
 constexpr int kLogGroup = SORT_LOG_GROUP;  // stages a global pass runs
 constexpr int kGlobalThreads = 256;      // threads of a global_pass block
 constexpr long long kMaxBlocks = 1LL << 20;  // grid cap; blocks stride on
+// What a tile and group build must satisfy (kernels/bitonic_sort.py
+// config_ok states the same): a block pass has a warp to 1024 threads;
+// a global pass's 2^kLogGroup registers stay at most 64 (no spill); the
+// block pass's padded tile fits the 227 KB a block may have.
+static_assert(kLogTile >= kLogE + 5 && kLogTile <= kLogE + 10,
+              "a block pass has 32 to 1024 threads");
+static_assert(kLogGroup >= 1 && kLogGroup <= 6,
+              "a global pass holds 2 to 64 elements a thread");
+static_assert((kTile + kTile / 32) * 4 <= 232448,
+              "a block pass's tile fits a block's shared memory");
 
 template <typename T> struct Vec4;
 template <> struct Vec4<float> { using type = float4; };
@@ -465,4 +475,27 @@ extern "C" int repro_bitonic_sort(const void* in, void* out, int dtype,
   return static_cast<int>(sort_rows<float>(static_cast<const float*>(in),
                                            static_cast<float*>(out), rows, n,
                                            s, launches));
+}
+
+// The build's tile and group and its block pass as the runtime has them:
+// six ints to ``out``: log2 of the tile, log2 of the global group, the
+// dynamic shared memory of a full fp32 tile, threads of a block pass,
+// registers a thread of the fp32 first block pass, and its resident blocks
+// an SM at that shared memory.  Returns a cudaError_t.
+extern "C" int repro_bitonic_sort_info(int* out) {
+  const int smem = pad(kTile) * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      first_block_pass<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, first_block_pass<float>);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, first_block_pass<float>, kBlockThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int row[6] = {kLogTile, kLogGroup, smem, kBlockThreads, attr.numRegs,
+                      blocks};
+  for (int i = 0; i < 6; ++i) out[i] = row[i];
+  return 0;
 }

@@ -676,3 +676,46 @@ extern "C" int repro_matmul(int path, const void* a, const void* a_lo,
     return static_cast<int>(by_layout<128>(args, ta, tb, split, z, st));
   return static_cast<int>(by_layout<64>(args, ta, tb, split, z, st));
 }
+
+namespace {
+
+// Shared memory, stages, registers, local bytes and resident CTAs an SM of
+// one tensor-core instantiation (K-major operands), as the runtime has it.
+template <int BN, int SPLIT>
+cudaError_t tc_info(int* out) {
+  using S = TcShape<BN, SPLIT>;
+  void (*kernel)(TcArgs);
+  if constexpr (SPLIT == 0) {
+    kernel = matmul_wgmma_kernel<BN, 0, 0>;
+  } else {
+    kernel = matmul_wgmma_split_kernel<BN, 0, 0, SPLIT>;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                        kThreads, S::kSmem);
+  if (err != cudaSuccess) return err;
+  const int row[5] = {S::kSmem, S::kStages, attr.numRegs,
+                      static_cast<int>(attr.localSizeBytes), ctas};
+  for (int i = 0; i < 5; ++i) out[i] = row[i];
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// The tensor-core kernel at tile width ``tile_n`` (64 or 128) on the
+// tensor-core path (split 0) or the split path with A split (1): five
+// ints to ``out``: dynamic shared memory bytes, stages of the ring,
+// registers a thread, local (spill) bytes a thread, resident CTAs an SM.
+// Returns a cudaError_t.
+extern "C" int repro_matmul_info(int tile_n, int split, int* out) {
+  if (tile_n == 128)
+    return static_cast<int>(split ? tc_info<128, 1>(out) : tc_info<128, 0>(out));
+  if (tile_n == 64)
+    return static_cast<int>(split ? tc_info<64, 1>(out) : tc_info<64, 0>(out));
+  return static_cast<int>(cudaErrorInvalidValue);
+}

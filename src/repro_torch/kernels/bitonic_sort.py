@@ -24,9 +24,11 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1}
-TILE = 1 << 14  # elements a block pass holds in shared memory (kTile)
+LOG_TILE = 14  # log2 of the elements a block pass holds (kLogTile)
+TILE = 1 << LOG_TILE  # elements a block pass holds in shared memory (kTile)
 LOG_E = 5  # log2 of the elements a block-pass thread holds (kLogE)
 LOG_GROUP = 6  # stages a global pass runs at most (kLogGroup)
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may have on sm_90
 
 
 class LaunchCounter:
@@ -75,15 +77,59 @@ def passes(n: int, tile: int = TILE, group: int = LOG_GROUP) -> list:
     return out
 
 
-def grid_launches(n: int) -> int:
+def grid_launches(n: int, tile: int = TILE, group: int = LOG_GROUP) -> int:
     """CUDA launches the kernel makes for rows of length ``n``: one a pass
-    (31 for n = 2^26)."""
-    return len(passes(n))
+    (31 for n = 2^26 at the port's own tile and group)."""
+    return len(passes(n, tile, group))
+
+
+def config_ok(log_tile: int, log_group: int) -> bool:
+    """Whether ``bitonic_sort.cu`` builds with this tile and group: its
+    static_asserts (a block pass of 32 to 1024 threads, a global pass of
+    2 to 64 elements a thread) and the padded tile within a block's shared
+    memory."""
+    return (LOG_E + 5 <= log_tile <= LOG_E + 10 and 1 <= log_group <= 6
+            and smem_bytes(log_tile, 4) <= SMEM_LIMIT)
+
+
+def smem_bytes(log_tile: int, dtype_bytes: int) -> int:
+    """Dynamic shared memory of a block pass on a full tile of
+    ``2^log_tile`` elements: one padding word after every 32."""
+    tile = 1 << log_tile
+    return (tile + (tile >> 5)) * dtype_bytes
+
+
+def defines(log_tile: int = LOG_TILE, log_group: int = LOG_GROUP) -> tuple:
+    """The macros that build ``bitonic_sort.cu`` with this tile and group:
+    none for the port's own (so its library is the one every path loads)."""
+    if (log_tile, log_group) == (LOG_TILE, LOG_GROUP):
+        return ()
+    if not config_ok(log_tile, log_group):
+        raise ValueError(f"the sort kernel takes no tile 2^{log_tile} with "
+                         f"group {log_group}")
+    return (f"SORT_LOG_TILE={log_tile}", f"SORT_LOG_GROUP={log_group}")
+
+
+def kernel_info(log_tile: int = LOG_TILE, log_group: int = LOG_GROUP) -> dict:
+    """The build with this tile and group as the CUDA runtime has it on the
+    current card: its tile and group, the fp32 block pass's dynamic shared
+    memory, threads, registers a thread and resident blocks an SM."""
+    fn = build.load("bitonic_sort", defines(log_tile, log_group)) \
+        .repro_bitonic_sort_info
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    err = fn(out)
+    if err != 0:
+        raise RuntimeError(f"sort kernel info failed: cudaError {err}")
+    return dict(zip(("log_tile", "log_group", "smem_bytes", "threads",
+                     "registers", "ctas_per_sm"), out))
 
 
 def _function(defines=()):
     """The C entry point; ``defines`` build it with another tile or group
-    (``SORT_LOG_TILE=15``), which only ``tools/sort_tile_sweep.py`` asks."""
+    (``SORT_LOG_TILE=15``: ``defines()``), which the autotuner and
+    ``tools/sort_tile_sweep.py`` ask for."""
     fn = build.load("bitonic_sort", defines).repro_bitonic_sort
     if fn.argtypes is None:
         # every pointer and the stream as c_void_p: ctypes would otherwise
@@ -95,9 +141,12 @@ def _function(defines=()):
     return fn
 
 
-def bitonic_sort_cuda(x: torch.Tensor) -> torch.Tensor:
+def bitonic_sort_cuda(x: torch.Tensor, log_tile: int = LOG_TILE,
+                      log_group: int = LOG_GROUP) -> torch.Tensor:
     """Sort each row of the contiguous CUDA tensor ``x`` (rows, n) ascending,
-    n a power of 2 (at least 2), float32 or int32; returns a new tensor."""
+    n a power of 2 (at least 2), float32 or int32; returns a new tensor.
+    ``log_tile`` and ``log_group`` pick the build (``defines``); the port's
+    own by default."""
     if not x.is_cuda:
         raise ValueError(f"bitonic_sort_cuda needs a CUDA tensor, got "
                          f"{x.device}")
@@ -115,7 +164,7 @@ def bitonic_sort_cuda(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    fn = _function()
+    fn = _function(defines(log_tile, log_group))
     grids = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

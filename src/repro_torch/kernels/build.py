@@ -59,11 +59,19 @@ def build_all(names=SOURCES, defines=()) -> List[Path]:
     """Compile every source in ``names`` that has no current library, with
     the macros ``defines``, all ``nvcc`` processes started together; raise
     if any fails."""
-    todo = [(n, library_path(n, defines)) for n in names
-            if not library_path(n, defines).exists()]
+    return build_jobs([(n, tuple(defines)) for n in names])
+
+
+def build_jobs(jobs) -> List[Path]:
+    """Compile each (source name, macros) of ``jobs`` that has no current
+    library, one ``nvcc`` each, all started together (the sort's tile and
+    group candidates are such jobs); raise if any fails.  Returns the
+    libraries' paths in the order of ``jobs``."""
+    todo = [(n, d, library_path(n, d)) for n, d in dict.fromkeys(jobs)
+            if not library_path(n, d).exists()]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name, out in todo:
+    for name, defines, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
                str(tmp), str(CSRC / f"{name}.cu")]
@@ -80,7 +88,7 @@ def build_all(names=SOURCES, defines=()) -> List[Path]:
         tmp.replace(out)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
-    return [library_path(n, defines) for n in names]
+    return [library_path(n, d) for n, d in jobs]
 
 
 def load(name: str, defines=()) -> ctypes.CDLL:

@@ -98,6 +98,32 @@ def choose_path(dtype: torch.dtype, hd: int) -> str:
     return "fma"
 
 
+def _pad64(hd: int) -> int:
+    return -(-hd // 64) * 64
+
+
+def tc_smem_bytes(hd: int) -> dict:
+    """Dynamic shared memory of each tensor-core kernel at head dim ``hd``
+    (by ``TC_INFO_KERNELS`` name), as ``flash_attention.cu`` sizes it:
+    the forward's 128 query rows and its kv stages (64 rows above hd 128,
+    else 128; 3 stages at hd 64, else 2), dQ's and dK/dV's tiles and
+    stages, each + 1024 to align and 8 bytes a barrier."""
+    def tile(rows):
+        return rows * _pad64(hd) * 2
+
+    fwd_kv, fwd_st = (64 if hd > 128 else 128), (3 if hd == 64 else 2)
+    dq_kv, dq_st = (32 if hd > 128 else 64), (4 if hd == 64 else 3)
+    dkv_kv, dkv_q, dkv_st = (64 if hd > 128 else 128), \
+        (64 if hd == 64 else 32), 4
+    return {
+        "forward": 1024 + tile(128) + fwd_st * 2 * tile(fwd_kv)
+        + (2 * fwd_st + 1) * 8,
+        "dq": 1024 + 2 * tile(128) + dq_st * 2 * tile(dq_kv) + 128 * 4
+        + (2 * dq_st + 1) * 8,
+        "dkv": 1024 + 2 * tile(dkv_kv) + dkv_st * 2 * tile(dkv_q)
+        + dkv_st * 2 * dkv_q * 4 + (2 * dkv_st + 1) * 8}
+
+
 def tma_ok(t: torch.Tensor) -> bool:
     """Whether a tensor map can load the (B, rows, heads, hd) operand
     ``t``: hd contiguous, the base 16-byte aligned, and every other

@@ -37,7 +37,9 @@ _ACT_CODE = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 _TC_TILE_M = 128  # rows per CTA on the tensor-core paths (FMA: by_shape)
+_TC_TILE_K = 64  # k per stage (matmul.cu kBK)
 _TMA_ALIGN = 16  # bytes: a tensor map's base and every stride it steps
+TILES = (64, 128)  # the tile widths N the tensor-core kernel is built for
 
 
 class LaunchCounter:
@@ -78,6 +80,35 @@ def tile_n(n: int) -> int:
     for N >= 4096, else 64 (twice the CTAs, for bytes in flight at
     decode)."""
     return 128 if n >= 4096 else 64
+
+
+def tc_smem_bytes(tile: int, split: bool) -> int:
+    """Dynamic shared memory of a tensor-core CTA at tile width ``tile``
+    (``matmul.cu`` ``TcShape``): a ring of stages, each an A tile of 128 x
+    64 bf16 and a B tile of ``tile`` x 64 (on the split path one of them
+    twice), as many as fit 96 KB (tensor core) or 200 KB (split), at most
+    8; plus 1024 bytes to align the ring and two mbarriers a stage."""
+    budget = (200 if split else 96) * 1024
+    a = _TC_TILE_M * _TC_TILE_K * 2
+    stage = a + tile * _TC_TILE_K * 2 + (a if split else 0)
+    stages = min(8, budget // stage)
+    return 1024 + stages * stage + 2 * stages * 8
+
+
+def kernel_info(tile: int, split: bool) -> dict:
+    """The tensor-core kernel at tile width ``tile`` (A split on the split
+    path): dynamic shared memory, stages, registers a thread, local (spill)
+    bytes a thread and resident CTAs an SM, as the CUDA runtime reports
+    them on the current card."""
+    fn = build.load("matmul").repro_matmul_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(tile, int(split), out)
+    if err != 0:
+        raise RuntimeError(f"matmul kernel info failed: cudaError {err}")
+    return dict(zip(("smem_bytes", "stages", "registers", "local_bytes",
+                     "ctas_per_sm"), out))
 
 
 def split_hi_lo(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -148,11 +179,14 @@ def _ptr(t: Optional[torch.Tensor]):
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
                 bias: Optional[torch.Tensor] = None,
                 activation: Optional[str] = None,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                tile: Optional[int] = None) -> torch.Tensor:
     """Launch the kernel: ``a`` (M, K) and ``b`` (K, N), or ``a`` (Z1, Z2, M,
     K) and ``b`` (Z1, Z2, K, N) with any strides; ``bias`` (N,) is added in
     fp32; the result is contiguous in ``out_dtype`` (default ``a.dtype``).
-    The path is ``choose_path(a.dtype, b.dtype)``."""
+    The path is ``choose_path(a.dtype, b.dtype)``; ``tile`` (in ``TILES``)
+    is the tensor-core paths' tile width, ``tile_n(n)`` when None (the FMA
+    path has none)."""
     if not (a.is_cuda and b.is_cuda):
         raise ValueError(f"matmul_cuda needs CUDA tensors, got {a.device} "
                          f"and {b.device}")
@@ -175,11 +209,15 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
                          f"{tuple(b.shape)}")
     m, k = a.shape[-2:]
     n = b.shape[-1]
+    if tile is None:
+        tile = tile_n(n)
+    elif tile not in TILES:
+        raise ValueError(f"matmul tile must be one of {TILES}, got {tile}")
     z1, z2 = (1, 1) if a.dim() == 2 else a.shape[:2]
     if path == "fma":  # grid (N tiles, M tiles, batch)
         grid = (1, -(-m // (16 if min(m, n) <= 16 else 64)), z1 * z2)
     else:  # grid (tiles, 1, batch)
-        grid = (-(-m // _TC_TILE_M) * -(-n // tile_n(n)), 1, z1 * z2)
+        grid = (-(-m // _TC_TILE_M) * -(-n // tile), 1, z1 * z2)
     if grid[0] >= 2**31 or max(grid[1:]) > _MAX_GRID_YZ:
         raise ValueError(f"matmul kernel grid too large for shape "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
@@ -211,7 +249,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
                  b_mode,
                  None if bias_f32 is None else bias_f32.data_ptr(),
                  out.data_ptr(), _DTYPE_CODE[out_dtype], z1, z2, m, n, k,
-                 _ACT_CODE[activation], tile_n(n), stream)
+                 _ACT_CODE[activation], tile, stream)
     if err != 0:
         raise RuntimeError(f"matmul kernel ({path} path) launch failed: "
                            f"code {err} for {tuple(a.shape)} @ "

@@ -10,6 +10,14 @@ An fp32 product on the tensor cores with K above ``TC_K_BLOCK`` runs as
 consecutive K blocks added in fp32 (``_matmul``): the kernel's fp32 sum
 drifts over a long k walk.
 
+Each kernel's tile (the matmul's width, the sort's tile and group, WKV's
+chunk) comes from the autotuner (``kernels/tuning.py``) on a CUDA tensor:
+the ``tuner`` passed, else the one this thread's Runtime is serving or
+training under, else the kernel's fixed choice.  Without measurement a
+tuner answers with the fixed choice too.  CPU tensors take the plain
+versions, with no lookup.  Flash attention has one instantiation per
+(dtype, hd) and no lookup.
+
 Gradients run on the kernels too.  ``matmul`` goes through ``MatmulFn``
 whenever an operand needs a gradient: its backward recomputes the product
 without the epilogue, applies the activation's derivative elementwise and
@@ -26,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import tuning
 from repro_torch.kernels.bitonic_sort import bitonic_sort_cuda
 from repro_torch.kernels.flash_attention import FlashAttentionFn, check_shapes
 from repro_torch.kernels.matmul import (
@@ -74,7 +83,25 @@ ACTIVATION_GRADS = {
 TC_K_BLOCK = 4096
 
 
-def _matmul(a, b, bias, activation, out_dtype):
+def tile_for(a, b, out_dtype=None, tuner=None) -> int:
+    """The tile width of ``a @ b``: the tuner's for the operands' dtypes,
+    the output's, N and K, never M or the batch."""
+    return tuning.matmul_tile(a.dtype, b.dtype, out_dtype or a.dtype,
+                              b.shape[-1], a.shape[-1], tuner)
+
+
+def _launch(a, b, bias=None, activation=None, out_dtype=None, tuner=None):
+    """One kernel launch, at ``tile_for``'s tile on a CUDA operand; the
+    wrapper refuses any other."""
+    if not a.is_cuda:
+        return matmul_cuda(a, b, bias=bias, activation=activation,
+                           out_dtype=out_dtype)
+    return matmul_cuda(a, b, bias=bias, activation=activation,
+                       out_dtype=out_dtype,
+                       tile=tile_for(a, b, out_dtype, tuner))
+
+
+def _matmul(a, b, bias, activation, out_dtype, tuner=None):
     """One product: the plain version for CPU operands, else the kernel.
     An fp32 result on a tensor-core path with K above ``TC_K_BLOCK`` is
     ``k_blocked``'s (the split depends on K alone, so a row's bits still do
@@ -84,12 +111,11 @@ def _matmul(a, b, bias, activation, out_dtype):
                                 out_dtype=out_dtype)
     if (out_dtype or a.dtype) != torch.float32 or \
             a.shape[-1] <= TC_K_BLOCK or choose_path(a.dtype, b.dtype) == "fma":
-        return matmul_cuda(a, b, bias=bias, activation=activation,
-                           out_dtype=out_dtype)
-    return k_blocked(a, b, bias, activation)
+        return _launch(a, b, bias, activation, out_dtype, tuner)
+    return k_blocked(a, b, bias, activation, tuner)
 
 
-def k_blocked(a, b, bias=None, activation=None) -> torch.Tensor:
+def k_blocked(a, b, bias=None, activation=None, tuner=None) -> torch.Tensor:
     """fp32 ``a @ b + bias`` as the kernel's fp32 products over consecutive
     K blocks of ``TC_K_BLOCK``, added in k order, the bias in the first
     block's epilogue.  An activation raises: the sum of the blocks has no
@@ -103,10 +129,10 @@ def k_blocked(a, b, bias=None, activation=None) -> torch.Tensor:
             f"epilogue")
     out = None
     for k0 in range(0, a.shape[-1], TC_K_BLOCK):
-        part = matmul_cuda(a[..., k0:k0 + TC_K_BLOCK],
-                           b[..., k0:k0 + TC_K_BLOCK, :],
-                           bias=bias if k0 == 0 else None,
-                           out_dtype=torch.float32)
+        part = _launch(a[..., k0:k0 + TC_K_BLOCK],
+                       b[..., k0:k0 + TC_K_BLOCK, :],
+                       bias=bias if k0 == 0 else None,
+                       out_dtype=torch.float32, tuner=tuner)
         out = part if out is None else out.add_(part)
     return out
 
@@ -121,31 +147,36 @@ class MatmulFn(torch.autograd.Function):
     every row of every batch."""
 
     @staticmethod
-    def forward(ctx, a, b, bias, activation, out_dtype):
+    def forward(ctx, a, b, bias, activation, out_dtype, tuner=None):
         ctx.save_for_backward(a, b, bias)
         ctx.activation = activation
-        return _matmul(a, b, bias, activation, out_dtype)
+        # the backward runs on autograd's worker thread, outside this
+        # thread's tuner: it is handed the one the forward resolved
+        ctx.tuner = tuner if tuner is not None else tuning.active()
+        return _matmul(a, b, bias, activation, out_dtype, tuner)
 
     @staticmethod
     def backward(ctx, dout):
         a, b, bias = ctx.saved_tensors
+        t = ctx.tuner
         dz = dout
         if ctx.activation is not None:
-            z = _matmul(a, b, bias, None, torch.float32)
+            z = _matmul(a, b, bias, None, torch.float32, t)
             dz = dout.float() * ACTIVATION_GRADS[ctx.activation](z)
         da = db = dbias = None
         if ctx.needs_input_grad[0]:
-            da = _matmul(dz, b.transpose(-2, -1), None, None, a.dtype)
+            da = _matmul(dz, b.transpose(-2, -1), None, None, a.dtype, t)
         if ctx.needs_input_grad[1]:
-            db = _matmul(a.transpose(-2, -1), dz, None, None, b.dtype)
+            db = _matmul(a.transpose(-2, -1), dz, None, None, b.dtype, t)
         if bias is not None and ctx.needs_input_grad[2]:
             dbias = dz.float().reshape(-1, dz.shape[-1]).sum(0).to(bias.dtype)
-        return da, db, dbias, None, None
+        return da, db, dbias, None, None, None
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, bias=None,
            activation: Optional[str] = None,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           out_dtype: Optional[torch.dtype] = None,
+           tuner=None) -> torch.Tensor:
     """``epilogue(a @ b + bias)`` with fp32 accumulation, cast to
     ``out_dtype`` (default ``a.dtype``).
 
@@ -154,15 +185,16 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bias=None,
     ``relu | gelu | silu | tanh`` (gelu in its tanh form) or None.  Where an
     operand needs a gradient the call goes through ``MatmulFn``, whose
     backward runs on the same kernel in either rank (the windowed
-    attention forms train through the 4-D one)."""
+    attention forms train through the 4-D one).  ``tuner`` picks the
+    tile width (``kernels/tuning.py``; never from M)."""
     if activation is not None and activation not in EPILOGUE_ACTIVATIONS:
         raise ValueError(f"activation must be one of {EPILOGUE_ACTIVATIONS}, "
                          f"got {activation!r}")
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (a, b, bias))
     if not needs_grad:
-        return _matmul(a, b, bias, activation, out_dtype)
-    return MatmulFn.apply(a, b, bias, activation, out_dtype)
+        return _matmul(a, b, bias, activation, out_dtype, tuner)
+    return MatmulFn.apply(a, b, bias, activation, out_dtype, tuner)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -176,18 +208,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return FlashAttentionFn.apply(q, k, v, causal, None)
 
 
+def wkv_chunk_for(r, needs_grad: bool, tuner=None) -> int:
+    """WKV's chunk for (B, S, H, N) ``r``: the tuner's for H, N, the dtype
+    and the gradient, never B or S."""
+    return tuning.wkv_chunk(r.shape[2], r.shape[3], r.dtype, needs_grad,
+                            tuner)
+
+
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64):
+        logw: torch.Tensor, u: torch.Tensor, *, chunk: Optional[int] = None,
+        tuner=None):
     """Chunked WKV6 from a zero state (the reference's ``ops.wkv``, which
     takes no carried state either): r, k, v, logw (B, S, H, N), logw <= 0,
     u (H, N).  Returns (out (B, S, H, N) fp32, final state (B, H, N, N)
     fp32).  On CUDA tensors the WKV kernel runs, and where an input needs a
     gradient the call goes through ``WkvFn``, whose forward keeps the
     chunk-start states for its backward kernel; CPU tensors take the
-    plain versions."""
+    plain versions.  ``chunk=None`` is the tuner's for (H, N, dtype, needs
+    a gradient) on a CUDA tensor, never from B or S, else 64."""
     wkv_check_shapes(r, k, v, logw, u)
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (r, k, v, logw, u))
+    if chunk is None:
+        chunk = wkv_chunk_for(r, needs_grad, tuner) if r.is_cuda else 64
     if needs_grad:
         return WkvFn.apply(r, k, v, logw, u, chunk)
     fwd = wkv_fwd_plain if r.device.type == "cpu" else wkv_fwd_cuda
@@ -213,14 +256,15 @@ def _sort_pad(x: torch.Tensor) -> torch.Tensor:
                      dim=1)
 
 
-def sort(x: torch.Tensor) -> torch.Tensor:
+def sort(x: torch.Tensor, tuner=None) -> torch.Tensor:
     """Ascending sort of a 1-D tensor or of each row of a 2-D one.
 
     Rows are padded to ``_sort_npad(n)`` with the dtype's largest finite
     value and the padding is stripped after, as the reference does.  So the
     input must be finite: with n not a power of 2, a ``+inf`` sorts after
     the padding and is stripped, and the result holds the dtype's maximum
-    in its place (the reference's behaviour, kept)."""
+    in its place (the reference's behaviour, kept).  On a CUDA tensor the
+    tuner picks the build's tile and group for (rows, padded n, dtype)."""
     squeeze = x.dim() == 1
     if squeeze:
         x = x[None]
@@ -228,6 +272,8 @@ def sort(x: torch.Tensor) -> torch.Tensor:
     if xp.device.type == "cpu":
         out = bitonic_sort_ref(xp)
     else:
-        out = bitonic_sort_cuda(xp)
+        config = tuning.sort_config(xp.shape[0], xp.shape[1], xp.dtype,
+                                    tuner) if xp.is_cuda else ()
+        out = bitonic_sort_cuda(xp, *config)
     out = out[:, :x.shape[1]]
     return out[0] if squeeze else out

@@ -120,6 +120,27 @@ def kernel_info(dtype: torch.dtype, chunk: int, n: int) -> dict:
             for i, name in enumerate(INFO_KERNELS)}
 
 
+def smem_bytes(dtype: torch.dtype, chunk: int, n: int) -> dict:
+    """Dynamic shared memory of each kernel of one instantiation, by
+    ``INFO_KERNELS`` name, as ``wkv.cu`` sizes it: the state pass's two
+    stages of x, logw and 16 columns of y (y fp32 in the backward) plus
+    cw_L; the per-chunk kernels' padded D x (D + 1) fp32 tiles, D =
+    max(chunk, n) (6 forward, 11 backward), and their vectors."""
+    xb = torch.empty((), dtype=dtype).element_size()
+    d = max(chunk, n)
+    tile, nb = d * (d + 1), chunk // SUBCHUNK
+    kf_rows = SUBCHUNK * nb * (nb - 1) // 2
+
+    def state(yb):
+        return 2 * (chunk * n * xb + chunk * n * 4 + chunk * 16 * yb) + n * 4
+
+    return {"wkv_state forward": state(xb),
+            "wkv_fwd_out": 4 * (6 * tile + n + nb * n),
+            "wkv_state backward": state(4),
+            "wkv_bwd_chunk": 4 * (11 * tile + kf_rows * (d + 1) + n + nb * n
+                                  + n + 2 * 16 * n)}
+
+
 def _strides(t: torch.Tensor):
     return (ctypes.c_longlong * 4)(*t.stride())
 

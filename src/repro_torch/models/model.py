@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.tuning import recompute_contexts
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (
@@ -355,7 +356,8 @@ class EncDecModel(_DecodeSlots):
         for lp in params["encoder"]:
             if remat:
                 x = checkpoint(encdec_lib.encoder_layer_apply, lp, self.cfg,
-                               x, positions, use_reentrant=False)
+                               x, positions, use_reentrant=False,
+                               context_fn=recompute_contexts)
             else:
                 x = encdec_lib.encoder_layer_apply(lp, self.cfg, x, positions)
         return rmsnorm(params["enc_final_norm"], x, self.cfg.norm_eps)
@@ -375,7 +377,8 @@ class EncDecModel(_DecodeSlots):
             enc_kv = encdec_lib.cross_kv(lp, cfg, enc_out)
             if remat:
                 x = checkpoint(_decoder_body, lp, cfg, x, positions, enc_kv,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               context_fn=recompute_contexts)
             else:
                 x = _decoder_body(lp, cfg, x, positions, enc_kv)
         return x
@@ -502,7 +505,8 @@ def _xent_chunked_sums(table, x, targets, mask, chunk: int):
     for start in range(0, s + pad, chunk):
         ce, z = checkpoint(_xent_sums, table, x[:, start:start + chunk],
                            targets[:, start:start + chunk],
-                           mask[:, start:start + chunk], use_reentrant=False)
+                           mask[:, start:start + chunk], use_reentrant=False,
+                           context_fn=recompute_contexts)
         ce_sum, z_sum = ce_sum + ce, z_sum + z
     return ce_sum, z_sum
 

@@ -70,7 +70,8 @@ def _token_shift(x: torch.Tensor, mu: torch.Tensor,
     return x + mu * (prev - x)
 
 
-def wkv_chunked(r, k, v, logw, u, state: torch.Tensor, chunk: int = 64):
+def wkv_chunked(r, k, v, logw, u, state: torch.Tensor,
+                chunk: Optional[int] = None):
     """Chunked WKV6 from a carried state (B, H, N, N): r, k, v, logw (B, S,
     H, N), u (H, N).  Returns (out (B, S, H, N) fp32, final state).  The
     recurrence is linear in the state, so this is ``ops.wkv`` from zero
@@ -117,7 +118,7 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, n_heads: int,
 
 
 def rwkv_time_mix(params, x: torch.Tensor, head_dim: int, state=None,
-                  chunk: int = 64):
+                  chunk: Optional[int] = None):
     """x: (B, S, D).  ``state`` (decode): {"S": (B, H, N, N), "shift":
     (B, 1, D)}.  Returns (out (B, S, D), new state or None)."""
     b, s, d = x.shape

@@ -20,6 +20,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.tuning import recompute_contexts
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import rglru as rglru_lib
@@ -144,7 +145,7 @@ def _ffn_apply(params, cfg: ModelConfig, x, want_aux: bool):
 
 
 def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
-                state=None, cache_pos=None, rnn_chunk: int = 64,
+                state=None, cache_pos=None, rnn_chunk: Optional[int] = None,
                 block_tables=None, want_aux: bool = True
                 ) -> Tuple[torch.Tensor, Any, Any]:
     """Pre-norm residual block: norm, mixer (attention, the RG-LRU or the
@@ -153,7 +154,8 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
     load-balance loss as a 0-d fp32 tensor, else the float 0.0 (no launch);
     ``want_aux=False`` skips computing it (decode returns none).
     ``rnn_chunk`` is the WKV chunk length (the reference's
-    ``ctx.rnn_chunk``, 64 without a context)."""
+    ``ctx.rnn_chunk``); None lets ``ops.wkv`` resolve it through the
+    autotuner on the card (64 on the CPU and without measurement)."""
     if kind not in ("attn", "local", "rglru", "rwkv"):
         raise _unported(kind)
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
@@ -241,7 +243,8 @@ def stack_init_state(cfg: ModelConfig, batch: int, max_len: int,
 
 def stack_apply(layers: List[dict], cfg: ModelConfig, x, positions, *,
                 states: Optional[List[dict]] = None, cache_pos=None,
-                remat: bool = True, rnn_chunk: int = 64, block_tables=None):
+                remat: bool = True, rnn_chunk: Optional[int] = None,
+                block_tables=None):
     """Run all layers.  Returns (x, new_states, aux_total): the sum of the
     layers' auxiliary losses, a 0-d fp32 tensor for a mixture of experts
     (the float 0.0 for other stacks, and with a decode state, which skips
@@ -258,7 +261,8 @@ def stack_apply(layers: List[dict], cfg: ModelConfig, x, positions, *,
         kind = cfg.block_kind(i)
         if remat and not decode:
             x, _, aux = checkpoint(layer_apply, lp, cfg, kind, x, positions,
-                                   rnn_chunk=rnn_chunk, use_reentrant=False)
+                                   rnn_chunk=rnn_chunk, use_reentrant=False,
+                                   context_fn=recompute_contexts)
         else:
             x, new_st, aux = layer_apply(
                 lp, cfg, kind, x, positions,

@@ -7,16 +7,17 @@ overhead ledger.
     rt = repro_torch.Runtime()                    # on the GPU (the default)
     rt = repro_torch.Runtime(device="cpu")        # plain PyTorch on the CPU
     rt = repro_torch.Runtime(repro_torch.RuntimeConfig(calibrate=True))
+    rt = repro_torch.Runtime(repro_torch.RuntimeConfig(autotune=True))
 
     plan   = rt.plan(cfg, shape)              # overhead-driven layer plan
     result = rt.train(cfg, loop, steps=100)   # training loop + checkpoints
     served = rt.serve(cfg, trace)             # continuous batching
     print(rt.ledger.report())                 # every decision, pred-vs-meas
 
-Two Runtimes are fully isolated: separate engines, decision caches and
-ledgers.  The entry points run on ``cuda`` unless the caller asks for the
-CPU; a Runtime asked for a card that is not there raises, it does not fall
-back to the CPU.  ``default_runtime()`` is a lazily built session
+Two Runtimes are fully isolated: separate engines, decision caches,
+tuners and ledgers.  The entry points run on ``cuda`` unless the caller
+asks for the CPU; a Runtime asked for a card that is not there raises, it
+does not fall back to the CPU.  ``default_runtime()`` is a lazily built session
 configured from the environment (``RuntimeConfig.from_env()``); the port's
 decision sites never fall back to it, a Runtime passes its own engine to
 everything it drives.  ``RuntimeConfig(corrections=True)`` closes the
@@ -25,6 +26,11 @@ persisted with the calibration), and ``Runtime.serve`` takes the
 reference's robustness options (bounded queue, deadlines, injected faults
 under a watchdog, graceful stop) and its multi-process front end (pinned
 intake and emission worker processes, the ``serve_ipc`` decisions).
+``RuntimeConfig(autotune=True)`` lets the session's kernel autotuner
+(``Runtime.tuner``) time the candidate tiles of each kernel call it meets
+and cache the winners; ``train`` and ``serve`` run their kernels under it
+(on the calling thread, and on a serving watchdog's worker).  A kernel
+called outside them, with no ``tuner=``, launches with its fixed choice.
 Meshes (planning, training or serving over several GPUs) and
 ``Runtime.bench`` come with later slices of the port.
 """
@@ -32,6 +38,7 @@ Meshes (planning, training or serving over several GPUs) and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from pathlib import Path
@@ -40,6 +47,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.costs.autotune import Autotuner
 from repro_torch.core.costs.corrections import CorrectionState
 from repro_torch.core.costs.engine import CostEngine
 from repro_torch.core.costs.ledger import OverheadLedger
@@ -59,8 +67,16 @@ class RuntimeConfig:
                      GPU) or ``"cpu"``.
     ``calibrate``  — microbenchmark the card into the hardware spec on
                      construction (needs ``device`` on CUDA).
-    ``cache_dir``  — home of the calibration JSON cache (default
-                     ``build/calibration`` in the repository).
+    ``autotune``   — let the kernel autotuner measure tile candidates on
+                     the card (the matmul's tile width, the sort's tile
+                     and group, WKV's chunk) and cache the winners; off,
+                     it answers with each kernel's fixed choice (or a
+                     config an earlier measured tune cached).  A matmul
+                     tile is timed at 2048 rows and at a 4-row decode
+                     step, each counted relative to the fixed tile's
+                     time, since one tile serves every M.
+    ``cache_dir``  — home of the calibration and autotune JSON caches
+                     (default ``build/calibration`` in the repository).
     ``hardware``   — base :class:`HardwareSpec` for the analytic model
                      (default: the H100 data sheet).  Calibration replaces
                      measured fields on top of it.
@@ -82,12 +98,12 @@ class RuntimeConfig:
                      (``ledger.report()``), the correction loop and the
                      recalibration trigger.
 
-    The reference's autotune and mesh knobs come with the slices that port
-    those subsystems.
+    The reference's mesh knobs come with the slice that ports meshes.
     """
 
     device: Optional[str] = None
     calibrate: bool = False
+    autotune: bool = False
     cache_dir: Optional[Path] = None
     hardware: Optional[HardwareSpec] = None
     corrections: bool = False
@@ -101,13 +117,14 @@ class RuntimeConfig:
                  **overrides: Any) -> "RuntimeConfig":
         """The one place the ``REPRO_*`` environment variables are read,
         for the fields the port has: ``REPRO_CALIBRATE=1`` -> calibrate,
-        ``REPRO_CORRECTIONS=1`` -> corrections, ``REPRO_COST_CACHE`` ->
-        cache_dir.  ``env`` defaults to ``os.environ``; keyword overrides
-        win over it."""
+        ``REPRO_AUTOTUNE=1`` -> autotune, ``REPRO_CORRECTIONS=1`` ->
+        corrections, ``REPRO_COST_CACHE`` -> cache_dir.  ``env`` defaults
+        to ``os.environ``; keyword overrides win over it."""
         env = os.environ if env is None else env
         cache = env.get("REPRO_COST_CACHE")
         fields: Dict[str, Any] = {
             "calibrate": env.get("REPRO_CALIBRATE") == "1",
+            "autotune": env.get("REPRO_AUTOTUNE") == "1",
             "corrections": env.get("REPRO_CORRECTIONS") == "1",
             "cache_dir": Path(cache) if cache else None,
         }
@@ -211,17 +228,30 @@ def resolve_device(device: Optional[str]) -> torch.device:
 # ---------------------------------------------------------------------------
 
 
+def _under_tuner(method):
+    """Run a Runtime method with its kernels' lookups on ``self.tuner``."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        from repro_torch.kernels import tuning
+
+        with tuning.using(self.tuner):
+            return method(self, *args, **kwargs)
+    return run
+
+
 class Runtime:
-    """An explicit repro_torch session: device + engine + caches + ledger.
+    """An explicit repro_torch session: device + engine + tuner + caches +
+    ledger.
 
     ``device`` (or ``config.device``) picks the device, the GPU by default.
     Construction is cheap unless ``config.calibrate`` is set (then the card
     is microbenchmarked once, cached under ``config.cache_dir``).
-    ``engine`` injects a prebuilt CostEngine (tests)."""
+    ``engine`` and ``tuner`` inject prebuilt components (tests)."""
 
     def __init__(self, config: Optional[RuntimeConfig] = None, *,
                  device: Optional[str] = None,
-                 engine: Optional[CostEngine] = None):
+                 engine: Optional[CostEngine] = None,
+                 tuner: Optional[Autotuner] = None):
         self.config = config if config is not None else RuntimeConfig()
         self.device = resolve_device(
             device if device is not None else self.config.device)
@@ -249,6 +279,16 @@ class Runtime:
                 engine = CostEngine(hw=base, ledger=ledger,
                                     corrections=corrections)
         self.engine = engine
+        self.tuner = tuner if tuner is not None else self.make_tuner()
+
+    def make_tuner(self) -> Autotuner:
+        """A new tuner for this session: measuring when
+        ``config.autotune``, its cache under ``config.cache_dir``, its
+        rows in this session's ledger, its priors on this session's
+        hardware spec, its fingerprint that of this session's device."""
+        return Autotuner(cache_dir=self.config.cache_dir,
+                         measure=self.config.autotune, ledger=self.ledger,
+                         device=str(self.device), hw=self.engine.hw)
 
     @property
     def hw(self) -> HardwareSpec:
@@ -269,6 +309,7 @@ class Runtime:
         return plan_model(cfg, shape, mesh_shape or {"data": 1, "model": 1},
                           engine=self.engine)
 
+    @_under_tuner
     def train(self, cfg, loop=None, *, steps: int = 200, batch: int = 8,
               seq: int = 64, seed: int = 0, ckpt_dir: Optional[str] = None,
               ckpt_every: int = 50, resume: bool = False,
@@ -351,6 +392,7 @@ class Runtime:
         return TrainResult(state, start, max(steps - start, 0),
                            time.time() - t_start, loss, plan)
 
+    @_under_tuner
     def serve(self, cfg, trace, *, mode: str = "continuous", model=None,
               params=None, seed: int = 0, slots: int = 4,
               max_len: Optional[int] = None, eos_id: int = 0,

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.costs.engine import CostEngine
+from repro_torch.kernels import tuning
 from repro_torch.models.model import (ENCDEC_PAGED_REFUSAL, AnyModel,
                                      mrope_positions)
 from repro_torch.serving.faults import FaultInjector, StepFailed, guarded_call
@@ -449,12 +450,14 @@ class ContinuousServeEngine:
     # ------------------------------------------------------------------
 
     def _thread_context(self) -> Callable[[], contextlib.ExitStack]:
-        """The calling thread's grad mode, inference mode and, on a card,
-        CUDA device and stream, captured so a watchdog's worker thread can
-        run the step under the same ones: torch keeps each per thread, and
-        a worker left to its defaults could build an autograd graph or
-        launch on another device or stream."""
+        """The calling thread's grad mode, inference mode, kernel tuner
+        and, on a card, CUDA device and stream, captured so a watchdog's
+        worker thread can run the step under the same ones: torch keeps
+        each per thread, as ``kernels.tuning`` keeps the tuner, and a worker
+        left to its defaults could build an autograd graph, launch on
+        another device or stream, or launch with another tuner's tiles."""
         grad = torch.is_grad_enabled()
+        tuner = tuning.active()
         inference = torch.is_inference_mode_enabled()
         dev = self.model.device
         index = stream = None
@@ -468,6 +471,8 @@ class ContinuousServeEngine:
             stack = contextlib.ExitStack()
             stack.enter_context(torch.inference_mode(inference))
             stack.enter_context(torch.set_grad_enabled(grad))
+            if tuner is not None:
+                stack.enter_context(tuning.using(tuner))
             if stream is not None:
                 stack.enter_context(torch.cuda.device(index))
                 stack.enter_context(torch.cuda.stream(stream))

@@ -5,7 +5,9 @@ agrees with the kernel's plain version on the card.
   ``repro`` (checked in a fresh interpreter), the rwkv6 family's
   (``models/rwkv.py``, ``kernels/wkv.py``, ``configs/rwkv6_3b.py``)
   among them, and so do the paging and token-stream modules and
-  ``examples/torch_quickstart.py``'s imports;
+  ``examples/torch_quickstart.py``'s imports, and the autotuner's
+  (``core/costs/autotune.py``, ``kernels/tuning.py``, ``core/overhead.py``),
+  whose ``Autotuner`` the public surface exports as the reference's does;
 * what a spawned front-end worker imports loads no torch either, and on a
   card (marked ``cuda``) the workers of a front end spawned beside a CUDA
   tensor hold no context on it;
@@ -95,6 +97,42 @@ def test_paging_stream_and_quickstart_import_neither_jax_nor_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split(" ", 1) == ["True", "[]\n"]
+
+
+_IMPORT_AUTOTUNE = """
+import sys
+import repro_torch
+import repro_torch.core.costs.autotune, repro_torch.kernels.tuning
+import repro_torch.core.overhead
+from repro_torch.core.costs import Autotuner
+assert repro_torch.Autotuner is Autotuner is repro_torch.core.Autotuner
+print("Autotuner" in repro_torch.__all__, sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_autotuner_modules_import_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_AUTOTUNE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(" ", 1) == ["True", "[]\n"]
+
+
+def test_public_surface_has_the_reference_autotuner():
+    """The reference's exports that the port has include ``Autotuner``
+    (read from the reference's source: this process may not load it)."""
+    import ast
+
+    import repro_torch
+
+    tree = ast.parse((SRC / "repro" / "__init__.py").read_text())
+    ref_all = next(ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign)
+                   and getattr(node.targets[0], "id", "") == "__all__")
+    assert "Autotuner" in ref_all and "Autotuner" in repro_torch.__all__
+    assert repro_torch.Autotuner.__module__ == \
+        "repro_torch.core.costs.autotune"
 
 
 _IMPORT_WORKER = """

@@ -266,7 +266,8 @@ Phases, one report line each (any failure exits non-zero):
      max|grad|, no selected expert flipped; every distinct matmul call of
      one bf16 gradient at 2 x 2048 and one period of layers (1,
      recurrentgemma 3: its windowed 4-D products and their backward)
-     against the plain version, as in phase 20; Runtime.train in bf16 at
+     against the plain version, as in phase 20 but not timed (since phase
+     23, which took its time); Runtime.train in bf16 at
      full width, 4 steps at 2 x 2048 (phi3-mini, gemma and recurrentgemma
      whole; mistral-nemo 15 of 40 layers, moonshot 8 of 48, qwen3-moe 1
      of 94, qwen2-vl 2 of 80: each the deepest whose peak stays within
@@ -296,8 +297,28 @@ Phases, one report line each (any failure exits non-zero):
      a measured tune; a second Runtime on the same cache measuring nothing
      and returning the same configs; a repeat tune from an empty cache
      (which configs move, recorded).  The kernels line gains each
-     kernel's tuned configs.
-     Before each of phases 2-22, gc.collect(): a gen-2 collection of this
+     kernel's tuned configs;
+ 23. the mesh (mesh_phase): the paper's two domains across 8 positions
+     placed on the one card (make_mesh({"data": 8}, shards_per_device=8),
+     a CUDA stream each): sample sort (distributed_sort(force_parallel=
+     True, local_sort="kernel")) with the five pivots on N(0, 1) x 1e4 at
+     2^24 fp32 and a skewed, duplicated input of 3,637,005, the sampled
+     pivot at 2^26, each output bit for bit torch.sort's, the counts
+     summing to n, 16 bitonic kernel calls a sort (a local and a bucket
+     sort a shard), counts, imbalance and the wall beside the serial
+     kernel sort's, the engine's decision at chips 8 with measured ledger
+     rows; adaptive_matmul(use_kernel=True) forced to shard_m, shard_n and
+     shard_k at orders 1024, 4096 and 8192 in bf16 and (104 x 72 @ 72 x
+     88) in fp32: shard_m bit for bit the serial kernel product, the
+     others within phase 2's limits, 8 kernel calls a product, wall and
+     TFLOP/s beside the serial path, the decision with a measured row, one
+     call of each at 4096 profiled (no library GEMM kernel on the device,
+     no GEMM op on the host); matmul_chain
+     on the mesh in fp32 within 1e-5 x max of the serial chain; gpipe, 4
+     tanh stages on the kernel over 8 microbatches (bf16), bit for bit the
+     stages in turn; which of these beat serial on this card, recorded.
+     The kernels line gains the launches of phase 23's sorts and products.
+     Before each of phases 2-23, gc.collect(): a gen-2 collection of this
      script's heap took 0.2-0.75 s inside a timed step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
@@ -1443,8 +1464,17 @@ def main() -> int:
                                    "prior_ms", "tuned_ms")}
                 for r in autotune["results"] if r["family"] == family]
 
-    # ---------------------------------------------------------------- out
+    # ----------------------------------------------------------------- 23
     clock.lap(22)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(card)
+    if mesh is None:
+        return 1
+    record["mesh"] = mesh
+
+    # ---------------------------------------------------------------- out
+    clock.lap(23)
     record["phase_s"] = clock.seconds
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1512,6 +1542,14 @@ def main() -> int:
         # phase 22: the tile of every (path, N, K) of tinyllama-1.1b's
         # decode and training steps, measured at M = 2048
         "tuned": tuned("matmul"),
+        # phase 23: calls of one sharded product on the mesh of 8 shards
+        # (one a shard) by strategy at order 4096, counted from 0 just
+        # before it, the chain's and GPipe's (4 stages x 8 microbatches)
+        "launches_mesh": {
+            "order_4096": {s: r["launches"] for s, r in mesh["matmul"][
+                "4096x4096@4096x4096 bfloat16"]["strategies"].items()},
+            "chain": mesh["chain"]["launches"],
+            "gpipe": mesh["gpipe"]["launches"]},
     }, {
         "name": "bitonic_sort", "route": "cuda",
         "design": f"block passes on tiles of "
@@ -1533,6 +1571,12 @@ def main() -> int:
         "library_ms": big["library_ms"],
         # phase 22: the tile and group at 10^5, 10^6 and 2^26 fp32
         "tuned": tuned("sort"),
+        # phase 23: calls of one sample sort on the mesh of 8 shards (a
+        # local and a bucket sort a shard), counted from 0 just before it
+        "launches_mesh": {
+            key: {p: r["launches"] for p, r in mesh["sort"][key][
+                "pivots"].items()}
+            for key in ("normal_2^24", "skewed", "normal_2^26")},
     }, {
         "name": "flash_attention", "route": "cuda",
         "design": "wgmma bf16 tensor cores fed by TMA, P and dS split into "
@@ -2364,7 +2408,7 @@ def tma_flags(a, b, path) -> dict:
             "b": mm.operand_mode(bf16(b), "b")[1]}
 
 
-def train_matmuls(cfg, ops, ref, flush, label="backward"):
+def train_matmuls(cfg, ops, ref, flush, label="backward", timed=True):
     """Every distinct matmul call of one training gradient of the
     full-width model in bf16 at batch 2 x 2048, cut to one period of its
     block pattern (1 layer, an encoder-decoder 1 + 1, recurrentgemma 3:
@@ -2376,8 +2420,9 @@ def train_matmuls(cfg, ops, ref, flush, label="backward"):
     and epilogue, so the backward's products through transposed strides
     and with fp32 gradients against bf16 operands are among them; a
     mixed-dtype call is also timed beside torch.matmul of both operands in
-    fp32 (no TF32).  None on a mismatch, or if no such product was
-    seen."""
+    fp32 (no TF32).  ``timed=False`` holds and routes every call but times
+    none (phase 21: its time went to phase 23).  None on a mismatch, or if
+    no such product was seen."""
     from repro_torch.data import SyntheticLMData
     from repro_torch.kernels import matmul as mm
     from repro_torch.models import build_model
@@ -2401,9 +2446,10 @@ def train_matmuls(cfg, ops, ref, flush, label="backward"):
             err, tol = held(out, ref.matmul_fused_ref(
                 a, b, bias=bias, activation=activation, out_dtype=out_dtype))
             k_ms = cuda_ms(lambda: launch(a, b, bias, activation, out_dtype),
-                           flush, reps=5, warm=1)
-            lib = a.dtype == b.dtype == torch.bfloat16
-            tflops, gbs = rates(a, b, out.dtype, k_ms)
+                           flush, reps=5, warm=1) if timed else None
+            lib = timed and a.dtype == b.dtype == torch.bfloat16
+            tflops, gbs = rates(a, b, out.dtype, k_ms) if timed else \
+                (None, None)
             t_ops, t_bytes = bound_terms(a, b, out.dtype)
             path = mm.choose_path(a.dtype, b.dtype)
             rows[key] = dict(a=list(a.shape), a_stride=list(a.stride()),
@@ -2418,7 +2464,7 @@ def train_matmuls(cfg, ops, ref, flush, label="backward"):
                                  lambda: torch.matmul(a, b), flush, reps=5,
                                  warm=1) if lib else None,
                              torch_matmul_fp32_ms=None)
-            if a.dtype != b.dtype:  # the same product by torch.matmul in
+            if timed and a.dtype != b.dtype:  # the same product by torch.matmul in
                 af, bf = a.float(), b.float()  # fp32 (no TF32), a yardstick
                 rows[key]["torch_matmul_fp32_ms"] = cuda_ms(
                     lambda: torch.matmul(af, bf), flush, reps=5, warm=1)
@@ -2444,14 +2490,15 @@ def train_matmuls(cfg, ops, ref, flush, label="backward"):
             f"{' +bias' if r['bias'] else ''}"
             f"{' ' + r['activation'] if r['activation'] else ''}: "
             f"max abs err {r['err']:.3e} (limit {r['tol']:.3e}); "
-            f"{r['path']} (TMA {r['tma']}) {r['ms']:.4f} ms "
-            f"({r['tflops']:.1f} TFLOP/s, {r['gb_per_s']:.0f} GB/s), "
-            f"torch.matmul "
-            + ("-" if r["torch_matmul_ms"] is None
-               else f"{r['torch_matmul_ms']:.4f} ms")
-            + ("" if r["torch_matmul_fp32_ms"] is None
-               else f" (in fp32 {r['torch_matmul_fp32_ms']:.4f} ms)")
-            + "; cold L2")
+            f"{r['path']} (TMA {r['tma']})"
+            + ("; not timed" if r["ms"] is None else
+               f" {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+               f"{r['gb_per_s']:.0f} GB/s), torch.matmul "
+               + ("-" if r["torch_matmul_ms"] is None
+                  else f"{r['torch_matmul_ms']:.4f} ms")
+               + ("" if r["torch_matmul_fp32_ms"] is None
+                  else f" (in fp32 {r['torch_matmul_fp32_ms']:.4f} ms)")
+               + "; cold L2"))
     bf16 = [r for r in calls if r["torch_matmul_ms"] is not None]
     log(label, f"{cfg.name}: {len(calls)} distinct matmul calls in one "
         f"gradient (batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
@@ -5610,7 +5657,8 @@ def family_train_phase(mm, fa, ops, ref, card):
     the masked dense form); every distinct matmul call of one bf16 gradient at 2 x
     2048 and one period of layers, held against the plain version
     (train_matmuls: recurrentgemma's windowed 4-D products and their
-    gradients among them); then Runtime.train at full width in bf16, 4
+    gradients among them; not timed since phase 23, whose time it gave);
+    then Runtime.train at full width in bf16, 4
     steps at 2 x 2048, at FAMILY_TRAIN's depth, every loss finite, every
     flash and matmul call on the path its dtypes and head dim name with
     every tensor-core operand on a tensor map, one step profiled
@@ -5647,9 +5695,8 @@ def family_train_phase(mm, fa, ops, ref, card):
             fails += f
             gc.collect()
         torch.cuda.empty_cache()
-        flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
-        calls = train_matmuls(full, ops, ref, flush, label="family-backward")
-        del flush
+        calls = train_matmuls(full, ops, ref, None, label="family-backward",
+                              timed=False)
         out["train_matmuls"][arch] = calls
         if calls is None:
             fails.append(f"{arch}: a matmul call of the gradient disagrees "
@@ -6035,6 +6082,365 @@ def autotune_phase(cfg, p1_want, card):
         f"failures ({card})")
     return None if fails else out
 
+
+
+# phase 23: the paper's two domains on a mesh of 8 positions on the one
+# card, one CUDA stream each
+MESH_SHARDS = 8
+MESH_SORT_N, MESH_SORT_BIG = 1 << 24, 1 << 26
+# skewed and duplicated, n = 3,637,005 (not a multiple of 8): exp(N(0, 1)),
+# zeros, 3.3, as the reference's test_sample_sort_nonuniform_input
+MESH_SKEWED = (3_000_001, 137_003, 500_001)
+MESH_ORDERS = (1024, 4096, 8192)  # bf16
+MESH_AWKWARD = (104, 72, 88)  # fp32, no shard count divides it
+MESH_CHAIN = [(2048, 1024), (1024, 4096), (4096, 512), (512, 2048)]
+MESH_PIPE = (4, 8, 256, 1024)  # stages, microbatches, rows each, width
+MESH_PARALLEL = ("shard_m", "shard_n", "shard_k")
+
+
+def enqueue_ms(fn, reps: int = 3) -> float:
+    """Median host ms until ``fn()`` returns, the card idle before each
+    call and synchronised after it, outside the reading: the host's share
+    of a call whose work it only queues."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return sorted(walls)[len(walls) // 2]
+
+
+# a host op that computes a product through a library (cuBLAS, cuDNN)
+HOST_GEMM_OPS = re.compile(
+    r"^aten::(mm|addmm|bmm|baddbmm|matmul|linear|addmv|mv|dot|_scaled_mm)$")
+
+
+def mesh_profile(run) -> dict:
+    """One ``run()`` under torch.profiler: the device's kernels (no library
+    GEMM kernel among them, phase 5's check; the matmul kernel's launches
+    and device ms) and the host's aten ops (no GEMM op among them).  The
+    host ops are the firmer half: after phase 22 the profiler's device
+    records of this process missed kernels (a lone 0.1 ms product gave no
+    event; three sharded products 23 or 0 of their 24 matmul launches),
+    while every op the host ran is recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    device = [(torch._C._demangle(ev.name()), ev.duration_ns() / 1e6)
+              for ev in events if ev.device_type() == DeviceType.CUDA]
+    host = sorted({ev.name() for ev in events
+                   if ev.device_type() == DeviceType.CPU
+                   and ev.name().startswith("aten::")})
+    matmul = [ms for name, ms in device if any(
+        re.search(p, name) for p in MATMUL_KERNELS.values())]
+    return dict(events=len(device), launches=len(matmul),
+                matmul_ms=sum(matmul),
+                library_gemms=library_gemms("mesh", dict(device)),
+                host_ops=host,
+                host_gemm_ops=[op for op in host if HOST_GEMM_OPS.match(op)])
+
+
+def host_wall_ms(fn, reps: int = 3) -> tuple:
+    """(median wall ms, last result) of ``fn()``, the card synchronised
+    before and after each call."""
+    walls, res = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[len(walls) // 2], res
+
+
+def mesh_phase(card):
+    """Phase 23: the paper's two domains across a mesh of MESH_SHARDS
+    positions placed on the one card (make_mesh(shards_per_device=8), a
+    CUDA stream each).  Sample sort (distributed_sort(force_parallel=True,
+    local_sort="kernel")) with all five pivots on N(0, 1) x 1e4 at 2^24
+    fp32 and on MESH_SKEWED, and the sampled pivot at 2^26: every output
+    bit for bit torch.sort's, the counts summing to n, 2 x 8 bitonic
+    kernel calls a sort (each shard's local and bucket sort); counts and
+    imbalance, the wall beside the serial distributed_sort(local_sort=
+    "kernel") at the same n, and the engine's own decision at chips = 8
+    with its measured ledger row.  adaptive_matmul(use_kernel=True) forced
+    to shard_m, shard_n and shard_k at MESH_ORDERS in bf16 and at
+    MESH_AWKWARD in fp32: shard_m bit for bit the serial kernel product,
+    the others within BF16_TOL / F32_TOL x max|C|, 8 kernel calls a
+    product; wall (CUDA events, cold L2) and TFLOP/s beside the serial
+    path, the engine's decision with a measured row; one call of each
+    strategy at 4096 profiled (mesh_profile), no library GEMM kernel or
+    host GEMM op.  matmul_chain on
+    the mesh in fp32 against the serial chain within F32_TOL x max;
+    gpipe of 4 tanh stages (the products on the kernel, bf16) over 8
+    microbatches against the stages applied in turn, bit for bit (the
+    kernel's rows do not depend on the batch).  The mesh's positions must
+    all be on the card and every product and sort must launch its kernel
+    (a CPU tensor would take the plain version, which counts nothing).
+    None on any failure."""
+    from repro_torch.core.costs.engine import CostEngine
+    from repro_torch.core.dispatch import adaptive_matmul, matmul_chain
+    from repro_torch.core.sort import PIVOT_STRATEGIES, distributed_sort
+    from repro_torch.distributed import gpipe, make_mesh
+    from repro_torch.kernels import bitonic_sort as bs
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    fails = []
+    mesh = make_mesh({"data": MESH_SHARDS}, shards_per_device=MESH_SHARDS)
+    if any(d.type != "cuda" for d in mesh.devices) or \
+            len(set(mesh.streams)) != MESH_SHARDS:
+        log("mesh", f"FAIL: {mesh} is not {MESH_SHARDS} positions on the "
+            f"card with a stream each")
+        return None
+    out: dict = {"card": card, "mesh": repr(mesh), "sort": {},
+                 "matmul": {}, "faster_than_serial": []}
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+
+    # --- sample sort
+    def sort_cases(label, x, pivots, timed):
+        want = torch.sort(x).values
+        n = x.numel()
+        serial_ms, ser = host_wall_ms(
+            lambda: distributed_sort(x, local_sort="kernel")[0])
+        if not torch.equal(ser, want):
+            fails.append(f"{label}: the serial kernel sort is not "
+                         f"torch.sort's")
+        rows = {}
+        for pivot in pivots:
+            bs.LAUNCHES.reset()
+            got, rep = distributed_sort(x, mesh, pivot=pivot,
+                                        force_parallel=True,
+                                        local_sort="kernel")
+            torch.cuda.synchronize()
+            launches = bs.LAUNCHES.count
+            ok = (got.is_cuda and torch.equal(got, want)
+                  and int(rep.counts.sum()) == n
+                  and rep.strategy == "sample_sort"
+                  and launches == 2 * MESH_SHARDS)
+            if not ok:
+                fails.append(f"{label} {pivot}: output, counts or the "
+                             f"kernel's {launches} calls (want "
+                             f"{2 * MESH_SHARDS}) wrong")
+            ms = host_wall_ms(lambda: distributed_sort(
+                x, mesh, pivot=pivot, force_parallel=True,
+                local_sort="kernel"))[0] if timed else None
+            rows[pivot] = dict(counts=rep.counts.tolist(),
+                               imbalance=rep.imbalance, launches=launches,
+                               grids=bs.LAUNCHES.grids, ms=ms)
+            log("mesh", f"sample sort {label} {pivot}: bit for bit "
+                f"{ok}, counts {rep.counts.tolist()}, imbalance "
+                f"{rep.imbalance:.3f}, kernel calls {launches}"
+                + ("" if ms is None else f", wall {ms:.2f} ms against "
+                   f"serial {serial_ms:.2f} ms"))
+            del got
+        return dict(n=n, serial_ms=serial_ms, pivots=rows)
+
+    x = torch.randn(MESH_SORT_N, generator=gen, device="cuda") * 1e4
+    out["sort"]["normal_2^24"] = sort_cases("2^24", x, PIVOT_STRATEGIES,
+                                            True)
+    eng = CostEngine()  # the engine's own choice, with a measured row
+    distributed_sort(x, mesh, engine=eng, measure=True, local_sort="kernel")
+    skew = torch.cat([
+        torch.exp(torch.randn(MESH_SKEWED[0], generator=gen,
+                              device="cuda")),
+        torch.zeros(MESH_SKEWED[1], device="cuda"),
+        torch.full((MESH_SKEWED[2],), 3.3, device="cuda")])
+    out["sort"]["skewed"] = sort_cases(f"skewed n={skew.numel()}", skew,
+                                       PIVOT_STRATEGIES, False)
+    del x, skew
+    big = torch.randn(MESH_SORT_BIG, generator=gen, device="cuda") * 1e4
+    out["sort"]["normal_2^26"] = sort_cases("2^26", big, ("sampled",), True)
+    distributed_sort(big, mesh, engine=eng, measure=True,
+                     local_sort="kernel")
+    del big
+    torch.cuda.empty_cache()
+    out["sort"]["ledger"] = [
+        dict(n=e.query["shape"], chips=e.query["chips"], choice=e.choice,
+             predicted_s=e.predicted_s, measured_s=e.measured_s)
+        for e in eng.ledger.entries if e.measured_s is not None]
+    for r in out["sort"]["ledger"]:
+        log("mesh", f"sort decision at chips {r['chips']}, n {r['n']}: "
+            f"{r['choice']}, predicted {r['predicted_s']:.3e} s, measured "
+            f"{r['measured_s']:.3e} s")
+    for key in ("normal_2^24", "normal_2^26"):
+        case = out["sort"][key]
+        for pivot, row in case["pivots"].items():
+            if row["ms"] < case["serial_ms"]:
+                out["faster_than_serial"].append(f"sort {key} {pivot}")
+
+    # --- the sharded matmul
+    def rand(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    cases = [(o, o, o, torch.bfloat16) for o in MESH_ORDERS] + \
+        [MESH_AWKWARD + (torch.float32,)]
+    mm_eng = CostEngine()
+    for m, k, n, dtype in cases:
+        a = rand(m, k, dtype=dtype, scale=k ** -0.5)
+        b = rand(k, n, dtype=dtype)
+        label = f"{m}x{k}@{k}x{n} {str(dtype)[6:]}"
+        reps = 3 if m == 8192 else 10
+        serial = adaptive_matmul(a, b, use_kernel=True)
+        serial_ms = cuda_ms(lambda: adaptive_matmul(a, b, use_kernel=True),
+                            flush, reps, 1)
+        serial_host = enqueue_ms(lambda: adaptive_matmul(a, b,
+                                                         use_kernel=True))
+        tol = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL) * \
+            serial.float().abs().max().item()
+        flops = 2.0 * m * n * k
+        row = dict(serial_ms=serial_ms, serial_enqueue_ms=serial_host,
+                   serial_tflops=flops / serial_ms / 1e9, strategies={})
+        for strategy in MESH_PARALLEL:
+            mm.LAUNCHES.reset()
+            got = adaptive_matmul(a, b, mesh, force_strategy=strategy,
+                                  use_kernel=True)
+            torch.cuda.synchronize()
+            launches = mm.LAUNCHES.count
+            bitwise = torch.equal(got, serial)
+            err = (got.float() - serial.float()).abs().max().item()
+            ok = (got.is_cuda and got.dtype == dtype and err <= tol
+                  and launches == MESH_SHARDS
+                  and (bitwise or strategy != "shard_m"))
+            if not ok:
+                fails.append(f"{label} {strategy}: err {err:.3e} (limit "
+                             f"{tol:.3e}), bitwise {bitwise}, {launches} "
+                             f"kernel calls (want {MESH_SHARDS})")
+            ms = cuda_ms(lambda: adaptive_matmul(
+                a, b, mesh, force_strategy=strategy, use_kernel=True),
+                flush, reps, 1)
+            host = enqueue_ms(lambda: adaptive_matmul(
+                a, b, mesh, force_strategy=strategy, use_kernel=True))
+            row["strategies"][strategy] = dict(
+                ms=ms, tflops=flops / ms / 1e9, err=err, tol=tol,
+                bitwise=bitwise, launches=launches, enqueue_ms=host)
+            if ms < serial_ms:
+                out["faster_than_serial"].append(f"matmul {label} "
+                                                 f"{strategy}")
+            log("mesh", f"{label} {strategy}: {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s; the host returns after "
+                f"{host:.4f} ms) against serial "
+                f"{serial_ms:.4f} ms ({flops / serial_ms / 1e9:.1f}); max "
+                f"abs err {err:.3e} (limit {tol:.3e}), bit for bit "
+                f"{bitwise}, kernel calls {launches}; cold L2")
+            del got
+        _, rep = adaptive_matmul(a, b, mesh, engine=mm_eng, use_kernel=True,
+                                 return_report=True)
+        chosen = rep.chosen.strategy
+        measured = serial_ms if chosen == "serial" else \
+            row["strategies"].get(chosen, {}).get("ms")
+        if measured is not None:
+            mm_eng.record_measured(rep.decision, measured / 1e3)
+        row.update(decision=chosen, predicted_s=rep.decision.predicted_s,
+                   measured_s=None if measured is None else measured / 1e3)
+        log("mesh", f"{label}: the engine at chips {MESH_SHARDS} picks "
+            f"{chosen}, predicted {rep.decision.predicted_s:.3e} s, "
+            f"measured {row['measured_s']} s")
+        out["matmul"][label] = row
+        if m == 4096:  # one call of each strategy profiled
+            prof = mesh_profile(lambda: [
+                adaptive_matmul(a, b, mesh, force_strategy=s,
+                                use_kernel=True) for s in MESH_PARALLEL])
+            out["profile_4096"] = prof
+            log("mesh", f"profile of shard_m, shard_n, shard_k at 4096: "
+                f"{prof['events']} device events, matmul kernel "
+                f"{prof['matmul_ms']:.3f} ms in {prof['launches']} of the "
+                f"{len(MESH_PARALLEL) * MESH_SHARDS} launches; host ops "
+                f"{prof['host_ops']}, GEMM ops among them "
+                f"{prof['host_gemm_ops']}")
+            if prof["library_gemms"] or prof["host_gemm_ops"] or \
+                    not prof["host_ops"]:
+                fails.append("a library GEMM in the profile of the sharded "
+                             "products, or no host ops recorded")
+        del a, b, serial
+
+    # --- the chain and the pipeline
+    mats = [rand(*s, dtype=torch.float32, scale=s[0] ** -0.5)
+            for s in MESH_CHAIN]
+    chain_eng = CostEngine()
+    serial = matmul_chain(mats, use_kernel=True)
+    mm.LAUNCHES.reset()
+    got = matmul_chain(mats, mesh, engine=chain_eng, use_kernel=True)
+    torch.cuda.synchronize()
+    chain_launches = mm.LAUNCHES.count
+    err = (got - serial).abs().max().item()
+    tol = F32_TOL * serial.abs().max().item()
+    choices = [e.choice for e in chain_eng.ledger.entries
+               if e.site == "matmul"]
+    chain_ms = cuda_ms(lambda: matmul_chain(mats, mesh, engine=chain_eng,
+                                            use_kernel=True), flush, 5, 1)
+    serial_chain_ms = cuda_ms(lambda: matmul_chain(mats, use_kernel=True),
+                              flush, 5, 1)
+    out["chain"] = dict(shapes=MESH_CHAIN, err=err, tol=tol,
+                        decisions=choices, launches=chain_launches,
+                        ms=chain_ms, serial_ms=serial_chain_ms)
+    log("mesh", f"matmul_chain {MESH_CHAIN} fp32 on the mesh: decisions "
+        f"{choices}, {chain_launches} kernel calls, max abs err {err:.3e} "
+        f"(limit {tol:.3e}) against the serial chain; {chain_ms:.3f} ms "
+        f"against {serial_chain_ms:.3f} ms; cold L2")
+    if not (err <= tol and chain_launches >= len(MESH_CHAIN) - 1):
+        fails.append("matmul_chain on the mesh")
+    if chain_ms < serial_chain_ms:
+        out["faster_than_serial"].append("matmul_chain")
+    del mats, serial, got
+
+    stages, micro, rows, d = MESH_PIPE
+    pipe_mesh = make_mesh({"pod": stages}, shards_per_device=stages)
+    ws = rand(stages, d, d, dtype=torch.bfloat16, scale=d ** -0.5)
+    bias = rand(stages, d, dtype=torch.bfloat16, scale=0.1)
+    x = rand(micro, rows, d, dtype=torch.bfloat16)
+
+    def stage(params, h):
+        w, b = params
+        return torch.tanh(ops.matmul(h, w) + b)
+
+    def sequential():
+        h = x.reshape(micro * rows, d)
+        for s in range(stages):
+            h = stage((ws[s], bias[s]), h)
+        return h.reshape(micro, rows, d)
+
+    mm.LAUNCHES.reset()
+    got = gpipe(stage, (ws, bias), x, pipe_mesh, "pod")
+    torch.cuda.synchronize()
+    pipe_launches = mm.LAUNCHES.count
+    want = sequential()
+    bitwise = torch.equal(got, want)
+    pipe_ms = host_wall_ms(lambda: gpipe(stage, (ws, bias), x, pipe_mesh,
+                                         "pod"))[0]
+    seq_ms = host_wall_ms(sequential)[0]
+    out["gpipe"] = dict(shape=MESH_PIPE, bitwise=bitwise,
+                        launches=pipe_launches, ms=pipe_ms, serial_ms=seq_ms)
+    log("mesh", f"gpipe {stages} stages x {micro} microbatches of "
+        f"({rows}, {d}) bf16: bit for bit the stages in turn {bitwise}, "
+        f"{pipe_launches} kernel calls (want {stages * micro}); "
+        f"{pipe_ms:.2f} ms against {seq_ms:.2f} ms in turn")
+    if not (bitwise and pipe_launches == stages * micro and got.is_cuda):
+        fails.append("gpipe against the stages in turn")
+    if pipe_ms < seq_ms:
+        out["faster_than_serial"].append("gpipe")
+    del ws, bias, x, got, want, flush
+    torch.cuda.empty_cache()
+
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["fails"] = fails
+    for f in fails:
+        log("mesh", f"FAIL {f}")
+    log("mesh", f"faster than serial on this card: "
+        f"{out['faster_than_serial'] or 'none'}")
+    log("mesh", f"phase 23 wall {out['wall_s']:.1f} s; {len(fails)} "
+        f"failures ({card})")
+    return None if fails else out
 
 if __name__ == "__main__":
     # torch is imported here, not with the module: the front end's spawned

@@ -17,6 +17,7 @@ from repro_torch.configs import (  # noqa: F401
     tinyllama_1_1b,
 )
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
     ModelConfig,
     ShapeSpec,
     get_config,

@@ -2,12 +2,15 @@
 
 costs/        — CostEngine: calibrated cost oracle + decision cache +
                 predicted-vs-measured overhead ledger
-dispatch.py   — fork-join adaptive matmul dispatch (the serial path, on the
-                port's matmul kernel) and matrix-chain multiplication
-sort.py       — the paper's sort domain (the serial path, on torch.sort or
-                the port's bitonic sort kernel)
+dispatch.py   — fork-join adaptive matmul dispatch (serial or sharded over
+                a mesh, on the port's matmul kernel) and matrix-chain
+                multiplication
+sort.py       — the paper's sort domain: serial, or sample sort over a
+                mesh with the paper's pivot strategies (torch.sort or the
+                port's bitonic sort kernel)
 dependency.py — torch.fx dependency analysis (available parallelism)
-planner.py    — per-layer shard-or-replicate plan and HBM check (one GPU)
+planner.py    — per-layer shard-or-replicate plan and HBM check over a
+                mesh shape
 
 Names resolve lazily, as in ``repro_torch``: the serving scheduler (which
 a spawned front-end worker imports to validate requests) reaches

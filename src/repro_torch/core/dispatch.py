@@ -7,9 +7,12 @@ execution *is* overhead (paper Fig. 2).  Every decision lands in the
 engine's ledger; the engine's decision cache makes repeated same-shape
 dispatches (e.g. the products of ``matmul_chain``) free.
 
-The port runs on one GPU: the serial path is complete (on the port's
-matmul kernel with ``use_kernel=True``), and the sharded strategies and a
-mesh raise until the multi-GPU work lands.
+Over a mesh (``repro_torch.distributed.Mesh``) the sharded strategies
+run each position's product under its own device and stream, on the
+port's matmul kernel with ``use_kernel=True``: ``shard_m`` splits A's
+rows, ``shard_n`` B's columns, ``shard_k`` the contraction (the partial
+products summed with ``psum``); ``shard_mn`` needs two axes and falls back
+to ``shard_m`` on one, as in the reference.
 """
 
 from __future__ import annotations
@@ -26,9 +29,9 @@ from repro_torch.core.costs import (
     OverheadModel,
     resolve_engine,
 )
+from repro_torch.distributed import mesh as mesh_lib
 
-_MULTI_GPU = ("sharded matmul strategies need several GPUs; they are on the "
-              "port's multi-GPU queue (ROADMAP.md), not in this slice")
+STRATEGIES = ("serial", "shard_m", "shard_n", "shard_k", "shard_mn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +44,17 @@ class DispatchReport:
     @property
     def predicted_speedup(self) -> float:
         return self.serial.total / self.chosen.total
+
+
+def _pad_to(x: torch.Tensor, dim: int, mult: int):
+    """``x`` zero-padded along ``dim`` to a multiple of ``mult``, and the
+    padding's length."""
+    r = (-x.shape[dim]) % mult
+    if r == 0:
+        return x, 0
+    pad = list(x.shape)
+    pad[dim] = r
+    return torch.cat([x, x.new_zeros(pad)], dim), r
 
 
 def decide_matmul(m: int, n: int, k: int, *, chips: int,
@@ -72,31 +86,64 @@ def adaptive_matmul(
 ):
     """C = A @ B with overhead-managed serial/parallel dispatch.
 
-    A: (m, k); B: (k, n).  With no mesh this is the serial path, decided
-    and ledgered like the reference's.  ``use_kernel=True`` runs it through
-    the port's matmul kernel (``kernels.ops.matmul``: the Hopper kernel on
-    a CUDA tensor, its plain version on a CPU tensor); otherwise
-    ``torch.matmul``.  ``mesh`` and the sharded ``force_strategy`` values
-    raise ``NotImplementedError`` in this single-GPU slice.
+    A: (m, k); B: (k, n).  With no mesh (or a 1-position axis) this is the
+    serial path.  The strategy is the CostEngine's at ``chips =
+    mesh.shape[axis]`` (decided and ledgered like the reference's), or
+    ``force_strategy``.  ``io_at_master`` as in :func:`decide_matmul`:
+    in-model callers whose operands are already distributed pass False.
+    ``use_kernel=True`` runs every product (each shard's on the mesh)
+    through the port's matmul kernel (``kernels.ops.matmul``: the Hopper
+    kernel on a CUDA tensor, its plain version on a CPU tensor); otherwise
+    ``torch.matmul``.  ``shard_k``'s kernel products come out in fp32 and
+    are summed in fp32, then rounded to A's dtype once.  The result lands
+    on A's device.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MULTI_GPU)
+    if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
+        raise TypeError(f"mesh must be a repro_torch.distributed.Mesh, got "
+                        f"{type(mesh).__name__}")
     m, k = a.shape
     k2, n = b.shape
     if k != k2:
         raise ValueError(f"shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
-    report = decide_matmul(m, n, k, chips=1, model=model, engine=engine,
+    chips = int(mesh.shape[axis]) if mesh is not None else 1
+    report = decide_matmul(m, n, k, chips=chips, model=model, engine=engine,
                            dtype_bytes=a.element_size(),
                            io_at_master=io_at_master)
     strategy = force_strategy or report.chosen.strategy
-    if strategy != "serial":
-        raise NotImplementedError(_MULTI_GPU)
+    if strategy not in STRATEGIES:
+        raise ValueError(f"strategy must be one of {STRATEGIES}, got "
+                         f"{strategy!r}")
     if use_kernel:
         from repro_torch.kernels import ops
 
-        out = ops.matmul(a, b)
+        mm = ops.matmul
     else:
-        out = a @ b
+        mm = torch.matmul
+
+    if strategy == "serial" or chips == 1:
+        out = mm(a, b)
+    elif strategy in ("shard_m", "shard_mn"):  # shard_mn: one axis -> rows
+        ap, _ = _pad_to(a, 0, chips)
+        outs = mesh.map(mm, mesh_lib.shard(mesh, axis, ap, 0),
+                        mesh_lib.replicate(mesh, b))
+        out = mesh_lib.unshard(mesh, axis, outs, 0, a.device)[:m]
+    elif strategy == "shard_n":
+        bp, _ = _pad_to(b, 1, chips)
+        outs = mesh.map(mm, mesh_lib.replicate(mesh, a),
+                        mesh_lib.shard(mesh, axis, bp, 1))
+        out = mesh_lib.unshard(mesh, axis, outs, 1, a.device)[:, :n]
+    else:  # shard_k
+        ap, _ = _pad_to(a, 1, chips)
+        bp, _ = _pad_to(b, 0, chips)
+        if use_kernel:
+            def partial(al, bl):
+                return ops.matmul(al, bl, out_dtype=torch.float32)
+        else:
+            partial = torch.matmul
+        parts = mesh.map(partial, mesh_lib.shard(mesh, axis, ap, 1),
+                         mesh_lib.shard(mesh, axis, bp, 0))
+        out = mesh_lib.take(mesh, mesh_lib.psum(mesh, axis, parts), 0,
+                            a.device).to(a.dtype)
     return (out, report) if return_report else out
 
 
@@ -107,14 +154,14 @@ def fork_join(serial_fn: Callable, parallel_fn: Callable, *,
     return parallel_fn if parallel_wins else serial_fn
 
 
-def matmul_chain(matrices, mesh=None, axis="data", model=None, engine=None):
+def matmul_chain(matrices, mesh=None, axis="data", model=None, engine=None,
+                 use_kernel: bool = False):
     """Matrix-chain multiplication with per-product adaptive dispatch (the
     paper's 'matrix chain multiplication' case): association order by the
     classic dynamic program on FLOP counts, each product dispatched
-    adaptively.  All products share one engine, so repeated shapes hit its
-    decision cache."""
-    if mesh is not None:
-        raise NotImplementedError(_MULTI_GPU)
+    adaptively, over ``mesh`` where one is given.  All products share one
+    engine, so repeated shapes hit its decision cache.  ``use_kernel`` as
+    in :func:`adaptive_matmul` (the reference's chain takes the XLA dot)."""
     eng = resolve_engine(engine, model)
     dims = [m.shape[0] for m in matrices] + [matrices[-1].shape[1]]
     nmat = len(matrices)
@@ -135,8 +182,9 @@ def matmul_chain(matrices, mesh=None, axis="data", model=None, engine=None):
         if i == j:
             return matrices[i]
         s = split[i][j]
-        # chain intermediates are already where they are used
-        return adaptive_matmul(mult(i, s), mult(s + 1, j), engine=eng,
-                               io_at_master=False)
+        # chain intermediates are already distributed: io_at_master=False
+        return adaptive_matmul(mult(i, s), mult(s + 1, j), mesh, axis,
+                               engine=eng, io_at_master=False,
+                               use_kernel=use_kernel)
 
     return mult(0, nmat - 1)

@@ -1,15 +1,15 @@
-"""Overhead-driven sharding planner on one device: the paper's crossover
-reasoning applied per layer of a transformer.
+"""Overhead-driven sharding planner: the paper's crossover reasoning
+applied per layer of a transformer.
 
-For each shardable site (the FFN, the attention projections, the
-unembedding) the planner asks the CostEngine to compare tensor-parallel
-execution over the ``model`` axis against replicated "serial" execution,
-and checks the HBM constraint (feasibility before speed).  The port runs
-on one GPU, so the ``model`` axis has size 1 and every comparison is the
-reference's at tp = 1; a mesh of more than one device raises until the
-multi-GPU slice.  Replicate decisions emit their overrides as tuples of
-axis names (one entry per dimension, ``None`` for a replicated one), where
-the reference emits ``PartitionSpec``s.
+For each shardable site (the FFN, the MoE dispatch, the attention
+projections, the unembedding) the planner asks the CostEngine to compare
+tensor-parallel execution over the mesh's ``model`` axis against
+replicated "serial" execution, picks the scan chunk, and checks the HBM
+constraint (feasibility before speed).  It is analytic: a mesh shape
+(``{"data": 16, "model": 16}``) is all it needs, not the devices.
+Replicate decisions emit their overrides as tuples of axis names (one
+entry per dimension, ``None`` for a replicated one, a tuple for several
+axes), where the reference emits ``PartitionSpec``s.
 """
 
 from __future__ import annotations
@@ -71,11 +71,6 @@ def plan_model(cfg: ModelConfig, shape: ShapeSpec, mesh_shape: Dict[str, int],
     chips = 1
     for v in mesh_shape.values():
         chips *= v
-    if chips > 1:
-        raise NotImplementedError(
-            f"plan_model over a mesh of {chips} devices ({mesh_shape}) needs "
-            f"several GPUs; it is on the port's multi-GPU queue (ROADMAP.md), "
-            f"not in this slice")
     tp = mesh_shape.get("model", 1)
     dp = chips // tp
     train = shape.kind == "train"

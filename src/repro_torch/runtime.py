@@ -31,8 +31,9 @@ intake and emission worker processes, the ``serve_ipc`` decisions).
 and cache the winners; ``train`` and ``serve`` run their kernels under it
 (on the calling thread, and on a serving watchdog's worker).  A kernel
 called outside them, with no ``tuner=``, launches with its fixed choice.
-Meshes (planning, training or serving over several GPUs) and
-``Runtime.bench`` come with later slices of the port.
+``Runtime.mesh`` is the session's device mesh (``RuntimeConfig.mesh_shape``)
+and ``Runtime.plan`` plans over it; training and serving over several GPUs,
+and ``Runtime.bench``, come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -97,8 +98,9 @@ class RuntimeConfig:
                      ...}``.  One knob set, shared by the warning path
                      (``ledger.report()``), the correction loop and the
                      recalibration trigger.
-
-    The reference's mesh knobs come with the slice that ports meshes.
+    ``mesh_shape`` — mesh topology as ``{axis: size}`` (e.g. ``{"data": 8,
+                     "model": 2}``); ``None`` means one data axis over
+                     every visible GPU (one position on the CPU).
     """
 
     device: Optional[str] = None
@@ -111,6 +113,7 @@ class RuntimeConfig:
     drift_window: int = 20
     drift_threshold: float = 3.0
     drift_overrides: Optional[Mapping[str, Mapping[str, Any]]] = None
+    mesh_shape: Optional[Dict[str, int]] = None
 
     @classmethod
     def from_env(cls, env: Optional[Mapping[str, str]] = None,
@@ -280,6 +283,7 @@ class Runtime:
                                     corrections=corrections)
         self.engine = engine
         self.tuner = tuner if tuner is not None else self.make_tuner()
+        self._mesh = None
 
     def make_tuner(self) -> Autotuner:
         """A new tuner for this session: measuring when
@@ -300,13 +304,35 @@ class Runtime:
         """THE overhead ledger of this session."""
         return self.engine.ledger
 
+    def mesh_shape(self) -> Dict[str, int]:
+        """The configured mesh topology, or one data axis over every
+        visible GPU (one position on the CPU)."""
+        if self.config.mesh_shape:
+            return dict(self.config.mesh_shape)
+        n = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        return {"data": n, "model": 1}
+
+    @property
+    def mesh(self):
+        """The ``repro_torch.distributed.Mesh`` for :meth:`mesh_shape` on
+        this runtime's device type, one position a device (built lazily).
+        A shape that needs more devices than exist raises; several
+        positions on one device take ``distributed.make_mesh(...,
+        shards_per_device=n)``."""
+        if self._mesh is None:
+            from repro_torch.distributed import make_mesh
+
+            self._mesh = make_mesh(self.mesh_shape(),
+                                   device=self.device.type)
+        return self._mesh
+
     def plan(self, cfg, shape, mesh_shape: Optional[Dict[str, int]] = None):
         """Overhead-driven layer plan for ``cfg`` at ``shape`` on this
-        runtime's engine (every decision ledgered).  The port runs on one
-        device, so the default mesh is ``{"data": 1, "model": 1}``."""
+        runtime's engine (every decision ledgered), over ``mesh_shape`` or
+        this runtime's."""
         from repro_torch.core.planner import plan_model
 
-        return plan_model(cfg, shape, mesh_shape or {"data": 1, "model": 1},
+        return plan_model(cfg, shape, mesh_shape or self.mesh_shape(),
                           engine=self.engine)
 
     @_under_tuner

@@ -52,8 +52,10 @@ def test_matmul_chain_matches_reference(shapes):
 
 
 def test_matmul_chain_mesh_raises():
+    """A mesh that is not a ``repro_torch.distributed.Mesh`` is refused
+    (the chain over a real one: tests/test_torch_sharded_dispatch.py)."""
     a = torch.ones((4, 4))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="Mesh"):
         matmul_chain([a, a], mesh=object())
 
 

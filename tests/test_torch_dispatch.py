@@ -65,8 +65,13 @@ def test_decide_matmul_same_strategy_and_seconds(spec, order, chips, io):
 
 
 def test_sharded_paths_raise_in_the_single_gpu_slice():
+    """What is not a mesh is refused; without a mesh a forced sharded
+    strategy runs serially, as in the reference; an unknown one raises.
+    (The sharded paths themselves: tests/test_torch_sharded_dispatch.py.)"""
     a = torch.ones((4, 4))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="Mesh"):
         adaptive_matmul(a, a, mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        adaptive_matmul(a, a, force_strategy="shard_k")
+    assert torch.equal(adaptive_matmul(a, a, force_strategy="shard_k"),
+                       torch.full((4, 4), 4.0))
+    with pytest.raises(ValueError, match="strategy"):
+        adaptive_matmul(a, a, force_strategy="shard_x")

@@ -415,8 +415,10 @@ def test_distributed_sort_measure_attaches_the_time():
 
 
 def test_distributed_sort_mesh_and_unknown_local_sort_raise():
+    """What is not a mesh is refused (the sample sort over a real one:
+    tests/test_torch_sample_sort.py), and so is an unknown local sort."""
     x = torch.ones(8)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="Mesh"):
         distributed_sort(x, mesh=object())
     with pytest.raises(ValueError, match="local_sort"):
         distributed_sort(x, local_sort="pallas")

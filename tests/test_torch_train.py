@@ -425,10 +425,17 @@ def test_plan_matches_reference(spec, shape, reduced):
 
 
 def test_plan_over_several_devices_waits_for_multi_gpu():
+    """The plan over a mesh is analytic and no longer waits for several
+    GPUs: over 8 devices each holds an eighth of the state (its parity:
+    tests/test_torch_mesh.py); the Runtime's own plan is one device's."""
     cfg = get_config("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="several GPUs"):
-        plan_model(cfg, ShapeSpec("t", 64, 8, "train"),
-                   {"data": 2, "model": 4})
+    one = plan_model(cfg, ShapeSpec("t", 64, 8, "train"),
+                     {"data": 1, "model": 1})
+    eight = plan_model(cfg, ShapeSpec("t", 64, 8, "train"),
+                       {"data": 2, "model": 4})
+    assert [d.site for d in eight.decisions] == \
+        [d.site for d in one.decisions]
+    assert eight.hbm_per_chip < one.hbm_per_chip / 4
     rt = repro_torch.Runtime(device="cpu")
     plan = rt.plan(cfg, ShapeSpec("t", 64, 8, "train"))
     assert plan.fits_hbm and "fits=True" in plan.summary()

@@ -317,8 +317,29 @@ Phases, one report line each (any failure exits non-zero):
      on the mesh in fp32 within 1e-5 x max of the serial chain; gpipe, 4
      tanh stages on the kernel over 8 microbatches (bf16), bit for bit the
      stages in turn; which of these beat serial on this card, recorded.
-     The kernels line gains the launches of phase 23's sorts and products.
-     Before each of phases 2-23, gc.collect(): a gen-2 collection of this
+     The kernels line gains the launches of phase 23's sorts and products;
+ 24. tensor-parallel serving (serve_mesh_phase): Runtime.serve on a
+     {"data": 1, "model": 8} mesh of 8 positions on the one card
+     (shards_per_device=8, a CUDA stream each), shard_params="shard".
+     fp32 at full width, cut depth (tinyllama-1.1b, mistral-nemo-12b and
+     rwkv6-3b at 2 layers, recurrentgemma-2b at one period of 3), 4
+     requests x 8+4 tokens on 2 slots: the sharded tokens equal the
+     unsharded card's and an 8-position CPU mesh's, the sharded prefill's
+     and decode step's logits within 2e-3 x max|logit| of both, every
+     position launching the matmul kernel.  bf16 at full width
+     (tinyllama-1.1b whole, dense and paged on shared-prefix traffic with
+     the prefix cache forced; mistral-nemo-12b at 8 of 40 layers, its 8
+     kv heads one a position), phase 5's trace cut to 16 new tokens:
+     tokens equal the unsharded engine's up to a near tie (the unsharded
+     top-2 margin under the limit there), the same tokens twice, the
+     first decode step's logits within the limit, the sharded
+     Model.prefill on flash (one forward call a layer a position), one
+     decode step measured both ways (wall, host, device ms, launches a
+     position, collective calls) and profiled (no library GEMM on the
+     device or the host), serve_shard's predicted and measured rows and
+     the auto verdict.  The kernels line gains phase 24's matmul and
+     flash launches.
+     Before each of phases 2-24, gc.collect(): a gen-2 collection of this
      script's heap took 0.2-0.75 s inside a timed step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
@@ -1473,8 +1494,17 @@ def main() -> int:
         return 1
     record["mesh"] = mesh
 
-    # ---------------------------------------------------------------- out
+    # ----------------------------------------------------------------- 24
     clock.lap(23)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_mesh = serve_mesh_phase(card)
+    if serve_mesh is None:
+        return 1
+    record["serve_mesh"] = serve_mesh
+
+    # ---------------------------------------------------------------- out
+    clock.lap(24)
     record["phase_s"] = clock.seconds
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1550,6 +1580,22 @@ def main() -> int:
                 "4096x4096@4096x4096 bfloat16"]["strategies"].items()},
             "chain": mesh["chain"]["launches"],
             "gpipe": mesh["gpipe"]["launches"]},
+        # phase 24: the sharded serves on {"data": 1, "model": 8} (8
+        # positions of the card), each counted from 0 just before it (its
+        # warmup in it), and one sharded decode step's launches in total
+        # and on each position's stream
+        "launches_serve_mesh": {
+            **{f"{arch} fp32": rec["launches"]
+               for arch, rec in serve_mesh["fp32"].items()},
+            **{f"{arch} bf16 {name}": run["matmul_launches"]
+               for arch, rec in serve_mesh["bf16"].items()
+               for name, run in rec["runs"].items()}},
+        "launches_serve_mesh_step": {
+            arch: {"sharded": rec["step"]["sharded"]["launches"],
+                   "by_position": rec["step"]["sharded"][
+                       "launches_by_position"],
+                   "unsharded": rec["step"]["unsharded"]["launches"]}
+            for arch, rec in serve_mesh["bf16"].items()},
     }, {
         "name": "bitonic_sort", "route": "cuda",
         "design": f"block passes on tiles of "
@@ -1621,6 +1667,12 @@ def main() -> int:
         "launches_family_train_step": {
             arch: rec["profile"]["flash_calls"]
             for arch, rec in family_train["train"].items()},
+        # phase 24: the sharded Model.prefill of tinyllama-1.1b (22 layers
+        # on each of 8 positions, bf16), counted from 0 just before it
+        "launches_serve_mesh_prefill": {
+            arch: {"forward": rec["prefill"]["flash_forward_calls"],
+                   "by_path": rec["prefill"]["flash_by_path"]}
+            for arch, rec in serve_mesh["bf16"].items() if "prefill" in rec},
         # phase 7 at hd 96 and 256 (bf16 tensor core, fp32 FMA):
         # phi3-mini's, gemma-2b's and recurrentgemma-2b's training shapes and ragged
         # ones, beside the plain version, SDPA and the bound
@@ -6441,6 +6493,565 @@ def mesh_phase(card):
     log("mesh", f"phase 23 wall {out['wall_s']:.1f} s; {len(fails)} "
         f"failures ({card})")
     return None if fails else out
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: tensor-parallel serving on eight shards of the card
+# ---------------------------------------------------------------------------
+
+SERVE_MESH = {"data": 1, "model": 8}
+SERVE_MESH_KW = dict(mesh_shape=SERVE_MESH, shard_params="shard",
+                     shards_per_device=8)
+# fp32 at cut depth, full width: (arch, layers); recurrentgemma keeps one
+# period (rglru, rglru, local), so its windowed attention runs too
+SERVE_MESH_FP32 = (("tinyllama-1.1b", 2), ("mistral-nemo-12b", 2),
+                   ("rwkv6-3b", 2), ("recurrentgemma-2b", 3))
+# the fp32 trace: requests, prompt tokens, new tokens, slots (turnover);
+# its serves run without the engine's warmup (nothing of them is timed)
+SERVE_MESH_FP32_TRACE = (4, 8, 4, 2)
+# bf16 at full width: (arch, layers, a paged run too, a second sharded
+# run whose tokens must be the first's)
+SERVE_MESH_BF16 = (("tinyllama-1.1b", None, True, False),
+                   ("mistral-nemo-12b", 8, False, True))
+# the paged run's shared prefix: 2.5 pages of PAGE, so a partial tail page
+# is copied on write
+SERVE_MESH_PREFIX = 40
+LOGIT_TOL = 2e-3  # x max|logit|: phase 6's card-against-CPU limit
+
+
+def mesh_batch(mesh, toks) -> list:
+    """One decode batch a position, the tokens replicated to each."""
+    from repro_torch.distributed import replicate
+
+    return [{"tokens": t} for t in replicate(mesh, toks)]
+
+
+def mesh_state(model, engine, rows: int, max_len: int) -> list:
+    """A fresh decode state of ``rows`` slots placed on the engine's mesh
+    as its slot pool places one (serve_state_sharding, whole caches where
+    the kv heads do not divide the model axis)."""
+    from repro_torch.distributed.sharding import (place_tree,
+                                                  serve_state_sharding)
+
+    st = model.init_decode_state(rows, max_len, per_slot=True)
+    mesh = engine.mesh
+    return place_tree(mesh, st, serve_state_sharding(st, mesh,
+                                                     seq_split=False),
+                      copy=True)
+
+
+def tp_step_logits(model, params, state, toks, ctx=None):
+    """(B, S, V) fp32 logits of one decode step over ``toks`` from
+    ``state``, sharded where ``ctx`` is given (position 0's logits)."""
+    from repro_torch.distributed import take
+
+    if ctx is None:
+        return model.decode_step(params, state, {"tokens": toks})
+    logits, new = model.decode_step(params, state,
+                                    mesh_batch(ctx.mesh, toks), ctx=ctx)
+    return take(ctx.mesh, logits, 0), new
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| / max|want|."""
+    want = want.float().cpu()
+    return ((got.float().cpu() - want).abs().max()
+            / want.abs().max()).item()
+
+
+def rows_of(report, n: int, new: int) -> np.ndarray:
+    return np.stack([report.output(f"r{i}", new) for i in range(n)])
+
+
+def forced_logits(model, params, prompts, toks) -> torch.Tensor:
+    """(N, T, V) fp32 logits of the unsharded model at each of the T steps
+    that produced ``toks`` (N, T), teacher-forced in one batch: the
+    prompts, then each row's tokens one at a time.  Decode is
+    batch-invariant, so each row's logits are the engine's for that
+    request."""
+    n, t = toks.shape
+    st = model.init_decode_state(n, prompts.shape[1] + t, per_slot=True)
+    logits, st = model.decode_step(params, st, {"tokens": prompts})
+    out = [logits[:, -1].float()]
+    feed = torch.as_tensor(toks, dtype=torch.int64, device=prompts.device)
+    for j in range(t - 1):
+        logits, st = model.decode_step(params, st,
+                                       {"tokens": feed[:, j:j + 1]})
+        out.append(logits[:, -1].float())
+    return torch.stack(out, dim=1)
+
+
+def near_tie_check(logits, plain, sharded, rel_limit) -> tuple:
+    """Sharded bf16 tokens against the unsharded engine's, request by
+    request: equal up to the first step where they differ, and there the
+    unsharded top-2 margin (``logits``, forced_logits') must be under
+    ``rel_limit`` x max|logit| of that step, a near tie.  Returns (equal
+    tokens before each first difference, summed; the differing requests
+    with their margins and limits; failures)."""
+    equal, diffs, fails = 0, [], []
+    n, new = plain.shape
+    for i in range(n):
+        a, b = plain[i], sharded[i]
+        j = next((t for t in range(new) if a[t] != b[t]), None)
+        equal += new if j is None else j
+        if j is None:
+            continue
+        last = logits[i, j]
+        top2 = last.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        limit = rel_limit * last.abs().max().item()
+        diffs.append(dict(request=i, step=j, margin=margin, limit=limit,
+                          unsharded=int(a[j]), sharded=int(b[j])))
+        if not margin < limit:
+            fails.append(f"request {i} differs at step {j} where the "
+                         f"unsharded top-2 margin {margin:.3e} is not under "
+                         f"{limit:.3e}")
+    return equal, diffs, fails
+
+
+def serve_mesh_step(model, params, state, toks, ctx) -> dict:
+    """One decode step measured: wall (host clock around synchronized
+    steps), the host's share (enqueue_ms), and one profiled step: device
+    ms and events (torch.profiler), the matmul kernel's launches (in total
+    and by CUDA stream), the host's aten ops (no GEMM op among them) and
+    the device's kernels (no library GEMM), and, sharded, the mesh's
+    collective calls; unsharded where ``ctx`` is None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import matmul as mm
+
+    batch = {"tokens": toks} if ctx is None else mesh_batch(ctx.mesh, toks)
+
+    def step():
+        if ctx is None:
+            return model.decode_step(params, state, batch)
+        return model.decode_step(params, state, batch, ctx=ctx)
+
+    step()
+    torch.cuda.synchronize()
+    wall_ms = host_wall_ms(step)[0]
+    host_ms = enqueue_ms(step, reps=1)
+    mm.LAUNCHES.reset()
+    col0 = ctx.mesh.collectives if ctx is not None else 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    device = [(torch._C._demangle(ev.name()), ev.duration_ns() / 1e6)
+              for ev in events if ev.device_type() == DeviceType.CUDA]
+    host = sorted({ev.name() for ev in events
+                   if ev.device_type() == DeviceType.CPU
+                   and ev.name().startswith("aten::")})
+    by_name: dict = {}
+    for name, ms in device:
+        by_name[name] = by_name.get(name, 0.0) + ms
+    return dict(wall_ms=wall_ms, host_ms=host_ms,
+                launches=mm.LAUNCHES.count,
+                launches_by_stream=dict(mm.LAUNCHES.by_stream),
+                collectives=(ctx.mesh.collectives - col0
+                             if ctx is not None else 0),
+                device_ms=sum(by_name.values()), device_events=len(device),
+                library_gemms=library_gemms("serve-mesh", by_name),
+                host_ops=len(host),
+                host_gemm_ops=[op for op in host if HOST_GEMM_OPS.match(op)])
+
+
+def serve_mesh_fp32(arch, depth, card, mm) -> tuple:
+    """One family at full width, ``depth`` layers, fp32: the continuous
+    engine unsharded on the card, sharded on the card (8 positions of GPU
+    0) and sharded on an 8-position CPU mesh from the same parameters,
+    SERVE_MESH_FP32_TRACE's trace; the tokens of all three equal; the
+    logits of the sharded Model.prefill and of a sharded decode step over
+    the prompts (card) within LOGIT_TOL x max|logit| of the unsharded
+    card's and of the CPU mesh's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Runtime, synthetic_trace
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth,
+                              dtype="float32")
+    n, plen, new, slots = SERVE_MESH_FP32_TRACE
+    trace = lambda: synthetic_trace(  # noqa: E731
+        n, prompt_len=plen, max_new=new, vocab_size=cfg.vocab_size,
+        arrival="all", seed=0)
+    fails = []
+    runs, engines = {}, {}
+    for where in ("cuda", "cpu"):
+        rt = Runtime(device=where)
+        model = build_model(cfg, where)
+        if where == "cuda":
+            params = model.init(0)
+            card_params = params
+        else:
+            params = tree_map(lambda t: t.cpu(), card_params)
+        common = dict(model=model, params=params, slots=slots, eos_id=-1,
+                      warmup=False)
+        if where == "cuda":
+            runs["card"] = rt.serve(cfg, trace(), **common)
+            mm.LAUNCHES.reset()
+        key = "card_sharded" if where == "cuda" else "cpu_sharded"
+        runs[key] = rt.serve(cfg, trace(), **common, **SERVE_MESH_KW)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            launches = mm.LAUNCHES.count
+            streams = set(runs[key].engine.mesh.streams)
+            by_stream = {s.cuda_stream: mm.LAUNCHES.by_stream.get(
+                s.cuda_stream, 0) for s in streams}
+        engines[where] = (model, params, runs[key].engine)
+    toks = {k: rows_of(r.report, n, new) for k, r in runs.items()}
+    equal = all(np.array_equal(toks["card"], t) for t in toks.values())
+    if not equal:
+        fails.append(f"{arch} fp32: sharded tokens differ (card, card "
+                     f"sharded, CPU mesh): {toks}")
+    if min(by_stream.values()) <= 0 or len(by_stream) != 8:
+        fails.append(f"{arch} fp32: a position launched no matmul kernel "
+                     f"{by_stream}")
+    prompts = torch.as_tensor(np.stack([r.prompt for r in trace()[:slots]]),
+                              dtype=torch.int64)
+    errs = {}
+    model, params, engine = engines["cuda"]
+    cmodel, cparams, cengine = engines["cpu"]
+    ctx, cctx = engine._ctx, cengine._ctx
+    toks_card = prompts.cuda()
+    pre = take_logits(model.prefill(params, {"tokens": toks_card}))
+    pre_tp = take_logits(model.prefill(engine.params,
+                                       mesh_batch(ctx.mesh, toks_card),
+                                       ctx=ctx), ctx)
+    pre_cpu = take_logits(cmodel.prefill(cengine.params,
+                                         mesh_batch(cctx.mesh, prompts),
+                                         ctx=cctx), cctx)
+    st = model.init_decode_state(slots, plen + new, per_slot=True)
+    dec = tp_step_logits(model, params, st, toks_card)[0]
+    dec_tp = tp_step_logits(model, engine.params,
+                            mesh_state(model, engine, slots, plen + new),
+                            toks_card, ctx)[0]
+    dec_cpu = tp_step_logits(cmodel, cengine.params,
+                             mesh_state(cmodel, cengine, slots, plen + new),
+                             prompts, cctx)[0]
+    errs = dict(prefill_vs_card=rel_err(pre_tp, pre),
+                prefill_vs_cpu_mesh=rel_err(pre_tp, pre_cpu),
+                decode_vs_card=rel_err(dec_tp, dec),
+                decode_vs_cpu_mesh=rel_err(dec_tp, dec_cpu))
+    if not max(errs.values()) <= LOGIT_TOL:
+        fails.append(f"{arch} fp32 logits: {errs} (limit {LOGIT_TOL})")
+    rep = runs["card_sharded"].report
+    log("serve-mesh", f"{arch} full width, {depth} layers, fp32, {n} "
+        f"requests x {plen}+{new} tokens on {slots} slots: tokens of the "
+        f"card sharded (8 positions), the card unsharded and the CPU mesh "
+        f"equal {equal}; logits (x max|logit|, limit {LOGIT_TOL}) "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; matmul launches {launches}, by position "
+        f"{sorted(by_stream.values())}; collective calls "
+        f"{rep.collective_ops}; {time.perf_counter() - t0:.1f} s ({card})")
+    rec = dict(layers=depth, tokens_equal=equal, logit_errs=errs,
+               launches=launches, launches_by_position=sorted(
+                   by_stream.values()), collective_ops=rep.collective_ops,
+               tok_per_s={k: r.tok_per_s for k, r in runs.items()})
+    del runs, engines, engine, cengine, params, cparams, card_params
+    return rec, fails
+
+
+def take_logits(logits, ctx=None):
+    """Whole logits for the caller: position 0's where sharded."""
+    from repro_torch.distributed import take
+
+    return logits if ctx is None else take(ctx.mesh, logits, 0)
+
+
+def serve_mesh_bf16(arch, depth, paged, repeat, card, fa) -> tuple:
+    """One family in bf16 at full width (``depth`` layers; None: whole),
+    random weights from seed 0, phase 5's trace cut to SHORT_NEW new
+    tokens on SLOTS slots: the continuous engine unsharded, then sharded
+    (8 positions of GPU 0, forced shard; with ``repeat`` twice, the same
+    tokens both times); with ``paged``, the same on shared-prefix traffic
+    (SERVE_MESH_PREFIX tokens), pages of PAGE, prefix_cache="force" (a
+    hit).
+
+    bf16 rounds the residual stream at every layer, and another order of
+    summation (the sharded row sums) moves the logits by about as much as
+    bf16 moves them from the same weights' fp32 computation, 1e-2 x
+    max|logit| at full depth: far above LOGIT_TOL.  So the bf16 logits are
+    held against that fp32 computation (the weights upcast, the same
+    kernels' fp32 paths): the first decode step after a batched prefill,
+    sharded, may be no further from it than the unsharded step is, plus
+    LOGIT_TOL x max|logit|; for the whole tinyllama the same for the
+    sharded Model.prefill (flash, one forward call a layer a position).
+    The distance between the sharded and the unsharded logits is printed.
+    Tokens equal the unsharded engine's up to a near tie (near_tie_check),
+    a top-2 margin under twice the largest logit difference those gates
+    admit, 2 x (the unsharded step's distance + LOGIT_TOL) x max|logit|.
+    One decode step each way measured (serve_mesh_step): launches on every
+    position, no library GEMM.  The serve_shard ledger rows (a predicted
+    and a measured one), collective calls, and the auto verdict beside the
+    forced one."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Runtime, synthetic_trace
+    from repro_torch.training.step import make_batched_prefill
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    fails = []
+    rt = Runtime(device="cuda")
+    model = build_model(cfg, rt.device)
+    params = model.init(0)
+
+    def trace(shared=False):
+        kw = dict(prefix_share=1.0, prefix_len=SERVE_MESH_PREFIX) \
+            if shared else {}
+        return synthetic_trace(REQUESTS, prompt_len=PROMPT,
+                               max_new=SHORT_NEW, vocab_size=cfg.vocab_size,
+                               arrival="all", seed=0, **kw)
+
+    common = dict(model=model, params=params, slots=SLOTS, eos_id=-1)
+    rec = dict(layers=cfg.n_layers, runs={})
+    variants = [("dense", {}, repeat)]
+    if paged:
+        variants.append(("paged", dict(paged=True, block_size=PAGE,
+                                       prefix_cache="force"), False))
+    engine, tokens = None, {}
+    for name, kw, again_too in variants:
+        shared = name == "paged"
+        plain = rt.serve(cfg, trace(shared), mode="continuous", **common,
+                         **kw)
+        torch.cuda.synchronize()
+        mm.LAUNCHES.reset()
+        first = rt.serve(cfg, trace(shared), mode="continuous", **common,
+                         **kw, **SERVE_MESH_KW)
+        torch.cuda.synchronize()
+        launches = mm.LAUNCHES.count
+        a = rows_of(plain.report, REQUESTS, SHORT_NEW)
+        b = rows_of(first.report, REQUESTS, SHORT_NEW)
+        tokens[name] = (trace(shared), a, b)
+        rep = first.report
+        run = dict(tok_per_s=dict(unsharded=plain.tok_per_s,
+                                  sharded=first.tok_per_s),
+                   tokens=REQUESTS * SHORT_NEW, matmul_launches=launches,
+                   collective_ops=rep.collective_ops,
+                   host_syncs=rep.host_syncs,
+                   prefix_hit_tokens=rep.prefix_hit_tokens,
+                   cow_count=rep.cow_count)
+        if again_too:
+            again = rt.serve(cfg, trace(shared), mode="continuous",
+                             **common, **kw, **SERVE_MESH_KW)
+            run["tok_per_s"]["sharded_again"] = again.tok_per_s
+            run["repeatable"] = np.array_equal(
+                b, rows_of(again.report, REQUESTS, SHORT_NEW))
+            if not run["repeatable"]:
+                fails.append(f"{arch} {name}: the sharded tokens differ "
+                             f"from one run to the next")
+            del again
+        if rep.collective_ops <= 0 or rep.device_count != 8 or \
+                first.engine.tp != 8:
+            fails.append(f"{arch} {name}: not sharded over 8 positions "
+                         f"(tp {first.engine.tp}, devices "
+                         f"{rep.device_count}, collectives "
+                         f"{rep.collective_ops})")
+        if shared and rep.prefix_hit_tokens <= 0:
+            fails.append(f"{arch} paged: no prefix hit")
+        rec["runs"][name] = run
+        log("serve-mesh", f"{arch} full width ({cfg.n_layers} layers) bf16 "
+            f"{name}, {REQUESTS} requests x {PROMPT}+{SHORT_NEW} tokens, "
+            f"{SLOTS} slots: unsharded {plain.tok_per_s:.2f} tok/s, sharded "
+            f"on 8 positions "
+            + " and ".join(f"{v:.2f}" for k, v in run["tok_per_s"].items()
+                           if k != "unsharded")
+            + f" tok/s" + (f"; the same tokens run to run "
+                           f"{run['repeatable']}" if again_too else "")
+            + f"; matmul launches {launches}; collective calls "
+            f"{rep.collective_ops}"
+            + (f"; prefix hit tokens {rep.prefix_hit_tokens}, copies on "
+               f"write {rep.cow_count}" if shared else "") + f" ({card})")
+        if name == "dense":
+            engine = first.engine
+        del plain, first
+    ctx = engine._ctx
+    ledger = [e for e in rt.ledger.entries if e.site == "serve_shard"]
+    measured = [e for e in ledger if e.measured_s is not None]
+    if not measured or len(measured) == len(ledger):
+        fails.append(f"{arch}: serve_shard rows need a predicted and a "
+                     f"measured entry: {len(ledger)} rows, {len(measured)} "
+                     f"measured")
+    auto_tp, auto = engine.scheduler.serve_shard(SLOTS, tp=8)
+    rec["serve_shard"] = dict(
+        forced=ledger[0].choice, auto=auto.choice,
+        predicted_s=ledger[0].predicted_s,
+        measured_s=[e.measured_s for e in measured],
+        auto_predicted_s=auto.predicted_s)
+    log("serve-mesh", f"{arch} serve_shard: forced {ledger[0].choice} "
+        f"(predicted {ledger[0].predicted_s:.3e} s a step), measured "
+        + ", ".join(f"{e.measured_s:.3e}" for e in measured)
+        + f" s a step; the auto verdict at {SLOTS} slots: {auto.choice} "
+        f"(tp {auto_tp}, predicted {auto.predicted_s:.3e} s)")
+    # the first decode step after a batched prefill: unsharded, sharded,
+    # and the fp32 computation of the same weights
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32, rt.device)
+    params32 = tree_map(lambda t: t.float(), params)
+    prompts = torch.as_tensor(np.stack([r.prompt for r in trace()[:SLOTS]]),
+                              dtype=torch.int64, device="cuda")
+    max_len = PROMPT + SHORT_NEW
+    chunks = prompts[None]
+    lengths = torch.full((SLOTS,), PROMPT, dtype=torch.int64, device="cuda")
+    tok, st = make_batched_prefill(model)(
+        params, model.init_decode_state(SLOTS, max_len, per_slot=True),
+        chunks, lengths)
+    tok_tp, st_tp = make_batched_prefill(model, ctx=ctx)(
+        engine.params, mesh_state(model, engine, SLOTS, max_len), chunks,
+        lengths)
+    _, st32 = make_batched_prefill(model32)(
+        params32, model32.init_decode_state(SLOTS, max_len, per_slot=True),
+        chunks, lengths)
+    feed = tok[:, None]
+    lg = tp_step_logits(model, params, st, feed)[0]
+    lg_tp = tp_step_logits(model, engine.params, st_tp, feed, ctx)[0]
+    lg32 = tp_step_logits(model32, params32, st32, feed)[0]
+    first = dict(unsharded_vs_fp32=rel_err(lg, lg32),
+                 sharded_vs_fp32=rel_err(lg_tp, lg32),
+                 sharded_vs_unsharded=rel_err(lg_tp, lg),
+                 first_tokens_equal=bool(torch.equal(tok.cpu(),
+                                                     tok_tp.cpu())))
+    rec["first_step"] = first
+    if not first["sharded_vs_fp32"] <= first["unsharded_vs_fp32"] + \
+            LOGIT_TOL:
+        fails.append(f"{arch}: the sharded first decode step is "
+                     f"{first['sharded_vs_fp32']:.3e} x max|logit| from the "
+                     f"fp32 one, the unsharded "
+                     f"{first['unsharded_vs_fp32']:.3e} (limit: that + "
+                     f"{LOGIT_TOL})")
+    log("serve-mesh", f"{arch} the first decode step after a batched "
+        f"prefill ({SLOTS} x {PROMPT}), x max|logit|: unsharded bf16 "
+        f"against fp32 {first['unsharded_vs_fp32']:.3e}, sharded bf16 "
+        f"against fp32 {first['sharded_vs_fp32']:.3e} (limit the "
+        f"unsharded + {LOGIT_TOL}), sharded against unsharded "
+        f"{first['sharded_vs_unsharded']:.3e}; first tokens equal "
+        f"{first['first_tokens_equal']}")
+    del st32
+    rel_limit = 2 * (first["unsharded_vs_fp32"] + LOGIT_TOL)
+    for name, (tr, a, b) in tokens.items():
+        all_prompts = torch.as_tensor(np.stack([r.prompt for r in tr]),
+                                      dtype=torch.int64, device="cuda")
+        logits = forced_logits(model, params, all_prompts, a)
+        equal, diffs, f = near_tie_check(logits, a, b, rel_limit)
+        del logits
+        fails += [f"{arch} {name}: {x}" for x in f]
+        rec["runs"][name].update(equal_tokens=equal, near_ties=diffs,
+                                 near_tie_rel_limit=rel_limit)
+        log("serve-mesh", f"{arch} {name}: equal tokens {equal} of "
+            f"{REQUESTS * SHORT_NEW}; the first differences, each at a "
+            f"near tie (unsharded top-2 margin under {rel_limit:.3e} x "
+            f"max|logit|): "
+            + ("none" if not diffs else "; ".join(
+                f"request {d['request']} step {d['step']} margin "
+                f"{d['margin']:.3e} (limit {d['limit']:.3e})"
+                for d in diffs)))
+    if depth is None:  # the whole model's prefill: flash on every position
+        fa.LAUNCHES.reset()
+        pre_tp = take_logits(model.prefill(
+            engine.params, mesh_batch(ctx.mesh, prompts), ctx=ctx), ctx)
+        torch.cuda.synchronize()
+        flash_calls = fa.LAUNCHES.forward
+        flash_by_path = dict(fa.LAUNCHES.by_path)
+        pre = model.prefill(params, {"tokens": prompts})
+        pre32 = model32.prefill(params32, {"tokens": prompts})
+        errs = dict(unsharded_vs_fp32=rel_err(pre, pre32),
+                    sharded_vs_fp32=rel_err(pre_tp, pre32),
+                    sharded_vs_unsharded=rel_err(pre_tp, pre))
+        rec["prefill"] = dict(flash_forward_calls=flash_calls,
+                              flash_by_path=flash_by_path, **errs)
+        want_calls = 8 * cfg.n_layers
+        if flash_calls != want_calls or not errs["sharded_vs_fp32"] <= \
+                errs["unsharded_vs_fp32"] + LOGIT_TOL:
+            fails.append(f"{arch}: sharded Model.prefill made {flash_calls} "
+                         f"flash forward calls (want {want_calls}); logits "
+                         f"x max|logit| {errs}")
+        log("serve-mesh", f"{arch} sharded Model.prefill ({SLOTS} x "
+            f"{PROMPT}): {flash_calls} flash forward calls ({flash_by_path})"
+            f"; x max|logit|: unsharded against fp32 "
+            f"{errs['unsharded_vs_fp32']:.3e}, sharded against fp32 "
+            f"{errs['sharded_vs_fp32']:.3e}, sharded against unsharded "
+            f"{errs['sharded_vs_unsharded']:.3e}")
+    del model32, params32
+    torch.cuda.empty_cache()
+    # one decode step each way, measured and profiled
+    steps = dict(unsharded=serve_mesh_step(model, params, st, feed, None),
+                 sharded=serve_mesh_step(model, engine.params, st_tp, feed,
+                                         ctx))
+    sh = steps["sharded"]
+    per_pos = [sh["launches_by_stream"].get(s.cuda_stream, 0)
+               for s in ctx.mesh.streams]
+    sh["launches_by_position"] = per_pos
+    if min(per_pos) <= 0 or len(set(per_pos)) != 1 or \
+            sh["launches"] != 8 * steps["unsharded"]["launches"]:
+        fails.append(f"{arch}: sharded step matmul launches {sh['launches']}"
+                     f" by position {per_pos}, want 8 x the unsharded "
+                     f"step's {steps['unsharded']['launches']} and every "
+                     f"position the same")
+    if sh["library_gemms"] or sh["host_gemm_ops"] or not sh["host_ops"]:
+        fails.append(f"{arch}: a library GEMM in the sharded decode step "
+                     f"({sh['library_gemms']}, {sh['host_gemm_ops']}) or "
+                     f"no host ops recorded")
+    rec["step"] = steps
+    for name, r in steps.items():
+        log("serve-mesh", f"{arch} one decode step {name} ({SLOTS} slots): "
+            f"wall {r['wall_ms']:.2f} ms, host {r['host_ms']:.2f} ms, "
+            f"device {r['device_ms']:.2f} ms ({r['device_events']} device "
+            f"events), matmul launches {r['launches']}"
+            + (f" ({r['launches_by_position']} by position), collective "
+               f"calls {r['collectives']}" if name == "sharded" else "")
+            + f"; host aten ops {r['host_ops']}, GEMM among them "
+            f"{r['host_gemm_ops']}, library GEMM kernels "
+            f"{r['library_gemms']} ({card})")
+    rec["wall_s"] = time.perf_counter() - t0
+    log("serve-mesh", f"{arch} bf16 checks took {rec['wall_s']:.1f} s")
+    del engine, params, model, st, st_tp
+    return rec, fails
+
+
+def serve_mesh_phase(card):
+    """Phase 24: tensor-parallel serving on a {"data": 1, "model": 8} mesh
+    of 8 positions on the one card (Runtime.serve(mesh_shape=,
+    shard_params="shard", shards_per_device=8), a CUDA stream a position):
+    SERVE_MESH_FP32 in fp32 at full width and cut depth (serve_mesh_fp32:
+    card sharded, card unsharded and CPU mesh tokens equal, logits within
+    LOGIT_TOL), then SERVE_MESH_BF16 (serve_mesh_bf16: tinyllama-1.1b
+    whole, dense and paged with the prefix cache, mistral-nemo-12b at 8
+    of 40 layers, whose 8 kv heads split one a position: near ties only,
+    repeatable tokens, the first step's logits, flash in the sharded
+    prefill, launches on every position, no library GEMM, the serve_shard
+    ledger).  None on any failure."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card, "fp32": {}, "bf16": {}}
+    fails = []
+    for arch, depth in SERVE_MESH_FP32:
+        rec, f = serve_mesh_fp32(arch, depth, card, mm)
+        out["fp32"][arch], fails = rec, fails + f
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, depth, paged, repeat in SERVE_MESH_BF16:
+        rec, f = serve_mesh_bf16(arch, depth, paged, repeat, card, fa)
+        out["bf16"][arch], fails = rec, fails + f
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["fails"] = fails
+    for f in fails:
+        log("serve-mesh", f"FAIL {f}")
+    log("serve-mesh", f"phase 24 wall {out['wall_s']:.1f} s; {len(fails)} "
+        f"failures ({card})")
+    return None if fails else out
+
 
 if __name__ == "__main__":
     # torch is imported here, not with the module: the front end's spawned

@@ -10,8 +10,9 @@
   each key's shape and dtype.  numpy has no bfloat16, so bf16 leaves are
   stored as float32 (exact) and cast back on restore.
 
-Restoring onto a mesh (``restore_resharded``) waits for the multi-GPU
-slice.
+* **elastic** — ``restore_resharded`` restores the whole leaves and
+  places them on a mesh by per-leaf specs (``distributed/sharding.py``),
+  whatever mesh wrote them: the layout on disk holds no sharding.
 """
 
 from __future__ import annotations
@@ -88,8 +89,14 @@ def restore(ckpt_dir, step: int, like: Any, *, process_index: int = 0) -> Any:
         return tree_map_with_path(one, like)
 
 
-def restore_resharded(ckpt_dir, step: int, like: Any, shardings: Any) -> Any:
-    """Elastic restore onto a mesh: needs several GPUs."""
-    raise NotImplementedError(
-        "restore_resharded needs several GPUs; it is on the port's "
-        "multi-GPU queue (ROADMAP.md), not in this slice")
+def restore_resharded(ckpt_dir, step: int, like: Any, shardings: Any, *,
+                      mesh) -> Any:
+    """Elastic restore: load the whole leaves into ``like``'s structure,
+    then place them on ``mesh`` by ``shardings`` (a tree of specs in that
+    structure, e.g. ``param_shardings``).  Returns one tree a position,
+    each leaf that position's block (``sharding.place_tree``).  The
+    reference's ``NamedSharding``s carry their mesh; the port's specs do
+    not, so the mesh is an argument."""
+    from repro_torch.distributed.sharding import place_tree
+
+    return place_tree(mesh, restore(ckpt_dir, step, like), shardings)

@@ -65,6 +65,9 @@ class Mesh:
         self.streams: Tuple[Stream, ...] = tuple(
             torch.cuda.Stream(device=d) if d.type == "cuda" else None
             for d in self.devices)
+        # collective calls made on this mesh (each all_gather, all_to_all,
+        # psum or ppermute counts one, whatever the number of positions)
+        self.collectives = 0
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -278,6 +281,7 @@ def all_gather(mesh: Mesh, axis: str,
                xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Every position gets its group's tensors stacked on a new leading
     dimension in ``axis`` order (``lax.all_gather``, not tiled)."""
+    mesh.collectives += 1
     out: List[Optional[torch.Tensor]] = [None] * mesh.size
     for group in mesh.groups(axis):
         for j in group:
@@ -293,6 +297,7 @@ def all_to_all(mesh: Mesh, axis: str,
     position of its group and sends block r to the group's r-th; each
     joins what it receives along dimension 0 in sender order
     (``lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``)."""
+    mesh.collectives += 1
     out: List[Optional[torch.Tensor]] = [None] * mesh.size
     for group in mesh.groups(axis):
         n = len(group)
@@ -315,6 +320,7 @@ def psum(mesh: Mesh, axis: str,
     added in ``axis`` order in the tensors' dtype, so every position holds
     the same bits.  The sum is made once a device; the group's other
     positions on that device get a copy of it."""
+    mesh.collectives += 1
     out: List[Optional[torch.Tensor]] = [None] * mesh.size
     for group in mesh.groups(axis):
         made: Dict[torch.device, int] = {}
@@ -341,6 +347,7 @@ def ppermute(mesh: Mesh, axis: str, xs: Sequence[torch.Tensor],
     ``axis`` goes to the one at ``dst`` for every ``(src, dst)`` in
     ``perm``; a position that receives nothing gets zeros
     (``lax.ppermute``)."""
+    mesh.collectives += 1
     dsts = [d for _, d in perm]
     if len(set(dsts)) != len(dsts) or len({s for s, _ in perm}) != len(perm):
         raise ValueError(f"ppermute needs a permutation, got {list(perm)}")

@@ -10,7 +10,9 @@ decode-horizon / admit / prefix / IPC decision, predicted against
 measured).  ``--workers`` puts request intake and token emission in
 worker processes (the multi-process front end; ``--stream`` then defaults
 on), ``--pin`` pins the engine thread and the workers to whole physical
-cores.
+cores.  ``--mesh data=1,model=8`` serves the continuous engine
+tensor-parallel over a mesh (``--serve-shard`` forces the serve_shard
+verdict; ``--shards-per-device 8`` puts the eight positions on one card).
 
 Runs on the GPU (``cuda``) unless ``--device cpu`` asks for the plain
 PyTorch path on the CPU; without a card and without ``--device cpu`` it
@@ -38,6 +40,11 @@ Usage:
   # worker, tokens streamed
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --reduced --device cpu --workers 2 --pin --stream
+
+  # tensor-parallel serving on eight shards of one card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --engine continuous --mesh data=1,model=8 --serve-shard shard \
+      --shards-per-device 8
 """
 
 from __future__ import annotations
@@ -47,13 +54,6 @@ import dataclasses
 import signal
 import sys
 import threading
-
-# options of the reference's launcher that belong to slices of the port
-# not taken yet: each fails at argument parsing, never silently ignored
-LATER_SLICES = {
-    "--mesh": "multi-GPU serving (the serve mesh)",
-    "--serve-shard": "multi-GPU serving (the serve_shard decision)",
-}
 
 
 def main(argv=None):
@@ -86,6 +86,20 @@ def main(argv=None):
     ap.add_argument("--macro-step", default="auto",
                     help="decode macro-step horizon K: 'auto' (CostEngine "
                          "decision) or an explicit K (1 = per-token loop)")
+    ap.add_argument("--mesh", default=None,
+                    help="serve mesh as 'data=1,model=8' (continuous engine "
+                         "only); the model axis must divide the arch's "
+                         "head/FFN dims and the mesh must fit the devices "
+                         "at --shards-per-device positions each")
+    ap.add_argument("--serve-shard", choices=("auto", "shard", "replicate"),
+                    default="auto",
+                    help="shard-vs-replicate over the mesh model axis: "
+                         "'auto' asks the CostEngine (the serve_shard "
+                         "decision site), the others force a verdict")
+    ap.add_argument("--shards-per-device", type=int, default=1,
+                    help="mesh positions on each device (8 puts a "
+                         "data=1,model=8 mesh on one card, a CUDA stream "
+                         "a position)")
     ap.add_argument("--eos-id", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--deadline-ms", type=float, default=None,
@@ -141,15 +155,8 @@ def main(argv=None):
                          "ledger rows (equivalent to REPRO_CORRECTIONS=1)")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the GPU")
-    for flag, slice_name in LATER_SLICES.items():
-        ap.add_argument(flag, default=None,
-                        help=f"not in the port yet: {slice_name}")
     args = ap.parse_args(argv)
 
-    for flag, slice_name in LATER_SLICES.items():
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
-            ap.error(f"{flag} comes with the port's slice for {slice_name}, "
-                     f"which repro_torch does not have yet")
     # fail-fast flag validation (mirrors Runtime.serve, but at the CLI
     # boundary so a bad invocation dies before any model is built)
     robustness = (args.deadline_ms is not None or args.queue_limit is not None
@@ -198,6 +205,18 @@ def main(argv=None):
                 ap.error(f"--workers must be >= 1, got {frontend}")
     if (args.pin or args.stream) and args.engine == "static":
         ap.error("--pin/--stream need --engine continuous")
+
+    mesh_shape = None
+    if args.mesh is not None:
+        try:
+            mesh_shape = {k.strip(): int(v) for k, v in
+                          (part.split("=") for part in args.mesh.split(","))}
+        except ValueError:
+            ap.error(f"--mesh must look like 'data=1,model=8', "
+                     f"got {args.mesh!r}")
+    if args.shards_per_device < 1:
+        ap.error(f"--shards-per-device must be >= 1, "
+                 f"got {args.shards_per_device}")
 
     if args.max_len is None:
         args.max_len = args.prompt_len + args.max_new
@@ -257,6 +276,9 @@ def main(argv=None):
                 cfg, trace(), mode=mode, model=model, params=params,
                 slots=args.slots, max_len=args.max_len, eos_id=args.eos_id,
                 prefill_chunk=args.prefill_chunk, macro_step=args.macro_step,
+                mesh_shape=mesh_shape if mode == "continuous" else None,
+                shard_params=args.serve_shard,
+                shards_per_device=args.shards_per_device,
                 queue_limit=args.queue_limit, deadline_ms=args.deadline_ms,
                 inject_fault=args.inject_fault, watchdog_ms=args.watchdog_ms,
                 paged=args.paged and mode == "continuous",
@@ -295,6 +317,10 @@ def main(argv=None):
                       f"(rate {res.report.prefix_hit_rate:.2f}), "
                       f"prefilled {res.report.prefilled_tokens}, "
                       f"CoW {res.report.cow_count}")
+            if res.report.mesh_shape is not None:
+                print(f"    mesh {res.report.mesh_shape} "
+                      f"({res.report.device_count} devices), "
+                      f"collective ops {res.report.collective_ops}")
             if res.report.frontend_workers:
                 print(f"    frontend: {res.report.frontend_workers} intake "
                       f"workers, IPC {res.report.ipc_messages} msgs / "
@@ -324,8 +350,8 @@ def main(argv=None):
                       f"tokens {len(r.tokens)}{why}")
 
     serve_rows = [e for e in rt.ledger.entries
-                  if e.site in ("serve", "serve_macro", "serve_admit",
-                                "serve_prefix", "serve_ipc")]
+                  if e.site in ("serve", "serve_macro", "serve_shard",
+                                "serve_admit", "serve_prefix", "serve_ipc")]
     measured = [e for e in serve_rows if e.measured_s is not None]
     print(f"serve ledger: {len(serve_rows)} decisions, "
           f"{len(measured)} with measured wall time")
@@ -333,6 +359,7 @@ def main(argv=None):
     # first kernel loads
     for e in serve_rows[-12:]:
         op = e.query.get("op", {"serve_macro": "macro_horizon",
+                                "serve_shard": "serve_shard",
                                 "serve_admit": "serve_admit",
                                 "serve_prefix": "serve_prefix",
                                 "serve_ipc": "serve_ipc",

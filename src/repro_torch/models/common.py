@@ -180,7 +180,8 @@ def positional(x: torch.Tensor, positions: torch.Tensor, pos_type: str,
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
-                 scale: Optional[float] = None) -> torch.Tensor:
+                 scale: Optional[float] = None, *, first_row: int = 0,
+                 vocab: Optional[int] = None) -> torch.Tensor:
     """Rows of ``table``; a negative id counts from the end, as in numpy
     and the reference's ``jnp.take`` (serving feeds masked slots the pad
     id, which may be -1).  ``scale`` multiplies the rows after it is
@@ -188,8 +189,21 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
     out.dtype)`` rounds it: in bf16, sqrt(2560) becomes 50.5.  The
     rounding happens on the host; the product of two bf16 values is exact
     in the fp32 the multiply computes in, so one rounding follows, as in
-    the reference."""
-    out = F.embedding(torch.where(ids < 0, ids + table.shape[0], ids), table)
+    the reference.
+
+    On a serve mesh ``table`` is one position's block of a ``vocab``-row
+    table, rows ``first_row`` on: an id outside the block gives a row of
+    zeros, so the sum over the positions (exactly one of which holds each
+    id) is the whole table's row, exactly."""
+    vocab = table.shape[0] if vocab is None else vocab
+    ids = torch.where(ids < 0, ids + vocab, ids)
+    if first_row == 0 and table.shape[0] == vocab:
+        out = F.embedding(ids, table)
+    else:
+        local = ids - first_row
+        hit = (local >= 0) & (local < table.shape[0])
+        out = F.embedding(torch.where(hit, local, 0), table)
+        out = torch.where(hit[..., None], out, 0)
     if scale is not None:
         out = out * float(torch.tensor(scale, dtype=out.dtype))
     return out

@@ -54,14 +54,18 @@ def ffn_init(gen: torch.Generator, d: int, f: int, activation: str,
     return p
 
 
-def ffn_apply(params, x: torch.Tensor, activation: str) -> torch.Tensor:
+def ffn_apply(params, x: torch.Tensor, activation: str,
+              out_dtype=None) -> torch.Tensor:
+    """The dense FFN, its output in ``out_dtype`` (default ``x.dtype``): on
+    a serve mesh one position's column block of ``w_in``/``w_gate`` and
+    row block of ``w_out`` give an fp32 partial of the output."""
     act = epilogue_of(activation)
     if is_glu(activation):
         h = project(x, params["w_gate"], activation=act) * project(
             x, params["w_in"])
     else:
         h = project(x, params["w_in"], activation=act)
-    return project(h, params["w_out"])
+    return project(h, params["w_out"], out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------

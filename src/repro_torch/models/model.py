@@ -67,6 +67,32 @@ VLM_PATCH_FRACTION = 8
 ENCDEC_DECODE_ENC_LEN = 4096
 ENCDEC_PAGED_REFUSAL = ("paged=True supports decoder-only models (enc-dec "
                         "decode state has no paged layout)")
+# the reference builds its serve mesh's context with data_axes=() and
+# expert parallelism on, and its moe_ep then reads data_axes[0]
+# (src/repro/models/ffn.py:201): an IndexError, so it serves no mixture of
+# experts on a mesh, and neither does the port
+MOE_MESH_REFUSAL = (
+    "a mixture of experts on a serve mesh's model axis is not served: the "
+    "reference's serve context (data_axes=()) makes moe_ep read "
+    "data_axes[0] and fail with an IndexError, so there is no reference "
+    "path to port; expert parallelism (moe_ep, the moe_dispatch query) "
+    "comes with the FSDP training slice")
+ENCDEC_MESH_REFUSAL = (
+    "encoder-decoder decode on a serve mesh's model axis is not ported "
+    "yet (ROADMAP.md, Queue 1)")
+
+
+def tensor_parallel(cfg: ModelConfig, ctx) -> bool:
+    """Whether ``ctx`` runs ``cfg`` tensor-parallel (a model axis of more
+    than one position); raises for the families the port does not serve
+    so."""
+    if ctx is None or ctx.tp <= 1:
+        return False
+    if cfg.is_moe:
+        raise ValueError(MOE_MESH_REFUSAL)
+    if cfg.is_encdec:
+        raise NotImplementedError(ENCDEC_MESH_REFUSAL)
+    return True
 
 
 def is_page_pool(path: str) -> bool:
@@ -206,16 +232,27 @@ class Model(_DecodeSlots):
         """The (vocab, d) table the logits read: ``embed`` when tied."""
         return params["embed" if self.cfg.tie_embeddings else "unembed"]
 
-    def _embed(self, params, batch, decode_offset=None):
+    def _lookup(self, params, batch, rank: int = 0):
+        """The token embeddings, scaled where tied; on a serve mesh the
+        rows of position ``rank``'s block of the table (zeros elsewhere)."""
+        cfg = self.cfg
+        table = params["embed"]
+        scale = float(cfg.d_model) ** 0.5 if cfg.tie_embeddings else None
+        return embed_lookup(table, batch["tokens"], scale,
+                            first_row=rank * table.shape[0],
+                            vocab=cfg.vocab_size)
+
+    def _embed(self, params, batch, decode_offset=None, x=None):
         """Embedded tokens (the vision embeddings over the first P
         positions, where the batch has them) and the positions the
         attention rotates by: ``batch["positions"]`` (B, S, 3) for M-RoPE,
-        which is never inferred, else (B, S) from ``decode_offset``."""
+        which is never inferred, else (B, S) from ``decode_offset``.  ``x``:
+        the token embeddings, where made outside (on a serve mesh)."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         cfg = self.cfg
-        scale = float(cfg.d_model) ** 0.5 if cfg.tie_embeddings else None
-        x = embed_lookup(params["embed"], tokens, scale)
+        if x is None:
+            x = self._lookup(params, batch)
         if cfg.frontend == "vision" and "vision_embeds" in batch:
             vis = batch["vision_embeds"]
             x = torch.cat([vis.to(x.dtype), x[:, vis.shape[1]:]], dim=1)
@@ -249,8 +286,13 @@ class Model(_DecodeSlots):
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return unembed(self._table(params), x), self._aux(aux)
 
-    def prefill(self, params, batch):
-        """Inference prefill: full forward, logits only at the last position."""
+    def prefill(self, params, batch, ctx=None):
+        """Inference prefill: full forward, logits only at the last
+        position.  On a serve mesh (``ctx``, tensor-parallel) ``params``
+        and ``batch`` are lists with one entry a position and so are the
+        logits, each the whole (B, 1, V)."""
+        if tensor_parallel(self.cfg, ctx):
+            return self._forward_tp(params, batch, ctx, None, last=True)[0]
         x, positions = self._embed(params, batch)
         x, _, _ = tfm.stack_apply(params["layers"], self.cfg, x, positions,
                                   remat=False)
@@ -298,12 +340,21 @@ class Model(_DecodeSlots):
                                device=self.device),
         }
 
-    def decode_step(self, params, state, batch):
+    def decode_step(self, params, state, batch, ctx=None):
         """Feed ``batch["tokens"]`` (B, S_new) at each row's cache position.
         Returns ((B, S_new, V) fp32 logits, new state); ``state`` is left
         as it was, but for its page pools: a paged state's pools are
         written in place through ``batch["block_tables"]`` (B,
-        max_blocks), and the new state holds the same pool tensors."""
+        max_blocks), and the new state holds the same pool tensors.
+
+        On a serve mesh (``ctx`` with a model axis of more than one
+        position) ``params``, ``state`` and ``batch`` are lists with one
+        entry a position (``sharding.place_tree`` by the serve specs), and
+        so are the logits (each the whole (B, S_new, V), the vocab blocks
+        gathered) and the new state: the tensor-parallel stack
+        (``transformer.stack_apply_tp``)."""
+        if tensor_parallel(self.cfg, ctx):
+            return self._forward_tp(params, batch, ctx, state)
         pos = state["pos"]
         x, positions = self._embed(params, batch, decode_offset=pos)
         x, new_layers, _ = tfm.stack_apply(
@@ -312,6 +363,42 @@ class Model(_DecodeSlots):
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return unembed(self._table(params), x), {
             "layers": new_layers, "pos": pos + batch["tokens"].shape[1]}
+
+
+    def _forward_tp(self, params, batch, ctx, state, last: bool = False):
+        """The tensor-parallel forward of ``decode_step`` (with a ``state``)
+        or ``prefill`` (without; ``last`` keeps the last position).  The
+        embedding's vocab blocks are looked up on their positions and
+        summed over the model axis; the unembedding's are gathered along
+        the vocab before every position's argmax."""
+        cfg = self.cfg
+        n = ctx.mesh.size
+        ranks = [ctx.rank(i) for i in range(n)]
+        split = params[0]["embed"].shape[0] < cfg.vocab_size
+        xs = ctx.map(lambda p, b, r: self._lookup(p, b, r if split else 0),
+                     params, batch, ranks)
+        if split:
+            xs = ctx.row_sum(xs, xs[0].dtype)
+        pos = [None] * n if state is None else [st["pos"] for st in state]
+        xs, positions = ctx.map(lambda p, b, x, o: self._embed(p, b, o, x=x),
+                                params, batch, xs, pos)
+        xs, new_layers = tfm.stack_apply_tp(
+            ctx, [p["layers"] for p in params], cfg, xs, positions,
+            states=None if state is None else [st["layers"] for st in state],
+            cache_pos=pos if state is not None else None,
+            block_tables=[b.get("block_tables") for b in batch])
+        if last:
+            xs = ctx.map(lambda x: x[:, -1:], xs)
+        xs = ctx.map(lambda p, x: rmsnorm(p["final_norm"], x, cfg.norm_eps),
+                     params, xs)
+        logits = ctx.map(lambda p, x: unembed(self._table(p), x), params, xs)
+        if self._table(params[0]).shape[0] < cfg.vocab_size:
+            logits = ctx.gather(logits, dim=-1)
+        if state is None:
+            return logits, None
+        s = batch[0]["tokens"].shape[1]
+        return logits, ctx.map(lambda ly, p: {"layers": ly, "pos": p + s},
+                               new_layers, pos)
 
 
 class EncDecModel(_DecodeSlots):
@@ -383,10 +470,12 @@ class EncDecModel(_DecodeSlots):
                 x = _decoder_body(lp, cfg, x, positions, enc_kv)
         return x
 
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, ctx=None):
         """Encode ``batch["frames"]``, run the decoder teacher-forced over
         ``batch["tokens"]``, return the last position's logits (B, 1, V)
-        fp32; no decode state is filled (the reference's)."""
+        fp32; no decode state is filled (the reference's).  Not on a serve
+        mesh's model axis (``ENCDEC_MESH_REFUSAL``)."""
+        tensor_parallel(self.cfg, ctx)
         enc_out = self.encode(params, batch["frames"], remat=False)
         x = self._decode_stack(params, batch["tokens"], enc_out, remat=False)
         x = rmsnorm(params["final_norm"], x[:, -1:], self.cfg.norm_eps)
@@ -437,11 +526,13 @@ class EncDecModel(_DecodeSlots):
                                device=self.device),
         }
 
-    def decode_step(self, params, state, batch):
+    def decode_step(self, params, state, batch, ctx=None):
         """Feed ``batch["tokens"]`` (B, S_new) at each row's cache position
         through the decoder, attending to the state's cross caches.
         Returns ((B, S_new, V) fp32 logits, new state); ``state`` is left as
-        it was, and the new state holds the same cross-cache tensors."""
+        it was, and the new state holds the same cross-cache tensors.  Not
+        on a serve mesh's model axis (``ENCDEC_MESH_REFUSAL``)."""
+        tensor_parallel(self.cfg, ctx)
         cfg = self.cfg
         pos = state["pos"]
         tokens = batch["tokens"]

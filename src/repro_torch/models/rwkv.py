@@ -117,17 +117,29 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, n_heads: int,
     return (xh.reshape(b, s, d) * scale).to(x.dtype)
 
 
+def time_mix_k(params, x: torch.Tensor, state=None) -> torch.Tensor:
+    """The time mix's k projection (B, S, D_out): on a serve mesh one
+    position's column block of it, gathered before ``rwkv_time_mix``."""
+    last = state["shift"] if state is not None else None
+    return project(_token_shift(x, params["mu_k"], last), params["w_k"])
+
+
 def rwkv_time_mix(params, x: torch.Tensor, head_dim: int, state=None,
-                  chunk: Optional[int] = None):
+                  chunk: Optional[int] = None,
+                  k: Optional[torch.Tensor] = None):
     """x: (B, S, D).  ``state`` (decode): {"S": (B, H, N, N), "shift":
-    (B, 1, D)}.  Returns (out (B, S, D), new state or None)."""
+    (B, 1, D)}.  ``k`` (B, S, D): the k projection where it was made
+    outside (``time_mix_k`` over a serve mesh's positions, gathered).
+    Returns (out (B, S, D), new state or None)."""
     b, s, d = x.shape
     h = d // head_dim
     last = state["shift"] if state is not None else None
-    xr, xk, xv, xg, xw = (_token_shift(x, params[f"mu_{c}"], last)
-                          for c in "rkvgw")
+    if k is None:
+        k = time_mix_k(params, x, state)
+    xr, xv, xg, xw = (_token_shift(x, params[f"mu_{c}"], last)
+                      for c in "rvgw")
     r = project(xr, params["w_r"]).reshape(b, s, h, head_dim)
-    k = project(xk, params["w_k"]).reshape(b, s, h, head_dim)
+    k = k.reshape(b, s, h, head_dim)
     v = project(xv, params["w_v"]).reshape(b, s, h, head_dim)
     g = project(xg, params["w_g"], activation="silu", out_dtype=torch.float32)
 
@@ -172,13 +184,23 @@ def rwkv_channel_mix_init(gen: torch.Generator, d: int, f: int,
     }
 
 
-def rwkv_channel_mix(params, x: torch.Tensor, state=None):
-    """``relu(xk W_k)² W_v`` gated by ``sigmoid(xr W_r)``; ``state``
-    (decode): {"shift": (B, 1, D)}."""
+def channel_mix_k(params, x: torch.Tensor, state=None) -> torch.Tensor:
+    """The channel mix's ``relu(xk W_k)`` (B, S, F): on a serve mesh one
+    position's column block of it, gathered before ``rwkv_channel_mix``."""
     last = state["shift"] if state is not None else None
-    xk = _token_shift(x, params["mu_k"], last)
+    return project(_token_shift(x, params["mu_k"], last), params["w_k"],
+                   activation="relu")
+
+
+def rwkv_channel_mix(params, x: torch.Tensor, state=None,
+                     k: Optional[torch.Tensor] = None):
+    """``relu(xk W_k)² W_v`` gated by ``sigmoid(xr W_r)``; ``state``
+    (decode): {"shift": (B, 1, D)}; ``k`` the ``relu(xk W_k)`` made
+    outside (``channel_mix_k`` over a serve mesh's positions, gathered)."""
+    last = state["shift"] if state is not None else None
     xr = _token_shift(x, params["mu_r"], last)
-    k = project(xk, params["w_k"], activation="relu")
+    if k is None:
+        k = channel_mix_k(params, x, state)
     k = k * k
     r = torch.sigmoid(project(xr, params["w_r"]).float()).to(x.dtype)
     out = r * project(k, params["w_v"])

@@ -92,27 +92,63 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
 # ---------------------------------------------------------------------------
 
 
+def _kv_heads_used(cfg: ModelConfig, nq: int, nkv: int, rank: int):
+    """The kv heads, counted in the ``nkv`` a position stores, that its
+    ``nq`` query heads (from ``rank * nq`` on) attend to; None where it
+    uses every one it stores (unsharded, or kv heads split with the
+    queries).  Where the kv heads do not divide the model axis a position
+    stores them all and its queries use one contiguous run of them, each
+    kv head for as many query heads as the group size."""
+    h, h_kv = cfg.n_heads, cfg.n_kv_heads
+    if nq == h or nkv < h_kv:
+        return None
+    g = h // h_kv
+    q_lo = rank * nq
+    lo, hi = q_lo // g, (q_lo + nq - 1) // g + 1
+    if nq % (hi - lo) or (nq >= g and q_lo % g):
+        raise NotImplementedError(
+            f"{cfg.name}: {nq} query heads a position from head {q_lo} do "
+            f"not cover whole groups of {g}")
+    return lo, hi
+
+
 def _attn_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
-                cache=None, cache_pos=None, block_tables=None):
+                cache=None, cache_pos=None, block_tables=None,
+                rank: int = 0):
     """Returns (out, new_cache).  A cache with ``pk``/``pv`` is a paged
     pool: the new KV is written into it in place through ``block_tables``
     and each slot's view is gathered back for the attention.  With a
     ``window`` the cache is a ring buffer of that many positions: the new
     KV goes to ``cache_pos % W`` and the queries attend to the
     ``min(cache_pos + S_new, W)`` entries written, in any order (RoPE has
-    already placed them)."""
+    already placed them).
+
+    On a serve mesh ``params`` are one position's blocks and ``rank`` its
+    index along the model axis (``transformer.layer_apply_tp``): wq holds
+    its query heads (all of them where the heads do not divide the axis),
+    wk/wv and the cache its kv heads or, where those do not divide, all of
+    them, of which its queries read the ones they use (``_kv_heads_used``).
+    A row block of ``wo`` gives an fp32 partial of the output, from the
+    attention output's matching columns, for the caller's row sum."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = project(x, params["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = project(x, params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = project(x, params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    nq = params["wq"].shape[1] // hd
+    nkv = params["wk"].shape[1] // hd
+    q = project(x, params["wq"]).reshape(b, s, nq, hd)
+    k = project(x, params["wk"]).reshape(b, s, nkv, hd)
+    v = project(x, params["wv"]).reshape(b, s, nkv, hd)
     q = positional(q, positions, cfg.pos_type, cfg.rope_theta)
     k = positional(k, positions, cfg.pos_type, cfg.rope_theta)
+    used = _kv_heads_used(cfg, nq, nkv, rank)
+
+    def heads(t):  # the kv heads this position's queries read
+        return t if used is None else t[:, :, used[0]:used[1]]
+
     if cache is not None and window:
         w = cache["k"].shape[1]
         kc, vc = attn_lib.update_kv_cache(cache["k"], cache["v"], k, v,
                                           cache_pos % w)
-        out = attn_lib.decode_attention(q, kc, vc,
+        out = attn_lib.decode_attention(q, heads(kc), heads(vc),
                                         torch.clamp(cache_pos + s, max=w))
         new_cache = {"k": kc, "v": vc}
     elif cache is not None and "pk" in cache:
@@ -120,17 +156,31 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
         pk, pv = attn_lib.paged_update_kv_cache(
             cache["pk"], cache["pv"], k, v, cache_pos, block_tables, bs)
         kc, vc = attn_lib.paged_gather_kv(pk, pv, block_tables, bs)
-        out = attn_lib.decode_attention(q, kc, vc, cache_pos + s)
+        out = attn_lib.decode_attention(q, heads(kc), heads(vc),
+                                        cache_pos + s)
         new_cache = {"pk": pk, "pv": pv}
     elif cache is not None:
         kc, vc = attn_lib.update_kv_cache(cache["k"], cache["v"], k, v,
                                           cache_pos)
-        out = attn_lib.decode_attention(q, kc, vc, cache_pos + s)
+        out = attn_lib.decode_attention(q, heads(kc), heads(vc),
+                                        cache_pos + s)
         new_cache = {"k": kc, "v": vc}
     else:
+        if used is not None:
+            k, v = heads(k).contiguous(), heads(v).contiguous()
         out = attn_lib.attention(q, k, v, window=window)
         new_cache = None
-    return project(out.reshape(b, s, -1), params["wo"]), new_cache
+    out = out.reshape(b, s, -1)
+    rows = params["wo"].shape[0]
+    if nq < cfg.n_heads and rows != nq * hd:
+        raise NotImplementedError(
+            f"{cfg.name}: query heads split over the model axis need wo's "
+            f"rows split with them")
+    if rows == cfg.n_heads * hd:
+        return project(out, params["wo"]), new_cache
+    if nq == cfg.n_heads:  # every head here: this row block's columns
+        out = out[..., rank * rows:(rank + 1) * rows]
+    return project(out, params["wo"], out_dtype=torch.float32), new_cache
 
 
 def _ffn_apply(params, cfg: ModelConfig, x, want_aux: bool):
@@ -273,3 +323,104 @@ def stack_apply(layers: List[dict], cfg: ModelConfig, x, positions, *,
                 new_states.append(new_st)
         aux_total = aux_total + aux
     return x, new_states, aux_total
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over a serve mesh
+# ---------------------------------------------------------------------------
+
+
+def layer_apply_tp(ctx, lps: List[dict], cfg: ModelConfig, kind: str, xs,
+                   positions, *, states, cache_pos, block_tables,
+                   rnn_chunk: Optional[int] = None):
+    """``layer_apply`` on every position of ``ctx``'s model axis: each
+    argument a list with one entry a position, ``lps`` each position's
+    blocks of the layer (``place_tree`` by the serve specs), the
+    activations replicated.  Returns (xs, new states), a list each.
+
+    The norms, residuals, RG-LRU and what rwkv computes from replicated
+    weights run whole on every position.  Attention runs each position's
+    heads (``_attn_apply(rank=)``) and the FFN its column block of
+    ``w_in``/``w_gate``; the row-parallel ``wo`` and ``w_out`` give fp32
+    partials summed over the model axis in fp32 and rounded once
+    (``ctx.row_sum``).  rwkv's column-parallel ``w_k`` projections (time
+    and channel mix) are gathered over the axis before the rest of the
+    mix, whose other weights are replicated."""
+    n = ctx.mesh.size
+    ranks = [ctx.rank(i) for i in range(n)]
+    dtype = xs[0].dtype
+    none = [None] * n
+    hs = ctx.map(lambda lp, x: rmsnorm(lp["ln1"], x, cfg.norm_eps), lps, xs)
+    if kind in ("attn", "local"):
+        window = cfg.window_size if kind == "local" else 0
+        outs, new_states = ctx.map(
+            lambda r, lp, h, pos, st, cp, bt: _attn_apply(
+                lp["attn"], cfg, h, pos, window=window, cache=st,
+                cache_pos=cp, block_tables=bt, rank=r),
+            ranks, lps, hs, positions, states, cache_pos, block_tables)
+        if lps[0]["attn"]["wo"].shape[0] < cfg.n_heads * \
+                cfg.resolved_head_dim:
+            outs = ctx.row_sum(outs, dtype)
+    elif kind == "rglru":
+        outs, new_states = ctx.map(
+            lambda lp, h, st: rglru_lib.rglru_apply(lp["rglru"], h, st),
+            lps, hs, states)
+    elif kind == "rwkv":
+        t_states = [None if st is None else st["time"] for st in states]
+        ks = none
+        if lps[0]["time"]["w_k"].shape[1] < cfg.d_model:
+            ks = ctx.gather(ctx.map(
+                lambda lp, h, st: rwkv_lib.time_mix_k(lp["time"], h, st),
+                lps, hs, t_states))
+        outs, new_time = ctx.map(
+            lambda lp, h, st, k: rwkv_lib.rwkv_time_mix(
+                lp["time"], h, cfg.rnn_head_dim, st, chunk=rnn_chunk, k=k),
+            lps, hs, t_states, ks)
+    else:
+        raise _unported(kind)
+    xs = ctx.map(torch.add, xs, outs)
+    h2s = ctx.map(lambda lp, x: rmsnorm(lp["ln2"], x, cfg.norm_eps), lps, xs)
+    if kind != "rwkv":
+        split = lps[0]["ffn"]["w_out"].shape[0] < cfg.d_ff
+        outs = ctx.map(lambda lp, h: ffn_lib.ffn_apply(
+            lp["ffn"], h, cfg.activation,
+            out_dtype=torch.float32 if split else None), lps, h2s)
+        if split:
+            outs = ctx.row_sum(outs, dtype)
+        return ctx.map(torch.add, xs, outs), new_states
+    c_states = [None if st is None else st["channel"] for st in states]
+    ks = none
+    if lps[0]["channel"]["w_k"].shape[1] < cfg.d_ff:
+        ks = ctx.gather(ctx.map(
+            lambda lp, h, st: rwkv_lib.channel_mix_k(lp["channel"], h, st),
+            lps, h2s, c_states))
+    outs, new_channel = ctx.map(
+        lambda lp, h, st, k: rwkv_lib.rwkv_channel_mix(lp["channel"], h, st,
+                                                       k=k),
+        lps, h2s, c_states, ks)
+    new_states = [None if st is None else {"time": t, "channel": c}
+                  for st, t, c in zip(states, new_time, new_channel)]
+    return ctx.map(torch.add, xs, outs), new_states
+
+
+def stack_apply_tp(ctx, layers: List[List[dict]], cfg: ModelConfig, xs,
+                   positions, *, states=None, cache_pos=None,
+                   block_tables=None, rnn_chunk: Optional[int] = None):
+    """``stack_apply`` on a serve mesh (``layer_apply_tp`` layer by layer):
+    ``layers``, ``states`` and the rest lists with one entry a position.
+    Returns (xs, new states or None), lists."""
+    n = ctx.mesh.size
+    none = [None] * n
+    decode = states is not None
+    new_states = [[] for _ in range(n)] if decode else None
+    for j in range(cfg.n_layers):
+        xs, new_st = layer_apply_tp(
+            ctx, [layers[i][j] for i in range(n)], cfg, cfg.block_kind(j),
+            xs, positions,
+            states=[states[i][j] for i in range(n)] if decode else none,
+            cache_pos=cache_pos or none, block_tables=block_tables or none,
+            rnn_chunk=rnn_chunk)
+        if decode:
+            for i in range(n):
+                new_states[i].append(new_st[i])
+    return xs, new_states

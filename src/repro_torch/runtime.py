@@ -424,6 +424,8 @@ class Runtime:
               max_len: Optional[int] = None, eos_id: int = 0,
               pad_id: Optional[int] = None, prefill_chunk="auto",
               macro_step="auto", warmup: bool = True,
+              mesh_shape: Optional[Dict[str, int]] = None,
+              shard_params: str = "auto", shards_per_device: int = 1,
               queue_limit: Optional[int] = None,
               deadline_ms: Optional[float] = None,
               ttft_deadline_ms: Optional[float] = None,
@@ -486,12 +488,24 @@ class Runtime:
         against the engine's tokens (``FrontendError`` on any difference);
         ``ServeResult.texts`` holds its detokenized texts.
 
+        Tensor parallelism (continuous mode only): ``mesh_shape``
+        (``{"data": 1, "model": 8}``; axes ``data`` and ``model`` only)
+        puts the engine on a mesh of this runtime's devices, with
+        ``shards_per_device`` positions on each (eight shards on one card:
+        ``shards_per_device=8``, where the reference forces host devices
+        through ``XLA_FLAGS``), and ``shard_params`` forces the
+        ``serve_shard`` verdict (``"shard"``/``"replicate"``) or leaves it
+        to the CostEngine (``"auto"``).  The arch's divisibility is checked
+        before the device count, so a bad mesh fails on any host.
+
         ``static`` is the lockstep baseline: the batch forms at the last
         arrival and every request's latency includes that wait; it requires
         equal-length prompts.  ``params=None`` initializes parameters from
         ``seed``; ``max_len=None`` sizes slots to the largest
         prompt+generation in the trace.
         """
+        from repro_torch.distributed.mesh import available_devices, make_mesh
+        from repro_torch.distributed.sharding import validate_serve_mesh
         from repro_torch.models import build_model
         from repro_torch.serving import ContinuousServeEngine, ServeEngine
         from repro_torch.serving.engine import emitted_count
@@ -558,6 +572,42 @@ class Runtime:
                              f"got {frontend}")
         if paged and block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
+        mesh = None
+        if mesh_shape is not None:
+            shape = {"data": 1, "model": 1}
+            unknown = set(mesh_shape) - set(shape)
+            if unknown:
+                raise ValueError(
+                    f"serve mesh_shape axes must be 'data'/'model', got "
+                    f"{sorted(unknown)}")
+            shape.update({k: int(v) for k, v in mesh_shape.items()})
+            # arch divisibility first: checkable on any host, independent
+            # of how many devices this process has
+            validate_serve_mesh(cfg, shape)
+            if mode == "static" and shape["model"] > 1:
+                raise ValueError(
+                    "mode='static' is the single-device lockstep baseline; "
+                    "model-axis sharding needs mode='continuous'")
+            if shard_params not in ("auto", "shard", "replicate"):
+                raise ValueError(
+                    f"shard_params must be 'auto', 'shard' or 'replicate', "
+                    f"got {shard_params!r}")
+            size = shape["data"] * shape["model"]
+            if shards_per_device < 1 or size % shards_per_device:
+                raise ValueError(
+                    f"shards_per_device={shards_per_device} must divide the "
+                    f"serve mesh's {size} positions")
+            need = size // shards_per_device
+            have = available_devices(self.device)
+            if need > have:
+                raise ValueError(
+                    f"serve mesh {shape} needs {need} devices at "
+                    f"shards_per_device={shards_per_device}, and this "
+                    f"process has {have} {torch.device(self.device).type} "
+                    f"device(s); put several positions on a device with "
+                    f"shards_per_device=n")
+            mesh = make_mesh(shape, device=self.device,
+                             shards_per_device=shards_per_device)
         if model is None:
             model = build_model(cfg, self.device)
         if params is None:
@@ -604,6 +654,7 @@ class Runtime:
             model, params, n_slots=slots, max_len=max_len, eos_id=eos_id,
             pad_id=pad_id, cost_engine=self.engine,
             prefill_chunk=prefill_chunk, macro_step=macro_step,
+            mesh=mesh, shard_params=shard_params,
             queue_limit=queue_limit, max_retries=max_retries,
             paged=paged, block_size=block_size, kv_blocks=kv_blocks,
             prefix_cache=True if prefix_cache == "auto" else prefix_cache)

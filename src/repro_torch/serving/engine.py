@@ -38,7 +38,13 @@ Every admission / prefill-chunk / macro-horizon / prefix-reuse / admit
 choice is a CostEngine ``CostQuery -> Decision`` ledgered with the
 measured wall time attached.  The multi-process front end
 (``frontend/workers.py``) sits in front of the engine, which only ever
-sees its ``TokenStream``; meshes come with a later slice of the port.
+sees its ``TokenStream``.
+
+Given a mesh, the continuous engine serves tensor-parallel over its
+``model`` axis when the ``serve_shard`` decision (the eighth cost site)
+says so: the params and the pooled state are placed on the positions by
+the serve specs (``distributed/sharding.py``), and every prefill and
+macro-step runs the sharded stack, one CUDA stream a position.
 """
 
 from __future__ import annotations
@@ -53,9 +59,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.costs.engine import CostEngine
+from repro_torch.distributed.sharding import (ShardingCtx, param_shardings,
+                                              place_tree,
+                                              validate_serve_mesh)
 from repro_torch.kernels import tuning
 from repro_torch.models.model import (ENCDEC_PAGED_REFUSAL, AnyModel,
-                                     mrope_positions)
+                                     mrope_positions, tensor_parallel)
 from repro_torch.serving.faults import FaultInjector, StepFailed, guarded_call
 from repro_torch.serving.frontend.stream import StreamBroken, TokenStream
 from repro_torch.serving.paging import default_kv_blocks
@@ -183,6 +192,12 @@ class ServeReport:
     pad_id: int
     host_syncs: int = 0
     device_dispatches: int = 0
+    # the mesh (None off a mesh), its positions, and the collective calls
+    # the trace made on it (each psum or all_gather of a step counts one;
+    # zero on a replicate verdict)
+    mesh_shape: Optional[Dict[str, int]] = None
+    device_count: int = 1
+    collective_ops: int = 0
     # failure-path accounting (all zero on an unperturbed trace)
     step_retries: int = 0
     watchdog_fires: int = 0
@@ -269,6 +284,9 @@ class ServeReport:
             "host_syncs": self.host_syncs,
             "device_dispatches": self.device_dispatches,
             "host_syncs_per_token": self.host_syncs_per_token,
+            "mesh_shape": self.mesh_shape,
+            "device_count": self.device_count,
+            "collective_ops": self.collective_ops,
             "states": self.state_counts(),
             "all_terminal": self.all_terminal,
             "step_retries": self.step_retries,
@@ -327,6 +345,15 @@ class ContinuousServeEngine:
     any) but always prefills in full.  ``stream`` (assignable later) is a
     ``TokenStream`` fed at the prefill and macro-step boundaries.
 
+    ``mesh`` puts the engine on a device mesh.  Whether it shards over the
+    mesh's model axis or stays replicated is the ``serve_shard`` decision
+    (``shard_params`` forces it): a shard verdict places the params by the
+    serve specs (``param_shardings(data_axes=())``) and the pooled state
+    by ``serve_state_sharding``, and runs every step tensor-parallel; a
+    replicate verdict runs exactly the single-device path (the decision
+    is still ledgered and the mesh still reported).  A mixture of experts
+    is refused on a shard verdict (``model.MOE_MESH_REFUSAL``).
+
     Robustness knobs, all off by default (and all assignable later, as
     ``Runtime.serve`` arms the watchdog and injector after warmup):
     ``queue_limit`` bounds the waiting queue, ``watchdog_s`` bounds one
@@ -342,6 +369,7 @@ class ContinuousServeEngine:
                  cost_engine: Optional[CostEngine] = None,
                  prefill_chunk: Union[str, int] = "auto",
                  macro_step: Union[str, int] = "auto",
+                 mesh=None, shard_params: str = "auto",
                  queue_limit: Optional[int] = None,
                  watchdog_s: Optional[float] = None,
                  max_retries: int = 2, retry_backoff_s: float = 0.01,
@@ -409,11 +437,35 @@ class ContinuousServeEngine:
         self.stop_event = stop_event
         self._stop_requested = False
         self.scheduler = ServeScheduler(model.cfg, cost_engine, max_len=max_len)
+        # --- mesh placement: shard-vs-replicate is a CostQuery, not a flag
+        if shard_params not in ("auto", "shard", "replicate"):
+            raise ValueError(
+                f"shard_params must be 'auto', 'shard' or 'replicate', "
+                f"got {shard_params!r}")
+        self.mesh = mesh
+        self.tp = 1
+        self._ctx: Optional[ShardingCtx] = None
+        self._shard_decision = None
+        self._shard_pending = False
+        if mesh is not None:
+            validate_serve_mesh(model.cfg, mesh.shape)
+            tp_choice, self._shard_decision = self.scheduler.serve_shard(
+                n_slots, tp=int(mesh.shape.get("model", 1)),
+                override=None if shard_params == "auto" else shard_params)
+            if tp_choice > 1:
+                # pure-TP context: no data axis on the serve hot path
+                ctx = ShardingCtx(mesh=mesh, data_axes=(),
+                                  cost_engine=self.scheduler.engine,
+                                  infer_replicate_params=True)
+                tensor_parallel(model.cfg, ctx)  # refuses MoE, enc-dec
+                self.tp, self._ctx = tp_choice, ctx
+                self.params = place_tree(mesh, params, param_shardings(
+                    params, mesh, data_axes=(), cfg=model.cfg))
         self.pool = SlotPool(
             model, n_slots, max_len,
             block_size=self.block_size if self.paged else None,
-            kv_blocks=self.kv_blocks)
-        self._prefill = make_batched_prefill(model)
+            kv_blocks=self.kv_blocks, ctx=self._ctx)
+        self._prefill = make_batched_prefill(model, ctx=self._ctx)
         self._macro_fns: Dict[int, Callable] = {}
         # host mirrors of per-slot last token / remaining token budget
         self._last_tok = np.full((n_slots,), self.pad_id, np.int64)
@@ -438,9 +490,14 @@ class ContinuousServeEngine:
         if fn is None:
             fn = make_decode_macro_step(self.model, horizon,
                                         eos_id=self.eos_id,
-                                        pad_id=self.pad_id)
+                                        pad_id=self.pad_id, ctx=self._ctx)
             self._macro_fns[horizon] = fn
         return fn
+
+    @property
+    def collective_ops(self) -> int:
+        """Collective calls made on the mesh so far (0 unsharded)."""
+        return self._ctx.mesh.collectives if self._ctx is not None else 0
 
     def _release(self, slot: int) -> None:
         self.pool.release(slot)
@@ -773,6 +830,7 @@ class ContinuousServeEngine:
         active: Dict[int, Request] = {}
         sync0 = self.host_syncs
         disp0 = self.device_dispatches + self.pool.dispatch_count
+        col0 = self.collective_ops
         ret0, wd0 = self.step_retries, self.watchdog_fires
         hit0, pf0, cow0 = (self.prefix_hit_tokens, self.prefilled_tokens,
                            self.cow_count)
@@ -784,6 +842,9 @@ class ContinuousServeEngine:
         self._stream_reason = ""
         self._peak_live_tokens = 0
         self._peak_blocks = 0
+        # ONE measured wall time a run on the serve_shard row (the first
+        # macro-step, a decode step's share of it)
+        self._shard_pending = self._shard_decision is not None
         t0 = now_fn()
         offset = 0.0  # event-skip accumulator for frozen (virtual) clocks
         now = lambda: now_fn() - t0 + offset  # noqa: E731
@@ -980,6 +1041,12 @@ class ContinuousServeEngine:
                 self.host_syncs += 1
                 self.scheduler.record_measured(
                     dec, dt_step, note=f"macro K={horizon} b={batch_size}")
+                if self._shard_pending:
+                    self.scheduler.record_measured(
+                        self._shard_decision, dt_step / horizon,
+                        note=f"serve_shard tp={self.tp} per-step from macro "
+                             f"K={horizon} b={batch_size}")
+                    self._shard_pending = False
                 # the injected NaN fault class: NaN logits argmax to garbage
                 # tokens; the injector corrupts the host copy and the
                 # validation below (on the macro-step's host copy the engine
@@ -1054,6 +1121,9 @@ class ContinuousServeEngine:
             host_syncs=self.host_syncs - sync0,
             device_dispatches=(self.device_dispatches
                                + self.pool.dispatch_count - disp0),
+            mesh_shape=(self.mesh.shape if self.mesh is not None else None),
+            device_count=(self.mesh.size if self.mesh is not None else 1),
+            collective_ops=self.collective_ops - col0,
             step_retries=self.step_retries - ret0,
             watchdog_fires=self.watchdog_fires - wd0,
             live_tokens=self._peak_live_tokens,

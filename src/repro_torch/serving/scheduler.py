@@ -337,6 +337,32 @@ class ServeScheduler:
             dtype_bytes=self.dtype_bytes)
         return bool(dec.value), dec
 
+    def serve_shard(self, batch: int, *, tp: int,
+                    override: Optional[str] = None) -> Tuple[int, Decision]:
+        """Shard-vs-replicate the serve model over the mesh's model axis —
+        the eighth decision site (CostQuery kind=serve_shard).
+
+        The sweep weighs the per-device FLOP and weight/KV-stream savings of
+        tensor parallelism against the two row-parallel all-reduces per
+        layer each decode step pays (attention wo and FFN w_out partial
+        sums), priced by the calibrated interconnect terms.  ``override``
+        forces a verdict by RESTRICTING the candidate set — ``(tp,)`` for
+        shard, ``(1,)`` for replicate — so the ledger records what was
+        considered."""
+        if override == "shard":
+            candidates: Tuple[int, ...] = (tp,)
+        elif override == "replicate":
+            candidates = (1,)
+        else:
+            candidates = (1, tp)
+        dec = self.engine.decide_serve_shard(
+            batch, tp=tp, flops_per_token=self.flops_per_token,
+            weight_bytes=self.weight_bytes,
+            kv_bytes_per_slot=self.kv_bytes_per_slot,
+            n_layers=self.cfg.n_layers, d_model=self.cfg.d_model,
+            dtype_bytes=self.dtype_bytes, candidates=candidates)
+        return int(dec.value), dec
+
     def serve_prefix(self, prompt_len: int, *, hit_tokens: int,
                      cow_blocks: int, block_size: int,
                      override: Optional[str] = None

@@ -20,6 +20,14 @@ and per-slot block tables kept as a host mirror.  The tables go to the
 device once per dispatch, copied from pinned memory without waiting for
 the device; copy-on-write duplicates a page on the device, also without a
 host sync.
+
+On a serve mesh (``ctx``, tensor-parallel) the state is one tree a
+position, placed by ``serve_state_sharding`` without its cache-length
+fallback: caches and page pools split over kv heads where they divide,
+whole on every position elsewhere, each replicated leaf in storage of its
+own (it is written in place).  Slot bookkeeping and the block tables stay
+on the host, shared by every position; a reset or a copy-on-write runs on
+every position, as that position's work.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import (place_tree,
+                                              serve_state_sharding)
 from repro_torch.models.model import AnyModel, is_page_pool
 from repro_torch.serving.paging import BlockPool, default_kv_blocks
 from repro_torch.tree import leaves_with_paths
@@ -48,10 +58,11 @@ def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
 class SlotPool:
     def __init__(self, model: AnyModel, n_slots: int, max_len: int,
                  block_size: Optional[int] = None,
-                 kv_blocks: Optional[int] = None):
+                 kv_blocks: Optional[int] = None, ctx=None):
         """``block_size`` pages the attention KV: ``kv_blocks`` shared pages
         (default: enough that every slot can run to ``max_len``, so
-        allocation never fails) addressed by per-slot block tables."""
+        allocation never fails) addressed by per-slot block tables.
+        ``ctx`` (tensor-parallel) places the state on its mesh."""
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.model = model
@@ -70,13 +81,34 @@ class SlotPool:
             self._table = np.zeros((n_slots, self.max_blocks), np.int64)
             self._slot_nblocks = np.zeros((n_slots,), np.int64)
             paging = (kv_blocks, self.block_size)
-        self.state = model.init_decode_state(n_slots, max_len, per_slot=True,
-                                             paging=paging)
+        self.ctx = ctx if ctx is not None and ctx.tp > 1 else None
+        self._paging = paging
+        self.state = self._new_state()
         self._free: List[int] = list(range(n_slots))
         self._owner: List[Optional[object]] = [None] * n_slots
         self._active = np.zeros((n_slots,), bool)
         self._host_pos = np.zeros((n_slots,), np.int64)
         self.dispatch_count = 0  # slot resets and page copies issued
+
+    def _new_state(self):
+        """A fresh pooled state, on the mesh's positions where there is
+        one."""
+        state = self.model.init_decode_state(
+            self.n_slots, self.max_len, per_slot=True, paging=self._paging)
+        if self.ctx is None:
+            return state
+        mesh = self.ctx.mesh
+        return place_tree(mesh, state, serve_state_sharding(
+            state, mesh, model_axis=self.ctx.model_axis, seq_split=False),
+            copy=True)
+
+    def _each(self, fn) -> None:
+        """``fn(state)`` on the pooled state: on every position's, as its
+        work, on a mesh."""
+        if self.ctx is None:
+            fn(self.state)
+        else:
+            self.ctx.map(fn, self.state)
 
     # ------------------------------------------------------------------
 
@@ -119,7 +151,7 @@ class SlotPool:
             raise ValueError(f"slot {slot} is not in use")
         mask = np.zeros((self.n_slots,), bool)
         mask[slot] = True
-        self.model.reset_decode_slots(self.state, mask)
+        self._each(lambda st: self.model.reset_decode_slots(st, mask))
         self.dispatch_count += 1
         if self.paged:
             n = int(self._slot_nblocks[slot])
@@ -144,13 +176,10 @@ class SlotPool:
         reach the new ones.  (The reference falls back to the same fresh
         init when an abandoned program consumed its donated buffers.)"""
         if fresh:
-            paging = ((self.blocks.n_blocks, self.block_size)
-                      if self.paged else None)
-            self.state = self.model.init_decode_state(
-                self.n_slots, self.max_len, per_slot=True, paging=paging)
+            self.state = self._new_state()
         else:
-            self.model.reset_decode_slots(self.state,
-                                          np.ones((self.n_slots,), bool))
+            every = np.ones((self.n_slots,), bool)
+            self._each(lambda st: self.model.reset_decode_slots(st, every))
             self.dispatch_count += 1
         if self.paged:
             self.blocks.drain()
@@ -200,9 +229,13 @@ class SlotPool:
         reference's one copy program), then release the donor pin.
         Returns the new page id."""
         (fresh,) = self.blocks.alloc(1)
-        for path, leaf in leaves_with_paths(self.state["layers"]):
-            if is_page_pool(path):
-                leaf[fresh].copy_(leaf[donor])
+
+        def copy(state):
+            for path, leaf in leaves_with_paths(state["layers"]):
+                if is_page_pool(path):
+                    leaf[fresh].copy_(leaf[donor])
+
+        self._each(copy)  # every position's pools (its kv heads)
         self.dispatch_count += 1
         idx = int(self._slot_nblocks[slot])
         self._table[slot, idx] = fresh

@@ -14,6 +14,12 @@ argmax, EOS masking, the budget countdown, the ``merge_decode_state``
 freeze of masked slots, per-row true-length position advance and
 first-token capture.  No ``.item()``, ``.cpu()`` or ``.tolist()`` runs
 inside a step; the caller syncs once on the result.
+
+Given a tensor-parallel ``ctx`` (a serve mesh) the two serving steps of
+the continuous engine run on every position: the params and the state
+are lists with one entry a position, the host's inputs are replicated to
+the positions, each position's bookkeeping runs as its own work
+(``_Positions``), and the step hands back position 0's tokens.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.mesh import replicate, take
 from repro_torch.models.model import AnyModel, mrope_positions
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.compression import compress_gradients, init_compression
@@ -134,8 +141,32 @@ def make_serve_step(model: AnyModel) -> Callable:
     return serve_fn
 
 
+class _Positions:
+    """Where a serving step runs: in the caller's order (``ctx`` None or
+    without a model axis) or on every position of a serve mesh, where an
+    argument is a list with one entry a position."""
+
+    def __init__(self, ctx):
+        self.ctx = ctx if ctx is not None and ctx.tp > 1 else None
+
+    def spread(self, x):
+        """A host input made in the caller's order, for every position."""
+        if self.ctx is None:
+            return x
+        if x is None:
+            return [None] * self.ctx.mesh.size
+        return replicate(self.ctx.mesh, x)
+
+    def map(self, fn, *args):
+        return fn(*args) if self.ctx is None else self.ctx.map(fn, *args)
+
+    def collect(self, xs):
+        """Position 0's result, for the caller."""
+        return xs if self.ctx is None else take(self.ctx.mesh, xs, 0)
+
+
 def make_decode_macro_step(model: AnyModel, horizon: int, *, eos_id: int,
-                           pad_id: int) -> Callable:
+                           pad_id: int, ctx=None) -> Callable:
     """K lockstep greedy decode steps per host consultation.
 
     Returns ``macro_fn(params, state, tok, active, budget,
@@ -149,36 +180,49 @@ def make_decode_macro_step(model: AnyModel, horizon: int, *, eos_id: int,
     zeroed for the step, so its writes land in the null page (its pages
     may already belong to another request).  An mrope model's positions
     come from each slot's device position (``mrope_positions``), with no
-    host-built tensor.
+    host-built tensor.  On a serve mesh (``ctx``) ``params`` and ``state``
+    are per-position lists and the emitted tokens are position 0's.
     """
     k_steps = max(int(horizon), 1)
     mrope = model.cfg.pos_type == "mrope"
 
+    def feed_batch(st, tk, act, bt):
+        feed = torch.where(act, tk, pad_id)[:, None]
+        batch = {"tokens": feed}
+        if bt is not None:
+            batch["block_tables"] = torch.where(act[:, None], bt, 0)
+        if mrope:
+            batch["positions"] = mrope_positions(feed.shape[0], 1, st["pos"])
+        return batch
+
+    def advance(logits, new_st, st, tk, act, bud):
+        new_st = model.merge_decode_state(new_st, st, act)
+        nxt = torch.argmax(logits[:, -1], dim=-1)
+        emit = torch.where(act, nxt, pad_id)
+        bud = bud - act.long()
+        new_act = act & (nxt != eos_id) & (bud > 0)
+        return new_st, torch.where(act, nxt, tk), new_act, bud, emit
+
     def macro_fn(params, state, tok, active, budget, block_tables=None):
-        st, tk, act, bud = state, tok, active, budget
+        on = _Positions(ctx)
+        tk, act, bud, bt = (on.spread(t) for t in (tok, active, budget,
+                                                   block_tables))
+        st = state
         emitted = []
         for _ in range(k_steps):
-            feed = torch.where(act, tk, pad_id)[:, None]
-            batch = {"tokens": feed}
-            if block_tables is not None:
-                batch["block_tables"] = torch.where(act[:, None],
-                                                    block_tables, 0)
-            if mrope:
-                batch["positions"] = mrope_positions(feed.shape[0], 1,
-                                                     st["pos"])
-            logits, new_st = model.decode_step(params, st, batch)
-            new_st = model.merge_decode_state(new_st, st, act)
-            nxt = torch.argmax(logits[:, -1], dim=-1)
-            emitted.append(torch.where(act, nxt, pad_id))
-            bud = bud - act.long()
-            new_act = act & (nxt != eos_id) & (bud > 0)
-            st, tk, act = new_st, torch.where(act, nxt, tk), new_act
-        return torch.stack(emitted, dim=1), st
+            batch = on.map(feed_batch, st, tk, act, bt)
+            logits, new_st = model.decode_step(params, st, batch,
+                                               ctx=on.ctx)
+            st, tk, act, bud, emit = on.map(advance, logits, new_st, st, tk,
+                                            act, bud)
+            emitted.append(emit)
+        return on.collect(on.map(lambda *e: torch.stack(e, dim=1),
+                                 *emitted)), st
 
     return macro_fn
 
 
-def make_batched_prefill(model: AnyModel) -> Callable:
+def make_batched_prefill(model: AnyModel, ctx=None) -> Callable:
     """Lower a whole padded prompt group into a per-slot decode state:
     a loop over fixed-width chunks through the same ``decode_step`` forward
     the decode path runs, with per-slot activity masks (slots not being
@@ -199,39 +243,62 @@ def make_batched_prefill(model: AnyModel) -> Callable:
     length limit all continue from the reused prefix.  ``block_tables``
     routes paged cache writes; rows not being prefilled get their table
     row zeroed, so their masked writes land in the null page.  An mrope
-    model's positions for each chunk come from each row's position.
+    model's positions for each chunk come from each row's position.  On a
+    serve mesh (``ctx``) ``params`` and ``state`` are per-position lists
+    and the first tokens are position 0's.
     """
     mrope = model.cfg.pos_type == "mrope"
 
+    def start_at(st, lengths, starts):
+        st = dict(st)
+        st["pos"] = torch.where(lengths > 0, starts, st["pos"])
+        return st
+
+    def chunk_batch(off, st, chunks, lengths, bt):
+        b, c = chunks.shape[1:]
+        valid = torch.clamp(lengths - off, 0, c)  # true tokens this chunk
+        act = valid > 0
+        batch = {"tokens": chunks[off // c]}
+        if bt is not None:
+            batch["block_tables"] = torch.where(act[:, None], bt, 0)
+        if mrope:
+            batch["positions"] = mrope_positions(b, c, st["pos"])
+        return valid, act, batch
+
+    def chunk_done(off, logits, new_st, st, valid, act, lengths, first):
+        b, c = logits.shape[:2]
+        new_st = model.merge_decode_state(new_st, st, act)
+        # decode_step advanced active rows by the full chunk width;
+        # ragged rows only consumed ``valid`` prompt tokens
+        new_st["pos"] = torch.where(act, st["pos"] + valid, st["pos"])
+        done_now = act & (lengths <= off + c)
+        at = torch.clamp(valid - 1, min=0)[:, None, None]
+        last = torch.gather(logits, 1,
+                            at.expand(b, 1, logits.shape[-1]))[:, 0]
+        return new_st, torch.where(done_now, torch.argmax(last, dim=-1),
+                                   first)
+
     def prefill_fn(params, state, chunks, lengths, starts=None,
                    block_tables=None):
+        on = _Positions(ctx)
         n_chunks, b, c = chunks.shape
+        chs, lens, bt = (on.spread(t) for t in (chunks, lengths,
+                                                block_tables))
         st = state
         if starts is not None:
-            st = dict(state)
-            st["pos"] = torch.where(lengths > 0, starts, state["pos"])
-        first = torch.zeros((b,), dtype=torch.int64, device=chunks.device)
+            st = on.map(start_at, st, lens, on.spread(starts))
+        first = on.map(lambda ln: torch.zeros((b,), dtype=torch.int64,
+                                              device=ln.device), lens)
         for i in range(n_chunks):
             off = i * c
-            valid = torch.clamp(lengths - off, 0, c)  # true tokens this chunk
-            act = valid > 0
-            batch = {"tokens": chunks[i]}
-            if block_tables is not None:
-                batch["block_tables"] = torch.where(act[:, None],
-                                                    block_tables, 0)
-            if mrope:
-                batch["positions"] = mrope_positions(b, c, st["pos"])
-            logits, new_st = model.decode_step(params, st, batch)
-            new_st = model.merge_decode_state(new_st, st, act)
-            # decode_step advanced active rows by the full chunk width;
-            # ragged rows only consumed ``valid`` prompt tokens
-            new_st["pos"] = torch.where(act, st["pos"] + valid, st["pos"])
-            done_now = act & (lengths <= off + c)
-            at = torch.clamp(valid - 1, min=0)[:, None, None]
-            last = torch.gather(logits, 1,
-                                at.expand(b, 1, logits.shape[-1]))[:, 0]
-            first = torch.where(done_now, torch.argmax(last, dim=-1), first)
-            st = new_st
-        return first, st
+            valid, act, batch = on.map(
+                lambda *a, _off=off: chunk_batch(_off, *a), st, chs, lens,
+                bt)
+            logits, new_st = model.decode_step(params, st, batch,
+                                               ctx=on.ctx)
+            st, first = on.map(
+                lambda *a, _off=off: chunk_done(_off, *a), logits, new_st,
+                st, valid, act, lens, first)
+        return on.collect(first), st
 
     return prefill_fn

@@ -7,7 +7,9 @@ agrees with the kernel's plain version on the card.
   among them, and so do the paging and token-stream modules and
   ``examples/torch_quickstart.py``'s imports, and the autotuner's
   (``core/costs/autotune.py``, ``kernels/tuning.py``, ``core/overhead.py``),
-  whose ``Autotuner`` the public surface exports as the reference's does;
+  whose ``Autotuner`` the public surface exports as the reference's does,
+  and the tensor-parallel serving modules' (``distributed/sharding.py``,
+  the engine, the launcher, ``checkpoint.restore_resharded``);
 * what a spawned front-end worker imports loads no torch either, and on a
   card (marked ``cuda``) the workers of a front end spawned beside a CUDA
   tensor hold no context on it;
@@ -114,6 +116,27 @@ print("Autotuner" in repro_torch.__all__, sorted(
 def test_autotuner_modules_import_neither_jax_nor_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _IMPORT_AUTOTUNE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(" ", 1) == ["True", "[]\n"]
+
+
+_IMPORT_SERVE_MESH = """
+import sys
+import repro_torch.distributed.sharding, repro_torch.launch.serve
+import repro_torch.checkpoint.checkpoint, repro_torch.serving.engine
+from repro_torch.distributed.sharding import ShardingCtx, place_tree
+from repro_torch.checkpoint import restore_resharded
+print(callable(place_tree), sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_serve_mesh_modules_import_neither_jax_nor_repro():
+    """The tensor-parallel serving modules: the sharding rules and
+    placement, the mesh-aware engine, launcher and checkpoint restore."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_SERVE_MESH], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split(" ", 1) == ["True", "[]\n"]

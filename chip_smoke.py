@@ -256,8 +256,8 @@ Phases, one report line each (any failure exits non-zero):
  21. the seven configurations that train on the card from this slice on
      (mistral-nemo-12b, phi3-mini-3.8b, gemma-2b, recurrentgemma-2b,
      moonshot-v1-16b-a3b, qwen3-moe-235b-a22b, qwen2-vl-72b), each built
-     and freed before the next: card against CPU in fp32 at full width, 2
-     layers (qwen3-moe and qwen2-vl 1, recurrentgemma one period with its
+     and freed before the next: card against CPU in fp32 at full width, 1
+     layer (since phase 25; recurrentgemma one period with its
      window cut to RING_WINDOW, once at 2 x 256 through local_attention
      and once at 2 x 128 through the masked dense form), batch 2 x 64:
      one gradient
@@ -327,9 +327,9 @@ Phases, one report line each (any failure exits non-zero):
      unsharded card's and an 8-position CPU mesh's, the sharded prefill's
      and decode step's logits within 2e-3 x max|logit| of both, every
      position launching the matmul kernel.  bf16 at full width
-     (tinyllama-1.1b whole, dense and paged on shared-prefix traffic with
-     the prefix cache forced; mistral-nemo-12b at 8 of 40 layers, its 8
-     kv heads one a position), phase 5's trace cut to 16 new tokens:
+     (tinyllama-1.1b at 4 of 22 layers, dense and paged on shared-prefix
+     traffic with the prefix cache forced; mistral-nemo-12b at 4 of 40
+     layers, its 8 kv heads one a position), phase 5's trace cut to 16 new tokens:
      tokens equal the unsharded engine's up to a near tie (the unsharded
      top-2 margin under the limit there), the same tokens twice, the
      first decode step's logits within the limit, the sharded
@@ -339,8 +339,31 @@ Phases, one report line each (any failure exits non-zero):
      device or the host), serve_shard's predicted and measured rows and
      the auto verdict.  The kernels line gains phase 24's matmul and
      flash launches.
-     Before each of phases 2-24, gc.collect(): a gen-2 collection of this
-     script's heap took 0.2-0.75 s inside a timed step.
+  25. FSDP training with tensor and expert parallelism on 8 positions of
+     the card (train_mesh_phase): the engine's auto verdicts on the shared
+     card (sort, matmul, serve_shard, layer_shard, moe_dispatch: serial or
+     replicate); fp32 at 2 layers, full width (tinyllama-1.1b on {"data":
+     4, "model": 2}, moonshot-v1-16b-a3b on {"pod": 2, "data": 2, "model":
+     2}) against the unsharded card: the loss within rtol 2e-3, every
+     gradient and every parameter after one AdamW step within 2e-3 x its
+     max; moonshot's expert-parallel layer against moe_ep_plain at
+     capacity factors 8.0 (nothing dropped) and 1.25 (the same drops);
+     bf16 at full width (tinyllama whole, moonshot at 4 of 48 layers) 3
+     steps on a fixed batch of 8 x 512 sharded and unsharded: the first
+     sharded loss no further from the fp32 loss than the unsharded bf16
+     one is plus 2e-3 x |loss|, the loss falling, matmul (the experts' 4-D
+     products among them) and flash forward and backward on every
+     position, no library GEMM or attention in a profiled step; step wall,
+     tokens/s, host and device ms, peak memory, collective calls and
+     FSDP-gathered bytes a step printed; the elastic restore (fp32
+     tinyllama at 2 layers, 3 steps on {"data": 2, "model": 2}, saved
+     whole, restored on {"data": 4, "model": 2}, step 4's loss the
+     uninterrupted unsharded run's within rtol 2e-3).  The kernels line
+     gains phase 25's matmul and flash launches.
+     Before each of phases 2-25, gc.collect() and gc.freeze() (settle): a
+     gen-2 collection of this script's heap took 0.2-0.75 s inside a timed
+     step, and a collection walking it slowed phase 25's sharded steps
+     1.7x.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  The full record goes to
 chiprun_out/chip_smoke.json.  Exits non-zero, printing no result, where
@@ -553,9 +576,12 @@ TRAIN_PEAK_LIMIT_GB = 76.0
 # gradient and two moments, 16 bytes a parameter, qwen2-vl's 4.25 B at 2
 # layers 68 GB (it fits since the in-place AdamW updates a leaf by blocks
 # of rows, adamw.INPLACE_BLOCK); qwen2-vl is cut to 1 layer (3.37 B), its
-# 2.49 B of embedding and unembedding kept, for the script's time limit
-FAMILY_TRAIN_CPU_LAYERS = {"qwen3-moe-235b-a22b": 1, "qwen2-vl-72b": 1,
-                           "recurrentgemma-2b": 3}
+# 2.49 B of embedding and unembedding kept, for the script's time limit;
+# since phase 25 every other configuration but recurrentgemma is
+# cut to 1 layer too, for the same limit: one layer still gives every
+# kind of leaf its gradient, and recurrentgemma keeps its period (rglru,
+# rglru, local), whose windowed layer needs the third
+FAMILY_TRAIN_CPU_LAYERS = {"recurrentgemma-2b": 3}
 FAMILY_TRAIN_CPU_SEQ = PARITY_SEQ // 2
 # the fixed batch's peak rate for the three whole models.  From their
 # random weights Adam's first steps move every weight by about the rate, a
@@ -595,6 +621,17 @@ class PhaseClock:
         log("clock", f"phase {phase}: {self.seconds[str(phase)]:.1f} s; "
             f"{now - self.start:.1f} s since main() started; host memory "
             f"{host_memory()}")
+
+
+def settle() -> None:
+    """Collect, then freeze the survivors (earlier phases' records, models
+    and caches) out of the collector (``gc.freeze``): a collection inside a
+    later phase's timed step then walks that phase's objects only, not the
+    script's heap of many GB (phase 25's sharded tinyllama step read 7.1 s
+    without it and 3.6 s with it on an H100).  Run before each of phases
+    2-25."""
+    gc.collect()
+    gc.freeze()
 
 
 def host_memory() -> str:
@@ -805,6 +842,91 @@ class FlashCalls:
         self.ops.flash_attention = self.launch
 
 
+class StepChecks:
+    """Inside the block the first call of every matmul signature
+    (``ops._matmul``, which the forward, the recomputed products and the
+    backward's dA and dB all reach: shapes, strides, dtypes, epilogue) and
+    of every flash signature each way (``fa.flash_attention_fwd_cuda`` and
+    ``fa.flash_attention_bwd_cuda``: q's and k's shapes, the dtype,
+    causal) is held against its plain version on the call's own inputs as
+    it returns: the matmul at phase 2's tolerance (``held``), flash at
+    phase 7's (``flash_error``; the plain backward fed the kernel's o, lse
+    and dO).  The main path's own outputs are checked, with no launch of
+    their own.  ``fails`` lists the calls outside their limits."""
+
+    def __init__(self, ops, fa, ref):
+        self.ops, self.fa, self.ref = ops, fa, ref
+        self.matmuls, self.flash, self.fails = {}, {}, []
+
+    def __enter__(self):
+        ops, fa, ref = self.ops, self.fa, self.ref
+        self.saved = (ops._matmul, fa.flash_attention_fwd_cuda,
+                      fa.flash_attention_bwd_cuda)
+        launch, fwd, bwd = self.saved
+
+        def matmul(a, b, bias, activation, out_dtype, tuner=None):
+            out = launch(a, b, bias, activation, out_dtype, tuner)
+            key = (tuple(a.shape), a.stride(), a.dtype, tuple(b.shape),
+                   b.stride(), b.dtype, bias is not None, activation,
+                   out_dtype)
+            if key not in self.matmuls:
+                err, tol = held(out, ref.matmul_fused_ref(
+                    a, b, bias=bias, activation=activation,
+                    out_dtype=out_dtype))
+                call = (f"{tuple(a.shape)}{a.stride()} {str(a.dtype)[6:]} @ "
+                        f"{tuple(b.shape)}{b.stride()} {str(b.dtype)[6:]}"
+                        f"{' +bias' if bias is not None else ''}"
+                        f"{' ' + activation if activation else ''} -> "
+                        f"{str(out.dtype)[6:]}")
+                self.matmuls[key] = dict(call=call, ndim=a.dim(),
+                                         max_abs_err=err, tol=tol)
+                if not err <= tol:
+                    self.fails.append(f"matmul {call}: max abs err "
+                                      f"{err:.3e} > {tol:.3e}")
+            return out
+
+        def flash_fwd(q, k, v, causal=True, sm_scale=None):
+            o, lse = fwd(q, k, v, causal, sm_scale)
+            key = ("forward", tuple(q.shape), tuple(k.shape), q.dtype, causal)
+            if key not in self.flash:
+                o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v, causal,
+                                                           sm_scale)
+                self._flash(key, (("o", o, o_p), ("lse", lse, lse_p)))
+            return o, lse
+
+        def flash_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None):
+            grads = bwd(q, k, v, o, lse, do, causal, sm_scale)
+            key = ("backward", tuple(q.shape), tuple(k.shape), q.dtype,
+                   causal)
+            if key not in self.flash:
+                want = ref.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     causal, sm_scale)
+                self._flash(key, tuple(zip(("dq", "dk", "dv"), grads,
+                                           want)))
+            return grads
+
+        ops._matmul = matmul
+        fa.flash_attention_fwd_cuda = flash_fwd
+        fa.flash_attention_bwd_cuda = flash_bwd
+        return self
+
+    def _flash(self, key, outputs):
+        errs = {name: flash_error(got, want) for name, got, want in outputs}
+        call = (f"{key[0]} q {key[1]} k {key[2]} {str(key[3])[6:]}"
+                f"{'' if key[4] else ' non-causal'}")
+        self.flash[key] = dict(call=call, max_abs_err=max(
+            e for e, _ in errs.values()), of_limit=max(
+            r for _, r in errs.values()))
+        if not all(r <= 1.0 for _, r in errs.values()):
+            self.fails.append(f"flash {call}: " + ", ".join(
+                f"{n} {e:.2e} = {r:.2f} x limit" for n, (e, r) in
+                errs.items()))
+
+    def __exit__(self, *exc):
+        (self.ops._matmul, self.fa.flash_attention_fwd_cuda,
+         self.fa.flash_attention_bwd_cuda) = self.saved
+
+
 def flash_error(got, want) -> tuple:
     """(max abs error, its largest share of the limit) of a flash output
     against its plain version: bf16 element by element within BF16_TOL x
@@ -962,7 +1084,7 @@ def main() -> int:
 
     # ------------------------------------------------------------------ 2
     clock.lap(1)
-    gc.collect()  # now, not as a gen-2 pass inside a timed step
+    settle()  # now, not as a gen-2 pass inside a timed step
     cfg = get_config("tinyllama-1.1b")
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
     hq, hkv, g = cfg.n_heads, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
@@ -1047,7 +1169,7 @@ def main() -> int:
 
     # ------------------------------------------------------------------ 3
     clock.lap(2)
-    gc.collect()
+    settle()
     engine = CostEngine()
     paper = []
     for order in (1024, 4096, 8192):
@@ -1105,7 +1227,7 @@ def main() -> int:
 
     # ------------------------------------------------------------------ 4
     clock.lap(3)
-    gc.collect()
+    settle()
     sort_rows = []
     for shape, dtype_name in SORT_SHAPES:
         row = sort_case(shape, getattr(torch, dtype_name), gen, ops, ref,
@@ -1153,7 +1275,7 @@ def main() -> int:
 
     # ------------------------------------------------------------------ 5
     clock.lap(4)
-    gc.collect()
+    settle()
     rt = Runtime(device="cuda")
     model = build_model(cfg, rt.device)
     params = model.init(0)
@@ -1265,7 +1387,7 @@ def main() -> int:
 
     # ------------------------------------------------------------------ 6
     clock.lap(5)
-    gc.collect()
+    settle()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p_gpu = tree_map(lambda t: t.float(), params)
     p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
@@ -1312,7 +1434,7 @@ def main() -> int:
 
     # ------------------------------------------------------------------ 7
     clock.lap(6)
-    gc.collect()
+    settle()
     flash_rows = []
     for shape in FLASH_SHAPES + FLASH_NONCAUSAL_SHAPES + FLASH_NEW_HD_SHAPES:
         row = flash_case(shape, gen, ref, fa, flush)
@@ -1330,7 +1452,7 @@ def main() -> int:
 
     # ------------------------------------------------------------------ 8
     clock.lap(7)
-    gc.collect()
+    settle()
     parity = train_parity(cfg)
     if parity is None:
         return 1
@@ -1339,7 +1461,7 @@ def main() -> int:
 
     # ------------------------------------------------------------------ 9
     clock.lap(8)
-    gc.collect()
+    settle()
     record["train_matmuls"] = train_matmuls(cfg, ops, ref, flush)
     if record["train_matmuls"] is None:
         return 1
@@ -1352,7 +1474,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 10
     clock.lap(9)
-    gc.collect()
+    settle()
     wkv_rows = []
     for shape in WKV_SHAPES:
         row = wkv_case(shape, gen, ref, wkv_k, flush)
@@ -1365,7 +1487,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 11
     clock.lap(10)
-    gc.collect()
+    settle()
     record["rwkv_card_vs_cpu"] = rwkv_card_vs_cpu(rcfg, wkv_k)
     if record["rwkv_card_vs_cpu"] is None:
         return 1
@@ -1373,7 +1495,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 12
     clock.lap(11)
-    gc.collect()
+    settle()
     record["rwkv_serve"] = rwkv_serve(
         dataclasses.replace(rcfg, n_layers=RWKV_SERVE_LAYERS), LAUNCHES,
         wkv_k)
@@ -1383,7 +1505,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 13
     clock.lap(12)
-    gc.collect()
+    settle()
     record["rwkv_train_parity"] = train_parity(rcfg, leaves=47)
     if record["rwkv_train_parity"] is None:
         return 1
@@ -1391,7 +1513,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 14
     clock.lap(13)
-    gc.collect()
+    settle()
     rtrain = rwkv_train_phase(rcfg, wkv_k, LAUNCHES)
     if rtrain is None:
         return 1
@@ -1402,7 +1524,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 15
     clock.lap(14)
-    gc.collect()
+    settle()
     paged = paged_phase(cut_cfg, rcfg, cut_want, LAUNCHES, card,
                         prof["device_events"])
     if paged is None:
@@ -1412,7 +1534,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 16
     clock.lap(15)
-    gc.collect()
+    settle()
     life = lifecycle_phase(cut_cfg, rcfg, cut_want, cut_syncs, LAUNCHES,
                            card)
     if life is None:
@@ -1422,7 +1544,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 17
     clock.lap(16)
-    gc.collect()
+    settle()
     front = frontend_phase(cut_cfg, cut_want, cut_syncs,
                            record["calibration"], LAUNCHES, card)
     if front is None:
@@ -1432,7 +1554,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 18
     clock.lap(17)
-    gc.collect()
+    settle()
     families = families_phase(mm, fa, ops, ref, gen, flush, card)
     if families is None:
         return 1
@@ -1440,7 +1562,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 19
     clock.lap(18)
-    gc.collect()
+    settle()
     del flush  # 512 MiB back for qwen3-moe's 52 GB
     torch.cuda.empty_cache()
     moe_vlm = moe_vlm_phase(mm, fa, ops, ref, card)
@@ -1450,7 +1572,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 20
     clock.lap(19)
-    gc.collect()
+    settle()
     torch.cuda.empty_cache()
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
     encdec = encdec_phase(mm, fa, ops, ref, flush, card)
@@ -1462,7 +1584,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 21
     clock.lap(20)
-    gc.collect()
+    settle()
     del flush  # 512 MiB back for the deepest cut each model takes
     torch.cuda.empty_cache()
     family_train = family_train_phase(mm, fa, ops, ref, card)
@@ -1472,7 +1594,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 22
     clock.lap(21)
-    gc.collect()
+    settle()
     torch.cuda.empty_cache()
     autotune = autotune_phase(cfg, p1_want, card)
     if autotune is None:
@@ -1487,7 +1609,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 23
     clock.lap(22)
-    gc.collect()
+    settle()
     torch.cuda.empty_cache()
     mesh = mesh_phase(card)
     if mesh is None:
@@ -1496,15 +1618,24 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 24
     clock.lap(23)
-    gc.collect()
+    settle()
     torch.cuda.empty_cache()
     serve_mesh = serve_mesh_phase(card)
     if serve_mesh is None:
         return 1
     record["serve_mesh"] = serve_mesh
 
-    # ---------------------------------------------------------------- out
+    # ----------------------------------------------------------------- 25
     clock.lap(24)
+    settle()
+    torch.cuda.empty_cache()
+    train_mesh = train_mesh_phase(card)
+    if train_mesh is None:
+        return 1
+    record["train_mesh"] = train_mesh
+
+    # ---------------------------------------------------------------- out
+    clock.lap(25)
     record["phase_s"] = clock.seconds
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1596,6 +1727,19 @@ def main() -> int:
                        "launches_by_position"],
                    "unsharded": rec["step"]["unsharded"]["launches"]}
             for arch, rec in serve_mesh["bf16"].items()},
+        # phase 25: a sharded bf16 training step on 8 positions (counted
+        # over its steps and the final loss, per step), the 4-D expert
+        # products among them, and one fp32 gradient's
+        "launches_train_mesh_step": {
+            arch: {k: rec["launches_per_step"][k] for k in (
+                "matmul", "matmul_by_position", "batched_by_position",
+                "positions")}
+            for arch, rec in train_mesh["bf16"].items()},
+        "launches_train_mesh_fp32_gradient": {
+            arch: {k: rec["launches"][k] for k in (
+                "matmul", "matmul_by_position", "batched_by_position",
+                "positions")}
+            for arch, rec in train_mesh["fp32"].items()},
     }, {
         "name": "bitonic_sort", "route": "cuda",
         "design": f"block passes on tiles of "
@@ -1667,12 +1811,21 @@ def main() -> int:
         "launches_family_train_step": {
             arch: rec["profile"]["flash_calls"]
             for arch, rec in family_train["train"].items()},
-        # phase 24: the sharded Model.prefill of tinyllama-1.1b (22 layers
-        # on each of 8 positions, bf16), counted from 0 just before it
+        # phase 24: the sharded Model.prefill of tinyllama-1.1b (CUT_LAYERS
+        # layers on each of 8 positions, bf16), counted from 0 just before
+        # it
         "launches_serve_mesh_prefill": {
             arch: {"forward": rec["prefill"]["flash_forward_calls"],
                    "by_path": rec["prefill"]["flash_by_path"]}
             for arch, rec in serve_mesh["bf16"].items() if "prefill" in rec},
+        # phase 25: flash calls a sharded bf16 training step on 8
+        # positions, each direction, in total and by position
+        "launches_train_mesh_step": {
+            arch: {k: rec["launches_per_step"][k] for k in (
+                "flash_forward", "flash_backward",
+                "flash_forward_by_position", "flash_backward_by_position",
+                "positions")}
+            for arch, rec in train_mesh["bf16"].items()},
         # phase 7 at hd 96 and 256 (bf16 tensor core, fp32 FMA):
         # phi3-mini's, gemma-2b's and recurrentgemma-2b's training shapes and ragged
         # ones, beside the plain version, SDPA and the bound
@@ -5560,8 +5713,8 @@ def max_abs_diff(a, b, block: int = 1 << 21) -> tuple:
 
 
 def family_train_parity(arch, card, window=None, seq=FAMILY_TRAIN_CPU_SEQ):
-    """Card against CPU in fp32 at full width, cut to 2 layers (qwen3-moe
-    and qwen2-vl 1, recurrentgemma one period; FAMILY_TRAIN_CPU_LAYERS),
+    """Card against CPU in fp32 at full width, cut to 1 layer
+    (recurrentgemma one period; FAMILY_TRAIN_CPU_LAYERS),
     batch 2 x ``seq``
     from one seed: on the card, one gradient of the initial parameters
     (make_grad_fn), then one make_train_step from them (its loss; the
@@ -5580,7 +5733,7 @@ def family_train_parity(arch, card, window=None, seq=FAMILY_TRAIN_CPU_SEQ):
     from repro_torch.tree import leaves_with_paths, tree_map
 
     cfg = get_config(arch)
-    n_layers = FAMILY_TRAIN_CPU_LAYERS.get(arch, 2)
+    n_layers = FAMILY_TRAIN_CPU_LAYERS.get(arch, 1)
     cfg = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
     if window is not None:
         cfg = dataclasses.replace(cfg, window_size=window)
@@ -6510,9 +6663,12 @@ SERVE_MESH_FP32 = (("tinyllama-1.1b", 2), ("mistral-nemo-12b", 2),
 # its serves run without the engine's warmup (nothing of them is timed)
 SERVE_MESH_FP32_TRACE = (4, 8, 4, 2)
 # bf16 at full width: (arch, layers, a paged run too, a second sharded
-# run whose tokens must be the first's)
-SERVE_MESH_BF16 = (("tinyllama-1.1b", None, True, False),
-                   ("mistral-nemo-12b", 8, False, True))
+# run whose tokens must be the first's); tinyllama at CUT_LAYERS of its 22
+# and mistral-nemo at CUT_LAYERS of its 40 (its 8 kv heads still one a
+# position) since phase 25, for the script's time limit (whole and at 8,
+# their checks took 62.7 and 21.3 s of the phase's 112.3 on an H100)
+SERVE_MESH_BF16 = (("tinyllama-1.1b", CUT_LAYERS, True, False),
+                   ("mistral-nemo-12b", CUT_LAYERS, False, True))
 # the paged run's shared prefix: 2.5 pages of PAGE, so a partial tail page
 # is copied on write
 SERVE_MESH_PREFIX = 40
@@ -6880,7 +7036,11 @@ def serve_mesh_bf16(arch, depth, paged, repeat, card, fa) -> tuple:
         fails.append(f"{arch}: serve_shard rows need a predicted and a "
                      f"measured entry: {len(ledger)} rows, {len(measured)} "
                      f"measured")
-    auto_tp, auto = engine.scheduler.serve_shard(SLOTS, tp=8)
+    auto_tp, auto = engine.scheduler.serve_shard(
+        SLOTS, tp=8, devices=engine.mesh.distinct_devices("model"))
+    if auto.choice != "replicate":
+        fails.append(f"{arch}: serve_shard's auto verdict on 8 positions of "
+                     f"one card is {auto.choice}, not replicate")
     rec["serve_shard"] = dict(
         forced=ledger[0].choice, auto=auto.choice,
         predicted_s=ledger[0].predicted_s,
@@ -7023,8 +7183,8 @@ def serve_mesh_phase(card):
     SERVE_MESH_FP32 in fp32 at full width and cut depth (serve_mesh_fp32:
     card sharded, card unsharded and CPU mesh tokens equal, logits within
     LOGIT_TOL), then SERVE_MESH_BF16 (serve_mesh_bf16: tinyllama-1.1b
-    whole, dense and paged with the prefix cache, mistral-nemo-12b at 8
-    of 40 layers, whose 8 kv heads split one a position: near ties only,
+    at CUT_LAYERS, dense and paged with the prefix cache, mistral-nemo-12b
+    at CUT_LAYERS of 40 layers, whose 8 kv heads split one a position: near ties only,
     repeatable tokens, the first step's logits, flash in the sharded
     prefill, launches on every position, no library GEMM, the serve_shard
     ledger).  None on any failure."""
@@ -7049,6 +7209,769 @@ def serve_mesh_phase(card):
     for f in fails:
         log("serve-mesh", f"FAIL {f}")
     log("serve-mesh", f"phase 24 wall {out['wall_s']:.1f} s; {len(fails)} "
+        f"failures ({card})")
+    return None if fails else out
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: FSDP training with tensor and expert parallelism on 8 positions
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_DP = {"data": 4, "model": 2}
+TRAIN_MESH_EP = {"pod": 2, "data": 2, "model": 2}
+# fp32 at TRAIN_MESH_FP32_LAYERS layers, full width, against the unsharded
+# card: (arch, mesh, MoE capacity factors; the first is the full check)
+TRAIN_MESH_FP32 = (("tinyllama-1.1b", TRAIN_MESH_DP, (8.0,)),
+                   ("moonshot-v1-16b-a3b", TRAIN_MESH_EP, (8.0, 1.25)))
+TRAIN_MESH_FP32_LAYERS = 2
+TRAIN_MESH_FP32_BATCH = (8, 64)
+# bf16 at full width: (arch, layers or None for whole, mesh)
+TRAIN_MESH_BF16 = (("tinyllama-1.1b", None, TRAIN_MESH_DP),
+                   ("moonshot-v1-16b-a3b", 4, TRAIN_MESH_EP))
+TRAIN_MESH_BATCH = (8, 512)  # the bf16 runs' global batch
+TRAIN_MESH_STEPS = 3
+# a constant rate from the first step (no warmup), as phase 21's fixed
+# batch takes it: the first step moves every parameter
+TRAIN_MESH_LR = FAMILY_TRAIN_FIXED_LR
+# the fp32 one-step check's AdamW eps, the same both ways: at the default
+# 1e-8 a first step moves a weight by lr * g / (|g| + 1e-8), a sign for any
+# gradient above 1e-7, so a gradient at the noise of another order of
+# sums moves either way (a norm scale read 4.4e-3 and 1.8e-2 x max|p|
+# apart on an H100); at 1e-3 the update is a smooth
+# function of the gradient, which the gate then holds
+TRAIN_MESH_EPS = 1e-3
+TRAIN_MESH_TOL = 2e-3  # the reference test's rtol; x max|grad| and x max|p|
+EP_TOL = 1e-5  # x max|y|: moe_ep against moe_ep_plain, fp32
+# the bf16 first-loss gate's capacity factor for a mixture of experts: at
+# 8.0 nothing is dropped, so the sharded loss is the function the dense
+# fp32 loss computes (at the context's 1.25 it drops assignments)
+TRAIN_MESH_GATE_CF = 8.0
+# the bf16 first loss three ways on these batches (seeds; the first the
+# fixed batch the steps take): how far bf16 lands from fp32 in another
+# order of sums, batch by batch
+TRAIN_MESH_LOSS_SEEDS = (2, 20, 21)
+TRAIN_MESH_ELASTIC = ({"data": 2, "model": 2}, {"data": 4, "model": 2})
+SHARED_VERDICTS = {"serial", "replicate", "replicated_psum"}
+
+
+def train_mesh_ctx(shape, cf=1.25, engine=None, plan=None):
+    """A training context on ``shape``'s positions, all on GPU 0 (a CUDA
+    stream each); the planner's chunks where ``plan`` is given, as the
+    reference's dry run carries them."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import ShardingCtx
+
+    mesh = make_mesh(shape, shards_per_device=math.prod(shape.values()))
+    kw = {} if plan is None else dict(rnn_chunk=plan.rnn_chunk,
+                                      attn_chunk=plan.attn_chunk)
+    return ShardingCtx(mesh=mesh, data_axes=tuple(
+        a for a in shape if a != "model"), moe_capacity_factor=cf,
+        cost_engine=engine, **kw)
+
+
+def train_mesh_batch(cfg, b, s, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                    device="cuda")}
+
+
+def placed_state(ctx, model, state):
+    """(``state`` on ``ctx``'s mesh with storage of its own on every
+    position, its specs)."""
+    from repro_torch.distributed.sharding import param_shardings, place_tree
+
+    specs = param_shardings(state, ctx.mesh, data_axes=ctx.data_axes,
+                            cfg=model.cfg)
+    return place_tree(ctx.mesh, state, specs, copy=True), specs
+
+
+def placed_batch(ctx, batch):
+    from repro_torch.distributed.sharding import batch_sharding, place_tree
+
+    return place_tree(ctx.mesh, batch, batch_sharding(batch, ctx.mesh,
+                                                      ctx.data_axes))
+
+
+def worst_leaf(want, got, scale_of=None) -> tuple:
+    """(worst max|got - want| / max|want| over the leaves, its path), on
+    the card, leaf by leaf."""
+    from repro_torch.tree import leaves_with_paths
+
+    g = dict(leaves_with_paths(got))
+    worst, where = 0.0, None
+    for path, w in leaves_with_paths(want):
+        if not torch.is_tensor(w) or not w.is_floating_point():
+            continue
+        top = w.float().abs().max().item()
+        err = (g[path].float() - w.float()).abs().max().item()
+        rel = err / top if top > 0 else (0.0 if err == 0 else math.inf)
+        if rel > worst:
+            worst, where = rel, path
+    return worst, where
+
+
+def train_launches(mesh, mm, fa) -> dict:
+    """The matmul and flash launches since the counters' reset, by mesh
+    position (its CUDA stream)."""
+    streams = [s.cuda_stream for s in mesh.streams]
+    return dict(
+        matmul=mm.LAUNCHES.count,
+        matmul_by_position=[mm.LAUNCHES.by_stream.get(s, 0) for s in streams],
+        batched_by_position=[mm.LAUNCHES.batched_by_stream.get(s, 0)
+                             for s in streams],
+        flash_forward=fa.LAUNCHES.forward, flash_backward=fa.LAUNCHES.backward,
+        flash_forward_by_position=[fa.LAUNCHES.by_stream.get(("forward", s),
+                                                             0)
+                                   for s in streams],
+        flash_backward_by_position=[fa.LAUNCHES.by_stream.get(
+            ("backward", s), 0) for s in streams],
+        positions=mesh.size)
+
+
+def launch_fails(label, rec, moe: bool) -> list:
+    """Every position launched the matmul kernel (and, for a mixture of
+    experts, its 4-D batched expert products) and both flash directions."""
+    need = ["matmul_by_position", "flash_forward_by_position",
+            "flash_backward_by_position"] + (["batched_by_position"]
+                                             if moe else [])
+    return [f"{label}: a position launched no {k[:-12]}: {rec[k]}"
+            for k in need if min(rec[k]) <= 0 or len(rec[k]) != 8]
+
+
+def profile_train_step(step) -> dict:
+    """One step under torch.profiler: device ms and kernels where the
+    profiler records them, the host's aten ops (no GEMM op), and no library
+    GEMM or attention kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    by_name: dict = {}
+    for ev in events:
+        if ev.device_type() == DeviceType.CUDA:
+            name = torch._C._demangle(ev.name())
+            by_name[name] = by_name.get(name, 0.0) + ev.duration_ns() / 1e6
+    host = sorted({ev.name() for ev in events
+                   if ev.device_type() == DeviceType.CPU
+                   and ev.name().startswith("aten::")})
+    return dict(device_ms=sum(by_name.values()), device_kernels=len(by_name),
+                library_gemms=library_gemms("train-mesh", by_name),
+                library_attention=sorted(k for k in by_name
+                                         if LIBRARY_ATTENTION.search(k)),
+                host_ops=len(host),
+                host_gemm_ops=[op for op in host if HOST_GEMM_OPS.match(op)])
+
+
+def moe_ep_loop(whole, x, *, top_k, activation, dp, cf) -> tuple:
+    """The EP layer written apart from ``ffn._moe_local`` (no one-hot
+    slots, no index_put buffer, no 4-D products, no partials by rank):
+    for each of ``dp`` data shards of ``x``'s rows and each expert, the
+    list of its (token, k) assignments in flattened order, the first
+    ``capacity`` of them kept (the reference's rule, written out here),
+    the expert's FFN on their tokens by ``torch.matmul`` in fp32, weighted
+    by the renormalised router probability and added to the token's row.
+    The router logits come from the matmul kernel, which gives a row the
+    same bits at any row count, so both sides rank the same experts; the
+    top k are taken from the logits.  Returns (y (B, S, D) fp32, the
+    load-balance loss over every token, the count of dropped
+    assignments)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.common import epilogue_of, is_glu
+
+    router = whole["router"]
+    n_exp = router.shape[1]
+    b, s, d = x.shape
+    f = whole["w_in"].shape[1] // n_exp
+    t_local = b // dp * s
+    raw = int(t_local * top_k / n_exp * cf)
+    step = 128 if raw >= 128 else 8
+    capacity = -(-max(raw, 8) // step) * step
+    act = ref.EPILOGUES[epilogue_of(activation)]
+    tokens = x.reshape(-1, d).float()
+    y = torch.zeros_like(tokens)
+    prob_sum = torch.zeros(n_exp, device=x.device)
+    picks = torch.zeros(n_exp, device=x.device)
+    dropped = 0
+    for shard in range(dp):
+        rows = slice(shard * t_local, (shard + 1) * t_local)
+        t = tokens[rows]
+        logits = ops.matmul(t, router)
+        probs = torch.softmax(logits, -1)
+        ids = torch.topk(logits, top_k, -1).indices
+        w = probs.gather(1, ids)
+        w = (w / w.sum(-1, keepdim=True).clamp(min=1e-9)).reshape(-1)
+        prob_sum += probs.sum(0)
+        picks += torch.bincount(ids.reshape(-1), minlength=n_exp).float()
+        flat = ids.reshape(-1)
+        for e in range(n_exp):
+            mine = torch.nonzero(flat == e)[:, 0]  # ascending: (token, k)
+            kept = mine[:capacity]
+            dropped += mine.numel() - kept.numel()
+            if not kept.numel():
+                continue
+            xe = t[kept // top_k]
+            cols = slice(e * f, (e + 1) * f)
+            h = act(torch.matmul(xe, (whole["w_gate"] if is_glu(activation)
+                                      else whole["w_in"])[:, cols].float()))
+            if is_glu(activation):
+                h = h * torch.matmul(xe, whole["w_in"][:, cols].float())
+            out = torch.matmul(h, whole["w_out"][cols].float())
+            y[rows].index_add_(0, kept // top_k, out * w[kept, None])
+    frac = picks / picks.sum().clamp(min=1.0)
+    aux = n_exp * torch.sum(frac * prob_sum / (b * s))
+    return y.reshape(b, s, d), aux, dropped
+
+
+def ep_check(ctx, model, placed, specs, cf, seed) -> dict:
+    """Layer 0's experts on ``ctx`` (moe_ep, capacity factor ``cf``)
+    against moe_ep_plain on one device from the same whole leaves and
+    tokens (the output and the load-balance loss within EP_TOL, the same
+    dropped assignments), and against moe_ep_loop, which shares no code of
+    the capacity, slot or combine logic with them (the output within
+    F32_TOL x max|y|, torch.matmul against the kernel, the load-balance
+    loss within EP_TOL, the same drops)."""
+    from repro_torch.distributed import take
+    from repro_torch.distributed.sharding import place_tree, unplace_tree
+    from repro_torch.models import ffn
+
+    cfg = model.cfg
+    b, s = TRAIN_MESH_FP32_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda")
+    lps = [p["params"]["layers"][0]["ffn"] for p in placed]
+    lspecs = specs["params"]["layers"][0]["ffn"]
+    full = ctx.gather_tree(lps, lspecs)  # each position's expert block
+    whole = unplace_tree(ctx.mesh, lps, lspecs)
+    xspec = {"x": (ctx.dp_spec, None, None)}
+    xs = [t["x"] for t in place_tree(ctx.mesh, {"x": x}, xspec)]
+    with torch.no_grad():
+        ys, auxs, dropped = ffn.moe_ep(ctx, full, xs,
+                                       top_k=cfg.experts_per_token,
+                                       activation=cfg.activation,
+                                       capacity_factor=cf)
+        y = unplace_tree(ctx.mesh, [{"x": t} for t in ys], xspec)["x"]
+        want, aux, drop = ffn.moe_ep_plain(
+            whole, x, top_k=cfg.experts_per_token, activation=cfg.activation,
+            ep=ctx.tp, dp=ctx.dp, capacity_factor=cf)
+        loop, loop_aux, loop_drop = moe_ep_loop(
+            whole, x, top_k=cfg.experts_per_token, activation=cfg.activation,
+            dp=ctx.dp, cf=cf)
+    drops = sum(int(take(ctx.mesh, dropped, i)) for i in range(ctx.mesh.size))
+    aux0 = float(take(ctx.mesh, auxs, 0))
+    return dict(capacity=ffn.moe_capacity(b * s // ctx.dp,
+                                          cfg.experts_per_token,
+                                          cfg.n_experts, cf),
+                y_err=rel_err(y, want),
+                aux_err=abs(aux0 - float(aux)) / abs(float(aux)),
+                dropped=drops, dropped_plain=int(drop),
+                loop_y_err=rel_err(y, loop),
+                loop_aux_err=abs(aux0 - float(loop_aux)) / abs(
+                    float(loop_aux)),
+                dropped_loop=int(loop_drop),
+                assignments=b * s * cfg.experts_per_token)
+
+
+def train_mesh_fp32(arch, shape, cfs, card, mm, fa) -> tuple:
+    """fp32 at TRAIN_MESH_FP32_LAYERS layers, full width, the sharded step
+    against the unsharded card's: the loss within TRAIN_MESH_TOL (rtol),
+    every gradient within TRAIN_MESH_TOL x max|grad| and every parameter
+    after one step within TRAIN_MESH_TOL x max|p|; for a mixture of
+    experts at each capacity factor the EP layer against moe_ep_plain
+    (ep_check), none dropped at 8.0."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.costs.engine import CostEngine
+    from repro_torch.distributed.sharding import unplace_tree
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import (TrainLoopConfig, init_train_state,
+                                      make_grad_fn, make_train_step)
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              n_layers=TRAIN_MESH_FP32_LAYERS)
+    model = build_model(cfg, "cuda")
+    loop = TrainLoopConfig(optimizer=AdamWConfig(lr=TRAIN_MESH_LR,
+                                                 eps=TRAIN_MESH_EPS),
+                           warmup_steps=0)
+    state = init_train_state(model, 0, loop)
+    batch = train_mesh_batch(cfg, *TRAIN_MESH_FP32_BATCH, seed=1)
+    fails, rec = [], {"layers": cfg.n_layers, "mesh": shape, "ep": {}}
+    engine = CostEngine()
+    for cf in reversed(cfs):  # the full check (the first) last
+        ctx = train_mesh_ctx(shape, cf, engine)
+        placed, specs = placed_state(ctx, model, state)
+        if cfg.is_moe:
+            ep = ep_check(ctx, model, placed, specs, cf, seed=3)
+            rec["ep"][cf] = ep
+            log("train-mesh", f"{arch} fp32 EP at capacity factor {cf} "
+                f"({ep['capacity']} slots an expert): y against "
+                f"moe_ep_plain {ep['y_err']:.2e} x max|y|, aux "
+                f"{ep['aux_err']:.2e} (limit {EP_TOL}); against the "
+                f"expert-by-expert loop y {ep['loop_y_err']:.2e} x max|y| "
+                f"(limit {F32_TOL}), aux {ep['loop_aux_err']:.2e}; dropped "
+                f"{ep['dropped']} of {ep['assignments']} assignments "
+                f"(plain {ep['dropped_plain']}, loop {ep['dropped_loop']})")
+            if not (ep["y_err"] <= EP_TOL and ep["aux_err"] <= EP_TOL
+                    and ep["loop_y_err"] <= F32_TOL
+                    and ep["loop_aux_err"] <= EP_TOL
+                    and ep["dropped"] == ep["dropped_plain"]
+                    == ep["dropped_loop"]):
+                fails.append(f"{arch} EP at cf {cf}: {ep}")
+            if cf >= 8.0 and ep["dropped"]:
+                fails.append(f"{arch} EP at cf {cf} dropped {ep['dropped']}")
+        pb = placed_batch(ctx, batch)
+        params = [p["params"] for p in placed]
+        if cf != cfs[0]:
+            with torch.no_grad():
+                loss = float(model.loss(params, pb, ctx)[0][0])
+            rec[f"loss_cf{cf}"] = loss
+            log("train-mesh", f"{arch} fp32 sharded loss at capacity factor "
+                f"{cf}: {loss:.6f}")
+            del placed, params, pb
+            continue
+        loss_u, _, grads_u = make_grad_fn(model)(state["params"], batch)
+        mm.LAUNCHES.reset()
+        fa.LAUNCHES.reset()
+        col0 = ctx.mesh.collectives
+        loss_s, _, grads_s = make_grad_fn(model, ctx=ctx)(params, pb)
+        torch.cuda.synchronize()
+        rec["launches"] = train_launches(ctx.mesh, mm, fa)
+        rec["collectives"] = ctx.mesh.collectives - col0
+        fails += launch_fails(f"{arch} fp32", rec["launches"], cfg.is_moe)
+        lu, ls = float(loss_u), float(loss_s[0])
+        rec["loss"] = dict(unsharded=lu, sharded=ls,
+                           rel=abs(ls - lu) / abs(lu))
+        whole = unplace_tree(ctx.mesh, grads_s, specs["params"])
+        rec["grad_worst"] = worst_leaf(grads_u, whole)
+        del whole, grads_s, grads_u
+        step_u = make_train_step(model, loop, donate=True)
+        step_s = make_train_step(model, loop, ctx=ctx, donate=True)
+        state, m_u = step_u(state, batch)
+        placed, m_s = step_s(placed, pb)
+        whole = unplace_tree(ctx.mesh, [p["params"] for p in placed],
+                             specs["params"])
+        rec["param_worst"] = worst_leaf(state["params"], whole)
+        rec["grad_norm"] = dict(unsharded=float(m_u["grad_norm"]),
+                                sharded=float(m_s[0]["grad_norm"]))
+        del whole, placed, params, pb
+        if not (rec["loss"]["rel"] <= TRAIN_MESH_TOL
+                and rec["grad_worst"][0] <= TRAIN_MESH_TOL
+                and rec["param_worst"][0] <= TRAIN_MESH_TOL):
+            fails.append(f"{arch} fp32 sharded against unsharded: loss "
+                         f"{rec['loss']}, worst gradient "
+                         f"{rec['grad_worst']}, worst parameter after a "
+                         f"step {rec['param_worst']} (limit "
+                         f"{TRAIN_MESH_TOL})")
+    rec["moe_dispatch"] = [dict(choice=e.choice, query=e.query)
+                           for e in engine.ledger.entries
+                           if e.site == "moe_dispatch"]
+    rec["wall_s"] = time.perf_counter() - t0
+    lr = rec["launches"]
+    log("train-mesh", f"{arch} full width, {cfg.n_layers} layers, fp32, "
+        f"batch {TRAIN_MESH_FP32_BATCH}, mesh {shape} on 8 positions: loss "
+        f"sharded {rec['loss']['sharded']:.6f}, unsharded "
+        f"{rec['loss']['unsharded']:.6f} (rel {rec['loss']['rel']:.2e}); "
+        f"worst gradient {rec['grad_worst'][0]:.2e} x max|grad| at "
+        f"{rec['grad_worst'][1]}; worst parameter after one step "
+        f"{rec['param_worst'][0]:.2e} x max|p| at {rec['param_worst'][1]} "
+        f"(limit {TRAIN_MESH_TOL}); grad_norm {rec['grad_norm']}; one "
+        f"gradient's launches: matmul {lr['matmul']} "
+        f"{lr['matmul_by_position']} by position (4-D "
+        f"{lr['batched_by_position']}), flash forward "
+        f"{lr['flash_forward_by_position']}, backward "
+        f"{lr['flash_backward_by_position']}; collective calls "
+        f"{rec['collectives']}; {rec['wall_s']:.1f} s ({card})")
+    del state, model
+    return rec, fails
+
+
+def train_mesh_bf16(arch, depth, shape, card, mm, fa) -> tuple:
+    """bf16 at full width: TRAIN_MESH_STEPS steps on one fixed batch of
+    TRAIN_MESH_BATCH, unsharded and on ``shape``'s 8 positions, the state
+    made afresh from seed 0 for each (one state on the card at a time).
+    Gates: the sharded first loss (a mixture of experts' at
+    TRAIN_MESH_GATE_CF, where nothing drops) no further from the same
+    weights' fp32 loss than the unsharded bf16 loss is, plus
+    TRAIN_MESH_TOL x |loss|; the fixed batch's loss falls; the first call
+    of every matmul and flash signature of the first sharded step,
+    forward and backward, within its limit against the plain version
+    (StepChecks; a mixture of experts' 4-D expert products among them);
+    matmul and flash launches on every position; no library GEMM or
+    attention in a profiled sharded step.  Printed: the first loss three
+    ways on each batch of TRAIN_MESH_LOSS_SEEDS; step wall, tokens/s,
+    host ms, device ms, peak memory, collective calls and FSDP-gathered
+    bytes a step, both ways."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.costs.engine import CostEngine
+    from repro_torch.core.planner import plan_model
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import (TrainLoopConfig, init_train_state,
+                                      make_train_step)
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    cfg = full if depth is None else dataclasses.replace(full,
+                                                         n_layers=depth)
+    b, s = TRAIN_MESH_BATCH
+    loop = TrainLoopConfig(optimizer=AdamWConfig(lr=TRAIN_MESH_LR),
+                           warmup_steps=0)
+    fails, rec = [], {"layers": cfg.n_layers, "of": full.n_layers,
+                      "mesh": shape}
+    model = build_model(cfg, "cuda")
+    batches = [train_mesh_batch(cfg, b, s, seed=sd)
+               for sd in TRAIN_MESH_LOSS_SEEDS]
+    batch = batches[0]
+    state = init_train_state(model, 0, loop)
+    with torch.no_grad():  # the first losses: fp32 and unsharded bf16
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"),
+                              "cuda")
+        p32 = tree_map(lambda t: t.float(), state["params"])
+        losses32 = [float(model32.loss(p32, bt, remat=False)[0])
+                    for bt in batches]
+        del p32, model32
+        losses_bf = [float(model.loss(state["params"], bt, remat=False)[0])
+                     for bt in batches]
+    loss32, loss_bf = losses32[0], losses_bf[0]
+
+    def run(step, st, feed, label, ctx=None, counted=None, checks=None):
+        """TRAIN_MESH_STEPS steps on ``feed``, the first inside ``checks``
+        where given (it then reads slow: step 1 is the warm-up, and the
+        reported wall is step 2's), the last profiled, then the loss after
+        them; ``counted()`` read right after the steps."""
+        losses, walls, hosts = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(TRAIN_MESH_STEPS):
+            if i == 0 and checks is not None:
+                with checks:
+                    st, m = step(st, feed)
+                torch.cuda.synchronize()
+            elif i == TRAIN_MESH_STEPS - 1:
+                out = {}
+
+                def one():
+                    out["r"] = step(st, feed)
+
+                prof = profile_train_step(one)
+                st, m = out["r"]
+            else:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                st, m = step(st, feed)
+                hosts.append((time.perf_counter() - t) * 1e3)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            losses.append(float((m[0] if isinstance(m, list) else m)["loss"]))
+        counts = counted() if counted is not None else None
+        with torch.no_grad():
+            if ctx is None:
+                last = model.loss(st["params"], feed, remat=False)[0]
+            else:
+                last = model.loss([p["params"] for p in st], feed, ctx)[0][0]
+        losses.append(float(last))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        wall = walls[-1]
+        log("train-mesh", f"{arch} bf16 {label}: losses {losses} (the last "
+            f"after step {TRAIN_MESH_STEPS}); step walls {walls} ms, host "
+            f"{hosts} ms; {b * s / wall * 1e3:.1f} tokens/s; peak "
+            f"{peak:.2f} GB ({card})")
+        return st, dict(losses=losses, step_ms=walls, host_ms=hosts,
+                        tokens_per_s=b * s / wall * 1e3, peak_gb=peak,
+                        profile=prof, counts=counts)
+
+    st, rec["unsharded"] = run(make_train_step(model, loop, donate=True),
+                               state, batch, "unsharded")
+    del st, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = CostEngine()
+    # the planner over the shared card, its chunks carried into the
+    # context as the reference's dry run carries them
+    mesh_ctx0 = train_mesh_ctx(shape)
+    plan = plan_model(cfg, ShapeSpec("train_mesh", s, b, "train"),
+                      mesh_ctx0.mesh, engine=engine)
+    ctx = train_mesh_ctx(shape, 1.25, engine, plan)
+    placed, _ = placed_state(ctx, model, init_train_state(model, 0, loop))
+    gc.collect()
+    torch.cuda.empty_cache()
+    pb = placed_batch(ctx, batch)
+    # the sharded first losses before any step, a mixture of experts' at
+    # TRAIN_MESH_GATE_CF (no drops: the dense fp32 loss's function)
+    gate_ctx = ctx
+    if cfg.is_moe:
+        gate_ctx = dataclasses.replace(
+            ctx, moe_capacity_factor=TRAIN_MESH_GATE_CF)
+    with torch.no_grad():
+        params = [p["params"] for p in placed]
+        losses_sh = [float(model.loss(params, placed_batch(ctx, bt),
+                                      gate_ctx)[0][0]) for bt in batches]
+        del params
+    step = make_train_step(model, loop, ctx=ctx, donate=True)
+    checks = StepChecks(ops, fa, ref)
+    mm.LAUNCHES.reset()
+    fa.LAUNCHES.reset()
+    col0, gb0 = ctx.mesh.collectives, ctx.mesh.gathered_bytes
+    placed, rec["sharded"] = run(
+        step, placed, pb, "sharded on 8 positions", ctx=ctx,
+        counted=lambda: (train_launches(ctx.mesh, mm, fa),
+                         ctx.mesh.collectives - col0,
+                         ctx.mesh.gathered_bytes - gb0), checks=checks)
+    four_d = [c for c in checks.matmuls.values() if c["ndim"] == 4]
+    directions = {k[0] for k in checks.flash}
+    rec["signatures"] = dict(
+        matmul=len(checks.matmuls), matmul_4d=len(four_d),
+        flash=len(checks.flash),
+        matmul_worst=max(checks.matmuls.values(),
+                         key=lambda c: c["max_abs_err"] / c["tol"]),
+        flash_worst=max(checks.flash.values(),
+                        key=lambda c: c["of_limit"]),
+        four_d=[c["call"] for c in four_d])
+    fails += [f"{arch} bf16 sharded step: {f}" for f in checks.fails]
+    if directions != {"forward", "backward"} or (cfg.is_moe
+                                                 and not four_d):
+        fails.append(f"{arch} bf16 sharded step: checked flash directions "
+                     f"{sorted(directions)}, 4-D matmul signatures "
+                     f"{len(four_d)}")
+    sig = rec["signatures"]
+    worst = sig["matmul_worst"]
+    log("train-mesh", f"{arch} bf16 sharded step 1: {sig['matmul']} matmul "
+        f"signatures ({sig['matmul_4d']} 4-D: {sig['four_d']}), worst "
+        f"{worst['call']} {worst['max_abs_err']:.3e} (limit "
+        f"{worst['tol']:.3e}); {sig['flash']} flash "
+        f"signatures, worst {sig['flash_worst']['call']} "
+        f"{sig['flash_worst']['of_limit']:.2f} x its limit; outside "
+        f"{len(checks.fails)} ({card})")
+    n = TRAIN_MESH_STEPS
+    lr, cols, gathered = rec["sharded"].pop("counts")
+    # counted over the steps: per step
+    rec["launches_per_step"] = {
+        k: (v / n if isinstance(v, int) and k != "positions" else
+            [x / n for x in v] if isinstance(v, list) else v)
+        for k, v in lr.items()}
+    rec["collectives_per_step"] = cols / n
+    rec["gathered_gb_per_step"] = gathered / n / 1e9
+    fails += launch_fails(f"{arch} bf16", lr, cfg.is_moe)
+    prof = rec["sharded"]["profile"]
+    uprof = rec["unsharded"]["profile"]
+    for which, pr in (("sharded", prof), ("unsharded", uprof)):
+        if pr["library_gemms"] or pr["library_attention"] \
+                or pr["host_gemm_ops"]:
+            fails.append(f"{arch} bf16: library work in the {which} step: "
+                         f"{pr}")
+    sh, un = rec["sharded"]["losses"], rec["unsharded"]["losses"]
+    err_sh, err_un = abs(losses_sh[0] - loss32), abs(loss_bf - loss32)
+    gate_cf = gate_ctx.moe_capacity_factor if cfg.is_moe else None
+    rec["first_loss"] = dict(fp32=losses32, unsharded=losses_bf,
+                             sharded=losses_sh, gate_cf=gate_cf,
+                             sharded_step=sh[0], sharded_err=err_sh,
+                             unsharded_err=err_un)
+    if not err_sh <= err_un + TRAIN_MESH_TOL * abs(loss32):
+        fails.append(f"{arch} bf16: the sharded first loss {losses_sh[0]} "
+                     f"is {err_sh:.3e} from the fp32 {loss32}, the "
+                     f"unsharded {loss_bf} {err_un:.3e} (slack "
+                     f"{TRAIN_MESH_TOL} x |loss|)")
+    log("train-mesh", f"{arch} bf16 first losses by batch (seeds "
+        f"{list(TRAIN_MESH_LOSS_SEEDS)}): fp32 {losses32}, unsharded "
+        f"{losses_bf}, sharded (cf {gate_cf}) {losses_sh}; "
+        f"|unsharded - fp32| "
+        f"{[f'{abs(u - f):.2e}' for u, f in zip(losses_bf, losses32)]}, "
+        f"|sharded - fp32| "
+        f"{[f'{abs(v - f):.2e}' for v, f in zip(losses_sh, losses32)]}, "
+        f"|sharded - unsharded| "
+        f"{[f'{abs(v - u):.2e}' for v, u in zip(losses_sh, losses_bf)]}; "
+        f"the step's sharded first loss {sh[0]} at cf "
+        f"{ctx.moe_capacity_factor if cfg.is_moe else '-'} ({card})")
+    if not sh[-1] < sh[0]:
+        fails.append(f"{arch} bf16: the fixed batch's sharded loss did not "
+                     f"fall: {sh}")
+    rec["plan"] = [dict(site=d.site, choice=d.choice, tp_s=d.tp_cost,
+                        rep_s=d.rep_cost) for d in plan.decisions]
+    rec["moe_dispatch"] = sorted({e.choice for e in engine.ledger.entries
+                                  if e.site == "moe_dispatch"})
+    rec["wall_s"] = time.perf_counter() - t0
+    ls = rec["launches_per_step"]
+    log("train-mesh", f"{arch} bf16, {cfg.n_layers} of {full.n_layers} "
+        f"layers, batch {b} x {s}, mesh {shape}: first loss fp32 "
+        f"{loss32:.5f}, unsharded bf16 {loss_bf:.5f} ({err_un:.2e} off), "
+        f"sharded {losses_sh[0]:.5f} ({err_sh:.2e} off); a step sharded | "
+        f"unsharded: wall {rec['sharded']['step_ms'][-1]:.1f} | "
+        f"{rec['unsharded']['step_ms'][-1]:.1f} ms, host "
+        f"{rec['sharded']['host_ms'][-1]:.1f} | "
+        f"{rec['unsharded']['host_ms'][-1]:.1f} ms, peak "
+        f"{rec['sharded']['peak_gb']:.2f} | "
+        f"{rec['unsharded']['peak_gb']:.2f} GB; device ms of the profiled "
+        f"step {prof['device_ms']:.1f} | {uprof['device_ms']:.1f} "
+        f"({prof['device_kernels']} | {uprof['device_kernels']} kernel "
+        f"names), host aten ops {prof['host_ops']}, GEMM among them "
+        f"{prof['host_gemm_ops']}, library GEMM {prof['library_gemms']}, "
+        f"attention {prof['library_attention']}; launches a step: matmul "
+        f"{ls['matmul']:.0f} on {ls['positions']} positions "
+        f"({ls['matmul_by_position']} by position, 4-D "
+        f"{ls['batched_by_position']}), flash forward "
+        f"{ls['flash_forward']:.0f} {ls['flash_forward_by_position']}, "
+        f"backward {ls['flash_backward']:.0f} "
+        f"{ls['flash_backward_by_position']}; collective calls "
+        f"{rec['collectives_per_step']:.0f} a step, FSDP-gathered "
+        f"{rec['gathered_gb_per_step']:.2f} GB a step; plan "
+        f"{[(d['site'], d['choice']) for d in rec['plan']]}, moe_dispatch "
+        f"{rec['moe_dispatch']}; {rec['wall_s']:.1f} s ({card})")
+    del placed, pb, model
+    return rec, fails
+
+
+def train_mesh_elastic(card) -> tuple:
+    """fp32 tinyllama-1.1b at TRAIN_MESH_FP32_LAYERS layers: 3 steps on the
+    first mesh of TRAIN_MESH_ELASTIC, saved whole, restored onto the
+    second, a fourth step; its loss equal the uninterrupted unsharded
+    run's fourth within TRAIN_MESH_TOL (rtol)."""
+    import shutil
+
+    from repro_torch.checkpoint import restore_resharded, save
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import (TrainLoopConfig, init_train_state,
+                                      make_train_step)
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), dtype="float32",
+                              n_layers=TRAIN_MESH_FP32_LAYERS)
+    model = build_model(cfg, "cuda")
+    loop = TrainLoopConfig(optimizer=AdamWConfig(lr=TRAIN_MESH_LR),
+                           warmup_steps=0)
+    batches = [train_mesh_batch(cfg, *TRAIN_MESH_FP32_BATCH, seed=10 + i)
+               for i in range(4)]
+    state = init_train_state(model, 0, loop)
+    step = make_train_step(model, loop, donate=True)
+    want = []
+    for bt in batches:
+        state, m = step(state, bt)
+        want.append(float(m["loss"]))
+    first, second = (train_mesh_ctx(s) for s in TRAIN_MESH_ELASTIC)
+    placed, specs = placed_state(first, model,
+                                 init_train_state(model, 0, loop))
+    step1 = make_train_step(model, loop, ctx=first, donate=True)
+    got = []
+    for bt in batches[:3]:
+        placed, m = step1(placed, placed_batch(first, bt))
+        got.append(float(m[0]["loss"]))
+    ckpt = ROOT / "build" / "train_mesh_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t_save = time.perf_counter()
+    save(ckpt, 3, placed, mesh=first.mesh, shardings=specs)
+    save_s = time.perf_counter() - t_save
+    del placed
+    specs2 = param_shardings(state, second.mesh, data_axes=second.data_axes,
+                             cfg=cfg)
+    restored = restore_resharded(ckpt, 3, state, specs2, mesh=second.mesh,
+                                 copy=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps_ok = all(int(p["step"]) == 3 for p in restored)
+    step2 = make_train_step(model, loop, ctx=second, donate=True)
+    restored, m = step2(restored, placed_batch(second, batches[3]))
+    got.append(float(m[0]["loss"]))
+    rel = abs(got[3] - want[3]) / abs(want[3])
+    fails = []
+    if not (rel <= TRAIN_MESH_TOL and steps_ok):
+        fails.append(f"elastic: step 4's loss {got[3]} against the "
+                     f"uninterrupted {want[3]} (rel {rel:.2e}, limit "
+                     f"{TRAIN_MESH_TOL}); restored step 3 {steps_ok}")
+    wall = time.perf_counter() - t0
+    log("train-mesh", f"elastic: tinyllama-1.1b fp32 {cfg.n_layers} layers, "
+        f"3 steps on {TRAIN_MESH_ELASTIC[0]}, saved whole ({save_s:.1f} s), "
+        f"restored on {TRAIN_MESH_ELASTIC[1]}: losses {got}, uninterrupted "
+        f"unsharded {want}; step 4 rel {rel:.2e} (limit {TRAIN_MESH_TOL}); "
+        f"{wall:.1f} s ({card})")
+    del restored, state, model
+    return dict(losses=got, unsharded=want, rel=rel, save_s=save_s,
+                wall_s=wall), fails
+
+
+def shared_card_verdicts(card) -> tuple:
+    """The engine's auto verdicts on 8 positions of the one card, after
+    pricing positions on one device as that device's: the sort at 2^26,
+    an order-8192 product, serve_shard for mistral-nemo-12b at 8 of 40
+    layers (which picked shard before), the planner's layer_shard and
+    moe_dispatch sites for the trained configurations; every one serial,
+    replicate or replicated_psum."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.costs.engine import CostEngine
+    from repro_torch.core.planner import plan_model
+    from repro_torch.serving.scheduler import ServeScheduler
+
+    eng = CostEngine()
+    mesh = train_mesh_ctx(TRAIN_MESH_EP).mesh
+    dev = mesh.distinct_devices()
+    out = {"devices": dev,
+           "sort": eng.decide_sort(1 << 26, chips=8, devices=dev).choice,
+           "matmul": eng.decide_matmul(8192, 8192, 8192, chips=8,
+                                       devices=dev).choice}
+    nemo = dataclasses.replace(get_config("mistral-nemo-12b"), n_layers=8)
+    out["serve_shard"] = ServeScheduler(nemo, eng, max_len=96).serve_shard(
+        4, tp=8, devices=dev)[1].choice
+    for arch, _, shape in TRAIN_MESH_BF16:
+        plan = plan_model(get_config(arch), ShapeSpec(
+            "train_mesh", TRAIN_MESH_BATCH[1], TRAIN_MESH_BATCH[0], "train"),
+            train_mesh_ctx(shape).mesh, engine=eng)
+        for d in plan.decisions:
+            out[f"{arch} {d.site}"] = d.choice
+    rows = [e for e in eng.ledger.entries
+            if e.site in ("layer_shard", "moe_dispatch")]
+    bad = {k: v for k, v in out.items()
+           if k != "devices" and v not in SHARED_VERDICTS}
+    log("train-mesh", f"auto verdicts on 8 positions of {dev} device: "
+        f"{out}; {len(rows)} layer_shard/moe_dispatch rows, e.g. "
+        + "; ".join(f"{e.site} {e.query} -> {e.choice} "
+                    f"({e.predicted_s:.3e} s)" for e in rows[:4])
+        + f" ({card})")
+    return out, ([f"shared-card verdicts not serial or replicate: {bad}"]
+                 if bad else [])
+
+
+def train_mesh_phase(card):
+    """Phase 25: FSDP training with tensor and expert parallelism on 8
+    positions of the one card (shards_per_device=8, a CUDA stream a
+    position), random weights from seed 0: TRAIN_MESH_FP32 (fp32 against
+    the unsharded card, the EP layer against moe_ep_plain), TRAIN_MESH_BF16
+    (bf16 steps, sharded against unsharded), the elastic restore, and the
+    engine's verdicts on the shared card.  None on any failure."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card, "fp32": {}, "bf16": {}}
+    fails = []
+    out["verdicts"], f = shared_card_verdicts(card)
+    fails += f
+    for arch, shape, cfs in TRAIN_MESH_FP32:
+        out["fp32"][arch], f = train_mesh_fp32(arch, shape, cfs, card, mm,
+                                               fa)
+        fails += f
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, depth, shape in TRAIN_MESH_BF16:
+        out["bf16"][arch], f = train_mesh_bf16(arch, depth, shape, card, mm,
+                                               fa)
+        fails += f
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["elastic"], f = train_mesh_elastic(card)
+    fails += f
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["fails"] = fails
+    for f in fails:
+        log("train-mesh", f"FAIL {f}")
+    log("train-mesh", f"phase 25 wall {out['wall_s']:.1f} s; {len(fails)} "
         f"failures ({card})")
     return None if fails else out
 

@@ -10,9 +10,12 @@
   each key's shape and dtype.  numpy has no bfloat16, so bf16 leaves are
   stored as float32 (exact) and cast back on restore.
 
-* **elastic** — ``restore_resharded`` restores the whole leaves and
-  places them on a mesh by per-leaf specs (``distributed/sharding.py``),
-  whatever mesh wrote them: the layout on disk holds no sharding.
+* **elastic** — ``save`` of a state placed on a mesh (one tree a
+  position, with its ``mesh`` and ``shardings``) writes the whole leaves,
+  joined back along every axis (``sharding.unplace_tree``);
+  ``restore_resharded`` restores the whole leaves and places them on a
+  mesh by per-leaf specs, whatever mesh wrote them: the layout on disk
+  holds no sharding.
 """
 
 from __future__ import annotations
@@ -35,7 +38,19 @@ def _host(leaf: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def save(ckpt_dir, step: int, tree: Any, *, process_index: int = 0) -> Path:
+def save(ckpt_dir, step: int, tree: Any, *, process_index: int = 0,
+         mesh=None, shardings: Any = None) -> Path:
+    """Write ``tree`` as checkpoint ``step``.  A tree placed on a mesh (a
+    list with one tree a position) needs its ``mesh`` and ``shardings``
+    (the specs it was placed by): its leaves are joined whole first."""
+    if isinstance(tree, list):
+        if mesh is None or shardings is None:
+            raise ValueError("a state placed on a mesh (one tree a "
+                             "position) is saved with its mesh= and "
+                             "shardings=")
+        from repro_torch.distributed.sharding import unplace_tree
+
+        tree = unplace_tree(mesh, tree, shardings, device="cpu")
     ckpt_dir = Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f"step_{step:08d}.tmp"
@@ -90,13 +105,15 @@ def restore(ckpt_dir, step: int, like: Any, *, process_index: int = 0) -> Any:
 
 
 def restore_resharded(ckpt_dir, step: int, like: Any, shardings: Any, *,
-                      mesh) -> Any:
+                      mesh, copy: bool = False) -> Any:
     """Elastic restore: load the whole leaves into ``like``'s structure,
     then place them on ``mesh`` by ``shardings`` (a tree of specs in that
     structure, e.g. ``param_shardings``).  Returns one tree a position,
-    each leaf that position's block (``sharding.place_tree``).  The
-    reference's ``NamedSharding``s carry their mesh; the port's specs do
-    not, so the mesh is an argument."""
+    each leaf that position's block (``sharding.place_tree``; ``copy``
+    gives every position storage of its own, for a step that updates in
+    place).  The reference's ``NamedSharding``s carry their mesh; the
+    port's specs do not, so the mesh is an argument."""
     from repro_torch.distributed.sharding import place_tree
 
-    return place_tree(mesh, restore(ckpt_dir, step, like), shardings)
+    return place_tree(mesh, restore(ckpt_dir, step, like), shardings,
+                      copy=copy)

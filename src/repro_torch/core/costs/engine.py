@@ -233,7 +233,8 @@ class CostEngine:
         io = bool(q.param("io_at_master", False))
         cands = tuple(
             self.model.matmul_cost(m, n, k, chips=q.chips, strategy=s,
-                                   dtype_bytes=q.dtype_bytes, io_at_master=io)
+                                   dtype_bytes=q.dtype_bytes, io_at_master=io,
+                                   devices=q.param("devices"))
             for s in MATMUL_STRATEGIES
         )
         best = min(cands, key=lambda cb: cb.total)
@@ -249,7 +250,8 @@ class CostEngine:
         cands = [serial]
         if q.chips > 1:
             cands.append(self.model.sort_cost(
-                n, chips=q.chips, dtype_bytes=q.dtype_bytes, strategy="parallel"))
+                n, chips=q.chips, dtype_bytes=q.dtype_bytes, strategy="parallel",
+                devices=q.param("devices")))
         best = min(cands, key=lambda cb: cb.total)
         return Decision(q, best.strategy, best, baseline=serial,
                         alternatives=tuple(cands), value=best.strategy)
@@ -276,7 +278,8 @@ class CostEngine:
         tokens_local, d = q.shape
         costs = self.model.moe_dispatch_cost(
             tokens_local, d, top_k=int(q.param("top_k", 1)),
-            ep_shards=q.chips, dtype_bytes=q.dtype_bytes)
+            ep_shards=q.chips, dtype_bytes=q.dtype_bytes,
+            devices=q.param("devices"))
         cands = tuple(CostBreakdown(name, 0.0, 0.0, sec, 0.0)
                       for name, sec in sorted(costs.items()))
         best = min(cands, key=lambda cb: cb.total)
@@ -293,7 +296,8 @@ class CostEngine:
         m, n, k = q.shape
         tp = min(
             (self.model.matmul_cost(m, n, k, chips=q.chips, strategy=s,
-                                    dtype_bytes=q.dtype_bytes)
+                                    dtype_bytes=q.dtype_bytes,
+                                    devices=q.param("devices"))
              for s in ("shard_n", "shard_k", "shard_mn")),
             key=lambda cb: cb.total,
         ) if q.chips > 1 else None
@@ -490,7 +494,9 @@ class CostEngine:
             if tp in seen:
                 continue
             seen.add(tp)
-            cands.append(self.model.serve_shard_cost(batch, tp=tp, **kw))
+            cands.append(self.model.serve_shard_cost(
+                batch, tp=tp, devices=q.param("devices") if tp == q.chips
+                else None, **kw))
         best = min(cands, key=lambda cb: cb.total)
         choice = "replicate" if best.strategy == "tp_1" or best.strategy.startswith("decode_") \
             else "shard_model"
@@ -601,16 +607,17 @@ class CostEngine:
     # ------------------------------------------------------------------
 
     def decide_matmul(self, m: int, n: int, k: int, *, chips: int,
-                      dtype_bytes: int = 2, io_at_master: bool = False
-                      ) -> Decision:
+                      dtype_bytes: int = 2, io_at_master: bool = False,
+                      devices: Optional[int] = None) -> Decision:
         return self.query(CostQuery.make(
             "matmul", (m, n, k), chips=chips, dtype_bytes=dtype_bytes,
-            io_at_master=io_at_master))
+            io_at_master=io_at_master, **_devices_param(chips, devices)))
 
-    def decide_sort(self, n: int, *, chips: int, dtype_bytes: int = 4
-                    ) -> Decision:
+    def decide_sort(self, n: int, *, chips: int, dtype_bytes: int = 4,
+                    devices: Optional[int] = None) -> Decision:
         return self.query(CostQuery.make(
-            "sort", (n,), chips=chips, dtype_bytes=dtype_bytes))
+            "sort", (n,), chips=chips, dtype_bytes=dtype_bytes,
+            **_devices_param(chips, devices)))
 
     def decide_scan_chunk(self, seq: int, *, batch: int, heads: int,
                           head_dim: int, dtype_bytes: int = 4,
@@ -621,15 +628,19 @@ class CostEngine:
             dtype_bytes=dtype_bytes, candidates=tuple(candidates)))
 
     def decide_moe_dispatch(self, tokens_local: int, d: int, *, top_k: int,
-                            ep_shards: int, dtype_bytes: int = 2) -> Decision:
+                            ep_shards: int, dtype_bytes: int = 2,
+                            devices: Optional[int] = None) -> Decision:
         return self.query(CostQuery.make(
             "moe_dispatch", (tokens_local, d), chips=ep_shards,
-            dtype_bytes=dtype_bytes, top_k=top_k))
+            dtype_bytes=dtype_bytes, top_k=top_k,
+            **_devices_param(ep_shards, devices)))
 
     def decide_layer_shard(self, m: int, n: int, k: int, *, tp: int,
-                           dtype_bytes: int = 2) -> Decision:
+                           dtype_bytes: int = 2,
+                           devices: Optional[int] = None) -> Decision:
         return self.query(CostQuery.make(
-            "layer_shard", (m, n, k), chips=tp, dtype_bytes=dtype_bytes))
+            "layer_shard", (m, n, k), chips=tp, dtype_bytes=dtype_bytes,
+            **_devices_param(tp, devices)))
 
     def decide_serve_prefill_chunk(
             self, prompt_len: int, *, flops_per_token: float,
@@ -709,11 +720,13 @@ class CostEngine:
                            kv_bytes_per_slot: float = 0, n_layers: int = 1,
                            d_model: int = 1, dtype_bytes: int = 2,
                            candidates: Optional[Sequence[int]] = None,
-                           record: bool = True) -> Decision:
+                           record: bool = True,
+                           devices: Optional[int] = None) -> Decision:
         """Shard-vs-replicate the serve model over ``tp`` model-axis chips.
         ``candidates=None`` sweeps {1, tp}; a forced override passes a
         single-element set (the restriction, not a lie, lands on the
-        ledger)."""
+        ledger).  ``devices``: the distinct devices the ``tp`` positions
+        share (``_devices_param``)."""
         if candidates is None:
             candidates = (1, tp)
         return self.query(CostQuery.make(
@@ -722,7 +735,8 @@ class CostEngine:
             flops_per_token=int(flops_per_token),
             weight_bytes=int(weight_bytes),
             kv_bytes_per_slot=int(kv_bytes_per_slot),
-            n_layers=int(n_layers), d_model=int(d_model)), record=record)
+            n_layers=int(n_layers), d_model=int(d_model),
+            **_devices_param(tp, devices)), record=record)
 
     def decide_serve_prefix(self, prompt_len: int, *, hit_tokens: int,
                             cow_blocks: int, chunk: int, block_size: int,
@@ -931,6 +945,17 @@ class CostEngine:
         self.calibration = dataclasses.replace(cal, spec=self.hw,
                                                measurements=meas)
         return cal.path
+
+
+def _devices_param(chips: int, devices: Optional[int]) -> Dict[str, int]:
+    """The query parameter that prices ``chips`` positions on fewer
+    distinct devices (the port's ``shards_per_device``; the reference has
+    no such option): ``{"devices": d}`` where ``d < chips``, else nothing,
+    so that at one position a device the query, its verdict and its
+    ledger row are the reference's."""
+    if devices is None or int(devices) >= int(chips):
+        return {}
+    return {"devices": max(int(devices), 1)}
 
 
 def resolve_engine(engine: Optional[CostEngine] = None,

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Literal
+from typing import Dict, Literal, Optional
 
 from repro_torch.hw import H100, HardwareSpec
 
@@ -81,6 +81,12 @@ class CostBreakdown:
         }
 
 
+def shared(chips: int, devices: int) -> int:
+    """Positions on the busiest device when ``chips`` positions share
+    ``devices`` devices."""
+    return -(-int(chips) // max(int(devices), 1))
+
+
 @dataclasses.dataclass(frozen=True)
 class OverheadModel:
     hw: HardwareSpec = H100
@@ -94,10 +100,18 @@ class OverheadModel:
     # Collectives (ring algorithms)
     # ------------------------------------------------------------------
 
-    def collective_time(self, nbytes: float, chips: int, kind: str = "all_reduce") -> float:
+    def collective_time(self, nbytes: float, chips: int, kind: str = "all_reduce",
+                        devices: Optional[int] = None) -> float:
+        """A ring collective of ``nbytes`` a position over ``chips``
+        positions.  ``devices`` (the port's own argument; None: one device a
+        position, the reference's model): the positions share that many
+        devices, ``shared(chips, devices)`` on each.  Traffic between
+        positions on one device is a copy through its HBM (read and
+        written) plus a fence a position, not a transfer at the
+        interconnect's rate; only the ring over the distinct devices pays
+        the links."""
         if chips <= 1 or nbytes == 0:
             return 0.0
-        bw = self.hw.ici_bw_per_link * self.hw.ici_links / 2 * self.ici_eff
         frac = (chips - 1) / chips
         factor = {
             "all_reduce": 2.0 * frac,
@@ -106,7 +120,13 @@ class OverheadModel:
             "all_to_all": frac / 2,
             "broadcast": frac,
         }[kind]
-        return factor * nbytes / bw + self.hw.collective_base_s
+        if devices is None or devices >= chips:
+            bw = self.hw.ici_bw_per_link * self.hw.ici_links / 2 * self.ici_eff
+            return factor * nbytes / bw + self.hw.collective_base_s
+        per = shared(chips, devices)
+        copy = 2.0 * per * factor * nbytes / (self.hw.hbm_bw * self.mem_eff)
+        return (copy + per * self.hw.kernel_launch_s
+                + self.collective_time(per * nbytes, devices, kind))
 
     # ------------------------------------------------------------------
     # Matmul (the paper's Matrix Multiplication domain)
@@ -123,6 +143,7 @@ class OverheadModel:
         dtype_bytes: int = 2,
         flops_per_mac: int = 2,
         io_at_master: bool = False,
+        devices: Optional[int] = None,
     ) -> CostBreakdown:
         """Predicted cost of C[m,n] = A[m,k] @ B[k,n] under a strategy.
 
@@ -138,6 +159,15 @@ class OverheadModel:
         a parallel strategy additionally pays input scatter/broadcast and
         output gather (the paper's "input management" overhead row).  Inside
         a model, weights/activations are already distributed -> False.
+
+        ``devices`` (the port's own): the ``chips`` positions share that
+        many devices, so the compute and the local bytes divide by
+        ``split = min(devices, chips)``, the work the devices do; the
+        collectives and the input management keep the position count,
+        priced as copies within a device (``collective_time``); each device
+        pays a launch a position on it.  ``devices=1`` prices every strategy
+        at the serial one's compute and memory plus its collective and
+        launches, so serial wins.
         """
         flops = flops_per_mac * m * n * k
         bytes_total = dtype_bytes * (m * k + k * n + m * n)
@@ -151,40 +181,41 @@ class OverheadModel:
                 self.hw.kernel_launch_s,
             )
         c = chips
+        split = c if devices is None else min(devices, c)
         if strategy == "shard_m":
             comm = 0.0
             comm_kind = "all_gather"
-            local_bytes = dtype_bytes * (m * k / c + k * n + m * n / c)
+            local_bytes = dtype_bytes * (m * k / split + k * n + m * n / split)
         elif strategy == "shard_n":
             comm = dtype_bytes * m * n
             comm_kind = "all_gather"
-            local_bytes = dtype_bytes * (m * k + k * n / c + m * n / c)
+            local_bytes = dtype_bytes * (m * k + k * n / split + m * n / split)
         elif strategy == "shard_k":
             comm = dtype_bytes * m * n
             comm_kind = "all_reduce"
-            local_bytes = dtype_bytes * (m * k / c + k * n / c + m * n)
+            local_bytes = dtype_bytes * (m * k / split + k * n / split + m * n)
         elif strategy == "shard_mn":
-            r = int(math.sqrt(c))
+            r, rs = int(math.sqrt(c)), int(math.sqrt(split))
             comm = dtype_bytes * (m * k / r + k * n / r)
             comm_kind = "all_gather"
-            local_bytes = dtype_bytes * (m * k / r + k * n / r + m * n / c)
+            local_bytes = dtype_bytes * (m * k / rs + k * n / rs
+                                         + m * n / split)
         else:
             raise ValueError(strategy)
         io = 0.0
         if io_at_master:
             # paper Table 1 "input management": scatter inputs from the
             # master, gather the result back (ring costs)
-            frac = (c - 1) / c
-            bw = self.hw.ici_bw_per_link * self.hw.ici_links / 2 * self.ici_eff
-            in_bytes = dtype_bytes * (m * k + k * n)
-            out_bytes = dtype_bytes * m * n
-            io = frac * (in_bytes + out_bytes) / bw + 2 * self.hw.collective_base_s
+            io = (self.collective_time(dtype_bytes * (m * k + k * n), c,
+                                       "broadcast", devices)
+                  + self.collective_time(dtype_bytes * m * n, c,
+                                         "all_gather", devices))
         return CostBreakdown(
             strategy,
-            flops / c / eff_peak,
+            flops / split / eff_peak,
             local_bytes / eff_bw,
-            self.collective_time(comm, c, comm_kind) + io,
-            self.hw.kernel_launch_s,
+            self.collective_time(comm, c, comm_kind, devices) + io,
+            shared(c, split) * self.hw.kernel_launch_s,
         )
 
     def best_matmul(self, m: int, n: int, k: int, *, chips: int,
@@ -219,11 +250,16 @@ class OverheadModel:
     # ------------------------------------------------------------------
 
     def sort_cost(self, n: int, *, chips: int = 1, dtype_bytes: int = 4,
-                  strategy: str = "serial") -> CostBreakdown:
+                  strategy: str = "serial",
+                  devices: Optional[int] = None) -> CostBreakdown:
         """serial: one-chip bitonic network O(n log^2 n) VPU compare-exchange.
         parallel: sample sort = local sort + splitter broadcast + all-to-all
         + local merge (paper: pivot placement by master, then independent
-        recursion per core)."""
+        recursion per core).  ``devices`` (the port's own): the positions
+        share that many devices, which do the local sorts and merges of
+        ``n / min(devices, chips)`` elements each; the exchanges keep the
+        position count, priced as copies within a device; each device pays
+        the launches of every position on it."""
         log2n = max(math.log2(max(n, 2)), 1.0)
         vpu_ops_per_s = self.hw.peak_flops_f32  # compare-exchange ~ 1 vector op
         if strategy == "serial" or chips == 1:
@@ -233,16 +269,20 @@ class OverheadModel:
                 dtype_bytes * n * log2n / (self.hw.hbm_bw * self.mem_eff),
                 0.0, self.hw.kernel_launch_s,
             )
+        split = chips if devices is None else min(devices, chips)
         nl = n / chips
-        log2nl = max(math.log2(max(nl, 2)), 1.0)
-        local_ops = 2 * nl * log2nl * (log2nl + 1) / 2  # sort + merge after exchange
-        exchange = self.collective_time(dtype_bytes * nl, chips, "all_to_all")
-        splitters = self.collective_time(dtype_bytes * chips, chips, "all_gather")
+        nd = n / split  # the elements each device sorts and merges
+        log2nd = max(math.log2(max(nd, 2)), 1.0)
+        local_ops = 2 * nd * log2nd * (log2nd + 1) / 2  # sort + merge after exchange
+        exchange = self.collective_time(dtype_bytes * nl, chips, "all_to_all",
+                                        devices)
+        splitters = self.collective_time(dtype_bytes * chips, chips,
+                                         "all_gather", devices)
         return CostBreakdown(
             "sample_sort", local_ops / vpu_ops_per_s,
-            dtype_bytes * nl * log2nl / (self.hw.hbm_bw * self.mem_eff),
+            dtype_bytes * nd * log2nd / (self.hw.hbm_bw * self.mem_eff),
             exchange + splitters,
-            self.hw.kernel_launch_s * 3,
+            self.hw.kernel_launch_s * 3 * shared(chips, split),
         )
 
     def sort_crossover_n(self, chips: int) -> int:
@@ -339,7 +379,8 @@ class OverheadModel:
     def serve_shard_cost(self, batch: int, *, tp: int, flops_per_token: float,
                          weight_bytes: float, kv_bytes_per_slot: float = 0,
                          n_layers: int = 1, d_model: int = 1,
-                         dtype_bytes: int = 2) -> CostBreakdown:
+                         dtype_bytes: int = 2,
+                         devices: Optional[int] = None) -> CostBreakdown:
         """One batched decode step with the serve model TENSOR-SHARDED over
         ``tp`` chips of the model axis (tp=1 degenerates to the replicated
         ``serve_decode_step_cost``).
@@ -354,7 +395,13 @@ class OverheadModel:
         interconnect bandwidth plus ``collective_base_s`` latency each —
         the paper's inter-core communication + synchronization terms, which
         dominate for small models and make replicate the right verdict below
-        the crossover."""
+        the crossover.
+
+        ``devices`` (the port's own): the ``tp`` positions share that many
+        devices, so the FLOPs and bytes divide by ``devices``, not ``tp``;
+        the all-reduces keep ``tp`` positions, priced as copies within a
+        device, and each position pays its launch.  On one device the
+        sharded step costs the replicated one plus its collectives."""
         if tp <= 1:
             return self.serve_decode_step_cost(
                 batch, flops_per_token=flops_per_token,
@@ -363,14 +410,15 @@ class OverheadModel:
         peak = (self.hw.peak_flops_bf16 if dtype_bytes == 2
                 else self.hw.peak_flops_f32)
         b = max(batch, 1)
-        compute = b * flops_per_token / (tp * peak * self.mxu_eff)
+        split = tp if devices is None else min(devices, tp)
+        compute = b * flops_per_token / (split * peak * self.mxu_eff)
         memory = (weight_bytes + b * kv_bytes_per_slot) / (
-            tp * self.hw.hbm_bw * self.mem_eff)
+            split * self.hw.hbm_bw * self.mem_eff)
         per_layer = self.collective_time(
-            b * d_model * dtype_bytes, tp, "all_reduce")
+            b * d_model * dtype_bytes, tp, "all_reduce", devices)
         return CostBreakdown(f"tp_{tp}", compute, memory,
                              2 * max(n_layers, 1) * per_layer,
-                             self.hw.kernel_launch_s)
+                             shared(tp, split) * self.hw.kernel_launch_s)
 
     def serve_admit_cost(self, active: int, *, prompt_len: int,
                          new_tokens: int, flops_per_token: float,
@@ -512,12 +560,16 @@ class OverheadModel:
     # ------------------------------------------------------------------
 
     def moe_dispatch_cost(self, tokens_local: int, d: int, *, top_k: int,
-                          ep_shards: int, dtype_bytes: int = 2
+                          ep_shards: int, dtype_bytes: int = 2,
+                          devices: Optional[int] = None
                           ) -> Dict[str, float]:
         """Compare replication-EP (psum of outputs over the model axis) vs
-        all-to-all EP (route tokens to expert owners and back)."""
-        psum = self.collective_time(tokens_local * d * dtype_bytes, ep_shards, "all_reduce")
+        all-to-all EP (route tokens to expert owners and back).
+        ``devices`` (the port's own): the EP positions share that many
+        devices, and their collectives are priced as copies within one."""
+        psum = self.collective_time(tokens_local * d * dtype_bytes, ep_shards,
+                                    "all_reduce", devices)
         a2a = 2 * self.collective_time(
-            tokens_local * top_k * d * dtype_bytes, ep_shards, "all_to_all"
-        )
+            tokens_local * top_k * d * dtype_bytes, ep_shards, "all_to_all",
+            devices)
         return {"replicated_psum": psum, "all_to_all": a2a}

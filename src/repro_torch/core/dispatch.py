@@ -60,13 +60,16 @@ def _pad_to(x: torch.Tensor, dim: int, mult: int):
 def decide_matmul(m: int, n: int, k: int, *, chips: int,
                   model: Optional[OverheadModel] = None,
                   engine: Optional[CostEngine] = None,
-                  dtype_bytes: int = 2, io_at_master: bool = True) -> DispatchReport:
+                  dtype_bytes: int = 2, io_at_master: bool = True,
+                  devices: Optional[int] = None) -> DispatchReport:
     """Standalone dispatch defaults to the paper's setting: inputs live at a
     master and the result must be gathered back (io_at_master=True).  Inside
-    a model — operands already distributed — pass False."""
+    a model — operands already distributed — pass False.  ``devices``: the
+    distinct devices the ``chips`` positions share (fewer where positions
+    share a card; the engine then prices them as one device's)."""
     eng = resolve_engine(engine, model)
     dec = eng.decide_matmul(m, n, k, chips=chips, dtype_bytes=dtype_bytes,
-                            io_at_master=io_at_master)
+                            io_at_master=io_at_master, devices=devices)
     serial = dec.baseline if dec.baseline is not None else dec.predicted
     return DispatchReport(chosen=dec.predicted, serial=serial, chips=chips,
                           decision=dec)
@@ -106,9 +109,10 @@ def adaptive_matmul(
     if k != k2:
         raise ValueError(f"shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
     chips = int(mesh.shape[axis]) if mesh is not None else 1
-    report = decide_matmul(m, n, k, chips=chips, model=model, engine=engine,
-                           dtype_bytes=a.element_size(),
-                           io_at_master=io_at_master)
+    report = decide_matmul(
+        m, n, k, chips=chips, model=model, engine=engine,
+        dtype_bytes=a.element_size(), io_at_master=io_at_master,
+        devices=mesh.distinct_devices(axis) if mesh is not None else None)
     strategy = force_strategy or report.chosen.strategy
     if strategy not in STRATEGIES:
         raise ValueError(f"strategy must be one of {STRATEGIES}, got "

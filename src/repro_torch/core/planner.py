@@ -6,7 +6,12 @@ projections, the unembedding) the planner asks the CostEngine to compare
 tensor-parallel execution over the mesh's ``model`` axis against
 replicated "serial" execution, picks the scan chunk, and checks the HBM
 constraint (feasibility before speed).  It is analytic: a mesh shape
-(``{"data": 16, "model": 16}``) is all it needs, not the devices.
+(``{"data": 16, "model": 16}``) is all it needs, not the devices.  Given a
+``Mesh`` whose positions share devices (``shards_per_device``), the
+``layer_shard`` and ``moe_dispatch`` sites and the HBM check take the
+distinct devices (``Mesh.distinct_devices``), which share their peak,
+bandwidth and memory between their positions; the reference has no such
+mesh.
 Replicate decisions emit their overrides as tuples of axis names (one
 entry per dimension, ``None`` for a replicated one, a tuple for several
 axes), where the reference emits ``PartitionSpec``s.
@@ -15,7 +20,7 @@ axes), where the reference emits ``PartitionSpec``s.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.costs import CostEngine, OverheadModel, resolve_engine
@@ -63,11 +68,19 @@ def _param_bytes(cfg: ModelConfig, train: bool) -> float:
     return n * (2 + (4 + 8 if train else 0))
 
 
-def plan_model(cfg: ModelConfig, shape: ShapeSpec, mesh_shape: Dict[str, int],
+def plan_model(cfg: ModelConfig, shape: ShapeSpec,
+               mesh_shape: Union[Dict[str, int], "Mesh"],
                model: Optional[OverheadModel] = None,
                engine: Optional[CostEngine] = None) -> Plan:
     eng = resolve_engine(engine, model)
     hw = eng.hw
+    devices = tp_devices = None
+    if not isinstance(mesh_shape, dict):  # a Mesh: read its devices
+        mesh = mesh_shape
+        mesh_shape = dict(mesh.shape)
+        devices = mesh.distinct_devices()
+        if "model" in mesh_shape:
+            tp_devices = mesh.distinct_devices("model")
     chips = 1
     for v in mesh_shape.values():
         chips *= v
@@ -86,7 +99,7 @@ def plan_model(cfg: ModelConfig, shape: ShapeSpec, mesh_shape: Dict[str, int],
 
     def compare(site: str, m_: int, n_: int, k_: int,
                 patterns: List[Tuple[str, Spec]]) -> str:
-        dec = eng.decide_layer_shard(m_, n_, k_, tp=tp)
+        dec = eng.decide_layer_shard(m_, n_, k_, tp=tp, devices=tp_devices)
         rep_cost = dec.baseline.total
         tp_cost = min((a.total for a in dec.alternatives
                        if a.strategy != "serial"), default=rep_cost)
@@ -109,7 +122,7 @@ def plan_model(cfg: ModelConfig, shape: ShapeSpec, mesh_shape: Dict[str, int],
     else:
         dec = eng.decide_moe_dispatch(tokens_local, d,
                                       top_k=cfg.experts_per_token,
-                                      ep_shards=tp)
+                                      ep_shards=tp, devices=tp_devices)
         costs = {a.strategy: a.total for a in dec.alternatives}
         decisions.append(SiteDecision(
             "moe_dispatch", dec.choice, costs["all_to_all"],
@@ -133,7 +146,9 @@ def plan_model(cfg: ModelConfig, shape: ShapeSpec, mesh_shape: Dict[str, int],
             heads=heads, head_dim=cfg.rnn_head_dim).value
     attn_chunk = 1024 if shape.seq_len <= 65536 else 2048
 
-    pbytes = _param_bytes(cfg, train) / chips
+    # HBM is a device's: positions on one device share it
+    held = chips if devices is None else devices
+    pbytes = _param_bytes(cfg, train) / held
     if shape.kind == "decode":
         hd = cfg.resolved_head_dim or 0
         n_attn = sum(1 for i in range(cfg.n_layers)
@@ -142,10 +157,11 @@ def plan_model(cfg: ModelConfig, shape: ShapeSpec, mesh_shape: Dict[str, int],
                       if cfg.block_kind(i) == "local")
         cache = 2 * 2 * cfg.n_kv_heads * hd * shape.global_batch * (
             n_attn * shape.seq_len + n_local * max(cfg.window_size, 1))
-        pbytes += cache / chips
+        pbytes += cache / held
     else:
         act = 2 * tokens_local * d * cfg.n_layers / max(tp, 1) * 2
-        pbytes += act / dp if dp else act
+        # a device holds the activations of each position on it
+        pbytes += (act / dp if dp else act) * (chips // held)
     fits = pbytes < hw.hbm_bytes * 0.9
 
     return Plan(decisions=decisions, overrides=overrides, rnn_chunk=rnn_chunk,

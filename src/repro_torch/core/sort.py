@@ -200,7 +200,9 @@ def distributed_sort(
     eng = resolve_engine(engine, model)
     n = x.shape[0]
     chips = int(mesh.shape[axis]) if mesh is not None else 1
-    decision = eng.decide_sort(n, chips=chips, dtype_bytes=x.element_size())
+    decision = eng.decide_sort(
+        n, chips=chips, dtype_bytes=x.element_size(),
+        devices=mesh.distinct_devices(axis) if mesh is not None else None)
     parallel = force_parallel or decision.choice != "serial"
     devices = {x.device} | (set(mesh.devices) if mesh is not None else set())
     if measure:

@@ -5,8 +5,10 @@ rules and placement of whole trees (``sharding.py``)."""
 from repro_torch.distributed.mesh import (  # noqa: F401
     Mesh,
     all_gather,
+    all_gather_cat,
     all_to_all,
     axis_index,
+    join,
     make_mesh,
     place,
     ppermute,

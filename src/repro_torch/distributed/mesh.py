@@ -25,20 +25,37 @@ each position's work under that position's device and CUDA stream.
   No call site fences anything itself.
 
 Every collective of the port lives in this module, so that a multi-process
-run can put ``torch.distributed`` behind the same calls.  On the CPU every
-position is the one CPU device and there are no streams; the same code
-runs in program order.
+run can put ``torch.distributed`` behind the same calls.  Each is
+differentiable through autograd: the copies and sums above are autograd's
+own ops, and ``all_gather_cat`` (the FSDP gather of a training step) has a
+backward of its own, a reduce-scatter that adds the group's gradients in
+a fixed order.  ``join`` hands the positions' results to the caller's
+stream.  On the CPU every position is the one CPU device and there are no
+streams; the same code runs in program order.
+
+``Mesh.distinct_devices`` counts the devices a group of positions spans:
+what the cost engine prices positions sharing a GPU at (their compute,
+memory and collectives are that device's).  A CPU position counts as a
+device of its own, standing for one of the reference's forced host
+devices.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
 Stream = Optional["torch.cuda.Stream"]
+# one mesh axis, or several taken together (row-major in the given order)
+Axes = Union[str, Tuple[str, ...]]
+
+
+def _names(axis: Axes) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
 class Mesh:
@@ -66,8 +83,12 @@ class Mesh:
             torch.cuda.Stream(device=d) if d.type == "cuda" else None
             for d in self.devices)
         # collective calls made on this mesh (each all_gather, all_to_all,
-        # psum or ppermute counts one, whatever the number of positions)
+        # psum, ppermute or all_gather_cat counts one, whatever the number
+        # of positions)
         self.collectives = 0
+        # bytes all_gather_cat's forward brought to positions from others
+        # (an FSDP weight gather's traffic)
+        self.gathered_bytes = 0
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -89,15 +110,34 @@ class Mesh:
         """Position ``i``'s index along ``axis`` (``lax.axis_index``)."""
         return self.coords(i)[self._axis(axis)]
 
-    def groups(self, axis: str) -> List[List[int]]:
+    def groups(self, axis: Axes) -> List[List[int]]:
         """The positions that a collective over ``axis`` joins: one list a
-        setting of the other axes, each in ``axis`` order."""
-        a = self._axis(axis)
-        out: Dict[Tuple[int, ...], List[int]] = {}
+        setting of the other axes, each in ``axis`` order.  ``axis`` may be
+        a tuple of axes (the reference's compound ``("pod", "data")``): a
+        group then runs over all of them, row-major in the tuple's order."""
+        names = _names(axis)
+        idx = [self._axis(a) for a in names]
+        out: Dict[Tuple[int, ...], List[Tuple[Tuple[int, ...], int]]] = {}
         for i in range(self.size):
             c = self.coords(i)
-            out.setdefault(c[:a] + c[a + 1:], []).append(i)
-        return list(out.values())
+            rest = tuple(v for k, v in enumerate(c) if k not in idx)
+            out.setdefault(rest, []).append((tuple(c[k] for k in idx), i))
+        return [[i for _, i in sorted(g)] for g in out.values()]
+
+    def distinct_devices(self, axis: Optional[Axes] = None) -> int:
+        """The number of distinct devices a group over ``axis`` spans (the
+        whole mesh for None): what its positions' compute and memory share,
+        as the cost engine prices them.  It is the group's size unless
+        positions share a GPU (``shards_per_device``).  A CPU position
+        counts as a device of its own: the CPU mesh stands for the
+        reference's forced host devices, which the reference prices as
+        separate chips."""
+        def device(i):
+            d = self.devices[i]
+            return d if d.type == "cuda" else i
+
+        groups = [range(self.size)] if axis is None else self.groups(axis)
+        return max(len({device(i) for i in g}) for g in groups)
 
     def _axis(self, axis: str) -> int:
         if axis not in self.axis_names:
@@ -242,6 +282,27 @@ def shard(mesh: Mesh, axis: str, x: torch.Tensor,
     return out
 
 
+def join(mesh: Mesh, trees: Sequence) -> list:
+    """Hand each position's results (one tree a position) over to the
+    caller: on each device the caller's stream waits for the position's
+    stream, and each tensor is marked as used on the caller's stream, so
+    the caller may read and free them.  Returns ``trees``."""
+    from repro_torch.tree import leaves
+
+    for i, tree in enumerate(trees):
+        src = mesh.streams[i]
+        if src is None:
+            continue
+        dst = _stream_of(mesh.devices[i])
+        if src == dst:
+            continue
+        dst.wait_stream(src)
+        for leaf in leaves(tree):
+            if torch.is_tensor(leaf) and leaf.is_cuda:
+                leaf.record_stream(dst)
+    return list(trees)
+
+
 def take(mesh: Mesh, xs: Sequence[torch.Tensor], i: int = 0,
          device=None) -> torch.Tensor:
     """Position ``i``'s tensor, for the caller's use on ``device`` (its
@@ -277,7 +338,7 @@ def _gather(mesh: Mesh, srcs: Sequence[int], xs, j: int) -> list:
             for i in srcs]
 
 
-def all_gather(mesh: Mesh, axis: str,
+def all_gather(mesh: Mesh, axis: Axes,
                xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Every position gets its group's tensors stacked on a new leading
     dimension in ``axis`` order (``lax.all_gather``, not tiled)."""
@@ -291,7 +352,7 @@ def all_gather(mesh: Mesh, axis: str,
     return out
 
 
-def all_to_all(mesh: Mesh, axis: str,
+def all_to_all(mesh: Mesh, axis: Axes,
                xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Each position splits its tensor along dimension 0 into one block a
     position of its group and sends block r to the group's r-th; each
@@ -314,7 +375,7 @@ def all_to_all(mesh: Mesh, axis: str,
     return out
 
 
-def psum(mesh: Mesh, axis: str,
+def psum(mesh: Mesh, axis: Axes,
          xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Every position gets the sum of its group's tensors (``lax.psum``),
     added in ``axis`` order in the tensors' dtype, so every position holds
@@ -341,7 +402,7 @@ def psum(mesh: Mesh, axis: str,
     return out
 
 
-def ppermute(mesh: Mesh, axis: str, xs: Sequence[torch.Tensor],
+def ppermute(mesh: Mesh, axis: Axes, xs: Sequence[torch.Tensor],
              perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
     """Within each group, the tensor of the position at index ``src`` along
     ``axis`` goes to the one at ``dst`` for every ``(src, dst)`` in
@@ -366,3 +427,75 @@ def ppermute(mesh: Mesh, axis: str, xs: Sequence[torch.Tensor],
                 with mesh.on(j):
                     out[j] = torch.zeros_like(xs[j], device=mesh.devices[j])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Collectives with a backward of their own (training)
+# ---------------------------------------------------------------------------
+
+
+def _gather_cat(mesh: Mesh, axis: Axes, xs, dim: int) -> list:
+    out: List[Optional[torch.Tensor]] = [None] * mesh.size
+    for group in mesh.groups(axis):
+        for j in group:
+            parts = _gather(mesh, group, xs, j)
+            with mesh.on(j):
+                out[j] = torch.cat(parts, dim)
+            mesh.gathered_bytes += sum(
+                xs[i].numel() * xs[i].element_size() for i in group if i != j)
+    return out
+
+
+def _reduce_scatter(mesh: Mesh, axis: Axes, xs, dim: int, srcs) -> list:
+    """Block r along ``dim`` of the group's sum to the group's r-th
+    position (``lax.psum_scatter``, tiled): the blocks added in fp32 in
+    group order and rounded once to the tensors' dtype.  ``srcs``: the
+    stream each input was made on."""
+    out: List[Optional[torch.Tensor]] = [None] * mesh.size
+    for group in mesh.groups(axis):
+        n = len(group)
+        for r, j in enumerate(group):
+            parts = [_move(xs[i].chunk(n, dim)[r], srcs[i], mesh.devices[j],
+                           mesh.streams[j]) for i in group]
+            with mesh.on(j):
+                acc = parts[0].to(torch.float32, copy=True)
+                for p in parts[1:]:
+                    acc += p.float()
+                out[j] = acc.to(xs[j].dtype)
+    return out
+
+
+class _GatherCat(torch.autograd.Function):
+    """``all_gather_cat``'s forward and its reduce-scatter backward: one
+    autograd node for every position, so each shard's gradient is its
+    block of the group's gradients added in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, *xs):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return tuple(_gather_cat(mesh, axis, xs, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh = ctx.mesh
+        # the engine hands the gradients over in the caller's stream order,
+        # and takes the results back in it
+        srcs = [_stream_of(g.device) for g in gs]
+        out = _reduce_scatter(mesh, ctx.axis, gs, ctx.dim, srcs)
+        return (None, None, None) + tuple(
+            _move(o, mesh.streams[j], o.device, _stream_of(o.device))
+            for j, o in enumerate(out))
+
+
+def all_gather_cat(mesh: Mesh, axis: Axes, xs: Sequence[torch.Tensor],
+                   dim: int) -> List[torch.Tensor]:
+    """Every position gets its group's tensors joined along ``dim`` in
+    ``axis`` order (``lax.all_gather(tiled=True)``), differentiably: the
+    gradient of a position's tensor is its block of the sum of the group's
+    gradients, added in fp32 in group order and rounded once."""
+    mesh.collectives += 1
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return list(_GatherCat.apply(mesh, axis, dim, *xs))
+    return _gather_cat(mesh, axis, xs, dim)
+
+

@@ -23,13 +23,21 @@ head count or the expert count, so a dimension is only ever cut at head
 
 ``place_tree`` turns a whole tree into one tree a position, through the
 mesh's ``shard`` and ``replicate``: how the serving engine puts the
-params and the decode state on a serve mesh, and how
-``checkpoint.restore_resharded`` places a restored tree.  ``ShardingCtx``
-is the execution context of tensor-parallel model code: the mesh, the
-axes, and the three collectives that code runs (``row_sum``, ``gather``,
-``map``), each a call of ``distributed/mesh.py``.  The reference's
-``constrain*`` methods (GSPMD sharding constraints) have no counterpart:
-the port places every tensor explicitly.
+params and the decode state on a serve mesh, how a train state goes on a
+training mesh, and how ``checkpoint.restore_resharded`` places a restored
+tree; ``unplace_tree`` joins the blocks back into whole leaves.
+``ShardingCtx`` is the execution context of model code on a mesh: the
+mesh, the axes, and the collectives that code runs, each a call of
+``distributed/mesh.py`` and each differentiable through autograd: over
+the model axis ``row_sum`` and ``gather``; over the data axes
+``fsdp_gather`` (the FSDP all-gather of a weight just before its use,
+whose backward is the reduce-scatter) and ``data_psum`` (loss sums).
+``replica_sum`` then adds up the gradients of a piece that several
+positions hold, in a fixed order, so every replica updates to the same
+bits.  The reference's ``constrain*`` methods (GSPMD sharding
+constraints) have no counterpart: the port places every tensor
+explicitly, and the residual stream stays replicated over the model axis
+(no ``seq_shard``, a memory layout that leaves outputs unchanged).
 """
 
 from __future__ import annotations
@@ -40,9 +48,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.distributed.mesh import (Mesh, all_gather, place, psum,
-                                          replicate, shard)
-from repro_torch.tree import tree_map, tree_map_with_path
+from repro_torch.distributed.mesh import (Mesh, all_gather, all_gather_cat,
+                                          place, psum, replicate, shard, take)
+from repro_torch.tree import leaves_with_paths, tree_map, tree_map_with_path
 
 Spec = Tuple[Any, ...]
 
@@ -116,6 +124,82 @@ class ShardingCtx:
             return torch.cat(stacked.unbind(0), dim=dim)
 
         return self.map(join, all_gather(self.mesh, self.model_axis, xs))
+
+    # --- training: FSDP over the data axes ---
+
+    def fsdp_gather(self, xs: Sequence[torch.Tensor],
+                    dim: int) -> List[torch.Tensor]:
+        """A weight's FSDP blocks joined along ``dim`` over the data axes,
+        on every position, just before its use; the backward is the
+        reduce-scatter (each block's gradient the sum of the group's, in
+        group order, in fp32)."""
+        if self.dp <= 1:
+            return list(xs)
+        return all_gather_cat(self.mesh, self.data_axes, xs, dim)
+
+    def data_psum(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The sum over the data axes (a loss's sums over the global
+        batch), added in the axes' order; every position of a group holds
+        the same bits."""
+        if self.dp <= 1:
+            return list(xs)
+        return psum(self.mesh, self.data_axes, xs)
+
+    def model_max(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The elementwise maximum over the model axis, outside autograd
+        (the stabiliser of a vocab-parallel log-sum-exp)."""
+        xs = [x.detach() for x in xs]
+        if self.tp <= 1:
+            return xs
+        return self.map(lambda st: st.amax(0),
+                        all_gather(self.mesh, self.model_axis, xs))
+
+    def gather_tree(self, trees: Sequence[Any],
+                    specs: Any) -> List[Any]:
+        """Every leaf of ``trees`` (one tree a position) whose spec splits a
+        dimension over the data axes, FSDP-gathered along it
+        (``fsdp_gather``); the other leaves as they are."""
+        dp_spec = self.dp_spec
+
+        def one(xs, spec):
+            dim = next((k for k, a in enumerate(spec)
+                        if a is not None and a == dp_spec), None)
+            return xs if dim is None else self.fsdp_gather(xs, dim)
+
+        return _per_leaf(one, trees, specs)
+
+    def replica_sum(self, trees: Sequence[Any], specs: Any) -> List[Any]:
+        """Each leaf's per-position values summed over the positions that
+        hold the same block of it (the mesh axes its spec does not name),
+        in fp32 and in the mesh's order, rounded once to the leaf's dtype:
+        the gradient of a replicated piece, the same bits on every
+        replica."""
+        def one(xs, spec):
+            axes = replica_axes(spec, self.mesh)
+            if not axes:
+                return xs
+            dtype = xs[0].dtype
+            return self.map(lambda t: t.to(dtype),
+                            psum(self.mesh, axes,
+                                 self.map(lambda t: t.float(), xs)))
+
+        return _per_leaf(one, trees, specs)
+
+
+def _per_leaf(fn: Callable, trees: Sequence[Any], specs: Any) -> List[Any]:
+    """``fn(the leaf's per-position values, its spec) -> new values`` at
+    every leaf of ``trees`` (one tree a position, ``specs`` in their
+    structure), leaf by leaf in tree order."""
+    order: List[Tuple[str, Spec]] = []
+    tree_map_with_path(lambda path, _, spec: order.append((path, spec)),
+                       trees[0], specs)
+    flat = [dict(leaves_with_paths(t)) for t in trees]
+    out: List[Dict[str, Any]] = [dict() for _ in trees]
+    for path, spec in order:
+        for o, x in zip(out, fn([f[path] for f in flat], spec)):
+            o[path] = x
+    return [tree_map_with_path(lambda path, _, o=o: o[path], t)
+            for t, o in zip(trees, out)]
 
 
 # ---------------------------------------------------------------------------
@@ -194,11 +278,13 @@ def _spec_for(path: str, arr, *, fsdp, model: str,
         # the port's side by side: (D, E*F) in, (E*F, D) out, experts on
         # model at expert boundaries.  FSDP splits D of w_in/w_gate as
         # the reference does; the reference's FSDP dim of w_out is F,
-        # which lies inside each expert's rows here, so w_out's rows are
-        # split over experts only
+        # which lies inside each expert's rows here, so FSDP splits
+        # w_out's D (dimension 1) instead: a difference of layout, not of
+        # output (the gathered leaf is the same)
         f = cfg.d_ff
         if path.endswith("w_out"):
-            return wrap(model if fits(0, model, f) else None, None)
+            return wrap(model if fits(0, model, f) else None,
+                        fsdp if fits(1, fsdp) else None)
         return wrap(fsdp if fits(0, fsdp) else None,
                     model if fits(1, model, f) else None)
     if re.search(r"ffn/router$", path):
@@ -457,6 +543,28 @@ def _piece(mesh: Mesh, i: int, x: torch.Tensor, spec: Spec) -> torch.Tensor:
     return x
 
 
+def _named_axes(spec: Spec) -> List[str]:
+    names: List[str] = []
+    for axes in spec:
+        if axes is not None:
+            names += list(axes) if isinstance(axes, tuple) else [axes]
+    return names
+
+
+def replica_axes(spec: Spec, mesh: Mesh) -> Tuple[str, ...]:
+    """The mesh axes over which ``spec`` replicates a leaf: the positions
+    that differ only along them hold the same block."""
+    used = set(_named_axes(spec))
+    return tuple(a for a in mesh.axis_names if a not in used)
+
+
+def is_representative(spec: Spec, mesh: Mesh, i: int) -> bool:
+    """Whether position ``i`` is the first of the positions holding its
+    block of a leaf under ``spec`` (index 0 along every replica axis): one
+    position a distinct block, to count each piece once."""
+    return all(mesh.axis_index(a, i) == 0 for a in replica_axes(spec, mesh))
+
+
 def _place_leaf(mesh: Mesh, x, spec: Spec, copy: bool) -> _PerPosition:
     if not torch.is_tensor(x):
         return _PerPosition([x] * mesh.size)
@@ -472,13 +580,14 @@ def _place_leaf(mesh: Mesh, x, spec: Spec, copy: bool) -> _PerPosition:
         if copy:  # storage of its own on every position
             xs = mesh.map(lambda t: t.clone(), xs)
         return _PerPosition(xs)
-    if len(split) == 1 and isinstance(split[0][1], str):
+    if len(split) == 1 and isinstance(split[0][1], str) and not copy:
         return _PerPosition(shard(mesh, split[0][1], x, split[0][0]))
     out = []
     for i in range(mesh.size):
         piece = place(mesh, i, _piece(mesh, i, x, spec))
         with mesh.on(i):
-            out.append(piece.contiguous())
+            out.append(piece.clone(memory_format=torch.contiguous_format)
+                       if copy else piece.contiguous())
     return _PerPosition(out)
 
 
@@ -488,14 +597,43 @@ def place_tree(mesh: Mesh, tree: Any, specs: Any, *,
     structure): one tree a position, each leaf that position's block of
     the whole leaf (``mesh.shard`` for a split over one axis,
     ``mesh.replicate`` for none).  A replicated leaf is the same tensor on
-    every position of its device unless ``copy``, which gives each
-    position storage of its own (state that is written in place)."""
+    every position of its device, and a block may be a view of the whole
+    leaf, unless ``copy``, which gives each position storage of its own
+    (state that is written in place: a decode pool, or a train state that
+    a step updates under ``donate``)."""
     placed = tree_map(lambda x, spec: _place_leaf(mesh, x, spec, copy),
                       tree, specs)
     return [tree_map(lambda leaf, i=i: leaf.xs[i], placed)
             for i in range(mesh.size)]
 
 
-__all__ = ["ShardingCtx", "Spec", "batch_sharding", "param_shardings",
-           "place_tree", "serve_state_sharding", "state_sharding",
+def unplace_tree(mesh: Mesh, trees: Sequence[Any], specs: Any,
+                 device=None) -> Any:
+    """The inverse of ``place_tree``: each leaf whole again on ``device``
+    (position 0's by default), its blocks taken from the positions that
+    hold them and joined along every split dimension."""
+    flat = [dict(leaves_with_paths(t)) for t in trees]
+
+    def whole(path, _, spec):
+        xs = [f[path] for f in flat]
+        if not torch.is_tensor(xs[0]):
+            return xs[0]
+        spec = tuple(spec)[:xs[0].dim()] + (None,) * (
+            xs[0].dim() - len(tuple(spec)))
+        dev = xs[0].device if device is None else torch.device(device)
+        shape = [n * _axis_size(a, mesh.shape) if a is not None else n
+                 for n, a in zip(xs[0].shape, spec)]
+        out = torch.empty(shape, dtype=xs[0].dtype, device=dev)
+        for i in range(mesh.size):
+            if not is_representative(spec, mesh, i):
+                continue
+            _piece(mesh, i, out, spec).copy_(take(mesh, xs, i, dev))
+        return out
+
+    return tree_map_with_path(whole, trees[0], specs)
+
+
+__all__ = ["ShardingCtx", "Spec", "batch_sharding", "is_representative",
+           "param_shardings", "place_tree", "replica_axes",
+           "serve_state_sharding", "state_sharding", "unplace_tree",
            "validate_serve_mesh"]

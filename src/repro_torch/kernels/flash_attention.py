@@ -59,9 +59,11 @@ _TMA_ALIGN = 16  # bytes: a tensor map's base and every stride it steps
 
 class LaunchCounter:
     """Forward and backward calls (in total, by path, and by direction,
-    mode and path: ``by_mode["forward non-causal tensor_core"]``), the CUDA
-    launches they made and the tensor-core operands copied by the producer
-    warp, since the last ``reset``."""
+    mode and path: ``by_mode["forward non-causal tensor_core"]``, and by
+    direction and CUDA stream: ``by_stream[("backward", stream)]``, one
+    stream a mesh position), the CUDA launches they made and the
+    tensor-core operands copied by the producer warp, since the last
+    ``reset``."""
 
     def __init__(self):
         self.reset()
@@ -75,6 +77,11 @@ class LaunchCounter:
             (f"{d} {m} {p}" for d in ("forward", "backward")
              for m in ("causal", "non-causal") for p in PATHS), 0)
         self.copied_operands = 0
+        self.by_stream: dict = {}
+
+    def on_stream(self, direction: str, stream: int) -> None:
+        key = (direction, stream)
+        self.by_stream[key] = self.by_stream.get(key, 0) + 1
 
 
 LAUNCHES = LaunchCounter()
@@ -261,6 +268,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                            f"error {err} on the {path} path for q "
                            f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     LAUNCHES.forward += 1
+    LAUNCHES.on_stream("forward", stream)
     LAUNCHES.grids += 1
     _count("forward", causal, path, mask, 3)
     return o, lse
@@ -310,6 +318,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
                            f"error {err} on the {path} path for q "
                            f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     LAUNCHES.backward += 1
+    LAUNCHES.on_stream("backward", stream)
     LAUNCHES.grids += _BWD_GRIDS[path]
     _count("backward", causal, path, mask, 4)
     return dq, dk, dv

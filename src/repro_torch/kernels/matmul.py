@@ -45,9 +45,10 @@ TILES = (64, 128)  # the tile widths N the tensor-core kernel is built for
 class LaunchCounter:
     """Kernel launches since the last ``reset`` (a plain integer), the same
     launches by path and by CUDA stream (the stream's handle: a mesh
-    position's work runs on its own), and the tensor-core operands that no
-    tensor map could load (a split operand counts once: its halves share
-    strides)."""
+    position's work runs on its own), the 4-D batched launches by stream
+    (the experts' products among them), and the tensor-core operands that
+    no tensor map could load (a split operand counts once: its halves
+    share strides)."""
 
     def __init__(self):
         self.reset()
@@ -56,6 +57,7 @@ class LaunchCounter:
         self.count = 0
         self.by_path = dict.fromkeys(PATHS, 0)
         self.by_stream: dict = {}
+        self.batched_by_stream: dict = {}
         self.copied_operands = 0
 
 
@@ -260,6 +262,9 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     LAUNCHES.count += 1
     LAUNCHES.by_path[path] += 1
     LAUNCHES.by_stream[stream] = LAUNCHES.by_stream.get(stream, 0) + 1
+    if a.dim() == 4:
+        LAUNCHES.batched_by_stream[stream] = \
+            LAUNCHES.batched_by_stream.get(stream, 0) + 1
     if tc:  # bit 1 of a mode: a tensor map loads the operand
         LAUNCHES.copied_operands += sum(not mode & 2 for mode in (a_mode,
                                                                  b_mode))

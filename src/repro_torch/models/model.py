@@ -30,6 +30,14 @@ parameters are ``{"embed", "unembed", "enc_final_norm", "final_norm",
 self-attention cache beside its cross-attention cache of
 ``min(ENCDEC_DECODE_ENC_LEN, max_len)`` encoder rows, slot axis first on
 every leaf, so the serving stack handles it as any other state.
+
+On a mesh (a ``ShardingCtx``) ``forward_logits``, ``loss``, ``prefill``
+and ``decode_step`` take lists with one entry a position.  A training
+context (``data_axes`` non-empty) splits the batch over the data axes and
+FSDP-splits the weights there (gathered just before use), shards heads,
+FFN columns, experts and the vocabulary over the model axis, and runs a
+vocab-parallel cross-entropy whose full (B, S, V) logits never exist on
+one position.
 """
 
 from __future__ import annotations
@@ -42,6 +50,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.mesh import join
+from repro_torch.distributed.sharding import (batch_sharding,
+                                              param_shardings, place_tree)
 from repro_torch.kernels.tuning import recompute_contexts
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
@@ -53,7 +64,7 @@ from repro_torch.models.common import (
     rmsnorm_init,
     unembed,
 )
-from repro_torch.tree import leaves_with_paths, tree_map_with_path
+from repro_torch.tree import leaves_with_paths, tree_map, tree_map_with_path
 
 
 AUX_LOSS_WEIGHT = 0.01
@@ -80,15 +91,20 @@ MOE_MESH_REFUSAL = (
 ENCDEC_MESH_REFUSAL = (
     "encoder-decoder decode on a serve mesh's model axis is not ported "
     "yet (ROADMAP.md, Queue 1)")
+ENCDEC_TRAIN_MESH_REFUSAL = (
+    "encoder-decoder training on a mesh is not ported yet: it comes with "
+    "encoder-decoder decode on a serve mesh (ROADMAP.md, Queue 1)")
 
 
 def tensor_parallel(cfg: ModelConfig, ctx) -> bool:
     """Whether ``ctx`` runs ``cfg`` tensor-parallel (a model axis of more
     than one position); raises for the families the port does not serve
-    so."""
+    so: a mixture of experts under a serve context (``data_axes=()``,
+    where the reference's ``moe_ep`` fails), an encoder-decoder under
+    any."""
     if ctx is None or ctx.tp <= 1:
         return False
-    if cfg.is_moe:
+    if cfg.is_moe and not ctx.data_axes:
         raise ValueError(MOE_MESH_REFUSAL)
     if cfg.is_encdec:
         raise NotImplementedError(ENCDEC_MESH_REFUSAL)
@@ -210,6 +226,9 @@ class Model(_DecodeSlots):
                 f"{cfg.name}: {', '.join(unported)} not ported yet "
                 f"(other model families)")
         super().__init__(cfg, device)
+        # the mesh's spec rules read these (param_shapes, mesh_specs)
+        self._shapes = None
+        self._specs: dict = {}
 
     # ------------------------------------------------------------------
 
@@ -277,9 +296,21 @@ class Model(_DecodeSlots):
         return torch.full((), float(aux), dtype=torch.float32,
                           device=self.device)
 
-    def forward_logits(self, params, batch, remat: bool = False):
+    def forward_logits(self, params, batch, ctx=None, remat: bool = False):
         """(B, S, V) fp32 logits of a full causal forward, and the
-        auxiliary loss (a 0-d fp32 tensor on the model's device)."""
+        auxiliary loss (a 0-d fp32 tensor on the model's device).  On a
+        mesh (``ctx``) ``params`` and ``batch`` are lists with one entry a
+        position (``batch`` may be the global batch, which is split by
+        ``batch_sharding``), and so are the results: each position's
+        (B/dp, S, V) logits, the vocab blocks gathered, and the
+        auxiliary loss."""
+        if ctx is not None:
+            xs, tables, auxs, _ = self._forward_mesh(params, batch, ctx,
+                                                     remat)
+            logits = ctx.map(unembed, tables, xs)
+            if tables[0].shape[0] < self.cfg.vocab_size:
+                logits = ctx.gather(logits, dim=-1)
+            return join(ctx.mesh, logits), join(ctx.mesh, auxs)
         x, positions = self._embed(params, batch)
         x, _, aux = tfm.stack_apply(params["layers"], self.cfg, x, positions,
                                     remat=remat)
@@ -299,14 +330,24 @@ class Model(_DecodeSlots):
         x = rmsnorm(params["final_norm"], x[:, -1:], self.cfg.norm_eps)
         return unembed(self._table(params), x)
 
-    def loss(self, params, batch, remat: bool = True):
+    def loss(self, params, batch, ctx=None, remat: bool = True):
         """Next-token training loss on ``batch["tokens"]`` (B, S): targets
         are the tokens shifted by one, masked where they fall on the first
         ``_vlm_patches(cfg, S)`` positions (vision configs; none otherwise).
         Returns ``(ce + AUX_LOSS_WEIGHT * aux + Z_LOSS_WEIGHT * z, {"ce",
         "aux", "z"})``, all 0-d tensors on the model's device.  ``remat``
         recomputes each layer in the backward pass, as the reference's loss
-        does."""
+        does.
+
+        On a mesh (``ctx``) ``params`` and ``batch`` are lists with one
+        entry a position (``place_tree`` by ``param_shardings`` and
+        ``batch_sharding``; a global batch dict is split here), and so are
+        the results, every position holding the same values: the means are
+        over the global batch (the sums and the mask count added over the
+        data axes), the cross-entropy vocab-parallel over the model
+        axis."""
+        if ctx is not None:
+            return self._loss_mesh(params, batch, ctx, remat)
         tokens = batch["tokens"]
         x, positions = self._embed(params, batch)
         x, _, aux = tfm.stack_apply(params["layers"], self.cfg, x, positions,
@@ -320,6 +361,126 @@ class Model(_DecodeSlots):
         aux = self._aux(aux)
         total = ce + AUX_LOSS_WEIGHT * aux + Z_LOSS_WEIGHT * z
         return total, {"ce": ce, "aux": aux, "z": z}
+
+    # ------------------------------------------------------------------
+    # On a training mesh
+    # ------------------------------------------------------------------
+
+    def param_shapes(self) -> dict:
+        """The parameter tree with every leaf a meta tensor of its shape
+        and dtype (no memory, no draws): what the spec rules read."""
+        if self._shapes is None:
+            from torch._subclasses.fake_tensor import FakeTensorMode
+
+            with FakeTensorMode():
+                fake = Model(self.cfg, "cpu").init(0)
+            self._shapes = tree_map(lambda t: torch.empty(
+                t.shape, dtype=t.dtype, device="meta"), fake)
+        return self._shapes
+
+    def mesh_specs(self, ctx) -> dict:
+        """The params' specs on ``ctx``'s mesh: ``param_shardings`` with
+        the context's axes, the tree ``place_tree`` places params by (the
+        ``params`` subtree of a train state's)."""
+        key = (tuple(ctx.mesh.shape.items()), tuple(ctx.data_axes),
+               ctx.model_axis)
+        if key not in self._specs:
+            self._specs[key] = param_shardings(
+                self.param_shapes(), ctx.mesh, data_axes=ctx.data_axes,
+                model_axis=ctx.model_axis, cfg=self.cfg)
+        return self._specs[key]
+
+    def _mesh_inputs(self, params, batch, ctx):
+        """``params`` checked against the blocks the specs give, and the
+        batch one dict a position (a global dict split by
+        ``batch_sharding``)."""
+        tensor_parallel(self.cfg, ctx)  # the refusals
+        specs = self.mesh_specs(ctx)
+        mesh = ctx.mesh
+        if not isinstance(params, (list, tuple)) or len(params) != mesh.size:
+            raise ValueError(f"params on a mesh of {mesh.size} positions "
+                             f"must be a list of {mesh.size} trees "
+                             f"(place_tree)")
+
+        def check(path, shape, spec, *local):
+            want = list(shape.shape)
+            for k, axes in enumerate(spec):
+                if axes is not None:
+                    want[k] //= _axes_size(axes, mesh)
+            for leaf in local:
+                if list(leaf.shape) != want:
+                    raise ValueError(
+                        f"{path}: a position holds {tuple(leaf.shape)}, the "
+                        f"spec {spec} on mesh {mesh.shape} gives "
+                        f"{tuple(want)}; place the params by "
+                        f"param_shardings(..., data_axes="
+                        f"{tuple(ctx.data_axes)}, cfg=cfg)")
+
+        tree_map_with_path(check, self.param_shapes(), specs, *params)
+        if isinstance(batch, dict):
+            batch = place_tree(mesh, batch, batch_sharding(
+                batch, mesh, ctx.data_axes) if ctx.data_axes else
+                tree_map(lambda t: (None,) * t.dim(), batch))
+        return specs, batch
+
+    def _forward_mesh(self, params, batch, ctx, remat: bool):
+        """The forward on a mesh up to the final norm: (xs, each position's
+        logits table (its vocab block, FSDP-gathered), auxiliary losses),
+        lists with one entry a position."""
+        cfg = self.cfg
+        specs, batch = self._mesh_inputs(params, batch, ctx)
+        n = ctx.mesh.size
+        keys = [k for k in ("embed", "unembed", "final_norm") if k in specs]
+        tops = ctx.gather_tree([{k: p[k] for k in keys} for p in params],
+                               {k: specs[k] for k in keys})
+        ranks = [ctx.rank(i) for i in range(n)]
+        split = tops[0]["embed"].shape[0] < cfg.vocab_size
+        xs = ctx.map(lambda t, b, r: self._lookup(t, b, r if split else 0),
+                     tops, batch, ranks)
+        if split:
+            xs = ctx.row_sum(xs, xs[0].dtype)
+        xs, positions = ctx.map(lambda t, b, x: self._embed(t, b, x=x),
+                                tops, batch, xs)
+        xs, auxs = tfm.stack_train_tp(
+            ctx, [p["layers"] for p in params], specs["layers"], cfg, xs,
+            positions, remat=remat, rnn_chunk=ctx.rnn_chunk)
+        xs = ctx.map(lambda t, x: rmsnorm(t["final_norm"], x, cfg.norm_eps),
+                     tops, xs)
+        tables = [self._table(t) for t in tops]
+        auxs = ctx.map(lambda a, x: a.float() if torch.is_tensor(a) else
+                       torch.zeros((), dtype=torch.float32, device=x.device),
+                       auxs, xs)
+        return xs, tables, auxs, batch
+
+    def _loss_mesh(self, params, batch, ctx, remat: bool):
+        """``loss`` on a mesh: each position's CE and z sums from its
+        vocab block (``xent_mesh``), added over the data axes with the
+        mask count, then the global means."""
+        cfg = self.cfg
+        xs, tables, auxs, batch = self._forward_mesh(params, batch, ctx,
+                                                     remat)
+
+        def targets(b):
+            tokens = b["tokens"]
+            t = tokens[:, 1:]
+            patches = _vlm_patches(cfg, tokens.shape[1])
+            mask = (torch.arange(t.shape[1], device=tokens.device)
+                    >= patches).float().expand(t.shape)
+            return t, mask
+
+        tgt, masks = ctx.map(targets, batch)
+        sums = xent_mesh(ctx, tables, ctx.map(lambda x: x[:, :-1], xs), tgt,
+                         masks, cfg.vocab_size)
+        sums = ctx.data_psum(sums)
+
+        def total(sm, a):
+            denom = torch.clamp(sm[2], min=1.0)
+            ce, z = sm[0] / denom, sm[1] / denom
+            return (ce + AUX_LOSS_WEIGHT * a + Z_LOSS_WEIGHT * z,
+                    {"ce": ce, "aux": a, "z": z})
+
+        totals, metrics = ctx.map(total, sums, auxs)
+        return join(ctx.mesh, totals), join(ctx.mesh, metrics)
 
     # ------------------------------------------------------------------
     # Decode
@@ -481,11 +642,14 @@ class EncDecModel(_DecodeSlots):
         x = rmsnorm(params["final_norm"], x[:, -1:], self.cfg.norm_eps)
         return unembed(params["unembed"], x)
 
-    def loss(self, params, batch, remat: bool = True):
+    def loss(self, params, batch, ctx=None, remat: bool = True):
         """Next-token cross-entropy of the decoder over ``batch["tokens"]``
         (B, S), conditioned on the encoded ``batch["frames"]``, plus the
         weighted z loss.  Returns ``(ce + Z_LOSS_WEIGHT * z, {"ce", "z"})``,
-        0-d tensors on the model's device."""
+        0-d tensors on the model's device.  Not on a mesh
+        (``ENCDEC_TRAIN_MESH_REFUSAL``)."""
+        if ctx is not None:
+            raise NotImplementedError(ENCDEC_TRAIN_MESH_REFUSAL)
         tokens = batch["tokens"]
         enc_out = self.encode(params, batch["frames"], remat)
         x = self._decode_stack(params, tokens, enc_out, remat)
@@ -612,3 +776,67 @@ def xent_auto(table, x, targets, mask, chunk: int = XENT_CHUNK):
         ce_sum, z_sum = _xent_chunked_sums(table, x, targets, mask, chunk)
     denom = torch.clamp(mask.sum(), min=1.0)
     return ce_sum / denom, z_sum / denom
+
+
+def _axes_size(axes, mesh) -> int:
+    names = axes if isinstance(axes, tuple) else (axes,)
+    return int(np.prod([mesh.shape[a] for a in names]))
+
+
+def _xent_mesh_sums(ctx, tables, xs, targets, masks, vocab: int):
+    """(CE sum, z sum, mask count) of one stretch of positions, an fp32
+    (3,) tensor a position, every position of a data group the same bits.
+    Where ``tables`` are vocab blocks (``vocab`` rows in all), each model
+    rank makes the fp32 logits of its block only; the maximum (outside
+    autograd), the sum of exponentials and the gold logit are combined
+    over the model axis in fp32 (``row_sum``)."""
+    logits = ctx.map(unembed, tables, xs)
+    rows = tables[0].shape[0]
+    if rows < vocab:
+        ranks = [ctx.rank(i) for i in range(ctx.mesh.size)]
+        top = ctx.model_max(ctx.map(lambda lg: lg.amax(-1), logits))
+        sumexp = ctx.row_sum(ctx.map(
+            lambda lg, m: torch.exp(lg - m[..., None]).sum(-1), logits, top),
+            torch.float32)
+
+        def gold_of(lg, t, r):
+            local = t - r * rows
+            hit = (local >= 0) & (local < rows)
+            g = torch.gather(lg, -1, torch.where(hit, local, 0)[..., None])
+            return torch.where(hit, g[..., 0], 0.0)
+
+        gold = ctx.row_sum(ctx.map(gold_of, logits, targets, ranks),
+                           torch.float32)
+        logz = ctx.map(lambda m, e: m + torch.log(e), top, sumexp)
+    else:
+        logz = ctx.map(lambda lg: torch.logsumexp(lg, dim=-1), logits)
+        gold = ctx.map(lambda lg, t: torch.gather(lg, -1, t[..., None])[
+            ..., 0], logits, targets)
+    return ctx.map(lambda lz, g, mk: torch.stack([
+        ((lz - g) * mk).sum(), (lz * lz * mk).sum(), mk.sum()]),
+        logz, gold, masks)
+
+
+def xent_mesh(ctx, tables, xs, targets, masks, vocab: int,
+              chunk: int = XENT_CHUNK):
+    """``xent_auto``'s sums on a mesh, before the means: (CE sum, z sum,
+    mask count) a position.  Direct for S <= 2 * chunk; above, chunks of
+    ``chunk`` positions, each recomputed in the backward pass, so no
+    position ever holds more than a (B, chunk, V/tp) block of logits."""
+    s = xs[0].shape[1]
+    if s <= 2 * chunk:
+        return _xent_mesh_sums(ctx, tables, xs, targets, masks, vocab)
+    pad = (-s) % chunk
+    if pad:
+        xs, targets, masks = ctx.map(lambda x, t, m: (
+            F.pad(x, (0, 0, 0, pad)), F.pad(t, (0, pad)),
+            F.pad(m, (0, pad))), xs, targets, masks)
+    acc = None
+    for a in range(0, s + pad, chunk):
+        part = checkpoint(
+            _xent_mesh_sums, ctx, tables, [x[:, a:a + chunk] for x in xs],
+            [t[:, a:a + chunk] for t in targets],
+            [m[:, a:a + chunk] for m in masks], vocab, use_reentrant=False,
+            context_fn=recompute_contexts)
+        acc = part if acc is None else ctx.map(torch.add, acc, part)
+    return acc

@@ -10,6 +10,13 @@ config, ``ffn.moe_apply``, whose load-balance loss is the layer's
 auxiliary loss.  Queries and keys rotate by the config's position encoding
 (RoPE, M-RoPE or none).  Every kind exposes the same (x, state) -> (x,
 state, aux) interface.
+
+On a mesh (a ``ShardingCtx``) every argument is a list with one entry a
+position: ``layer_apply_tp``/``stack_apply_tp`` serve on a model axis,
+``stack_train_tp`` trains on a (pod?, data, model) mesh.  A training
+layer gathers its FSDP-split weights over the data axes first, inside its
+recomputed body, so a position holds one layer's gathered weights at a
+time; the residual stream stays replicated over the model axis.
 """
 
 from __future__ import annotations
@@ -114,7 +121,7 @@ def _kv_heads_used(cfg: ModelConfig, nq: int, nkv: int, rank: int):
 
 def _attn_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
                 cache=None, cache_pos=None, block_tables=None,
-                rank: int = 0):
+                rank: int = 0, chunk: int = 1024):
     """Returns (out, new_cache).  A cache with ``pk``/``pv`` is a paged
     pool: the new KV is written into it in place through ``block_tables``
     and each slot's view is gathered back for the attention.  With a
@@ -129,7 +136,9 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
     wk/wv and the cache its kv heads or, where those do not divide, all of
     them, of which its queries read the ones they use (``_kv_heads_used``).
     A row block of ``wo`` gives an fp32 partial of the output, from the
-    attention output's matching columns, for the caller's row sum."""
+    attention output's matching columns, for the caller's row sum.
+    ``chunk``: the CPU's dense/chunked crossover without a cache (the
+    reference's ``ctx.attn_chunk``)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     nq = params["wq"].shape[1] // hd
@@ -168,7 +177,7 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
     else:
         if used is not None:
             k, v = heads(k).contiguous(), heads(v).contiguous()
-        out = attn_lib.attention(q, k, v, window=window)
+        out = attn_lib.attention(q, k, v, window=window, chunk=chunk)
         new_cache = None
     out = out.reshape(b, s, -1)
     rows = params["wo"].shape[0]
@@ -333,7 +342,8 @@ def stack_apply(layers: List[dict], cfg: ModelConfig, x, positions, *,
 def layer_apply_tp(ctx, lps: List[dict], cfg: ModelConfig, kind: str, xs,
                    positions, *, states, cache_pos, block_tables,
                    rnn_chunk: Optional[int] = None):
-    """``layer_apply`` on every position of ``ctx``'s model axis: each
+    """``layer_apply`` on every position of ``ctx``'s model axis (the
+    auxiliary loss dropped: a serve mesh runs no mixture of experts): each
     argument a list with one entry a position, ``lps`` each position's
     blocks of the layer (``place_tree`` by the serve specs), the
     activations replicated.  Returns (xs, new states), a list each.
@@ -346,6 +356,19 @@ def layer_apply_tp(ctx, lps: List[dict], cfg: ModelConfig, kind: str, xs,
     (``ctx.row_sum``).  rwkv's column-parallel ``w_k`` projections (time
     and channel mix) are gathered over the axis before the rest of the
     mix, whose other weights are replicated."""
+    xs, new_states, _ = _layer_tp(
+        ctx, lps, cfg, kind, xs, positions, states=states,
+        cache_pos=cache_pos, block_tables=block_tables, rnn_chunk=rnn_chunk)
+    return xs, new_states
+
+
+def _layer_tp(ctx, lps: List[dict], cfg: ModelConfig, kind: str, xs,
+              positions, *, states, cache_pos, block_tables,
+              rnn_chunk: Optional[int] = None):
+    """``layer_apply_tp`` returning the auxiliary losses too (one a
+    position; a mixture of experts' through ``ffn.moe_apply`` on the
+    context: expert parallelism over the model axis, the load balance
+    over the global tokens)."""
     n = ctx.mesh.size
     ranks = [ctx.rank(i) for i in range(n)]
     dtype = xs[0].dtype
@@ -356,7 +379,8 @@ def layer_apply_tp(ctx, lps: List[dict], cfg: ModelConfig, kind: str, xs,
         outs, new_states = ctx.map(
             lambda r, lp, h, pos, st, cp, bt: _attn_apply(
                 lp["attn"], cfg, h, pos, window=window, cache=st,
-                cache_pos=cp, block_tables=bt, rank=r),
+                cache_pos=cp, block_tables=bt, rank=r,
+                chunk=ctx.attn_chunk),
             ranks, lps, hs, positions, states, cache_pos, block_tables)
         if lps[0]["attn"]["wo"].shape[0] < cfg.n_heads * \
                 cfg.resolved_head_dim:
@@ -380,6 +404,11 @@ def layer_apply_tp(ctx, lps: List[dict], cfg: ModelConfig, kind: str, xs,
         raise _unported(kind)
     xs = ctx.map(torch.add, xs, outs)
     h2s = ctx.map(lambda lp, x: rmsnorm(lp["ln2"], x, cfg.norm_eps), lps, xs)
+    if kind != "rwkv" and cfg.is_moe:
+        outs, auxs = ffn_lib.moe_apply(
+            [lp["ffn"] for lp in lps], h2s, top_k=cfg.experts_per_token,
+            activation=cfg.activation, ctx=ctx)
+        return ctx.map(torch.add, xs, outs), new_states, auxs
     if kind != "rwkv":
         split = lps[0]["ffn"]["w_out"].shape[0] < cfg.d_ff
         outs = ctx.map(lambda lp, h: ffn_lib.ffn_apply(
@@ -387,7 +416,7 @@ def layer_apply_tp(ctx, lps: List[dict], cfg: ModelConfig, kind: str, xs,
             out_dtype=torch.float32 if split else None), lps, h2s)
         if split:
             outs = ctx.row_sum(outs, dtype)
-        return ctx.map(torch.add, xs, outs), new_states
+        return ctx.map(torch.add, xs, outs), new_states, [0.0] * n
     c_states = [None if st is None else st["channel"] for st in states]
     ks = none
     if lps[0]["channel"]["w_k"].shape[1] < cfg.d_ff:
@@ -400,7 +429,7 @@ def layer_apply_tp(ctx, lps: List[dict], cfg: ModelConfig, kind: str, xs,
         lps, h2s, c_states, ks)
     new_states = [None if st is None else {"time": t, "channel": c}
                   for st, t, c in zip(states, new_time, new_channel)]
-    return ctx.map(torch.add, xs, outs), new_states
+    return ctx.map(torch.add, xs, outs), new_states, [0.0] * n
 
 
 def stack_apply_tp(ctx, layers: List[List[dict]], cfg: ModelConfig, xs,
@@ -424,3 +453,47 @@ def stack_apply_tp(ctx, layers: List[List[dict]], cfg: ModelConfig, xs,
             for i in range(n):
                 new_states[i].append(new_st[i])
     return xs, new_states
+
+
+# ---------------------------------------------------------------------------
+# Training on a (pod?, data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+def layer_train_tp(ctx, lps: List[dict], specs: dict, cfg: ModelConfig,
+                   kind: str, xs, positions, rnn_chunk: Optional[int] = None):
+    """One layer on a training mesh, without a cache: the layer's
+    FSDP-split weights gathered over the data axes (``ctx.gather_tree`` by
+    the layer's ``specs``), then ``layer_apply_tp``'s tensor-parallel body.
+    Returns (xs, auxiliary losses), lists."""
+    n = ctx.mesh.size
+    none = [None] * n
+    full = ctx.gather_tree(lps, specs)
+    xs, _, auxs = _layer_tp(ctx, full, cfg, kind, xs, positions,
+                            states=none, cache_pos=none, block_tables=none,
+                            rnn_chunk=rnn_chunk)
+    return xs, auxs
+
+
+def stack_train_tp(ctx, layers: List[List[dict]], specs: List[dict],
+                   cfg: ModelConfig, xs, positions, *, remat: bool = True,
+                   rnn_chunk: Optional[int] = None):
+    """``stack_apply`` on a training mesh (``layer_train_tp`` layer by
+    layer): ``layers`` one list of layers a position, ``specs`` the layers'
+    param specs.  With ``remat`` under autograd each layer keeps only its
+    inputs for the backward pass and runs again there, its FSDP gathers
+    included (``torch.utils.checkpoint``, non-reentrant).  Returns (xs,
+    the sum of the layers' auxiliary losses), lists."""
+    n = ctx.mesh.size
+    aux_total = [0.0] * n
+    for j in range(cfg.n_layers):
+        lps = [layers[i][j] for i in range(n)]
+        args = (ctx, lps, specs[j], cfg, cfg.block_kind(j), xs, positions,
+                rnn_chunk)
+        if remat and torch.is_grad_enabled():
+            xs, auxs = checkpoint(layer_train_tp, *args, use_reentrant=False,
+                                  context_fn=recompute_contexts)
+        else:
+            xs, auxs = layer_train_tp(*args)
+        aux_total = [t + a for t, a in zip(aux_total, auxs)]
+    return xs, aux_total

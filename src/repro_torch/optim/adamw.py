@@ -57,7 +57,7 @@ def _global_norm_scale(grads, max_norm: float):
     """(the global fp32 norm of ``grads``, ``min(1, max_norm / norm)``)."""
     sq = [torch.sum(g.float() * g.float()) for g in leaves(grads)]
     gn = torch.sqrt(sum(sq[1:], sq[0]))
-    return gn, torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return gn, clip_scale(gn, max_norm)
 
 
 def _clipped(g, scale):
@@ -78,14 +78,12 @@ def _decay_mask(path: str) -> bool:
                                        "b_in"))
 
 
-def adamw_update(params, grads, state, cfg: AdamWConfig,
-                 lr: Optional[torch.Tensor] = None, inplace: bool = False):
-    """Returns (new_params, new_state, {"grad_norm"}), the gradients clipped
-    by their global norm first.  The inputs are left as they were, unless
-    ``inplace``: then the new values are copied into ``params`` and the
-    moments of ``state``, whose tensors the results are."""
-    gn, scale = _global_norm_scale(grads, cfg.grad_clip)
-    count = state["count"] + 1
+def leaf_update(cfg: AdamWConfig, count: torch.Tensor, lr, scale,
+                inplace: bool):
+    """``upd(path, p, g, mu, nu) -> (new p, new mu, new nu)``: one leaf's
+    AdamW step at ``count`` (the step's new count), rate ``lr`` and clip
+    ``scale``; in place into ``p``, ``mu`` and ``nu`` (by row blocks) when
+    ``inplace``."""
     lr_t = cfg.lr if lr is None else lr
     cf = count.to(torch.float32)
     b1c = 1.0 - cfg.b1 ** cf
@@ -113,6 +111,23 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
                 dst.copy_(new)
         return p, mu, nu
 
+    return upd
+
+
+def clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """``min(1, max_norm / norm)`` of a global gradient norm."""
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+
+
+def adamw_update(params, grads, state, cfg: AdamWConfig,
+                 lr: Optional[torch.Tensor] = None, inplace: bool = False):
+    """Returns (new_params, new_state, {"grad_norm"}), the gradients clipped
+    by their global norm first.  The inputs are left as they were, unless
+    ``inplace``: then the new values are copied into ``params`` and the
+    moments of ``state``, whose tensors the results are."""
+    gn, scale = _global_norm_scale(grads, cfg.grad_clip)
+    count = state["count"] + 1
+    upd = leaf_update(cfg, count, lr, scale, inplace)
     new_params, mu, nu = tree_unzip(upd, 3, params, grads, state["mu"],
                                     state["nu"])
     return new_params, {"mu": mu, "nu": nu, "count": count}, \

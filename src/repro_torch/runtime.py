@@ -32,8 +32,10 @@ and cache the winners; ``train`` and ``serve`` run their kernels under it
 (on the calling thread, and on a serving watchdog's worker).  A kernel
 called outside them, with no ``tuner=``, launches with its fixed choice.
 ``Runtime.mesh`` is the session's device mesh (``RuntimeConfig.mesh_shape``)
-and ``Runtime.plan`` plans over it; training and serving over several GPUs,
-and ``Runtime.bench``, come with later slices of the port.
+and ``Runtime.plan`` plans over it; ``serve(mesh_shape=)`` serves
+tensor-parallel, and training on a mesh goes through
+``training.make_train_step(ctx=)`` (the reference's ``Runtime.train``
+takes no mesh either); ``Runtime.bench`` comes with a later slice.
 """
 
 from __future__ import annotations

@@ -449,9 +449,12 @@ class ContinuousServeEngine:
         self._shard_pending = False
         if mesh is not None:
             validate_serve_mesh(model.cfg, mesh.shape)
+            model_axis = "model" if "model" in mesh.shape else None
             tp_choice, self._shard_decision = self.scheduler.serve_shard(
                 n_slots, tp=int(mesh.shape.get("model", 1)),
-                override=None if shard_params == "auto" else shard_params)
+                override=None if shard_params == "auto" else shard_params,
+                devices=mesh.distinct_devices(model_axis)
+                if model_axis else None)
             if tp_choice > 1:
                 # pure-TP context: no data axis on the serve hot path
                 ctx = ShardingCtx(mesh=mesh, data_axes=(),

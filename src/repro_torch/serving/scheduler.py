@@ -338,7 +338,8 @@ class ServeScheduler:
         return bool(dec.value), dec
 
     def serve_shard(self, batch: int, *, tp: int,
-                    override: Optional[str] = None) -> Tuple[int, Decision]:
+                    override: Optional[str] = None,
+                    devices: Optional[int] = None) -> Tuple[int, Decision]:
         """Shard-vs-replicate the serve model over the mesh's model axis —
         the eighth decision site (CostQuery kind=serve_shard).
 
@@ -348,7 +349,10 @@ class ServeScheduler:
         sums), priced by the calibrated interconnect terms.  ``override``
         forces a verdict by RESTRICTING the candidate set — ``(tp,)`` for
         shard, ``(1,)`` for replicate — so the ledger records what was
-        considered."""
+        considered.  ``devices``: the distinct devices the ``tp`` positions
+        share (``Mesh.distinct_devices``); positions on one device share
+        its peak and bandwidth, so there a sharded step never beats the
+        replicated one."""
         if override == "shard":
             candidates: Tuple[int, ...] = (tp,)
         elif override == "replicate":
@@ -360,7 +364,8 @@ class ServeScheduler:
             weight_bytes=self.weight_bytes,
             kv_bytes_per_slot=self.kv_bytes_per_slot,
             n_layers=self.cfg.n_layers, d_model=self.cfg.d_model,
-            dtype_bytes=self.dtype_bytes, candidates=candidates)
+            dtype_bytes=self.dtype_bytes, candidates=candidates,
+            devices=devices)
         return int(dec.value), dec
 
     def serve_prefix(self, prompt_len: int, *, hit_tokens: int,

@@ -20,6 +20,16 @@ the continuous engine run on every position: the params and the state
 are lists with one entry a position, the host's inputs are replicated to
 the positions, each position's bookkeeping runs as its own work
 (``_Positions``), and the step hands back position 0's tokens.
+
+Given a training ``ctx`` (a (pod?, data, model) mesh), ``make_train_step``
+trains FSDP with tensor and expert parallelism: the state is one tree a
+position (``place_tree`` by ``param_shardings`` of the whole state), the
+batch one dict a position (``batch_sharding``) or the global dict.  The
+autograd leaves are each position's own blocks; a replicated piece's
+gradient is summed over the positions that hold it in a fixed order
+(``ShardingCtx.replica_sum``), so every replica updates to the same bits;
+``grad_norm`` is the norm of the logical gradient, each distinct block
+counted once.
 """
 
 from __future__ import annotations
@@ -29,12 +39,16 @@ from typing import Callable
 
 import torch
 
-from repro_torch.distributed.mesh import replicate, take
+from repro_torch.distributed.mesh import (all_gather_cat, join, psum,
+                                          replicate, take)
+from repro_torch.distributed.sharding import is_representative
 from repro_torch.models.model import AnyModel, mrope_positions
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     clip_scale, leaf_update)
 from repro_torch.optim.compression import compress_gradients, init_compression
 from repro_torch.optim.schedule import warmup_cosine
-from repro_torch.tree import leaves_with_paths, tree_map, tree_map_with_path
+from repro_torch.tree import (leaves_with_paths, tree_map,
+                              tree_map_with_path, tree_unzip)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,11 +72,21 @@ def init_train_state(model: AnyModel, seed: int, loop: TrainLoopConfig) -> dict:
     return state
 
 
-def make_grad_fn(model: AnyModel, *, remat: bool = True) -> Callable:
+def make_grad_fn(model: AnyModel, *, remat: bool = True,
+                 ctx=None) -> Callable:
     """``grad_fn(params, batch) -> (loss, metrics, grads)``: the loss and
     the gradient of every parameter (a tree like ``params``), by autograd
     through the kernels' backward passes.  Raises if a parameter gets no
-    gradient, which is what a kernel call outside autograd would cause."""
+    gradient, which is what a kernel call outside autograd would cause.
+
+    On a mesh (``ctx``) ``params`` and ``batch`` are lists with one entry
+    a position and so are the results.  Every position's copy of the loss
+    seeds the backward with 1/n (their mean is the loss), and each
+    position's gradient of a replicated piece is then summed over the
+    positions holding it (``replica_sum``): every position holds its
+    block of the logical gradient."""
+    if ctx is not None:
+        return _mesh_grad_fn(model, remat, ctx)
 
     def grad_fn(params, batch):
         with torch.enable_grad():
@@ -82,7 +106,7 @@ def make_grad_fn(model: AnyModel, *, remat: bool = True) -> Callable:
     return grad_fn
 
 
-def make_train_step(model: AnyModel, loop: TrainLoopConfig, *,
+def make_train_step(model: AnyModel, loop: TrainLoopConfig, *, ctx=None,
                     donate: bool = False) -> Callable:
     """``step_fn(state, batch) -> (new_state, metrics)``; ``state`` is left
     as it was, unless ``donate``: then the update is written into the
@@ -90,7 +114,22 @@ def make_train_step(model: AnyModel, loop: TrainLoopConfig, *,
     the same values), which the caller hands over to the new state.
     Metrics: ``loss``, ``lr``, ``grad_norm`` and, without microbatches,
     ``ce``/``aux``/``z`` (and ``wire_bytes_ratio`` with compression), all
-    on the device but the last."""
+    on the device but the last.
+
+    On a training mesh (``ctx``; see the module docstring) ``state`` is
+    one tree a position and so are the new state and the metrics.
+    Microbatch i is rows [i·B/n, (i+1)·B/n) of the global batch, split
+    over the data axes.  Under ``donate`` place the state with
+    ``place_tree(..., copy=True)`` (storage of its own on every position),
+    or the update writes into the tensors the state was placed from; a
+    block that several positions share is updated once.  Gradient
+    compression under a ``ctx`` is not ported and raises."""
+    if ctx is not None:
+        if loop.compression:
+            raise NotImplementedError(
+                "gradient compression on a training mesh is not ported "
+                "yet (ROADMAP.md, Queue 1)")
+        return _mesh_train_step(model, loop, ctx, donate)
     grad_fn = make_grad_fn(model)
 
     def step_fn(state, batch):
@@ -127,6 +166,144 @@ def make_train_step(model: AnyModel, loop: TrainLoopConfig, *,
         if new_compress is not None:
             new_state["compress"] = new_compress
         return new_state, {"loss": loss, "lr": lr, **metrics, **ometrics}
+
+    return step_fn
+
+
+def _mesh_grad_fn(model: AnyModel, remat: bool, ctx) -> Callable:
+    mesh = ctx.mesh
+    n = mesh.size
+
+    def grad_fn(params, batch):
+        specs = model.mesh_specs(ctx)
+        with torch.enable_grad():
+            live = [tree_map(lambda p: p.detach().requires_grad_(True), p)
+                    for p in params]
+            losses, metrics = model.loss(live, batch, ctx, remat=remat)
+            flat = [leaves_with_paths(t) for t in live]
+            seeds = ctx.map(lambda t: torch.full_like(t, 1.0 / n), losses)
+            grads = torch.autograd.grad(
+                losses, [leaf for f in flat for _, leaf in f],
+                grad_outputs=seeds, allow_unused=True)
+        trees, k = [], 0
+        for i, f in enumerate(flat):
+            got = grads[k:k + len(f)]
+            k += len(f)
+            missing = [p for (p, _), g in zip(f, got) if g is None]
+            if missing:
+                raise RuntimeError(
+                    f"no gradient reached {len(missing)} parameters of "
+                    f"position {i}, e.g. {missing[:3]}")
+            by_path = {p: g for (p, _), g in zip(f, got)}
+            trees.append(tree_map_with_path(lambda path, _: by_path[path],
+                                            params[i]))
+        return ([t.detach() for t in losses],
+                [{k_: v.detach() for k_, v in m.items()} for m in metrics],
+                join(mesh, ctx.replica_sum(trees, specs)))
+
+    return grad_fn
+
+
+def _data_index(ctx, i: int) -> int:
+    """Position ``i``'s index over the data axes (row-major)."""
+    idx = 0
+    for a in ctx.data_axes:
+        idx = idx * ctx.mesh.shape[a] + ctx.mesh.axis_index(a, i)
+    return idx
+
+
+def _microbatch(ctx, batch, k: int, n_mb: int):
+    """Microbatch ``k`` of ``n_mb``, one dict a position: rows [k·B/n,
+    (k+1)·B/n) of the global batch, split over the data axes (a placed
+    batch is gathered over them first)."""
+    if isinstance(batch, dict):
+        return {key: v.reshape((n_mb, -1) + v.shape[1:])[k]
+                for key, v in batch.items()}
+    mesh = ctx.mesh
+    out = [dict() for _ in range(mesh.size)]
+    for key in batch[0]:
+        xs = [b[key] for b in batch]
+        if ctx.dp > 1:
+            xs = all_gather_cat(mesh, ctx.data_axes, xs, 0)
+        for i, x in enumerate(xs):
+            rows = x.shape[0] // n_mb
+            mine = rows // ctx.dp
+            lo = k * rows + _data_index(ctx, i) * mine
+            out[i][key] = x[lo:lo + mine]
+    return out
+
+
+def _mesh_train_step(model: AnyModel, loop: TrainLoopConfig, ctx,
+                     donate: bool) -> Callable:
+    mesh = ctx.mesh
+    n = mesh.size
+    grad_fn = make_grad_fn(model, ctx=ctx)
+    axes = tuple(mesh.axis_names)
+
+    def step_fn(state, batch):
+        params = [st["params"] for st in state]
+        specs = model.mesh_specs(ctx)
+        if loop.microbatches > 1:
+            n_mb = loop.microbatches
+            acc = loss = None
+            for k in range(n_mb):
+                mb_loss, _, grads = grad_fn(params,
+                                            _microbatch(ctx, batch, k, n_mb))
+                part = ctx.map(lambda g: tree_map(
+                    lambda t: t.float() / n_mb, g), grads)
+                mb_loss = ctx.map(lambda t: t / n_mb, mb_loss)
+                acc = part if acc is None else ctx.map(
+                    lambda a, b: tree_map(torch.add, a, b), acc, part)
+                loss = mb_loss if loss is None else ctx.map(torch.add, loss,
+                                                            mb_loss)
+            grads, metrics = acc, [{} for _ in range(n)]
+        else:
+            loss, metrics, grads = grad_fn(params, batch)
+
+        # the logical gradient's norm: each distinct block once, the
+        # positions' sums added over the whole mesh in a fixed order
+        order = []
+        tree_map_with_path(lambda path, _, sp: order.append((path, sp)),
+                           params[0], specs)
+
+        def sq_norm(i, g):
+            flat = dict(leaves_with_paths(g))
+            terms = [torch.sum(flat[p].float() ** 2) for p, sp in order
+                     if is_representative(sp, mesh, i)]
+            return torch.stack(terms).sum() if terms else \
+                torch.zeros((), device=flat[order[0][0]].device)
+
+        gn = ctx.map(torch.sqrt, psum(mesh, axes, ctx.map(
+            sq_norm, list(range(n)), grads)))
+        lr = ctx.map(lambda st: warmup_cosine(
+            st["step"], peak_lr=loop.optimizer.lr,
+            warmup_steps=loop.warmup_steps, total_steps=loop.total_steps),
+            state)
+        done: dict = {}  # a block several positions share: updated once
+
+        def update(st, g, norm, rate):
+            count = st["opt"]["count"] + 1
+            upd = leaf_update(loop.optimizer, count, rate,
+                              clip_scale(norm, loop.optimizer.grad_clip),
+                              donate)
+
+            def leaf(path, p, gr, mu, nu):
+                key = (p.device, p.data_ptr(), tuple(p.shape), p.stride(),
+                       path)
+                if key not in done:
+                    done[key] = upd(path, p, gr, mu, nu)
+                return done[key]
+
+            new_p, mu, nu = tree_unzip(leaf, 3, st["params"], g,
+                                       st["opt"]["mu"], st["opt"]["nu"])
+            return ({"params": new_p,
+                     "opt": {"mu": mu, "nu": nu, "count": count},
+                     "step": st["step"] + 1},
+                    {"lr": rate, "grad_norm": norm})
+
+        new_state, extra = ctx.map(update, state, grads, gn, lr)
+        return join(mesh, new_state), join(mesh, ctx.map(
+            lambda lo, m, e: {"loss": lo, **e, **m}, loss, metrics, extra))
 
     return step_fn
 

@@ -9,7 +9,10 @@ agrees with the kernel's plain version on the card.
   (``core/costs/autotune.py``, ``kernels/tuning.py``, ``core/overhead.py``),
   whose ``Autotuner`` the public surface exports as the reference's does,
   and the tensor-parallel serving modules' (``distributed/sharding.py``,
-  the engine, the launcher, ``checkpoint.restore_resharded``);
+  the engine, the launcher, ``checkpoint.restore_resharded``), and the
+  training mesh's (``distributed/mesh.py``'s collectives with a backward,
+  ``models/ffn.py``'s expert parallelism, the mesh loss and train step,
+  the cost sites that price shared devices);
 * what a spawned front-end worker imports loads no torch either, and on a
   card (marked ``cuda``) the workers of a front end spawned beside a CUDA
   tensor hold no context on it;
@@ -138,6 +141,35 @@ def test_serve_mesh_modules_import_neither_jax_nor_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _IMPORT_SERVE_MESH], env=env,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(" ", 1) == ["True", "[]\n"]
+
+
+_IMPORT_TRAIN_MESH = """
+import sys
+import repro_torch.distributed.mesh, repro_torch.distributed.sharding
+import repro_torch.models.ffn, repro_torch.models.model
+import repro_torch.models.transformer, repro_torch.training.step
+import repro_torch.checkpoint.checkpoint, repro_torch.core.planner
+import repro_torch.core.costs.model, repro_torch.core.costs.engine
+import repro_torch.core.sort, repro_torch.core.dispatch
+import repro_torch.serving.scheduler, repro_torch.optim.adamw
+from repro_torch.distributed import all_gather_cat, join
+from repro_torch.models.ffn import moe_ep, moe_ep_plain
+from repro_torch.training import make_train_step
+print(callable(moe_ep), sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_train_mesh_modules_import_neither_jax_nor_repro():
+    """The training mesh's modules: the collectives with a backward, the
+    training context, expert parallelism, the mesh loss and train step,
+    the placed checkpoint, and the cost sites that price shared devices."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_TRAIN_MESH],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split(" ", 1) == ["True", "[]\n"]
 

@@ -25,7 +25,8 @@ qwen3-moe-235b-a22b (GQA 4/4 at this size, RoPE theta 1e6).
 * greedy tokens of the static and continuous engines equal the
   reference's engines', host syncs and dispatches too; ``Runtime.serve``
   static equals continuous, and the launcher serves;
-* ``moe_apply`` under an expert-parallel context over two devices raises;
+* ``moe_apply`` under a context that turns expert parallelism off on a
+  model axis raises (expert parallelism itself: tests/test_torch_moe_ep.py);
 * on a card only (``cuda`` marker): the expert products (gate with SiLU,
   up, the weighted down projection) and the fp32 router against the plain
   version, each a launch of the matmul kernel on the path its dtypes name,
@@ -283,15 +284,22 @@ def test_moe_topk1_equals_best_expert():
 
 
 def test_moe_apply_expert_parallel_context_raises():
+    """Expert parallelism is ported (``moe_ep``, held against the
+    reference's in tests/test_torch_moe_ep.py), so an EP context over a
+    model axis runs it; what still raises is a context that turns it off
+    (``use_ep=False``) on a model axis, whose experts the specs split.  A
+    context without a model axis is ``moe_dense``, as in the
+    reference."""
     d, f, e = 8, 16, 4
     params = ffn.moe_init(torch.Generator().manual_seed(2), d, f, e,
                           "swiglu")
     x = torch.zeros((1, 3, d))
-    ctx = types.SimpleNamespace(use_ep=True, model_axis="model",
+    ctx = types.SimpleNamespace(use_ep=False, model_axis="model",
                                 mesh=types.SimpleNamespace(shape={
                                     "data": 1, "model": 2}))
-    with pytest.raises(NotImplementedError, match="several GPUs"):
-        ffn.moe_apply(params, x, top_k=2, activation="swiglu", ctx=ctx)
+    with pytest.raises(NotImplementedError, match="use_ep=False"):
+        ffn.moe_apply([params, params], [x, x], top_k=2,
+                      activation="swiglu", ctx=ctx)
     one = types.SimpleNamespace(use_ep=True, model_axis="model",
                                 mesh=types.SimpleNamespace(shape={
                                     "model": 1}))

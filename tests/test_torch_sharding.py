@@ -15,7 +15,7 @@ against the reference's, and the placement of whole trees on a mesh.
   (D, H*hd): the head split moves onto the fused dim, so it falls at head
   boundaries only; experts (E, D, F) -> (D, E*F) and (E, F, D) -> (E*F, D),
   experts over the model axis; the FSDP split of w_out's F, inside each
-  expert's rows, is not taken);
+  expert's rows, moves to its D);
 * ``validate_serve_mesh`` raises the reference's message (or none) for
   every configuration at model axes 3 and 8;
 * ``place_tree``: each position's block is the slice of the whole leaf
@@ -194,7 +194,9 @@ def _port_view(path: str, shape, spec, lead: int, cfg):
     if len(shape) == 3 and keys[-2] == "ffn":
         e, a, b = shape
         if keys[-1] == "w_out":  # (E, F, D) -> (E*F, D), experts on model
-            return suffix, (e * a, b), (spec[0], None)
+            # and the FSDP split moved from F (inside each expert's rows
+            # here) to D, the port's deliberate difference of layout
+            return suffix, (e * a, b), (spec[0], spec[1])
         return suffix, (a, e * b), (spec[1], spec[0])  # (E, D, F)
     return suffix, shape, spec
 

@@ -258,17 +258,19 @@ Phases, one report line each (any failure exits non-zero):
      moonshot-v1-16b-a3b, qwen3-moe-235b-a22b, qwen2-vl-72b), each built
      and freed before the next: card against CPU in fp32 at full width, 1
      layer (since phase 25; recurrentgemma one period with its
-     window cut to RING_WINDOW, once at 2 x 256 through local_attention
-     and once at 2 x 128 through the masked dense form), batch 2 x 64:
-     one gradient
-     and one make_train_step on the card, then one gradient on the CPU,
+     window cut to 32, once at 2 x 128 through local_attention and once
+     at 2 x 64 through the masked dense form; 64, 256 and 128 before phase
+     26), batch 2 x 16 (2 x 64 before phase 26): one gradient and its
+     loss on the card (a
+     make_train_step too before phase 26), then one gradient on the CPU,
      the loss within 1e-4 relative, every gradient within 2e-3 x
      max|grad|, no selected expert flipped; every distinct matmul call of
      one bf16 gradient at 2 x 2048 and one period of layers (1,
      recurrentgemma 3: its windowed 4-D products and their backward)
      against the plain version, as in phase 20 but not timed (since phase
      23, which took its time); Runtime.train in bf16 at
-     full width, 4 steps at 2 x 2048 (phi3-mini, gemma and recurrentgemma
+     full width, 2 steps at 2 x 2048 (4 before phase 26; phi3-mini, gemma
+     and recurrentgemma
      whole; mistral-nemo 15 of 40 layers, moonshot 8 of 48, qwen3-moe 1
      of 94, qwen2-vl 2 of 80: each the deepest whose peak stays within
      TRAIN_PEAK_LIMIT_GB, held on the run's own peak and printed with
@@ -277,7 +279,8 @@ Phases, one report line each (any failure exits non-zero):
      operand copied), every tensor-core matmul operand on a tensor map,
      peak memory; one step profiled (its matmul calls each on their
      dtypes' path, device ms by kernel, no library GEMM or attention
-     kernel); for the three whole models a fixed batch whose loss falls;
+     kernel); for the three whole models a fixed batch whose loss falls
+     in 3 steps;
  22. the kernel autotuner (autotune_phase): Runtime(RuntimeConfig(
      autotune=True, cache_dir=build/autotune_smoke)) tunes by measurement
      every distinct (path, N, K) of full-width tinyllama-1.1b's decode step
@@ -322,14 +325,17 @@ Phases, one report line each (any failure exits non-zero):
      {"data": 1, "model": 8} mesh of 8 positions on the one card
      (shards_per_device=8, a CUDA stream each), shard_params="shard".
      fp32 at full width, cut depth (tinyllama-1.1b, mistral-nemo-12b and
-     rwkv6-3b at 2 layers, recurrentgemma-2b at one period of 3), 4
-     requests x 8+4 tokens on 2 slots: the sharded tokens equal the
+     rwkv6-3b at 1 layer, 2 before phase 26; recurrentgemma-2b at one
+     period of 3), 4
+     requests x 8+2 tokens (8+4 before phase 26) on 2 slots: the sharded
+     tokens equal the
      unsharded card's and an 8-position CPU mesh's, the sharded prefill's
      and decode step's logits within 2e-3 x max|logit| of both, every
      position launching the matmul kernel.  bf16 at full width
-     (tinyllama-1.1b at 4 of 22 layers, dense and paged on shared-prefix
-     traffic with the prefix cache forced; mistral-nemo-12b at 4 of 40
-     layers, its 8 kv heads one a position), phase 5's trace cut to 16 new tokens:
+     (tinyllama-1.1b at 1 of 22 layers, dense and paged on shared-prefix
+     traffic with the prefix cache forced; mistral-nemo-12b at 1 of 40
+     layers, its 8 kv heads one a position; both at 4 before phase 26),
+     phase 5's trace cut to 16 new tokens:
      tokens equal the unsharded engine's up to a near tie (the unsharded
      top-2 margin under the limit there), the same tokens twice, the
      first decode step's logits within the limit, the sharded
@@ -360,7 +366,30 @@ Phases, one report line each (any failure exits non-zero):
      whole, restored on {"data": 4, "model": 2}, step 4's loss the
      uninterrupted unsharded run's within rtol 2e-3).  The kernels line
      gains phase 25's matmul and flash launches.
-     Before each of phases 2-25, gc.collect() and gc.freeze() (settle): a
+  26. the encoder-decoder and gradient compression on 8 positions of the
+     card (encdec_mesh_phase): seamless-m4t-medium at full width, (a) fp32
+     at 2 + 2 layers on {"data": 4, "model": 2} against the unsharded
+     card (phase 25's limits: loss, every gradient, every parameter after
+     a step); (b) bf16 whole (12 + 12 layers) on the same mesh, 3 steps of
+     8 x 512 tokens and frames, every matmul and flash signature of the
+     first sharded step held against its plain version (the encoder's
+     non-causal flash at 8 heads a position, the decoder's causal, the
+     ragged cross attention, the 128,103-row vocab block's products),
+     step wall, host and device ms, tokens/s, peak GB, launches a
+     position and collectives beside the unsharded step's, then the vocab
+     block's products timed on the copy loader; (c) served on {"data": 1,
+     "model": 2} (2 positions): fp32 tokens equal to the unsharded static
+     and continuous serves', the sharded prefill (the encoder and a cross
+     term that is not zero) within 2e-3 x max|logit|, bf16 logits held to
+     fp32 as phase 24 holds them (phase 5's trace cut to 8 new tokens),
+     serve_shard's rows and its KV bytes with
+     the cross caches; (d) compression on {"data": 4, "model": 2}
+     (tinyllama-1.1b at 2 layers, fp32, keep_frac 0.1, 3 steps): the
+     sharded compressed gradient joined back equals the single-device
+     compress_gradients of the joined gradient bit for bit, residual
+     carried, the step's residual the same, wire_bytes_ratio equal.  The
+     kernels line gains phase 26's matmul and flash launches.
+     Before each of phases 2-26, gc.collect() and gc.freeze() (settle): a
      gen-2 collection of this script's heap took 0.2-0.75 s inside a timed
      step, and a collection walking it slowed phase 25's sharded steps
      1.7x.
@@ -582,7 +611,18 @@ TRAIN_PEAK_LIMIT_GB = 76.0
 # kind of leaf its gradient, and recurrentgemma keeps its period (rglru,
 # rglru, local), whose windowed layer needs the third
 FAMILY_TRAIN_CPU_LAYERS = {"recurrentgemma-2b": 3}
-FAMILY_TRAIN_CPU_SEQ = PARITY_SEQ // 2
+# since phase 26, batch 2 x 16 (2 x 64 before), for the script's time
+# limit: the CPU's fp32 gradient of qwen3-moe's 128 experts at 1 layer
+# runs them all for every token (moe_dense); recurrentgemma's window cut
+# to FAMILY_RING_WINDOW there (RING_WINDOW before), its two sequences with
+# it
+FAMILY_TRAIN_CPU_SEQ = PARITY_SEQ // 8
+FAMILY_RING_WINDOW = 32
+# Runtime.train's steps in phase 21 since phase 26 (TRAIN_STEPS, 4,
+# before): step 0 warms up, step 1 gives the wall of the four cut models;
+# the three whole ones take theirs from the fixed batch, which keeps 3
+# steps (4 before) and must lower its loss
+FAMILY_TRAIN_STEPS, FAMILY_FIXED_STEPS = 2, 3
 # the fixed batch's peak rate for the three whole models.  From their
 # random weights Adam's first steps move every weight by about the rate, a
 # change of about rate x d in a product's output against its scale of 1:
@@ -1634,8 +1674,17 @@ def main() -> int:
         return 1
     record["train_mesh"] = train_mesh
 
-    # ---------------------------------------------------------------- out
+    # ----------------------------------------------------------------- 26
     clock.lap(25)
+    settle()
+    torch.cuda.empty_cache()
+    encdec_mesh = encdec_mesh_phase(card)
+    if encdec_mesh is None:
+        return 1
+    record["encdec_mesh"] = encdec_mesh
+
+    # ---------------------------------------------------------------- out
+    clock.lap(26)
     record["phase_s"] = clock.seconds
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1740,6 +1789,22 @@ def main() -> int:
                 "matmul", "matmul_by_position", "batched_by_position",
                 "positions")}
             for arch, rec in train_mesh["fp32"].items()},
+        # phase 26: seamless-m4t-medium's sharded bf16 training step on 8
+        # positions (per step), one fp32 gradient's at 2 + 2 layers, its
+        # sharded serves on 2 positions (each counted from 0 just before
+        # it) and the compressed steps' (3 steps, with their gradients)
+        "launches_encdec_mesh": {
+            "train_step": {k: encdec_mesh["bf16"]["launches_per_step"][k]
+                           for k in ("matmul", "matmul_by_position",
+                                     "positions")},
+            "fp32_gradient": {k: encdec_mesh["fp32"]["launches"][k]
+                              for k in ("matmul", "matmul_by_position")},
+            "serve_fp32": encdec_mesh["serve"]["fp32"]["launches"],
+            "serve_bf16": encdec_mesh["serve"]["bf16"]["launches"],
+            "compression": encdec_mesh["compression"]["launches"]},
+        # phase 26: the products of a position's 128,103-row vocab block
+        # (fp32 rows no tensor map loads: the copy loader), timed
+        "encdec_vocab_block": encdec_mesh["vocab_block"],
     }, {
         "name": "bitonic_sort", "route": "cuda",
         "design": f"block passes on tiles of "
@@ -1811,8 +1876,9 @@ def main() -> int:
         "launches_family_train_step": {
             arch: rec["profile"]["flash_calls"]
             for arch, rec in family_train["train"].items()},
-        # phase 24: the sharded Model.prefill of tinyllama-1.1b (CUT_LAYERS
-        # layers on each of 8 positions, bf16), counted from 0 just before
+        # phase 24: the sharded Model.prefill of a whole model's layers on
+        # each of 8 positions (bf16; none since phase 25 cut its depths),
+        # counted from 0 just before
         # it
         "launches_serve_mesh_prefill": {
             arch: {"forward": rec["prefill"]["flash_forward_calls"],
@@ -1826,6 +1892,15 @@ def main() -> int:
                 "flash_forward_by_position", "flash_backward_by_position",
                 "positions")}
             for arch, rec in train_mesh["bf16"].items()},
+        # phase 26: seamless-m4t-medium's sharded bf16 training step (per
+        # step) and its sharded fp32 prefill on 2 positions
+        "launches_encdec_mesh": {
+            "train_step": {k: encdec_mesh["bf16"]["launches_per_step"][k]
+                           for k in ("flash_forward", "flash_backward",
+                                     "flash_forward_by_position",
+                                     "flash_backward_by_position")},
+            "serve_prefill": encdec_mesh["serve"]["fp32"]["prefill"][
+                "flash_forward_calls"]},
         # phase 7 at hd 96 and 256 (bf16 tensor core, fp32 FMA):
         # phi3-mini's, gemma-2b's and recurrentgemma-2b's training shapes and ragged
         # ones, beside the plain version, SDPA and the bound
@@ -2725,7 +2800,8 @@ def train_matmuls(cfg, ops, ref, flush, label="backward", timed=True):
 
 
 def train_phase(cfg, fa, mm_launches, label="train", ckpt=True,
-                fixed_batch=True, tma_only=False, fixed_lr=1e-3):
+                fixed_batch=True, tma_only=False, fixed_lr=1e-3,
+                steps_n=TRAIN_STEPS, fixed_steps=None):
     """Runtime.train of the full-width model (random weights, bf16): every
     step finite, the kernels' launches per step (every flash call on the
     path its dtype and head dim name, on tensor maps; a decoder-only
@@ -2745,7 +2821,9 @@ def train_phase(cfg, fa, mm_launches, label="train", ckpt=True,
     split path copies (ROADMAP Queue 2).  Every step updates its state in
     place (``make_train_step(donate=True)``, the functional step's
     values), so no second copy of the parameters and moments is made.
-    None on a failure."""
+    Runtime.train takes ``steps_n`` steps (TRAIN_STEPS; phase 21
+    FAMILY_TRAIN_STEPS), the fixed batch ``fixed_steps`` (default as
+    many).  None on a failure."""
     import re
     import shutil
 
@@ -2767,7 +2845,7 @@ def train_phase(cfg, fa, mm_launches, label="train", ckpt=True,
     torch.cuda.reset_peak_memory_stats()
     mm_launches.reset()
     fa.LAUNCHES.reset()
-    res = rt.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+    res = rt.train(cfg, steps=steps_n, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                    seed=0, ckpt_dir=str(ckpt_dir) if ckpt else None,
                    ckpt_every=10 ** 6, log_every=1, log=lines.append,
                    on_plan=plans.append)
@@ -2793,7 +2871,7 @@ def train_phase(cfg, fa, mm_launches, label="train", ckpt=True,
     plan = plans[0]
     for line in plan.summary().splitlines():
         log(label, "plan " + line.strip())
-    per_step = {k: v // TRAIN_STEPS for k, v in counts.items()}
+    per_step = {k: v // steps_n for k, v in counts.items()}
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = [x["ms"] for x in steps[1:]]
     tok_s = tokens * len(steady) / (sum(steady) / 1e3) if steady else 0.0
@@ -2803,19 +2881,19 @@ def train_phase(cfg, fa, mm_launches, label="train", ckpt=True,
         f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: {res.steps_run} steps in "
         f"{res.wall_s:.2f} s, final loss {res.final_loss:.4f}, diverged "
         f"{res.diverged}; {tok_s:.1f} tokens/s over steps 1-"
-        f"{TRAIN_STEPS - 1}; peak memory {peak_gb:.2f} GB of "
+        f"{steps_n - 1}; peak memory {peak_gb:.2f} GB of "
         f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}; "
         f"checkpoint {saved}; launches per step {per_step}; flash calls by "
         f"direction, mode and path {run_modes}")
     # the flash calls a decoder-only model makes: each full-attention
     # layer's forward, again in its recomputation, and its backward
     n_attn = sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
-    ok = (res.steps_run == TRAIN_STEPS and not res.diverged
-          and math.isfinite(res.final_loss) and len(steps) == TRAIN_STEPS
+    ok = (res.steps_run == steps_n and not res.diverged
+          and math.isfinite(res.final_loss) and len(steps) == steps_n
           and all(math.isfinite(x["loss"]) for x in steps)
-          and saved == ([f"step_{TRAIN_STEPS:08d}"] if ckpt else [])
+          and saved == ([f"step_{steps_n:08d}"] if ckpt else [])
           and counts["matmul"] > 0
-          and all(v % TRAIN_STEPS == 0 for v in counts.values())
+          and all(v % steps_n == 0 for v in counts.values())
           and (cfg.is_encdec or (per_step["flash_forward"] == 2 * n_attn
                                  and per_step["flash_backward"] == n_attn)))
     if not ok:
@@ -2843,15 +2921,16 @@ def train_phase(cfg, fa, mm_launches, label="train", ckpt=True,
     t_after = time.perf_counter()
 
     model = build_model(cfg, "cuda")
+    fixed_steps = steps_n if fixed_steps is None else fixed_steps
     if fixed_batch:  # one fixed batch: the loss must fall
         del res
         torch.cuda.empty_cache()
         loop = TrainLoopConfig(optimizer=AdamWConfig(lr=fixed_lr),
-                               warmup_steps=1, total_steps=TRAIN_STEPS)
+                               warmup_steps=1, total_steps=fixed_steps)
         state = init_train_state(model, 1, loop)
-        n_timed = TRAIN_STEPS
+        n_timed = fixed_steps
     else:  # the trained state, profiled as it is
-        loop = TrainLoopConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+        loop = TrainLoopConfig(warmup_steps=1, total_steps=steps_n)
         state = res.state
         del res
         n_timed = 0
@@ -2886,11 +2965,11 @@ def train_phase(cfg, fa, mm_launches, label="train", ckpt=True,
     wall = walls[-1] if walls else steady[-1]
     if fixed_batch:
         log(label, f"fixed batch, lr {fixed_lr:g}: losses {losses}, after "
-            f"{TRAIN_STEPS} steps {end_loss:.4f} (must be below "
+            f"{fixed_steps} steps {end_loss:.4f} (must be below "
             f"{losses[0]:.4f}); step walls {[round(w, 1) for w in walls]} ms")
     else:
         log(label, f"the profiled step is the trained state's fifth; its "
-            f"wall is taken as Runtime.train's step {TRAIN_STEPS - 1}'s, "
+            f"wall is taken as Runtime.train's step {steps_n - 1}'s, "
             f"{wall:.1f} ms")
     log(label, f"profiled step's flash calls by direction, mode and path: "
         f"{modes}")
@@ -5695,21 +5774,26 @@ def encdec_phase(mm, fa, ops, ref, flush, card):
 # ---------------------------------------------------------------------------
 
 
-def max_abs_diff(a, b, block: int = 1 << 21) -> tuple:
-    """(max |a - b|, max |b|) of two CPU tensors of one shape, a block of
-    rows at a time: the difference of a whole (152064, 8192) fp32 gradient
-    would be 5 GB more to allocate and fault in, and a block under the C
-    allocator's 32 MB mmap threshold is reused from its heap."""
-    if a.dim() == 0:
-        return (a - b).abs().item(), b.abs().item()
+def max_abs_diff(a, b, block: int = 1 << 24) -> tuple:
+    """(max |a - b|, max |b|) of a card tensor ``a`` and a CPU tensor
+    ``b`` of one shape, ``b`` brought to the card a block of rows at a
+    time and the difference taken there: the card's gradient never
+    crosses to the host (since phase 26: on a card's host the copy and the
+    comparison of qwen2-vl's 13.5 GB of fp32 gradients at one layer took
+    longer than the two gradients), and the host holds no whole
+    difference."""
+    b_card = b.to(a.device) if a.dim() == 0 else None
+    if b_card is not None:
+        return (a - b_card).abs().item(), b_card.abs().item()
     rows = max(1, block * a.shape[0] // max(a.numel(), 1))
-    err = top = 0.0
+    err = top = None
     for r in range(0, a.shape[0], rows):
-        x, y = a[r:r + rows], b[r:r + rows]
-        err = max(err, (x - y).abs_().max().item())
-        lo, hi = torch.aminmax(y)
-        top = max(top, -lo.item(), hi.item())
-    return err, top
+        y = b[r:r + rows].to(a.device)
+        e = (a[r:r + rows] - y).abs_().max()
+        t = y.abs().max()
+        err = e if err is None else torch.maximum(err, e)
+        top = t if top is None else torch.maximum(top, t)
+    return err.item(), top.item()
 
 
 def family_train_parity(arch, card, window=None, seq=FAMILY_TRAIN_CPU_SEQ):
@@ -5717,10 +5801,11 @@ def family_train_parity(arch, card, window=None, seq=FAMILY_TRAIN_CPU_SEQ):
     (recurrentgemma one period; FAMILY_TRAIN_CPU_LAYERS),
     batch 2 x ``seq``
     from one seed: on the card, one gradient of the initial parameters
-    (make_grad_fn), then one make_train_step from them (its loss; the
-    update written in place, so that the state fits a card once); then on
-    the CPU one gradient (make_grad_fn without the recomputation, which
-    gives the same values), each held against the card's (max_abs_diff).
+    and its loss (make_grad_fn; since phase 26 no train step follows it,
+    for the script's time limit: phases 25 and 26 hold fp32 steps on the
+    card, and Runtime.train this phase's bf16 ones); then on the CPU one
+    gradient (make_grad_fn without the recomputation, which gives the
+    same values), each held against the card's (max_abs_diff).
     Gates: the loss within 1e-4 relative, every parameter's gradient
     present and within 2e-3 x its max|grad|, and for a mixture of experts
     the experts the router selected in the first forward of each, token by
@@ -5728,8 +5813,7 @@ def family_train_parity(arch, card, window=None, seq=FAMILY_TRAIN_CPU_SEQ):
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData
     from repro_torch.models import build_model, ffn
-    from repro_torch.training import (TrainLoopConfig, init_train_state,
-                                      make_grad_fn, make_train_step)
+    from repro_torch.training import make_grad_fn
     from repro_torch.tree import leaves_with_paths, tree_map
 
     cfg = get_config(arch)
@@ -5737,7 +5821,6 @@ def family_train_parity(arch, card, window=None, seq=FAMILY_TRAIN_CPU_SEQ):
     cfg = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
     if window is not None:
         cfg = dataclasses.replace(cfg, window_size=window)
-    loop = TrainLoopConfig(warmup_steps=1, total_steps=4)
     batch = SyntheticLMData(cfg, seq_len=seq, global_batch=2,
                             seed=0).batch_at(0)
     routes, sink = {"cuda": [], "cpu": []}, None
@@ -5753,18 +5836,17 @@ def family_train_parity(arch, card, window=None, seq=FAMILY_TRAIN_CPU_SEQ):
     try:
         t0 = time.perf_counter()
         model = build_model(cfg, "cuda")
-        state = init_train_state(model, 0, loop)
-        p_cpu = tree_map(lambda t: t.cpu(), state["params"])
+        params = model.init(0)
+        p_cpu = tree_map(lambda t: t.cpu(), params)
         feed = {k: v.cuda() for k, v in batch.items()}
         sink = routes["cuda"]
-        _, _, grads = make_grad_fn(model)(state["params"], feed)
+        card_loss, _, grads = make_grad_fn(model)(params, feed)
         sink = None
-        card_grads = {p: g.cpu() for p, g in leaves_with_paths(grads)}
+        card_loss = float(card_loss)
+        card_grads = dict(leaves_with_paths(grads))
         del grads
-        _, metrics = make_train_step(model, loop, donate=True)(state, feed)
-        card_loss = float(metrics["loss"])
         card_s = time.perf_counter() - t0
-        del state, metrics, model, feed
+        del params, model, feed
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         sink = routes["cpu"]
@@ -5857,8 +5939,8 @@ def family_train_phase(mm, fa, ops, ref, card):
     """Phase 21: the seven configurations that train on the card from this
     slice on.  For each, in FAMILY_TRAIN's order, built and freed before
     the next: card against CPU in fp32 (family_train_parity;
-    recurrentgemma twice, its window cut to RING_WINDOW: at 2 x 4
-    RING_WINDOW through local_attention and at 2 x 2 RING_WINDOW through
+    recurrentgemma twice, its window cut to FAMILY_RING_WINDOW: at 2 x 4
+    FAMILY_RING_WINDOW through local_attention and at 2 x 2 of it through
     the masked dense form); every distinct matmul call of one bf16 gradient at 2 x
     2048 and one period of layers, held against the plain version
     (train_matmuls: recurrentgemma's windowed 4-D products and their
@@ -5892,8 +5974,8 @@ def family_train_phase(mm, fa, ops, ref, card):
         cases = {arch: (None, FAMILY_TRAIN_CPU_SEQ)}
         if arch == "recurrentgemma-2b":
             # local_attention takes a sequence longer than 2 windows
-            cases = {arch: (RING_WINDOW, 4 * RING_WINDOW),
-                     arch + " dense": (RING_WINDOW, 2 * RING_WINDOW)}
+            w = FAMILY_RING_WINDOW
+            cases = {arch: (w, 4 * w), arch + " dense": (w, 2 * w)}
         for name, (w, seq) in cases.items():
             out["card_vs_cpu"][name], f = family_train_parity(
                 arch, card, window=w, seq=seq)
@@ -5910,7 +5992,9 @@ def family_train_phase(mm, fa, ops, ref, card):
         torch.cuda.empty_cache()
         rec = train_phase(cfg, fa, mm.LAUNCHES, label="family-train",
                           ckpt=False, fixed_batch=depth is None,
-                          tma_only=True, fixed_lr=FAMILY_TRAIN_FIXED_LR)
+                          tma_only=True, fixed_lr=FAMILY_TRAIN_FIXED_LR,
+                          steps_n=FAMILY_TRAIN_STEPS,
+                          fixed_steps=FAMILY_FIXED_STEPS)
         out["train"][arch] = rec
         if rec is None:
             fails.append(f"{arch}: Runtime.train, the profiled step or the "
@@ -6656,19 +6740,25 @@ SERVE_MESH = {"data": 1, "model": 8}
 SERVE_MESH_KW = dict(mesh_shape=SERVE_MESH, shard_params="shard",
                      shards_per_device=8)
 # fp32 at cut depth, full width: (arch, layers); recurrentgemma keeps one
-# period (rglru, rglru, local), so its windowed attention runs too
-SERVE_MESH_FP32 = (("tinyllama-1.1b", 2), ("mistral-nemo-12b", 2),
-                   ("rwkv6-3b", 2), ("recurrentgemma-2b", 3))
+# period (rglru, rglru, local), so its windowed attention runs too; the
+# other three at 1 layer since phase 26 (2 before), for the script's time
+# limit
+SERVE_MESH_FP32 = (("tinyllama-1.1b", 1), ("mistral-nemo-12b", 1),
+                   ("rwkv6-3b", 1), ("recurrentgemma-2b", 3))
 # the fp32 trace: requests, prompt tokens, new tokens, slots (turnover);
-# its serves run without the engine's warmup (nothing of them is timed)
-SERVE_MESH_FP32_TRACE = (4, 8, 4, 2)
+# its serves run without the engine's warmup (nothing of them is timed);
+# 2 new tokens a request since phase 26 (4 before), for the script's time
+# limit
+SERVE_MESH_FP32_TRACE = (4, 8, 2, 2)
 # bf16 at full width: (arch, layers, a paged run too, a second sharded
 # run whose tokens must be the first's); tinyllama at CUT_LAYERS of its 22
 # and mistral-nemo at CUT_LAYERS of its 40 (its 8 kv heads still one a
 # position) since phase 25, for the script's time limit (whole and at 8,
-# their checks took 62.7 and 21.3 s of the phase's 112.3 on an H100)
-SERVE_MESH_BF16 = (("tinyllama-1.1b", CUT_LAYERS, True, False),
-                   ("mistral-nemo-12b", CUT_LAYERS, False, True))
+# their checks took 62.7 and 21.3 s of the phase's 112.3 on an H100); at
+# SERVE_MESH_BF16_LAYERS since phase 26 (13.3 and 11.8 s at CUT_LAYERS)
+SERVE_MESH_BF16_LAYERS = 1
+SERVE_MESH_BF16 = (("tinyllama-1.1b", SERVE_MESH_BF16_LAYERS, True, False),
+                   ("mistral-nemo-12b", SERVE_MESH_BF16_LAYERS, False, True))
 # the paged run's shared prefix: 2.5 pages of PAGE, so a partial tail page
 # is copied on write
 SERVE_MESH_PREFIX = 40
@@ -7183,8 +7273,9 @@ def serve_mesh_phase(card):
     SERVE_MESH_FP32 in fp32 at full width and cut depth (serve_mesh_fp32:
     card sharded, card unsharded and CPU mesh tokens equal, logits within
     LOGIT_TOL), then SERVE_MESH_BF16 (serve_mesh_bf16: tinyllama-1.1b
-    at CUT_LAYERS, dense and paged with the prefix cache, mistral-nemo-12b
-    at CUT_LAYERS of 40 layers, whose 8 kv heads split one a position: near ties only,
+    at SERVE_MESH_BF16_LAYERS, dense and paged with the prefix cache,
+    mistral-nemo-12b at SERVE_MESH_BF16_LAYERS of 40 layers, whose 8 kv
+    heads split one a position: near ties only,
     repeatable tokens, the first step's logits, flash in the sharded
     prefill, launches on every position, no library GEMM, the serve_shard
     ledger).  None on any failure."""
@@ -7270,9 +7361,15 @@ def train_mesh_ctx(shape, cf=1.25, engine=None, plan=None):
 
 
 def train_mesh_batch(cfg, b, s, seed):
+    """Tokens (b, s) from ``seed``; an encoder-decoder's frames (b, s, d)
+    too, N(0, 1) x 0.1 as the data pipeline makes them."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                                    device="cuda")}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device="cuda")}
+    if cfg.is_encdec:
+        batch["frames"] = 0.1 * torch.randn((b, s, cfg.d_model),
+                                            generator=gen, device="cuda")
+    return batch
 
 
 def placed_state(ctx, model, state):
@@ -7493,6 +7590,8 @@ def train_mesh_fp32(arch, shape, cfs, card, mm, fa) -> tuple:
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(arch), dtype="float32",
                               n_layers=TRAIN_MESH_FP32_LAYERS)
+    if cfg.is_encdec:
+        cfg = dataclasses.replace(cfg, encoder_layers=TRAIN_MESH_FP32_LAYERS)
     model = build_model(cfg, "cuda")
     loop = TrainLoopConfig(optimizer=AdamWConfig(lr=TRAIN_MESH_LR,
                                                  eps=TRAIN_MESH_EPS),
@@ -7571,7 +7670,9 @@ def train_mesh_fp32(arch, shape, cfs, card, mm, fa) -> tuple:
                            if e.site == "moe_dispatch"]
     rec["wall_s"] = time.perf_counter() - t0
     lr = rec["launches"]
-    log("train-mesh", f"{arch} full width, {cfg.n_layers} layers, fp32, "
+    depth = (f"{cfg.encoder_layers} + {cfg.n_layers}" if cfg.is_encdec
+             else cfg.n_layers)
+    log("train-mesh", f"{arch} full width, {depth} layers, fp32, "
         f"batch {TRAIN_MESH_FP32_BATCH}, mesh {shape} on 8 positions: loss "
         f"sharded {rec['loss']['sharded']:.6f}, unsharded "
         f"{rec['loss']['unsharded']:.6f} (rel {rec['loss']['rel']:.2e}); "
@@ -7589,7 +7690,8 @@ def train_mesh_fp32(arch, shape, cfs, card, mm, fa) -> tuple:
     return rec, fails
 
 
-def train_mesh_bf16(arch, depth, shape, card, mm, fa) -> tuple:
+def train_mesh_bf16(arch, depth, shape, card, mm, fa, checks=None,
+                    seeds=TRAIN_MESH_LOSS_SEEDS) -> tuple:
     """bf16 at full width: TRAIN_MESH_STEPS steps on one fixed batch of
     TRAIN_MESH_BATCH, unsharded and on ``shape``'s 8 positions, the state
     made afresh from seed 0 for each (one state on the card at a time).
@@ -7604,7 +7706,10 @@ def train_mesh_bf16(arch, depth, shape, card, mm, fa) -> tuple:
     attention in a profiled sharded step.  Printed: the first loss three
     ways on each batch of TRAIN_MESH_LOSS_SEEDS; step wall, tokens/s,
     host ms, device ms, peak memory, collective calls and FSDP-gathered
-    bytes a step, both ways."""
+    bytes a step, both ways.  ``checks``: the StepChecks to hold the
+    first sharded step in (a fresh one by default), for the caller to read
+    its signatures after; ``seeds``: the batches of the first-loss gate,
+    the first the fixed batch the steps take."""
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.core.costs.engine import CostEngine
     from repro_torch.core.planner import plan_model
@@ -7625,10 +7730,14 @@ def train_mesh_bf16(arch, depth, shape, card, mm, fa) -> tuple:
     fails, rec = [], {"layers": cfg.n_layers, "of": full.n_layers,
                       "mesh": shape}
     model = build_model(cfg, "cuda")
-    batches = [train_mesh_batch(cfg, b, s, seed=sd)
-               for sd in TRAIN_MESH_LOSS_SEEDS]
+    batches = [train_mesh_batch(cfg, b, s, seed=sd) for sd in seeds]
     batch = batches[0]
     state = init_train_state(model, 0, loop)
+    # the fixed batch's bf16 first losses are the steps' first losses (the
+    # same forward, the same bits) where the step's loss is the gate's
+    # function: for all but a mixture of experts, whose gate runs at
+    # TRAIN_MESH_GATE_CF
+    reuse = 0 if cfg.is_moe else 1
     with torch.no_grad():  # the first losses: fp32 and unsharded bf16
         model32 = build_model(dataclasses.replace(cfg, dtype="float32"),
                               "cuda")
@@ -7637,8 +7746,8 @@ def train_mesh_bf16(arch, depth, shape, card, mm, fa) -> tuple:
                     for bt in batches]
         del p32, model32
         losses_bf = [float(model.loss(state["params"], bt, remat=False)[0])
-                     for bt in batches]
-    loss32, loss_bf = losses32[0], losses_bf[0]
+                     for bt in batches[reuse:]]
+    loss32 = losses32[0]
 
     def run(step, st, feed, label, ctx=None, counted=None, checks=None):
         """TRAIN_MESH_STEPS steps on ``feed``, the first inside ``checks``
@@ -7688,6 +7797,8 @@ def train_mesh_bf16(arch, depth, shape, card, mm, fa) -> tuple:
 
     st, rec["unsharded"] = run(make_train_step(model, loop, donate=True),
                                state, batch, "unsharded")
+    losses_bf = rec["unsharded"]["losses"][:reuse] + losses_bf
+    loss_bf = losses_bf[0]
     del st, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -7711,10 +7822,11 @@ def train_mesh_bf16(arch, depth, shape, card, mm, fa) -> tuple:
     with torch.no_grad():
         params = [p["params"] for p in placed]
         losses_sh = [float(model.loss(params, placed_batch(ctx, bt),
-                                      gate_ctx)[0][0]) for bt in batches]
+                                      gate_ctx)[0][0])
+                     for bt in batches[reuse:]]
         del params
     step = make_train_step(model, loop, ctx=ctx, donate=True)
-    checks = StepChecks(ops, fa, ref)
+    checks = StepChecks(ops, fa, ref) if checks is None else checks
     mm.LAUNCHES.reset()
     fa.LAUNCHES.reset()
     col0, gb0 = ctx.mesh.collectives, ctx.mesh.gathered_bytes
@@ -7766,6 +7878,7 @@ def train_mesh_bf16(arch, depth, shape, card, mm, fa) -> tuple:
             fails.append(f"{arch} bf16: library work in the {which} step: "
                          f"{pr}")
     sh, un = rec["sharded"]["losses"], rec["unsharded"]["losses"]
+    losses_sh = sh[:reuse] + losses_sh
     err_sh, err_un = abs(losses_sh[0] - loss32), abs(loss_bf - loss32)
     gate_cf = gate_ctx.moe_capacity_factor if cfg.is_moe else None
     rec["first_loss"] = dict(fp32=losses32, unsharded=losses_bf,
@@ -7778,7 +7891,7 @@ def train_mesh_bf16(arch, depth, shape, card, mm, fa) -> tuple:
                      f"unsharded {loss_bf} {err_un:.3e} (slack "
                      f"{TRAIN_MESH_TOL} x |loss|)")
     log("train-mesh", f"{arch} bf16 first losses by batch (seeds "
-        f"{list(TRAIN_MESH_LOSS_SEEDS)}): fp32 {losses32}, unsharded "
+        f"{list(seeds)}): fp32 {losses32}, unsharded "
         f"{losses_bf}, sharded (cf {gate_cf}) {losses_sh}; "
         f"|unsharded - fp32| "
         f"{[f'{abs(u - f):.2e}' for u, f in zip(losses_bf, losses32)]}, "
@@ -7975,6 +8088,465 @@ def train_mesh_phase(card):
         f"failures ({card})")
     return None if fails else out
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: the encoder-decoder and gradient compression on eight positions
+# ---------------------------------------------------------------------------
+
+# seamless-m4t-medium trains on TRAIN_MESH_DP (fp32 at
+# TRAIN_MESH_FP32_LAYERS + TRAIN_MESH_FP32_LAYERS layers, bf16 whole) and
+# serves on 2 positions of the card: at full width the model axis divides
+# its vocabulary (256,206 = 2 x 128,103) only at 2
+ENCDEC_SERVE_MESH = {"data": 1, "model": 2}
+ENCDEC_SERVE_KW = dict(mesh_shape=ENCDEC_SERVE_MESH, shard_params="shard",
+                       shards_per_device=2)
+# the bf16 first-loss gate on the fixed batch alone (phase 25 reads three)
+ENCDEC_MESH_LOSS_SEEDS = TRAIN_MESH_LOSS_SEEDS[:1]
+# the bf16 serve: phase 5's trace cut to this many new tokens
+ENCDEC_SERVE_NEW = 8
+# a position's vocab block at model 2: its fp32 logits rows are 512,412
+# bytes and its bf16 hi/lo halves' 256,206, neither a multiple of 16, so
+# no tensor map loads them and the split path copies them (copy_tile)
+ENCDEC_VOCAB_BLOCK = 128103
+# compression: tinyllama-1.1b at TRAIN_MESH_FP32_LAYERS layers, fp32, on
+# TRAIN_MESH_DP, keep_frac COMPRESS_KEEP, COMPRESS_STEPS steps
+COMPRESS_KEEP = 0.1
+COMPRESS_STEPS = 3
+
+
+def vocab_block_products(checks, rows, ops, ref, flush) -> list:
+    """Every matmul signature of a held step (``checks``) with a dimension
+    of ``rows``, made again from random tensors of its shapes, strides and
+    dtypes: the kernel's ms (cold L2, CUDA events), the operands it copied
+    (no tensor map), its plain version's and ``torch.matmul``'s ms in fp32,
+    and the bound."""
+    from repro_torch.kernels import matmul as mm
+
+    out = []
+    for key, rec in checks.matmuls.items():
+        a_shape, a_stride, a_dtype, b_shape, b_stride, b_dtype, bias, act, \
+            out_dtype = key
+        if rows not in a_shape + b_shape or bias or act:
+            continue
+        a = torch.empty_strided(a_shape, a_stride, dtype=a_dtype,
+                                device="cuda").normal_()
+        b = torch.empty_strided(b_shape, b_stride, dtype=b_dtype,
+                                device="cuda").normal_()
+        mm.LAUNCHES.reset()
+        ops._matmul(a, b, None, None, out_dtype)
+        torch.cuda.synchronize()
+        copied, by_path = mm.LAUNCHES.copied_operands, dict(
+            mm.LAUNCHES.by_path)
+        ms = cuda_ms(lambda: ops._matmul(a, b, None, None, out_dtype), flush,
+                     reps=3, warm=1)
+        plain_ms = cuda_ms(lambda: ref.matmul_fused_ref(
+            a, b, out_dtype=out_dtype), flush, reps=3, warm=1)
+        lib_ms = cuda_ms(lambda: torch.matmul(a.float(), b.float()), flush,
+                         reps=3, warm=1)
+        t_ops, t_bytes = bound_terms(a, b, out_dtype)
+        out.append(dict(call=rec["call"], ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=max(t_ops, t_bytes),
+                        bound_by="operations" if t_ops >= t_bytes
+                        else "bytes",
+                        tflops=rates(a, b, out_dtype, ms)[0],
+                        copied_operands=copied,
+                        path=[p for p, n in by_path.items() if n]))
+        del a, b
+        torch.cuda.empty_cache()
+    return out
+
+
+def encdec_serve_mesh(card, mm, fa) -> tuple:
+    """seamless-m4t-medium whole, served on ENCDEC_SERVE_MESH (2 positions
+    of GPU 0, forced shard).  fp32, on SERVE_MESH_FP32_TRACE's trace: the
+    sharded continuous tokens equal the unsharded card's static and
+    continuous ones; the sharded Model.prefill (the encoder over the
+    prompts' frames and a cross term that is not zero) within LOGIT_TOL x
+    max|logit| of the unsharded card's, its flash calls every layer's on
+    both positions.  bf16, on phase 5's trace: the first
+    decode step after a batched prefill and the prefill, sharded, no
+    further from the fp32 computation than the unsharded are plus
+    LOGIT_TOL; the served tokens (ENCDEC_SERVE_NEW a request) equal the
+    unsharded engine's up to a near tie; matmul launches on both
+    positions; the serve_shard ledger's predicted and measured rows (its
+    KV bytes with the cross caches) and the auto verdict on one card,
+    replicate."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Runtime, synthetic_trace
+    from repro_torch.training.step import make_batched_prefill
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    fails, rec = [], {"mesh": ENCDEC_SERVE_MESH}
+    full = get_config(ENCDEC)
+    cfg32 = dataclasses.replace(full, dtype="float32")
+    rt = Runtime(device="cuda")
+    model32 = build_model(cfg32, "cuda")
+    model = build_model(full, "cuda")
+    params = model.init(0)
+    params32 = tree_map(lambda t: t.float(), params)
+    # --- fp32: tokens static, continuous, sharded
+    n, plen, new, slots = SERVE_MESH_FP32_TRACE
+    trace = lambda: synthetic_trace(  # noqa: E731
+        n, prompt_len=plen, max_new=new, vocab_size=full.vocab_size,
+        arrival="all", seed=0)
+    common = dict(model=model32, params=params32, eos_id=-1, warmup=False)
+    static = rt.serve(cfg32, trace(), mode="static", **common)
+    cont = rt.serve(cfg32, trace(), slots=slots, **common)
+    mm.LAUNCHES.reset()
+    sharded = rt.serve(cfg32, trace(), slots=slots, **common,
+                       **ENCDEC_SERVE_KW)
+    torch.cuda.synchronize()
+    engine32 = sharded.engine
+    streams = [s.cuda_stream for s in engine32.mesh.streams]
+    by_pos = [mm.LAUNCHES.by_stream.get(s, 0) for s in streams]
+    toks = {k: np.stack([r.outputs[f"r{i}"][:new] for i in range(n)])
+            for k, r in (("static", static), ("continuous", cont))}
+    toks["sharded"] = rows_of(sharded.report, n, new)
+    equal = all(np.array_equal(toks["static"], t) for t in toks.values())
+    rec["fp32"] = dict(tokens_equal=equal, launches=mm.LAUNCHES.count,
+                       launches_by_position=by_pos,
+                       collective_ops=sharded.report.collective_ops,
+                       tp=engine32.tp)
+    if not equal or engine32.tp != 2 or min(by_pos) <= 0 or \
+            sharded.report.collective_ops <= 0:
+        fails.append(f"encdec serve fp32: tokens equal {equal} ({toks}), tp "
+                     f"{engine32.tp}, launches by position {by_pos}, "
+                     f"collectives {sharded.report.collective_ops}")
+    ctx32 = engine32._ctx
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompts = torch.as_tensor(np.stack([r.prompt for r in synthetic_trace(
+        REQUESTS, prompt_len=PROMPT, max_new=ENCDEC_SERVE_NEW,
+        vocab_size=full.vocab_size, arrival="all", seed=0)[:SLOTS]]),
+        dtype=torch.int64, device="cuda")
+    pbatch = {"tokens": prompts, "frames": 0.1 * torch.randn(
+        (SLOTS, PROMPT, full.d_model), generator=gen, device="cuda")}
+    fa.LAUNCHES.reset()
+    pre32_tp = take_logits(model32.prefill(engine32.params, pbatch, ctx32),
+                           ctx32)
+    torch.cuda.synchronize()
+    flash_calls = fa.LAUNCHES.forward
+    flash_by_pos = [fa.LAUNCHES.by_stream.get(("forward", s), 0)
+                    for s in streams]
+    pre32 = model32.prefill(params32, pbatch)
+    rec["fp32"]["prefill"] = dict(
+        sharded_vs_unsharded=rel_err(pre32_tp, pre32),
+        flash_forward_calls=flash_calls, by_position=flash_by_pos)
+    want_calls = 2 * (full.encoder_layers + 2 * full.n_layers)
+    if not rel_err(pre32_tp, pre32) <= LOGIT_TOL or \
+            flash_calls != want_calls or len(set(flash_by_pos)) != 1:
+        fails.append(f"encdec fp32 sharded prefill: {rec['fp32']['prefill']}"
+                     f" (limit {LOGIT_TOL}, {want_calls} flash calls)")
+    log("encdec-mesh", f"{ENCDEC} whole ({full.encoder_layers} + "
+        f"{full.n_layers} layers), fp32, {n} requests x {plen}+{new} tokens "
+        f"on {slots} slots: sharded on {ENCDEC_SERVE_MESH} (2 positions) "
+        f"tokens equal to the unsharded static and continuous serves "
+        f"{equal}; matmul launches {mm.LAUNCHES.count} ({by_pos} by "
+        f"position); collective calls {sharded.report.collective_ops}; the "
+        f"sharded prefill ({SLOTS} x {PROMPT} tokens and frames) "
+        f"{rel_err(pre32_tp, pre32):.3e} x max|logit| from the unsharded "
+        f"(limit {LOGIT_TOL}), {flash_calls} flash forward calls "
+        f"({flash_by_pos} by position) ({card})")
+    del static, cont, sharded, engine32, ctx32
+    # --- bf16: the served tokens, the first step after a prefill, prefill
+    trace16 = lambda: synthetic_trace(  # noqa: E731
+        REQUESTS, prompt_len=PROMPT, max_new=ENCDEC_SERVE_NEW,
+        vocab_size=full.vocab_size, arrival="all", seed=0)
+    common = dict(model=model, params=params, slots=SLOTS, eos_id=-1)
+    plain = rt.serve(full, trace16(), **common)
+    mm.LAUNCHES.reset()
+    first = rt.serve(full, trace16(), **common, **ENCDEC_SERVE_KW)
+    torch.cuda.synchronize()
+    engine = first.engine
+    by_pos = [mm.LAUNCHES.by_stream.get(s.cuda_stream, 0)
+              for s in engine.mesh.streams]
+    a = rows_of(plain.report, REQUESTS, ENCDEC_SERVE_NEW)
+    b = rows_of(first.report, REQUESTS, ENCDEC_SERVE_NEW)
+    rec["bf16"] = dict(tok_per_s=dict(unsharded=plain.tok_per_s,
+                                      sharded=first.tok_per_s),
+                       launches=mm.LAUNCHES.count,
+                       launches_by_position=by_pos,
+                       collective_ops=first.report.collective_ops)
+    if min(by_pos) <= 0 or len(set(by_pos)) != 1 or engine.tp != 2:
+        fails.append(f"encdec bf16 serve: tp {engine.tp}, launches by "
+                     f"position {by_pos}")
+    ctx = engine._ctx
+    ledger = [e for e in rt.ledger.entries if e.site == "serve_shard"]
+    measured = [e for e in ledger if e.measured_s is not None]
+    auto_tp, auto = engine.scheduler.serve_shard(
+        SLOTS, tp=2, devices=engine.mesh.distinct_devices("model"))
+    kv = ledger[-1].query.get("kv_bytes_per_slot")
+    rec["serve_shard"] = dict(
+        forced=ledger[-1].choice, predicted_s=ledger[-1].predicted_s,
+        measured_s=[e.measured_s for e in measured], auto=auto.choice,
+        kv_bytes_per_slot=kv,
+        self_attention_kv_bytes=engine.scheduler.kv_bytes_per_slot)
+    if not measured or len(measured) == len(ledger) or \
+            auto.choice != "replicate" or \
+            not kv > engine.scheduler.kv_bytes_per_slot:
+        fails.append(f"encdec serve_shard: {len(ledger)} rows, "
+                     f"{len(measured)} measured; auto {auto.choice}; KV "
+                     f"bytes a slot priced {kv} (self-attention alone "
+                     f"{engine.scheduler.kv_bytes_per_slot})")
+    max_len = PROMPT + ENCDEC_SERVE_NEW
+    lengths = torch.full((SLOTS,), PROMPT, dtype=torch.int64, device="cuda")
+    tok, st = make_batched_prefill(model)(
+        params, model.init_decode_state(SLOTS, max_len, per_slot=True),
+        prompts[None], lengths)
+    tok_tp, st_tp = make_batched_prefill(model, ctx=ctx)(
+        engine.params, mesh_state(model, engine, SLOTS, max_len),
+        prompts[None], lengths)
+    _, st32 = make_batched_prefill(model32)(
+        params32, model32.init_decode_state(SLOTS, max_len, per_slot=True),
+        prompts[None], lengths)
+    feed = tok[:, None]
+    lg = tp_step_logits(model, params, st, feed)[0]
+    lg_tp = tp_step_logits(model, engine.params, st_tp, feed, ctx)[0]
+    lg32 = tp_step_logits(model32, params32, st32, feed)[0]
+    step = dict(unsharded_vs_fp32=rel_err(lg, lg32),
+                sharded_vs_fp32=rel_err(lg_tp, lg32),
+                sharded_vs_unsharded=rel_err(lg_tp, lg),
+                first_tokens_equal=bool(torch.equal(tok.cpu(),
+                                                    tok_tp.cpu())))
+    pre = model.prefill(params, pbatch)
+    pre_tp = take_logits(model.prefill(engine.params, pbatch, ctx), ctx)
+    prefill = dict(unsharded_vs_fp32=rel_err(pre, pre32),
+                   sharded_vs_fp32=rel_err(pre_tp, pre32),
+                   sharded_vs_unsharded=rel_err(pre_tp, pre))
+    rec["bf16"].update(first_step=step, prefill=prefill)
+    for name, e in (("first decode step", step), ("prefill", prefill)):
+        if not e["sharded_vs_fp32"] <= e["unsharded_vs_fp32"] + LOGIT_TOL:
+            fails.append(f"encdec bf16 sharded {name}: {e} (limit the "
+                         f"unsharded + {LOGIT_TOL})")
+    rel_limit = 2 * (step["unsharded_vs_fp32"] + LOGIT_TOL)
+    all_prompts = torch.as_tensor(np.stack([r.prompt for r in trace16()]),
+                                  dtype=torch.int64, device="cuda")
+    logits = forced_logits(model, params, all_prompts, a)
+    equal, diffs, f = near_tie_check(logits, a, b, rel_limit)
+    del logits
+    fails += [f"encdec bf16 serve: {x}" for x in f]
+    rec["bf16"].update(equal_tokens=equal, near_ties=diffs)
+    log("encdec-mesh", f"{ENCDEC} whole, bf16, {REQUESTS} requests x "
+        f"{PROMPT}+{ENCDEC_SERVE_NEW} tokens, {SLOTS} slots: unsharded "
+        f"{plain.tok_per_s:.2f} tok/s, sharded on 2 positions "
+        f"{first.tok_per_s:.2f} tok/s; equal tokens {equal} of "
+        f"{REQUESTS * ENCDEC_SERVE_NEW} (differences at near ties only: "
+        f"{[(d['request'], d['step']) for d in diffs]}); matmul launches "
+        f"{rec['bf16']['launches']} "
+        f"({by_pos} by position), collective calls "
+        f"{first.report.collective_ops}; x max|logit| against fp32, the "
+        f"first decode step unsharded {step['unsharded_vs_fp32']:.3e}, "
+        f"sharded {step['sharded_vs_fp32']:.3e}, the prefill unsharded "
+        f"{prefill['unsharded_vs_fp32']:.3e}, sharded "
+        f"{prefill['sharded_vs_fp32']:.3e} (limit the unsharded + "
+        f"{LOGIT_TOL}); serve_shard forced {ledger[-1].choice} (predicted "
+        f"{ledger[-1].predicted_s:.3e} s a step, measured "
+        + ", ".join(f"{e.measured_s:.3e}" for e in measured)
+        + f"), KV bytes a slot priced {kv} (the self-attention caches "
+        f"{engine.scheduler.kv_bytes_per_slot}), auto at {SLOTS} slots "
+        f"{auto.choice} (tp {auto_tp}) ({card})")
+    rec["wall_s"] = time.perf_counter() - t0
+    del plain, first, engine, params, params32, model, model32, st, st_tp
+    del st32
+    return rec, fails
+
+
+def compress_mesh(card, mm) -> tuple:
+    """Gradient compression on TRAIN_MESH_DP: tinyllama-1.1b at
+    TRAIN_MESH_FP32_LAYERS layers, full width, fp32, COMPRESS_STEPS steps
+    of make_train_step(ctx=) with compression on a batch of
+    TRAIN_MESH_FP32_BATCH.  Before each step the sharded gradient of that
+    step's state is compressed on the mesh (compress_gradients_mesh, the
+    residual carried); joined back, it equals bit for bit the
+    single-device compress_gradients of the joined gradient with its own
+    residual carried, and so does the residual; the step's new residual
+    equals the mesh compression's (the step ran it on the same gradient);
+    wire_bytes_ratio equals the single-device one's; the loss is the
+    unsharded compressed run's within TRAIN_MESH_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import unplace_tree
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import (compress_gradients,
+                                               compress_gradients_mesh)
+    from repro_torch.training import (TrainLoopConfig, init_train_state,
+                                      make_grad_fn, make_train_step)
+    from repro_torch.tree import leaves_with_paths
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), dtype="float32",
+                              n_layers=TRAIN_MESH_FP32_LAYERS)
+    model = build_model(cfg, "cuda")
+    loop = TrainLoopConfig(optimizer=AdamWConfig(lr=TRAIN_MESH_LR,
+                                                 eps=TRAIN_MESH_EPS),
+                           warmup_steps=0, compression=True,
+                           compression_keep_frac=COMPRESS_KEEP)
+    ctx = train_mesh_ctx(TRAIN_MESH_DP)
+    batch = train_mesh_batch(cfg, *TRAIN_MESH_FP32_BATCH, seed=5)
+    placed, specs = placed_state(ctx, model, init_train_state(model, 0,
+                                                              loop))
+    pb = placed_batch(ctx, batch)
+    grad_fn = make_grad_fn(model, ctx=ctx)
+    step = make_train_step(model, loop, ctx=ctx, donate=True)
+    fails, rows, plain_res = [], [], None
+    col0 = ctx.mesh.collectives
+    mm.LAUNCHES.reset()
+    for i in range(COMPRESS_STEPS):
+        params = [p["params"] for p in placed]
+        res = [p["compress"] for p in placed]
+        _, _, grads = grad_fn(params, pb)
+        got, got_res, met = compress_gradients_mesh(
+            ctx, grads, res, specs["params"], keep_frac=COMPRESS_KEEP)
+        whole = unplace_tree(ctx.mesh, grads, specs["params"])
+        want, plain_res, want_met = compress_gradients(
+            whole, plain_res, keep_frac=COMPRESS_KEEP)
+        out = dict(leaves_with_paths(unplace_tree(ctx.mesh, got,
+                                                  specs["params"])))
+        out_res = dict(leaves_with_paths(unplace_tree(
+            ctx.mesh, [r.residual for r in got_res], specs["params"])))
+        differ = [p for p, w in leaves_with_paths(want)
+                  if not torch.equal(out[p], w)]
+        differ_res = [p for p, w in leaves_with_paths(plain_res.residual)
+                      if not torch.equal(out_res[p], w)]
+        kept = sum(int((w != 0).sum()) for _, w in leaves_with_paths(want))
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        placed, m = step(placed, pb)
+        torch.cuda.synchronize()
+        t_step = (time.perf_counter() - t_step) * 1e3
+        step_res = dict(leaves_with_paths(unplace_tree(
+            ctx.mesh, [p["compress"].residual for p in placed],
+            specs["params"])))
+        step_differ = [p for p, r in out_res.items()
+                       if not torch.equal(step_res[p], r)]
+        row = dict(loss=float(m[0]["loss"]), step_ms=t_step,
+                   ratio=m[0]["wire_bytes_ratio"],
+                   plain_ratio=want_met["wire_bytes_ratio"],
+                   mesh_ratio=met[0]["wire_bytes_ratio"],
+                   differ=differ, differ_residual=differ_res,
+                   step_differ=step_differ, kept=kept)
+        rows.append(row)
+        if differ or differ_res or step_differ or not (
+                row["ratio"] == row["plain_ratio"] == row["mesh_ratio"]):
+            fails.append(f"compression step {i}: {row}")
+        del grads, got, got_res, whole, want, out, out_res, step_res
+    torch.cuda.synchronize()
+    launches = dict(matmul=mm.LAUNCHES.count, matmul_by_position=[
+        mm.LAUNCHES.by_stream.get(s.cuda_stream, 0)
+        for s in ctx.mesh.streams])
+    collectives = ctx.mesh.collectives - col0
+    # one uncompressed sharded step from the same state, for its wall
+    bare = make_train_step(model, dataclasses.replace(loop, compression=False),
+                           ctx=ctx)
+    torch.cuda.synchronize()
+    t_bare = time.perf_counter()
+    bare(placed, pb)
+    torch.cuda.synchronize()
+    t_bare = (time.perf_counter() - t_bare) * 1e3
+    if min(launches["matmul_by_position"]) <= 0:
+        fails.append(f"compression: a position launched no matmul "
+                     f"{launches}")
+    # the unsharded compressed run from the same state and batch
+    state = init_train_state(model, 0, loop)
+    ustep = make_train_step(model, loop, donate=True)
+    ulosses = []
+    for _ in range(COMPRESS_STEPS):
+        state, um = ustep(state, batch)
+        ulosses.append(float(um["loss"]))
+    losses = [r["loss"] for r in rows]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ulosses))
+    if not rel <= TRAIN_MESH_TOL:
+        fails.append(f"compression: sharded losses {losses} against the "
+                     f"unsharded {ulosses} (rel {rel:.2e}, limit "
+                     f"{TRAIN_MESH_TOL})")
+    wall = time.perf_counter() - t0
+    log("encdec-mesh", f"compression: tinyllama-1.1b fp32 "
+        f"{cfg.n_layers} layers, keep_frac {COMPRESS_KEEP}, "
+        f"{COMPRESS_STEPS} steps on {TRAIN_MESH_DP}: the mesh compression "
+        f"of the sharded gradient joined back against compress_gradients of "
+        f"the joined gradient, leaves differing (values, residual, the "
+        f"step's residual) "
+        f"{[(len(r['differ']), len(r['differ_residual']), len(r['step_differ'])) for r in rows]}"
+        f"; entries kept {[r['kept'] for r in rows]}; wire_bytes_ratio "
+        f"{rows[0]['ratio']} (single device {rows[0]['plain_ratio']}); "
+        f"losses {losses}, unsharded {ulosses} (rel {rel:.2e}); compressed "
+        f"step walls {[round(r['step_ms'], 1) for r in rows]} ms, one "
+        f"uncompressed sharded step {t_bare:.1f} ms; matmul launches (the "
+        f"gradients and the steps) {launches}; collective calls "
+        f"{collectives}; {wall:.1f} s ({card})")
+    del placed, state, model
+    return dict(steps=rows, unsharded_losses=ulosses, loss_rel=rel,
+                launches=launches, collectives=collectives,
+                uncompressed_step_ms=t_bare, wall_s=wall), fails
+
+
+def encdec_mesh_phase(card):
+    """Phase 26: seamless-m4t-medium on 8 positions of the one card
+    (shards_per_device, a CUDA stream a position) and gradient compression
+    under a mesh context.  (a) fp32 at TRAIN_MESH_FP32_LAYERS + as many
+    layers on TRAIN_MESH_DP against the unsharded card (train_mesh_fp32);
+    (b) bf16 whole on TRAIN_MESH_DP, TRAIN_MESH_STEPS steps of
+    TRAIN_MESH_BATCH (frames of as many rows), every signature of the
+    first sharded step held against its plain version (train_mesh_bf16),
+    then the products of a position's ENCDEC_VOCAB_BLOCK-row vocab block
+    timed (vocab_block_products); (c) served on ENCDEC_SERVE_MESH
+    (encdec_serve_mesh); (d) compression (compress_mesh).  None on any
+    failure."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card}
+    fails = []
+    laps = {}
+
+    def lap(name):
+        laps[name] = time.perf_counter() - sum(laps.values()) - t_phase
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out["fp32"], f = train_mesh_fp32(ENCDEC, TRAIN_MESH_DP, (8.0,), card, mm,
+                                     fa)
+    fails += f
+    lap("a")
+    checks = StepChecks(ops, fa, ref)
+    out["bf16"], f = train_mesh_bf16(ENCDEC, None, TRAIN_MESH_DP, card, mm,
+                                     fa, checks=checks,
+                                     seeds=ENCDEC_MESH_LOSS_SEEDS)
+    fails += f
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+    out["vocab_block"] = vocab_block_products(checks, ENCDEC_VOCAB_BLOCK,
+                                              ops, ref, flush)
+    del flush, checks
+    for r in out["vocab_block"]:
+        log("encdec-mesh", f"vocab block product {r['call']}: {r['ms']:.2f} "
+            f"ms ({r['tflops']:.1f} TFLOP/s, path {r['path']}, operands "
+            f"copied {r['copied_operands']}), plain {r['plain_ms']:.2f}, "
+            f"torch.matmul fp32 {r['library_ms']:.2f}, bound "
+            f"{r['bound_ms']:.3f} ({r['bound_by']}) ({card})")
+    if not any(r["copied_operands"] for r in out["vocab_block"]):
+        fails.append(f"no product of the {ENCDEC_VOCAB_BLOCK}-row vocab "
+                     f"block found, or none on the copy loader: "
+                     f"{out['vocab_block']}")
+    lap("b")
+    out["serve"], f = encdec_serve_mesh(card, mm, fa)
+    fails += f
+    lap("c")
+    out["compression"], f = compress_mesh(card, mm)
+    fails += f
+    lap("d")
+    out["parts_s"] = laps
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["fails"] = fails
+    for f in fails:
+        log("encdec-mesh", f"FAIL {f}")
+    log("encdec-mesh", f"phase 26 wall {out['wall_s']:.1f} s (parts "
+        + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+        + f"); {len(fails)} failures ({card})")
+    return None if fails else out
 
 if __name__ == "__main__":
     # torch is imported here, not with the module: the front end's spawned

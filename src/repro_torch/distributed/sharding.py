@@ -558,6 +558,12 @@ def replica_axes(spec: Spec, mesh: Mesh) -> Tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a not in used)
 
 
+def blocks(spec: Spec, mesh: Mesh) -> int:
+    """The number of distinct blocks ``spec`` splits a leaf into: the
+    product of the sizes of the axes it names."""
+    return _axis_size(tuple(_named_axes(spec)), mesh.shape)
+
+
 def is_representative(spec: Spec, mesh: Mesh, i: int) -> bool:
     """Whether position ``i`` is the first of the positions holding its
     block of a leaf under ``spec`` (index 0 along every replica axis): one
@@ -633,7 +639,8 @@ def unplace_tree(mesh: Mesh, trees: Sequence[Any], specs: Any,
     return tree_map_with_path(whole, trees[0], specs)
 
 
-__all__ = ["ShardingCtx", "Spec", "batch_sharding", "is_representative",
+__all__ = ["ShardingCtx", "Spec", "batch_sharding", "blocks",
+           "is_representative",
            "param_shardings", "place_tree", "replica_axes",
            "serve_state_sharding", "state_sharding", "unplace_tree",
            "validate_serve_mesh"]

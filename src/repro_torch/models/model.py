@@ -88,26 +88,16 @@ MOE_MESH_REFUSAL = (
     "data_axes[0] and fail with an IndexError, so there is no reference "
     "path to port; expert parallelism (moe_ep, the moe_dispatch query) "
     "comes with the FSDP training slice")
-ENCDEC_MESH_REFUSAL = (
-    "encoder-decoder decode on a serve mesh's model axis is not ported "
-    "yet (ROADMAP.md, Queue 1)")
-ENCDEC_TRAIN_MESH_REFUSAL = (
-    "encoder-decoder training on a mesh is not ported yet: it comes with "
-    "encoder-decoder decode on a serve mesh (ROADMAP.md, Queue 1)")
 
 
 def tensor_parallel(cfg: ModelConfig, ctx) -> bool:
     """Whether ``ctx`` runs ``cfg`` tensor-parallel (a model axis of more
-    than one position); raises for the families the port does not serve
-    so: a mixture of experts under a serve context (``data_axes=()``,
-    where the reference's ``moe_ep`` fails), an encoder-decoder under
-    any."""
+    than one position); raises for a mixture of experts under a serve
+    context (``data_axes=()``, where the reference's ``moe_ep`` fails)."""
     if ctx is None or ctx.tp <= 1:
         return False
     if cfg.is_moe and not ctx.data_axes:
         raise ValueError(MOE_MESH_REFUSAL)
-    if cfg.is_encdec:
-        raise NotImplementedError(ENCDEC_MESH_REFUSAL)
     return True
 
 
@@ -205,7 +195,96 @@ class _DecodeSlots:
                                    old_state["pos"])}
 
 
-class Model(_DecodeSlots):
+class _MeshFamily(_DecodeSlots):
+    """What both model classes run on a mesh: the spec rules' view of the
+    parameters, the check of placed inputs, and the vocab-parallel token
+    embedding and logits."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__(cfg, device)
+        # the mesh's spec rules read these (param_shapes, mesh_specs)
+        self._shapes = None
+        self._specs: dict = {}
+
+    def param_shapes(self) -> dict:
+        """The parameter tree with every leaf a meta tensor of its shape
+        and dtype (no memory, no draws): what the spec rules read."""
+        if self._shapes is None:
+            from torch._subclasses.fake_tensor import FakeTensorMode
+
+            with FakeTensorMode():
+                fake = type(self)(self.cfg, "cpu").init(0)
+            self._shapes = tree_map(lambda t: torch.empty(
+                t.shape, dtype=t.dtype, device="meta"), fake)
+        return self._shapes
+
+    def mesh_specs(self, ctx) -> dict:
+        """The params' specs on ``ctx``'s mesh: ``param_shardings`` with
+        the context's axes, the tree ``place_tree`` places params by (the
+        ``params`` subtree of a train state's)."""
+        key = (tuple(ctx.mesh.shape.items()), tuple(ctx.data_axes),
+               ctx.model_axis)
+        if key not in self._specs:
+            self._specs[key] = param_shardings(
+                self.param_shapes(), ctx.mesh, data_axes=ctx.data_axes,
+                model_axis=ctx.model_axis, cfg=self.cfg)
+        return self._specs[key]
+
+    def _mesh_inputs(self, params, batch, ctx):
+        """``params`` checked against the blocks the specs give, and the
+        batch one dict a position (a global dict split by
+        ``batch_sharding``)."""
+        tensor_parallel(self.cfg, ctx)  # the refusals
+        specs = self.mesh_specs(ctx)
+        mesh = ctx.mesh
+        if not isinstance(params, (list, tuple)) or len(params) != mesh.size:
+            raise ValueError(f"params on a mesh of {mesh.size} positions "
+                             f"must be a list of {mesh.size} trees "
+                             f"(place_tree)")
+
+        def check(path, shape, spec, *local):
+            want = list(shape.shape)
+            for k, axes in enumerate(spec):
+                if axes is not None:
+                    want[k] //= _axes_size(axes, mesh)
+            for leaf in local:
+                if list(leaf.shape) != want:
+                    raise ValueError(
+                        f"{path}: a position holds {tuple(leaf.shape)}, the "
+                        f"spec {spec} on mesh {mesh.shape} gives "
+                        f"{tuple(want)}; place the params by "
+                        f"param_shardings(..., data_axes="
+                        f"{tuple(ctx.data_axes)}, cfg=cfg)")
+
+        tree_map_with_path(check, self.param_shapes(), specs, *params)
+        if isinstance(batch, dict):
+            batch = place_tree(mesh, batch, batch_sharding(
+                batch, mesh, ctx.data_axes) if ctx.data_axes else
+                tree_map(lambda t: (None,) * t.dim(), batch))
+        return specs, batch
+
+    def _tokens_tp(self, ctx, tables, batch) -> list:
+        """The token embeddings on every position of ``ctx``: where
+        ``tables`` (each position's tree holding ``embed``) are vocab
+        blocks, each position looks up its block's rows (zeros elsewhere)
+        and the rows are summed over the model axis, exactly."""
+        ranks = [ctx.rank(i) for i in range(ctx.mesh.size)]
+        split = tables[0]["embed"].shape[0] < self.cfg.vocab_size
+        xs = ctx.map(lambda t, b, r: self._lookup(t, b, r if split else 0),
+                     tables, batch, ranks)
+        return ctx.row_sum(xs, xs[0].dtype) if split else xs
+
+    def _logits_tp(self, ctx, tables, xs) -> list:
+        """fp32 logits on every position: each position's vocab block of
+        ``tables``, gathered along the vocab where split, so every
+        position holds the whole (B, S, V)."""
+        logits = ctx.map(unembed, tables, xs)
+        if tables[0].shape[0] < self.cfg.vocab_size:
+            logits = ctx.gather(logits, dim=-1)
+        return logits
+
+
+class Model(_MeshFamily):
     """A decoder-only model on ``device``: the reference's ``Model`` record
     as methods."""
 
@@ -226,9 +305,6 @@ class Model(_DecodeSlots):
                 f"{cfg.name}: {', '.join(unported)} not ported yet "
                 f"(other model families)")
         super().__init__(cfg, device)
-        # the mesh's spec rules read these (param_shapes, mesh_specs)
-        self._shapes = None
-        self._specs: dict = {}
 
     # ------------------------------------------------------------------
 
@@ -307,10 +383,8 @@ class Model(_DecodeSlots):
         if ctx is not None:
             xs, tables, auxs, _ = self._forward_mesh(params, batch, ctx,
                                                      remat)
-            logits = ctx.map(unembed, tables, xs)
-            if tables[0].shape[0] < self.cfg.vocab_size:
-                logits = ctx.gather(logits, dim=-1)
-            return join(ctx.mesh, logits), join(ctx.mesh, auxs)
+            return (join(ctx.mesh, self._logits_tp(ctx, tables, xs)),
+                    join(ctx.mesh, auxs))
         x, positions = self._embed(params, batch)
         x, _, aux = tfm.stack_apply(params["layers"], self.cfg, x, positions,
                                     remat=remat)
@@ -366,79 +440,16 @@ class Model(_DecodeSlots):
     # On a training mesh
     # ------------------------------------------------------------------
 
-    def param_shapes(self) -> dict:
-        """The parameter tree with every leaf a meta tensor of its shape
-        and dtype (no memory, no draws): what the spec rules read."""
-        if self._shapes is None:
-            from torch._subclasses.fake_tensor import FakeTensorMode
-
-            with FakeTensorMode():
-                fake = Model(self.cfg, "cpu").init(0)
-            self._shapes = tree_map(lambda t: torch.empty(
-                t.shape, dtype=t.dtype, device="meta"), fake)
-        return self._shapes
-
-    def mesh_specs(self, ctx) -> dict:
-        """The params' specs on ``ctx``'s mesh: ``param_shardings`` with
-        the context's axes, the tree ``place_tree`` places params by (the
-        ``params`` subtree of a train state's)."""
-        key = (tuple(ctx.mesh.shape.items()), tuple(ctx.data_axes),
-               ctx.model_axis)
-        if key not in self._specs:
-            self._specs[key] = param_shardings(
-                self.param_shapes(), ctx.mesh, data_axes=ctx.data_axes,
-                model_axis=ctx.model_axis, cfg=self.cfg)
-        return self._specs[key]
-
-    def _mesh_inputs(self, params, batch, ctx):
-        """``params`` checked against the blocks the specs give, and the
-        batch one dict a position (a global dict split by
-        ``batch_sharding``)."""
-        tensor_parallel(self.cfg, ctx)  # the refusals
-        specs = self.mesh_specs(ctx)
-        mesh = ctx.mesh
-        if not isinstance(params, (list, tuple)) or len(params) != mesh.size:
-            raise ValueError(f"params on a mesh of {mesh.size} positions "
-                             f"must be a list of {mesh.size} trees "
-                             f"(place_tree)")
-
-        def check(path, shape, spec, *local):
-            want = list(shape.shape)
-            for k, axes in enumerate(spec):
-                if axes is not None:
-                    want[k] //= _axes_size(axes, mesh)
-            for leaf in local:
-                if list(leaf.shape) != want:
-                    raise ValueError(
-                        f"{path}: a position holds {tuple(leaf.shape)}, the "
-                        f"spec {spec} on mesh {mesh.shape} gives "
-                        f"{tuple(want)}; place the params by "
-                        f"param_shardings(..., data_axes="
-                        f"{tuple(ctx.data_axes)}, cfg=cfg)")
-
-        tree_map_with_path(check, self.param_shapes(), specs, *params)
-        if isinstance(batch, dict):
-            batch = place_tree(mesh, batch, batch_sharding(
-                batch, mesh, ctx.data_axes) if ctx.data_axes else
-                tree_map(lambda t: (None,) * t.dim(), batch))
-        return specs, batch
-
     def _forward_mesh(self, params, batch, ctx, remat: bool):
         """The forward on a mesh up to the final norm: (xs, each position's
         logits table (its vocab block, FSDP-gathered), auxiliary losses),
         lists with one entry a position."""
         cfg = self.cfg
         specs, batch = self._mesh_inputs(params, batch, ctx)
-        n = ctx.mesh.size
         keys = [k for k in ("embed", "unembed", "final_norm") if k in specs]
         tops = ctx.gather_tree([{k: p[k] for k in keys} for p in params],
                                {k: specs[k] for k in keys})
-        ranks = [ctx.rank(i) for i in range(n)]
-        split = tops[0]["embed"].shape[0] < cfg.vocab_size
-        xs = ctx.map(lambda t, b, r: self._lookup(t, b, r if split else 0),
-                     tops, batch, ranks)
-        if split:
-            xs = ctx.row_sum(xs, xs[0].dtype)
+        xs = self._tokens_tp(ctx, tops, batch)
         xs, positions = ctx.map(lambda t, b, x: self._embed(t, b, x=x),
                                 tops, batch, xs)
         xs, auxs = tfm.stack_train_tp(
@@ -469,17 +480,14 @@ class Model(_DecodeSlots):
             return t, mask
 
         tgt, masks = ctx.map(targets, batch)
-        sums = xent_mesh(ctx, tables, ctx.map(lambda x: x[:, :-1], xs), tgt,
-                         masks, cfg.vocab_size)
-        sums = ctx.data_psum(sums)
+        ces, zs = _xent_mesh_means(ctx, tables, xs, tgt, masks,
+                                   cfg.vocab_size)
 
-        def total(sm, a):
-            denom = torch.clamp(sm[2], min=1.0)
-            ce, z = sm[0] / denom, sm[1] / denom
+        def total(ce, z, a):
             return (ce + AUX_LOSS_WEIGHT * a + Z_LOSS_WEIGHT * z,
                     {"ce": ce, "aux": a, "z": z})
 
-        totals, metrics = ctx.map(total, sums, auxs)
+        totals, metrics = ctx.map(total, ces, zs, auxs)
         return join(ctx.mesh, totals), join(ctx.mesh, metrics)
 
     # ------------------------------------------------------------------
@@ -534,12 +542,7 @@ class Model(_DecodeSlots):
         the vocab before every position's argmax."""
         cfg = self.cfg
         n = ctx.mesh.size
-        ranks = [ctx.rank(i) for i in range(n)]
-        split = params[0]["embed"].shape[0] < cfg.vocab_size
-        xs = ctx.map(lambda p, b, r: self._lookup(p, b, r if split else 0),
-                     params, batch, ranks)
-        if split:
-            xs = ctx.row_sum(xs, xs[0].dtype)
+        xs = self._tokens_tp(ctx, params, batch)
         pos = [None] * n if state is None else [st["pos"] for st in state]
         xs, positions = ctx.map(lambda p, b, x, o: self._embed(p, b, o, x=x),
                                 params, batch, xs, pos)
@@ -552,9 +555,7 @@ class Model(_DecodeSlots):
             xs = ctx.map(lambda x: x[:, -1:], xs)
         xs = ctx.map(lambda p, x: rmsnorm(p["final_norm"], x, cfg.norm_eps),
                      params, xs)
-        logits = ctx.map(lambda p, x: unembed(self._table(p), x), params, xs)
-        if self._table(params[0]).shape[0] < cfg.vocab_size:
-            logits = ctx.gather(logits, dim=-1)
+        logits = self._logits_tp(ctx, [self._table(p) for p in params], xs)
         if state is None:
             return logits, None
         s = batch[0]["tokens"].shape[1]
@@ -562,14 +563,28 @@ class Model(_DecodeSlots):
                                new_layers, pos)
 
 
-class EncDecModel(_DecodeSlots):
+class EncDecModel(_MeshFamily):
     """The encoder-decoder model (seamless-m4t-medium) on ``device``: the
     reference's ``_build_encdec`` record as methods, the same ones as
     ``Model`` but ``forward_logits``.  The encoder runs in ``loss`` and
     ``prefill`` only; serving decodes through ``decode_step`` against the
     state's cross caches, which ``init_decode_state`` fills with zeros and
     nothing in serving writes (as in the reference: the cross term of a
-    served token is then exactly 0)."""
+    served token is then exactly 0).
+
+    On a mesh ``loss``, ``prefill`` and ``decode_step`` take lists with
+    one entry a position, as ``Model``'s do: the encoder and the decoder
+    tensor-parallel over the model axis (``encdec.encoder_layer_tp``,
+    ``decoder_layer_tp``), FSDP over the data axes in training, the
+    cross-entropy vocab-parallel (``xent_mesh``)."""
+
+    def _lookup(self, params, batch, rank: int = 0):
+        """The token embeddings; on a mesh the rows of position ``rank``'s
+        vocab block of the table (zeros elsewhere)."""
+        table = params["embed"]
+        return embed_lookup(table, batch["tokens"],
+                            first_row=rank * table.shape[0],
+                            vocab=self.cfg.vocab_size)
 
     def init(self, seed: int = 0) -> dict:
         """Fresh parameters with the reference's distributions, drawn from a
@@ -634,9 +649,15 @@ class EncDecModel(_DecodeSlots):
     def prefill(self, params, batch, ctx=None):
         """Encode ``batch["frames"]``, run the decoder teacher-forced over
         ``batch["tokens"]``, return the last position's logits (B, 1, V)
-        fp32; no decode state is filled (the reference's).  Not on a serve
-        mesh's model axis (``ENCDEC_MESH_REFUSAL``)."""
-        tensor_parallel(self.cfg, ctx)
+        fp32; no decode state is filled (the reference's).  On a mesh
+        (``ctx``, tensor-parallel) ``params`` and ``batch`` are lists with
+        one entry a position (a global batch dict is placed here) and so
+        are the logits, each position's rows of the batch, the vocab
+        gathered."""
+        if tensor_parallel(self.cfg, ctx):
+            xs, tables, _ = self._forward_mesh(params, batch, ctx,
+                                               remat=False, last=True)
+            return self._logits_tp(ctx, tables, xs)
         enc_out = self.encode(params, batch["frames"], remat=False)
         x = self._decode_stack(params, batch["tokens"], enc_out, remat=False)
         x = rmsnorm(params["final_norm"], x[:, -1:], self.cfg.norm_eps)
@@ -646,10 +667,24 @@ class EncDecModel(_DecodeSlots):
         """Next-token cross-entropy of the decoder over ``batch["tokens"]``
         (B, S), conditioned on the encoded ``batch["frames"]``, plus the
         weighted z loss.  Returns ``(ce + Z_LOSS_WEIGHT * z, {"ce", "z"})``,
-        0-d tensors on the model's device.  Not on a mesh
-        (``ENCDEC_TRAIN_MESH_REFUSAL``)."""
+        0-d tensors on the model's device.
+
+        On a mesh (``ctx``) ``params`` and ``batch`` are lists with one
+        entry a position (``place_tree`` by ``param_shardings`` and
+        ``batch_sharding``; a global batch dict is split here), and so are
+        the results, every position holding the same values: the means
+        over the global batch, the cross-entropy vocab-parallel over the
+        model axis."""
         if ctx is not None:
-            raise NotImplementedError(ENCDEC_TRAIN_MESH_REFUSAL)
+            xs, tables, batch = self._forward_mesh(params, batch, ctx, remat)
+            tgt, masks = ctx.map(lambda b: (b["tokens"][:, 1:], torch.ones(
+                b["tokens"][:, 1:].shape, dtype=torch.float32,
+                device=b["tokens"].device)), batch)
+            ces, zs = _xent_mesh_means(ctx, tables, xs, tgt, masks,
+                                       self.cfg.vocab_size)
+            totals, metrics = ctx.map(lambda ce, z: (
+                ce + Z_LOSS_WEIGHT * z, {"ce": ce, "z": z}), ces, zs)
+            return join(ctx.mesh, totals), join(ctx.mesh, metrics)
         tokens = batch["tokens"]
         enc_out = self.encode(params, batch["frames"], remat)
         x = self._decode_stack(params, tokens, enc_out, remat)
@@ -659,6 +694,53 @@ class EncDecModel(_DecodeSlots):
                           device=tokens.device)
         ce, z = xent_auto(params["unembed"], x[:, :-1], targets, mask)
         return ce + Z_LOSS_WEIGHT * z, {"ce": ce, "z": z}
+
+    def _forward_mesh(self, params, batch, ctx, remat: bool,
+                      last: bool = False):
+        """The encoder, then the decoder teacher-forced, on a mesh, up to
+        the final norm (``last``: the last position only): (xs, each
+        position's unembedding vocab block, the batch one dict a
+        position), lists.  Each layer FSDP-gathers its weights over the
+        data axes (none on a serve context) inside its recomputed body;
+        each decoder layer's cross K/V is projected outside it."""
+        cfg = self.cfg
+        specs, batch = self._mesh_inputs(params, batch, ctx)
+        keys = ("embed", "unembed", "enc_final_norm", "final_norm")
+        tops = ctx.gather_tree([{k: p[k] for k in keys} for p in params],
+                               {k: specs[k] for k in keys})
+        remat = remat and torch.is_grad_enabled()
+
+        def run(fn, *args):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False,
+                                  context_fn=recompute_contexts)
+            return fn(*args)
+
+        def positions(x):
+            return _offset_positions(x.shape[0], x.shape[1], torch.zeros(
+                (), dtype=torch.int64, device=x.device))
+
+        xs = ctx.map(lambda b: b["frames"].to(self.dtype), batch)
+        pos = ctx.map(positions, xs)
+        for j in range(cfg.encoder_layers):
+            xs = run(encdec_lib.encoder_layer_train_tp, ctx,
+                     [p["encoder"][j] for p in params], specs["encoder"][j],
+                     cfg, xs, pos)
+        enc = ctx.map(lambda t, x: rmsnorm(t["enc_final_norm"], x,
+                                           cfg.norm_eps), tops, xs)
+        xs = self._tokens_tp(ctx, tops, batch)
+        pos = ctx.map(lambda b: positions(b["tokens"]), batch)
+        for j in range(cfg.n_layers):
+            lps = [p["decoder"][j] for p in params]
+            kv = encdec_lib.cross_kv_tp(ctx, lps, specs["decoder"][j], cfg,
+                                        enc)
+            xs = run(encdec_lib.decoder_layer_train_tp, ctx, lps,
+                     specs["decoder"][j], cfg, xs, pos, kv)
+        if last:
+            xs = ctx.map(lambda x: x[:, -1:], xs)
+        xs = ctx.map(lambda t, x: rmsnorm(t["final_norm"], x, cfg.norm_eps),
+                     tops, xs)
+        return xs, [t["unembed"] for t in tops], batch
 
     # ------------------------------------------------------------------
     # Decode
@@ -694,9 +776,16 @@ class EncDecModel(_DecodeSlots):
         """Feed ``batch["tokens"]`` (B, S_new) at each row's cache position
         through the decoder, attending to the state's cross caches.
         Returns ((B, S_new, V) fp32 logits, new state); ``state`` is left as
-        it was, and the new state holds the same cross-cache tensors.  Not
-        on a serve mesh's model axis (``ENCDEC_MESH_REFUSAL``)."""
-        tensor_parallel(self.cfg, ctx)
+        it was, and the new state holds the same cross-cache tensors.
+
+        On a serve mesh (``ctx`` with a model axis of more than one
+        position) ``params``, ``state`` and ``batch`` are lists with one
+        entry a position (the state placed by ``serve_state_sharding``:
+        the self-attention and cross caches split by kv heads where they
+        divide), and so are the logits (each the whole (B, S_new, V)) and
+        the new state."""
+        if tensor_parallel(self.cfg, ctx):
+            return self._decode_tp(params, state, batch, ctx)
         cfg = self.cfg
         pos = state["pos"]
         tokens = batch["tokens"]
@@ -713,6 +802,32 @@ class EncDecModel(_DecodeSlots):
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return unembed(params["unembed"], x), {"layers": layers,
                                                "pos": pos + s}
+
+    def _decode_tp(self, params, state, batch, ctx):
+        """``decode_step`` on a serve mesh: the decoder tensor-parallel
+        (``encdec.decoder_layer_tp``) against each position's blocks of
+        the caches, the logits' vocab blocks gathered."""
+        cfg = self.cfg
+        n = ctx.mesh.size
+        s = batch[0]["tokens"].shape[1]
+        pos = [st["pos"] for st in state]
+        xs = self._tokens_tp(ctx, params, batch)
+        positions = ctx.map(lambda b, p: _offset_positions(
+            b["tokens"].shape[0], s, p), batch, pos)
+        layers = [[] for _ in range(n)]
+        for j in range(cfg.n_layers):
+            sts = [st["layers"][j] for st in state]
+            xs, caches = encdec_lib.decoder_layer_tp(
+                ctx, [p["decoder"][j] for p in params], cfg, xs, positions,
+                [(st["cross"]["k"], st["cross"]["v"]) for st in sts],
+                states=sts, cache_pos=pos)
+            for i in range(n):
+                layers[i].append({**caches[i], "cross": sts[i]["cross"]})
+        xs = ctx.map(lambda p, x: rmsnorm(p["final_norm"], x, cfg.norm_eps),
+                     params, xs)
+        logits = self._logits_tp(ctx, [p["unembed"] for p in params], xs)
+        return logits, ctx.map(lambda ly, p: {"layers": ly, "pos": p + s},
+                               layers, pos)
 
 
 # what build_model returns, and what the trainer, the serve steps, the
@@ -840,3 +955,15 @@ def xent_mesh(ctx, tables, xs, targets, masks, vocab: int,
             context_fn=recompute_contexts)
         acc = part if acc is None else ctx.map(torch.add, acc, part)
     return acc
+
+
+def _xent_mesh_means(ctx, tables, xs, targets, masks, vocab: int) -> tuple:
+    """(mean CEs, mean logz^2s), a list each with one entry a position, of
+    ``xs`` (B, S, D) against the
+    next tokens ``targets`` (B, S-1) under ``masks``: the sums of
+    ``xent_mesh`` over the last position dropped, added over the data axes
+    with the mask count, then divided; every position the same values."""
+    sums = ctx.data_psum(xent_mesh(ctx, tables, ctx.map(
+        lambda x: x[:, :-1], xs), targets, masks, vocab))
+    return ctx.map(lambda sm: (sm[0] / torch.clamp(sm[2], min=1.0),
+                               sm[1] / torch.clamp(sm[2], min=1.0)), sums)

@@ -179,17 +179,49 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
             k, v = heads(k).contiguous(), heads(v).contiguous()
         out = attn_lib.attention(q, k, v, window=window, chunk=chunk)
         new_cache = None
-    out = out.reshape(b, s, -1)
-    rows = params["wo"].shape[0]
+    return out_projection(out.reshape(b, s, -1), params["wo"], cfg, nq,
+                          rank), new_cache
+
+
+def out_projection(out, wo, cfg: ModelConfig, nq: int, rank: int = 0):
+    """An attention output (B, S, nq*hd) through ``wo`` on one position:
+    whole, in the activations' dtype, where ``wo`` is whole; else an fp32
+    partial from the output's columns that match ``wo``'s row block, for
+    the caller's sum over the model axis (``wo_sum``)."""
+    hd = cfg.resolved_head_dim
+    rows = wo.shape[0]
     if nq < cfg.n_heads and rows != nq * hd:
         raise NotImplementedError(
             f"{cfg.name}: query heads split over the model axis need wo's "
             f"rows split with them")
     if rows == cfg.n_heads * hd:
-        return project(out, params["wo"]), new_cache
+        return project(out, wo)
     if nq == cfg.n_heads:  # every head here: this row block's columns
         out = out[..., rank * rows:(rank + 1) * rows]
-    return project(out, params["wo"], out_dtype=torch.float32), new_cache
+    return project(out, wo, out_dtype=torch.float32)
+
+
+def wo_sum(ctx, wos: List[torch.Tensor], cfg: ModelConfig, outs,
+           dtype: torch.dtype) -> list:
+    """``out_projection``'s results on every position: the fp32 partials
+    summed over the model axis and rounded once to ``dtype`` where ``wo``
+    is split by rows, else as they are."""
+    if wos[0].shape[0] < cfg.n_heads * cfg.resolved_head_dim:
+        return ctx.row_sum(outs, dtype)
+    return outs
+
+
+def ffn_tp(ctx, ffns: List[dict], cfg: ModelConfig, hs,
+           dtype: torch.dtype) -> list:
+    """The dense FFN on every position: each its column block of
+    ``w_in``/``w_gate`` and the matching rows of ``w_out``, whose fp32
+    partials are summed over the model axis and rounded once to ``dtype``
+    (``ctx.row_sum``); whole where the width does not split."""
+    split = ffns[0]["w_out"].shape[0] < cfg.d_ff
+    outs = ctx.map(lambda p, h: ffn_lib.ffn_apply(
+        p, h, cfg.activation, out_dtype=torch.float32 if split else None),
+        ffns, hs)
+    return ctx.row_sum(outs, dtype) if split else outs
 
 
 def _ffn_apply(params, cfg: ModelConfig, x, want_aux: bool):
@@ -382,9 +414,8 @@ def _layer_tp(ctx, lps: List[dict], cfg: ModelConfig, kind: str, xs,
                 cache_pos=cp, block_tables=bt, rank=r,
                 chunk=ctx.attn_chunk),
             ranks, lps, hs, positions, states, cache_pos, block_tables)
-        if lps[0]["attn"]["wo"].shape[0] < cfg.n_heads * \
-                cfg.resolved_head_dim:
-            outs = ctx.row_sum(outs, dtype)
+        outs = wo_sum(ctx, [lp["attn"]["wo"] for lp in lps], cfg, outs,
+                      dtype)
     elif kind == "rglru":
         outs, new_states = ctx.map(
             lambda lp, h, st: rglru_lib.rglru_apply(lp["rglru"], h, st),
@@ -410,12 +441,7 @@ def _layer_tp(ctx, lps: List[dict], cfg: ModelConfig, kind: str, xs,
             activation=cfg.activation, ctx=ctx)
         return ctx.map(torch.add, xs, outs), new_states, auxs
     if kind != "rwkv":
-        split = lps[0]["ffn"]["w_out"].shape[0] < cfg.d_ff
-        outs = ctx.map(lambda lp, h: ffn_lib.ffn_apply(
-            lp["ffn"], h, cfg.activation,
-            out_dtype=torch.float32 if split else None), lps, h2s)
-        if split:
-            outs = ctx.row_sum(outs, dtype)
+        outs = ffn_tp(ctx, [lp["ffn"] for lp in lps], cfg, h2s, dtype)
         return ctx.map(torch.add, xs, outs), new_states, [0.0] * n
     c_states = [None if st is None else st["channel"] for st in states]
     ks = none

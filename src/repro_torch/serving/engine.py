@@ -460,7 +460,7 @@ class ContinuousServeEngine:
                 ctx = ShardingCtx(mesh=mesh, data_axes=(),
                                   cost_engine=self.scheduler.engine,
                                   infer_replicate_params=True)
-                tensor_parallel(model.cfg, ctx)  # refuses MoE, enc-dec
+                tensor_parallel(model.cfg, ctx)  # refuses MoE
                 self.tp, self._ctx = tp_choice, ctx
                 self.params = place_tree(mesh, params, param_shardings(
                     params, mesh, data_axes=(), cfg=model.cfg))

@@ -210,6 +210,13 @@ class ServeScheduler:
         self.flops_per_token = 2 * active_params
         self.weight_bytes = active_params * self.dtype_bytes
         self.kv_bytes_per_slot = self._kv_bytes_per_slot(cfg, max_len)
+        # the decode state a slot streams each step as the serve_shard site
+        # prices it: an encoder-decoder's cross caches beside its
+        # self-attention caches (the reference's serve_shard reads
+        # kv_bytes_per_slot alone, which leaves them out; the other sites
+        # keep it, so their verdicts stay the reference's)
+        self.shard_kv_bytes_per_slot = (
+            self.kv_bytes_per_slot + self._cross_bytes_per_slot(cfg, max_len))
         # per-TOKEN KV bytes across full-attention layers (the unit the
         # paged pool allocates in; prices prefix-cache CoW page copies)
         hd = cfg.resolved_head_dim
@@ -236,6 +243,20 @@ class ServeScheduler:
                 h = cfg.d_model // cfg.rnn_head_dim
                 total += h * cfg.rnn_head_dim * cfg.rnn_head_dim * 4
         return total
+
+    @staticmethod
+    def _cross_bytes_per_slot(cfg: ModelConfig, max_len: int) -> int:
+        """An encoder-decoder slot's cross caches: a (rows, Hkv, hd) key
+        and value cache a decoder layer, ``min(ENCDEC_DECODE_ENC_LEN,
+        max_len)`` rows; 0 for other families."""
+        if not cfg.is_encdec:
+            return 0
+        from repro_torch.models.model import ENCDEC_DECODE_ENC_LEN
+
+        rows = min(ENCDEC_DECODE_ENC_LEN, max_len)
+        dtype_bytes = 4 if cfg.dtype == "float32" else 2
+        return (2 * cfg.n_layers * rows * cfg.n_kv_heads
+                * cfg.resolved_head_dim * dtype_bytes)
 
     # ------------------------------------------------------------------
     # Decisions (each one a site=serve ledger row)
@@ -362,7 +383,7 @@ class ServeScheduler:
         dec = self.engine.decide_serve_shard(
             batch, tp=tp, flops_per_token=self.flops_per_token,
             weight_bytes=self.weight_bytes,
-            kv_bytes_per_slot=self.kv_bytes_per_slot,
+            kv_bytes_per_slot=self.shard_kv_bytes_per_slot,
             n_layers=self.cfg.n_layers, d_model=self.cfg.d_model,
             dtype_bytes=self.dtype_bytes, candidates=candidates,
             devices=devices)

@@ -29,7 +29,8 @@ autograd leaves are each position's own blocks; a replicated piece's
 gradient is summed over the positions that hold it in a fixed order
 (``ShardingCtx.replica_sum``), so every replica updates to the same bits;
 ``grad_norm`` is the norm of the logical gradient, each distinct block
-counted once.
+counted once.  Gradient compression, where on, compresses that logical
+gradient before the norm, as the reference's eager step does.
 """
 
 from __future__ import annotations
@@ -45,7 +46,9 @@ from repro_torch.distributed.sharding import is_representative
 from repro_torch.models.model import AnyModel, mrope_positions
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      clip_scale, leaf_update)
-from repro_torch.optim.compression import compress_gradients, init_compression
+from repro_torch.optim.compression import (compress_gradients,
+                                           compress_gradients_mesh,
+                                           init_compression)
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.tree import (leaves_with_paths, tree_map,
                               tree_map_with_path, tree_unzip)
@@ -122,13 +125,12 @@ def make_train_step(model: AnyModel, loop: TrainLoopConfig, *, ctx=None,
     over the data axes.  Under ``donate`` place the state with
     ``place_tree(..., copy=True)`` (storage of its own on every position),
     or the update writes into the tensors the state was placed from; a
-    block that several positions share is updated once.  Gradient
-    compression under a ``ctx`` is not ported and raises."""
+    block that several positions share is updated once.  With compression
+    the logical gradient is compressed once, after the replica sums (and
+    the microbatches' accumulation), on each position's blocks
+    (``compress_gradients_mesh``): the logical tensor's result, the
+    residual ``state["compress"]`` placed by the params' specs."""
     if ctx is not None:
-        if loop.compression:
-            raise NotImplementedError(
-                "gradient compression on a training mesh is not ported "
-                "yet (ROADMAP.md, Queue 1)")
         return _mesh_train_step(model, loop, ctx, donate)
     grad_fn = make_grad_fn(model)
 
@@ -259,6 +261,13 @@ def _mesh_train_step(model: AnyModel, loop: TrainLoopConfig, ctx,
             grads, metrics = acc, [{} for _ in range(n)]
         else:
             loss, metrics, grads = grad_fn(params, batch)
+        new_compress = None
+        if loop.compression:
+            residuals = [st.get("compress") for st in state]
+            grads, new_compress, cmetrics = compress_gradients_mesh(
+                ctx, grads, None if None in residuals else residuals,
+                specs, keep_frac=loop.compression_keep_frac)
+            metrics = ctx.map(lambda m, c: {**m, **c}, metrics, cmetrics)
 
         # the logical gradient's norm: each distinct block once, the
         # positions' sums added over the whole mesh in a fixed order
@@ -302,6 +311,9 @@ def _mesh_train_step(model: AnyModel, loop: TrainLoopConfig, ctx,
                     {"lr": rate, "grad_norm": norm})
 
         new_state, extra = ctx.map(update, state, grads, gn, lr)
+        if new_compress is not None:
+            for st, c in zip(new_state, new_compress):
+                st["compress"] = c
         return join(mesh, new_state), join(mesh, ctx.map(
             lambda lo, m, e: {"loss": lo, **e, **m}, loss, metrics, extra))
 

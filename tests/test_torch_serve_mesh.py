@@ -24,8 +24,9 @@ shards_per_device=8)`` (through ``Runtime.serve(shards_per_device=8)``).
 * the ``auto`` verdict on a reduced model replicates: the single-device
   path, no collective, the mesh still reported and the decision ledgered;
 * a mixture of experts on a shard verdict raises the port's ValueError
-  (the reference's ``moe_ep`` fails with an IndexError there), an
-  encoder-decoder raises NotImplementedError;
+  (the reference's ``moe_ep`` fails with an IndexError there); an
+  encoder-decoder serves there (its tokens against the reference's in
+  ``tests/test_torch_encdec_mesh.py``);
 * the launcher ``--mesh data=1,model=8 --shards-per-device 8 --reduced
   --device cpu``: the reference launcher's mesh line and serve_shard rows;
 * on a card (``cuda``): the token-identity cases against the port's own
@@ -275,11 +276,13 @@ def test_replicate_verdict_runs_single_device_path():
 
 
 def test_mixture_of_experts_and_encdec_refused_on_a_shard_verdict():
+    """A mixture of experts is refused on a shard verdict; an
+    encoder-decoder, refused there before its mesh slice, now serves
+    sharded."""
     rt = Runtime(device="cpu")
     for arch, err, match in (
             ("moonshot-v1-16b-a3b", ValueError, "moe_ep"),
-            ("qwen3-moe-235b-a22b", ValueError, "IndexError"),
-            ("seamless-m4t-medium", NotImplementedError, "encoder-decoder")):
+            ("qwen3-moe-235b-a22b", ValueError, "IndexError")):
         cfg = get_config(arch).reduced()
         trace = synthetic_trace(2, prompt_len=4, max_new=2,
                                 vocab_size=cfg.vocab_size, seed=0)
@@ -293,6 +296,13 @@ def test_mixture_of_experts_and_encdec_refused_on_a_shard_verdict():
                    mesh_shape=MESH8, shard_params="replicate",
                    shards_per_device=8)
     assert res.engine.tp == 1 and res.report.generated_tokens > 0
+    cfg = get_config("seamless-m4t-medium").reduced()
+    res = rt.serve(cfg, synthetic_trace(2, prompt_len=4, max_new=2,
+                                        vocab_size=cfg.vocab_size, seed=0),
+                   mesh_shape=MESH8, shard_params="shard",
+                   shards_per_device=8)
+    assert res.engine.tp == 8 and res.report.collective_ops > 0
+    assert res.report.generated_tokens > 0
 
 
 def test_launcher_serves_on_the_mesh(capsys):

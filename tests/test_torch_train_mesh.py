@@ -41,9 +41,12 @@ parameters (``params_from_jax``) and numpy-seeded batches.
   ``matmul``, ``serve_shard``, ``layer_shard`` and ``moe_dispatch`` sites
   pick serial, replicate or replicated_psum on auto; at one position a
   device every verdict and predicted second is the reference's;
-* refusals: an encoder-decoder and gradient compression on a training
-  mesh raise ``NotImplementedError``; a mixture of experts on a serve
-  mesh still raises ``MOE_MESH_REFUSAL``;
+* an encoder-decoder and gradient compression, refused on a training
+  mesh before their slice, both run there (held to the reference in
+  ``tests/test_torch_encdec_mesh.py`` and
+  ``tests/test_torch_compress_mesh.py``), and ``paged=True`` still
+  refuses an encoder-decoder; a mixture of experts on a serve mesh still
+  raises ``MOE_MESH_REFUSAL``;
 * on a card only (``cuda`` marker): the sharded loss and gradients on 8
   positions of GPU 0 against the port's unsharded loss on the CPU.
 """
@@ -98,6 +101,7 @@ from repro_torch.models.model import (  # noqa: E402
     tensor_parallel,
 )
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import Runtime, synthetic_trace  # noqa: E402
 from repro_torch.serving.scheduler import ServeScheduler  # noqa: E402
 from repro_torch.training import (  # noqa: E402
     TrainLoopConfig,
@@ -635,14 +639,33 @@ def test_one_position_a_device_prices_as_reference():
 
 
 def test_encdec_and_compression_refused_on_a_training_mesh():
+    """Both refused here before their slice; now a compressed step of
+    seamless-m4t-medium runs on the mesh and equals the unsharded port's,
+    and only ``paged=True`` still refuses an encoder-decoder."""
     ctx = _ctx({"data": 4, "model": 2})
     cfg = get_config("seamless-m4t-medium").reduced()
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        build_model(cfg, "cpu").loss(None, None, ctx)
-    tiny = get_config("tinyllama-1.1b").reduced()
-    with pytest.raises(NotImplementedError, match="compression"):
-        make_train_step(build_model(tiny, "cpu"),
-                        TrainLoopConfig(compression=True), ctx=ctx)
+    model = build_model(cfg, "cpu")
+    loop = TrainLoopConfig(optimizer=adamw.AdamWConfig(lr=STEP_LR,
+                                                       eps=STEP_EPS),
+                           warmup_steps=0, compression=True)
+    state = init_train_state(model, 0, loop)
+    rng = np.random.default_rng(6)
+    batch = {"tokens": torch.from_numpy(_tokens(cfg, seed=6)).long(),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (B, S, cfg.d_model)).astype(np.float32) * 0.1)}
+    want_state, want = make_train_step(model, loop)(state, batch)
+    placed, specs = _placed(ctx, state, cfg, copy=True)
+    new, m = make_train_step(model, loop, ctx=ctx)(placed, batch)
+    for k in want:
+        np.testing.assert_allclose(float(m[0][k]), float(want[k]),
+                                   rtol=LOSS_RTOL, err_msg=k)
+    got = unplace_tree(ctx.mesh, new, specs)
+    _changes_match(state["params"], got["params"], want_state["params"])
+    with pytest.raises(ValueError, match="no paged layout"):
+        Runtime(device="cpu").serve(cfg, synthetic_trace(
+            2, prompt_len=4, max_new=2, vocab_size=cfg.vocab_size),
+            paged=True, mesh_shape={"data": 1, "model": 2},
+            shard_params="shard", shards_per_device=2)
 
 
 def test_moe_on_a_serve_mesh_still_refused():

@@ -354,7 +354,8 @@ Phases, one report line each (any failure exits non-zero):
      gradient and every parameter after one AdamW step within 2e-3 x its
      max; moonshot's expert-parallel layer against moe_ep_plain at
      capacity factors 8.0 (nothing dropped) and 1.25 (the same drops);
-     bf16 at full width (tinyllama whole, moonshot at 4 of 48 layers) 3
+     bf16 at full width (tinyllama at 11 of 22 layers, whole before phase
+     27; moonshot at 4 of 48 layers) 3
      steps on a fixed batch of 8 x 512 sharded and unsharded: the first
      sharded loss no further from the fp32 loss than the unsharded bf16
      one is plus 2e-3 x |loss|, the loss falling, matmul (the experts' 4-D
@@ -389,7 +390,23 @@ Phases, one report line each (any failure exits non-zero):
      compress_gradients of the joined gradient bit for bit, residual
      carried, the step's residual the same, wire_bytes_ratio equal.  The
      kernels line gains phase 26's matmul and flash launches.
-     Before each of phases 2-26, gc.collect() and gc.freeze() (settle): a
+  27. the dry run (dryrun_phase, repro_torch/launch/dryrun.py): (a)
+     phase 9's second fixed-batch step of full-width tinyllama-1.1b (bf16,
+     2 x 2048) traced again on meta tensors: its kernel calls by kernel,
+     path and mode equal the card's launches exactly, its predicted peak
+     within 10 % of max_memory_allocated over that step (less what the
+     process held besides the step's arguments); (b) phase 25's second
+     sharded bf16 tinyllama step (11 layers) on {"data": 4, "model": 2}
+     (8 x 512) on
+     8 meta positions: the calls on each position, the collectives' calls
+     and bytes by kind equal, the peak within 10 %; (c) the roofline
+     terms of both with the runtime's hardware spec beside the step's
+     wall (printed); (d) dryrun_cell("tinyllama-1.1b", "decode_32k",
+     multi_pod=True, probe=False) on 512 meta positions on the card's
+     host: status ok, 512 chips, the card's allocated bytes and every
+     kernel's launch counters unchanged, its wall printed; the phase's
+     wall against its 40 s budget logged.
+     Before each of phases 2-27, gc.collect() and gc.freeze() (settle): a
      gen-2 collection of this script's heap took 0.2-0.75 s inside a timed
      step, and a collection walking it slowed phase 25's sharded steps
      1.7x.
@@ -401,6 +418,7 @@ torch.cuda.is_available() is false or the repository is missing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -712,14 +730,13 @@ def cuda_ms(fn, flush, reps: int = 10, warm: int = 2) -> float:
 def bound_terms(a, b, out_dtype) -> tuple:
     """(ops ms, bytes ms) for epilogue(a @ b): the FLOPs at the card's peak
     for the inputs' type, and each input read once plus the output written
-    once at the memory rate.  The bound is the larger of the two."""
-    m, k = a.shape[-2:]
-    n = b.shape[-1]
-    z = a.numel() // (m * k)
-    flops = 2.0 * z * m * n * k
+    once at the memory rate, both counted by the package's
+    ``kernels.calls.matmul_cost`` (the count the dry run reads).  The
+    bound is the larger of the two."""
+    from repro_torch.kernels.calls import matmul_cost
+
+    flops, nbytes = matmul_cost(a, b, out_dtype)
     peak = BF16_PEAK if (a.dtype == b.dtype == torch.bfloat16) else F32_PEAK
-    nbytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
-              + z * m * n * torch.empty((), dtype=out_dtype).element_size())
     return flops / peak * 1e3, nbytes / HBM_BW * 1e3
 
 
@@ -1683,8 +1700,17 @@ def main() -> int:
         return 1
     record["encdec_mesh"] = encdec_mesh
 
-    # ---------------------------------------------------------------- out
+    # ----------------------------------------------------------------- 27
     clock.lap(26)
+    settle()
+    torch.cuda.empty_cache()
+    dryrun = dryrun_phase(card)
+    if dryrun is None:
+        return 1
+    record["dryrun"] = dryrun
+
+    # ---------------------------------------------------------------- out
+    clock.lap(27)
     record["phase_s"] = clock.seconds
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2830,6 +2856,7 @@ def train_phase(cfg, fa, mm_launches, label="train", ckpt=True,
     from repro_torch.data import SyntheticLMData
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops
+    from repro_torch.kernels.calls import CallLog
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import Runtime
@@ -2939,11 +2966,24 @@ def train_phase(cfg, fa, mm_launches, label="train", ckpt=True,
     step_fn = make_train_step(model, loop, donate=True)
     losses, walls = [], []
     for i in range(n_timed):
+        # phase 9's second fixed-batch step is the one phase 27's dry run
+        # traces: its kernel calls and its peak memory are kept
+        held = label == "train" and fixed_batch and i == 1
         torch.cuda.synchronize()
+        if held:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        losses.append(float(metrics["loss"]))
+        with (CallLog() if held else contextlib.nullcontext()) as calls_:
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
         walls.append((time.perf_counter() - t0) * 1e3)
+        if held:
+            DRYRUN_CAPTURE["train"] = dict(
+                arch=cfg.name, loop=loop, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                calls=calls_.counts(), peak=torch.cuda.max_memory_allocated(),
+                base=base, args=storage_bytes(state, batch),
+                wall_ms=walls[-1])
     end_loss = None
     if fixed_batch:
         with torch.no_grad():
@@ -7316,8 +7356,10 @@ TRAIN_MESH_FP32 = (("tinyllama-1.1b", TRAIN_MESH_DP, (8.0,)),
                    ("moonshot-v1-16b-a3b", TRAIN_MESH_EP, (8.0, 1.25)))
 TRAIN_MESH_FP32_LAYERS = 2
 TRAIN_MESH_FP32_BATCH = (8, 64)
-# bf16 at full width: (arch, layers or None for whole, mesh)
-TRAIN_MESH_BF16 = (("tinyllama-1.1b", None, TRAIN_MESH_DP),
+# bf16 at full width: (arch, layers or None for whole, mesh); tinyllama at
+# 11 of its 22 layers since phase 27 came (its sharded step is host-bound,
+# about 5.5 s whole on the card)
+TRAIN_MESH_BF16 = (("tinyllama-1.1b", 11, TRAIN_MESH_DP),
                    ("moonshot-v1-16b-a3b", 4, TRAIN_MESH_EP))
 TRAIN_MESH_BATCH = (8, 512)  # the bf16 runs' global batch
 TRAIN_MESH_STEPS = 3
@@ -7714,6 +7756,7 @@ def train_mesh_bf16(arch, depth, shape, card, mm, fa, checks=None,
     from repro_torch.core.costs.engine import CostEngine
     from repro_torch.core.planner import plan_model
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.calls import CallLog
     from repro_torch.models import build_model
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.training import (TrainLoopConfig, init_train_state,
@@ -7755,6 +7798,7 @@ def train_mesh_bf16(arch, depth, shape, card, mm, fa, checks=None,
         reported wall is step 2's), the last profiled, then the loss after
         them; ``counted()`` read right after the steps."""
         losses, walls, hosts = [], [], []
+        peak_kept = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for i in range(TRAIN_MESH_STEPS):
@@ -7771,12 +7815,38 @@ def train_mesh_bf16(arch, depth, shape, card, mm, fa, checks=None,
                 prof = profile_train_step(one)
                 st, m = out["r"]
             else:
+                # phase 27's dry run traces tinyllama's sharded step: its
+                # kernel calls by position, its collectives and its peak
+                held = ctx is not None and arch == "tinyllama-1.1b"
                 torch.cuda.synchronize()
+                if held:
+                    peak_before = torch.cuda.max_memory_allocated()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    cols = (ctx.mesh.collectives,
+                            dict(ctx.mesh.collective_bytes))
                 t = time.perf_counter()
-                st, m = step(st, feed)
-                hosts.append((time.perf_counter() - t) * 1e3)
-                torch.cuda.synchronize()
+                with (CallLog() if held else contextlib.nullcontext()) \
+                        as calls_:
+                    st, m = step(st, feed)
+                    hosts.append((time.perf_counter() - t) * 1e3)
+                    torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t) * 1e3)
+                if held:
+                    DRYRUN_CAPTURE["train_mesh"] = dict(
+                        arch=arch, layers=cfg.n_layers, loop=loop,
+                        batch=(b, s), mesh=dict(ctx.mesh.shape),
+                        data_axes=ctx.data_axes, attn_chunk=ctx.attn_chunk,
+                        rnn_chunk=ctx.rnn_chunk,
+                        moe_capacity_factor=ctx.moe_capacity_factor,
+                        calls=calls_.counts(by_position=True),
+                        collectives=ctx.mesh.collectives - cols[0],
+                        collective_bytes={
+                            k: v - cols[1][k] for k, v in
+                            ctx.mesh.collective_bytes.items()},
+                        peak=torch.cuda.max_memory_allocated(), base=base,
+                        args=storage_bytes(st, feed), wall_ms=walls[-1])
+                    peak_kept = peak_before
             losses.append(float((m[0] if isinstance(m, list) else m)["loss"]))
         counts = counted() if counted is not None else None
         with torch.no_grad():
@@ -7785,7 +7855,8 @@ def train_mesh_bf16(arch, depth, shape, card, mm, fa, checks=None,
             else:
                 last = model.loss([p["params"] for p in st], feed, ctx)[0][0]
         losses.append(float(last))
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        # the run's peak, over the step phase 27 reset it for too
+        peak = max(torch.cuda.max_memory_allocated(), peak_kept) / 1e9
         wall = walls[-1]
         log("train-mesh", f"{arch} bf16 {label}: losses {losses} (the last "
             f"after step {TRAIN_MESH_STEPS}); step walls {walls} ms, host "
@@ -8547,6 +8618,241 @@ def encdec_mesh_phase(card):
         + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
         + f"); {len(fails)} failures ({card})")
     return None if fails else out
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: the dry run held against the card
+# ---------------------------------------------------------------------------
+
+# what phases 9 and 25 keep of the steps phase 27's dry run traces again:
+# "train" (phase 9's second fixed-batch step of full-width tinyllama-1.1b)
+# and "train_mesh" (phase 25's second sharded bf16 tinyllama-1.1b step on
+# TRAIN_MESH_DP)
+DRYRUN_CAPTURE: dict = {}
+DRYRUN_PEAK_TOL = 0.10  # the predicted peak within 10 % of the card's
+DRYRUN_BUDGET_S = 40.0  # the phase's budget (logged when passed)
+DRYRUN_CELL = ("tinyllama-1.1b", "decode_32k")  # on the 512-position mesh
+
+
+def storage_bytes(*trees) -> int:
+    """Bytes of the distinct storages held by the tensors in ``trees``
+    (dicts, lists and tuples walked)."""
+    seen, total, stack = set(), 0, list(trees)
+    while stack:
+        x = stack.pop()
+        if isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif torch.is_tensor(x):
+            st = x.untyped_storage()
+            key = (x.device, st.data_ptr(), st.nbytes())
+            if key not in seen:
+                seen.add(key)
+                total += st.nbytes()
+    return total
+
+
+def launch_counters() -> tuple:
+    """Every kernel wrapper's launch counters, as they stand."""
+    from repro_torch.kernels import bitonic_sort
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import wkv as wkv_k
+
+    return (mm.LAUNCHES.count, dict(mm.LAUNCHES.by_path),
+            fa.LAUNCHES.forward, fa.LAUNCHES.backward, fa.LAUNCHES.grids,
+            wkv_k.LAUNCHES.forward, wkv_k.LAUNCHES.backward,
+            dict(wkv_k.LAUNCHES.cuda), bitonic_sort.LAUNCHES.count,
+            bitonic_sort.LAUNCHES.grids)
+
+
+def dryrun_held(label, cap, tr, device, model_flops, hw, card,
+                on_mesh: bool) -> tuple:
+    """Hold a dry run's trace ``tr`` of a step against what the card kept
+    of the same step (``cap``): the kernel calls by kernel, path and mode
+    (by position on a mesh) and the collectives exactly, the peak within
+    DRYRUN_PEAK_TOL; the roofline terms of the trace against the step's
+    wall, printed and not gated.  Returns (record, failures)."""
+    from repro_torch.roofline import RooflineTerms
+
+    fails = []
+    got = tr.calls.counts(by_position=on_mesh)
+    if got != cap["calls"]:
+        fails.append(f"{label}: the dry run's kernel calls {got} are not "
+                     f"the card's {cap['calls']}")
+    # the card's peak over the step, less what the process held besides
+    # the step's arguments
+    other = cap["base"] - cap["args"]
+    measured = cap["peak"] - other
+    predicted = tr.counter.peak.get(device, 0)
+    rel = abs(predicted - measured) / measured
+    if rel > DRYRUN_PEAK_TOL:
+        fails.append(f"{label}: predicted peak {predicted / 1e9:.3f} GB, the "
+                     f"card's {measured / 1e9:.3f} GB ({rel:.1%} off)")
+    rec = dict(calls=sum(sum(c.values()) if on_mesh else c
+                         for c in got.values()),
+               predicted_peak=predicted, measured_peak=measured,
+               peak_rel_err=rel, predicted_args=tr.counter.arguments.get(
+                   device, 0), card_args=cap["args"], other=other,
+               trace_s=tr.wall_s, step_ms=cap["wall_ms"])
+    if on_mesh:
+        want = (cap["collectives"], cap["collective_bytes"])
+        have = (tr.collectives, tr.collective_bytes)
+        if have != want:
+            fails.append(f"{label}: the dry run's collectives {have} are not "
+                         f"the card's {want}")
+        rec.update(collectives=tr.collectives,
+                   collective_bytes=tr.collective_bytes)
+    terms = RooflineTerms(
+        flops=tr.flops, hbm_bytes=tr.bytes, hbm_bytes_min=tr.bytes_min,
+        collective_bytes=sum(tr.collective_bytes.values()), chips=1,
+        model_flops=model_flops, hw=hw, label=label).as_dict()
+    rec["roofline"] = terms
+    log("dryrun", f"{label}: {rec['calls']} kernel calls "
+        f"{'equal' if got == cap['calls'] else 'UNEQUAL'} to the card's"
+        + (f" on every position, {tr.collectives} collectives and "
+           f"{tr.collective_bytes} bytes by kind "
+           f"{'equal' if not fails else 'checked'}" if on_mesh else "")
+        + f"; peak predicted {predicted / 1e9:.3f} GB, the card's "
+        f"{measured / 1e9:.3f} GB ({rel:.1%}; the process held "
+        f"{other / 1e9:.3f} GB besides the step's {cap['args'] / 1e9:.3f} GB "
+        f"of arguments, predicted {rec['predicted_args'] / 1e9:.3f} GB); "
+        f"traced in {tr.wall_s:.1f} s; roofline ({hw.name}): compute "
+        f"{terms['t_compute_s'] * 1e3:.1f} ms, memory "
+        f"{terms['t_memory_s'] * 1e3:.1f} ms (upper "
+        f"{terms['t_memory_upper_s'] * 1e3:.1f} ms), collective "
+        f"{terms['t_collective_s'] * 1e3:.2f} ms, bound {terms['bound']}, "
+        f"against the step's wall {cap['wall_ms']:.1f} ms ({card})")
+    return rec, fails
+
+
+def dryrun_phase(card):
+    """Phase 27: the dry run (``launch/dryrun.py``) against the card.
+    (a) phase 9's full-width tinyllama-1.1b bf16 training step at 2 x
+    2048 traced again on meta tensors: the kernel calls by kernel, path
+    and mode equal the card's launches, exactly, and the predicted peak
+    within DRYRUN_PEAK_TOL of max_memory_allocated over that step; (b)
+    phase 25's sharded bf16 step on TRAIN_MESH_DP's 8 positions: the calls
+    on each position equal, the collectives' calls and bytes by kind
+    equal, the peak within DRYRUN_PEAK_TOL; (c) the roofline terms of both
+    with the runtime's hardware spec beside the steps' walls (printed);
+    (d) the production cell DRYRUN_CELL on 512 meta positions: status ok,
+    512 chips, the card's allocated memory and every kernel's launch
+    counters unchanged across it, its wall printed.  The phase's wall
+    against DRYRUN_BUDGET_S is logged.  None on any failure."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import (ShardingCtx,
+                                                  batch_sharding,
+                                                  param_shardings,
+                                                  place_shapes)
+    from repro_torch.launch.dryrun import dryrun_cell, trace
+    from repro_torch.models import build_model
+    from repro_torch.roofline import model_flops_for
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.runtime import Runtime
+    from repro_torch.training.step import make_train_step, train_state_shapes
+
+    t0 = time.perf_counter()
+    rt = Runtime(device="cuda")
+    out, fails = {"card": card}, []
+
+    # (a) phase 9's step on one position
+    cap = DRYRUN_CAPTURE.get("train")
+    if cap is None:
+        fails.append("(a): phase 9 kept no step")
+    else:
+        cfg = get_config(cap["arch"])
+        model = build_model(cfg, "meta")
+        state = train_state_shapes(model, cap["loop"])
+        batch = {"tokens": torch.empty((cap["batch"], cap["seq"]),
+                                       dtype=torch.int64, device="meta")}
+        step = make_train_step(model, cap["loop"], donate=True)
+        tr = trace(lambda: step(state, batch), [(state, batch)], [None],
+                   grad=True)
+        mf = model_flops_for(cfg, ShapeSpec("p9", cap["seq"], cap["batch"],
+                                            "train"))
+        out["train"], f = dryrun_held(
+            f"(a) {cap['arch']} train {cap['batch']} x {cap['seq']}", cap,
+            tr, None, mf, rt.hw, card, on_mesh=False)
+        fails += f
+        del tr, state, step
+    # (b) phase 25's sharded step on 8 positions of the card
+    cap = DRYRUN_CAPTURE.get("train_mesh")
+    if cap is None:
+        fails.append("(b): phase 25 kept no step")
+    else:
+        cfg = dataclasses.replace(get_config(cap["arch"]),
+                                  n_layers=cap["layers"])
+        model = build_model(cfg, "meta")
+        mesh = make_mesh(cap["mesh"], device="meta")
+        ctx = ShardingCtx(mesh=mesh, data_axes=cap["data_axes"],
+                          attn_chunk=cap["attn_chunk"],
+                          rnn_chunk=cap["rnn_chunk"],
+                          moe_capacity_factor=cap["moe_capacity_factor"])
+        state = train_state_shapes(model, cap["loop"])
+        states = place_shapes(mesh, state, param_shardings(
+            state, mesh, data_axes=ctx.data_axes, cfg=cfg))
+        b, s = cap["batch"]
+        batch = {"tokens": torch.empty((b, s), dtype=torch.int64,
+                                       device="meta")}
+        feed = place_shapes(mesh, batch, batch_sharding(batch, mesh,
+                                                        ctx.data_axes))
+        step = make_train_step(model, cap["loop"], ctx=ctx, donate=True)
+        n = mesh.size
+        # the 8 positions share the one card: their bytes add on it
+        tr = trace(lambda: step(states, feed),
+                   [(states[i], feed[i]) for i in range(n)], range(n),
+                   mesh=mesh, grad=True, device_of=lambda p: 0)
+        mf = model_flops_for(cfg, ShapeSpec("p25", s, b, "train"))
+        out["train_mesh"], f = dryrun_held(
+            f"(b) {cap['arch']} train {b} x {s} on {cap['mesh']}", cap, tr,
+            0, mf, rt.hw, card, on_mesh=True)
+        fails += f
+        del tr, states, feed, step
+    # (d) a production cell on the card's host: nothing reaches the card
+    torch.cuda.synchronize()
+    mem0, launches0 = torch.cuda.memory_allocated(), launch_counters()
+    t1 = time.perf_counter()
+    rec = dryrun_cell(*DRYRUN_CELL, multi_pod=True, probe=False,
+                      verbose=False, runtime=rt)
+    cell_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    mem1, launches1 = torch.cuda.memory_allocated(), launch_counters()
+    out["cell"] = dict(cell=rec["cell"], status=rec["status"],
+                       chips=rec["chips"], wall_s=cell_s,
+                       memory_analysis=rec["memory_analysis"],
+                       kernel_calls=rec["kernel_calls"],
+                       collective_bytes=rec["collective_bytes"],
+                       card_memory=(mem0, mem1))
+    if rec["status"] != "ok" or rec["chips"] != 512 or mem1 != mem0 \
+            or launches1 != launches0:
+        fails.append(f"(d) {rec['cell']}: status {rec['status']}, chips "
+                     f"{rec['chips']}, card memory {mem0} -> {mem1}, "
+                     f"launch counters changed {launches1 != launches0}")
+    mem = rec["memory_analysis"]
+    log("dryrun", f"(d) {rec['cell']}: {rec['status']} on {rec['chips']} "
+        f"meta positions in {cell_s:.1f} s on the card's host; a position "
+        f"holds {mem['argument_bytes'] / 1e9:.3f} GB of arguments, peak "
+        f"{mem['peak_bytes'] / 1e9:.3f} GB; the card's allocated bytes "
+        f"{mem0} before and {mem1} after, launch counters "
+        f"{'unchanged' if launches1 == launches0 else 'CHANGED'} ({card})")
+    out["wall_s"] = time.perf_counter() - t0
+    out["over_budget"] = out["wall_s"] > DRYRUN_BUDGET_S
+    if out["over_budget"]:
+        # recorded, not gated: the production cell's trace is the host's
+        # work at about 20 us a dispatched op, 2.3 million of them
+        log("dryrun", f"phase 27 took {out['wall_s']:.1f} s, past its "
+            f"{DRYRUN_BUDGET_S:.0f} s budget (the production cell "
+            f"{cell_s:.1f} s)")
+    out["fails"] = fails
+    for f in fails:
+        log("dryrun", f"FAIL {f}")
+    log("dryrun", f"phase 27 wall {out['wall_s']:.1f} s (the production "
+        f"cell {cell_s:.1f} s); {len(fails)} failures ({card})")
+    return None if fails else out
+
 
 if __name__ == "__main__":
     # torch is imported here, not with the module: the front end's spawned

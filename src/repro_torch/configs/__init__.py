@@ -23,4 +23,5 @@ from repro_torch.configs.base import (  # noqa: F401
     get_config,
     list_configs,
     register,
+    shape_applicable,
 )

@@ -215,3 +215,10 @@ SHAPES: Dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """The assignment's rule: long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "long_500k skipped: pure full-attention arch (O(S^2) decode cache)"
+    return True, ""

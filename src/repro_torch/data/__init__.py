@@ -1,4 +1,7 @@
 """Deterministic synthetic training data (the counterpart of
 ``repro.data``)."""
 
-from repro_torch.data.pipeline import SyntheticLMData  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    SyntheticLMData,
+    make_batch_specs,
+)

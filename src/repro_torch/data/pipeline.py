@@ -15,6 +15,10 @@ reference's does: ``vision_embeds`` (B, P, d), normal x 0.02 fp32 with P
 ``positions``.  An encoder-decoder config's batch adds the audio stub's
 ``frames`` (B, S, d), normal x 0.1 fp32, one frame per token position.
 
+``make_batch_specs`` gives the dry run's inputs: meta tensors of every
+model input at a shape, with the reference's keys, shapes and dtypes (the
+token and position ids int32), which allocate nothing.
+
 The mixture and its distributions are the reference's
 (``src/repro/data/pipeline.py``), but not its bits: the reference draws
 from ``jax.random`` (threefry), this from torch's generator, so the same
@@ -30,7 +34,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models.model import _vlm_patches, mrope_positions
 
 ZIPF_EXPONENT = 1.1
@@ -88,3 +92,29 @@ class SyntheticLMData:
             batch["frames"] = torch.randn(
                 (b, self.seq_len, self.cfg.d_model), generator=gen) * 0.1
         return {k: v.to(self.device) for k, v in batch.items()}
+
+
+def make_batch_specs(cfg: ModelConfig, shape: ShapeSpec,
+                     dtype: torch.dtype = torch.bfloat16
+                     ) -> Dict[str, torch.Tensor]:
+    """Meta stand-ins for every model input at ``shape`` (the reference's
+    ``make_batch_specs``: its keys, shapes and dtypes): ``tokens`` (B, S)
+    int32, S = 1 for a decode shape; a vision config's ``vision_embeds``
+    (B, P, d) in ``dtype`` outside decode, P = ``_vlm_patches(cfg, S)``;
+    an mrope config's ``positions`` (B, S, 3) int32; an encoder-decoder's
+    ``frames`` (B, S, d) in ``dtype`` outside decode."""
+    b = shape.global_batch
+    s = 1 if shape.kind == "decode" else shape.seq_len
+
+    def spec(dims, dt):
+        return torch.empty(dims, dtype=dt, device="meta")
+
+    specs = {"tokens": spec((b, s), torch.int32)}
+    if cfg.frontend == "vision" and shape.kind != "decode":
+        specs["vision_embeds"] = spec((b, _vlm_patches(cfg, s), cfg.d_model),
+                                      dtype)
+    if cfg.pos_type == "mrope":
+        specs["positions"] = spec((b, s, 3), torch.int32)
+    if cfg.is_encdec and shape.kind != "decode":
+        specs["frames"] = spec((b, s, cfg.d_model), dtype)
+    return specs

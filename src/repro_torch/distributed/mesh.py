@@ -37,7 +37,21 @@ streams; the same code runs in program order.
 what the cost engine prices positions sharing a GPU at (their compute,
 memory and collectives are that device's).  A CPU position counts as a
 device of its own, standing for one of the reference's forced host
-devices.
+devices, and so does a meta position.
+
+A mesh on the ``meta`` device (``make_mesh(..., device="meta")``, of any
+size) is the dry run's: its positions hold tensors with shapes and no
+memory, have no stream, and run the real step functions, allocating and
+launching nothing (``launch/dryrun.py``).
+
+Every collective counts its calls (``Mesh.collectives``) and its result
+bytes by kind, summed over the positions (``Mesh.collective_bytes``, the
+reference's HLO names: ``all_gather`` is an all-gather, ``psum`` an
+all-reduce, ``all_gather_cat``'s backward a reduce-scatter,
+``all_to_all`` an all-to-all, ``ppermute`` a collective-permute), on real
+devices as on meta ones, so what the dry run predicts can be held
+against a run.  ``Mesh.on(i)`` also enters position ``i`` for the kernels'
+call logs (``kernels/calls.py``).
 """
 
 from __future__ import annotations
@@ -49,7 +63,13 @@ from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
 
 import torch
 
+from repro_torch.kernels.calls import at_position
+
 Stream = Optional["torch.cuda.Stream"]
+# the collective kinds ``Mesh.collective_bytes`` counts, by the reference's
+# HLO names
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
 # one mesh axis, or several taken together (row-major in the given order)
 Axes = Union[str, Tuple[str, ...]]
 
@@ -89,6 +109,14 @@ class Mesh:
         # bytes all_gather_cat's forward brought to positions from others
         # (an FSDP weight gather's traffic)
         self.gathered_bytes = 0
+        # result bytes of the collectives by kind, summed over positions
+        self.collective_bytes = dict.fromkeys(COLLECTIVE_KINDS, 0)
+
+    def count(self, kind: str, results) -> None:
+        """Add the bytes of ``results`` (one tensor a position) to
+        ``collective_bytes[kind]``."""
+        self.collective_bytes[kind] += sum(
+            t.numel() * t.element_size() for t in results if t is not None)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -131,7 +159,8 @@ class Mesh:
         positions share a GPU (``shards_per_device``).  A CPU position
         counts as a device of its own: the CPU mesh stands for the
         reference's forced host devices, which the reference prices as
-        separate chips."""
+        separate chips; so does a meta position, the dry run's stand-in
+        for a chip of a production mesh."""
         def device(i):
             d = self.devices[i]
             return d if d.type == "cuda" else i
@@ -146,11 +175,12 @@ class Mesh:
 
     def on(self, i: int):
         """Context in which work runs as position ``i``'s: its device, and
-        its stream on a GPU."""
+        its stream on a GPU; the kernels' call logs read the position."""
         stream = self.streams[i]
         if stream is None:
-            return contextlib.nullcontext()
+            return at_position(i)
         stack = contextlib.ExitStack()
+        stack.enter_context(at_position(i))
         stack.enter_context(torch.cuda.device(self.devices[i]))
         stack.enter_context(torch.cuda.stream(stream))
         return stack
@@ -170,14 +200,18 @@ class Mesh:
         return out
 
 
-def available_devices(device: str) -> int:
-    """How many devices of ``device``'s type this process can use."""
+def available_devices(device: str) -> Optional[int]:
+    """How many devices of ``device``'s type this process can use (None:
+    as many as asked, the meta device's positions)."""
     kind = torch.device(device).type
     if kind == "cuda":
         return torch.cuda.device_count()
     if kind == "cpu":
         return 1
-    raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    if kind == "meta":
+        return None
+    raise ValueError(f"device must be 'cuda', 'cpu' or 'meta', got "
+                     f"{device!r}")
 
 
 def make_mesh(shape: Mapping[str, int], *, device: str = "cuda",
@@ -189,7 +223,8 @@ def make_mesh(shape: Mapping[str, int], *, device: str = "cuda",
 
     ``make_mesh({"data": 8}, shards_per_device=8)`` puts eight shards on
     GPU 0; ``make_mesh({"data": 8}, device="cpu", shards_per_device=8)``
-    is the CPU mesh the tests use."""
+    is the CPU mesh the tests use.  ``device="meta"`` gives the dry run's
+    mesh of any size, every position on the meta device."""
     size = math.prod(int(v) for v in shape.values())
     if shards_per_device < 1 or size % shards_per_device:
         raise ValueError(f"shards_per_device={shards_per_device} must "
@@ -197,7 +232,7 @@ def make_mesh(shape: Mapping[str, int], *, device: str = "cuda",
     need = size // shards_per_device
     have = available_devices(device)
     kind = torch.device(device).type
-    if need > have:
+    if have is not None and need > have:
         raise ValueError(
             f"mesh {dict(shape)} needs {need} {kind} device(s) at "
             f"{shards_per_device} position(s) a device, and this process "
@@ -207,7 +242,7 @@ def make_mesh(shape: Mapping[str, int], *, device: str = "cuda",
         devices = [torch.device("cuda", i // shards_per_device)
                    for i in range(size)]
     else:
-        devices = [torch.device("cpu")] * size
+        devices = [torch.device(kind)] * size
     return Mesh(shape, devices)
 
 
@@ -349,6 +384,7 @@ def all_gather(mesh: Mesh, axis: Axes,
             parts = _gather(mesh, group, xs, j)
             with mesh.on(j):
                 out[j] = torch.stack(parts)
+    mesh.count("all-gather", out)
     return out
 
 
@@ -372,6 +408,7 @@ def all_to_all(mesh: Mesh, axis: Axes,
                            mesh.streams[j]) for i, b in zip(group, blocks)]
             with mesh.on(j):
                 out[j] = torch.cat(parts, 0)
+    mesh.count("all-to-all", out)
     return out
 
 
@@ -399,6 +436,7 @@ def psum(mesh: Mesh, axis: Axes,
                 with mesh.on(j):
                     acc = src.clone()
             out[j] = acc
+    mesh.count("all-reduce", out)
     return out
 
 
@@ -426,6 +464,7 @@ def ppermute(mesh: Mesh, axis: Axes, xs: Sequence[torch.Tensor],
             else:
                 with mesh.on(j):
                     out[j] = torch.zeros_like(xs[j], device=mesh.devices[j])
+    mesh.count("collective-permute", out)
     return out
 
 
@@ -443,6 +482,7 @@ def _gather_cat(mesh: Mesh, axis: Axes, xs, dim: int) -> list:
                 out[j] = torch.cat(parts, dim)
             mesh.gathered_bytes += sum(
                 xs[i].numel() * xs[i].element_size() for i in group if i != j)
+    mesh.count("all-gather", out)
     return out
 
 
@@ -462,6 +502,7 @@ def _reduce_scatter(mesh: Mesh, axis: Axes, xs, dim: int, srcs) -> list:
                 for p in parts[1:]:
                     acc += p.float()
                 out[j] = acc.to(xs[j].dtype)
+    mesh.count("reduce-scatter", out)
     return out
 
 

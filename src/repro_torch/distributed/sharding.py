@@ -76,6 +76,9 @@ class ShardingCtx:
     # Runtime's)
     cost_engine: Optional[Any] = None
     seq_shard: bool = True
+    # the planner's spec overrides (path regex -> spec), which the params
+    # are placed by and the model's specs read (``mesh_specs``)
+    overrides: Optional[Dict[str, Spec]] = None
 
     @property
     def dp(self) -> int:
@@ -421,10 +424,13 @@ def _state_lead(keys: List[str]) -> int:
 
 def serve_state_sharding(state_shape: Any, mesh: Mesh, *,
                          model_axis: str = "model",
-                         seq_split: bool = True) -> Any:
+                         seq_split: bool = True,
+                         data_axes: Sequence[str] = ()) -> Any:
     """Pooled decode-state placement for tensor-parallel serving.
 
-    The slot (batch) axis is never sharded.  KV caches ((L?, B, S, H, hd)
+    The slot (batch) axis is split over ``data_axes`` where they divide it
+    (the dry run's production contexts; none when serving, where it is
+    never sharded).  KV caches ((L?, B, S, H, hd)
     leaves keyed ``k``/``v``) shard their kv-head dim over the model axis
     when it divides; heads that do not divide fall back to the
     cache-length dim, then to replication.  Paged pools ((L?, n_blocks,
@@ -438,12 +444,18 @@ def serve_state_sharding(state_shape: Any, mesh: Mesh, *,
     to the kv heads they use, in its own whole copy, where the reference
     runs a sequence-parallel decode attention over a length-split cache."""
     tp = mesh.shape.get(model_axis, 1)
+    dp = _dp_size(mesh, data_axes)
+    dp_spec = (tuple(data_axes) if len(data_axes) > 1 else data_axes[0]) \
+        if data_axes else None
 
     def rule(path, arr):
         keys = _keys(path)
         shape = tuple(arr.shape)
         lead = min(_state_lead(keys), max(len(shape) - 1, 0))
         dims = [None] * len(shape)
+        if dp > 1 and len(shape) > lead and shape[lead] % dp == 0 \
+                and not (keys and keys[-1] in ("pk", "pv")):
+            dims[lead] = dp_spec
         if tp > 1 and keys and keys[-1] in ("k", "v") \
                 and len(shape) == lead + 4:
             s, h = shape[lead + 1], shape[lead + 2]
@@ -613,6 +625,42 @@ def place_tree(mesh: Mesh, tree: Any, specs: Any, *,
             for i in range(mesh.size)]
 
 
+def place_shapes(mesh: Mesh, tree: Any, specs: Any,
+                 device: str = "meta") -> List[Any]:
+    """The shapes of ``place_tree(mesh, tree, specs, copy=True)``, in
+    tensors made afresh on ``device`` (the meta device by default; zeros
+    elsewhere): each position's tree holds its block of every leaf, with
+    storage of its own, and nothing is sliced or copied (the dry run's
+    train state and batch on a production mesh)."""
+    make = torch.empty if torch.device(device).type == "meta" \
+        else torch.zeros
+
+    def block_of(x, spec):
+        if not torch.is_tensor(x):
+            return lambda: x
+        spec = tuple(spec)[:x.dim()] + (None,) * (x.dim() - len(tuple(spec)))
+        shape = list(x.shape)
+        for d, a in enumerate(spec):
+            if a is not None:
+                n = _axis_size(a, mesh.shape)
+                if shape[d] % n:
+                    raise ValueError(f"dim {d} of {tuple(x.shape)} does not "
+                                     f"split into {n} pieces (spec {spec})")
+                shape[d] //= n
+        return lambda: make(shape, dtype=x.dtype, device=device)
+
+    makers = tree_map(block_of, tree, specs)
+
+    def build(node):  # the tree's structure, a new leaf at each maker
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return node()
+
+    return [build(makers) for _ in range(mesh.size)]
+
+
 def unplace_tree(mesh: Mesh, trees: Sequence[Any], specs: Any,
                  device=None) -> Any:
     """The inverse of ``place_tree``: each leaf whole again on ``device``
@@ -641,6 +689,6 @@ def unplace_tree(mesh: Mesh, trees: Sequence[Any], specs: Any,
 
 __all__ = ["ShardingCtx", "Spec", "batch_sharding", "blocks",
            "is_representative",
-           "param_shardings", "place_tree", "replica_axes",
+           "param_shardings", "place_shapes", "place_tree", "replica_axes",
            "serve_state_sharding", "state_sharding", "unplace_tree",
            "validate_serve_mesh"]

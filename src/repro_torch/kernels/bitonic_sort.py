@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, calls
 
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1}
 LOG_TILE = 14  # log2 of the elements a block pass holds (kLogTile)
@@ -147,7 +147,7 @@ def bitonic_sort_cuda(x: torch.Tensor, log_tile: int = LOG_TILE,
     n a power of 2 (at least 2), float32 or int32; returns a new tensor.
     ``log_tile`` and ``log_group`` pick the build (``defines``); the port's
     own by default."""
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         raise ValueError(f"bitonic_sort_cuda needs a CUDA tensor, got "
                          f"{x.device}")
     if x.dtype not in _DTYPE_CODE:
@@ -164,6 +164,10 @@ def bitonic_sort_cuda(x: torch.Tensor, log_tile: int = LOG_TILE,
     out = torch.empty_like(x)
     if rows == 0:
         return out
+    path = str(x.dtype).replace("torch.", "")
+    if x.is_meta:  # the dry run: the card path's allocation, no launch
+        calls.record("bitonic_sort", path, "rows", calls.sort_cost(x))
+        return out
     fn = _function(defines(log_tile, log_group))
     grids = ctypes.c_int(0)
     with torch.cuda.device(x.device):
@@ -173,6 +177,7 @@ def bitonic_sort_cuda(x: torch.Tensor, log_tile: int = LOG_TILE,
     if err != 0:
         raise RuntimeError(f"bitonic sort kernel launch failed: cudaError "
                            f"{err} for {tuple(x.shape)} {x.dtype}")
+    calls.record("bitonic_sort", path, "rows", calls.sort_cost(x))
     LAUNCHES.count += 1
     LAUNCHES.grids += grids.value
     return out

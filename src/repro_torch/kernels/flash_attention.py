@@ -25,7 +25,10 @@ backward works on 32-row kv tiles, so that its shared memory fits a CTA.
 places the kernels are launched.  Each checks what the kernels take and
 raises on anything else, allocates its outputs and scratch with
 ``torch.empty``, launches on the current stream, raises if a launch
-reports an error, and counts the call in ``LAUNCHES`` (``forward``,
+reports an error, and counts the call in any open ``calls.CallLog`` (meta
+tensors, the dry run, take the same checks and allocations and are
+recorded there where the card would launch, launching nothing) and in
+``LAUNCHES`` (``forward``,
 ``backward``; ``by_path``: the same calls by path; ``grids``: the CUDA
 launches, one a forward, two a backward on the FMA path and three on the
 tensor-core path; ``copied_operands``: tensor-core operands the producer
@@ -41,7 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, calls
 from repro_torch.kernels.ref import (
     flash_attention_bwd_plain,
     flash_attention_fwd_plain,
@@ -224,7 +227,7 @@ def _check_cuda(tensors, hd: int) -> str:
     dtype the kernels take; return the path they take."""
     dev = tensors[0].device
     for t in tensors:
-        if not t.is_cuda or t.device != dev:
+        if not (t.is_cuda or t.is_meta) or t.device != dev:
             raise ValueError(f"flash attention kernel needs CUDA tensors on "
                              f"one device, got {t.device}")
         if t.dtype != tensors[0].dtype:
@@ -255,6 +258,11 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
+    mode = "forward causal" if causal else "forward non-causal"
+    if q.is_meta:  # the dry run: the card path's allocations, no launch
+        calls.record("flash_attention", path, mode,
+                     calls.flash_cost(q, k, "forward"))
+        return o, lse
     mask = _tma_mask((q, k, v)) if path == "tensor_core" else 0
     fwd, _ = _functions()
     with torch.cuda.device(q.device):
@@ -267,6 +275,8 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError(f"flash attention forward launch failed: "
                            f"error {err} on the {path} path for q "
                            f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    calls.record("flash_attention", path, mode,
+                 calls.flash_cost(q, k, "forward"))
     LAUNCHES.forward += 1
     LAUNCHES.on_stream("forward", stream)
     LAUNCHES.grids += 1
@@ -299,10 +309,16 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
         return dq, dk.zero_(), dv.zero_()
     mask, part = 0, None
     if path == "tensor_core":
-        mask = _tma_mask((q, k, v, do))
         # dK and dV of each query head, fp32, summed per kv head after
         part = torch.empty((2, b, skv, hq, hd), dtype=torch.float32,
                            device=q.device)
+    mode = "backward causal" if causal else "backward non-causal"
+    if q.is_meta:  # the dry run: the card path's allocations, no launch
+        calls.record("flash_attention", path, mode,
+                     calls.flash_cost(q, k, "backward"))
+        return dq, dk, dv
+    if path == "tensor_core":
+        mask = _tma_mask((q, k, v, do))
     _, bwd = _functions()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -317,6 +333,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
         raise RuntimeError(f"flash attention backward launch failed: "
                            f"error {err} on the {path} path for q "
                            f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    calls.record("flash_attention", path, mode,
+                 calls.flash_cost(q, k, "backward"))
     LAUNCHES.backward += 1
     LAUNCHES.on_stream("backward", stream)
     LAUNCHES.grids += _BWD_GRIDS[path]
@@ -331,17 +349,26 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True,
                 sm_scale: Optional[float] = None):
-        fwd = flash_attention_fwd_plain if q.device.type == "cpu" \
-            else flash_attention_fwd_cuda
-        o, lse = fwd(q, k, v, causal, sm_scale)
+        if q.device.type == "cpu":
+            o, lse = calls.plain_call(flash_attention_fwd_plain,
+                                      flash_attention_fwd_cuda, q, k, v,
+                                      causal, sm_scale)
+        else:
+            o, lse = flash_attention_fwd_cuda(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.position = calls.position()
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_plain if q.device.type == "cpu" \
-            else flash_attention_bwd_cuda
-        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.causal, ctx.sm_scale)
+        with calls.at_position(ctx.position):
+            if q.device.type == "cpu":
+                dq, dk, dv = calls.plain_call(
+                    flash_attention_bwd_plain, flash_attention_bwd_cuda, q,
+                    k, v, o, lse, do, ctx.causal, ctx.sm_scale)
+            else:
+                dq, dk, dv = flash_attention_bwd_cuda(
+                    q, k, v, o, lse, do, ctx.causal, ctx.sm_scale)
         return dq, dk, dv, None, None

@@ -18,7 +18,10 @@ the kernel takes and raises on anything else, allocates the output with
 ``torch.empty``, launches on the current stream, raises if the launch
 reports an error, and counts the launch in ``LAUNCHES`` (in total, by
 path, and the tensor-core operands no tensor map loads, which the
-producer's threads copy).
+producer's threads copy) and in any open ``calls.CallLog``.  Meta
+operands (the dry run) take the same checks and allocations, the split
+halves included, and are recorded in the log where the card would launch;
+nothing launches.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, calls
 
 EPILOGUE_ACTIVATIONS = ("relu", "gelu", "silu", "tanh")
 PATHS = ("tensor_core", "split", "fma")
@@ -181,18 +184,30 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def call_mode(ndim: int, out_dtype: torch.dtype,
+              activation: Optional[str]) -> str:
+    """What a call log tells apart besides the path: the operands' rank,
+    the output's dtype and the epilogue (``"2-D bfloat16 silu"``)."""
+    mode = f"{ndim}-D {str(out_dtype).replace('torch.', '')}"
+    return mode if activation is None else f"{mode} {activation}"
+
+
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
                 bias: Optional[torch.Tensor] = None,
                 activation: Optional[str] = None,
                 out_dtype: Optional[torch.dtype] = None,
-                tile: Optional[int] = None) -> torch.Tensor:
+                tile: Optional[int] = None,
+                halves: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
     """Launch the kernel: ``a`` (M, K) and ``b`` (K, N), or ``a`` (Z1, Z2, M,
     K) and ``b`` (Z1, Z2, K, N) with any strides; ``bias`` (N,) is added in
     fp32; the result is contiguous in ``out_dtype`` (default ``a.dtype``).
     The path is ``choose_path(a.dtype, b.dtype)``; ``tile`` (in ``TILES``)
     is the tensor-core paths' tile width, ``tile_n(n)`` when None (the FMA
-    path has none)."""
-    if not (a.is_cuda and b.is_cuda):
+    path has none).  ``halves`` on the split path: the fp32 operand's
+    ``split_hi_lo`` halves, made by the caller (``ops.k_blocked`` splits
+    a whole operand once for all its K blocks); None splits here."""
+    if not ((a.is_cuda and b.is_cuda) or (a.is_meta and b.is_meta)):
         raise ValueError(f"matmul_cuda needs CUDA tensors, got {a.device} "
                          f"and {b.device}")
     if a.device != b.device:
@@ -237,12 +252,23 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     out = torch.empty(a.shape[:-1] + (n,), dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
+    cost = calls.matmul_cost(a, b, out_dtype, bias)
+    mode = call_mode(a.dim(), out_dtype, activation)
     a_lo = b_lo = None
     if path == "split":
+        if halves is not None and (
+                halves[0].shape != (a if a.dtype == torch.float32 else
+                                    b).shape
+                or {h.dtype for h in halves} != {torch.bfloat16}):
+            raise ValueError("halves must be the fp32 operand's bf16 hi and "
+                             "lo, of its shape")
         if a.dtype == torch.float32:
-            a, a_lo = split_hi_lo(a)
+            a, a_lo = halves if halves is not None else split_hi_lo(a)
         else:
-            b, b_lo = split_hi_lo(b)
+            b, b_lo = halves if halves is not None else split_hi_lo(b)
+    if a.is_meta:  # the dry run: the card path's allocations, no launch
+        calls.record("matmul", path, mode, cost)
+        return out
     tc = path != "fma"  # the FMA kernel reads any strides, no modes
     a_mode, b_mode = (_mode_code(a, "a"), _mode_code(b, "b")) if tc else (0, 0)
     fn = _function()
@@ -259,6 +285,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
         raise RuntimeError(f"matmul kernel ({path} path) launch failed: "
                            f"code {err} for {tuple(a.shape)} @ "
                            f"{tuple(b.shape)}")
+    calls.record("matmul", path, mode, cost)
     LAUNCHES.count += 1
     LAUNCHES.by_path[path] += 1
     LAUNCHES.by_stream[stream] = LAUNCHES.by_stream.get(stream, 0) + 1

@@ -10,6 +10,12 @@ An fp32 product on the tensor cores with K above ``TC_K_BLOCK`` runs as
 consecutive K blocks added in fp32 (``_matmul``): the kernel's fp32 sum
 drifts over a long k walk.
 
+A meta tensor (the dry run, ``launch/dryrun.py``) takes the card's
+branch wherever the port chooses by device (``on_card``), and in the
+kernel wrappers the card path's checks and allocations, recorded in any
+open ``calls.CallLog`` where the card would launch: neither a kernel nor
+a plain version runs.
+
 Each kernel's tile (the matmul's width, the sort's tile and group, WKV's
 chunk) comes from the autotuner (``kernels/tuning.py``) on a CUDA tensor:
 the ``tuner`` passed, else the one this thread's Runtime is serving or
@@ -34,13 +40,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import tuning
+from repro_torch.kernels import calls, tuning
 from repro_torch.kernels.bitonic_sort import bitonic_sort_cuda
 from repro_torch.kernels.flash_attention import FlashAttentionFn, check_shapes
 from repro_torch.kernels.matmul import (
+    _TMA_ALIGN,
     EPILOGUE_ACTIVATIONS,
     choose_path,
     matmul_cuda,
+    split_hi_lo,
 )
 from repro_torch.kernels.ref import (
     EPILOGUES,
@@ -75,12 +83,23 @@ ACTIVATION_GRADS = {
 }
 
 
+# rows one 2-D launch of the FMA path takes at most: its grid counts tiles
+# of 16 rows (64 above 16 columns) in the y dimension, 65535 at most, so a
+# taller product (rwkv's group norm at train_4k: B·S·H = 2,621,440 rows of
+# a position) runs as row blocks, each row's bits its own
+FMA_MAX_ROWS = 16 * 65535
 # K per launch of an fp32-output product on the tensor cores.  The kernel's
 # fp32 sum drifts over a long k walk (at K 8192, qwen2-vl's unembedding,
 # it read 1.25e-5 x max|plain| from the plain fp32 product, past phase 2's
 # 1e-5; chip_smoke.py phase 19 on an H100), so a longer K runs as launches
 # of TC_K_BLOCK, added in fp32 in k order
 TC_K_BLOCK = 4096
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the card's branch of the port's code: a CUDA
+    tensor, or a meta tensor standing for one (the dry run)."""
+    return t.is_cuda or t.is_meta
 
 
 def tile_for(a, b, out_dtype=None, tuner=None) -> int:
@@ -90,25 +109,39 @@ def tile_for(a, b, out_dtype=None, tuner=None) -> int:
                               b.shape[-1], a.shape[-1], tuner)
 
 
-def _launch(a, b, bias=None, activation=None, out_dtype=None, tuner=None):
+def _launch(a, b, bias=None, activation=None, out_dtype=None, tuner=None,
+            halves=None):
     """One kernel launch, at ``tile_for``'s tile on a CUDA operand; the
-    wrapper refuses any other."""
+    wrapper refuses any other.  ``halves``: the split path's bf16 halves
+    of the fp32 operand, made by the caller."""
+    kw = {} if halves is None else {"halves": halves}
     if not a.is_cuda:
         return matmul_cuda(a, b, bias=bias, activation=activation,
-                           out_dtype=out_dtype)
+                           out_dtype=out_dtype, **kw)
     return matmul_cuda(a, b, bias=bias, activation=activation,
                        out_dtype=out_dtype,
-                       tile=tile_for(a, b, out_dtype, tuner))
+                       tile=tile_for(a, b, out_dtype, tuner), **kw)
 
 
 def _matmul(a, b, bias, activation, out_dtype, tuner=None):
     """One product: the plain version for CPU operands, else the kernel.
     An fp32 result on a tensor-core path with K above ``TC_K_BLOCK`` is
     ``k_blocked``'s (the split depends on K alone, so a row's bits still do
-    not depend on the other rows)."""
+    not depend on the other rows); an FMA product of more than
+    ``FMA_MAX_ROWS`` rows runs as row blocks."""
+    if a.dim() == 2 and a.shape[0] > FMA_MAX_ROWS and \
+            a.device.type != "cpu" and \
+            choose_path(a.dtype, b.dtype) == "fma":
+        return torch.cat([_matmul(a[r:r + FMA_MAX_ROWS], b, bias,
+                                  activation, out_dtype, tuner)
+                          for r in range(0, a.shape[0], FMA_MAX_ROWS)])
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return matmul_fused_ref(a, b, bias=bias, activation=activation,
-                                out_dtype=out_dtype)
+        return calls.plain_call(
+            lambda x, y, z: matmul_fused_ref(x, y, bias=z,
+                                             activation=activation,
+                                             out_dtype=out_dtype),
+            lambda x, y, z: _matmul(x, y, z, activation, out_dtype, tuner),
+            a, b, bias)
     if (out_dtype or a.dtype) != torch.float32 or \
             a.shape[-1] <= TC_K_BLOCK or choose_path(a.dtype, b.dtype) == "fma":
         return _launch(a, b, bias, activation, out_dtype, tuner)
@@ -127,12 +160,26 @@ def k_blocked(a, b, bias=None, activation=None, tuner=None) -> torch.Tensor:
             f"{a.shape[-1]} > TC_K_BLOCK ({TC_K_BLOCK}) on the tensor cores "
             f"is not ported: it runs as K blocks, whose sum has no fused "
             f"epilogue")
+    # on the split path the fp32 operand's bf16 halves are made once for
+    # every block (the same values: the split is elementwise) where each
+    # block of them is one a tensor map loads; else each launch splits
+    # its own block, as a lone product does
+    halves = None
+    if choose_path(a.dtype, b.dtype) == "split":
+        x = a if a.dtype == torch.float32 else b
+        if x.is_contiguous() and all(
+                (st * 2) % _TMA_ALIGN == 0 for st in x.stride()[:-1]):
+            halves = split_hi_lo(x)
     out = None
     for k0 in range(0, a.shape[-1], TC_K_BLOCK):
-        part = _launch(a[..., k0:k0 + TC_K_BLOCK],
-                       b[..., k0:k0 + TC_K_BLOCK, :],
+        cols = slice(k0, k0 + TC_K_BLOCK)
+        block = None
+        if halves is not None:
+            block = tuple(h[..., cols] if a.dtype == torch.float32
+                          else h[..., cols, :] for h in halves)
+        part = _launch(a[..., cols], b[..., cols, :],
                        bias=bias if k0 == 0 else None,
-                       out_dtype=torch.float32, tuner=tuner)
+                       out_dtype=torch.float32, tuner=tuner, halves=block)
         out = part if out is None else out.add_(part)
     return out
 
@@ -153,10 +200,16 @@ class MatmulFn(torch.autograd.Function):
         # the backward runs on autograd's worker thread, outside this
         # thread's tuner: it is handed the one the forward resolved
         ctx.tuner = tuner if tuner is not None else tuning.active()
+        ctx.position = calls.position()
         return _matmul(a, b, bias, activation, out_dtype, tuner)
 
     @staticmethod
     def backward(ctx, dout):
+        with calls.at_position(ctx.position):
+            return MatmulFn._backward(ctx, dout)
+
+    @staticmethod
+    def _backward(ctx, dout):
         a, b, bias = ctx.saved_tensors
         t = ctx.tuner
         dz = dout
@@ -230,11 +283,14 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (r, k, v, logw, u))
     if chunk is None:
-        chunk = wkv_chunk_for(r, needs_grad, tuner) if r.is_cuda else 64
+        chunk = wkv_chunk_for(r, needs_grad, tuner) if on_card(r) else 64
     if needs_grad:
         return WkvFn.apply(r, k, v, logw, u, chunk)
-    fwd = wkv_fwd_plain if r.device.type == "cpu" else wkv_fwd_cuda
-    out, state, _ = fwd(r, k, v, logw, u, chunk)
+    if r.device.type == "cpu":
+        out, state, _ = calls.plain_call(wkv_fwd_plain, wkv_fwd_cuda, r, k,
+                                         v, logw, u, chunk)
+    else:
+        out, state, _ = wkv_fwd_cuda(r, k, v, logw, u, chunk)
     return out, state
 
 
@@ -270,10 +326,10 @@ def sort(x: torch.Tensor, tuner=None) -> torch.Tensor:
         x = x[None]
     xp = _sort_pad(x)
     if xp.device.type == "cpu":
-        out = bitonic_sort_ref(xp)
+        out = calls.plain_call(bitonic_sort_ref, bitonic_sort_cuda, xp)
     else:
         config = tuning.sort_config(xp.shape[0], xp.shape[1], xp.dtype,
-                                    tuner) if xp.is_cuda else ()
+                                    tuner) if on_card(xp) else ()
         out = bitonic_sort_cuda(xp, *config)
     out = out[:, :x.shape[1]]
     return out[0] if squeeze else out

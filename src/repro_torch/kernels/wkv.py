@@ -15,7 +15,9 @@ factored by sub-chunk, as the kernels take it); the source note in
 launched.  Each checks what the kernels take and raises on anything else,
 allocates its outputs and scratch with ``torch.empty``, launches on the
 current stream, raises if a launch reports an error, and counts the call
-in ``LAUNCHES``.  CUDA launches per call (``LAUNCHES.cuda`` counts them by
+in any open ``calls.CallLog`` (meta tensors, the dry run, take the same
+checks and allocations and are recorded there, launching nothing) and in
+``LAUNCHES``.  CUDA launches per call (``LAUNCHES.cuda`` counts them by
 kernel):
 
 * forward, 2: ``wkv_state`` (the state pass: one CTA per (b, h, 16 value
@@ -36,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, calls
 from repro_torch.kernels.ref import wkv_bwd_plain, wkv_fwd_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -160,7 +162,7 @@ def check_shapes(r, k, v, logw, u) -> None:
 def _check_cuda(r, k, v, logw, u, chunk: int) -> None:
     dev = r.device
     for t in (r, k, v, logw, u):
-        if not t.is_cuda or t.device != dev:
+        if not (t.is_cuda or t.is_meta) or t.device != dev:
             raise ValueError(f"wkv kernel needs CUDA tensors on one device, "
                              f"got {t.device}")
     if not (r.dtype == k.dtype == v.dtype) or r.dtype not in _DTYPE_CODE:
@@ -175,6 +177,11 @@ def _check_cuda(r, k, v, logw, u, chunk: int) -> None:
                          f"chunk in {CHUNKS}, got N={n}, chunk={chunk}")
     if r.shape[0] * r.shape[2] * _n_chunks(r.shape[1], chunk) > _MAX_GRID:
         raise ValueError(f"wkv kernel grid too large: {tuple(r.shape)}")
+
+
+def path_of(r: torch.Tensor) -> str:
+    """The instantiation a call runs, by r's dtype (a call log's path)."""
+    return str(r.dtype).replace("torch.", "")
 
 
 def _n_chunks(s: int, chunk: int) -> int:
@@ -201,6 +208,10 @@ def wkv_fwd_cuda(r, k, v, logw, u, chunk: int = 64,
     if s == 0:
         return out, state.zero_(), kept
     u = u.contiguous()
+    if r.is_meta:  # the dry run: the card path's allocations, no launch
+        calls.record("wkv", path_of(r), "forward",
+                     calls.wkv_cost(r, "forward"))
+        return out, state, kept
     fwd, _ = _functions()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -212,6 +223,7 @@ def wkv_fwd_cuda(r, k, v, logw, u, chunk: int = 64,
     if err != 0:
         raise RuntimeError(f"wkv forward launch failed: cudaError {err} for "
                            f"{tuple(r.shape)} {r.dtype} chunk {chunk}")
+    calls.record("wkv", path_of(r), "forward", calls.wkv_cost(r, "forward"))
     LAUNCHES.forward += 1
     LAUNCHES.add(FORWARD_KERNELS)
     return out, state, kept
@@ -251,6 +263,10 @@ def wkv_bwd_cuda(r, k, v, logw, u, chunk_states, dout,
                                            device=dev)
     ends = torch.empty((b, h, nc, n, n), dtype=torch.float32, device=dev)
     u = u.contiguous()
+    if r.is_meta:  # the dry run: the card path's allocations, no launch
+        calls.record("wkv", path_of(r), "backward",
+                     calls.wkv_cost(r, "backward"))
+        return dr, dk, dv, dw, du_part.sum((0, 2))
     _, bwd = _functions()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -265,6 +281,8 @@ def wkv_bwd_cuda(r, k, v, logw, u, chunk_states, dout,
     if err != 0:
         raise RuntimeError(f"wkv backward launch failed: cudaError {err} "
                            f"for {tuple(r.shape)} {r.dtype} chunk {chunk}")
+    calls.record("wkv", path_of(r), "backward",
+                 calls.wkv_cost(r, "backward"))
     LAUNCHES.backward += 1
     LAUNCHES.add(BACKWARD_KERNELS)
     # du is shared over the batch and the chunks: the kernel writes each
@@ -280,18 +298,26 @@ class WkvFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, logw, u, chunk: int = 64):
         if r.device.type == "cpu":
-            out, state, starts = wkv_fwd_plain(r, k, v, logw, u, chunk)
+            out, state, starts = calls.plain_call(
+                wkv_fwd_plain, lambda *t: wkv_fwd_cuda(*t, keep_states=True),
+                r, k, v, logw, u, chunk)
         else:
             out, state, starts = wkv_fwd_cuda(r, k, v, logw, u, chunk,
                                               keep_states=True)
         ctx.save_for_backward(r, k, v, logw, u, starts)
         ctx.chunk = chunk
+        ctx.position = calls.position()
         return out, state
 
     @staticmethod
     def backward(ctx, dout, dstate):
         r, k, v, logw, u, starts = ctx.saved_tensors
-        bwd = wkv_bwd_plain if r.device.type == "cpu" else wkv_bwd_cuda
-        dr, dk, dv, dw, du = bwd(r, k, v, logw, u, starts, dout, dstate,
-                                 ctx.chunk)
+        with calls.at_position(ctx.position):
+            if r.device.type == "cpu":
+                dr, dk, dv, dw, du = calls.plain_call(
+                    wkv_bwd_plain, wkv_bwd_cuda, r, k, v, logw, u, starts,
+                    dout, dstate, ctx.chunk)
+            else:
+                dr, dk, dv, dw, du = wkv_bwd_cuda(r, k, v, logw, u, starts,
+                                                  dout, dstate, ctx.chunk)
         return (dr, dk, dv, dw.to(logw.dtype), du.to(u.dtype), None)

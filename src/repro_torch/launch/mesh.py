@@ -1,14 +1,23 @@
-"""Mesh construction for the launchers, tests and examples.
+"""Mesh construction for the launchers, the dry run, tests and examples.
 
 Functions, not module-level constants: importing this module touches no
-device.  ``make_production_mesh`` (the reference's 16 x 16 and 2 x 16 x 16
-meshes of 256 and 512 positions) comes with the dry-run slice, which
-plans for that many devices without them.
+device.  ``make_production_mesh`` builds the reference's production
+meshes, 16 x 16 and 2 x 16 x 16 positions, on the meta device: the dry
+run plans for 256 or 512 devices without them.
 """
 
 from __future__ import annotations
 
 from repro_torch.distributed.mesh import Mesh, make_mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16 x 16 = 256 positions a pod, ("data", "model"); 2 pods = 512,
+    ("pod", "data", "model"); every position on the meta device (no
+    memory, no stream)."""
+    shape = {"pod": 2, "data": 16, "model": 16} if multi_pod else \
+        {"data": 16, "model": 16}
+    return make_mesh(shape, device="meta")
 
 
 def data_axes_of(mesh: Mesh) -> tuple:

@@ -232,7 +232,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
             return dense_attention(q, k, v, causal=causal, window=window)
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk=chunk)
-    if impl == "flash" or q.is_cuda:
+    if impl == "flash" or ops.on_card(q):
         return flash_attention(q, k, v, causal=causal)
     if q.shape[1] <= 2 * chunk:
         return dense_attention(q, k, v, causal=causal)
@@ -248,7 +248,7 @@ def cross_attention(q, k, v, *, cached: bool = False) -> torch.Tensor:
     ``dense_attention``: its two contractions on the matmul kernel over
     every cached row, as ``decode_attention`` runs them, so a slot's
     result does not depend on the other slots of the step."""
-    if q.is_cuda and not cached:
+    if ops.on_card(q) and not cached:
         return flash_attention(q, k, v, causal=False)
     return dense_attention(q, k, v, causal=False)
 

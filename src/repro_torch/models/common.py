@@ -116,22 +116,33 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """Rotate the two halves of each head of ``x`` (..., S, H, hd) by
-    ``angles`` (..., S, hd/2), in fp32, cast back to ``x``'s dtype."""
+def _sin_cos(angles: torch.Tensor) -> tuple:
     angles = angles[..., None, :]  # broadcast over heads
-    sin, cos = torch.sin(angles), torch.cos(angles)
+    return torch.sin(angles), torch.cos(angles)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor, sin_cos=None
+            ) -> torch.Tensor:
+    """Rotate the two halves of each head of ``x`` (..., S, H, hd) by
+    ``angles`` (..., S, hd/2), in fp32, cast back to ``x``'s dtype;
+    ``sin_cos``: their sines and cosines, where made already."""
+    sin, cos = _sin_cos(angles) if sin_cos is None else sin_cos
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _rope_angles(head_dim: int, positions: torch.Tensor,
+                 theta: float) -> torch.Tensor:
+    return positions[..., None].float() * rope_freqs(head_dim, theta,
+                                                     positions.device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, hd); positions: (..., S) integers.  Rotates the two
     halves of each head (not interleaved pairs)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    return _rotate(x, positions[..., None].float() * freqs)
+    return _rotate(x, _rope_angles(x.shape[-1], positions, theta))
 
 
 MROPE_SECTIONS = (16, 24, 24)
@@ -154,12 +165,30 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     (t, h, w) ids.  Frequency pair j rotates by the position of the axis
     whose section holds j (``mrope_sections``).  When the three planes
     carry the same index the angles are RoPE's, bit for bit."""
-    hd = x.shape[-1]
+    return _rotate(x, _mrope_angles(x.shape[-1], positions, theta,
+                                    sections))
+
+
+def _mrope_angles(hd: int, positions: torch.Tensor, theta: float,
+                  sections=MROPE_SECTIONS) -> torch.Tensor:
     pos = positions.float()
     pos = torch.cat([pos[..., i:i + 1].expand(pos.shape[:-1] + (n,))
                      for i, n in enumerate(mrope_sections(hd, sections))],
                     dim=-1)  # (..., S, hd/2)
-    return _rotate(x, pos * rope_freqs(hd, theta, x.device))
+    return pos * rope_freqs(hd, theta, positions.device)
+
+
+def positional_pair(q: torch.Tensor, k: torch.Tensor,
+                    positions: torch.Tensor, pos_type: str, theta: float):
+    """``positional`` of q and of k (one head dim), their angles' sines and
+    cosines made once for both: the same values as two calls."""
+    if pos_type not in ("rope", "mrope"):
+        return (positional(q, positions, pos_type, theta),
+                positional(k, positions, pos_type, theta))
+    angles = (_rope_angles if pos_type == "rope" else _mrope_angles)(
+        q.shape[-1], positions, theta)
+    sc = _sin_cos(angles)
+    return _rotate(q, angles, sc), _rotate(k, angles, sc)
 
 
 def positional(x: torch.Tensor, positions: torch.Tensor, pos_type: str,

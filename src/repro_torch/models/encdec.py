@@ -38,7 +38,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
-from repro_torch.models.common import positional, project, rmsnorm, rmsnorm_init
+from repro_torch.models.common import (positional_pair, project, rmsnorm,
+                                      rmsnorm_init)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import _attn_init, _ffn_init
 
@@ -69,8 +70,7 @@ def _proj_qkv(params, cfg: ModelConfig, x, positions=None):
     k = project(x, params["wk"]).reshape(b, s, -1, hd)
     v = project(x, params["wv"]).reshape(b, s, -1, hd)
     if positions is not None:
-        q = positional(q, positions, cfg.pos_type, cfg.rope_theta)
-        k = positional(k, positions, cfg.pos_type, cfg.rope_theta)
+        q, k = positional_pair(q, k, positions, cfg.pos_type, cfg.rope_theta)
     return q, k, v
 
 

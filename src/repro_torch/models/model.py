@@ -220,14 +220,17 @@ class _MeshFamily(_DecodeSlots):
 
     def mesh_specs(self, ctx) -> dict:
         """The params' specs on ``ctx``'s mesh: ``param_shardings`` with
-        the context's axes, the tree ``place_tree`` places params by (the
-        ``params`` subtree of a train state's)."""
+        the context's axes and the planner's overrides it carries, the
+        tree ``place_tree`` places params by (the ``params`` subtree of a
+        train state's)."""
+        overrides = ctx.overrides or {}
         key = (tuple(ctx.mesh.shape.items()), tuple(ctx.data_axes),
-               ctx.model_axis)
+               ctx.model_axis, tuple(sorted(overrides.items())))
         if key not in self._specs:
             self._specs[key] = param_shardings(
                 self.param_shapes(), ctx.mesh, data_axes=ctx.data_axes,
-                model_axis=ctx.model_axis, cfg=self.cfg)
+                model_axis=ctx.model_axis, overrides=overrides or None,
+                cfg=self.cfg)
         return self._specs[key]
 
     def _mesh_inputs(self, params, batch, ctx):
@@ -395,7 +398,16 @@ class Model(_MeshFamily):
         """Inference prefill: full forward, logits only at the last
         position.  On a serve mesh (``ctx``, tensor-parallel) ``params``
         and ``batch`` are lists with one entry a position and so are the
-        logits, each the whole (B, 1, V)."""
+        logits, each the whole (B, 1, V).  On a context with data axes
+        (the dry run's production meshes) the params are FSDP blocks,
+        gathered just before their use as in ``loss``, unless the context
+        replicates them over the data axes (``infer_replicate_params``);
+        each position's rows of the batch give their logits."""
+        if ctx is not None and ctx.data_axes and \
+                not ctx.infer_replicate_params:
+            xs, tables, _, _ = self._forward_mesh(params, batch, ctx,
+                                                  remat=False, last=True)
+            return join(ctx.mesh, self._logits_tp(ctx, tables, xs))
         if tensor_parallel(self.cfg, ctx):
             return self._forward_tp(params, batch, ctx, None, last=True)[0]
         x, positions = self._embed(params, batch)
@@ -440,10 +452,12 @@ class Model(_MeshFamily):
     # On a training mesh
     # ------------------------------------------------------------------
 
-    def _forward_mesh(self, params, batch, ctx, remat: bool):
-        """The forward on a mesh up to the final norm: (xs, each position's
-        logits table (its vocab block, FSDP-gathered), auxiliary losses),
-        lists with one entry a position."""
+    def _forward_mesh(self, params, batch, ctx, remat: bool,
+                      last: bool = False):
+        """The forward on a mesh up to the final norm (``last``: of the
+        last position only): (xs, each position's logits table (its vocab
+        block, FSDP-gathered), auxiliary losses, the batch one dict a
+        position), lists with one entry a position."""
         cfg = self.cfg
         specs, batch = self._mesh_inputs(params, batch, ctx)
         keys = [k for k in ("embed", "unembed", "final_norm") if k in specs]
@@ -455,6 +469,8 @@ class Model(_MeshFamily):
         xs, auxs = tfm.stack_train_tp(
             ctx, [p["layers"] for p in params], specs["layers"], cfg, xs,
             positions, remat=remat, rnn_chunk=ctx.rnn_chunk)
+        if last:
+            xs = ctx.map(lambda x: x[:, -1:], xs)
         xs = ctx.map(lambda t, x: rmsnorm(t["final_norm"], x, cfg.norm_eps),
                      tops, xs)
         tables = [self._table(t) for t in tops]

@@ -35,7 +35,7 @@ from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.common import (
     dense_init,
     dtype_of,
-    positional,
+    positional_pair,
     project,
     rmsnorm,
     rmsnorm_init,
@@ -146,8 +146,7 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
     q = project(x, params["wq"]).reshape(b, s, nq, hd)
     k = project(x, params["wk"]).reshape(b, s, nkv, hd)
     v = project(x, params["wv"]).reshape(b, s, nkv, hd)
-    q = positional(q, positions, cfg.pos_type, cfg.rope_theta)
-    k = positional(k, positions, cfg.pos_type, cfg.rope_theta)
+    q, k = positional_pair(q, k, positions, cfg.pos_type, cfg.rope_theta)
     used = _kv_heads_used(cfg, nq, nkv, rank)
 
     def heads(t):  # the kv heads this position's queries read

@@ -35,7 +35,11 @@ called outside them, with no ``tuner=``, launches with its fixed choice.
 and ``Runtime.plan`` plans over it; ``serve(mesh_shape=)`` serves
 tensor-parallel, and training on a mesh goes through
 ``training.make_train_step(ctx=)`` (the reference's ``Runtime.train``
-takes no mesh either); ``Runtime.bench`` comes with a later slice.
+takes no mesh either).  ``Runtime.dryrun(arch, shape)`` runs one
+production-mesh cell of the dry run on this session's engine
+(``launch/dryrun.py``: the real step on 256 or 512 meta positions, no
+device touched, so a ``Runtime(device="cpu")`` runs it too).
+``Runtime.bench`` comes with a later slice.
 """
 
 from __future__ import annotations
@@ -797,6 +801,20 @@ class Runtime:
             "continuous", report.wall_s, report.generated_tokens,
             report.tok_per_s, pct["p50"], pct["p95"], report.outputs(),
             report=report, engine=engine, stream=stream_obj, texts=texts)
+
+
+    def dryrun(self, arch: str, shape: str, *, multi_pod: bool = False,
+               probe: bool = True, verbose: bool = True) -> Dict[str, Any]:
+        """One production-mesh cell of the dry run on this session's
+        engine: the real step on meta positions, the memory a position
+        holds, the plan, the roofline terms from the per-layer probes
+        (``probe``) and the ledger rows the cell made
+        (``launch.dryrun.dryrun_cell``).  Nothing is allocated or launched
+        on this session's device."""
+        from repro_torch.launch.dryrun import dryrun_cell
+
+        return dryrun_cell(arch, shape, multi_pod=multi_pod, probe=probe,
+                           verbose=verbose, runtime=self)
 
 
 # ---------------------------------------------------------------------------

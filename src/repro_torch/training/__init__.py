@@ -8,4 +8,5 @@ from repro_torch.training.step import (  # noqa: F401
     make_grad_fn,
     make_serve_step,
     make_train_step,
+    train_state_shapes,
 )

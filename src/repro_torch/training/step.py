@@ -43,7 +43,8 @@ import torch
 from repro_torch.distributed.mesh import (all_gather_cat, join, psum,
                                           replicate, take)
 from repro_torch.distributed.sharding import is_representative
-from repro_torch.models.model import AnyModel, mrope_positions
+from repro_torch.models.model import (AnyModel, mrope_positions,
+                                      tensor_parallel)
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      clip_scale, leaf_update)
 from repro_torch.optim.compression import (compress_gradients,
@@ -70,6 +71,21 @@ def init_train_state(model: AnyModel, seed: int, loop: TrainLoopConfig) -> dict:
     params = model.init(seed)
     state = {"params": params, "opt": adamw_init(params),
              "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+    if loop.compression:
+        state["compress"] = init_compression(params)
+    return state
+
+
+def train_state_shapes(model: AnyModel, loop: TrainLoopConfig) -> dict:
+    """``init_train_state``'s tree with every leaf a meta tensor of its
+    shape and dtype, built from ``model.param_shapes()``: nothing drawn or
+    allocated (the dry run's state; qwen3-moe-235b's parameters alone
+    would be about 470 GB in bf16)."""
+    params = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                            device="meta"),
+                      model.param_shapes())
+    state = {"params": params, "opt": adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="meta")}
     if loop.compression:
         state["compress"] = init_compression(params)
     return state
@@ -297,8 +313,10 @@ def _mesh_train_step(model: AnyModel, loop: TrainLoopConfig, ctx,
                               donate)
 
             def leaf(path, p, gr, mu, nu):
-                key = (p.device, p.data_ptr(), tuple(p.shape), p.stride(),
-                       path)
+                # the storage itself, not its address: every meta
+                # tensor's data_ptr() is 0
+                key = (p.device, p.untyped_storage()._cdata,
+                       p.storage_offset(), tuple(p.shape), p.stride(), path)
                 if key not in done:
                     done[key] = upd(path, p, gr, mu, nu)
                 return done[key]
@@ -320,12 +338,41 @@ def _mesh_train_step(model: AnyModel, loop: TrainLoopConfig, ctx,
     return step_fn
 
 
-def make_serve_step(model: AnyModel) -> Callable:
-    """One lockstep decode step: greedy next token + updated caches."""
+def make_serve_step(model: AnyModel, ctx=None) -> Callable:
+    """One decode step: greedy next token + updated caches.
+
+    When ``batch`` carries an ``active`` (B,) bool mask (continuous
+    batching), inactive slots keep their whole decode state frozen
+    (``model.merge_decode_state``): positions, caches and recurrent states
+    see no trace of the masked step, as the reference's ``serve_fn``.
+
+    On a mesh (``ctx``) ``params``, ``decode_state`` and ``batch`` are
+    lists with one entry a position, and so are the tokens and the new
+    state: tensor-parallel over the model axis where it has more than one
+    position (``model.decode_step(..., ctx)``; the dry run's production
+    contexts also split the batch over the data axes, with the params
+    replicated there), else each position's own step."""
+    def finish(logits, new_state, state, active):
+        if active is not None:
+            new_state = model.merge_decode_state(new_state, state, active)
+        return torch.argmax(logits[:, -1], dim=-1), new_state
+
+    def split(b):
+        return {k: v for k, v in b.items() if k != "active"}, b.get("active")
 
     def serve_fn(params, decode_state, batch):
-        logits, new_state = model.decode_step(params, decode_state, batch)
-        return torch.argmax(logits[:, -1], dim=-1), new_state
+        if ctx is None:
+            feed, active = split(batch)
+            logits, new_state = model.decode_step(params, decode_state, feed)
+            return finish(logits, new_state, decode_state, active)
+        feeds, actives = ctx.map(split, batch)
+        if tensor_parallel(model.cfg, ctx):
+            logits, new_states = model.decode_step(params, decode_state,
+                                                   feeds, ctx)
+            return ctx.map(finish, logits, new_states, decode_state, actives)
+        return ctx.map(lambda p, st, b, a: finish(
+            *model.decode_step(p, st, b), st, a), params, decode_state,
+            feeds, actives)
 
     return serve_fn
 

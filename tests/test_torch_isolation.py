@@ -19,8 +19,12 @@ agrees with the kernel's plain version on the card.
 * ``repro_torch.Runtime()`` with no device asks for the GPU and raises
   where there is none, naming the missing card, instead of falling back;
 * a tensor that is not on the CPU never takes a kernel's plain version:
-  the WKV entry points route a non-CPU tensor to the kernel, which
-  refuses anything but CUDA;
+  the WKV entry points route a non-CPU tensor to the kernel's wrapper,
+  which launches only for CUDA tensors; a meta tensor (the dry run) takes
+  the card path's checks and allocations there and is recorded in the
+  call log, with no launch and no plain version, and the dry run's
+  modules (``launch/dryrun.py``, ``roofline.py``, ``kernels/calls.py``)
+  import neither jax nor repro;
 * on a CUDA card (marked ``cuda``; skipped elsewhere), the matmul kernel
   matches its plain version at serving shapes: bf16 within 8e-3 x
   max|plain| (about one bf16 rounding), fp32 within 1e-5 x max|plain|,
@@ -172,6 +176,28 @@ def test_train_mesh_modules_import_neither_jax_nor_repro():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split(" ", 1) == ["True", "[]\n"]
+
+
+_IMPORT_DRYRUN = """
+import sys
+import repro_torch.launch.dryrun, repro_torch.roofline
+import repro_torch.kernels.calls
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.data import make_batch_specs
+mesh = make_production_mesh(multi_pod=True)
+print(mesh.size, sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_dryrun_modules_import_neither_jax_nor_repro():
+    """The dry run's modules: the CLI and cell runner, the roofline and its
+    dispatch counter, the kernels' call log, the production meshes."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_DRYRUN], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(" ", 1) == ["512", "[]\n"]
 
 
 def test_public_surface_has_the_reference_autotuner():
@@ -330,21 +356,36 @@ def test_cuda_tensor_never_takes_the_plain_path():
         matmul_cuda(a, torch.ones((3, 4)))
 
 
-def test_wkv_off_the_cpu_never_takes_the_plain_path():
+def test_wkv_off_the_cpu_never_takes_the_plain_path(monkeypatch):
     """``ops.wkv`` and ``WkvFn`` choose the plain version only for a tensor
-    on the CPU; any other device goes to the kernel's wrapper, which takes
-    CUDA tensors only (a ``meta`` tensor stands in for a card here)."""
-    from repro_torch.kernels import ops
+    on the CPU; any other device goes to the kernel's wrapper, which
+    launches only for CUDA tensors: a ``meta`` tensor (the dry run) takes
+    the card path's checks and allocations, is recorded in the call log,
+    and neither launches nor runs the plain version."""
+    from repro_torch.kernels import calls, ops
+    from repro_torch.kernels import wkv as wkv_k
     from repro_torch.kernels.wkv import LAUNCHES, WkvFn
 
+    def refuse(*a, **k):
+        raise AssertionError("a meta tensor reached the plain version")
+
+    monkeypatch.setattr(wkv_k, "wkv_fwd_plain", refuse)
+    monkeypatch.setattr(wkv_k, "wkv_bwd_plain", refuse)
+    monkeypatch.setattr(ops, "wkv_fwd_plain", refuse)
+    monkeypatch.setattr(wkv_k, "_functions", refuse)
     x = torch.empty((1, 8, 2, 16), device="meta")
     u = torch.empty((2, 16), device="meta")
-    before = (LAUNCHES.forward, LAUNCHES.backward)
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.wkv(x, x, x, x, u)
-    with pytest.raises(ValueError, match="CUDA"):
-        WkvFn.apply(x.requires_grad_(True), x, x, x, u, 64)
-    assert (LAUNCHES.forward, LAUNCHES.backward) == before
+    before = (LAUNCHES.forward, LAUNCHES.backward, dict(LAUNCHES.cuda))
+    with calls.CallLog() as log:
+        out, state = ops.wkv(x, x, x, x, u)
+        xg = x.clone().requires_grad_(True)
+        o2, s2 = WkvFn.apply(xg, x, x, x, u, 16)
+        (o2.sum() + s2.sum()).backward()
+    assert out.is_meta and out.shape == (1, 8, 2, 16)
+    assert state.shape == (1, 2, 16, 16) and xg.grad.is_meta
+    assert [(c.kernel, c.mode) for c in log.calls] == [
+        ("wkv", "forward"), ("wkv", "forward"), ("wkv", "backward")]
+    assert (LAUNCHES.forward, LAUNCHES.backward, LAUNCHES.cuda) == before
 
 
 @pytest.mark.cuda

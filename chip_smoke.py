@@ -160,10 +160,9 @@ Phases, one report line each (any failure exits non-zero):
      watchdog that later writes into the pools it captured, which the
      drained pool's new tensors escape; a stop mid-run; the launcher
      (python -m repro_torch.launch.serve ... --inject-fault raise) exits
-     0; recorded, not gated: overload on the real clock (Poisson arrivals
-     at 2x the unloaded service rate, a queue of 8, deadlines at 8x the
-     unloaded latency), serve_admit with and without the correction loop
-     on a calibrated runtime, rwkv6-3b (4 layers) raise (gated) and
+     0; recorded, not gated: serve_admit with and without the correction
+     loop on a calibrated runtime (overload on the real clock ran here
+     until phase 28's stress suite took it over), rwkv6-3b (4 layers) raise (gated) and
      preemption drills; the serve, serve_macro and serve_admit ledger
      rows go to the JSON record;
  17. the multi-process front end: full-width tinyllama-1.1b at 4 layers
@@ -187,8 +186,9 @@ Phases, one report line each (any failure exits non-zero):
      engine and workers pinned, spawn-to-first-pong and respawn seconds,
      IPC messages and bytes, phase 5's calibrated IPC constants,
      frontend="auto"'s verdict against the measured intake, tok/s in
-     process, unpinned and pinned, and phase 16's overload recipe through
-     the front end.  The calling thread's CPU mask is restored after it;
+     process, unpinned and pinned (the overload recipe through the front
+     end is phase 28's stress suite since then).  The calling thread's CPU
+     mask is restored after it;
  18. the dense and hybrid families: Runtime(device="cuda").serve of
      mistral-nemo-12b, phi3-mini-3.8b, gemma-2b and recurrentgemma-2b at
      full width, 8, 8, 6 and 6 layers (FAMILY_SERVE_LAYERS; bf16, seed 0,
@@ -331,7 +331,10 @@ Phases, one report line each (any failure exits non-zero):
      tokens equal the
      unsharded card's and an 8-position CPU mesh's, the sharded prefill's
      and decode step's logits within 2e-3 x max|logit| of both, every
-     position launching the matmul kernel.  bf16 at full width
+     position launching the matmul kernel; the same for tinyllama at 1
+     layer with a max_len of 16, where its 4 kv heads (which 8 does not
+     divide) keep caches split along the length, 2 rows a position, 1/8
+     of the whole (the sequence-parallel decode attention).  bf16 at full width
      (tinyllama-1.1b at 1 of 22 layers, dense and paged on shared-prefix
      traffic with the prefix cache forced; mistral-nemo-12b at 1 of 40
      layers, its 8 kv heads one a position; both at 4 before phase 26),
@@ -402,10 +405,25 @@ Phases, one report line each (any failure exits non-zero):
      and bytes by kind equal, the peak within 10 %; (c) the roofline
      terms of both with the runtime's hardware spec beside the step's
      wall (printed); (d) dryrun_cell("tinyllama-1.1b", "decode_32k",
-     multi_pod=True, probe=False) on 512 meta positions on the card's
-     host: status ok, 512 chips, the card's allocated bytes and every
-     kernel's launch counters unchanged, its wall printed; the phase's
-     wall against its 40 s budget logged.
+     multi_pod=False, probe=False) on 256 meta positions (512 before
+     phase 28) on the card's
+     host: status ok, 256 chips, the card's allocated bytes and every
+     kernel's launch counters unchanged, its wall printed, and its KV
+     cache a position read from the placed meta state: its rows' cache
+     split 16 ways along the length (the reference's state_sharding);
+     the phase's wall against its 40 s budget logged.
+ 28. the bench (bench_phase): Runtime(device="cuda").bench() over the
+     nine suites of repro_torch.benches (matmul_crossover, sort_pivots,
+     wkv_chunk, kernels_bench, roofline_table over phase 27's cell,
+     cost_ledger, serving_bench, stress_bench, chaos_bench) into
+     chiprun_out/bench/, then frontend_smoke, then examples/
+     torch_train_lm.py --preset 100m for 10 steps with a checkpoint and
+     resumed to 20: no suite failed, the example resumed; each suite's
+     wall and key lines (the crossover orders, the imbalance by pivot,
+     the WKV chunk times against model_choice, kernel against plain
+     version, tok/s by serving row) logged, every line in bench.log, and
+     each kernel's launches over the suites (the kernels line's
+     launches_bench); the phase's wall against its 90 s budget logged.
      Before each of phases 2-27, gc.collect() and gc.freeze() (settle): a
      gen-2 collection of this script's heap took 0.2-0.75 s inside a timed
      step, and a collection walking it slowed phase 25's sharded steps
@@ -466,13 +484,9 @@ ODD_MAX_LEN = PROMPT + MAX_NEW + 5
 BASE_PHASE5_SYNCS, BASE_P1_SYNCS, BASE_P1_CUDA_SYNCS = 12, 10, (54, 55)
 # phase 16 (the request lifecycle): the drills' trace is phase 5's first
 # DRILL_REQUESTS requests with DRILL_NEW new tokens (eos -1: the tokens
-# are the first DRILL_NEW of phase 5's); overload follows the reference's
-# stress bench (benchmarks/stress_bench.py): Poisson arrivals at
-# OVERLOAD_FACTOR x the unloaded service rate, a queue of 2 x slots,
-# deadlines at DEADLINE_X x the unloaded mean latency
+# are the first DRILL_NEW of phase 5's)
 DRILL_REQUESTS, DRILL_NEW = 4, 16
 STALL_WATCHDOG_S = 1.0
-OVERLOAD_REQUESTS, OVERLOAD_FACTOR, DEADLINE_X = 16, 2.0, 8.0
 # phase 17 (the multi-process front end): intake worker processes (the
 # emission worker comes with them)
 FE_WORKERS = 2
@@ -676,6 +690,11 @@ class PhaseClock:
         now = time.perf_counter()
         self.seconds[str(phase)] = now - self.last
         self.last = now
+        # kept as each phase ends: a run cut short still says where its
+        # time went (the full record is written only at the end)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "phase_clock.json").write_text(json.dumps(self.seconds))
         log("clock", f"phase {phase}: {self.seconds[str(phase)]:.1f} s; "
             f"{now - self.start:.1f} s since main() started; host memory "
             f"{host_memory()}")
@@ -1709,8 +1728,17 @@ def main() -> int:
         return 1
     record["dryrun"] = dryrun
 
-    # ---------------------------------------------------------------- out
+    # ----------------------------------------------------------------- 28
     clock.lap(27)
+    settle()
+    torch.cuda.empty_cache()
+    bench = bench_phase(card, dryrun)
+    if bench is None:
+        return 1
+    record["bench"] = bench
+
+    # ---------------------------------------------------------------- out
+    clock.lap(28)
     record["phase_s"] = clock.seconds
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1991,6 +2019,8 @@ def main() -> int:
         # phase 22: the chunk at rwkv6-3b's training shape, with a gradient
         "tuned": tuned("wkv"),
     }]
+    for k in kernels:  # phase 28: launches over the nine bench suites
+        k["launches_bench"] = bench["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4028,8 +4058,8 @@ def lifecycle_phase(cfg, rcfg, p1_want, phase5_syncs, mm_launches, card):
     syncs at that depth), dense and paged
     (pages of 16): the unperturbed path untouched, priority preemption,
     deadlines, the fault classes under the watchdog and retries,
-    abandonment, graceful stops and the launcher; overload on the real
-    clock and serve_admit with and without the correction loop recorded;
+    abandonment, graceful stops and the launcher; serve_admit with and
+    without the correction loop recorded;
     rwkv6-3b (4 layers) raise and preemption drills.  None on any failed
     gate."""
     import threading
@@ -4463,41 +4493,10 @@ def lifecycle_phase(cfg, rcfg, p1_want, phase5_syncs, mm_launches, card):
          and "'COMPLETED': 8" in states_line[0],
          "the launcher exits 0 and prints the lifecycle report")
 
-    # --- recorded: overload on the real clock (the reference stress
-    # bench's recipe, without its front end)
+    # overload on the real clock ran here until phase 28, whose stress
+    # suite (stress_bench) serves the reference's recipe, gated
     kw = dict(model=model, params=params, slots=SLOTS, eos_id=-1,
               max_len=max_len)
-    unloaded = rt.serve(cfg, trace(), **kw)
-    rep_u = unloaded.report
-    lat = [r.latency_s for r in rep_u.requests if r.latency_s is not None]
-    mean_latency = float(np.mean(lat))
-    service_rate = REQUESTS / rep_u.wall_s
-    deadline_ms = DEADLINE_X * mean_latency * 1e3
-    rate = OVERLOAD_FACTOR * service_rate
-    over = rt.serve(cfg, synthetic_trace(
-        OVERLOAD_REQUESTS, prompt_len=PROMPT, max_new=MAX_NEW,
-        vocab_size=cfg.vocab_size, arrival="poisson", rate=rate, seed=1),
-        queue_limit=2 * SLOTS, deadline_ms=deadline_ms,
-        watchdog_ms=max(5000.0, 10 * deadline_ms), **kw)
-    rep_o = over.report
-    done = [r for r in rep_o.requests if r.state.value == "COMPLETED"]
-    goodput = sum(len(r.tokens) for r in done) / rep_o.wall_s
-    ttft = rep_o.ttft_percentiles()
-    out["overload"] = dict(
-        unloaded_tok_per_s=rep_u.tok_per_s, unloaded_mean_latency_s=mean_latency,
-        service_rate_rps=service_rate, rate_rps=rate, deadline_ms=deadline_ms,
-        queue_limit=2 * SLOTS, states=rep_o.state_counts(),
-        completed_frac=len(done) / OVERLOAD_REQUESTS,
-        goodput_tok_per_s=goodput,
-        goodput_over_unloaded=goodput / rep_u.tok_per_s,
-        ttft_p99_s=ttft["ttft_p99"],
-        ttft_p99_over_unloaded_latency=ttft["ttft_p99"] / mean_latency,
-        watchdog_fires=rep_o.watchdog_fires, wall_s=rep_o.wall_s,
-        all_terminal=rep_o.all_terminal)
-    log("lifecycle", f"overload (recorded): {out['overload']} ({card})")
-    gate(rep_o.all_terminal and done,
-         "overload: every request terminal, at least one completed")
-    del unloaded, over
 
     # --- recorded: serve_admit with and without the correction loop, on a
     # calibrated runtime (phase 5's calibration cache), one warm trace first
@@ -4627,8 +4626,7 @@ def frontend_phase(cfg, p1_want, phase5_syncs, calibration, mm_launches,
     Runtime.serve(frontend=2, pin=True, stream=True), dense and paged, the
     respawn drills, the launcher with --workers/--pin; the host's layout,
     spawn and respawn times, IPC counts, tok/s in-process, unpinned and
-    pinned, serve_ipc's "auto" verdict and overload through the front end
-    recorded.  The calling thread's CPU mask is restored on the way out.
+    pinned and serve_ipc's "auto" verdict recorded.  The calling thread's CPU mask is restored on the way out.
     None on any failed gate."""
     import multiprocessing as mp
 
@@ -4924,41 +4922,10 @@ def _frontend_phase(cfg, p1_want, phase5_syncs, calibration, mm_launches,
                  for ln in lines),
          "the launcher with --workers --pin --stream exits 0")
 
-    # --- recorded: phase 16's overload recipe through the front end (the
-    # reference stress bench's own), unloaded = the in-process run above
-    base_rep = inproc.report
-    lat = [r.latency_s for r in base_rep.requests if r.latency_s is not None]
+    # phase 16's overload recipe through the front end ran here until
+    # phase 28, whose stress suite (stress_bench) serves it, gated
     del inproc
-    mean_latency = float(np.mean(lat))
-    service_rate = REQUESTS / base_rep.wall_s
-    deadline_ms = DEADLINE_X * mean_latency * 1e3
-    rate = OVERLOAD_FACTOR * service_rate
-    over = rt.serve(cfg, synthetic_trace(
-        OVERLOAD_REQUESTS, prompt_len=PROMPT, max_new=MAX_NEW,
-        vocab_size=cfg.vocab_size, arrival="poisson", rate=rate, seed=1),
-        queue_limit=2 * SLOTS, deadline_ms=deadline_ms,
-        watchdog_ms=max(5000.0, 10 * deadline_ms), frontend=FE_WORKERS,
-        stream=True, max_len=max_len, **kw)
-    rep_o = over.report
-    done = [r for r in rep_o.requests if r.state.value == "COMPLETED"]
-    goodput = sum(len(r.tokens) for r in done) / rep_o.wall_s
-    ttft = rep_o.ttft_percentiles()
-    out["overload"] = dict(
-        unloaded_tok_per_s=base_rep.tok_per_s,
-        unloaded_mean_latency_s=mean_latency, service_rate_rps=service_rate,
-        rate_rps=rate, deadline_ms=deadline_ms, queue_limit=2 * SLOTS,
-        states=rep_o.state_counts(), completed_frac=len(done) /
-        OVERLOAD_REQUESTS, goodput_tok_per_s=goodput,
-        goodput_over_unloaded=goodput / base_rep.tok_per_s,
-        ttft_p99_s=ttft["ttft_p99"],
-        ttft_p99_over_unloaded_latency=ttft["ttft_p99"] / mean_latency,
-        ipc_messages=rep_o.ipc_messages, ipc_bytes=rep_o.ipc_bytes,
-        wall_s=rep_o.wall_s, all_terminal=rep_o.all_terminal)
-    log("frontend", f"overload through the front end (recorded): "
-        f"{out['overload']} ({card})")
-    gate(rep_o.all_terminal and done,
-         "overload: every request terminal, at least one completed")
-    del over, model, params
+    del model, params
     torch.cuda.empty_cache()
 
     alive = mp.active_children()
@@ -6785,6 +6752,10 @@ SERVE_MESH_KW = dict(mesh_shape=SERVE_MESH, shard_params="shard",
 # limit
 SERVE_MESH_FP32 = (("tinyllama-1.1b", 1), ("mistral-nemo-12b", 1),
                    ("rwkv6-3b", 1), ("recurrentgemma-2b", 3))
+# the sequence-split case: tinyllama at 1 layer in fp32 with a max_len the
+# model axis divides, so its 4 kv heads (which 8 does not divide) keep
+# their caches split along the length, max_len / 8 rows a position
+SERVE_MESH_SEQ = ("tinyllama-1.1b", 1, 16)
 # the fp32 trace: requests, prompt tokens, new tokens, slots (turnover);
 # its serves run without the engine's warmup (nothing of them is timed);
 # 2 new tokens a request since phase 26 (4 before), for the script's time
@@ -6814,15 +6785,16 @@ def mesh_batch(mesh, toks) -> list:
 
 def mesh_state(model, engine, rows: int, max_len: int) -> list:
     """A fresh decode state of ``rows`` slots placed on the engine's mesh
-    as its slot pool places one (serve_state_sharding, whole caches where
-    the kv heads do not divide the model axis)."""
+    as its slot pool places one (serve_state_sharding: kv heads where they
+    divide the model axis, else a dense cache's length where it splits,
+    else whole)."""
     from repro_torch.distributed.sharding import (place_tree,
                                                   serve_state_sharding)
 
     st = model.init_decode_state(rows, max_len, per_slot=True)
     mesh = engine.mesh
     return place_tree(mesh, st, serve_state_sharding(st, mesh,
-                                                     seq_split=False),
+                                                     cfg=model.cfg),
                       copy=True)
 
 
@@ -6944,14 +6916,17 @@ def serve_mesh_step(model, params, state, toks, ctx) -> dict:
                 host_gemm_ops=[op for op in host if HOST_GEMM_OPS.match(op)])
 
 
-def serve_mesh_fp32(arch, depth, card, mm) -> tuple:
+def serve_mesh_fp32(arch, depth, card, mm, max_len=None) -> tuple:
     """One family at full width, ``depth`` layers, fp32: the continuous
     engine unsharded on the card, sharded on the card (8 positions of GPU
     0) and sharded on an 8-position CPU mesh from the same parameters,
     SERVE_MESH_FP32_TRACE's trace; the tokens of all three equal; the
     logits of the sharded Model.prefill and of a sharded decode step over
     the prompts (card) within LOGIT_TOL x max|logit| of the unsharded
-    card's and of the CPU mesh's."""
+    card's and of the CPU mesh's.  With ``max_len`` (the sequence-split
+    case) the engines serve at that cache length, and each position's
+    dense caches must hold max_len / 8 rows of every kv head, 1/8 of the
+    whole cache's bytes."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.runtime import Runtime, synthetic_trace
@@ -6975,7 +6950,7 @@ def serve_mesh_fp32(arch, depth, card, mm) -> tuple:
         else:
             params = tree_map(lambda t: t.cpu(), card_params)
         common = dict(model=model, params=params, slots=slots, eos_id=-1,
-                      warmup=False)
+                      warmup=False, max_len=max_len)
         if where == "cuda":
             runs["card"] = rt.serve(cfg, trace(), **common)
             mm.LAUNCHES.reset()
@@ -7010,13 +6985,14 @@ def serve_mesh_fp32(arch, depth, card, mm) -> tuple:
     pre_cpu = take_logits(cmodel.prefill(cengine.params,
                                          mesh_batch(cctx.mesh, prompts),
                                          ctx=cctx), cctx)
-    st = model.init_decode_state(slots, plen + new, per_slot=True)
+    cache_len = max_len or plen + new
+    st = model.init_decode_state(slots, cache_len, per_slot=True)
     dec = tp_step_logits(model, params, st, toks_card)[0]
     dec_tp = tp_step_logits(model, engine.params,
-                            mesh_state(model, engine, slots, plen + new),
+                            mesh_state(model, engine, slots, cache_len),
                             toks_card, ctx)[0]
     dec_cpu = tp_step_logits(cmodel, cengine.params,
-                             mesh_state(cmodel, cengine, slots, plen + new),
+                             mesh_state(cmodel, cengine, slots, cache_len),
                              prompts, cctx)[0]
     errs = dict(prefill_vs_card=rel_err(pre_tp, pre),
                 prefill_vs_cpu_mesh=rel_err(pre_tp, pre_cpu),
@@ -7024,16 +7000,32 @@ def serve_mesh_fp32(arch, depth, card, mm) -> tuple:
                 decode_vs_cpu_mesh=rel_err(dec_tp, dec_cpu))
     if not max(errs.values()) <= LOGIT_TOL:
         fails.append(f"{arch} fp32 logits: {errs} (limit {LOGIT_TOL})")
+    split = None
+    if max_len is not None:
+        pool = engine.pool.state
+        k = [st["layers"][0]["k"] for st in pool]
+        whole = slots * max_len * cfg.n_kv_heads * cfg.resolved_head_dim
+        split = dict(kv_len=ctx.kv_len, rows_per_position=[
+            int(t.shape[1]) for t in k], fraction=[t.numel() / whole
+                                                   for t in k])
+        if any(t.shape[1] * 8 != max_len or t.shape[2] != cfg.n_kv_heads
+               or t.numel() * 8 != whole for t in k):
+            fails.append(f"{arch} fp32 sequence split: caches a position "
+                         f"{[tuple(t.shape) for t in k]}, want "
+                         f"{max_len // 8} rows of {cfg.n_kv_heads} kv heads")
     rep = runs["card_sharded"].report
     log("serve-mesh", f"{arch} full width, {depth} layers, fp32, {n} "
-        f"requests x {plen}+{new} tokens on {slots} slots: tokens of the "
+        f"requests x {plen}+{new} tokens on {slots} slots"
+        + (f", caches split along the length ({split})" if split else "")
+        + ": tokens of the "
         f"card sharded (8 positions), the card unsharded and the CPU mesh "
         f"equal {equal}; logits (x max|logit|, limit {LOGIT_TOL}) "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
         + f"; matmul launches {launches}, by position "
         f"{sorted(by_stream.values())}; collective calls "
         f"{rep.collective_ops}; {time.perf_counter() - t0:.1f} s ({card})")
-    rec = dict(layers=depth, tokens_equal=equal, logit_errs=errs,
+    rec = dict(layers=depth, max_len=max_len, seq_split=split,
+               tokens_equal=equal, logit_errs=errs,
                launches=launches, launches_by_position=sorted(
                    by_stream.values()), collective_ops=rep.collective_ops,
                tok_per_s={k: r.tok_per_s for k, r in runs.items()})
@@ -7330,6 +7322,11 @@ def serve_mesh_phase(card):
         out["fp32"][arch], fails = rec, fails + f
         gc.collect()
         torch.cuda.empty_cache()
+    arch, depth, max_len = SERVE_MESH_SEQ
+    rec, f = serve_mesh_fp32(arch, depth, card, mm, max_len=max_len)
+    out["fp32_seq_split"], fails = rec, fails + f
+    gc.collect()
+    torch.cuda.empty_cache()
     for arch, depth, paged, repeat in SERVE_MESH_BF16:
         rec, f = serve_mesh_bf16(arch, depth, paged, repeat, card, fa)
         out["bf16"][arch], fails = rec, fails + f
@@ -8631,7 +8628,11 @@ def encdec_mesh_phase(card):
 DRYRUN_CAPTURE: dict = {}
 DRYRUN_PEAK_TOL = 0.10  # the predicted peak within 10 % of the card's
 DRYRUN_BUDGET_S = 40.0  # the phase's budget (logged when passed)
-DRYRUN_CELL = ("tinyllama-1.1b", "decode_32k")  # on the 512-position mesh
+# on the pod mesh (256 positions) since phase 28, for the script's time
+# limit (the 512-position multi-pod cell took 36.7-57.5 s on the card's
+# host; tests/test_torch_dryrun_cell.py holds it on the CPU)
+DRYRUN_CELL = ("tinyllama-1.1b", "decode_32k")
+DRYRUN_CELL_CHIPS = 256
 
 
 def storage_bytes(*trees) -> int:
@@ -8665,6 +8666,37 @@ def launch_counters() -> tuple:
             wkv_k.LAUNCHES.forward, wkv_k.LAUNCHES.backward,
             dict(wkv_k.LAUNCHES.cuda), bitonic_sort.LAUNCHES.count,
             bitonic_sort.LAUNCHES.grids)
+
+
+def decode_cache_bytes(arch, shape_name, multi_pod=False) -> dict:
+    """A decode cell's KV cache bytes, whole and a position, read from its
+    state placed on meta positions as the dry run places it
+    (``decode_state_specs``), no step run."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.sharding import place_shapes
+    from repro_torch.launch.dryrun import decode_state_specs
+    from repro_torch.launch.mesh import data_axes_of, make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves_with_paths
+
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    data = data_axes_of(mesh)
+    state = build_model(cfg, "meta").init_decode_state(shape.global_batch,
+                                                       shape.seq_len)
+    placed = place_shapes(mesh, state, decode_state_specs(cfg, state, mesh,
+                                                          data))
+
+    def kv(tree):
+        return sum(t.numel() * t.element_size()
+                   for path, t in leaves_with_paths(tree)
+                   if path.endswith(("/k", "/v")))
+
+    dp = 1
+    for a in data:
+        dp *= mesh.shape[a]
+    return dict(whole=kv(state), position=kv(placed[0]), data_positions=dp,
+                model_positions=mesh.shape["model"])
 
 
 def dryrun_held(label, cap, tr, device, model_flops, hw, card,
@@ -8737,8 +8769,8 @@ def dryrun_phase(card):
     on each position equal, the collectives' calls and bytes by kind
     equal, the peak within DRYRUN_PEAK_TOL; (c) the roofline terms of both
     with the runtime's hardware spec beside the steps' walls (printed);
-    (d) the production cell DRYRUN_CELL on 512 meta positions: status ok,
-    512 chips, the card's allocated memory and every kernel's launch
+    (d) the production cell DRYRUN_CELL on the pod mesh's 256 meta
+    positions: status ok, 256 chips, the card's allocated memory and every kernel's launch
     counters unchanged across it, its wall printed.  The phase's wall
     against DRYRUN_BUDGET_S is logged.  None on any failure."""
     from repro_torch.configs import get_config
@@ -8815,18 +8847,25 @@ def dryrun_phase(card):
     torch.cuda.synchronize()
     mem0, launches0 = torch.cuda.memory_allocated(), launch_counters()
     t1 = time.perf_counter()
-    rec = dryrun_cell(*DRYRUN_CELL, multi_pod=True, probe=False,
+    rec = dryrun_cell(*DRYRUN_CELL, multi_pod=False, probe=False,
                       verbose=False, runtime=rt)
     cell_s = time.perf_counter() - t1
     torch.cuda.synchronize()
     mem1, launches1 = torch.cuda.memory_allocated(), launch_counters()
+    cache = decode_cache_bytes(*DRYRUN_CELL)
     out["cell"] = dict(cell=rec["cell"], status=rec["status"],
                        chips=rec["chips"], wall_s=cell_s,
                        memory_analysis=rec["memory_analysis"],
                        kernel_calls=rec["kernel_calls"],
                        collective_bytes=rec["collective_bytes"],
-                       card_memory=(mem0, mem1))
-    if rec["status"] != "ok" or rec["chips"] != 512 or mem1 != mem0 \
+                       card_memory=(mem0, mem1), cache_bytes=cache)
+    if cache["position"] * cache["data_positions"] * cache["model_positions"] \
+            != cache["whole"]:
+        fails.append(f"(d) {rec['cell']}: a position's KV cache is not its "
+                     f"rows' cache split {cache['model_positions']} ways "
+                     f"along the length: {cache}")
+    if rec["status"] != "ok" or rec["chips"] != DRYRUN_CELL_CHIPS \
+            or mem1 != mem0 \
             or launches1 != launches0:
         fails.append(f"(d) {rec['cell']}: status {rec['status']}, chips "
                      f"{rec['chips']}, card memory {mem0} -> {mem1}, "
@@ -8834,7 +8873,10 @@ def dryrun_phase(card):
     mem = rec["memory_analysis"]
     log("dryrun", f"(d) {rec['cell']}: {rec['status']} on {rec['chips']} "
         f"meta positions in {cell_s:.1f} s on the card's host; a position "
-        f"holds {mem['argument_bytes'] / 1e9:.3f} GB of arguments, peak "
+        f"holds {mem['argument_bytes'] / 1e9:.3f} GB of arguments (its KV "
+        f"cache {cache['position'] / 1e9:.4f} GB: its rows' "
+        f"{cache['whole'] / cache['data_positions'] / 1e9:.3f} GB split "
+        f"{cache['model_positions']} ways along the length), peak "
         f"{mem['peak_bytes'] / 1e9:.3f} GB; the card's allocated bytes "
         f"{mem0} before and {mem1} after, launch counters "
         f"{'unchanged' if launches1 == launches0 else 'CHANGED'} ({card})")
@@ -8851,6 +8893,167 @@ def dryrun_phase(card):
         log("dryrun", f"FAIL {f}")
     log("dryrun", f"phase 27 wall {out['wall_s']:.1f} s (the production "
         f"cell {cell_s:.1f} s); {len(fails)} failures ({card})")
+    return None if fails else out
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: the bench suites and the training example
+# ---------------------------------------------------------------------------
+
+BENCH_OUT = ROOT / "chiprun_out" / "bench"
+BENCH_BUDGET_S = 90.0  # the phase's budget (logged when passed)
+TRAIN_LM_STEPS = (10, 20)  # the first run's steps, then the resumed run's
+# the suites' result lines shown in the log (all go to bench.log)
+BENCH_KEYS = ("matmul_crossover,chips=", "sort_pivot_imbalance",
+              "wkv_chunk,", "kernel_tune,op=", "kernel_matmul",
+              "kernel_sort", "kernel_flash", "kernel_wkv",
+              "cost_ledger,decision_flips", "serving_bench,trace=",
+              "stress_bench,stage=overload", "chaos_bench,recovered",
+              "frontend_smoke,token_identical")
+
+
+def kernel_launches() -> dict:
+    """Every kernel wrapper's launches since its counter's last reset."""
+    from repro_torch.kernels import bitonic_sort
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import wkv as wkv_k
+
+    return {"matmul": mm.LAUNCHES.count,
+            "flash_attention": fa.LAUNCHES.forward + fa.LAUNCHES.backward,
+            "bitonic_sort": bitonic_sort.LAUNCHES.count,
+            "wkv": wkv_k.LAUNCHES.forward + wkv_k.LAUNCHES.backward}
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import bitonic_sort
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import wkv as wkv_k
+
+    for counter in (mm.LAUNCHES, fa.LAUNCHES, bitonic_sort.LAUNCHES,
+                    wkv_k.LAUNCHES):
+        counter.reset()
+
+
+def captured(fn):
+    """(fn's result or its exception, what it printed)."""
+    import io
+    import traceback
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(), buf.getvalue()
+    except Exception as e:  # a failing suite is reported, not hidden
+        return e, buf.getvalue() + traceback.format_exc()
+
+
+def bench_phase(card, dryrun):
+    """Phase 28: Runtime(device="cuda").bench() over the nine suites of
+    repro_torch.benches (the reference's SUITE_NAMES) with chiprun_out/
+    bench/ as their output directory (phase 27's production cell there for
+    the roofline table), then frontend_smoke, then examples/
+    torch_train_lm.py --preset 100m for TRAIN_LM_STEPS[0] steps with a
+    checkpoint and resumed to TRAIN_LM_STEPS[1].  Fails on any failed
+    suite or a training run that did not resume.  Each suite's wall and
+    its key result lines are logged (every line goes to bench.log), with
+    each kernel's launches over the suites counted from 0 just before
+    them.  None on any failure."""
+    import shutil
+
+    from repro_torch.benches import frontend_smoke
+    from repro_torch.benches.run import SUITE_NAMES
+    from repro_torch.runtime import Runtime, RuntimeConfig
+
+    t0 = time.perf_counter()
+    out: dict = {"card": card}
+    fails = []
+    BENCH_OUT.mkdir(parents=True, exist_ok=True)
+    (BENCH_OUT / "dryrun_pod.json").write_text(
+        json.dumps([dryrun["cell"]], default=str))
+    # phase 5's calibration cache: the suites' calibrated engines read it
+    rt = Runtime(RuntimeConfig(cache_dir=ROOT / "build" / "calibration"),
+                 device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    failed, text = captured(lambda: rt.bench(out=str(BENCH_OUT)))
+    torch.cuda.synchronize()
+    out["suites_s"] = time.perf_counter() - t1
+    out["launches"] = kernel_launches()
+    if isinstance(failed, Exception):
+        fails.append(f"Runtime.bench raised {failed!r}")
+        failed = list(SUITE_NAMES)
+    walls = {name: float(sec) for name, sec in re.findall(
+        r"^### (\w+) done in ([\d.]+)s", text, re.M)}
+    out["suite_s"] = walls
+    if failed:
+        fails.append(f"suites failed: {failed}")
+    missing = [n for n in SUITE_NAMES if n not in walls and n not in failed]
+    if missing:
+        fails.append(f"suites that never reported: {missing}")
+
+    t1 = time.perf_counter()
+    res, fe_text = captured(lambda: frontend_smoke.run(runtime=rt))
+    walls["frontend_smoke"] = time.perf_counter() - t1
+    if isinstance(res, Exception):
+        fails.append(f"frontend_smoke: {res!r}")
+    text += "### frontend_smoke\n" + fe_text
+    (BENCH_OUT / "bench.log").write_text(text)
+    keys = [line for line in text.splitlines() if line.startswith(BENCH_KEYS)]
+    out["key_lines"] = keys
+    for line in keys:
+        log("bench", line)
+    log("bench", "suite walls (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()) + f"; kernel launches "
+        f"over the nine suites {out['launches']} ({card})")
+    if min(out["launches"].values()) <= 0:
+        fails.append(f"a kernel launched no time in the suites: "
+                     f"{out['launches']}")
+
+    # the training example, saved and resumed
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import torch_train_lm
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    ckpt = ROOT / "build" / "train_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    common = ["--preset", "100m", "--ckpt-dir", str(ckpt)]
+    t1 = time.perf_counter()
+    first, text1 = captured(lambda: torch_train_lm.main(
+        common + ["--steps", str(TRAIN_LM_STEPS[0])]))
+    again, text2 = captured(lambda: torch_train_lm.main(
+        common + ["--steps", str(TRAIN_LM_STEPS[1]), "--resume"]))
+    train_s = time.perf_counter() - t1
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if isinstance(first, Exception) or isinstance(again, Exception):
+        fails.append(f"train_lm: {first!r} / {again!r}\n{text1}{text2}")
+    else:
+        ok = (first.steps_run == TRAIN_LM_STEPS[0] and not first.diverged
+              and again.start_step == TRAIN_LM_STEPS[0]
+              and again.steps_run == TRAIN_LM_STEPS[1] - TRAIN_LM_STEPS[0]
+              and not again.diverged and "resumed from step" in text2)
+        out["train_lm"] = dict(wall_s=train_s,
+                               losses=(first.final_loss, again.final_loss),
+                               resumed_at=again.start_step)
+        if not ok:
+            fails.append(f"train_lm did not run and resume: {text1}{text2}")
+        log("bench", f"examples/torch_train_lm.py --preset 100m: "
+            f"{first.steps_run} steps, then resumed at step "
+            f"{again.start_step} for {again.steps_run} more; losses "
+            f"{first.final_loss:.4f}, {again.final_loss:.4f}; "
+            f"{train_s:.1f} s ({card})")
+    out["wall_s"] = time.perf_counter() - t0
+    if out["wall_s"] > BENCH_BUDGET_S:
+        log("bench", f"phase 28 took {out['wall_s']:.1f} s, past its "
+            f"{BENCH_BUDGET_S:.0f} s budget")
+    out["fails"] = fails
+    for f in fails:
+        log("bench", f"FAIL {f}")
+    log("bench", f"phase 28 wall {out['wall_s']:.1f} s (suites "
+        f"{out['suites_s']:.1f} s); {len(fails)} failures ({card})")
     return None if fails else out
 
 

@@ -876,6 +876,15 @@ class CostEngine:
         self.perturbed_fields.update(fields)
         return self.hw
 
+    def probe_fields(self, fields: Sequence[str], *,
+                     matmul_order: int = 1024) -> Dict[str, Any]:
+        """Fresh measurements of ``fields`` on the calibrated card (the
+        probes of ``calibration.run_probe_fields``)."""
+        device = (self.calibration.device if self.calibration is not None
+                  else "cuda")
+        return run_probe_fields(fields, self.hw, matmul_order=matmul_order,
+                                device=device)
+
     def recalibrate_fields(self, fields: Sequence[str], *,
                            matmul_order: int = 1024) -> Dict[str, float]:
         """Targeted recalibration: re-run only the probes for ``fields``,
@@ -884,10 +893,7 @@ class CostEngine:
         spec now explains the measurements — a stale factor would
         double-correct), and persist the healed spec.  Returns the applied
         updates."""
-        device = (self.calibration.device if self.calibration is not None
-                  else "cuda")
-        probes = run_probe_fields(fields, self.hw, matmul_order=matmul_order,
-                                  device=device)
+        probes = self.probe_fields(fields, matmul_order=matmul_order)
         updates = {k: float(v) for k, v in probes.items() if v is not None}
         if not updates:
             return updates

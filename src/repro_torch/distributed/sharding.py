@@ -79,6 +79,10 @@ class ShardingCtx:
     # the planner's spec overrides (path regex -> spec), which the params
     # are placed by and the model's specs read (``mesh_specs``)
     overrides: Optional[Dict[str, Spec]] = None
+    # the whole length of a dense ``attn`` decode cache: a position whose
+    # cache holds fewer rows holds its block of that length along the
+    # model axis, and attends sequence-parallel (``transformer``)
+    kv_len: Optional[int] = None
 
     @property
     def dp(self) -> int:
@@ -422,27 +426,35 @@ def _state_lead(keys: List[str]) -> int:
     return 1
 
 
+def _length_splits(cfg, keys: List[str]) -> bool:
+    """Whether a ``k``/``v`` leaf may split along the cache length: always
+    without ``cfg`` (the reference's rule); with it, only a decoder-only
+    model's ``attn`` caches.  A ``local`` ring buffer and the
+    encoder-decoder's caches keep the port's whole-length form, which its
+    layers read (the sequence-parallel decode attention,
+    ``transformer._attn_seq_tp``, runs on dense ``attn`` caches)."""
+    if cfg is None:
+        return True
+    if cfg.is_encdec:
+        return False
+    idx = [int(k) for k in keys if k.isdigit()]
+    return not idx or cfg.block_kind(idx[0]) == "attn"
+
+
 def serve_state_sharding(state_shape: Any, mesh: Mesh, *,
                          model_axis: str = "model",
-                         seq_split: bool = True,
-                         data_axes: Sequence[str] = ()) -> Any:
+                         data_axes: Sequence[str] = (), cfg=None) -> Any:
     """Pooled decode-state placement for tensor-parallel serving.
 
     The slot (batch) axis is split over ``data_axes`` where they divide it
-    (the dry run's production contexts; none when serving, where it is
-    never sharded).  KV caches ((L?, B, S, H, hd)
-    leaves keyed ``k``/``v``) shard their kv-head dim over the model axis
-    when it divides; heads that do not divide fall back to the
-    cache-length dim, then to replication.  Paged pools ((L?, n_blocks,
-    block_size, H, hd), ``pk``/``pv``) shard kv heads when they divide,
-    never the block axis.  Positions and recurrent and conv states
-    replicate.
-
-    ``seq_split=False`` drops the cache-length fallback: such a cache is
-    replicated, whole on every position.  The port's serving engine
-    places its state so: each position attends with its own query heads
-    to the kv heads they use, in its own whole copy, where the reference
-    runs a sequence-parallel decode attention over a length-split cache."""
+    (none when serving, where it is never sharded).  KV caches ((L?, B, S,
+    H, hd) leaves keyed ``k``/``v``) shard their kv-head dim over the
+    model axis when it divides; heads that do not divide fall back to the
+    cache-length dim, then to replication (the reference's rule).  With
+    ``cfg`` the length split applies only where ``_length_splits`` allows
+    it.  Paged pools ((L?, n_blocks, block_size, H, hd), ``pk``/``pv``)
+    shard kv heads when they divide, never the block axis.  Positions and
+    recurrent and conv states replicate."""
     tp = mesh.shape.get(model_axis, 1)
     dp = _dp_size(mesh, data_axes)
     dp_spec = (tuple(data_axes) if len(data_axes) > 1 else data_axes[0]) \
@@ -461,7 +473,7 @@ def serve_state_sharding(state_shape: Any, mesh: Mesh, *,
             s, h = shape[lead + 1], shape[lead + 2]
             if h % tp == 0:
                 dims[lead + 2] = model_axis
-            elif seq_split and s % tp == 0 and s >= 2 * tp:
+            elif s % tp == 0 and s >= 2 * tp and _length_splits(cfg, keys):
                 dims[lead + 1] = model_axis
         if tp > 1 and keys and keys[-1] in ("pk", "pv") \
                 and len(shape) == lead + 4:
@@ -499,10 +511,12 @@ def validate_serve_mesh(cfg, mesh_shape: Dict[str, int],
 
 
 def state_sharding(state_shape: Any, mesh: Mesh, data_axes=("data",),
-                   model_axis: str = "model", scanned: bool = True) -> Any:
+                   model_axis: str = "model", scanned: bool = True,
+                   cfg=None) -> Any:
     """Decode caches and states (L?, B, ...): the batch dim over the data
     axes; KV-cache sequence dims (``k``/``v`` leaves, 4-D after the
-    optional layer axis) also over the model axis."""
+    optional layer axis) also over the model axis, whatever the kv heads
+    (with ``cfg``, where ``_length_splits`` allows it)."""
     dp_spec = tuple(data_axes) if len(data_axes) > 1 else data_axes[0]
     dp = _dp_size(mesh, data_axes)
     tp = mesh.shape.get(model_axis, 1)
@@ -521,7 +535,7 @@ def state_sharding(state_shape: Any, mesh: Mesh, data_axes=("data",),
             dims[lead] = dp_spec
         if keys and keys[-1] in ("k", "v") and len(shape) == lead + 4:
             s = shape[lead + 1]
-            if s % tp == 0 and s >= 2 * tp:
+            if s % tp == 0 and s >= 2 * tp and _length_splits(cfg, keys):
                 dims[lead + 1] = model_axis
         return tuple(dims)
 

@@ -54,7 +54,8 @@ from repro_torch.data.pipeline import make_batch_specs
 from repro_torch.distributed.mesh import COLLECTIVE_KINDS, Mesh
 from repro_torch.distributed.sharding import (ShardingCtx, batch_sharding,
                                               param_shardings, place_shapes,
-                                              serve_state_sharding)
+                                              serve_state_sharding,
+                                              state_sharding)
 from repro_torch.kernels.calls import CallLog
 from repro_torch.launch.mesh import data_axes_of, make_production_mesh
 from repro_torch.models import build_model
@@ -197,6 +198,20 @@ def _probe_record(tr: Trace, chips: int) -> dict:
                             tr.collective_bytes.items() if v}}
 
 
+def decode_state_specs(cfg: ModelConfig, state, mesh: Mesh,
+                       data_axes) -> Any:
+    """A decode cell's state placement: the reference's ``state_sharding``
+    (the batch over the data axes, a dense ``attn`` cache's length over
+    the model axis); the encoder-decoder's caches as
+    ``serve_state_sharding`` places them (kv heads over the model axis
+    where they divide), the form its layers read."""
+    if cfg.is_encdec:
+        return serve_state_sharding(state, mesh, data_axes=data_axes,
+                                    cfg=cfg)
+    return state_sharding(state, mesh, data_axes=data_axes, scanned=False,
+                          cfg=cfg)
+
+
 def probe_layer(cfg: ModelConfig, kind: str, mesh: Mesh, ctx, b: int,
                 s: int, *, train: bool, decode: bool = False) -> dict:
     """ONE layer on every position, flat: forward and backward (the
@@ -228,11 +243,14 @@ def trace_layer(cfg: ModelConfig, kind: str, mesh: Mesh, ctx, b: int,
     none = [None] * n
     if decode:
         # a decode state's layer, placed as the step's state places it
-        st = {"layers": [_shapes(lambda: tfm.layer_init_state(
-            cfg, kind, b, s, dtype, "cpu"))]}
-        sts = [t["layers"][0] for t in place_shapes(
-            mesh, st, serve_state_sharding(st, mesh, seq_split=False,
-                                           data_axes=ctx.data_axes), device)]
+        # (keyed by the index of a layer of this kind, which the specs read)
+        j = str(cfg.block_pattern.index(kind))
+        st = {"layers": {j: _shapes(lambda: tfm.layer_init_state(
+            cfg, kind, b, s, dtype, "cpu"))}}
+        sts = [t["layers"][j] for t in place_shapes(
+            mesh, st, decode_state_specs(cfg, st, mesh, ctx.data_axes),
+            device)]
+        ctx = dataclasses.replace(ctx, kv_len=s)
         cps = [torch.full((), s // 2, dtype=torch.int64, device=device)
                for _ in range(n)]
 
@@ -477,9 +495,10 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool,
         params = model.param_shapes()
         placed = place_shapes(mesh, params, param_shardings(
             params, mesh, data_axes=(), cfg=cfg))
+        ctx = dataclasses.replace(ctx, kv_len=shape.seq_len)
         state = model.init_decode_state(shape.global_batch, shape.seq_len)
-        states = place_shapes(mesh, state, serve_state_sharding(
-            state, mesh, seq_split=False, data_axes=data_axes))
+        states = place_shapes(mesh, state, decode_state_specs(
+            cfg, state, mesh, data_axes))
         serve = make_serve_step(model, ctx)
         tr = trace(lambda: serve(placed, states, batches),
                    [(placed[i], states[i], batches[i]) for i in range(n)],

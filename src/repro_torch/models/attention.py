@@ -284,6 +284,71 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return _ungroup(_mix(probs, v_cache), sq, hq, q.dtype)
 
 
+def decode_attention_partial(q: torch.Tensor, k_blk: torch.Tensor,
+                             v_blk: torch.Tensor, cache_pos: torch.Tensor,
+                             first: int) -> torch.Tensor:
+    """``decode_attention``'s softmax over one block of a cache split
+    along its length, the block's rows at positions ``first`` on, kept as
+    fp32 partials: (B, Hkv, S_new*G, hd + 2) holding the unnormalised P·V,
+    then the running max and the sum of exponentials of each query row
+    (0 and -1e30 for a row that sees no key of the block).
+    ``rescale_partials`` and ``finish_partials`` join the blocks'
+    partials."""
+    b, sq, hq, _ = q.shape
+    skv, n_kv = k_blk.shape[1], k_blk.shape[2]
+    g = hq // n_kv
+    dev = q.device
+    scores = _scores(_grouped(q, n_kv), k_blk).reshape(b, n_kv, sq, g, skv)
+    kpos = first + torch.arange(skv, device=dev)
+    limit = (cache_pos.reshape(-1, 1) - (sq - 1)
+             + torch.arange(sq, device=dev)[None])
+    mask = (kpos[None, None, :] < limit[:, :, None]).expand(b, sq, skv)
+    mask = mask[:, None, :, None, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(scores - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = _mix(p.view(b, n_kv, sq * g, skv), v_blk)
+    return torch.cat([o, m.view(b, n_kv, sq * g, 1),
+                      l.view(b, n_kv, sq * g, 1)], dim=-1)
+
+
+def rescale_partials(part: torch.Tensor, m_max: torch.Tensor
+                     ) -> torch.Tensor:
+    """A block's ``decode_attention_partial`` result scaled by
+    exp(its running max - ``m_max``), the maximum over every block: summed
+    over the blocks it gives the whole cache's unnormalised P·V and sum of
+    exponentials (its max column is then unused)."""
+    return torch.exp(part[..., -2:-1] - m_max) * part
+
+
+def finish_partials(total: torch.Tensor, sq: int, hq: int,
+                    dtype) -> torch.Tensor:
+    """The sum over the blocks of ``rescale_partials`` (B, Hkv, S_new*G,
+    hd + 2) normalised and rounded once: (B, S_new, Hq, hd) in
+    ``dtype``."""
+    return _ungroup(total[..., :-2] / total[..., -1:], sq, hq, dtype)
+
+
+def update_kv_block(k_blk, v_blk, k_new, v_new, pos, first: int,
+                    total: int):
+    """``update_kv_cache`` on one block of a cache of ``total`` rows split
+    along its length, the block's rows at positions ``first`` on: the new
+    (B, S_new, Hkv, hd) rows at ``pos`` (clamped to ``[0, total - S_new]``)
+    land where they fall inside the block, each slot masked on its own, and
+    the block's other rows keep their values.  Functional: new tensors."""
+    b, rows = k_blk.shape[:2]
+    s = k_new.shape[1]
+    dev = k_blk.device
+    start = pos.clamp(0, total - s).reshape(-1, 1)
+    j = first + torch.arange(rows, device=dev)[None] - start  # (1|B, rows)
+    hit = ((j >= 0) & (j < s)).expand(b, rows)[..., None, None]
+    idx = j.clamp(0, s - 1).expand(b, rows)
+    slot = torch.arange(b, device=dev)[:, None]
+    return (torch.where(hit, k_new[slot, idx].to(k_blk.dtype), k_blk),
+            torch.where(hit, v_new[slot, idx].to(v_blk.dtype), v_blk))
+
+
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
     """Return caches with (B, S_new, Hkv, hd) inserted at ``pos`` along the
     sequence axis; ``pos`` is a 0-d (whole batch) or (B,) (per slot) integer

@@ -27,6 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.mesh import psum
 from repro_torch.kernels.tuning import recompute_contexts
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
@@ -119,6 +120,18 @@ def _kv_heads_used(cfg: ModelConfig, nq: int, nkv: int, rank: int):
     return lo, hi
 
 
+def _qkv(params, cfg: ModelConfig, x, positions):
+    """The query, key and value heads this position projects, (B, S, n,
+    hd) each, the queries and keys rotated by ``positions``."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = project(x, params["wq"]).reshape(b, s, -1, hd)
+    k = project(x, params["wk"]).reshape(b, s, -1, hd)
+    v = project(x, params["wv"]).reshape(b, s, -1, hd)
+    q, k = positional_pair(q, k, positions, cfg.pos_type, cfg.rope_theta)
+    return q, k, v
+
+
 def _attn_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
                 cache=None, cache_pos=None, block_tables=None,
                 rank: int = 0, chunk: int = 1024):
@@ -140,13 +153,8 @@ def _attn_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
     ``chunk``: the CPU's dense/chunked crossover without a cache (the
     reference's ``ctx.attn_chunk``)."""
     b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
-    nq = params["wq"].shape[1] // hd
-    nkv = params["wk"].shape[1] // hd
-    q = project(x, params["wq"]).reshape(b, s, nq, hd)
-    k = project(x, params["wk"]).reshape(b, s, nkv, hd)
-    v = project(x, params["wv"]).reshape(b, s, nkv, hd)
-    q, k = positional_pair(q, k, positions, cfg.pos_type, cfg.rope_theta)
+    q, k, v = _qkv(params, cfg, x, positions)
+    nq, nkv = q.shape[2], k.shape[2]
     used = _kv_heads_used(cfg, nq, nkv, rank)
 
     def heads(t):  # the kv heads this position's queries read
@@ -405,7 +413,12 @@ def _layer_tp(ctx, lps: List[dict], cfg: ModelConfig, kind: str, xs,
     dtype = xs[0].dtype
     none = [None] * n
     hs = ctx.map(lambda lp, x: rmsnorm(lp["ln1"], x, cfg.norm_eps), lps, xs)
-    if kind in ("attn", "local"):
+    if kind == "attn" and _seq_split(ctx, states):
+        outs, new_states = _attn_seq_tp(ctx, lps, cfg, hs, positions,
+                                        states, cache_pos, ranks)
+        outs = wo_sum(ctx, [lp["attn"]["wo"] for lp in lps], cfg, outs,
+                      dtype)
+    elif kind in ("attn", "local"):
         window = cfg.window_size if kind == "local" else 0
         outs, new_states = ctx.map(
             lambda r, lp, h, pos, st, cp, bt: _attn_apply(
@@ -455,6 +468,64 @@ def _layer_tp(ctx, lps: List[dict], cfg: ModelConfig, kind: str, xs,
     new_states = [None if st is None else {"time": t, "channel": c}
                   for st, t, c in zip(states, new_time, new_channel)]
     return ctx.map(torch.add, xs, outs), new_states, [0.0] * n
+
+
+def _seq_split(ctx, states) -> bool:
+    """Whether the positions' dense caches are blocks of ``ctx.kv_len``
+    along the length (``serve_state_sharding``'s or ``state_sharding``'s
+    length split)."""
+    st = states[0]
+    return (ctx.kv_len is not None and st is not None and "k" in st
+            and st["k"].shape[1] < ctx.kv_len)
+
+
+def _attn_seq_tp(ctx, lps: List[dict], cfg: ModelConfig, hs, positions,
+                 states, cache_pos, ranks):
+    """Sequence-parallel decode attention over a cache split along its
+    length: position ``r`` holds rows ``[r*S/tp, (r+1)*S/tp)`` of every kv
+    head (S = ``ctx.kv_len``).  The new tokens' K and V of every kv head
+    reach every position (gathered over the model axis where each projects
+    only its own heads), and so does every query head's q.  Each slot's
+    new rows are written by the position whose block holds them, a masked
+    write per slot (``attention.update_kv_block``, no host sync).  Each
+    position computes its block's fp32 partials for all heads (running
+    max, sum of exponentials, unnormalised P·V, both products on the
+    matmul kernel).  A log-sum-exp over the model axis joins them: the
+    maximum of the running maxes (``ctx.model_max``), each block's
+    partials rescaled to it, summed by ``psum`` in rank order in fp32,
+    normalised and rounded once (``attention.rescale_partials``,
+    ``finish_partials``).  Each position keeps its own heads'
+    columns for the row-parallel ``wo`` (``out_projection``).  Dense
+    ``attn`` caches only: ring buffers, page pools and the
+    encoder-decoder's caches keep their whole-length forms.  Returns
+    (fp32 ``wo`` partials or whole outputs, new states), lists."""
+    mesh, axis = ctx.mesh, ctx.model_axis
+    dtype = hs[0].dtype
+    b, s, _ = hs[0].shape
+    qs, ks, vs = ctx.map(lambda lp, h, pos: _qkv(lp["attn"], cfg, h, pos),
+                         lps, hs, positions)
+    if qs[0].shape[2] < cfg.n_heads:
+        qs = ctx.gather(qs, dim=2)
+    if ks[0].shape[2] < cfg.n_kv_heads:
+        ks, vs = ctx.gather(ks, dim=2), ctx.gather(vs, dim=2)
+    rows = states[0]["k"].shape[1]
+
+    def local(r, q, k, v, st, cp):
+        kc, vc = attn_lib.update_kv_block(st["k"], st["v"], k, v, cp,
+                                          r * rows, ctx.kv_len)
+        part = attn_lib.decode_attention_partial(q, kc, vc, cp + s, r * rows)
+        return part, {"k": kc, "v": vc}
+
+    parts, new_states = ctx.map(local, ranks, qs, ks, vs, states, cache_pos)
+    maxes = ctx.model_max([p[..., -2:-1] for p in parts])
+    totals = psum(mesh, axis, ctx.map(attn_lib.rescale_partials, parts,
+                                      maxes))
+    outs = ctx.map(lambda t: attn_lib.finish_partials(t, s, cfg.n_heads,
+                                                      dtype), totals)
+    outs = ctx.map(lambda r, lp, o: out_projection(
+        o.reshape(b, s, -1), lp["attn"]["wo"], cfg, cfg.n_heads, r),
+        ranks, lps, outs)
+    return outs, new_states
 
 
 def stack_apply_tp(ctx, layers: List[List[dict]], cfg: ModelConfig, xs,

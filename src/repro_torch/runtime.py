@@ -39,7 +39,8 @@ takes no mesh either).  ``Runtime.dryrun(arch, shape)`` runs one
 production-mesh cell of the dry run on this session's engine
 (``launch/dryrun.py``: the real step on 256 or 512 meta positions, no
 device touched, so a ``Runtime(device="cpu")`` runs it too).
-``Runtime.bench`` comes with a later slice.
+``Runtime.bench()`` runs the benchmark suites (``repro_torch.benches``)
+on this session's device.
 """
 
 from __future__ import annotations
@@ -802,6 +803,18 @@ class Runtime:
             report.tok_per_s, pct["p50"], pct["p95"], report.outputs(),
             report=report, engine=engine, stream=stream_obj, texts=texts)
 
+
+    def bench(self, only: Optional[str] = None,
+              out: Optional[str] = None) -> List[str]:
+        """Run the benchmark suites against this runtime (all of them, or
+        just ``only``), on its device, writing under ``out``
+        (``results/torch/`` by default).  Returns the names of failed
+        suites.  The suites are in the package (``repro_torch.benches``),
+        so no path needs the repository root, where the reference's
+        ``Runtime.bench`` imports the repo-root ``benchmarks/``."""
+        from repro_torch.benches.run import run_suites
+
+        return run_suites(self, only=only, out=out)
 
     def dryrun(self, arch: str, shape: str, *, multi_pod: bool = False,
                probe: bool = True, verbose: bool = True) -> Dict[str, Any]:

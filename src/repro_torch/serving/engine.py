@@ -459,7 +459,8 @@ class ContinuousServeEngine:
                 # pure-TP context: no data axis on the serve hot path
                 ctx = ShardingCtx(mesh=mesh, data_axes=(),
                                   cost_engine=self.scheduler.engine,
-                                  infer_replicate_params=True)
+                                  infer_replicate_params=True,
+                                  kv_len=max_len)
                 tensor_parallel(model.cfg, ctx)  # refuses MoE
                 self.tp, self._ctx = tp_choice, ctx
                 self.params = place_tree(mesh, params, param_shardings(

@@ -22,10 +22,11 @@ the device; copy-on-write duplicates a page on the device, also without a
 host sync.
 
 On a serve mesh (``ctx``, tensor-parallel) the state is one tree a
-position, placed by ``serve_state_sharding`` without its cache-length
-fallback: caches and page pools split over kv heads where they divide,
-whole on every position elsewhere, each replicated leaf in storage of its
-own (it is written in place).  Slot bookkeeping and the block tables stay
+position, placed by ``serve_state_sharding``: caches and page pools split
+over kv heads where they divide; elsewhere a dense ``attn`` cache splits
+along its length (the engine's context carries that length, ``kv_len``)
+and page pools, ring buffers and the encoder-decoder's caches stay whole;
+each replicated leaf in storage of its own (it is written in place).  Slot bookkeeping and the block tables stay
 on the host, shared by every position; a reset or a copy-on-write runs on
 every position, as that position's work.
 """
@@ -99,7 +100,7 @@ class SlotPool:
             return state
         mesh = self.ctx.mesh
         return place_tree(mesh, state, serve_state_sharding(
-            state, mesh, model_axis=self.ctx.model_axis, seq_split=False),
+            state, mesh, model_axis=self.ctx.model_axis, cfg=self.model.cfg),
             copy=True)
 
     def _each(self, fn) -> None:

@@ -6,12 +6,11 @@ positions), the real serve step on every position.
   made before the clock starts);
 * the argument bytes of a position equal the per-device shard bytes of the
   reference's specs (``NamedSharding(...).shard_shape`` on an abstract
-  mesh of the same axes; nothing compiled), but for two stated
-  differences: the port keeps a position's KV cache whole over the model
-  axis where the kv heads (4) do not divide it (16), where the reference
-  splits the cache's sequence over it (the port's decode attention reads
-  a whole cache a position), and the port's cache position is int64
-  where the reference's is int32;
+  mesh of the same axes; nothing compiled), the KV cache's sequence split
+  over the model axis as the reference splits it (the port's
+  sequence-parallel decode attention reads a block a position), but for
+  one stated difference: the port's cache position is int64 where the
+  reference's is int32;
 * the step launched the matmul kernel on every position, made no flash
   call (decode attends through the matmul kernel) and ran its
   collectives.
@@ -30,8 +29,8 @@ from repro_torch.launch.dryrun import dryrun_cell  # noqa: E402
 
 
 def _reference_bytes():
-    """(params, state with the port's two differences applied, batch):
-    the reference's per-device bytes on the multi-pod mesh."""
+    """(params, state with the port's difference applied, batch): the
+    reference's per-device bytes on the multi-pod mesh."""
     from jax.sharding import AbstractMesh, NamedSharding
 
     from repro.configs import SHAPES, get_config
@@ -64,12 +63,7 @@ def _reference_bytes():
             n = math.prod(sh.shard_shape(leaf.shape)) * \
                 np.dtype(leaf.dtype).itemsize
             key = jax.tree_util.keystr(path)
-            if key.endswith("['k']") or key.endswith("['v']"):
-                # the port: the 4 kv heads do not divide the model axis of
-                # 16, so a position holds its rows' whole cache, not 1/16
-                # of its sequence
-                n *= mesh.shape["model"]
-            elif key == "['pos']":
+            if key == "['pos']":
                 n *= 2  # int64 in the port, int32 in the reference
             total += n
         out.append(total)

@@ -13,9 +13,9 @@ path had served before (data above 1):
   head over the model axis; reduced moonshot, its experts through
   ``moe_ep`` at a capacity where none drops);
 * ``make_serve_step(model, ctx)`` with params replicated over the data
-  axes, the decode state's batch split over them and its caches split by
-  kv heads where they divide (else whole), and the reference's ``active``
-  mask: two steps' tokens equal the reference's serve step's, and the
+  axes, the decode state's batch split over them and its caches split
+  along their length over the model axis (the dry run's placement, the
+  reference's ``state_sharding``), and the reference's ``active`` mask: two steps' tokens equal the reference's serve step's, and the
   masked slot's state stays as it was;
 * ``make_serve_step(model)`` without a context takes the same mask.
 """
@@ -38,8 +38,8 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.distributed.mesh import make_mesh, take  # noqa: E402
 from repro_torch.distributed.sharding import (ShardingCtx,  # noqa: E402
                                               batch_sharding,
-                                              param_shardings, place_tree,
-                                              serve_state_sharding)
+                                              param_shardings, place_tree)
+from repro_torch.launch.dryrun import decode_state_specs  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.training.step import make_serve_step  # noqa: E402
 
@@ -103,13 +103,15 @@ def test_serve_step_on_a_data_and_model_context_matches_reference(arch):
     toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (B, 1))
     jstep = jax.jit(j_make_serve_step(jmodel))
     jstate = jmodel.init_decode_state(B, max_len)
-    ctx = _ctx(infer_replicate_params=True)
+    ctx = _ctx(infer_replicate_params=True, kv_len=max_len)
     mesh = ctx.mesh
     placed = place_tree(mesh, params, param_shardings(
         params, mesh, data_axes=(), cfg=cfg))
     state = model.init_decode_state(B, max_len)
-    states = place_tree(mesh, state, serve_state_sharding(
-        state, mesh, seq_split=False, data_axes=ctx.data_axes), copy=True)
+    states = place_tree(mesh, state, decode_state_specs(
+        cfg, state, mesh, ctx.data_axes), copy=True)
+    # the dry run's placement: every cache split along its length
+    assert states[0]["layers"][0]["k"].shape[1] == max_len // ctx.tp
     step = make_serve_step(model, ctx)
     active = np.array([True, True, False, True])
     for t, act in enumerate((None, active)):

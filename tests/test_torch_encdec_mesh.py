@@ -299,7 +299,7 @@ def test_decode_from_filled_cross_caches_matches_reference(tp):
     ctx = _serve_ctx(tp)
     placed, _ = _placed(ctx, params, cfg)
     sts = place_tree(ctx.mesh, st, serve_state_sharding(
-        st, ctx.mesh, seq_split=False), copy=True)
+        st, ctx.mesh, cfg=cfg), copy=True)
     heads = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else \
         cfg.n_kv_heads
     assert sts[0]["layers"][0]["cross"]["k"].shape[2] == heads

@@ -12,7 +12,10 @@ agrees with the kernel's plain version on the card.
   the engine, the launcher, ``checkpoint.restore_resharded``), and the
   training mesh's (``distributed/mesh.py``'s collectives with a backward,
   ``models/ffn.py``'s expert parallelism, the mesh loss and train step,
-  the cost sites that price shared devices);
+  the cost sites that price shared devices), and the bench suites'
+  (``repro_torch.benches``, ``Runtime.bench``,
+  ``examples/torch_train_lm.py``), which import nothing of the
+  reference's ``benchmarks/`` either;
 * what a spawned front-end worker imports loads no torch either, and on a
   card (marked ``cuda``) the workers of a front end spawned beside a CUDA
   tensor hold no context on it;
@@ -198,6 +201,35 @@ def test_dryrun_modules_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split(" ", 1) == ["512", "[]\n"]
+
+
+_IMPORT_BENCHES = """
+import runpy, sys
+from repro_torch.benches import (chaos_bench, common, cost_ledger,
+                                 frontend_smoke, kernels_bench,
+                                 matmul_crossover, roofline_table, run,
+                                 serving_bench, sort_pivots, stress_bench,
+                                 wkv_chunk)
+import repro_torch
+assert hasattr(repro_torch.Runtime, "bench")
+runpy.run_path(sys.argv[1], run_name="example")  # its imports, no main()
+print(len(run.SUITE_NAMES), sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")))
+"""
+
+
+def test_bench_modules_and_train_example_import_neither_jax_nor_repro():
+    """The bench suites, the harness behind ``Runtime.bench`` and
+    ``examples/torch_train_lm.py``: no jax, no reference package, and
+    nothing of the reference's ``benchmarks/``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    example = SRC.parent / "examples" / "torch_train_lm.py"
+    out = subprocess.run([sys.executable, "-c", _IMPORT_BENCHES,
+                          str(example)], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(" ", 1) == ["9", "[]\n"]
 
 
 def test_public_surface_has_the_reference_autotuner():
